@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with ``nvcc`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles, on
+first use, into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
+repository root (the hash covers the source text and the flags, so an
+edited source rebuilds and a stale library is never loaded). No PyTorch
+header is included, which keeps one build to seconds.
+
+Nothing here runs at import time: the CPU tests import every module of
+the port on a machine with neither ``nvcc`` nor a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argtypes of each source's C entry point (same name as the source file)
+SIGNATURES = {
+    # q k v o lse, B L H KV dh, strides (q b,l  k b,l  v b,l  o b,l),
+    # causal window scale dtype stream
+    "flash_attention_fwd": [P] * 5 + [I] * 5 + [LL] * 8 + [I, I, F, I, P],
+    # q k v q_pos slot_pos o, B S H KV dh, strides (q b; k b,s; v b,s;
+    # slot_pos b; o b), causal window scale dtype stream
+    "flash_decode": [P] * 6 + [I] * 5 + [LL] * 7 + [I, I, F, I, P],
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or str(Path(home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+            "CUDA kernels are built from src/repro_torch/csrc on first use")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile every named source whose library is missing, one ``nvcc``
+    per source, all started together. Returns name -> library path.
+    Raises with the compiler's output if any build fails; the compiler
+    log (``-Xptxas -v``: registers, shared memory, spills) is kept next
+    to each library as ``<lib>.log``."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        targets[n].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{log}")
+        else:
+            tmp.replace(targets[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built if needed)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

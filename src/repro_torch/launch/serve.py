@@ -1,0 +1,158 @@
+"""Continuous-batching serving entry point of the port (twin of
+``repro/launch/serve.py``, dense cache layout).
+
+  python -m repro_torch.launch.serve --arch internlm2-1.8b --device cuda \
+      --dtype bfloat16 --batch 8 --requests 16 --prompt-len 1024 --gen 64
+
+Requests get staggered prompt lengths so admissions and evictions overlap
+mid-stream. Weights are random-initialised from ``--seed`` on the chosen
+device. ``--smoke`` runs the workload twice and asserts identical outputs
+and tok/s > 0. Flags of the JAX launcher that need later slices of the
+port (paged or compressed caches, prefix sharing, speculative decode,
+replicas, meshes, compression plans) are refused with the slice named.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.data import SyntheticStream
+from repro_torch.models import init_model
+from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+
+def _build_requests(cfg, args) -> list[Request]:
+    stream = SyntheticStream.for_arch(cfg, args.prompt_len, args.requests)
+    batch = stream.get_batch(0)
+    requests = []
+    for i in range(args.requests):
+        # stagger prompt lengths so requests join/leave mid-stream
+        lp = max(4, args.prompt_len - 3 * (i % 4))
+        requests.append(Request(
+            uid=i,
+            tokens=np.asarray(batch["tokens"][i][:lp]).tolist(),
+            max_new_tokens=args.gen,
+            sampling=SamplingParams(temperature=args.temperature,
+                                    top_k=args.top_k, seed=args.seed + i),
+        ))
+    return requests
+
+
+def _make_engine(cfg, rcfg, model, args) -> ServeEngine:
+    return ServeEngine(cfg, rcfg, model, max_slots=args.batch,
+                       max_len=args.prompt_len + args.gen + 1,
+                       decode_block=args.decode_block,
+                       cache_layout=args.cache_layout)
+
+
+def _serve_once(cfg, rcfg, model, args):
+    engine = _make_engine(cfg, rcfg, model, args)
+    results = engine.run(_build_requests(cfg, args))
+    return results, engine.stats()
+
+
+_LATER = {
+    "compression": "compression plans arrive with the port's training slice",
+    "cache_layout": "the paged cache layout arrives with the port's paged-serving slice",
+    "pool_tokens": "paged page pools arrive with the port's paged-serving slice",
+    "cache_compress": "compressed KV pools arrive with the port's paged-serving slice",
+    "prefix_share": "prefix sharing arrives with the port's paged-serving slice",
+    "speculative_k": "speculative decode arrives with the port's paged-serving slice",
+    "replicas": "the multi-replica router arrives with the port's multi-GPU slice",
+    "dedicated_prefill": "disaggregated prefill arrives with the port's multi-GPU slice",
+    "mesh_data": "mesh-sharded serving arrives with the port's multi-GPU slice",
+}
+
+
+def _refuse_later_slices(ap, args) -> None:
+    asked = {
+        "compression": bool(args.compression),
+        "cache_layout": args.cache_layout != "dense",
+        "pool_tokens": bool(args.pool_tokens),
+        "cache_compress": bool(args.cache_compress),
+        "prefix_share": args.prefix_share,
+        "speculative_k": bool(args.speculative_k),
+        "replicas": args.replicas > 1,
+        "dedicated_prefill": args.dedicated_prefill,
+        "mesh_data": args.mesh_data > 1,
+    }
+    for flag, on in asked.items():
+        if on:
+            ap.error(f"--{flag.replace('_', '-')}: {_LATER[flag]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises if there is no card) or cpu")
+    ap.add_argument("--batch", type=int, default=4, help="engine slots")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests (default: 2x batch)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--decode-block", type=int, default=8,
+                    help="decode tokens per generate() call (one host sync)")
+    ap.add_argument("--cache-layout", default="dense", choices=["dense", "paged"])
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pool-tokens", type=int, default=0)
+    ap.add_argument("--cache-compress", default="")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--compression", default="")
+    ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0, help="0 = full vocab")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--dedicated-prefill", action="store_true")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--prefix-share", action="store_true")
+    ap.add_argument("--speculative-k", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="run twice, assert determinism and tok/s > 0")
+    args = ap.parse_args(argv)
+    _refuse_later_slices(ap, args)
+    if not args.requests:
+        args.requests = 2 * args.batch
+
+    cfg = get_config(args.arch)
+    rcfg = RunConfig(compute_dtype=args.dtype, param_dtype=args.dtype,
+                     policy_name="none")
+    model = init_model(cfg, rcfg, seed=args.seed, device=args.device)
+
+    results, stats = _serve_once(cfg, rcfg, model, args)
+    for uid in sorted(results):
+        r = results[uid]
+        print(f"req {uid}: prompt={r.prompt_len} new={len(r.tokens)} "
+              f"finish={r.finish_reason} {r.decode_tok_s:.1f} tok/s "
+              f"sample={r.tokens[:8]}")
+    print(f"prefill {stats['prefill_tok_s']:.1f} tok/s | "
+          f"decode {stats['decode_tok_s']:.1f} tok/s | "
+          f"p50 {stats['p50_token_latency_ms']:.2f} ms | "
+          f"p95 {stats['p95_token_latency_ms']:.2f} ms | "
+          f"cache {stats['cache_slot_bytes'] / 1e6:.2f} MB/slot")
+    print(f"[{args.cache_layout}] kv capacity "
+          f"{stats['cache/kv_capacity_mb']:.2f} MB | peak reserved "
+          f"{stats['peak_kv_reserved_bytes'] / 2**20:.2f} MB | peak used "
+          f"{stats['peak_kv_used_bytes'] / 2**20:.2f} MB | "
+          f"peak concurrency {stats['peak_active']} | "
+          f"replica shards {stats['replica_shards']} | "
+          f"compression x{stats['cache/kv_compression_x']:.2f} | "
+          f"{stats['prefill_buckets']} prefill buckets | "
+          f"device {model.device}")
+
+    if args.smoke:
+        again, stats2 = _serve_once(cfg, rcfg, model, args)
+        if not all(again[u].tokens == results[u].tokens for u in results):
+            print("SMOKE FAIL: outputs not deterministic", file=sys.stderr)
+            sys.exit(1)
+        if not (stats["decode_tok_s"] > 0 and stats["prefill_tok_s"] > 0):
+            print("SMOKE FAIL: zero throughput", file=sys.stderr)
+            sys.exit(1)
+        print("SMOKE OK")
+
+
+if __name__ == "__main__":
+    main()

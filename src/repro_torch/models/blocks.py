@@ -1,0 +1,142 @@
+"""Residual blocks of the dense slice (``repro/models/blocks.py``): the
+self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN.
+
+A block's parameters are stacked over the layers of its stage (leading
+axis ``rep``, as the JAX package stacks them for ``lax.scan``);
+:meth:`Block.layer` hands one layer's views to the functions below, which
+mirror their JAX counterparts on a per-layer dict.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
+
+SERVED_KINDS = ("attn", "swa")
+LATER_SLICE_KINDS = ("block kinds moe, latt, rec, ssm and xattn arrive with "
+                     "the port's later slices; this slice serves attn/swa")
+
+
+def _window_for(kind: str, cfg) -> int:
+    if kind == "swa":
+        return cfg.sliding_window
+    if kind == "latt":
+        return cfg.local_window
+    return 0
+
+
+def _require_served(kind: str) -> None:
+    if kind not in SERVED_KINDS:
+        raise NotImplementedError(f"{kind!r}: {LATER_SLICE_KINDS}")
+
+
+def init_block(kind: str, cfg, gen: torch.Generator, dtype) -> dict:
+    """One layer's parameters (a plain dict with the JAX names)."""
+    _require_served(kind)
+    return {
+        "norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
+        "attn": attn_lib.init_attention(gen, cfg, dtype),
+        "norm2": init_rms_norm(cfg.d_model, dtype, gen.device),
+        "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def _params_module(tree: dict) -> nn.Module:
+    """nn.Module whose attributes follow a (nested) dict of tensors."""
+    mod = nn.Module()
+    for name, val in tree.items():
+        if isinstance(val, dict):
+            mod.add_module(name, _params_module(val))
+        else:
+            mod.register_parameter(name, nn.Parameter(val, requires_grad=False))
+    return mod
+
+
+def _views(mod: nn.Module, r: int) -> dict:
+    out = {name: p[r] for name, p in mod.named_parameters(recurse=False)}
+    for name, child in mod.named_children():
+        out[name] = _views(child, r)
+    return out
+
+
+class Block(nn.Module):
+    """A stage's blocks of one kind, parameters stacked over ``rep``
+    layers: ``norm1`` (rep, d), ``attn.wq`` (rep, d, H*dh), ... -- the
+    names and leading axis of the JAX tree (``model.py:95-114``)."""
+
+    def __init__(self, kind: str, stacked: dict):
+        super().__init__()
+        _require_served(kind)
+        self.kind = kind
+        self.rep = stacked["norm1"].shape[0]
+        mod = _params_module(stacked)
+        for name, child in mod.named_children():
+            self.add_module(name, child)
+        for name, p in mod.named_parameters(recurse=False):
+            self.register_parameter(name, p)
+
+    @classmethod
+    def from_layers(cls, kind: str, layers: list[dict]) -> "Block":
+        return cls(kind, _stack(layers))
+
+    def layer(self, r: int) -> dict:
+        """Layer ``r``'s parameters as views (no copy)."""
+        return _views(self, r)
+
+
+def _stack(layers: list[dict]) -> dict:
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([l[k] for l in layers]) for k in first}
+    return torch.stack(layers)
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+def block_train(kind, cfg, rcfg, ctx, params, x, positions, *, cache=None,
+                cache_positions=None):
+    """Returns the block output. ``cache``: this layer's KVCache to fill in
+    place with the prompt's (roped) K/V (prefill); ``cache_positions``
+    marks bucketing pad rows -1 so they are dropped, not written (a pad
+    row would evict a real tail token from a ring cache)."""
+    _require_served(kind)
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    out, (k_roped, v) = attn_lib.attn_train(
+        params["attn"], h, positions, cfg, ctx, window=_window_for(kind, cfg))
+    x = x + out
+    if cache is not None:
+        attn_lib.cache_insert(
+            cache, k_roped, v,
+            positions if cache_positions is None else cache_positions)
+    h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+    return x + ffn_sites(params["ffn"], h2, ctx)
+
+
+def block_decode(kind, cfg, rcfg, params, x, positions, cache):
+    """One-step decode. x: (B, 1, d). Returns (x, cache) -- the cache is
+    updated in place."""
+    _require_served(kind)
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    out, cache = attn_lib.attn_decode(params["attn"], h, positions, cache, cfg,
+                                      window=_window_for(kind, cfg))
+    x = x + out
+    h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+    return x + ffn(params["ffn"], h2), cache
+
+
+def init_block_cache(kind, cfg, B: int, max_len: int, dtype, device, *,
+                     layers: int | None = None, layout: str = "dense") -> attn_lib.KVCache:
+    """Zero-initialized dense slot cache (optionally stacked over
+    ``layers``); a sliding-window kind gets a ring of min(max_len,
+    window) slots."""
+    _require_served(kind)
+    if layout != "dense":
+        raise NotImplementedError(attn_lib.LATER_SLICE_PAGED)
+    win = _window_for(kind, cfg)
+    size = min(max_len, win) if win else max_len
+    return attn_lib.init_kv_cache(B, size, cfg.n_kv_heads,
+                                  cfg.head_dim, dtype, bool(win), device,
+                                  layers=layers)

@@ -1,0 +1,158 @@
+"""Model assembly, serving subset (``repro/models/model.py``):
+embedding -> staged block stack -> final norm -> head.
+
+  init_model(cfg, rcfg, seed=0, device="cuda")        -> Model
+  init_caches(cfg, rcfg, B, max_len, device)          -> caches
+  prefill(cfg, rcfg, model, batch, max_len, ...)      -> (logits, caches)
+  decode_step(cfg, rcfg, model, tokens, pos, caches)  -> (logits, caches)
+
+A stage with ``rep`` layers keeps its parameters stacked (the JAX tree's
+leading ``layers`` axis) and runs as a Python loop over them, where the
+JAX package runs ``lax.scan``. Caches mirror the JAX tree: one list per
+stage, one stacked :class:`KVCache` per block of the stage's unit.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core.plan import TRAINING_SLICE, exact_ctx
+from repro_torch.models import blocks as blk
+from repro_torch.models.layers import embed_init, init_rms_norm, rms_norm
+
+__all__ = ["Model", "init_model", "init_caches", "prefill", "decode_step",
+           "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. CUDA unless the caller asks for
+    the CPU; asking for CUDA where there is none raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
+                           "is False; pass device='cpu' to run the plain path")
+    return device
+
+
+def _dtype(rcfg):
+    return getattr(torch, rcfg.compute_dtype), getattr(torch, rcfg.param_dtype)
+
+
+def _padded_vocab(cfg, rcfg) -> int:
+    """Vocab dim of embed/head (padded to ``pad_vocab_multiple``)."""
+    m = rcfg.pad_vocab_multiple
+    if not m or cfg.n_codebooks:
+        return cfg.vocab_size
+    return ((cfg.vocab_size + m - 1) // m) * m
+
+
+class Model(nn.Module):
+    """Parameters of a decoder with the JAX tree's names and layouts:
+    ``embed`` (V, d), ``stages[si][bi]`` (:class:`blocks.Block`, stacked
+    over the stage's layers), ``final_norm`` (d,), ``head`` (d, V)."""
+
+    def __init__(self, embed, stages: list[list[blk.Block]], final_norm, head):
+        super().__init__()
+        p = lambda t: nn.Parameter(t, requires_grad=False)
+        self.embed = p(embed)
+        self.stages = nn.ModuleList(nn.ModuleList(unit) for unit in stages)
+        self.final_norm = p(final_norm)
+        self.head = p(head)
+
+    @property
+    def device(self) -> torch.device:
+        return self.head.device
+
+
+def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
+    """Random-initialised parameters drawn on ``device`` from
+    ``torch.Generator(device).manual_seed(seed)``."""
+    device = resolve_device(device)
+    if cfg.embed_inputs or cfg.n_codebooks:
+        raise NotImplementedError(
+            "embed-input / multi-codebook archs (musicgen) are not served; "
+            "training arrives with a later slice")
+    _, pdt = _dtype(rcfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v_pad = _padded_vocab(cfg, rcfg)
+    embed = embed_init(gen, v_pad, cfg.d_model, pdt)
+    stages = []
+    for unit, rep in cfg.stages:
+        stages.append([
+            blk.Block.from_layers(kind, [blk.init_block(kind, cfg, gen, pdt)
+                             for _ in range(rep)])
+            for kind in unit])
+    final_norm = init_rms_norm(cfg.d_model, pdt, device)
+    head = (torch.randn((cfg.d_model, v_pad), generator=gen, device=device)
+            * cfg.d_model ** -0.5).to(pdt)
+    return Model(embed, stages, final_norm, head)
+
+
+def init_caches(cfg, rcfg, B: int, max_len: int, device, *,
+                layout: str | None = None):
+    """Dense decode caches for the whole stack (B = batch slots)."""
+    cdt, _ = _dtype(rcfg)
+    layout = layout or rcfg.cache_layout
+    return [[blk.init_block_cache(kind, cfg, B, max_len, cdt, device, layers=rep,
+                                  layout=layout)
+             for kind in unit]
+            for unit, rep in cfg.stages]
+
+
+def _embed(model: Model, tokens, cdt):
+    return model.embed[tokens].to(cdt)
+
+
+@torch.no_grad()
+def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
+            prompt_len=None):
+    """Run the prompt and build caches sized ``max_len``.
+    Returns (logits (B, 1, V) f32, caches).
+
+    ``prompt_len``: optional (B,) true prompt lengths of right-padded
+    (length-bucketed) prompts: their pad rows are never written to the
+    cache, and the logits row is taken at ``prompt_len - 1``.
+    """
+    if plan:
+        raise NotImplementedError(TRAINING_SLICE)
+    cdt, _ = _dtype(rcfg)
+    tokens = batch["tokens"]
+    x = _embed(model, tokens, cdt)
+    B, L, _ = x.shape
+    positions = torch.arange(L, dtype=torch.int32, device=x.device).expand(B, L)
+    cpos = None
+    if prompt_len is not None:
+        plen = torch.as_tensor(prompt_len, device=x.device)
+        cpos = torch.where(positions < plen[:, None], positions, -1)
+    ctx = exact_ctx()
+    caches = init_caches(cfg, rcfg, B, max_len, x.device)
+    for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):
+        for r in range(rep):
+            for kind, block, cache in zip(unit, stage, stage_caches):
+                x = blk.block_train(kind, cfg, rcfg, ctx, block.layer(r), x,
+                                    positions, cache=cache.layer(r),
+                                    cache_positions=cpos)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if prompt_len is not None:
+        x = x[torch.arange(B, device=x.device), plen - 1][:, None]
+    else:
+        x = x[:, -1:]
+    logits = (x @ model.head.to(cdt)).float()
+    return logits, caches
+
+
+@torch.no_grad()
+def decode_step(cfg, rcfg, model: Model, tokens, pos, caches):
+    """One decode step for the whole batch: tokens (B, 1), pos (B, 1)
+    absolute positions (-1 = parked slot). The caches are updated in
+    place. Returns (logits (B, 1, V*) f32, caches)."""
+    cdt, _ = _dtype(rcfg)
+    x = _embed(model, tokens, cdt)
+    for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):
+        for r in range(rep):
+            for kind, block, cache in zip(unit, stage, stage_caches):
+                x, _ = blk.block_decode(kind, cfg, rcfg, block.layer(r), x, pos,
+                                        cache.layer(r))
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = (x @ model.head.to(cdt)).float()
+    return logits, caches
