@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense-cache serving slice on one NVIDIA H100.
+"""Drive the PyTorch port's slices on one NVIDIA H100: dense-cache serving
+and PAMM-compressed training of internlm2-1.8b.
 
   python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each against its plain PyTorch version on the card, serves
-internlm2-1.8b at full width through the continuous-batching engine, and
-prints what it measured. Phases, in order; the first failure exits
-non-zero and no phase is caught and ignored:
+internlm2-1.8b at full width through the continuous-batching engine,
+trains it at full width and depth for a few steps, and prints what it
+measured. Phases, in order; the first failure exits non-zero and no phase
+is caught and ignored:
 
   1. device and build   nvidia-smi's name and power limit, torch/CUDA
                         versions, one nvcc per kernel source in parallel
@@ -28,6 +30,27 @@ non-zero and no phase is caught and ignored:
                         decode block by kernel and gives the idle share
   5. numbers            throughput, latency, kernel times next to their
                         plain versions, SDPA and the data-sheet bound
+  6. K1, K2, K4/K5      the training kernels against their plain versions
+     vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
+                        bf16 and f32 and at k = b/8; K2 at m 2048 and 1024,
+                        two launches bitwise equal; K3 (whose o and lse
+                        feed the backward) and K4/K5 at (4, 2048, 16/8,
+                        128) bf16, a window of 256, head dims 80, 120,
+                        each output row held to its own norm
+  7. card vs CPU        one train step of internlm2-1.8b_smoke in f32 with
+                        the same parameters and generator rows on the card
+                        (kernels) and on the CPU (plain versions)
+  8. training           internlm2-1.8b, full width and depth, f32 params /
+                        bf16 compute, attn.qkv=pamm(r=1/512), AdamW, batch
+                        4 x 2048 from SyntheticStream: one warm-up step and
+                        3 measured ones (finite losses, per-step launch
+                        counts K1 24, K2 72, K3 = K4 = K5 24, plain 0), a
+                        second run from the seed (same step-0 loss), the
+                        peak memory against attn.qkv=none, and a
+                        torch.profiler split of one step
+  9. training numbers   K1, K2, K4, K5 (and K3 at the training shape) next
+                        to their plain versions, the SDPA backward and the
+                        bound
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -37,6 +60,8 @@ package.
 from __future__ import annotations
 
 import argparse
+import copy
+import hashlib
 import json
 import statistics
 import subprocess
@@ -60,6 +85,28 @@ K3_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 K6_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
 K3_REPLACES = "src/repro/kernels/flash_attention.py:263"
 K6_REPLACES = "src/repro/kernels/flash_decode.py:147"
+K1_SOURCE = "src/repro_torch/csrc/pamm_compress.cu"
+K2_SOURCE = "src/repro_torch/csrc/pamm_apply.cu"
+K45_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+K1_REPLACES = "src/repro/kernels/pamm_compress.py:60"
+K2_REPLACES = "src/repro/kernels/pamm_apply.py:50"
+K4_REPLACES = "src/repro/kernels/flash_attention.py:325"
+K5_REPLACES = "src/repro/kernels/flash_attention.py:325"
+# the training slice: the paper's setting on internlm2-1.8b
+TRAIN_SPEC = "attn.qkv=pamm(r=1/512)"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+TOL_K1 = 1e-5        # |cs| (in [0, 1]) and relative ||x||: f32 sums in another order
+TOL_K1_MARGIN = 1e-4 # idx compared where the plain top-2 |csim| margin exceeds this
+TOL_K2 = 1e-5        # of max |Btilde|: f32 sums in another order; bitwise across launches
+TOL_K45 = 2e-2       # of each gradient's max |.|: bf16 outputs
+# per row of dh, |a - ref| / (|ref| + 1e-2 max |ref row|), bf16 outputs: a
+# bf16 rounding flip moves an element by at most 2^-7 of itself, so a row
+# by at most 2^-7 = 7.8e-3 of its norm; a row that loses or gains one
+# 64-key tile of its ~i live keys moves by the order of sqrt(64 / i) of
+# its norm, 0.18 at i = 2000, which the max-|.| tolerances above let pass
+TOL_ROW = 1e-2
+TOL_CPU_LOSS = 1e-5  # card vs CPU in f32: relative loss
+TOL_CPU_GRAD = 1e-3  # card vs CPU in f32: relative norm of each gradient's difference
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 
@@ -74,6 +121,15 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def row_err(a, ref) -> float:
+    """Largest error of a row (the last axis) relative to the reference
+    row's norm, floored at 1e-2 of the largest reference row: rows near 0
+    by cancellation (dq of the first query) are held to the floor."""
+    a, ref = a.float(), ref.float()
+    den = ref.norm(dim=-1)
+    return ((a - ref).norm(dim=-1) / (den + 1e-2 * den.max()).clamp_min(1e-30)).max().item()
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time (ms) for the work on the card: the larger of bytes over
     the memory rate and operations over the bf16 peak."""
@@ -81,14 +137,20 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
 
-def k3_work(B, L, H, KV, dh, *, causal: bool, window: int, itemsize: int):
-    """(flops, bytes) of one K3 call: 4*dh per visible (query, key) pair
-    and head; q, k, v read once, o and lse written once."""
+def visible_pairs(L: int, *, causal: bool, window: int) -> int:
+    """(query, key) pairs the causal / window mask leaves, per head."""
     pairs = 0
     for i in range(L):
         lo = max(0, i - window + 1) if window > 0 else 0
         hi = i + 1 if causal else L
         pairs += max(0, hi - lo)
+    return pairs
+
+
+def k3_work(B, L, H, KV, dh, *, causal: bool, window: int, itemsize: int):
+    """(flops, bytes) of one K3 call: 4*dh per visible (query, key) pair
+    and head; q, k, v read once, o and lse written once."""
+    pairs = visible_pairs(L, causal=causal, window=window)
     flops = 4.0 * dh * pairs * H * B
     nbytes = B * L * (2 * H + 2 * KV) * dh * itemsize + B * H * L * 4
     return flops, nbytes
@@ -107,6 +169,29 @@ def k6_work(q_pos, slot_pos, H, KV, dh, *, window: int, itemsize: int):
     nbytes = (2 * n_live * KV * dh * itemsize + 2 * B * H * dh * itemsize
               + (B * S + B) * 4)
     return flops, nbytes
+
+
+def k1_work(b, n, k, itemsize):
+    """(flops, bytes) of one K1 call: the b*k dots and the norms; x and c
+    read once, cs / idx / norm written once."""
+    return 2.0 * b * n * (k + 1) + 2.0 * k * n, (b + k) * n * itemsize + 12 * b
+
+
+def k2_work(b, m, k, itemsize):
+    """(flops, bytes) of one K2 call: a multiply-add per dZ element; dZ,
+    f, alpha read once, Btilde (k, m) f32 written once."""
+    return 2.0 * b * m, b * m * itemsize + 8 * b + 4 * k * m
+
+
+def k45_work(B, L, H, KV, dh, *, causal: bool, window: int, itemsize: int, which: str):
+    """(flops, bytes) of K4 (6*dh per visible pair and head: q k^T, dO v^T,
+    ds k) or K5 (8*dh: q k^T, dO v^T, p^T dO, ds^T q); q, k, v, dO, lse,
+    delta read once, dq (K4) or dk, dv (K5) written once."""
+    pairs = visible_pairs(L, causal=causal, window=window)
+    per_pair = 6.0 if which == "K4" else 8.0
+    reads = B * L * (2 * H + 2 * KV) * dh * itemsize + 2 * B * H * L * 4
+    writes = B * L * H * dh * itemsize if which == "K4" else 2 * B * L * KV * dh * itemsize
+    return per_pair * dh * pairs * H * B, reads + writes
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3, flush=None) -> float:
@@ -185,10 +270,12 @@ def phase_k3(gen):
         o_r, lse_r = flash_attention_fwd_ref(q, k, v, causal=True, window=window)
         e_o = (o.float() - o_r.float()).abs().max().item()
         e_l = (lse - lse_r).abs().max().item()
+        e_r = row_err(o, o_r)
         print(f"[K3] B={B} L={L} H={H} KV={KV} dh={dh} window={window}: "
               f"max|o-o_ref|={e_o:.3e} (tol {TOL_O}) max|lse-lse_ref|={e_l:.3e} "
-              f"(tol {TOL_LSE})")
-        check(bool(o.isfinite().all()) and e_o <= TOL_O and e_l <= TOL_LSE,
+              f"(tol {TOL_LSE}) worst row rel {e_r:.3e} (tol {TOL_ROW})")
+        check(bool(o.isfinite().all()) and e_o <= TOL_O and e_l <= TOL_LSE
+              and e_r <= TOL_ROW,
               f"K3 disagrees with its plain version at {(B, L, H, KV, dh, window)}")
         worst = max(worst, e_o)
     return worst
@@ -382,10 +469,12 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict):
 
 
 def _kernel_row(name, source, replaces, launches, err, fn, plain, lib, work):
+    """One entry of the JSON kernel line; ``lib`` None where no single
+    PyTorch call computes the same function."""
     flush = _flush_buffer()
     ms = time_ms(fn, flush=flush)
     plain_ms = time_ms(plain, reps=20, flush=flush)
-    lib_ms = time_ms(lib, flush=flush)
+    lib_ms = None if lib is None else time_ms(lib, flush=flush)
     bms, by = bound(*work)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -464,6 +553,424 @@ def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
     return [k3, k6]
 
 
+# ---------------------------------------------------------------------------
+# training slice
+# ---------------------------------------------------------------------------
+def phase_training_kernels(gen):
+    """K1, K2, K4/K5 against their plain versions at the training shapes,
+    and K3 there too (its o and lse feed K4/K5). Returns the largest error
+    of each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    b, n = TRAIN_BATCH * TRAIN_SEQ, 2048
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for k, dtype in ((16, torch.bfloat16), (16, torch.float32), (b // 8, torch.bfloat16)):
+        x = _randn((b, n), gen, dtype)
+        idx = torch.randperm(b, generator=gen, device="cuda")[:k]
+        c = x[idx].contiguous()
+        cs, f, na = csim_argmax_cuda(x, c)
+        cs_r, f_r, na_r = csim_argmax_ref(x, c)
+        e_cs = (cs.abs() - cs_r.abs()).abs().max().item()
+        e_n = ((na - na_r).abs() / na_r).max().item()
+        csim = (x.float() @ c.float().T) / (na_r[:, None] * c.float().norm(dim=1)[None])
+        top2 = csim.abs().topk(2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > TOL_K1_MARGIN
+        n_bad = int((f[clear] != f_r[clear]).sum())
+        print(f"[K1] b={b} n={n} k={k} {str(dtype)[6:]}: max||cs|-|cs_ref||={e_cs:.3e} "
+              f"max rel |norm err|={e_n:.3e} (tol {TOL_K1}); idx equal on "
+              f"{int(clear.sum())}/{b} rows with a top-2 margin > {TOL_K1_MARGIN} "
+              f"({n_bad} differ)")
+        check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0,
+              f"K1 disagrees with its plain version at k={k} {dtype}")
+        errs["K1"] = max(errs["K1"], e_cs)
+    for m in (2048, 1024):
+        f = torch.randint(0, 16, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        alpha = torch.randn(b, generator=gen, device="cuda")
+        gz = _randn((b, m), gen)
+        out = segment_matmul_cuda(f, alpha, gz, 16)
+        again = segment_matmul_cuda(f, alpha, gz, 16)
+        ref = segment_matmul_ref(f, alpha, gz, 16)
+        scale = ref.abs().max().item()
+        e = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
+        print(f"[K2] b={b} m={m} k=16 bf16: max|B-B_ref|={e:.3e} (tol {TOL_K2} x "
+              f"{scale:.1f}); two launches bitwise equal: {same}")
+        check(e <= TOL_K2 * scale and same, f"K2 disagrees or is not deterministic at m={m}")
+        errs["K2"] = max(errs["K2"], e)
+    B, L, H, KV = TRAIN_BATCH, TRAIN_SEQ, 16, 8
+    for dh, window in ((128, 0), (128, 256), (80, 0), (120, 0)):
+        q = _randn((B, L, H, dh), gen)
+        k, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
+        do = _randn((B, L, H, dh), gen)
+        o, lse = flash_attention_fwd_cuda(q, k, v, causal=True, window=window)
+        o_r, lse_r = flash_attention_fwd_ref(q, k, v, causal=True, window=window)
+        e_o = (o.float() - o_r.float()).abs().max().item()
+        e_l = (lse - lse_r).abs().max().item()
+        e_r = row_err(o, o_r)
+        print(f"[K3] B={B} L={L} H={H} KV={KV} dh={dh} window={window}: "
+              f"max|o-o_ref|={e_o:.3e} (tol {TOL_O}) max|lse-lse_ref|={e_l:.3e} "
+              f"(tol {TOL_LSE}) worst row rel {e_r:.3e} (tol {TOL_ROW})")
+        check(bool(o.isfinite().all()) and e_o <= TOL_O and e_l <= TOL_LSE
+              and e_r <= TOL_ROW,
+              f"K3 disagrees with its plain version at {(B, L, H, KV, dh, window)}")
+        errs["K3"] = max(errs["K3"], e_o)
+        del o_r, lse_r
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+        ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+        parts = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            scale = r.float().abs().max().item()
+            e = (a.float() - r.float()).abs().max().item()
+            e_r = row_err(a, r)
+            parts.append(f"{name} {e:.3e} of {scale:.2f}, row rel {e_r:.3e}")
+            check(bool(a.isfinite().all()) and e <= TOL_K45 * scale and e_r <= TOL_ROW,
+                  f"K4/K5 {name} disagrees with the plain version at dh={dh} window={window}")
+            kk = "K4" if name == "dq" else "K5"
+            errs[kk] = max(errs[kk], e)
+        print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} bf16: max "
+              f"|d-d_ref| {'; '.join(parts)} (tol {TOL_K45} x max, row {TOL_ROW})")
+        del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
+    return errs
+
+
+class NumpySampler:
+    """Generator rows and projections from numpy, seeded by a hash of the
+    key path: the same draws on the card and on the CPU."""
+
+    @staticmethod
+    def _rng(seed, path):
+        import numpy as np
+
+        h = hashlib.blake2b(repr((seed, path)).encode(), digest_size=8).digest()
+        return np.random.default_rng(int.from_bytes(h, "little"))
+
+    def choice(self, seed, path, b, k, device):
+        import torch
+
+        return torch.from_numpy(self._rng(seed, path).permutation(b)[:k]).to(device)
+
+    def normal(self, seed, path, shape, device):
+        import numpy as np
+        import torch
+
+        return torch.from_numpy(self._rng(seed, path).standard_normal(
+            shape, dtype=np.float32)).to(device)
+
+
+def phase_card_vs_cpu():
+    """One train step of internlm2-1.8b_smoke in f32: the card (kernels)
+    against the CPU (plain versions), same parameters and draws."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.keys import Key
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import launches
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState, loss_and_grad, make_train_step
+    from repro_torch.train.train_step import batch_to_device
+
+    cfg = get_config("internlm2-1.8b_smoke")
+    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none",
+                     compute_dtype="float32", param_dtype="float32")
+    cpu = init_model(cfg, rcfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = SyntheticStream.for_arch(cfg, 64, 4).get_batch(0)
+    resolved = resolve_for_run(cfg, rcfg)
+    key = Key(rcfg.seed, sampler=NumpySampler()).fold_in(3)
+    out = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        launches.reset()
+        loss, _, grads = loss_and_grad(cfg, rcfg, resolved, model,
+                                       batch_to_device(batch, model.device), key)
+        out[name] = (float(loss), {n: g.cpu() for n, g in grads.items()}, launches.counts())
+    (l_card, g_card, c_card), (l_cpu, g_cpu, c_cpu) = out["card"], out["cpu"]
+    rel_l = abs(l_card - l_cpu) / abs(l_cpu)
+    rel_g = max(((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm().clamp_min(1e-30)).item()
+                for n in g_cpu)
+    print(f"[card vs cpu] internlm2-1.8b_smoke f32 pamm(r=1/8): loss {l_card:.7f} vs "
+          f"{l_cpu:.7f} (rel {rel_l:.2e}, tol {TOL_CPU_LOSS}); worst gradient rel "
+          f"{rel_g:.2e} (tol {TOL_CPU_GRAD}) | card launches {c_card} | cpu {c_cpu}")
+    check(rel_l <= TOL_CPU_LOSS and rel_g <= TOL_CPU_GRAD,
+          "the card's train step disagrees with the CPU's")
+    check(not any(k.endswith("_ref") for k in c_card) and
+          all(k.endswith("_ref") for k in c_cpu), "a path took the wrong kernels")
+    step_fn = make_train_step(cfg, rcfg, total_steps=10, sampler=NumpySampler())
+    zero_init = {n for n, p in cpu.named_parameters() if not p.detach().any()}
+    res = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        st = TrainState(model, adamw_init(dict(model.named_parameters())))
+        st, m = step_fn(st, batch, 3)
+        res[name] = (float(m["loss"]), float(m["lr"]),
+                     {n: p.detach().cpu() for n, p in model.named_parameters()})
+    (l_card, _, p_card), (l_cpu, lr, p_cpu) = res["card"], res["cpu"]
+    rel_l = abs(l_card - l_cpu) / abs(l_cpu)
+    rel_p = max(((p_card[n] - p_cpu[n]).norm() / p_cpu[n].norm()).item()
+                for n in p_cpu if n not in zero_init)
+    # a leaf that starts at zero (the norm scales) holds only the first Adam
+    # step lr * g / (|g| + eps), in which an element with |g| near eps turns
+    # rounding into an O(1) change: held to 1e-2 * lr per element instead
+    abs_z = max((p_card[n] - p_cpu[n]).abs().max().item() for n in zero_init)
+    print(f"[card vs cpu] make_train_step at step 3: loss rel {rel_l:.2e}; updated "
+          f"parameters worst rel {rel_p:.2e} (tol {TOL_CPU_GRAD}); zero-initialised "
+          f"leaves worst |diff| {abs_z:.2e} (tol 1e-2 x lr = {1e-2 * lr:.2e})")
+    check(rel_l <= TOL_CPU_LOSS and rel_p <= TOL_CPU_GRAD and abs_z <= 1e-2 * lr,
+          "the card's train step disagrees with the CPU's")
+
+
+def _train_run(cfg, rcfg, n_steps: int, *, measure: bool):
+    """init_train_state + make_train_step on the card: step 0 is the
+    warm-up; with ``measure`` the launch counts are set to 0 just before
+    steps 1..n_steps and read just after. Returns (state, step_fn, record)."""
+    import torch
+
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import launches
+    from repro_torch.train import init_train_state, make_train_step
+
+    stream = SyntheticStream.for_arch(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=rcfg.seed)
+    batches = [stream.get_batch(s) for s in range(n_steps + 1)]
+    state = init_train_state(cfg, rcfg, device="cuda")
+    step_fn = make_train_step(cfg, rcfg, total_steps=100)
+    rec = {"loss": [], "gnorm": [], "ms": []}
+    for s in range(n_steps + 1):
+        if s == 1 and measure:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches.reset()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s], s)
+        rec["loss"].append(float(m["loss"]))   # waits for the step
+        rec["gnorm"].append(float(m["grad_norm"]))
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        if s == n_steps and measure:
+            torch.cuda.synchronize()
+            rec["counts"] = launches.counts()
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec["metrics"] = {k: float(v) for k, v in m.items()}
+    return state, step_fn, rec
+
+
+def phase_training(smi):
+    """The training slice at full width and depth (see the module
+    docstring). Returns the per-step launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.core.stats import plan_activation_report
+    from repro_torch.data import SyntheticStream
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(ARCH)
+    rcfg = RunConfig(compression=TRAIN_SPEC, policy_name="none")
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cfg, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    print(f"[train] {ARCH}: {n_params / 1e9:.3f} B params f32, compute {rcfg.compute_dtype}, "
+          f"{TRAIN_SPEC}, batch {TRAIN_BATCH} x {TRAIN_SEQ}; losses {rec['loss']} | grad "
+          f"norms {[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "a training loss or grad norm is not finite")
+    print(f"[train] launches per step {per_step}")
+    want = {"csim_argmax": 24, "segment_matmul": 72, "flash_attention_fwd": 24,
+            "flash_attention_dq": 24, "flash_attention_dkv": 24}
+    check({k: per_step.get(k, 0) for k in want} == want,
+          f"training launches per step {per_step} != {want}")
+    check(not any(k.endswith("_ref") for k in rec["counts"]),
+          "a plain version ran on the training path")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}; warm-up step {rec['ms'][0]:.1f} ms) | peak "
+          f"torch.cuda.max_memory_allocated {rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[train] site telemetry (summed over {cfg.n_layers} layers) {sites}")
+    trace_training_step(state, step_fn, cfg, step_ms, n + 1)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    state, _, rec2 = _train_run(cfg, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 equal: "
+          f"{rec2['loss'][0] == rec['loss'][0]}; later steps worst rel {max(rel[1:]):.2e}, "
+          f"tol 1e-3 for a backward that sums in another order from run to run)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "a second run from the seed gives other losses")
+
+    peaks = {}
+    batch = SyntheticStream.for_arch(cfg, TRAIN_SEQ, TRAIN_BATCH).get_batch(n + 1)
+    for label, spec in (("none", "attn.qkv=none"), ("pamm", TRAIN_SPEC)):
+        fn = make_train_step(cfg, dataclasses.replace(rcfg, compression=spec),
+                             total_steps=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = fn(state, batch, n + 1)
+        float(m["loss"])
+        peaks[label] = torch.cuda.max_memory_allocated()
+    (report,) = plan_activation_report(resolve_for_run(cfg, rcfg), batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ)
+    print(f"[train] peak of one step: attn.qkv=none {peaks['none'] / 2**30:.3f} GiB, "
+          f"{TRAIN_SPEC} {peaks['pamm'] / 2**30:.3f} GiB, difference "
+          f"{(peaks['none'] - peaks['pamm']) / 2**20:.1f} MiB; plan_activation_report's "
+          f"QKV-input bytes ({cfg.n_layers} x {tokens} x {cfg.d_model} x 2 B) "
+          f"{report.baseline_bytes / 2**20:.1f} "
+          f"MiB {tag}")
+    del state
+    torch.cuda.empty_cache()
+    rec["peak_none"], rec["peak_pamm_step"] = peaks["none"], peaks["pamm"]
+    return per_step, rec
+
+
+def trace_training_step(state, step_fn, cfg, step_ms, step):
+    """torch.profiler split of one training step by kernel group, and the
+    device's idle share against the unprofiled step time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import SyntheticStream
+
+    batch = SyntheticStream.for_arch(cfg, TRAIN_SEQ, TRAIN_BATCH).get_batch(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, step)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    names = (("csim_argmax", "K1"), ("segment_matmul", "K2"), ("dkv_kernel", "K5"),
+             ("dq_kernel", "K4"), ("fwd_kernel", "K3"))
+    groups: dict[str, float] = {}
+    others: dict[str, float] = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if evt.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        name = evt.key
+        group = next((g for s, g in names if s in name), None)
+        if group is None:
+            group = "GEMM" if any(s in name.lower() for s in GEMM_NAMES) else "other"
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        if group == "other":
+            others[name] = others.get(name, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    if busy == 0:
+        print(f"[trace] train step: device time not measured (the profiler recorded no "
+              f"device activity); wall {wall_ms:.1f} ms")
+        return
+    parts = " | ".join(f"{g} {ms:.2f} ms" for g, ms in
+                       sorted(groups.items(), key=lambda kv: -kv[1]))
+    print(f"[trace] train step: device busy {busy:.1f} ms of {step_ms:.1f} ms unprofiled "
+          f"wall ({100 * busy / step_ms:.1f}% busy, {100 - 100 * busy / step_ms:.1f}% idle; "
+          f"{wall_ms:.1f} ms under the profiler) | {parts}")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    print("[trace] train step: largest other kernels: "
+          + " | ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in top))
+
+
+def phase_training_numbers(gen, per_step, rec, smi, errs):
+    """Kernel rows of K1, K2, K4 and K5 at the training shapes (and K3's
+    time there), next to the plain versions, the SDPA backward and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    tag = f"[{smi}]"
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    b, n, k = TRAIN_BATCH * TRAIN_SEQ, 2048, 16
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    k1 = _kernel_row("csim_argmax (K1)", K1_SOURCE, K1_REPLACES,
+                     launches.get("csim_argmax", 0), errs["K1"],
+                     lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
+                     k1_work(b, n, k, 2))
+    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    rows = [k1]
+    for m in (2048, 1024):
+        gz = _randn((b, m), gen)
+        row = _kernel_row("segment_matmul (K2)", K2_SOURCE, K2_REPLACES,
+                          launches.get("segment_matmul", 0), errs["K2"],
+                          lambda: segment_matmul_cuda(f, alpha, gz, k),
+                          lambda: segment_matmul_ref(f, alpha, gz, k), None,
+                          k2_work(b, m, k, 2))
+        if m == 2048:
+            rows.append(row)
+        print(f"[numbers] segment_matmul (K2) at m={m}: {row['ms']:.4f} ms/call | plain "
+              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms {tag}")
+    B, L, H, KV, dh = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
+    q = _randn((B, L, H, dh), gen)
+    kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
+    do = _randn((B, L, H, dh), gen)
+    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True)
+    delta = _delta(o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
+              for t in (kk, v))
+    out = F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), dot, retain_graph=True)
+    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True)
+    k4 = _kernel_row("flash_attention_dq (K4)", K45_SOURCE, K4_REPLACES,
+                     launches.get("flash_attention_dq", 0), errs["K4"],
+                     lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0),
+                     plain_bwd, sdpa_bwd,
+                     k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K4"))
+    k5 = _kernel_row("flash_attention_dkv (K5)", K45_SOURCE, K5_REPLACES,
+                     launches.get("flash_attention_dkv", 0), errs["K5"],
+                     lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0),
+                     plain_bwd, sdpa_bwd,
+                     k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K5"))
+    rows += [k4, k5]
+    flush = _flush_buffer()
+    k3_ms = time_ms(lambda: flash_attention_fwd_cuda(q, kk, v, causal=True), flush=flush)
+    k3_plain = time_ms(lambda: flash_attention_fwd_ref(q, kk, v, causal=True), reps=10,
+                       flush=flush)
+    k3_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
+                      flush=flush)
+    k3_bound, k3_by = bound(*k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2))
+    for row in rows:
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | plain "
+              f"{row['plain_ms']:.4f} ms | library {lib} | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) | {row['launches']} launches on the training path "
+              f"({TRAIN_STEPS} steps) {tag}")
+    print(f"[numbers] flash_attention_fwd (K3) at the training shape ({B}, {L}, {H}/{KV}, "
+          f"{dh}): {k3_ms:.4f} ms/call | plain {k3_plain:.4f} ms | SDPA {k3_sdpa:.4f} ms | "
+          f"bound {k3_bound:.4f} ms ({k3_by}) | max|o-o_ref| {errs['K3']:.3e} at the "
+          f"training shapes | {per_step.get('flash_attention_fwd', 0):.0f} "
+          f"launches per training step {tag}")
+    step_ms = statistics.median(rec["ms"][1:])
+    print(f"[numbers] train step {step_ms:.1f} ms: K1 x24 {24 * k1['ms']:.1f} ms, K2 x72 "
+          f"~{72 * rows[1]['ms']:.1f} ms (at m=2048), K3 x24 {24 * k3_ms:.1f} ms, K4 x24 "
+          f"{24 * k4['ms']:.1f} ms, K5 x24 {24 * k5['ms']:.1f} ms (isolated, L2 flushed) {tag}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -481,6 +988,12 @@ def main() -> int:
     err6 = phase_k6(gen)
     counts, stats, peak = phase_serving()
     kernels = phase_numbers(gen, counts, stats, smi, err3, err6, peak)
+    torch.cuda.empty_cache()
+    errs = phase_training_kernels(gen)
+    phase_card_vs_cpu()
+    per_step, rec = phase_training(smi)
+    kernels[0]["max_abs_err"] = max(err3, errs["K3"])   # K3: serving and training shapes
+    kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,10 @@ so nothing here imports JAX), :func:`from_jax_params` builds the port's
 :class:`~repro_torch.models.Model` name for name and layer for layer, in
 the same layouts (``w`` is ``(n_in, n_out)``). :func:`to_jax_params` is
 the inverse, returning numpy leaves.
+
+:func:`opt_state_to_jax` and :func:`opt_state_from_jax` carry an optimizer
+state the same way: the JAX ``OptState`` as ``(step, m, v)`` with ``m``
+and ``v`` trees of numpy leaves shaped like the parameter tree.
 """
 from __future__ import annotations
 
@@ -44,16 +48,18 @@ def _tree(x, fn):
     return fn(x)
 
 
-def from_jax_params(params: dict, cfg, device="cuda") -> Model:
-    """Port model holding the JAX parameters ``params`` (numpy leaves)."""
+def from_jax_params(params: dict, cfg, device="cuda", trainable: bool = False) -> Model:
+    """Port model holding the JAX parameters ``params`` (numpy leaves);
+    with ``trainable`` its parameters require grad."""
     device = resolve_device(device)
     conv = lambda a: _to_torch(a, device)
     if "embed" not in params:
-        raise NotImplementedError("embed-input archs are not served by the port")
-    stages = [[blk.Block(kind, _tree(node, conv)) for kind, node in zip(unit, stage)]
+        raise NotImplementedError("embed-input archs arrive with a later slice of the port")
+    stages = [[blk.Block(kind, _tree(node, conv), trainable)
+               for kind, node in zip(unit, stage)]
               for (unit, _), stage in zip(cfg.stages, params["stages"])]
     return Model(conv(params["embed"]), stages, conv(params["final_norm"]),
-                 conv(params["head"]))
+                 conv(params["head"]), trainable)
 
 
 def _module_tree(mod: torch.nn.Module) -> dict:
@@ -71,3 +77,51 @@ def to_jax_params(model: Model) -> dict:
         "final_norm": _to_numpy(model.final_norm),
         "head": _to_numpy(model.head),
     }
+
+
+def _nest(flat: dict, model: Model) -> dict:
+    """A flat dict keyed by the model's parameter names -> the JAX tree."""
+    out: dict = {"stages": [[{} for _ in stage] for stage in model.stages]}
+    for name, val in flat.items():
+        parts = name.split(".")
+        if parts[0] != "stages":
+            out[name] = val
+            continue
+        node = out["stages"][int(parts[1])][int(parts[2])]
+        for part in parts[3:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val
+    return out
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """The JAX tree -> a flat dict keyed like ``model.named_parameters()``."""
+    out = {}
+    for name, val in tree.items():
+        if name == "stages" and not prefix:
+            for si, stage in enumerate(val):
+                for bi, node in enumerate(stage):
+                    out.update(_flatten(node, f"stages.{si}.{bi}."))
+        elif isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{name}."))
+        else:
+            out[f"{prefix}{name}"] = val
+    return out
+
+
+def opt_state_to_jax(opt, model: Model):
+    """The port's ``OptState`` -> (step, m, v): numpy leaves in the JAX
+    parameter tree's structure."""
+    return (np.int32(int(opt.step)),
+            _nest({n: _to_numpy(t) for n, t in opt.m.items()}, model),
+            _nest({n: _to_numpy(t) for n, t in opt.v.items()}, model))
+
+
+def opt_state_from_jax(step, m: dict, v: dict, model: Model):
+    """(step, m, v) with numpy leaves in the JAX tree -> the port's
+    ``OptState`` on the model's device."""
+    from repro_torch.optim import OptState
+
+    dev = model.device
+    conv = lambda tree: {n: _to_torch(a, dev) for n, a in _flatten(tree).items()}
+    return OptState(step=int(np.asarray(step)), m=conv(m), v=conv(v))

@@ -1,9 +1,32 @@
-"""Exact projections (``repro/core/linear.py:_exact_linear``).
+"""Compressed linear layer (paper Alg. 2/3) as a ``torch.autograd.Function``,
+the port of ``repro/core/linear.py``.
 
-Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``;
-the compressed (PAMM) projections arrive with the training slice.
+The compressed state is computed outside the Function (from a detached
+x, under ``no_grad``) and handed in, so the Function saves exactly
+``(w, state)`` for backward -- x itself is never saved, which is the
+paper's memory claim in PyTorch terms (``saved_tensors_hooks`` sees no
+(b, n) tensor). The forward output is the exact ``x @ w (+ bias)``;
+``grad_x`` and ``grad_bias`` are exact, and only ``grad_w`` is the
+policy's estimate. Without autograd (serving) nothing is saved, so a site
+skips compression altogether: the JAX package gets the same by dead-code
+elimination.
+
+Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``.
+``apply_batched`` (MoE experts) arrives with the MoE slice.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.policies import CompressionPolicy, ExactPolicy
+
+__all__ = ["CompressedSite", "STATS_LEN"]
+
+# Per-site telemetry vector layout (summed over layers):
+#   [stored_bytes, kept_rows, total_rows, beta_sum, n_observations]
+STATS_LEN = 5
 
 
 def _exact_linear(x2d, w, bias):
@@ -11,3 +34,102 @@ def _exact_linear(x2d, w, bias):
     if bias is not None:
         z2d = z2d + bias.to(z2d.dtype)
     return z2d
+
+
+def _leaves(state) -> tuple:
+    return tuple(state) if isinstance(state, tuple) else (state,)
+
+
+class _CompressedMatmul(torch.autograd.Function):
+    """``x2d @ w (+ bias)`` whose backward reads only ``(w, state)``."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, bias, policy, state):
+        leaves = _leaves(state)
+        ctx.save_for_backward(w, *(t for t in leaves if isinstance(t, torch.Tensor)))
+        # the state's structure and its non-tensor leaves (a CompAct key)
+        ctx.rebuild = (type(state) if isinstance(state, tuple) else None,
+                       [None if isinstance(t, torch.Tensor) else t for t in leaves])
+        ctx.policy, ctx.has_bias = policy, bias is not None
+        return _exact_linear(x2d, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, *tensors = ctx.saved_tensors
+        kind, slots = ctx.rebuild
+        it = iter(tensors)
+        leaves = [next(it) if s is None else s for s in slots]
+        state = kind(*leaves) if kind is not None else leaves[0]
+        dx = (g @ w.T.to(g.dtype)) if ctx.needs_input_grad[0] else None
+        dw = ctx.policy.grad_w(state, g, w.shape[0]).to(w.dtype)
+        dbias = g.sum(0).to(w.dtype) if ctx.has_bias else None
+        return dx, dw, dbias, None, None
+
+
+def _state_stats(policy: CompressionPolicy, state, b: int, device) -> torch.Tensor:
+    """Telemetry vector (STATS_LEN f32 on ``device``) of one compressed
+    state: [stored_bytes, kept_rows, b, beta, 1]. Filled in place so that
+    nothing waits for the card."""
+    kept, beta = policy.state_stats(state, b)
+    out = torch.empty(STATS_LEN, dtype=torch.float32, device=device)
+    out[0] = float(policy.stored_bytes(state))
+    out[1] = kept
+    out[2] = float(b)
+    out[3] = beta
+    out[4] = 1.0
+    return out
+
+
+def _wants_grad(x, ws, biases) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, *ws, *biases))
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedSite:
+    """One resolved compression site: (path, id, policy).
+
+    The single runtime entry point for compressed projections. It owns the
+    site's key -- ``key.fold_in(site_id)`` of the per-block key -- and
+    reports per-site telemetry (stored bytes, kept-row fraction, beta).
+    ``shared_with`` names a sibling whose compressed state backs this site
+    too (ffn.up sharing ffn.gate's state, Fig. 2)."""
+
+    path: str
+    site_id: int
+    policy: CompressionPolicy
+    n_in: int = 0
+    multiplicity: int = 1
+    shared_with: str | None = None
+
+    @property
+    def is_exact(self) -> bool:
+        return isinstance(self.policy, ExactPolicy)
+
+    def derive_key(self, key):
+        return None if key is None else key.fold_in(self.site_id)
+
+    def apply(self, x, w, bias, key):
+        """``x @ w (+ bias)`` under this site's policy: (z, stats), stats
+        None when nothing was compressed."""
+        (z,), stats = self.apply_shared(x, [w], [bias], key)
+        return z, stats
+
+    def apply_shared(self, x, ws, biases, key):
+        """Several projections of one input sharing ONE compressed state
+        (paper Fig. 2: Q, K, V all read the same X)."""
+        n = ws[0].shape[0]
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, n)
+        if self.is_exact or not _wants_grad(x, ws, biases):
+            outs = [_exact_linear(x2d, w, b).reshape(*lead, w.shape[1])
+                    for w, b in zip(ws, biases)]
+            return outs, None
+        site_key = self.derive_key(key)
+        if site_key is None:
+            raise ValueError(f"site {self.path!r} ({self.policy.name}) needs a key")
+        with torch.no_grad():
+            state = self.policy.compress(x2d.detach(), site_key)
+        outs = [_CompressedMatmul.apply(x2d, w, b, self.policy, state).reshape(
+                    *lead, w.shape[1]) for w, b in zip(ws, biases)]
+        return outs, _state_stats(self.policy, state, x2d.shape[0], x.device)

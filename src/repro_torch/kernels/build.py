@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles, on
-first use, into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
+Each ``csrc/<name>.cu`` exposes plain C entry points (SIGNATURES; most
+sources hold one entry point of their own name) and compiles, on first
+use, into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
 repository root (the hash covers the source text and the flags, so an
 edited source rebuilds and a stale library is never loaded). No PyTorch
 header is included, which keeps one build to seconds.
@@ -24,7 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# argtypes of each source's C entry point (same name as the source file)
+# argtypes of each C entry point; an entry point lives in ``csrc/<name>.cu``
+# unless SOURCE_OF names another source
 SIGNATURES = {
     # q k v o lse, B L H KV dh, strides (q b,l  k b,l  v b,l  o b,l),
     # causal window scale dtype stream
@@ -32,7 +34,24 @@ SIGNATURES = {
     # q k v q_pos slot_pos o, B S H KV dh, strides (q b; k b,s; v b,s;
     # slot_pos b; o b), causal window scale dtype stream
     "flash_decode": [P] * 6 + [I] * 5 + [LL] * 7 + [I, I, F, I, P],
+    # x c cs idx norm, b n k, dtype stream
+    "csim_argmax": [P] * 5 + [I] * 4 + [P],
+    # f alpha gz out, b m k, dtype stream
+    "segment_matmul": [P] * 4 + [I] * 4 + [P],
+    # q k v do lse delta dq, B L H KV dh, strides (q b,l  k b,l  v b,l
+    # do b,l  dq b,l), causal window scale dtype stream
+    "flash_attention_dq": [P] * 7 + [I] * 5 + [LL] * 10 + [I, I, F, I, P],
+    # q k v do lse delta dk dv, B L H KV dh, strides (q b,l  k b,l  v b,l
+    # do b,l  dk b,l  dv b,l), causal window scale dtype stream
+    "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I, I, F, I, P],
 }
+SOURCE_OF = {
+    "csim_argmax": "pamm_compress",
+    "segment_matmul": "pamm_apply",
+    "flash_attention_dq": "flash_attention_bwd",
+    "flash_attention_dkv": "flash_attention_bwd",
+}
+SOURCES = tuple(dict.fromkeys(SOURCE_OF.get(e, e) for e in SIGNATURES))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -54,12 +73,12 @@ def _target(name: str) -> Path:
 
 
 def build(names=None) -> dict[str, Path]:
-    """Compile every named source whose library is missing, one ``nvcc``
+    """Compile every named source (default: all of SOURCES) whose library is missing, one ``nvcc``
     per source, all started together. Returns name -> library path.
     Raises with the compiler's output if any build fails; the compiler
     log (``-Xptxas -v``: registers, shared memory, spills) is kept next
     to each library as ``<lib>.log``."""
-    names = list(SIGNATURES) if names is None else list(names)
+    names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
     procs = {}
@@ -83,16 +102,19 @@ def build(names=None) -> dict[str, Path]:
     return targets
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built if needed)."""
-    lib = _LIBS.get(name)
+def entry(name: str):
+    """The C entry point ``name`` (a key of SIGNATURES), with its argtypes
+    set; its source is built and loaded on first use."""
+    source = SOURCE_OF.get(name, name)
+    lib = _LIBS.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        fn = getattr(lib, name)
+        lib = ctypes.CDLL(str(build([source])[source]))
+        _LIBS[source] = lib
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    return fn
 
 
 def check_launch(name: str, err: int) -> None:

@@ -1,17 +1,22 @@
-"""K3: FlashAttention-2 forward for prefill, as a CUDA kernel and its
-plain PyTorch version.
+"""K3, K4, K5: FlashAttention-2 forward and backward, as CUDA kernels and
+their plain PyTorch versions.
 
-Counterpart of ``repro/kernels/flash_attention.py`` (``_fwd_impl``; public
-``flash_attention_fwd``). Both functions take q (B, L, H, dh) and k, v
-(B, L, KV, dh) with contiguous ``arange`` positions (training batch and
-serving prefill), the causal and sliding-window masks, GQA query head h
-reading kv head h // G, and return o (B, L, H, dh) in q's dtype plus the
-row statistic lse (B, H, L) f32 that the training slice's backward needs.
+Counterpart of ``repro/kernels/flash_attention.py`` (``_fwd_impl`` and
+``_bwd_impl``). The functions take q (B, L, H, dh) and k, v (B, L, KV, dh)
+with contiguous ``arange`` positions (training batch and serving prefill),
+the causal and sliding-window masks, GQA query head h reading kv head
+h // G. The forward (K3) returns o (B, L, H, dh) in q's dtype plus the row
+statistic lse (B, H, L) f32; the backward recomputes the probabilities
+from (q, k, v, lse) and returns dq (K4, q-major) and dk, dv (K5, kv-major,
+the G query heads of a kv head folded in), each in its input's dtype.
+``delta = rowsum(dO * O)`` is a torch op before the backward kernels, as
+it is a jnp op outside Pallas in the JAX package.
 
-The kernel (``csrc/flash_attention_fwd.cu``) says in its header what
-bounds it on the H100 and what its design does about that. The plain
-version is what the CPU tests hold against the JAX kernel; nothing on the
-card's main path calls it.
+The kernels (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``)
+say in their headers what bounds them on the H100 and what their design
+does about that. The plain versions are what the CPU tests hold against
+the JAX kernels; nothing on the card's main path calls them. The autograd
+Function joining forward and backward is ``ops.FlashAttention``.
 """
 from __future__ import annotations
 
@@ -53,25 +58,32 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0):
             lse.reshape(B, H, L))
 
 
-def _check(q, k, v):
+def _check(q, k, v, *, kernel: str = "K3", max_dh: int = 256, extra=()):
+    """Raise unless q, k, v (and the ``extra`` (name, tensor) pairs shaped
+    like q) are what the attention kernels take."""
     if q.device.type != "cuda":
-        raise ValueError(f"K3 kernel needs CUDA tensors, got {q.device}")
+        raise ValueError(f"{kernel} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"K3 kernel takes float32 or bfloat16 q/k/v of one "
+        raise ValueError(f"{kernel} kernel takes float32 or bfloat16 q/k/v of one "
                          f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"K3 kernel: q (B,L,H,dh), k/v (B,L,KV,dh); got "
+        raise ValueError(f"{kernel} kernel: q (B,L,H,dh), k/v (B,L,KV,dh); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, L, H, dh = q.shape
     if k.shape[0] != B or k.shape[1] != L or k.shape[3] != dh:
-        raise ValueError(f"K3 kernel: k/v {tuple(k.shape)} do not match q "
+        raise ValueError(f"{kernel} kernel: k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if H % k.shape[2] or dh > 256:
-        raise ValueError(f"K3 kernel: H={H} must be a multiple of KV="
-                         f"{k.shape[2]} and dh={dh} at most 256")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    if H % k.shape[2] or dh > max_dh:
+        raise ValueError(f"{kernel} kernel: H={H} must be a multiple of KV="
+                         f"{k.shape[2]} and dh={dh} at most {max_dh}")
+    for name, x in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+        if x.shape != (q.shape if name not in ("k", "v") else k.shape):
+            raise ValueError(f"{kernel} kernel: {name} {tuple(x.shape)} does not "
+                             f"match q {tuple(q.shape)}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{kernel} kernel: {name} is {x.dtype}, q is {q.dtype}")
         if x.device != q.device or x.stride(3) != 1 or x.stride(2) != dh:
-            raise ValueError(f"K3 kernel: {name} must lie on {q.device} with "
+            raise ValueError(f"{kernel} kernel: {name} must lie on {q.device} with "
                              f"contiguous (heads, dh) rows; strides "
                              f"{x.stride()}")
 
@@ -82,7 +94,7 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     B, L, H, dh = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
-    fn = build.library("flash_attention_fwd").flash_attention_fwd
+    fn = build.entry("flash_attention_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, L, H, k.shape[2], dh,
              q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -92,3 +104,85 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     build.check_launch("flash_attention_fwd", err)
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
+
+
+# ---------------------------------------------------------------------------
+# backward: K4 (dq) and K5 (dk, dv)
+# ---------------------------------------------------------------------------
+def _delta(o, do):
+    """rowsum(dO * O) in f32, laid out (B, H, L) like lse."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int = 0):
+    """Plain version of K4 + K5: recomputes p = exp(s - lse) from the
+    masked f32 scores as ``_dq_kernel`` / ``_dkv_kernel`` do, then
+    ds = p * (dO v^T - delta) * scale; returns (dq, dk, dv)."""
+    LAUNCHES["flash_attention_bwd_ref"] += 1
+    B, L, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    qg = q.reshape(B, L, KV, G, dh).float()
+    dog = do.reshape(B, L, KV, G, dh).float()
+    k32, v32 = k.float(), v.float()
+    s = torch.einsum("bqkgd,blkd->bkgql", qg, k32) * scale
+    s = s.masked_fill(~_iota_mask(L, causal, window, q.device), NEG_INF)
+    p = torch.exp(s - lse.reshape(B, KV, G, L, 1))
+    dp = torch.einsum("bqkgd,blkd->bkgql", dog, v32)
+    delta = _delta(o, do).reshape(B, KV, G, L, 1)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgql,blkd->bqkgd", ds, k32).reshape(B, L, H, dh)
+    dk = torch.einsum("bkgql,bqkgd->blkd", ds, qg)
+    dv = torch.einsum("bkgql,bqkgd->blkd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_dq(q, k, v, lse, delta, do, dq, causal: bool, window: int):
+    """Launch K4 into ``dq`` on q's current CUDA stream; the caller has
+    checked the operands."""
+    B, L, H, dh = q.shape
+    err = build.entry("flash_attention_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), B, L, H, k.shape[2], dh,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
+        int(causal), int(window), dh ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("flash_attention_dq", err)
+    LAUNCHES["flash_attention_dq"] += 1
+
+
+def _launch_dkv(q, k, v, lse, delta, do, dk, dv, causal: bool, window: int):
+    """Launch K5 into ``dk``, ``dv`` on q's current CUDA stream; the caller
+    has checked the operands."""
+    B, L, H, dh = q.shape
+    err = build.entry("flash_attention_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, k.shape[2], dh,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        do.stride(0), do.stride(1), dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
+        int(causal), int(window), dh ** -0.5, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("flash_attention_dkv", err)
+    LAUNCHES["flash_attention_dkv"] += 1
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """Check the operands once, compute delta as a torch op, then launch K4
+    and K5 on q's current CUDA stream; returns (dq, dk, dv)."""
+    _check(q, k, v, kernel="K4/K5", max_dh=128, extra=(("o", o), ("do", do)))
+    B, L, H, _ = q.shape
+    if (lse.shape != (B, H, L) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"K4/K5 kernels: lse must be a contiguous (B, H, L) f32 "
+                         f"tensor on {q.device}; got {tuple(lse.shape)} {lse.dtype}")
+    delta = _delta(o, do)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    _launch_dq(q, k, v, lse, delta, do, dq, causal, window)
+    _launch_dkv(q, k, v, lse, delta, do, dk, dv, causal, window)
+    return dq, dk, dv

@@ -86,7 +86,7 @@ def flash_decode_cuda(q, k, v, q_pos, slot_pos, *, causal: bool = True,
     B, _, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    fn = build.library("flash_decode").flash_decode
+    fn = build.entry("flash_decode")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              slot_pos.data_ptr(), o.data_ptr(), B, S, H, KV, dh,
              q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),

@@ -4,13 +4,25 @@ A CPU tensor goes to the kernel's plain PyTorch version; a CUDA tensor
 goes to the hand-written kernel, which launches or raises. There is no
 fallback from a CUDA tensor to a plain version: a kernel that does not
 build or launch is an error the caller sees.
+
+Besides the single-kernel wrappers this module assembles the full PAMM
+operations from K1 / K2 (``repro/kernels/ops.py:36-63``) and joins the
+attention forward (K3) and backward (K4, K5) in one autograd Function.
 """
 from __future__ import annotations
 
+import math
+
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import pamm_apply as _pa
+from repro_torch.kernels import pamm_compress as _pc
 
-__all__ = ["flash_attention_fwd", "flash_attention", "flash_decode"]
+__all__ = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention",
+           "flash_decode", "csim_argmax", "segment_matmul", "pamm_compress",
+           "pamm_apply", "FlashAttention"]
 
 
 def _route(x, name: str):
@@ -26,8 +38,45 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
     return _fa.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """K4 + K5 (attention backward): (dq, dk, dv) from the saved
+    (q, k, v, o, lse) and the output gradient dO."""
+    if _route(q, "flash_attention_bwd"):
+        return _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                            window=window)
+    return _fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """FlashAttention-2 with the JAX package's ``custom_vjp`` residuals:
+    the forward (K3) saves (q, k, v, o, lse), O(L) statistics instead of the
+    (L, L) probabilities; the backward recomputes them tile by tile (K4,
+    K5)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """K3 output only (serving drops lse)."""
+    """Attention output (B, L, H, dh). Differentiable: under autograd it
+    runs K3 forward and K4/K5 backward; otherwise (serving) K3 alone, with
+    nothing saved."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
 
 
@@ -39,3 +88,49 @@ def flash_decode(q, k, v, q_pos, slot_pos, *, causal: bool = True,
                                      window=window)
     return _fd.flash_decode_ref(q, k, v, q_pos, slot_pos, causal=causal,
                                 window=window)
+
+
+def csim_argmax(x, c):
+    """K1: (cs (b,) f32, idx (b,) int32, ||x_i|| (b,) f32)."""
+    if _route(x, "csim_argmax"):
+        return _pc.csim_argmax_cuda(x, c)
+    return _pc.csim_argmax_ref(x, c)
+
+
+def segment_matmul(f, alpha, gz, k: int):
+    """K2: Btilde = onehot(f)^T (alpha * dZ), (k, m) f32."""
+    if _route(gz, "segment_matmul"):
+        return _pa.segment_matmul_cuda(f, alpha, gz, k)
+    return _pa.segment_matmul_ref(f, alpha, gz, k)
+
+
+def pamm_compress(x, k: int, eps: float, idx):
+    """PAMM compress of x (b, n) around the generator rows ``idx`` (k,):
+    K1 plus the alpha / eps / beta epilogue (in torch, as the JAX wrapper
+    keeps it in jnp). The generators are ``x[idx]`` in x's dtype."""
+    from repro_torch.core.pamm import PammState
+
+    if idx.shape != (min(k, x.shape[0]),):
+        raise ValueError(f"pamm_compress: idx must hold min(k, b) = "
+                         f"{min(k, x.shape[0])} rows, got {tuple(idx.shape)}")
+    c = x.index_select(0, idx.to(x.device))
+    cs, assign, norm_a = csim_argmax(x, c)
+    norm_c = norm_a.index_select(0, idx.to(x.device))
+    alpha = cs * norm_a / norm_c.index_select(0, assign.long()).clamp_min(1e-20)
+    keep = (cs * cs >= 1.0 - float(eps) * float(eps)) if math.isfinite(eps) \
+        else torch.ones_like(cs, dtype=torch.bool)
+    # mirror core.pamm: zero rows (padding) count in neither side of beta
+    nonzero = norm_a > 0
+    contributing = keep & nonzero
+    alpha = torch.where(contributing, alpha, torch.zeros_like(alpha))
+    b_eff = nonzero.float().sum()
+    beta = b_eff / contributing.float().sum().clamp_min(1.0)
+    return PammState(c, alpha, assign, beta)
+
+
+def pamm_apply(state, gz):
+    """PAMM apply: beta * C^T @ K2(f, alpha, dZ), (n, m) f32. The thin
+    (n, k) x (k, m) product is a library matmul, as JAX leaves it to XLA."""
+    k = state.generators.shape[0]
+    btilde = segment_matmul(state.assign, state.alpha, gz.contiguous(), k)
+    return state.beta * (state.generators.float().T @ btilde)

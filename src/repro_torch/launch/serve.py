@@ -7,9 +7,10 @@
 Requests get staggered prompt lengths so admissions and evictions overlap
 mid-stream. Weights are random-initialised from ``--seed`` on the chosen
 device. ``--smoke`` runs the workload twice and asserts identical outputs
-and tok/s > 0. Flags of the JAX launcher that need later slices of the
+and tok/s > 0. ``--compression`` routes prefill through the plan's sites
+(exact outputs). Flags of the JAX launcher that need later slices of the
 port (paged or compressed caches, prefix sharing, speculative decode,
-replicas, meshes, compression plans) are refused with the slice named.
+replicas, meshes) are refused with the slice named.
 """
 from __future__ import annotations
 
@@ -55,7 +56,6 @@ def _serve_once(cfg, rcfg, model, args):
 
 
 _LATER = {
-    "compression": "compression plans arrive with the port's training slice",
     "cache_layout": "the paged cache layout arrives with the port's paged-serving slice",
     "pool_tokens": "paged page pools arrive with the port's paged-serving slice",
     "cache_compress": "compressed KV pools arrive with the port's paged-serving slice",
@@ -69,7 +69,6 @@ _LATER = {
 
 def _refuse_later_slices(ap, args) -> None:
     asked = {
-        "compression": bool(args.compression),
         "cache_layout": args.cache_layout != "dense",
         "pool_tokens": bool(args.pool_tokens),
         "cache_compress": bool(args.cache_compress),
@@ -119,7 +118,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch)
     rcfg = RunConfig(compute_dtype=args.dtype, param_dtype=args.dtype,
-                     policy_name="none")
+                     policy_name="none", compression=args.compression)
     model = init_model(cfg, rcfg, seed=args.seed, device=args.device)
 
     results, stats = _serve_once(cfg, rcfg, model, args)

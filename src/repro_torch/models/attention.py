@@ -1,14 +1,17 @@
-"""GQA attention, serving subset (``repro/models/attention.py``).
+"""GQA attention of the dense slice (``repro/models/attention.py``).
 
 Covers the self-attention variants of the dense slice: grouped-query
 attention with any H/KV ratio (MQA included), RoPE, optional per-head
 qk-norm (qwen3) and QKV bias (qwen2), and sliding-window attention with a
 ring-buffer KV cache (h2o-danube).
 
-Prefill attention goes through K3 and decode attention through K6, both
-by way of :mod:`repro_torch.kernels.ops`: the plain PyTorch versions for
-CPU tensors, the hand-written CUDA kernels for CUDA tensors. :func:`sdpa`
-stays as the plain reference the tests compare against.
+Training and prefill attention go through K3 (forward) and, under
+autograd, K4/K5 (backward); decode attention goes through K6 -- all by way
+of :mod:`repro_torch.kernels.ops`: the plain PyTorch versions for CPU
+tensors, the hand-written CUDA kernels for CUDA tensors. :func:`sdpa`
+stays as the plain reference the tests compare against. The Q/K/V
+projections run through the ``attn.qkv`` site of the run's plan: one
+compressed state per layer backs all three weight gradients (Fig. 2).
 
 The KV cache is updated in place (``cache_insert``): the JAX package
 returns a new cache and donates the old buffers on the TPU, which the
@@ -48,14 +51,14 @@ def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
     return params
 
 
-def _project_qkv(params, x, ctx: SiteCtx, cfg):
+def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None):
     """Q, K, V of self-attention from one shared projection site."""
     dh = cfg.head_dim
     h = params["wq"].shape[1] // dh
     kv = params["wk"].shape[1] // dh
     biases = [params.get("bq"), params.get("bk"), params.get("bv")]
     q, k, v = ctx.apply_shared(
-        "attn.qkv", x, [params["wq"], params["wk"], params["wv"]], biases)
+        "attn.qkv", x, [params["wq"], params["wk"], params["wv"]], biases, key)
     q = q.reshape(*x.shape[:-1], h, dh)
     k = k.reshape(*x.shape[:-1], kv, dh)
     v = v.reshape(*x.shape[:-1], kv, dh)
@@ -171,15 +174,18 @@ def cache_insert(cache: KVCache, k_new, v_new, positions) -> KVCache:
 # ---------------------------------------------------------------------------
 # block-level entry points
 # ---------------------------------------------------------------------------
-def attn_train(params, x, positions, cfg, ctx: SiteCtx, *, window: int):
-    """Self-attention over a full sequence (prefill math) through K3.
+def attn_train(params, x, positions, cfg, ctx: SiteCtx, key=None, *, window: int):
+    """Self-attention over a full sequence (training / prefill math).
 
-    K3 masks by iota, i.e. it assumes contiguous ``arange`` positions
-    (true for prefill; ``positions`` feeds RoPE). Rows marked with a
-    position < 0 are zeroed, as the JAX kernel branch does. Returns
-    (out @ wo, (k_roped, v)) -- the pair the prefill cache stores.
+    Differentiable: ``ops.flash_attention`` runs K3 forward and, under
+    autograd, K4/K5 backward from the saved (q, k, v, o, lse). The kernels
+    mask by iota, i.e. they assume contiguous ``arange`` positions (true
+    for the training batch and prefill; ``positions`` feeds RoPE). Rows
+    marked with a position < 0 are zeroed, as the JAX kernel branch does.
+    ``key``: the block's key, from which the ``attn.qkv`` site draws.
+    Returns (out @ wo, (k_roped, v)) -- the pair the prefill cache stores.
     """
-    q, k, v = _project_qkv(params, x, ctx, cfg)
+    q, k, v = _project_qkv(params, x, ctx, cfg, key)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.flash_attention(q, k, v, causal=True, window=window)

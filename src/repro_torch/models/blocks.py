@@ -1,5 +1,6 @@
 """Residual blocks of the dense slice (``repro/models/blocks.py``): the
-self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN.
+self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN, trained and
+served on the residual structure without rematerialisation.
 
 A block's parameters are stacked over the layers of its stage (leading
 axis ``rep``, as the JAX package stacks them for ``lax.scan``);
@@ -16,7 +17,12 @@ from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, r
 
 SERVED_KINDS = ("attn", "swa")
 LATER_SLICE_KINDS = ("block kinds moe, latt, rec, ssm and xattn arrive with "
-                     "the port's later slices; this slice serves attn/swa")
+                     "the port's later slices; this slice runs attn/swa")
+LATER_SLICE_STRUCTURE = ("block_structure='reversible' arrives with the port's "
+                         "reversible-training slice; this slice trains the "
+                         "residual structure")
+LATER_SLICE_REMAT = ("remat='full' and remat='pamm' arrive with the port's "
+                     "rematerialisation slice; this slice trains with remat='none'")
 
 
 def _window_for(kind: str, cfg) -> int:
@@ -32,6 +38,20 @@ def _require_served(kind: str) -> None:
         raise NotImplementedError(f"{kind!r}: {LATER_SLICE_KINDS}")
 
 
+def resolve_block_structure(cfg, rcfg) -> str:
+    """Config-time check of block kinds, block structure and remat: this
+    slice trains the residual structure of attn/swa blocks with no
+    rematerialisation; anything else raises, naming the later slice."""
+    for unit, _ in cfg.stages:
+        for kind in unit:
+            _require_served(kind)
+    if getattr(rcfg, "block_structure", "residual") != "residual":
+        raise NotImplementedError(LATER_SLICE_STRUCTURE)
+    if getattr(rcfg, "remat", "none") != "none":
+        raise NotImplementedError(LATER_SLICE_REMAT)
+    return "residual"
+
+
 def init_block(kind: str, cfg, gen: torch.Generator, dtype) -> dict:
     """One layer's parameters (a plain dict with the JAX names)."""
     _require_served(kind)
@@ -43,14 +63,14 @@ def init_block(kind: str, cfg, gen: torch.Generator, dtype) -> dict:
     }
 
 
-def _params_module(tree: dict) -> nn.Module:
+def _params_module(tree: dict, trainable: bool) -> nn.Module:
     """nn.Module whose attributes follow a (nested) dict of tensors."""
     mod = nn.Module()
     for name, val in tree.items():
         if isinstance(val, dict):
-            mod.add_module(name, _params_module(val))
+            mod.add_module(name, _params_module(val, trainable))
         else:
-            mod.register_parameter(name, nn.Parameter(val, requires_grad=False))
+            mod.register_parameter(name, nn.Parameter(val, requires_grad=trainable))
     return mod
 
 
@@ -64,14 +84,15 @@ def _views(mod: nn.Module, r: int) -> dict:
 class Block(nn.Module):
     """A stage's blocks of one kind, parameters stacked over ``rep``
     layers: ``norm1`` (rep, d), ``attn.wq`` (rep, d, H*dh), ... -- the
-    names and leading axis of the JAX tree (``model.py:95-114``)."""
+    names and leading axis of the JAX tree (``model.py:95-114``).
+    ``trainable``: whether the parameters require grad."""
 
-    def __init__(self, kind: str, stacked: dict):
+    def __init__(self, kind: str, stacked: dict, trainable: bool = True):
         super().__init__()
         _require_served(kind)
         self.kind = kind
         self.rep = stacked["norm1"].shape[0]
-        mod = _params_module(stacked)
+        mod = _params_module(stacked, trainable)
         for name, child in mod.named_children():
             self.add_module(name, child)
         for name, p in mod.named_parameters(recurse=False):
@@ -85,6 +106,24 @@ class Block(nn.Module):
         """Layer ``r``'s parameters as views (no copy)."""
         return _views(self, r)
 
+    def layers(self) -> list[dict]:
+        """Every layer's parameters as views, from one ``unbind`` per
+        stacked tensor. Under autograd its backward stacks the layers'
+        gradients once; indexing layer by layer would add a zero tensor
+        the size of the whole stack per layer."""
+        return _unbound(self, self.rep)
+
+
+def _unbound(mod: nn.Module, rep: int) -> list[dict]:
+    out = [{} for _ in range(rep)]
+    for name, p in mod.named_parameters(recurse=False):
+        for r, view in enumerate(p.unbind(0)):
+            out[r][name] = view
+    for name, child in mod.named_children():
+        for r, sub in enumerate(_unbound(child, rep)):
+            out[r][name] = sub
+    return out
+
 
 def _stack(layers: list[dict]) -> dict:
     first = layers[0]
@@ -94,25 +133,28 @@ def _stack(layers: list[dict]) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# prefill / decode
+# train / prefill / decode
 # ---------------------------------------------------------------------------
-def block_train(kind, cfg, rcfg, ctx, params, x, positions, *, cache=None,
-                cache_positions=None):
-    """Returns the block output. ``cache``: this layer's KVCache to fill in
-    place with the prompt's (roped) K/V (prefill); ``cache_positions``
-    marks bucketing pad rows -1 so they are dropped, not written (a pad
-    row would evict a real tail token from a ring cache)."""
+def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
+                cache=None, cache_positions=None):
+    """Returns (x, aux). ``ctx`` is this block's SiteCtx and ``key`` its
+    key (None when no site draws, as in serving); ``aux`` is the auxiliary
+    loss carried through (0 for attn/swa). ``cache``: this layer's KVCache
+    to fill in place with the prompt's (roped) K/V (prefill);
+    ``cache_positions`` marks bucketing pad rows -1 so they are dropped,
+    not written (a pad row would evict a real tail token from a ring
+    cache)."""
     _require_served(kind)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     out, (k_roped, v) = attn_lib.attn_train(
-        params["attn"], h, positions, cfg, ctx, window=_window_for(kind, cfg))
+        params["attn"], h, positions, cfg, ctx, key, window=_window_for(kind, cfg))
     x = x + out
     if cache is not None:
         attn_lib.cache_insert(
             cache, k_roped, v,
             positions if cache_positions is None else cache_positions)
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-    return x + ffn_sites(params["ffn"], h2, ctx)
+    return x + ffn_sites(params["ffn"], h2, ctx, key), aux
 
 
 def block_decode(kind, cfg, rcfg, params, x, positions, cache):

@@ -1,4 +1,4 @@
-"""Shared building blocks, serving subset (``repro/models/layers.py``).
+"""Shared building blocks of the dense slice (``repro/models/layers.py``).
 
 Parameters keep the JAX layouts: a projection ``w`` is ``(n_in, n_out)``
 applied as ``x @ w``; RMSNorm scales are zero-centred (applied as
@@ -78,8 +78,72 @@ def ffn(params, x):
 
 
 def ffn_sites(params, x, ctx, key=None):
-    """SwiGLU FFN with gate/up/down as projection sites; with every role
-    exact (the only case in this slice) it equals :func:`ffn`."""
-    g = ctx.apply("ffn.gate", x, params["w_gate"], None, key)
-    u = ctx.apply("ffn.up", x, params["w_up"], None, key)
+    """SwiGLU FFN with gate/up/down as compression sites; with every role
+    exact it equals :func:`ffn`. Gate and up read the same x, so when both
+    resolve to the same policy ONE compressed state backs both weight
+    gradients (telemetry lands on ffn.gate)."""
+    gate_site = ctx.site("ffn.gate")
+    up_site = ctx.site("ffn.up")
+    if (gate_site is not None and up_site is not None
+            and up_site.shared_with == gate_site.path):
+        (g, u), stats = gate_site.apply_shared(
+            x, [params["w_gate"], params["w_up"]], [None, None], key)
+        ctx.record(gate_site, stats)
+    else:
+        g = ctx.apply("ffn.gate", x, params["w_gate"], None, key)
+        u = ctx.apply("ffn.up", x, params["w_up"], None, key)
     return ctx.apply("ffn.down", F.silu(g) * u, params["w_down"], None, key)
+
+
+# ---------------------------------------------------------------------------
+# chunked softmax cross-entropy
+# ---------------------------------------------------------------------------
+def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,
+                          valid_vocab: int | None = None, site=None, key=None):
+    """Mean token NLL without materializing (B, L, V) at once.
+
+    h: (B, L, d) final hidden states; w_head: (d, V); labels: (B, L) int;
+    mask: (B, L) {0,1} float. Loops over sequence chunks (padded to a
+    whole chunk, as the JAX scan does); inside a chunk the logits are
+    (B, chunk, V) f32, and vocab columns past ``valid_vocab`` get -1e30.
+
+    ``site``/``key``: the plan's ``lm_head`` site. When given and not
+    exact, each chunk's hidden states are compressed for the head's weight
+    gradient with key ``key.fold_in(chunk)``, and the call returns
+    ``(loss, stats)`` with the site telemetry summed over chunks.
+    """
+    B, L, d = h.shape
+    chunk = min(chunk, L)
+    n_chunks = (L + chunk - 1) // chunk
+    pad = n_chunks * chunk - L
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    v_total = w_head.shape[1]
+    compressed = site is not None and not site.is_exact
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    stats = torch.zeros((5,), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        hb = h[:, c * chunk:(c + 1) * chunk]
+        lb = labels[:, c * chunk:(c + 1) * chunk]
+        mb = mask[:, c * chunk:(c + 1) * chunk].float()
+        if compressed:
+            z, st = site.apply(hb, w_head, None, key.fold_in(c))
+            logits = z.float()
+            if st is not None:
+                stats = stats + st
+        else:
+            logits = (hb @ w_head.to(hb.dtype)).float()
+        if valid_vocab is not None and valid_vocab < v_total:
+            col = torch.arange(v_total, device=h.device)
+            logits = logits.masked_fill(col >= valid_vocab, -1e30)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+        tot = tot + ((logz - gold) * mb).sum()
+        cnt = cnt + mb.sum()
+    loss = tot / cnt.clamp_min(1.0)
+    if site is not None:
+        return loss, stats
+    return loss

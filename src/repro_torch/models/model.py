@@ -1,27 +1,36 @@
-"""Model assembly, serving subset (``repro/models/model.py``):
+"""Model assembly of the dense slice (``repro/models/model.py``):
 embedding -> staged block stack -> final norm -> head.
 
-  init_model(cfg, rcfg, seed=0, device="cuda")        -> Model
-  init_caches(cfg, rcfg, B, max_len, device)          -> caches
-  prefill(cfg, rcfg, model, batch, max_len, ...)      -> (logits, caches)
-  decode_step(cfg, rcfg, model, tokens, pos, caches)  -> (logits, caches)
+  init_model(cfg, rcfg, seed=0, device="cuda")          -> Model
+  forward(cfg, rcfg, plan, model, batch, key)           -> (hidden, aux)
+  loss_fn(cfg, rcfg, plan, model, batch, key)           -> (loss, metrics)
+  init_caches(cfg, rcfg, B, max_len, device)            -> caches
+  prefill(cfg, rcfg, model, batch, max_len, plan=None)  -> (logits, caches)
+  decode_step(cfg, rcfg, model, tokens, pos, caches)    -> (logits, caches)
 
-A stage with ``rep`` layers keeps its parameters stacked (the JAX tree's
-leading ``layers`` axis) and runs as a Python loop over them, where the
-JAX package runs ``lax.scan``. Caches mirror the JAX tree: one list per
+``plan`` is anything ``core.plan.as_resolved`` accepts; ``key`` is a
+:class:`repro_torch.core.keys.Key` (the step's key). A stage with ``rep``
+layers keeps its parameters stacked (the JAX tree's leading ``layers``
+axis) and runs as a Python loop over them, where the JAX package runs
+``lax.scan``; the keys follow the JAX chain (stage ``fold_in``, layer
+``split``, block ``fold_in``). Caches mirror the JAX tree: one list per
 stage, one stacked :class:`KVCache` per block of the stage's unit.
+Serving (prefill, decode) runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.core.plan import TRAINING_SLICE, exact_ctx
+from repro_torch.core import plan as plan_lib
+from repro_torch.core.keys import Key
+from repro_torch.core.plan import exact_ctx
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import embed_init, init_rms_norm, rms_norm
+from repro_torch.models.layers import (chunked_cross_entropy, embed_init,
+                                       init_rms_norm, rms_norm)
 
-__all__ = ["Model", "init_model", "init_caches", "prefill", "decode_step",
-           "resolve_device"]
+__all__ = ["Model", "init_model", "forward", "loss_fn", "init_caches",
+           "prefill", "decode_step", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -49,11 +58,14 @@ def _padded_vocab(cfg, rcfg) -> int:
 class Model(nn.Module):
     """Parameters of a decoder with the JAX tree's names and layouts:
     ``embed`` (V, d), ``stages[si][bi]`` (:class:`blocks.Block`, stacked
-    over the stage's layers), ``final_norm`` (d,), ``head`` (d, V)."""
+    over the stage's layers), ``final_norm`` (d,), ``head`` (d, V).
+    ``trainable``: whether embed / final_norm / head require grad (the
+    blocks carry their own flag)."""
 
-    def __init__(self, embed, stages: list[list[blk.Block]], final_norm, head):
+    def __init__(self, embed, stages: list[list[blk.Block]], final_norm, head,
+                 trainable: bool = True):
         super().__init__()
-        p = lambda t: nn.Parameter(t, requires_grad=False)
+        p = lambda t: nn.Parameter(t, requires_grad=trainable)
         self.embed = p(embed)
         self.stages = nn.ModuleList(nn.ModuleList(unit) for unit in stages)
         self.final_norm = p(final_norm)
@@ -65,13 +77,13 @@ class Model(nn.Module):
 
 
 def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
-    """Random-initialised parameters drawn on ``device`` from
-    ``torch.Generator(device).manual_seed(seed)``."""
+    """Random-initialised parameters, requiring grad, drawn on ``device``
+    from ``torch.Generator(device).manual_seed(seed)``."""
     device = resolve_device(device)
     if cfg.embed_inputs or cfg.n_codebooks:
         raise NotImplementedError(
-            "embed-input / multi-codebook archs (musicgen) are not served; "
-            "training arrives with a later slice")
+            "embed-input / multi-codebook archs (musicgen) arrive with a "
+            "later slice of the port")
     _, pdt = _dtype(rcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     v_pad = _padded_vocab(cfg, rcfg)
@@ -103,35 +115,104 @@ def _embed(model: Model, tokens, cdt):
     return model.embed[tokens].to(cdt)
 
 
+def _positions(B: int, L: int, device) -> torch.Tensor:
+    return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
+
+
+# ---------------------------------------------------------------------------
+# staged forward (training / scoring)
+# ---------------------------------------------------------------------------
+def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
+            telemetry: dict | None = None):
+    """Returns (hidden (B, L, d), aux_loss).
+
+    ``telemetry``: pass a dict to receive the per-site stats vectors (site
+    path -> STATS_LEN tensor) summed over all layers."""
+    resolved = plan_lib.as_resolved(plan, cfg, rcfg)
+    blk.resolve_block_structure(cfg, rcfg)
+    if cfg.embed_inputs or cfg.n_codebooks or cfg.vision_tokens:
+        raise NotImplementedError("embed-input, multi-codebook and vision archs "
+                                  "arrive with later slices of the port")
+    cdt, _ = _dtype(rcfg)
+    x = _embed(model, batch["tokens"], cdt)
+    B, L, _ = x.shape
+    positions = _positions(B, L, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    tele = resolved.zero_telemetry(x.device)
+    for si, ((unit, rep), stage) in enumerate(zip(cfg.stages, model.stages)):
+        keys = key.fold_in(si).split(rep)
+        layers = [block.layers() for block in stage]
+        for r in range(rep):
+            for bi, kind in enumerate(unit):
+                ctx = resolved.ctx(si, kind, tele)
+                x, aux = blk.block_train(kind, cfg, rcfg, ctx, layers[bi][r], x,
+                                         positions, keys[r].fold_in(bi), aux)
+    if telemetry is not None:
+        telemetry.update(tele)
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
+
+
+def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
+    """Mean token NLL (+ the MoE aux term, 0 here) and its metrics
+    ``{"nll", "aux", "sites"}`` -- the port of the JAX ``loss_fn``."""
+    resolved = plan_lib.as_resolved(plan, cfg, rcfg)
+    tele: dict = {}
+    h, aux = forward(cfg, rcfg, resolved, model, batch, key, telemetry=tele)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape[:2], dtype=torch.float32, device=h.device)
+    head_site = resolved.head_site()
+    if head_site is not None and head_site.is_exact:
+        head_site = None
+    res = chunked_cross_entropy(h, model.head, labels, mask, rcfg.loss_chunk,
+                                valid_vocab=cfg.vocab_size, site=head_site,
+                                key=key.fold_in(0x1EAD))
+    if head_site is not None:
+        nll, head_stats = res
+        tele[head_site.path] = tele.get(head_site.path, 0) + head_stats
+    else:
+        nll = res
+    moe_coef = 0.01 if cfg.n_experts else 0.0
+    loss = nll + moe_coef * aux / max(1, cfg.n_layers)
+    return loss, {"nll": nll, "aux": aux, "sites": tele}
+
+
 @torch.no_grad()
 def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
             prompt_len=None):
     """Run the prompt and build caches sized ``max_len``.
     Returns (logits (B, 1, V) f32, caches).
 
+    ``plan``: optional plan routed through the same per-site resolution as
+    training. Forward outputs are exact for every policy, and without
+    autograd no site compresses, so a plan changes no logits.
+
     ``prompt_len``: optional (B,) true prompt lengths of right-padded
     (length-bucketed) prompts: their pad rows are never written to the
     cache, and the logits row is taken at ``prompt_len - 1``.
     """
-    if plan:
-        raise NotImplementedError(TRAINING_SLICE)
+    resolved = None if plan is None else plan_lib.as_resolved(plan, cfg, rcfg)
     cdt, _ = _dtype(rcfg)
     tokens = batch["tokens"]
     x = _embed(model, tokens, cdt)
     B, L, _ = x.shape
-    positions = torch.arange(L, dtype=torch.int32, device=x.device).expand(B, L)
+    positions = _positions(B, L, x.device)
     cpos = None
     if prompt_len is not None:
         plen = torch.as_tensor(prompt_len, device=x.device)
         cpos = torch.where(positions < plen[:, None], positions, -1)
-    ctx = exact_ctx()
     caches = init_caches(cfg, rcfg, B, max_len, x.device)
-    for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    key = Key(0)
+    for si, ((unit, rep), stage, stage_caches) in enumerate(
+            zip(cfg.stages, model.stages, caches)):
         for r in range(rep):
             for kind, block, cache in zip(unit, stage, stage_caches):
-                x = blk.block_train(kind, cfg, rcfg, ctx, block.layer(r), x,
-                                    positions, cache=cache.layer(r),
-                                    cache_positions=cpos)
+                ctx = exact_ctx() if resolved is None else resolved.ctx(si, kind, None)
+                x, aux = blk.block_train(kind, cfg, rcfg, ctx, block.layer(r), x,
+                                         positions, key, aux, cache=cache.layer(r),
+                                         cache_positions=cpos)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if prompt_len is not None:
         x = x[torch.arange(B, device=x.device), plen - 1][:, None]

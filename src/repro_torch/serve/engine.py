@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import stats as stats_lib
-from repro_torch.core.plan import TRAINING_SLICE
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.blocks import LATER_SLICE_KINDS, SERVED_KINDS
 from repro_torch.serve import cache as cache_lib
@@ -196,8 +195,8 @@ class ServeEngine:
                 raise NotImplementedError(LATER_SLICE_SERVING.format(what=what))
         if mesh is not None:
             raise NotImplementedError(LATER_SLICE_MULTI.format(what="mesh sharding"))
-        if plan or rcfg.compression:
-            raise NotImplementedError(TRAINING_SLICE)
+        # a plan routes prefill through site dispatch; outputs stay exact
+        self.plan = plan if plan is not None else (rcfg.compression or None)
         self.cfg, self.rcfg, self.model = cfg, rcfg, model
         self.device = model.device
         self.max_slots, self.max_len = max_slots, max_len
@@ -242,7 +241,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, pcaches = prefill(self.cfg, self.rcfg, model,
                                   {"tokens": torch.as_tensor(toks, device=self.device)},
-                                  self.max_len, prompt_len=[lp])
+                                  self.max_len, plan=self.plan, prompt_len=[lp])
         self.bucket_lens.add(lb)
         logits1 = logits[:, -1, : self.cfg.vocab_size]
         sp = request.sampling

@@ -4,16 +4,31 @@ module imports no JAX, so it runs where only torch is installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerances: f32 atol 2e-5 on o (the same f32 math summed in another
+Tolerances: K3/K6 f32 atol 2e-5 on o (the same f32 math summed in another
 order); bf16 atol 5e-2 on o (both round o to bf16); lse atol 1e-3.
+K1: |cs| and norms to 1e-5 relative (f32 dots of up to a few thousand
+terms in another order); idx equal wherever the plain top-2 |csim| margin
+exceeds 1e-4. K2: 1e-5 of the output's scale (f32 sums in another order)
+and bitwise equal across two launches. K4/K5: f32 1e-4 and bf16 2e-2 of
+each gradient's largest magnitude (f32 sums over up to L terms in another
+order; bf16 rounds the outputs), and every row of dh to its own norm
+(floored at 1e-2 of the largest row, for rows near 0 by cancellation):
+f32 1e-3, bf16 1e-2 (a bf16 rounding flip moves a row by at most 2^-7 of
+its norm; a row that loses one 64-key tile of its i live keys moves by the
+order of sqrt(64 / i) of it, which the largest-magnitude bound lets pass
+for late rows).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import launches, ops
-from repro_torch.kernels.flash_attention import (flash_attention_fwd_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_fwd_cuda,
                                                  flash_attention_fwd_ref)
 from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
+from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 K3_CASES = [
@@ -42,6 +57,13 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
+
+
+def _row_err(a, ref):
+    """Largest |a_row - ref_row| / (|ref_row| + 1e-2 max |ref_row|)."""
+    a, ref = a.float(), ref.float()
+    den = ref.norm(dim=-1)
+    return float(((a - ref).norm(dim=-1) / (den + 1e-2 * den.max()).clamp_min(1e-30)).max())
 
 
 def _randn(shape, gen, dtype):
@@ -97,3 +119,99 @@ def test_cuda_tensors_reach_the_kernels_or_raise(cuda_device):
     with pytest.raises(ValueError, match="at most 256"):
         big = torch.randn(1, 4, 1, 320, device=cuda_device)
         ops.flash_attention(big, big, big)
+
+
+K1_CASES = [(64, 16, 4), (512, 64, 16), (300, 200, 7), (1024, 512, 128), (100, 33, 1),
+            (2048, 2048, 16), (4096, 256, 512)]
+K2_CASES = [(64, 16, 4), (512, 48, 16), (300, 200, 7), (2048, 1024, 128), (16, 8, 1),
+            (8192, 2048, 16)]
+K45_CASES = [
+    # B, L, H, KV, dh, causal, window
+    (1, 40, 4, 2, 16, True, 0),
+    (2, 33, 4, 1, 80, True, 0),
+    (1, 130, 4, 2, 128, True, 24),
+    (1, 70, 2, 2, 64, False, 0),
+    (1, 200, 4, 1, 120, True, 0),
+    (2, 256, 16, 8, 128, True, 64),
+    (2, 1100, 4, 2, 128, True, 0),    # a batch stride, L past 1024
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,k", K1_CASES)
+def test_k1_cuda_matches_plain(cuda_device, b, n, k, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(b + n + k)
+    x = _randn((b, n), g, dtype)
+    x[3] = 0                                        # a zero row
+    idx = torch.randperm(b, generator=g, device=cuda_device)[:k]
+    c = x[idx].contiguous()
+    cs, f, na = csim_argmax_cuda(x, c)
+    cs_r, f_r, na_r = csim_argmax_ref(x, c)
+    assert f.dtype == torch.int32 and int(f.max()) < k and int(f[3]) == 0
+    torch.testing.assert_close(cs.abs(), cs_r.abs(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(na, na_r, rtol=1e-5, atol=1e-6)
+    csim = (x.float() @ c.float().T) / (na_r.clamp_min(1e-20)[:, None]
+                                        * c.float().norm(dim=1).clamp_min(1e-20))
+    top2 = csim.abs().topk(min(2, k), dim=1).values
+    clear = (top2[:, 0] - top2[:, -1] > 1e-4) if k > 1 else torch.ones_like(f, dtype=torch.bool)
+    assert torch.equal(f[clear], f_r[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,m,k", K2_CASES)
+def test_k2_cuda_matches_plain_and_is_deterministic(cuda_device, b, m, k, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(b + m + k)
+    f = torch.randint(0, k, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    alpha = torch.randn(b, generator=g, device=cuda_device)
+    gz = _randn((b, m), g, dtype)
+    out = segment_matmul_cuda(f, alpha, gz, k)
+    again = segment_matmul_cuda(f, alpha, gz, k)
+    ref = segment_matmul_ref(f, alpha, gz, k)
+    assert torch.equal(out, again)                  # bitwise, no atomics
+    scale = float(ref.abs().max()) or 1.0
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,KV,dh,causal,window", K45_CASES)
+def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(L + dh + H)
+    q, k, v = (_randn(s, g, dtype) for s in ((B, L, H, dh), (B, L, KV, dh), (B, L, KV, dh)))
+    do = _randn((B, L, H, dh), g, dtype)
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    row_tol = 1e-3 if dtype == "float32" else 1e-2
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = float(r.float().abs().max())
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+        assert _row_err(a, r) <= row_tol, (name, _row_err(a, r))
+
+
+@pytest.mark.cuda
+def test_training_kernels_dispatch_count_and_refuse(cuda_device):
+    """ops routes CUDA tensors to K1, K2, K4 and K5 (counted as such) and
+    the backward refuses what it does not take."""
+    launches.reset()
+    x = torch.randn(64, 32, device=cuda_device)
+    st = ops.pamm_compress(x, 4, float("inf"), torch.arange(4, device=cuda_device))
+    ops.pamm_apply(st, torch.randn(64, 16, device=cuda_device))
+    q = torch.randn(1, 16, 2, 16, device=cuda_device, requires_grad=True)
+    kv = torch.randn(1, 16, 1, 16, device=cuda_device, requires_grad=True)
+    ops.flash_attention(q, kv, kv).sum().backward()
+    assert launches.counts() == {"csim_argmax": 1, "segment_matmul": 1,
+                                 "flash_attention_fwd": 1, "flash_attention_dq": 1,
+                                 "flash_attention_dkv": 1}
+    big = torch.randn(1, 4, 1, 160, device=cuda_device)
+    o, lse = flash_attention_fwd_cuda(big, big, big)
+    with pytest.raises(ValueError, match="at most 128"):
+        flash_attention_bwd_cuda(big, big, big, o, lse, big)
+    with pytest.raises(ValueError, match="int32"):
+        segment_matmul_cuda(st.assign.long(), st.alpha, torch.randn(64, 16, device=cuda_device), 4)

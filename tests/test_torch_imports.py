@@ -1,5 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+neither JAX nor anything of the JAX package ``repro``; and every C entry
+point the ctypes bindings declare exists in its CUDA source with the
+declared number of arguments."""
 import json
 import os
 import re
@@ -25,7 +27,11 @@ def _port_modules() -> list[str]:
 
 def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = _port_modules()
-    assert "repro_torch.serve.engine" in mods and "repro_torch.bridge" in mods
+    for m in ("repro_torch.serve.engine", "repro_torch.bridge", "repro_torch.launch.train",
+              "repro_torch.train.train_step", "repro_torch.optim.optimizers",
+              "repro_torch.core.pamm", "repro_torch.core.keys", "repro_torch.core.policies",
+              "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply"):
+        assert m in mods, m
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -33,6 +39,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import chip_smoke\n"
         "chip_smoke.bound(1.0, 1.0); chip_smoke.k3_work(1, 8, 2, 1, 16, causal=True, "
         "window=0, itemsize=2)\n"
+        "chip_smoke.k1_work(64, 16, 4, 2); chip_smoke.k2_work(64, 16, 4, 2)\n"
+        "chip_smoke.k45_work(1, 8, 2, 1, 16, causal=True, window=0, itemsize=2, which='K5')\n"
+        "chip_smoke.NumpySampler().choice(0, (('fold_in', 1),), 10, 3, 'cpu')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))))\n"
     )
@@ -54,3 +63,18 @@ def test_no_source_imports_jax_or_repro():
     assert IMPORT_RE.findall("import jax.numpy as jnp\nfrom repro.models import x\n") \
         == ["jax", "repro"]
     assert IMPORT_RE.findall("from repro_torch.models import x\nimport repro_torch\n") == []
+
+
+def test_every_c_entry_point_exists_with_its_arity():
+    """build.SIGNATURES against the sources: each entry point is an
+    ``extern "C"`` function of its source file, taking as many arguments as
+    its ctypes argtypes declare (nothing here can compile the sources)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    assert set(build.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    for name, argtypes in build.SIGNATURES.items():
+        text = (PORT / "csrc" / f"{build.SOURCE_OF.get(name, name)}.cu").read_text()
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name

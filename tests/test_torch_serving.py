@@ -181,13 +181,25 @@ def test_engine_eos_and_stage_api_errors():
     ({"speculative_k": 2}, "paged-serving slice"),
     ({"cache_compress": "int8"}, "paged-serving slice"),
     ({"mesh": object()}, "multi-GPU slice"),
-    ({"plan": "attn.qkv=pamm(r=1/8)"}, "training slice"),
 ])
 def test_engine_refuses_later_slices(kwargs, match):
     tcfg = torch_get_config("internlm2-1.8b_smoke")
     model = t_init_model(tcfg, TRCFG, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         ServeEngine(tcfg, TRCFG, model, max_slots=1, max_len=16, **kwargs)
+
+
+def test_engine_with_a_plan_serves_the_same_tokens():
+    """A compression plan routes prefill through site dispatch (as in the
+    JAX engine); outputs are exact, so the tokens do not change."""
+    tcfg = torch_get_config("internlm2-1.8b_smoke")
+    model = t_init_model(tcfg, TRCFG, seed=0, device="cpu")
+    reqs = lambda: [Request(uid=i, tokens=list(range(3 + i, 12 + i)), max_new_tokens=5)
+                    for i in range(2)]
+    plain = ServeEngine(tcfg, TRCFG, model, max_slots=2, max_len=24).run(reqs())
+    planned = ServeEngine(tcfg, TRCFG, model, max_slots=2, max_len=24,
+                          plan="attn.qkv=pamm(r=1/8);ffn.*=compact(r=1/4)").run(reqs())
+    assert {u: r.tokens for u, r in plain.items()} == {u: r.tokens for u, r in planned.items()}
 
 
 def test_cuda_requested_without_a_card_raises(monkeypatch):
@@ -205,11 +217,14 @@ def test_serve_cli_smoke_and_refusals(capsys):
           "--dtype", "bfloat16", "--temperature", "0.8", "--top-k", "5", "--smoke"])
     out = capsys.readouterr().out
     assert "SMOKE OK" in out and "prefill buckets" in out
+    main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--batch", "2",
+          "--requests", "2", "--prompt-len", "8", "--gen", "3",
+          "--compression", "attn.qkv=pamm(r=1/8)"])
+    assert "decode" in capsys.readouterr().out
     with pytest.raises(SystemExit) as exc:
-        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu",
-              "--compression", "attn.qkv=pamm(r=1/8)"])
+        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--prefix-share"])
     assert exc.value.code == 2
-    assert "training slice" in capsys.readouterr().err
+    assert "paged-serving slice" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
