@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's slices on one NVIDIA H100: dense-cache serving
-and PAMM-compressed training of internlm2-1.8b.
+"""Drive the PyTorch port's slices on one NVIDIA H100: dense-cache serving,
+paged / quantised / low-rank KV-cache serving and PAMM-compressed training
+of internlm2-1.8b.
 
   python3 chip_smoke.py
 
@@ -30,17 +31,36 @@ is caught and ignored:
                         decode block by kernel and gives the idle share
   5. numbers            throughput, latency, kernel times next to their
                         plain versions, SDPA and the data-sheet bound
-  6. K1, K2, K4/K5      the training kernels against their plain versions
+  6. K7, K8 vs plain    paged decode, bf16, at the serving shape (8 slots x
+                        17 pages of 64): shuffled pages, a hole, a parked
+                        row (finite only), a ring, Lq 5, head dims 80 and
+                        120, svd coefficients (r 64) with the dh-128
+                        scale, int8 and int4 pages at 1 and 4 scale groups
+  7. paged serving      the serving phase's requests through page pools of
+                        64: fp (tokens against the dense run, a second run,
+                        launch counts K7 = 24 x decode steps, peak memory,
+                        a profiler split of one decode block); fp, int8,
+                        int4 and svd(r=1/2) at one byte budget of four bf16
+                        reservations (pages, admitted concurrency, released
+                        pages, throughput, first-step logits against fp
+                        within the JAX bounds, K8 on int8/int4); prefix
+                        sharing of a 768-token head (tokens equal unshared,
+                        the sharing counters, K7 launches); speculative
+                        verify at k = 4 (tokens equal sequential greedy up
+                        to a near tie, every token of each stream against
+                        a teacher-forced forward, every decode step a
+                        verify call through K7 at Lq 5)
+  8. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
                         bf16 and f32 and at k = b/8; K2 at m 2048 and 1024,
                         two launches bitwise equal; K3 (whose o and lse
                         feed the backward) and K4/K5 at (4, 2048, 16/8,
                         128) bf16, a window of 256, head dims 80, 120,
                         each output row held to its own norm
-  7. card vs CPU        one train step of internlm2-1.8b_smoke in f32 with
+  9. card vs CPU        one train step of internlm2-1.8b_smoke in f32 with
                         the same parameters and generator rows on the card
                         (kernels) and on the CPU (plain versions)
-  8. training           internlm2-1.8b, full width and depth, f32 params /
+  10. training          internlm2-1.8b, full width and depth, f32 params /
                         bf16 compute, attn.qkv=pamm(r=1/512), AdamW, batch
                         4 x 2048 from SyntheticStream: one warm-up step and
                         3 measured ones (finite losses, per-step launch
@@ -48,9 +68,11 @@ is caught and ignored:
                         second run from the seed (same step-0 loss), the
                         peak memory against attn.qkv=none, and a
                         torch.profiler split of one step
-  9. training numbers   K1, K2, K4, K5 (and K3 at the training shape) next
+  11. training numbers  K1, K2, K4, K5 (and K3 at the training shape) next
                         to their plain versions, the SDPA backward and the
-                        bound
+                        bound; then K7 and K8 (int8, int4) at the serving
+                        shape beside their plain versions, the bound and,
+                        for K7, SDPA over the keys laid out densely
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -85,6 +107,16 @@ K3_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 K6_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
 K3_REPLACES = "src/repro/kernels/flash_attention.py:263"
 K6_REPLACES = "src/repro/kernels/flash_decode.py:147"
+K78_SOURCE = "src/repro_torch/csrc/flash_paged_decode.cu"
+K7_REPLACES = "src/repro/kernels/flash_decode.py:293"
+K8_REPLACES = "src/repro/kernels/flash_decode.py:490"
+PAGE = 64                          # kv_page_size's default
+POOL_TOKENS = 4 * 1152             # four requests' reservation (18 pages of 64) in bf16
+SHARED_PREFIX = 768                # prefix-sharing phase: shared head, 256-token tails
+SPEC_K = 4
+# first spliced decode step, compressed pool against fp paged: the JAX
+# package's per-format bounds (tests/test_kvquant.py:364-367)
+FORMAT_TOL = {"int8": 0.15, "int4": 1.5, "svd(r=1/2)": 8.0}
 K1_SOURCE = "src/repro_torch/csrc/pamm_compress.cu"
 K2_SOURCE = "src/repro_torch/csrc/pamm_apply.cu"
 K45_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
@@ -384,7 +416,9 @@ def phase_serving():
     trace_breakdown(cfg, engine, model, {
         "prefill": 1e3 * stats["prefill_s"] / max(1, stats["prefill_count"]),
         "decode block": 1e3 * stats["decode_s"] / max(1, stats["decode_steps"]) * DECODE_BLOCK})
-    return counts, stats, peak
+    dense = {"cfg": cfg, "rcfg": rcfg, "model": model,
+             "tokens": {u: out[u].tokens for u in out}}
+    return counts, stats, peak, dense
 
 
 def check_against_prefill(cfg, rcfg, model, req, tokens, every: int = 8):
@@ -415,7 +449,7 @@ def check_against_prefill(cfg, rcfg, model, req, tokens, every: int = 8):
           f"differences (largest top-2 margin {worst:.4f})")
 
 
-def trace_breakdown(cfg, engine, model, unprofiled_ms: dict):
+def trace_breakdown(cfg, engine, model, unprofiled_ms: dict, tag: str = ""):
     """Device time by kernel group over one prefill and one decode block
     (torch.profiler), and the device's busy share of the same work's wall
     time in the measured main-path run (``unprofiled_ms``; the profiler's
@@ -432,6 +466,9 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict):
     for label, work in (("prefill", lambda: eng.insert(eng.prefill(model, reqs[0]),
                                                        eng.decode_state, 0)),
                         ("decode block", lambda: eng.generate(model, eng.decode_state))):
+        if label not in unprofiled_ms:
+            work()
+            continue
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             work()
@@ -446,7 +483,8 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict):
             if evt.device_type != DeviceType.CUDA or us <= 0:
                 continue
             name = evt.key
-            group = ("K3" if "fwd_kernel" in name else "K6" if "decode_kernel" in name
+            group = ("K3" if "fwd_kernel" in name else "K7/K8" if "paged_decode" in name
+                     else "K6" if "decode_kernel" in name
                      else "GEMM" if any(s in name.lower() for s in GEMM_NAMES)
                      else "other")
             groups[group] = groups.get(group, 0.0) + us / 1e3
@@ -454,17 +492,17 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict):
                 others[name] = us / 1e3
         busy = sum(groups.values())
         if busy == 0:
-            print(f"[trace] {label}: device time not measured (the profiler recorded "
+            print(f"[trace] {tag}{label}: device time not measured (the profiler recorded "
                   f"no device activity); wall {wall_ms:.2f} ms")
             continue
         parts = " | ".join(f"{g} {ms:.3f} ms" for g, ms in
                            sorted(groups.items(), key=lambda kv: -kv[1]))
         base = unprofiled_ms[label]
-        print(f"[trace] {label}: device busy {busy:.3f} ms of {base:.2f} ms unprofiled "
+        print(f"[trace] {tag}{label}: device busy {busy:.3f} ms of {base:.2f} ms unprofiled "
               f"wall ({100 * busy / base:.1f}% busy, {100 - 100 * busy / base:.1f}% idle; "
               f"{wall_ms:.2f} ms under the profiler) | {parts}")
         top = sorted(others.items(), key=lambda kv: -kv[1])[:4]
-        print(f"[trace] {label}: largest other kernels: "
+        print(f"[trace] {tag}{label}: largest other kernels: "
               + " | ".join(f"{ms:.3f} ms {name[:60]}" for name, ms in top))
 
 
@@ -551,6 +589,463 @@ def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
     print(f"[numbers] peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
           f"| kv capacity {stats['cache/kv_capacity_mb']:.1f} MiB {tag}")
     return [k3, k6]
+
+
+# ---------------------------------------------------------------------------
+# paged serving slice
+# ---------------------------------------------------------------------------
+def paged_inputs(gen, B, nb, ps, KV, w, fill, *, dtype=None, hole=False, ring=0,
+                 n_mapped=None):
+    """A page pool of (B * nb + 3) pages of ``ps`` rows, each batch row's
+    first ``n_mapped`` (default nb) blocks at shuffled page ids, ``fill[b]``
+    tokens written (wrapped into a ring of nb * ps slots when ``ring``),
+    stale random positions on the spare pages; ``hole`` unmaps row 0's
+    block 1. Returns (k_pages, v_pages, block_table, page_pos); ``dtype``
+    torch.int8 gives int pages of width ``w``."""
+    import torch
+
+    n_pages = B * nb + 3
+    n_mapped = nb if n_mapped is None else n_mapped
+    if dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, (n_pages, ps, KV, w), generator=gen, device="cuda",
+                              dtype=torch.int8) for _ in range(2))
+    else:
+        k, v = (_randn((n_pages, ps, KV, w), gen, dtype) for _ in range(2))
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    bt = torch.full((B, nb), -1, dtype=torch.int32, device="cuda")
+    bt[:, :n_mapped] = perm[:B * n_mapped].reshape(B, n_mapped).to(torch.int32)
+    ppos = torch.randint(0, nb * ps, (n_pages, ps), generator=gen, device="cuda")
+    slots = torch.arange(nb * ps, device="cuda").reshape(nb, ps)
+    for b in range(B):
+        n = int(fill[b])
+        last = n - 1 - ((n - 1 - slots) % (nb * ps)) if ring else slots
+        ppos[bt[b, :n_mapped].long()] = torch.where((last >= 0) & (last < n), last,
+                                                    -1)[:n_mapped]
+    if hole:
+        bt[0, 1] = -1
+    return k, v, bt, ppos.to(torch.int32)
+
+
+def paged_visible(bt, ppos, qpos, window):
+    """(B, Lq, nb * ps) keys each query row sees (mapped page, position
+    written, causal, in the window)."""
+    B = bt.shape[0]
+    spos = ppos[bt.clamp_min(0).long()].masked_fill(bt[..., None] < 0, -1).reshape(B, -1)
+    qp = qpos.reshape(B, -1)[:, :, None]
+    vis = (spos[:, None] >= 0) & (spos[:, None] <= qp)
+    if window:
+        vis &= qp - spos[:, None] < window
+    return vis
+
+
+def paged_work(bt, ppos, qpos, H, KV, dot_w, row_bytes, dh, *, window=0):
+    """(flops, bytes) of one K7 / K8 call on this data: 4 * dot_w per
+    visible (query row, key) pair and head; the K/V rows that some query
+    row of their slot sees (``row_bytes`` per row and kv head, scales
+    included) read once; the mapped pages' page_pos (every row of them:
+    it decides what is seen), the block table and q read once; the output
+    written once."""
+    vis = paged_visible(bt, ppos, qpos, window)
+    B, Lq = vis.shape[:2]
+    rows = int((bt >= 0).sum()) * ppos.shape[1]
+    seen = int(vis.any(1).sum())
+    flops = 4.0 * dot_w * int(vis.sum()) * H
+    nbytes = 2 * seen * KV * row_bytes + rows * 4 + bt.numel() * 4 + 2 * B * Lq * H * dh * 2
+    return flops, nbytes
+
+
+def _paged_err(o, o_r, bt, ppos, qpos, window):
+    """(max |o - o_ref|, worst row rel) over the rows that see a key; a
+    fully masked (parked) row must only be finite."""
+    seen = paged_visible(bt, ppos, qpos, window).any(-1)
+    return ((o[seen].float() - o_r[seen].float()).abs().max().item(),
+            row_err(o[seen], o_r[seen]))
+
+
+def phase_k7_k8(gen):
+    """K7 and K8 against their plain versions at the serving shape (8 slots
+    x 17 mapped pages of 64 of an 18-block table, H 16 / KV 8, dh 128,
+    bf16), and around it. Returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import (flash_paged_decode_cuda,
+                                                  flash_paged_decode_quant_cuda,
+                                                  flash_paged_decode_quant_ref,
+                                                  flash_paged_decode_ref, quantize_kv)
+
+    B, nb, H, KV = SLOTS, 18, 16, 8
+    fills = [1088 - 97 * b for b in range(B)]
+    errs = {"K7": 0.0, "K8": 0.0}
+    cases = [
+        # label, dh (stored width), Lq, hole, ring/window, scale, quant (bits, ngr)
+        ("shuffled, row 3 parked", 128, 1, False, 0, None, None),
+        ("a hole", 128, 1, True, 0, None, None),
+        ("ring of 256, window 256", 128, 1, False, 256, None, None),
+        ("Lq 5", 128, 5, False, 0, None, None),
+        ("dh 80", 80, 1, True, 0, None, None),
+        ("dh 120", 120, 1, False, 0, None, None),
+        ("svd r 64, dh-128 scale", 64, 1, False, 0, 128 ** -0.5, None),
+        ("int8 ngr 1", 128, 1, True, 0, None, (8, 1)),
+        ("int8 ngr 4", 128, 5, False, 0, None, (8, 4)),
+        ("int4 ngr 1", 128, 1, False, 0, None, (4, 1)),
+        ("int4 ngr 4", 128, 5, True, 0, None, (4, 4)),
+    ]
+    for label, dh, Lq, hole, ring, scale, quant in cases:
+        nbx = 4 if ring else nb
+        fill = [600] * B if ring else fills
+        window = ring
+        q = _randn((B, Lq, H, dh), gen)
+        qpos = (torch.tensor(fill, device="cuda")[:, None] - Lq
+                + torch.arange(Lq, device="cuda")[None]).to(torch.int32)
+        qpos[3, 0] = -1                                   # a parked row
+        k, v, bt, ppos = paged_inputs(gen, B, nbx, PAGE, KV, dh, fill, hole=hole, ring=ring,
+                                      n_mapped=None if ring else 17)
+        if quant is None:
+            o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, window=window, scale=scale)
+            o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, window=window, scale=scale)
+            name = "K7"
+        else:
+            bits, ngr = quant
+            (kq, ks), (vq, vs) = (quantize_kv(t, bits, ngr) for t in (k, v))
+            o = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
+            o_r = flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
+            name = "K8"
+        e, e_r = _paged_err(o, o_r, bt, ppos, qpos, window)
+        print(f"[{name}] B={B} nb={nbx} ps={PAGE} H={H} KV={KV} w={dh} Lq={Lq} ({label}) bf16: "
+              f"max|o-o_ref|={e:.3e} (tol {TOL_O}) worst row rel {e_r:.3e} (tol {TOL_ROW})")
+        check(bool(o.isfinite().all()), f"{name} output not finite ({label})")
+        check(e <= TOL_O and e_r <= TOL_ROW, f"{name} disagrees with its plain version ({label})")
+        errs[name] = max(errs[name], e)
+    return errs
+
+
+def _counted(drive):
+    """Launch counts of ``drive()``: set to 0 just before, read just after."""
+    import torch
+
+    from repro_torch.kernels import launches
+
+    torch.cuda.synchronize()
+    launches.reset()
+    out = drive()
+    torch.cuda.synchronize()
+    return out, launches.counts()
+
+
+def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what):
+    """Where two greedy streams of one request differ, the first
+    divergence must sit at a near tie: a fresh prefill over the prompt and
+    the shared tokens has a top-2 margin below 0.25 (the dense phase's
+    rule). Returns the index of the first divergence or None."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    diff = [t for t in range(min(len(want), len(got))) if want[t] != got[t]]
+    if not diff:
+        return None
+    t = diff[0]
+    seq = torch.tensor([list(req.tokens) + want[:t]], device="cuda")
+    logits, _ = prefill(cfg, rcfg, model, {"tokens": seq}, seq.shape[1])
+    top2 = logits[0, -1, : cfg.vocab_size].topk(2).values
+    margin = float(top2[0] - top2[1])
+    print(f"[paged] {what}: request {req.uid} first differs at token {t}, top-2 margin "
+          f"{margin:.4f}")
+    check(margin < 0.25, f"{what}: request {req.uid} diverged at token {t} at a margin of "
+                         f"{margin:.3f}, not a near tie")
+    return t
+
+
+def teacher_forced(cfg, rcfg, model, req, tokens, what):
+    """Every token of a greedy stream against the argmax of one forward
+    pass over the prompt and the stream's own earlier tokens (K3 only):
+    where they differ, the emitted token's logit must lie within 0.25 of
+    the forward's largest, the dense phase's near-tie margin. Returns
+    (differences, largest such gap)."""
+    import torch
+
+    from repro_torch.core.keys import Key
+    from repro_torch.models import forward
+
+    seq = torch.tensor([list(req.tokens) + tokens[:-1]], device="cuda")
+    with torch.no_grad():
+        h, _ = forward(cfg, rcfg, None, model, {"tokens": seq}, Key(0))
+        rows = (h[0, len(req.tokens) - 1:] @ model.head.to(h.dtype)).float()
+    rows = rows[:, : cfg.vocab_size]
+    check(bool(torch.isfinite(rows).all()), f"{what}: non-finite teacher-forced logits")
+    got = torch.tensor(tokens, device=rows.device)
+    gap = (rows.max(-1).values - rows.gather(1, got[:, None])[:, 0]).cpu()
+    diff = (rows.argmax(-1) != got).nonzero().flatten().tolist()
+    worst = max((float(gap[t]) for t in diff), default=0.0)
+    check(worst < 0.25, f"{what}: request {req.uid} disagrees with the teacher-forced "
+                        f"argmax at a margin of {worst:.3f}, not a near tie")
+    return len(diff), worst
+
+
+def phase_paged_serving(dense, smi):
+    """Paged fp serving of the dense phase's requests: tokens against the
+    dense run, launch counts (K7 = 24 x decode steps, K6 0, no plain
+    version), a second run, peak memory, a profiler split of one decode
+    block."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    engine = lambda: ServeEngine(cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN,
+                                 decode_block=DECODE_BLOCK, cache_layout="paged",
+                                 page_size=PAGE)
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    out, counts = _counted(lambda: eng.run(_requests(cfg)))
+    peak = torch.cuda.max_memory_allocated()
+    stats = eng.stats()
+    check(sorted(out) == list(range(N_REQUESTS)) and stats["nonfinite_logits"] == 0,
+          "paged fp: a request did not finish or logits were not finite")
+    for a in eng.allocators:
+        a.check_invariant()
+        check(a.free_pages == a.spec.n_pages, "paged fp: pages stayed reserved")
+    n = cfg.n_layers
+    print(f"[paged] fp launches {counts} | prefills {stats['prefill_count']} | decode steps "
+          f"{stats['decode_steps']} | pages {eng.allocators[0].spec.n_pages}")
+    check(counts.get("flash_paged_decode", 0) == n * stats["decode_steps"]
+          and counts.get("flash_attention_fwd", 0) == n * stats["prefill_count"]
+          and counts.get("flash_decode", 0) == 0
+          and not any(k.endswith("_ref") for k in counts),
+          "paged fp launches: want K7 = 24 x decode steps, K3 = 24 x prefills, K6 0, plain 0")
+    again = engine().run(_requests(cfg))
+    check(all(again[u].tokens == out[u].tokens for u in out), "paged fp: a second run differs")
+    same = [u for u in out if out[u].tokens == dense["tokens"][u]]
+    print(f"[paged] fp tokens equal to the dense run's for {len(same)}/{N_REQUESTS} requests "
+          f"(greedy and sampled); second run identical")
+    # a greedy stream may differ only from a near tie on; a sampled one
+    # follows its uniforms wherever the logits moved, so it is reported only
+    for r in _requests(cfg):
+        if r.uid not in same and r.sampling.temperature == 0:
+            first_divergence_near_tie(cfg, rcfg, model, r, dense["tokens"][r.uid],
+                                      out[r.uid].tokens, "paged vs dense")
+    print(f"[paged] peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB (dense run "
+          f"{dense['peak'] / 2**30:.3f} GiB) | kv capacity paged "
+          f"{stats['cache/kv_capacity_mb']:.1f} MiB, dense {dense['kv_mb']:.1f} MiB | "
+          f"decode {stats['decode_tok_s']:.1f} tok/s, p50 "
+          f"{stats['p50_token_latency_ms']:.3f} / p95 {stats['p95_token_latency_ms']:.3f} ms "
+          f"per step [{smi}]")
+    trace_breakdown(cfg, engine, model, {
+        "decode block": 1e3 * stats["decode_s"] / max(1, stats["decode_steps"]) * DECODE_BLOCK},
+        tag="paged ")
+    del eng
+    torch.cuda.empty_cache()
+    return counts, stats, {u: out[u].tokens for u in out}
+
+
+def _spliced_logits(cfg, rcfg, model, spec, prefix):
+    """One decode step's logits after splicing a batch-1 prefill cache
+    into slot 0 of a fresh paged tree of format ``spec`` (slot 1 parked),
+    as tests/test_kvquant.py holds the formats to fp."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plan import cache_plan_from_spec
+    from repro_torch.models import decode_step, init_caches
+    from repro_torch.serve import cache as cache_lib
+
+    full = init_caches(cfg, rcfg, 2, MAX_LEN, "cuda", layout="paged", page_size=PAGE,
+                       cache_plan=cache_plan_from_spec(spec).resolve(cfg))
+    if "svd" in spec:
+        cache_lib.install_svd_bases(full, model, cfg)
+    rows = [[np.arange(nd.block_table.shape[2], dtype=np.int32) for nd in st] for st in full]
+    lp = prefix.prompt_len
+    cache_lib.write_slot_paged(full, prefix.caches, rows, 0, lp)
+    logits, _ = decode_step(cfg, rcfg, model,
+                            torch.tensor([[prefix.first_token], [0]], device="cuda"),
+                            torch.tensor([[lp], [-1]], dtype=torch.int32, device="cuda"), full)
+    return logits[0, 0, : cfg.vocab_size].float()
+
+
+def phase_compressed_pools(dense, smi):
+    """fp, int8, int4 and svd(r=1/2) pools at one byte budget (pool_tokens
+    = four requests' bf16 reservation): pages minted, admitted concurrency,
+    allocator invariant and release, throughput; first spliced decode step
+    against fp within the JAX bounds; K8 carries int8/int4, K7 svd."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    probe = ServeEngine(cfg, rcfg, model, max_slots=1, max_len=MAX_LEN, cache_layout="paged",
+                        page_size=PAGE)
+    prefix = probe.prefill(model, _requests(cfg)[0])
+    del probe
+    ref = _spliced_logits(cfg, rcfg, model, "", prefix)
+    res = {}
+    for spec in ("", "int8", "int4", "svd(r=1/2)"):
+        eng = ServeEngine(cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN,
+                          decode_block=DECODE_BLOCK, cache_layout="paged", page_size=PAGE,
+                          pool_tokens=POOL_TOKENS, cache_compress=spec)
+        out, counts = _counted(lambda: eng.run(_requests(cfg)))
+        st = eng.stats()
+        [alloc] = eng.allocators
+        alloc.check_invariant()
+        label = spec or "fp"
+        check(sorted(out) == list(range(N_REQUESTS)) and st["nonfinite_logits"] == 0,
+              f"{label} pool: a request did not finish or logits were not finite")
+        check(alloc.free_pages == alloc.spec.n_pages, f"{label} pool: pages stayed reserved")
+        want = ("flash_paged_decode_quant" if spec in ("int8", "int4")
+                else "flash_paged_decode")
+        check(counts.get(want, 0) == cfg.n_layers * st["decode_steps"]
+              and not any(k.endswith("_ref") for k in counts)
+              and sum(counts.get(k, 0) for k in ("flash_decode", "flash_paged_decode",
+                                                 "flash_paged_decode_quant")) ==
+              cfg.n_layers * st["decode_steps"],
+              f"{label} pool launches {counts}: want {want} = 24 x decode steps only")
+        err = 0.0 if not spec else float((_spliced_logits(cfg, rcfg, model, spec, prefix)
+                                          - ref).abs().max())
+        tol = FORMAT_TOL.get(spec, 0.0)
+        print(f"[paged] {label:>10}: {alloc.spec.n_pages} pages of {PAGE} "
+              f"({alloc.spec.token_bytes} B/token over {cfg.n_layers} layers) | "
+              f"kv_compression_x {eng.kv_compression_x:.3f} | peak concurrency "
+              f"{st['peak_active']} | invariant holds, 0 pages reserved after the run | decode "
+              f"{st['decode_tok_s']:.1f} tok/s, p50 {st['p50_token_latency_ms']:.3f} / p95 "
+              f"{st['p95_token_latency_ms']:.3f} ms | first-step logits vs fp max |d| "
+              f"{err:.4f}" + (f" (tol {tol})" if spec else "") + f" | launches {counts} [{smi}]")
+        check(not spec or err < tol, f"{label} pool: first-step logits off fp by {err:.3f}")
+        res[label] = {"peak_active": st["peak_active"], "counts": counts, "stats": st}
+        del eng
+        torch.cuda.empty_cache()
+    check(res["fp"]["peak_active"] == 4 and res["int8"]["peak_active"] > 4,
+          f"admission: fp {res['fp']['peak_active']}, int8 {res['int8']['peak_active']} "
+          f"(want 4 and more)")
+    return res
+
+
+def phase_prefix_and_spec(dense, paged_tokens, smi):
+    """Prefix sharing (16 requests sharing a 768-token head, with the
+    distinct 247-256-token tails of their own prompts, at the compressed
+    phase's pool budget: shared tokens equal unshared ones, decode through
+    K7) and speculative verify (the 12 greedy requests at k = 4: tokens
+    equal sequential greedy up to a near tie at the first divergence, and
+    every token of each stream equal to a teacher-forced forward's argmax
+    up to a near tie; K7 at Lq 5 on every decode step)."""
+    import torch
+
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    base = _requests(cfg)
+    head = list(base[0].tokens[:SHARED_PREFIX])
+    tails = [list(r.tokens[SHARED_PREFIX:]) for r in base]
+    shared = lambda: [Request(uid=r.uid, tokens=head + tails[i], max_new_tokens=GEN,
+                              sampling=r.sampling) for i, r in enumerate(base)]
+    kw = dict(max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
+              cache_layout="paged", page_size=PAGE, pool_tokens=POOL_TOKENS)
+    plain = ServeEngine(cfg, rcfg, model, **kw)
+    out_u = plain.run(shared())
+    eng = ServeEngine(cfg, rcfg, model, prefix_share=True, **kw)
+    out_s, counts = _counted(lambda: eng.run(shared()))
+    st = eng.stats()
+    check(all(out_s[u].tokens == out_u[u].tokens for u in out_u),
+          "prefix-shared tokens differ from the unshared run's")
+    while eng._evict_one_retired():
+        pass
+    for a in eng.allocators:
+        a.check_invariant()
+        check(a.free_pages == a.spec.n_pages, "prefix sharing leaked pages")
+    print(f"[paged] prefix sharing ({SHARED_PREFIX}-token head, distinct tails, pool "
+          f"{POOL_TOKENS} tokens): tokens equal to the unshared run for {N_REQUESTS}/"
+          f"{N_REQUESTS} | prefix_hits {st['prefix_hits']} | pages_adopted "
+          f"{st['prefix_pages_adopted']} | cow_page_splits {st['cow_page_splits']} | peak "
+          f"concurrency {st['peak_active']} shared vs {plain.peak_active} unshared | no page "
+          f"leaked after evicting the retired prefixes | launches {counts} | decode "
+          f"{st['decode_tok_s']:.1f} tok/s [{smi}]")
+    check(st["prefix_hits"] >= N_REQUESTS - 1 and st["peak_active"] > plain.peak_active,
+          "prefix sharing did not share")
+    check(counts.get("flash_paged_decode", 0) == cfg.n_layers * st["decode_steps"]
+          and counts.get("flash_decode", 0) == 0
+          and not any(k.endswith("_ref") for k in counts),
+          f"prefix sharing launches {counts}: want K7 = 24 x decode steps, K6 0, plain 0")
+    del plain, eng
+    torch.cuda.empty_cache()
+
+    greedy = [r for r in _requests(cfg) if r.sampling.temperature == 0]
+    spec_eng = ServeEngine(cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN,
+                           decode_block=DECODE_BLOCK, cache_layout="paged", page_size=PAGE,
+                           speculative_k=SPEC_K)
+    out, counts = _counted(lambda: spec_eng.run(greedy))
+    st = spec_eng.stats()
+    firsts = {r.uid: first_divergence_near_tie(cfg, rcfg, model, r, paged_tokens[r.uid],
+                                               out[r.uid].tokens, "speculative vs sequential")
+              for r in greedy}
+    # the whole of each stream, past its first divergence too
+    tf = [teacher_forced(cfg, rcfg, model, r, out[r.uid].tokens, "speculative")
+          for r in greedy]
+    n_same = sum(t is None for t in firsts.values())
+    print(f"[paged] speculative k={SPEC_K}, {len(greedy)} greedy requests: tokens equal to "
+          f"sequential greedy for {n_same}/{len(greedy)}, first divergences at tokens "
+          f"{sorted(t for t in firsts.values() if t is not None)} (near ties) | every token of "
+          f"every stream vs a teacher-forced forward over its own tokens: "
+          f"{sum(n for n, _ in tf)} of {sum(len(out[r.uid].tokens) for r in greedy)} differ, "
+          f"their largest gap to the top logit {max(w for _, w in tf):.4f} (near tie < 0.25) | "
+          f"verify calls {st['spec_verify_calls']} of {st['decode_steps']} decode steps, each "
+          f"one decode_step over (B, {SPEC_K + 1}) rows | drafted "
+          f"{st['spec_tokens_drafted']} accepted {st['spec_tokens_accepted']} (rate "
+          f"{st['spec_accept_rate']:.3f}) | launches {counts} | decode "
+          f"{st['decode_tok_s']:.1f} tok/s [{smi}]")
+    # an all-greedy batch verifies on every decode step, so every K7 launch
+    # of the run scored a verify block at Lq = k + 1
+    check(st["spec_verify_calls"] > 0 and st["spec_verify_calls"] == st["decode_steps"]
+          and st["nonfinite_logits"] == 0
+          and counts.get("flash_paged_decode", 0) == cfg.n_layers * st["decode_steps"]
+          and not any(k.endswith("_ref") for k in counts),
+          "speculative verify did not run K7 at Lq = k + 1 on every verify call")
+    del spec_eng
+    torch.cuda.empty_cache()
+    return st
+
+
+def phase_paged_numbers(gen, paged_counts, pool_res, smi, errs):
+    """K7 and K8 (int8, int4) in ms per call at the serving shape, beside
+    the plain versions, the bound and the launches; SDPA over the same
+    keys laid out densely (the gather not timed) as K7's yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (flash_paged_decode_cuda,
+                                                  flash_paged_decode_quant_cuda,
+                                                  flash_paged_decode_quant_ref,
+                                                  flash_paged_decode_ref, quantize_kv)
+
+    B, nb, H, KV, dh = SLOTS, 18, 16, 8, 128
+    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
+    k, v, bt, ppos = paged_inputs(gen, B, nb, PAGE, KV, dh, fill, n_mapped=17)
+    q = _randn((B, 1, H, dh), gen)
+    qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
+    btc = bt.clamp_min(0).long()
+    kd, vd = (t[btc].reshape(B, -1, KV, dh) for t in (k, v))
+    mask = paged_visible(bt, ppos, qpos, 0)[:, None]
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kd, vd))
+    qt = q.transpose(1, 2)
+    rows = [_kernel_row(
+        "flash_paged_decode (K7)", K78_SOURCE, K7_REPLACES,
+        paged_counts.get("flash_paged_decode", 0), errs["K7"],
+        lambda: flash_paged_decode_cuda(q, k, v, qpos, bt, ppos),
+        lambda: flash_paged_decode_ref(q, k, v, qpos, bt, ppos),
+        lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+        paged_work(bt, ppos, qpos, H, KV, dh, 2 * dh, dh))]
+    for bits, label in ((8, "int8"), (4, "int4")):
+        (kq, ks), (vq, vs) = (quantize_kv(t, bits, 1) for t in (k, v))
+        rows.append(_kernel_row(
+            f"flash_paged_decode_quant (K8, {label})", K78_SOURCE, K8_REPLACES,
+            pool_res[label]["counts"].get("flash_paged_decode_quant", 0), errs["K8"],
+            lambda: flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos),
+            lambda: flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos), None,
+            paged_work(bt, ppos, qpos, H, KV, dh, kq.shape[-1] + 4 * ks.shape[-1], dh)))
+    for row in rows:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms (SDPA over the keys laid out densely)")
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | plain {row['plain_ms']:.4f} "
+              f"ms | library {lib} | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+              f"{row['launches']} launches on its serving run [{smi}]")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -986,14 +1481,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     err3 = phase_k3(gen)
     err6 = phase_k6(gen)
-    counts, stats, peak = phase_serving()
+    counts, stats, peak, dense = phase_serving()
     kernels = phase_numbers(gen, counts, stats, smi, err3, err6, peak)
+    dense.update(peak=peak, kv_mb=stats["cache/kv_capacity_mb"])
+    torch.cuda.empty_cache()
+    errs78 = phase_k7_k8(gen)
+    paged_counts, _, paged_tokens = phase_paged_serving(dense, smi)
+    pool_res = phase_compressed_pools(dense, smi)
+    phase_prefix_and_spec(dense, paged_tokens, smi)
+    paged_rows = phase_paged_numbers(gen, paged_counts, pool_res, smi, errs78)
+    del dense
     torch.cuda.empty_cache()
     errs = phase_training_kernels(gen)
     phase_card_vs_cpu()
     per_step, rec = phase_training(smi)
     kernels[0]["max_abs_err"] = max(err3, errs["K3"])   # K3: serving and training shapes
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
+    kernels += paged_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

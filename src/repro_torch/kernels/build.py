@@ -44,12 +44,22 @@ SIGNATURES = {
     # q k v do lse delta dk dv, B L H KV dh, strides (q b,l  k b,l  v b,l
     # do b,l  dk b,l  dv b,l), causal window scale dtype stream
     "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I, I, F, I, P],
+    # q k_pages v_pages q_pos block_table page_pos o, B Lq H KV dh ps nb,
+    # strides (q b,l  k page,off  v page,off  block_table b  page_pos page
+    # o b,l), causal window scale dtype stream
+    "flash_paged_decode": [P] * 7 + [I] * 7 + [LL] * 10 + [I, I, F, I, P],
+    # q k_pages v_pages k_scale v_scale q_pos block_table page_pos o,
+    # B Lq H KV dh ps nb ngr bits, strides (q b,l  k page,off  v page,off
+    # k_scale page,off  v_scale page,off  block_table b  page_pos page
+    # o b,l), causal window scale dtype stream
+    "flash_paged_decode_quant": [P] * 9 + [I] * 9 + [LL] * 14 + [I, I, F, I, P],
 }
 SOURCE_OF = {
     "csim_argmax": "pamm_compress",
     "segment_matmul": "pamm_apply",
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
+    "flash_paged_decode_quant": "flash_paged_decode",
 }
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.get(e, e) for e in SIGNATURES))
 

@@ -1,17 +1,34 @@
-"""K6: single-query flash decode over a dense slot cache, as a CUDA kernel
-and its plain PyTorch version.
+"""K6, K7 and K8: flash decode over the serving caches, as CUDA kernels
+and their plain PyTorch versions.
 
-Counterpart of ``repro/kernels/flash_decode.py`` (``flash_decode_kernel``
-and its oracle ``flash_decode_ref``). Decode caches are slot-addressed,
-so the mask comes from per-slot absolute positions ``slot_pos`` (-1 =
+Counterpart of ``repro/kernels/flash_decode.py``. Decode caches are
+slot-addressed, so the mask comes from per-slot absolute positions (-1 =
 empty; a ring buffer for sliding-window layers) against the query's
 ``q_pos``, never from iota. A parked slot (``q_pos = -1``) masks every
 key; its output is finite and discarded by the engine.
 
-The kernel (``csrc/flash_decode.cu``) takes one query row (Lq = 1) and
-says in its header what bounds it on the H100. The plain version takes
-any Lq >= 1 (the paged speculative-verify path will reuse it) and is what
-the CPU tests hold against the JAX kernel.
+* K6 (``flash_decode``): one query row (Lq = 1) over a dense slot cache
+  ``(B, S, KV, dh)`` with ``slot_pos`` (B, S) (``csrc/flash_decode.cu``).
+* K7 (``flash_paged_decode``): decode through a page pool ``(n_pages,
+  page_size, KV, dh)`` and a block table ``(B, nb)`` (-1 = unmapped page,
+  skipped whole), with in-page masks from ``page_pos`` (n_pages,
+  page_size); Lq >= 1 rows with per-row positions ``q_pos`` (B, Lq)
+  (speculative verify) and a ``scale`` override (svd pools score rank-r
+  coefficients with the original head dim's scale).
+* K8 (``flash_paged_decode_quant``): K7 over int8 pages, or int4 pages
+  (two nibbles per byte), with f32 absmax scales per (token, kv head,
+  group), dequantised in f32 per tile (both in
+  ``csrc/flash_paged_decode.cu``).
+
+The host-side quantisation helpers (``quantize_kv`` / ``dequantize_kv`` /
+``pack_int4`` / ``unpack_int4``) live here too, with the JAX package's
+rounding (half to even) and nibble order (dim 2j low, 2j+1 high), so the
+models and the serving cache share one convention.
+
+The plain versions take any Lq >= 1 and are what the CPU tests hold
+against the JAX kernels. On a fully masked row (a parked slot) the K7/K8
+kernels, like the TPU ones, average V over the mapped pages only, the
+plain versions over every gathered page: both finite, both discarded.
 """
 from __future__ import annotations
 
@@ -24,11 +41,68 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_decode_ref(q, k, v, q_pos, slot_pos, *, causal: bool = True,
-                     window: int = 0, scale: float | None = None):
-    """q (B, Lq, H, dh); k, v (B, S, KV, dh); q_pos (B,) or (B, Lq);
-    slot_pos (B, S). Materializes (B, Lq, KV, G, S) scores in f32."""
-    LAUNCHES["flash_decode_ref"] += 1
+# ---------------------------------------------------------------------------
+# KV quantisation (cache.kv=int8 / int4(group=...))
+# ---------------------------------------------------------------------------
+def pack_int4(q):
+    """Pack int8 values in [-7, 7] into nibbles: (..., d) -> (..., d//2).
+    Adjacent dims pair into one byte (dim 2j low nibble, 2j+1 high)."""
+    lo = q[..., 0::2].to(torch.int32) & 0xF
+    hi = q[..., 1::2].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(p):
+    """Inverse of :func:`pack_int4`, sign-extending each nibble (the int8
+    shifts ``(b << 4) >> 4`` and ``b >> 4``, done in int32)."""
+    b = p.to(torch.int32)
+    lo = ((b & 0xF) ^ 8) - 8
+    hi = b >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1],
+                                                 p.shape[-1] * 2).to(torch.int8)
+
+
+def quantize_kv(x, bits: int, ngr: int):
+    """Symmetric absmax quantisation of K/V rows: x (..., dh) -> (q int8
+    (..., dh) [int4: packed (..., dh//2)], scale f32 (..., ngr)), one scale
+    per ``dh // ngr``-wide group; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    dh = x.shape[-1]
+    xg = x.float().reshape(*x.shape[:-1], ngr, dh // ngr)
+    qmax = 127.0 if bits == 8 else 7.0
+    scale = xg.abs().amax(dim=-1).clamp_min(1e-12) / qmax
+    q = torch.clamp(torch.round(xg / scale[..., None]), -qmax, qmax)
+    q = q.reshape(*x.shape[:-1], dh).to(torch.int8)
+    if bits == 4:
+        q = pack_int4(q)
+    return q, scale
+
+
+def quant_bits(width: int, dh: int) -> int:
+    """A quantised pool's format from its pages' last dim: int8 pages hold
+    dh values a row, int4 pages dh / 2 bytes (dh even)."""
+    if width == dh:
+        return 8
+    if dh % 2 == 0 and width == dh // 2:
+        return 4
+    raise ValueError(f"int8 pages of width dh={dh} or int4 pages of width dh/2 "
+                     f"(dh even); got width {width}")
+
+
+def dequantize_kv(q, scale, dh: int):
+    """(..., dh | dh//2 packed) int8 + (..., ngr) f32 -> (..., dh) f32."""
+    if quant_bits(q.shape[-1], dh) == 4:
+        q = unpack_int4(q)
+    ngr = scale.shape[-1]
+    xg = q.float().reshape(*q.shape[:-1], ngr, dh // ngr)
+    return (xg * scale[..., None]).reshape(*q.shape[:-1], dh)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _decode_math(q, k, v, q_pos, slot_pos, *, causal: bool, window: int,
+                 scale: float | None):
     B, Lq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -45,6 +119,15 @@ def flash_decode_ref(q, k, v, q_pos, slot_pos, *, causal: bool = True,
     p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1)
     out = torch.einsum("blkgs,bskd->blkgd", p, v.float())
     return out.reshape(B, Lq, H, dh).to(q.dtype)
+
+
+def flash_decode_ref(q, k, v, q_pos, slot_pos, *, causal: bool = True,
+                     window: int = 0, scale: float | None = None):
+    """q (B, Lq, H, dh); k, v (B, S, KV, dh); q_pos (B,) or (B, Lq);
+    slot_pos (B, S). Materializes (B, Lq, KV, G, S) scores in f32."""
+    LAUNCHES["flash_decode_ref"] += 1
+    return _decode_math(q, k, v, q_pos, slot_pos, causal=causal, window=window,
+                        scale=scale)
 
 
 def _check(q, k, v, q_pos, slot_pos):
@@ -95,4 +178,157 @@ def flash_decode_cuda(q, k, v, q_pos, slot_pos, *, causal: bool = True,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_decode", err)
     LAUNCHES["flash_decode"] += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: paged decode
+# ---------------------------------------------------------------------------
+def _gather_pages(k_pages, v_pages, block_table, page_pos):
+    """The pool gathered through the block table as a dense (B, nb*ps, KV,
+    w) cache. Unmapped blocks gather page 0 (which may belong to another
+    sequence) and are masked wholesale by forcing their positions to -1."""
+    B, nb = block_table.shape
+    _, ps, KV, w = k_pages.shape
+    btc = block_table.clamp_min(0).long()
+    k = k_pages[btc].reshape(B, nb * ps, KV, w)
+    v = v_pages[btc].reshape(B, nb * ps, KV, v_pages.shape[-1])
+    spos = torch.where(block_table[..., None] >= 0, page_pos[btc], -1)
+    return k, v, spos.reshape(B, nb * ps)
+
+
+def flash_paged_decode_ref(q, k_pages, v_pages, q_pos, block_table, page_pos,
+                           *, causal: bool = True, window: int = 0,
+                           scale: float | None = None):
+    """Plain K7: gather the pool through the block table, then the dense
+    decode math. q (B, Lq, H, dh); pages (n_pages, ps, KV, dh); q_pos (B,)
+    or (B, Lq); block_table (B, nb); page_pos (n_pages, ps)."""
+    LAUNCHES["flash_paged_decode_ref"] += 1
+    k, v, spos = _gather_pages(k_pages, v_pages, block_table, page_pos)
+    return _decode_math(q, k, v, q_pos, spos, causal=causal, window=window,
+                        scale=scale)
+
+
+def flash_paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                                 block_table, page_pos, *, causal: bool = True,
+                                 window: int = 0):
+    """Plain K8: dequantise the pools wholesale (int -> f32 -> x scale),
+    then the plain K7 math: the same rounding as the kernel's per-tile
+    dequantisation."""
+    LAUNCHES["flash_paged_decode_quant_ref"] += 1
+    dh = q.shape[-1]
+    k = dequantize_kv(k_pages, k_scale, dh)
+    v = dequantize_kv(v_pages, v_scale, dh)
+    k, v, spos = _gather_pages(k, v, block_table, page_pos)
+    return _decode_math(q, k, v, q_pos, spos, causal=causal, window=window,
+                        scale=None)
+
+
+def _check_paged(name, q, k_pages, v_pages, q_pos, block_table, page_pos,
+                 page_dtype, width):
+    """Shared argument checks of K7 and K8; returns q_pos as (B, Lq)
+    contiguous int32."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPES or q.dim() != 4:
+        raise ValueError(f"{name} kernel takes float32 or bfloat16 q (B,Lq,H,dh), "
+                         f"got {q.dtype} {tuple(q.shape)}")
+    B, Lq, H, dh = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"{name} kernel: k/v pages (n_pages,ps,KV,w) of one shape, "
+                         f"got {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    n_pages, ps, KV, w = k_pages.shape
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
+        raise ValueError(f"{name} kernel: pages must be {page_dtype}, got "
+                         f"{k_pages.dtype}/{v_pages.dtype}")
+    if w != width:
+        raise ValueError(f"{name} kernel: pages of width {w} do not fit q's head "
+                         f"dim {dh} (want {width})")
+    if H % KV or dh > 256:
+        raise ValueError(f"{name} kernel: H={H} must be a multiple of KV={KV} "
+                         f"and dh={dh} at most 256")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or page_pos.shape != (n_pages, ps):
+        raise ValueError(f"{name} kernel: block_table (B,nb) and page_pos "
+                         f"(n_pages,ps); got {tuple(block_table.shape)}, "
+                         f"{tuple(page_pos.shape)}")
+    if q_pos.shape not in ((B,), (B, Lq)):
+        raise ValueError(f"{name} kernel: q_pos (B,) or (B,Lq), got {tuple(q_pos.shape)}")
+    for t in (q_pos, block_table, page_pos):
+        if t.dtype != torch.int32 or t.device != q.device:
+            raise ValueError(f"{name} kernel: q_pos, block_table and page_pos must "
+                             f"be int32 on {q.device}")
+    if block_table.stride(1) != 1 or page_pos.stride(1) != 1:
+        raise ValueError(f"{name} kernel: block_table and page_pos need contiguous rows")
+    if q.stride(3) != 1 or q.stride(2) != dh:
+        raise ValueError(f"{name} kernel: q needs contiguous (heads, dh) rows; "
+                         f"strides {q.stride()}")
+    for nm, x in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.device != q.device or x.stride(3) != 1 or x.stride(2) != w:
+            raise ValueError(f"{name} kernel: {nm} must lie on {q.device} with "
+                             f"contiguous (kv heads, w) rows; strides {x.stride()}")
+    return q_pos.reshape(B, -1).expand(B, Lq).contiguous()
+
+
+def flash_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table, page_pos, *,
+                            causal: bool = True, window: int = 0,
+                            scale: float | None = None):
+    """Launch K7 on q's current CUDA stream; returns (B, Lq, H, dh). The
+    pool is read in place through its strides: no pad, no transpose."""
+    qp = _check_paged("K7", q, k_pages, v_pages, q_pos, block_table, page_pos,
+                      q.dtype, q.shape[-1])
+    B, Lq, H, dh = q.shape
+    _, ps, KV, _ = k_pages.shape
+    o = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
+    fn = build.entry("flash_paged_decode")
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), qp.data_ptr(),
+             block_table.data_ptr(), page_pos.data_ptr(), o.data_ptr(),
+             B, Lq, H, KV, dh, ps, block_table.shape[1],
+             q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1),
+             v_pages.stride(0), v_pages.stride(1), block_table.stride(0),
+             page_pos.stride(0), o.stride(0), o.stride(1), int(causal), int(window),
+             dh ** -0.5 if scale is None else float(scale), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("flash_paged_decode", err)
+    LAUNCHES["flash_paged_decode"] += 1
+    return o
+
+
+def flash_paged_decode_quant_cuda(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                                  block_table, page_pos, *, causal: bool = True,
+                                  window: int = 0):
+    """Launch K8 on q's current CUDA stream; returns (B, Lq, H, dh). int4
+    iff the pages' last dim is dh/2; the scale group is dh / ngr."""
+    dh = q.shape[-1]
+    width = k_pages.shape[-1] if k_pages.dim() == 4 else -1
+    try:
+        bits = quant_bits(width, dh)
+    except ValueError as e:
+        raise ValueError(f"K8 kernel: {e}") from None
+    qp = _check_paged("K8", q, k_pages, v_pages, q_pos, block_table, page_pos,
+                      torch.int8, width)
+    B, Lq, H, _ = q.shape
+    n_pages, ps, KV, _ = k_pages.shape
+    ngr = k_scale.shape[-1] if k_scale.dim() == 4 else 0
+    for nm, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (s.shape != (n_pages, ps, KV, ngr) or s.dtype != torch.float32
+                or s.device != q.device or s.stride(3) != 1 or s.stride(2) != ngr):
+            raise ValueError(f"K8 kernel: {nm} must be f32 (n_pages,ps,KV,ngr) with "
+                             f"contiguous (kv heads, groups) rows on {q.device}")
+    if ngr < 1 or dh % ngr:
+        raise ValueError(f"K8 kernel: {ngr} scale groups must divide dh={dh}")
+    o = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
+    fn = build.entry("flash_paged_decode_quant")
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+             v_scale.data_ptr(), qp.data_ptr(), block_table.data_ptr(),
+             page_pos.data_ptr(), o.data_ptr(),
+             B, Lq, H, KV, dh, ps, block_table.shape[1], ngr, bits,
+             q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1),
+             v_pages.stride(0), v_pages.stride(1), k_scale.stride(0),
+             k_scale.stride(1), v_scale.stride(0), v_scale.stride(1),
+             block_table.stride(0), page_pos.stride(0), o.stride(0), o.stride(1),
+             int(causal), int(window), dh ** -0.5, _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_launch("flash_paged_decode_quant", err)
+    LAUNCHES["flash_paged_decode_quant"] += 1
     return o

@@ -21,7 +21,8 @@ from repro_torch.kernels import pamm_apply as _pa
 from repro_torch.kernels import pamm_compress as _pc
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention",
-           "flash_decode", "csim_argmax", "segment_matmul", "pamm_compress",
+           "flash_decode", "flash_paged_decode", "flash_paged_decode_quant",
+           "csim_argmax", "segment_matmul", "pamm_compress",
            "pamm_apply", "FlashAttention"]
 
 
@@ -88,6 +89,34 @@ def flash_decode(q, k, v, q_pos, slot_pos, *, causal: bool = True,
                                      window=window)
     return _fd.flash_decode_ref(q, k, v, q_pos, slot_pos, causal=causal,
                                 window=window)
+
+
+def flash_paged_decode(q, k_pages, v_pages, q_pos, block_table, page_pos, *,
+                       causal: bool = True, window: int = 0,
+                       scale: float | None = None):
+    """K7 (decode attention through a page pool and block table; Lq >= 1
+    rows with per-row positions): (B, Lq, H, dh)."""
+    if _route(q, "flash_paged_decode"):
+        return _fd.flash_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table,
+                                           page_pos, causal=causal, window=window,
+                                           scale=scale)
+    return _fd.flash_paged_decode_ref(q, k_pages, v_pages, q_pos, block_table,
+                                      page_pos, causal=causal, window=window,
+                                      scale=scale)
+
+
+def flash_paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                             block_table, page_pos, *, causal: bool = True,
+                             window: int = 0):
+    """K8 (K7 over int8 / int4 pages with f32 scales, dequantised per
+    tile): (B, Lq, H, dh)."""
+    if _route(q, "flash_paged_decode_quant"):
+        return _fd.flash_paged_decode_quant_cuda(
+            q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
+            causal=causal, window=window)
+    return _fd.flash_paged_decode_quant_ref(
+        q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
+        causal=causal, window=window)
 
 
 def csim_argmax(x, c):

@@ -1,5 +1,5 @@
 """Continuous-batching serving entry point of the port (twin of
-``repro/launch/serve.py``, dense cache layout).
+``repro/launch/serve.py``).
 
   python -m repro_torch.launch.serve --arch internlm2-1.8b --device cuda \
       --dtype bfloat16 --batch 8 --requests 16 --prompt-len 1024 --gen 64
@@ -8,9 +8,16 @@ Requests get staggered prompt lengths so admissions and evictions overlap
 mid-stream. Weights are random-initialised from ``--seed`` on the chosen
 device. ``--smoke`` runs the workload twice and asserts identical outputs
 and tok/s > 0. ``--compression`` routes prefill through the plan's sites
-(exact outputs). Flags of the JAX launcher that need later slices of the
-port (paged or compressed caches, prefix sharing, speculative decode,
-replicas, meshes) are refused with the slice named.
+(exact outputs). ``--cache-layout paged`` serves from page pools
+(``--page-size``, ``--pool-tokens``), ``--cache-compress`` stores them as
+int8 / int4 / svd, ``--prefix-share`` shares prompt pages copy-on-write and
+``--speculative-k`` verifies k drafted tokens per call:
+
+  python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
+      --cache-layout paged --cache-compress int8 --smoke
+
+Flags of the JAX launcher that need the port's multi-GPU slice (replicas,
+a dedicated prefill engine, meshes) are refused with the slice named.
 """
 from __future__ import annotations
 
@@ -46,7 +53,11 @@ def _make_engine(cfg, rcfg, model, args) -> ServeEngine:
     return ServeEngine(cfg, rcfg, model, max_slots=args.batch,
                        max_len=args.prompt_len + args.gen + 1,
                        decode_block=args.decode_block,
-                       cache_layout=args.cache_layout)
+                       cache_layout=args.cache_layout, page_size=args.page_size,
+                       pool_tokens=args.pool_tokens or None,
+                       cache_compress=args.cache_compress,
+                       prefix_share=args.prefix_share,
+                       speculative_k=args.speculative_k)
 
 
 def _serve_once(cfg, rcfg, model, args):
@@ -55,32 +66,16 @@ def _serve_once(cfg, rcfg, model, args):
     return results, engine.stats()
 
 
-_LATER = {
-    "cache_layout": "the paged cache layout arrives with the port's paged-serving slice",
-    "pool_tokens": "paged page pools arrive with the port's paged-serving slice",
-    "cache_compress": "compressed KV pools arrive with the port's paged-serving slice",
-    "prefix_share": "prefix sharing arrives with the port's paged-serving slice",
-    "speculative_k": "speculative decode arrives with the port's paged-serving slice",
-    "replicas": "the multi-replica router arrives with the port's multi-GPU slice",
-    "dedicated_prefill": "disaggregated prefill arrives with the port's multi-GPU slice",
-    "mesh_data": "mesh-sharded serving arrives with the port's multi-GPU slice",
-}
+_LATER = "arrives with the port's multi-GPU slice"
 
 
 def _refuse_later_slices(ap, args) -> None:
-    asked = {
-        "cache_layout": args.cache_layout != "dense",
-        "pool_tokens": bool(args.pool_tokens),
-        "cache_compress": bool(args.cache_compress),
-        "prefix_share": args.prefix_share,
-        "speculative_k": bool(args.speculative_k),
-        "replicas": args.replicas > 1,
-        "dedicated_prefill": args.dedicated_prefill,
-        "mesh_data": args.mesh_data > 1,
-    }
+    asked = {"replicas": args.replicas > 1,
+             "dedicated_prefill": args.dedicated_prefill,
+             "mesh_data": args.mesh_data > 1}
     for flag, on in asked.items():
         if on:
-            ap.error(f"--{flag.replace('_', '-')}: {_LATER[flag]}")
+            ap.error(f"--{flag.replace('_', '-')}: {flag.replace('_', ' ')} {_LATER}")
 
 
 def main(argv=None):
@@ -141,6 +136,16 @@ def main(argv=None):
           f"compression x{stats['cache/kv_compression_x']:.2f} | "
           f"{stats['prefill_buckets']} prefill buckets | "
           f"device {model.device}")
+
+    if args.prefix_share:
+        print(f"[prefix-share] hits {stats['prefix_hits']} | pages adopted "
+              f"{stats['prefix_pages_adopted']} | cow splits {stats['cow_page_splits']} "
+              f"| retired prefixes kept {stats['retired_prefixes']}")
+    if args.speculative_k:
+        print(f"[speculative k={args.speculative_k}] verify calls "
+              f"{stats['spec_verify_calls']} | drafted {stats['spec_tokens_drafted']} | "
+              f"accepted {stats['spec_tokens_accepted']} | accept rate "
+              f"{stats['spec_accept_rate']:.2f}")
 
     if args.smoke:
         again, stats2 = _serve_once(cfg, rcfg, model, args)

@@ -6,30 +6,39 @@ qk-norm (qwen3) and QKV bias (qwen2), and sliding-window attention with a
 ring-buffer KV cache (h2o-danube).
 
 Training and prefill attention go through K3 (forward) and, under
-autograd, K4/K5 (backward); decode attention goes through K6 -- all by way
-of :mod:`repro_torch.kernels.ops`: the plain PyTorch versions for CPU
+autograd, K4/K5 (backward); decode attention goes through K6 over the
+dense slot cache, K7 over a paged pool (fp, or the rank-r coefficients of
+an svd pool) and K8 over an int8 / int4 pool -- all by way of
+:mod:`repro_torch.kernels.ops`: the plain PyTorch versions for CPU
 tensors, the hand-written CUDA kernels for CUDA tensors. :func:`sdpa`
 stays as the plain reference the tests compare against. The Q/K/V
 projections run through the ``attn.qkv`` site of the run's plan: one
 compressed state per layer backs all three weight gradients (Fig. 2).
 
-The KV cache is updated in place (``cache_insert``): the JAX package
-returns a new cache and donates the old buffers on the TPU, which the
-port gets for free by writing into the slab.
+The KV caches are updated in place (``cache_insert``, ``paged_insert``,
+``paged_insert_quant``): the JAX package returns a new cache and donates
+the old buffers on the TPU, which the port gets for free by writing into
+the slab or the pool. A decode-time write never synchronises with the
+host: rows that must not land (a parked slot, an unmapped page) are
+redirected onto another row's write of the same value (:class:`RowWrite`),
+and a paged write's addresses are computed once per step for all layers
+together, each layer's through its own block table.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 
 from repro_torch.core.plan import SiteCtx, exact_ctx
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import quant_bits, quantize_kv
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
-LATER_SLICE_PAGED = ("paged, quantised and svd KV caches arrive with the "
-                     "port's paged-serving slice (kernels K7, K8)")
+LATER_SLICE_SHARDED = ("per-replica sharded page pools arrive with the port's "
+                       "multi-GPU slice")
 
 
 # ---------------------------------------------------------------------------
@@ -102,24 +111,31 @@ def sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int, chunk: int):
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
+class _CacheNode:
+    """A cache node's device leaves (``LEAVES``), each stacked over the
+    layers of its stage on a leading axis; :meth:`layer` gives one layer's
+    views. ``ring`` is host metadata here, not a device leaf as in JAX."""
+
+    LEAVES: ClassVar[tuple[str, ...]] = ()
+
+    def layer(self, r: int):
+        return dataclasses.replace(self, **{f: getattr(self, f)[r] for f in self.LEAVES})
+
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f) for f in self.LEAVES)
+
+
 @dataclasses.dataclass
-class KVCache:
+class KVCache(_CacheNode):
     """Dense slot cache. Per layer: k, v (B, S, KV, dh) and slot_pos (B, S)
     int32, the absolute position held by each slot (-1 = empty); S is
-    max_len, or the window for a ring cache. A stage's cache stacks its
-    layers on a leading axis (:meth:`layer` gives one layer's views).
-    ``ring`` is host metadata here, not a device leaf as in JAX."""
+    max_len, or the window for a ring cache."""
 
+    LEAVES: ClassVar[tuple[str, ...]] = ("k", "v", "slot_pos")
     k: torch.Tensor
     v: torch.Tensor
     slot_pos: torch.Tensor
     ring: bool
-
-    def layer(self, r: int) -> "KVCache":
-        return KVCache(self.k[r], self.v[r], self.slot_pos[r], self.ring)
-
-    def tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.k, self.v, self.slot_pos)
 
 
 def init_kv_cache(B: int, S: int, kv: int, dh: int, dtype, ring: bool,
@@ -171,6 +187,239 @@ def cache_insert(cache: KVCache, k_new, v_new, positions) -> KVCache:
     return cache
 
 
+@dataclasses.dataclass
+class RowWrite:
+    """Where M new rows land in a flat ``(N, ...)`` view, without a host
+    sync: ``dst[target[m]] = rows[source[m]]``. A row that must not land
+    is redirected onto the first valid row's address with that row's
+    value (a duplicate write of equal bytes); with no valid row at all,
+    onto ``dst[0]`` with its own value (``any_valid`` False). The valid
+    rows' addresses are distinct (pages are owned by one slot, or shared
+    only below the slot's write front). One plan serves every tensor of a
+    node; a stacked node's plan has a leading layer axis, and
+    :meth:`layer` gives one layer's plan."""
+
+    target: torch.Tensor     # (..., M) long
+    source: torch.Tensor     # (..., M) long
+    any_valid: torch.Tensor  # (...) bool
+
+    @classmethod
+    def of(cls, idx, valid) -> "RowWrite":
+        """``idx``, ``valid`` (..., M): one plan per leading index."""
+        idx = idx.long()
+        # gather, not idx[first]: a 0-dim CUDA index is read to the host
+        first = valid.to(torch.int32).argmax(-1, keepdim=True)
+        any_valid = valid.any(-1)
+        fallback = torch.where(any_valid[..., None], idx.gather(-1, first), 0)
+        source = torch.where(valid, torch.arange(idx.shape[-1], device=idx.device), first)
+        return cls(torch.where(valid, idx, fallback), source, any_valid)
+
+    def layer(self, r: int) -> "RowWrite":
+        return RowWrite(self.target[r], self.source[r], self.any_valid[r])
+
+    def apply(self, dst, rows) -> None:
+        """Write ``rows`` (M, ...) into ``dst`` (N, ...), in place."""
+        rows = rows.reshape(-1, *dst.shape[1:]).to(dst.dtype).index_select(0, self.source)
+        keep = self.any_valid.reshape([1] * rows.dim())
+        dst.index_put_((self.target,), torch.where(keep, rows,
+                                                   dst.index_select(0, self.target)))
+
+
+@dataclasses.dataclass
+class PagedKVCache(_CacheNode):
+    """Paged decode cache: one page pool per layer plus per-slot block
+    tables, so cache residency tracks the tokens admitted instead of a
+    dense ``(B, max_len, ...)`` worst case. Per layer: k_pages, v_pages
+    (n_pages, page_size, KV, dh); page_pos (n_pages, page_size) int32
+    absolute position per page row (-1 = empty); block_table (B, nb) int32
+    physical page of logical block j (-1 = unmapped). Logical layout per
+    sequence is :class:`KVCache`'s: absolute positions, a ring of logical
+    size nb * page_size for sliding-window layers."""
+
+    LEAVES: ClassVar[tuple[str, ...]] = ("k_pages", "v_pages", "page_pos", "block_table")
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    page_pos: torch.Tensor
+    block_table: torch.Tensor
+    ring: bool
+
+
+@dataclasses.dataclass
+class QuantPagedKVCache(_CacheNode):
+    """Paged decode cache with int8 or nibble-packed int4 pages (n_pages,
+    page_size, KV, dh | dh/2) and f32 absmax scales k_scale / v_scale
+    (n_pages, page_size, KV, ngr), one per ``dh // ngr``-wide group of a
+    row. The format comes from the shapes: int4 iff the pages' last dim
+    is dh / 2."""
+
+    LEAVES: ClassVar[tuple[str, ...]] = ("k_pages", "v_pages", "k_scale", "v_scale",
+                                         "page_pos", "block_table")
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    page_pos: torch.Tensor
+    block_table: torch.Tensor
+    ring: bool
+
+
+@dataclasses.dataclass
+class SVDPagedKVCache(_CacheNode):
+    """Paged decode cache storing K/V as rank-r coefficients (n_pages,
+    page_size, KV, r) in per-layer, per-kv-head orthonormal bases k_basis /
+    v_basis (KV, dh, r): decode projects q through the k basis, runs K7 on
+    the coefficients with the original head dim's softmax scale, and maps
+    the output back through the v basis."""
+
+    LEAVES: ClassVar[tuple[str, ...]] = ("k_pages", "v_pages", "k_basis", "v_basis",
+                                         "page_pos", "block_table")
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    k_basis: torch.Tensor
+    v_basis: torch.Tensor
+    page_pos: torch.Tensor
+    block_table: torch.Tensor
+    ring: bool
+
+
+# every paged cache layout the serving engine pools and allocates
+PAGED_CACHE_TYPES = (PagedKVCache, QuantPagedKVCache, SVDPagedKVCache)
+
+
+def _paged_common(B, logical, page_size, n_pages, device, lead):
+    if logical % page_size:
+        raise ValueError(f"logical cache size {logical} is not a multiple of "
+                         f"page_size {page_size}")
+    return dict(
+        page_pos=torch.full(lead + (n_pages, page_size), -1, dtype=torch.int32,
+                            device=device),
+        block_table=torch.full(lead + (B, logical // page_size), -1,
+                               dtype=torch.int32, device=device))
+
+
+def init_paged_kv_cache(B: int, logical: int, page_size: int, n_pages: int,
+                        kv: int, dh: int, dtype, ring: bool, device,
+                        layers: int | None = None) -> PagedKVCache:
+    """``logical`` (per-sequence logical size: the dense S rounded up to a
+    page multiple) must divide into whole pages."""
+    lead = () if layers is None else (layers,)
+    shape = lead + (n_pages, page_size, kv, dh)
+    return PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        ring=bool(ring), **_paged_common(B, logical, page_size, n_pages, device, lead))
+
+
+def init_quant_paged_kv_cache(B: int, logical: int, page_size: int, n_pages: int,
+                              kv: int, dh: int, bits: int, ngr: int, ring: bool,
+                              device, layers: int | None = None) -> QuantPagedKVCache:
+    if bits not in (8, 4):
+        raise ValueError(f"quantised pools hold int8 or int4, got {bits} bits")
+    lead = () if layers is None else (layers,)
+    shape = lead + (n_pages, page_size, kv, dh if bits == 8 else dh // 2)
+    sshape = lead + (n_pages, page_size, kv, ngr)
+    return QuantPagedKVCache(
+        k_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+        v_pages=torch.zeros(shape, dtype=torch.int8, device=device),
+        k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+        v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+        ring=bool(ring), **_paged_common(B, logical, page_size, n_pages, device, lead))
+
+
+def init_svd_paged_kv_cache(B: int, logical: int, page_size: int, n_pages: int,
+                            kv: int, dh: int, r: int, dtype, ring: bool, device,
+                            layers: int | None = None) -> SVDPagedKVCache:
+    """The bases start as the identity prefix (exact at r == dh);
+    ``serve/cache.install_svd_bases`` replaces them per layer."""
+    if not 1 <= r <= dh:
+        raise ValueError(f"svd rank {r} must lie in [1, {dh}]")
+    lead = () if layers is None else (layers,)
+    shape = lead + (n_pages, page_size, kv, r)
+    eye = torch.eye(dh, r, dtype=torch.float32, device=device)
+    return SVDPagedKVCache(
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        k_basis=eye.expand(lead + (kv, dh, r)).clone(),
+        v_basis=eye.expand(lead + (kv, dh, r)).clone(),
+        ring=bool(ring), **_paged_common(B, logical, page_size, n_pages, device, lead))
+
+
+def paged_addresses(positions, block_table, ring: bool, page_size: int, nb: int):
+    """(page, offset) of absolute ``positions`` (N, L) through
+    ``block_table`` (N, nb). An invalid position (< 0, or past the logical
+    size of a non-ring table) or an unmapped block gives page -1. Ring
+    tables wrap at the logical size nb * page_size, like the dense ring's
+    ``positions % S``."""
+    logical = nb * page_size
+    safe = positions.clamp_min(0)
+    idx = safe % logical if ring else safe
+    valid = positions >= 0
+    if not ring:
+        valid = valid & (positions < logical)
+    blk = (idx // page_size).clamp_max(nb - 1).long()
+    page = torch.gather(block_table, 1, blk)
+    page = torch.where(valid & (page >= 0), page, -1)
+    return page, idx % page_size
+
+
+def paged_write(cache, positions) -> RowWrite:
+    """Where the rows at ``positions`` (B, L) land in the cache's flat
+    (n_pages * page_size, ...) pool view: through the block table, with
+    invalid positions and unmapped blocks dropped. A stacked node (tables
+    (layers, B, nb)) gets one plan per layer, each through its own
+    layer's table, computed together: ``decode_step`` builds it once per
+    step and hands layer ``r`` its :meth:`RowWrite.layer`."""
+    ps = cache.k_pages.shape[-3]
+    bt = cache.block_table
+    lead, (B, nb) = bt.shape[:-2], bt.shape[-2:]
+    pos = positions.expand(*lead, *positions.shape).reshape(-1, positions.shape[-1])
+    page, off = paged_addresses(pos, bt.reshape(-1, nb), cache.ring, ps, nb)
+    page, off = page.reshape(*lead, -1), off.reshape(*lead, -1)
+    return RowWrite.of(page.clamp_min(0).long() * ps + off.long(), page >= 0)
+
+
+def _flat(t):
+    return t.view(-1, *t.shape[2:])
+
+
+def paged_insert(cache, k_new, v_new, positions, write: RowWrite | None = None):
+    """Insert L decode rows (B, L, KV, w) at ``positions`` (B, L) through
+    the block table, in place -- L = 1 is the decode step, L > 1 the
+    speculative-verify block. Invalid positions and unmapped blocks are
+    dropped. Works on any pool whose pages match ``k_new``'s trailing dims
+    (fp pools, and the svd pool's rank-r pools). ``write``: the step's
+    :func:`paged_write`, when the caller has it."""
+    write = paged_write(cache, positions) if write is None else write
+    write.apply(_flat(cache.k_pages), k_new)
+    write.apply(_flat(cache.v_pages), v_new)
+    write.apply(cache.page_pos.view(-1), positions)
+    return cache
+
+
+def quant_cache_bits(cache: QuantPagedKVCache, dh: int) -> int:
+    return quant_bits(cache.k_pages.shape[-1], dh)
+
+
+def paged_insert_quant(cache: QuantPagedKVCache, k_new, v_new, positions,
+                       dh: int, write: RowWrite | None = None) -> QuantPagedKVCache:
+    """Quantise-on-write: L decode rows (B, L, KV, dh) become int pages and
+    scales at their block-table addresses, in place."""
+    bits, ngr = quant_cache_bits(cache, dh), cache.k_scale.shape[-1]
+    kq, ks = quantize_kv(k_new, bits, ngr)
+    vq, vs = quantize_kv(v_new, bits, ngr)
+    write = paged_write(cache, positions) if write is None else write
+    for dst, src in ((cache.k_pages, kq), (cache.v_pages, vq),
+                     (cache.k_scale, ks), (cache.v_scale, vs)):
+        write.apply(_flat(dst), src)
+    write.apply(cache.page_pos.view(-1), positions)
+    return cache
+
+
+def svd_project_kv(x, basis):
+    """(B, L, KV, dh) through (KV, dh, r) -> (B, L, KV, r) coefficients, f32."""
+    return torch.einsum("blkd,kdr->blkr", x.float(), basis.float())
+
+
 # ---------------------------------------------------------------------------
 # block-level entry points
 # ---------------------------------------------------------------------------
@@ -194,18 +443,54 @@ def attn_train(params, x, positions, cfg, ctx: SiteCtx, key=None, *, window: int
     return out @ params["wo"].to(x.dtype), (k, v)
 
 
-def attn_decode(params, x, positions, cache, cfg, *, window: int):
-    """Decode attention through K6: x (B, 1, d), positions (B, 1) absolute
-    (-1 = parked slot). Inserts this step's K/V into the dense slot cache
-    in place, then attends over the slab."""
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError(LATER_SLICE_PAGED)
+
+
+def attn_decode(params, x, positions, cache, cfg, *, window: int,
+                write: RowWrite | None = None):
+    """Decode attention: x (B, L, d), positions (B, L) absolute (-1 =
+    parked slot). L = 1 is the decode step; L > 1 the speculative-verify
+    block (the drafted rows insert and score in one call, each masked by
+    its own position). Inserts this step's K/V into the cache in place,
+    then attends: K6 over a dense :class:`KVCache`, K7 over a
+    :class:`PagedKVCache` or the coefficients of an
+    :class:`SVDPagedKVCache`, K8 over a :class:`QuantPagedKVCache`.
+    ``write``: the step's :func:`paged_write` for a paged cache."""
     q, k, v = _project_qkv(params, x, exact_ctx(), cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    cache = cache_insert(cache, k, v, positions)
-    q_pos = positions.reshape(-1) if positions.shape[1] == 1 else positions
-    out = ops.flash_decode(q, cache.k, cache.v, q_pos, cache.slot_pos,
-                           causal=True, window=window)
+    if isinstance(cache, PAGED_CACHE_TYPES) and cache.block_table.dim() != 2:
+        raise NotImplementedError(LATER_SLICE_SHARDED)
+    if isinstance(cache, QuantPagedKVCache):
+        paged_insert_quant(cache, k, v, positions, cfg.head_dim, write)
+        out = ops.flash_paged_decode_quant(
+            q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
+            positions, cache.block_table, cache.page_pos, causal=True, window=window)
+    elif isinstance(cache, SVDPagedKVCache):
+        # scores in the rank-r space equal scores in head space with K
+        # reconstructed through the same orthonormal basis, so K7 runs on
+        # the coefficients; only the softmax scale stays the head dim's
+        B, L, H, dh = q.shape
+        kv, r = cache.k_pages.shape[-2], cache.k_pages.shape[-1]
+        paged_insert(cache, svd_project_kv(k, cache.k_basis).to(x.dtype),
+                     svd_project_kv(v, cache.v_basis).to(x.dtype), positions, write)
+        qc = torch.einsum("blkgd,kdr->blkgr", q.reshape(B, L, kv, H // kv, dh).float(),
+                          cache.k_basis.float())
+        out = ops.flash_paged_decode(
+            qc.reshape(B, L, H, r).to(q.dtype), cache.k_pages, cache.v_pages,
+            positions, cache.block_table, cache.page_pos, causal=True,
+            window=window, scale=dh ** -0.5)
+        out = torch.einsum("blkgr,kdr->blkgd", out.reshape(B, L, kv, H // kv, r).float(),
+                           cache.v_basis.float())
+        out = out.reshape(B, L, H, dh).to(q.dtype)
+    elif isinstance(cache, PagedKVCache):
+        paged_insert(cache, k, v, positions, write)
+        out = ops.flash_paged_decode(q, cache.k_pages, cache.v_pages, positions,
+                                     cache.block_table, cache.page_pos, causal=True,
+                                     window=window)
+    else:
+        cache_insert(cache, k, v, positions)
+        q_pos = positions.reshape(-1) if positions.shape[1] == 1 else positions
+        out = ops.flash_decode(q, cache.k, cache.v, q_pos, cache.slot_pos,
+                               causal=True, window=window)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ params["wo"].to(x.dtype), cache

@@ -157,28 +157,69 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     return x + ffn_sites(params["ffn"], h2, ctx, key), aux
 
 
-def block_decode(kind, cfg, rcfg, params, x, positions, cache):
-    """One-step decode. x: (B, 1, d). Returns (x, cache) -- the cache is
-    updated in place."""
+def block_decode(kind, cfg, rcfg, params, x, positions, cache, write=None):
+    """One decode step (or verify block). x: (B, L, d). Returns (x, cache)
+    -- the cache is updated in place; ``write`` is the step's
+    ``attention.paged_write`` of a paged cache."""
     _require_served(kind)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     out, cache = attn_lib.attn_decode(params["attn"], h, positions, cache, cfg,
-                                      window=_window_for(kind, cfg))
+                                      window=_window_for(kind, cfg), write=write)
     x = x + out
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
     return x + ffn(params["ffn"], h2), cache
 
 
 def init_block_cache(kind, cfg, B: int, max_len: int, dtype, device, *,
-                     layers: int | None = None, layout: str = "dense") -> attn_lib.KVCache:
-    """Zero-initialized dense slot cache (optionally stacked over
-    ``layers``); a sliding-window kind gets a ring of min(max_len,
-    window) slots."""
+                     layers: int | None = None, layout: str = "dense",
+                     page_size: int = 0, pool_pages: int | None = None,
+                     cache_format=None):
+    """Zero-initialized decode cache (optionally stacked over ``layers``).
+
+    ``layout="dense"``: a slot cache; a sliding-window kind gets a ring of
+    min(max_len, window) slots. ``layout="paged"``: a page pool of
+    ``pool_pages`` pages of ``page_size`` tokens (default: the dense worst
+    case, B x blocks per slot) plus block tables; a ring's logical size is
+    the dense ring size rounded up to whole pages.
+
+    ``cache_format`` (a compressed :class:`core.plan.CacheFormat`) swaps
+    the pool for its int8 / int4 / svd variant. ``pool_pages`` is a byte
+    budget expressed in dense pages, so a compressed pool gets
+    proportionally more pages at the same budget, capped at the dense
+    worst case (``repro/models/blocks.py:512-567``)."""
     _require_served(kind)
-    if layout != "dense":
-        raise NotImplementedError(attn_lib.LATER_SLICE_PAGED)
     win = _window_for(kind, cfg)
     size = min(max_len, win) if win else max_len
-    return attn_lib.init_kv_cache(B, size, cfg.n_kv_heads,
-                                  cfg.head_dim, dtype, bool(win), device,
-                                  layers=layers)
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    compressed = cache_format is not None and cache_format.is_compressed
+    if compressed and layout != "paged":
+        raise ValueError(
+            f"cache.kv={cache_format} requires cache_layout='paged' -- "
+            "the dense slab has no compressed storage path")
+    if layout == "dense":
+        return attn_lib.init_kv_cache(B, size, kv, dh, dtype, bool(win), device,
+                                      layers=layers)
+    if layout != "paged":
+        raise ValueError(f"cache_layout must be dense|paged, got {layout!r}")
+    if page_size < 1:
+        raise ValueError(f"paged cache needs page_size >= 1, got {page_size}")
+    logical = -(-size // page_size) * page_size
+    worst = B * (logical // page_size)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if compressed and pool_pages is not None:
+        # the same byte budget buys 1/ratio-sized tokens -> ratio x pages
+        base_tb = itemsize * 2 * kv * dh
+        pool_pages = int(pool_pages * base_tb // max(1, cache_format.token_bytes(
+            kv, dh, itemsize)))
+    n_pages = max(1, worst if pool_pages is None else min(pool_pages, worst))
+    common = dict(ring=bool(win), device=device, layers=layers)
+    if compressed and cache_format.kind in ("int8", "int4"):
+        return attn_lib.init_quant_paged_kv_cache(
+            B, logical, page_size, n_pages, kv, dh,
+            8 if cache_format.kind == "int8" else 4, cache_format.n_groups(dh), **common)
+    if compressed and cache_format.kind == "svd":
+        return attn_lib.init_svd_paged_kv_cache(
+            B, logical, page_size, n_pages, kv, dh, cache_format.svd_rank(dh), dtype,
+            **common)
+    return attn_lib.init_paged_kv_cache(B, logical, page_size, n_pages, kv, dh, dtype,
+                                        **common)

@@ -4,7 +4,7 @@ embedding -> staged block stack -> final norm -> head.
   init_model(cfg, rcfg, seed=0, device="cuda")          -> Model
   forward(cfg, rcfg, plan, model, batch, key)           -> (hidden, aux)
   loss_fn(cfg, rcfg, plan, model, batch, key)           -> (loss, metrics)
-  init_caches(cfg, rcfg, B, max_len, device)            -> caches
+  init_caches(cfg, rcfg, B, max_len, device, layout=...) -> caches
   prefill(cfg, rcfg, model, batch, max_len, plan=None)  -> (logits, caches)
   decode_step(cfg, rcfg, model, tokens, pos, caches)    -> (logits, caches)
 
@@ -25,6 +25,7 @@ from torch import nn
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.keys import Key
 from repro_torch.core.plan import exact_ctx
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (chunked_cross_entropy, embed_init,
                                        init_rms_norm, rms_norm)
@@ -101,14 +102,29 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
 
 
 def init_caches(cfg, rcfg, B: int, max_len: int, device, *,
-                layout: str | None = None):
-    """Dense decode caches for the whole stack (B = batch slots)."""
+                layout: str | None = None, page_size: int | None = None,
+                pool_pages: int | None = None, cache_plan=None):
+    """Decode caches for the whole stack (B = batch slots).
+
+    ``layout`` / ``page_size`` default from ``rcfg.cache_layout`` /
+    ``rcfg.kv_page_size``: ``dense`` keeps slot-contiguous (layers, B, S,
+    KV, dh) slabs, ``paged`` builds per-layer page pools plus block tables
+    (``attention.PagedKVCache``). ``pool_pages`` caps each pool (None = the
+    dense worst case). ``cache_plan`` (a resolved plan, default parsed
+    from ``rcfg.cache_compress``) maps each stage's attention caches to a
+    :class:`core.plan.CacheFormat`: int8 / int4 pools quantise on write,
+    svd pools store rank-r coefficients."""
     cdt, _ = _dtype(rcfg)
     layout = layout or rcfg.cache_layout
+    page_size = page_size or rcfg.kv_page_size
+    if cache_plan is None:
+        cache_plan = plan_lib.cache_plan_from_spec(rcfg.cache_compress or "").resolve(cfg)
     return [[blk.init_block_cache(kind, cfg, B, max_len, cdt, device, layers=rep,
-                                  layout=layout)
+                                  layout=layout, page_size=page_size,
+                                  pool_pages=pool_pages,
+                                  cache_format=cache_plan.cache_format(si, kind))
              for kind in unit]
-            for unit, rep in cfg.stages]
+            for si, (unit, rep) in enumerate(cfg.stages)]
 
 
 def _embed(model: Model, tokens, cdt):
@@ -202,7 +218,10 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
     if prompt_len is not None:
         plen = torch.as_tensor(prompt_len, device=x.device)
         cpos = torch.where(positions < plen[:, None], positions, -1)
-    caches = init_caches(cfg, rcfg, B, max_len, x.device)
+    # the prompt's cache is a dense slab whatever the engine's layout: the
+    # engine splices it into its own pool (serve/cache.py)
+    caches = [[blk.init_block_cache(kind, cfg, B, max_len, cdt, x.device, layers=rep)
+               for kind in unit] for unit, rep in cfg.stages]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     key = Key(0)
     for si, ((unit, rep), stage, stage_caches) in enumerate(
@@ -224,16 +243,22 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
 
 @torch.no_grad()
 def decode_step(cfg, rcfg, model: Model, tokens, pos, caches):
-    """One decode step for the whole batch: tokens (B, 1), pos (B, 1)
-    absolute positions (-1 = parked slot). The caches are updated in
-    place. Returns (logits (B, 1, V*) f32, caches)."""
+    """One decode step for the whole batch: tokens (B, L), pos (B, L)
+    absolute positions (-1 = parked slot). L = 1 is the decode step; L > 1
+    a speculative-verify block, whose rows are scored in one call, each
+    masked by its own position (paged caches). The caches are updated in
+    place. Returns (logits (B, L, V*) f32, caches)."""
     cdt, _ = _dtype(rcfg)
     x = _embed(model, tokens, cdt)
     for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):
+        # a paged node's write addresses, for all its layers at once
+        writes = [attn_lib.paged_write(c, pos) if isinstance(c, attn_lib.PAGED_CACHE_TYPES)
+                  else None for c in stage_caches]
         for r in range(rep):
-            for kind, block, cache in zip(unit, stage, stage_caches):
+            for kind, block, cache, write in zip(unit, stage, stage_caches, writes):
                 x, _ = blk.block_decode(kind, cfg, rcfg, block.layer(r), x, pos,
-                                        cache.layer(r))
+                                        cache.layer(r),
+                                        None if write is None else write.layer(r))
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = (x @ model.head.to(cdt)).float()
     return logits, caches

@@ -1,5 +1,4 @@
-"""Continuous-batching serving engine, dense cache layout
-(``repro/serve/engine.py``).
+"""Continuous-batching serving engine (``repro/serve/engine.py``).
 
 Three explicit stages, as in the JAX engine --
 
@@ -21,8 +20,26 @@ Per-sequence math is row-independent, so a request's tokens do not depend
 on which other requests share the batch. On the card this holds for a
 fixed slot count: the matrix products see the same shapes either way.
 
-Later slices: paged pools, prefix sharing, speculative verify, mesh
-sharding and the multi-replica router raise ``NotImplementedError``.
+Cache layouts (``cache_layout=dense|paged``): ``dense`` reserves a
+``(layers, B, max_len, KV, dh)`` slab, so a short request pays for
+``max_len``; ``paged`` backs the attention caches with page pools and
+per-slot block tables (serve/paging.py; decode attention through K7, or
+K8 for int8 / int4 pools). Admission reserves ``ceil((prompt + max_new) /
+page_size)`` pages in every pool up front -- an admitted request never
+waits for a page mid-stream, and a slot's block-table row is written to
+the card once, at ``insert`` -- so the predicate becomes *a free slot AND
+enough free pages in every pool*; eviction returns the pages to the host
+free list with no device work. ``cache_compress`` stores the pools as
+int8 / int4 / svd at proportionally more pages for the same
+``pool_tokens`` byte budget. ``prefix_share`` adopts the full-page
+prefix of a live or retired request with the same prompt head
+(copy-on-write: only the divergent page is copied). ``speculative_k``
+drafts k tokens per slot on the host and verifies them in one
+``decode_step`` over (B, k+1) rows (K7/K8 with Lq = k+1), emitting the
+leading run that matches greedy decoding.
+
+Still refused: mesh sharding and per-replica pools (the port's multi-GPU
+slice) and the moe / ssm / rec / xattn kinds (later slices).
 """
 from __future__ import annotations
 
@@ -36,14 +53,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import stats as stats_lib
+from repro_torch.core.plan import cache_plan_from_spec
 from repro_torch.models import decode_step, init_caches, prefill
+from repro_torch.models.attention import PAGED_CACHE_TYPES, SVDPagedKVCache
 from repro_torch.models.blocks import LATER_SLICE_KINDS, SERVED_KINDS
 from repro_torch.serve import cache as cache_lib
+from repro_torch.serve import paging
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 
 PAD_TOKEN = -1
-LATER_SLICE_SERVING = ("{what} arrives with the port's paged-serving slice "
-                       "(kernels K7, K8); this slice serves the dense layout")
 LATER_SLICE_MULTI = ("{what} arrives with the port's multi-GPU slice; this "
                      "slice serves one engine on one device")
 
@@ -154,6 +172,22 @@ class DecodeState:
 
 
 @dataclasses.dataclass
+class _PrefixEntry:
+    """One request in the copy-on-write prefix index. ``rows`` holds its
+    block-table row per pool (numpy, in pool order): the pages later
+    requests adopt. A live entry's pages are held by its slot; a retired
+    one keeps only its prompt pages, through an extra ``("prefix", uid)``
+    allocator reference, and records its token ``stream`` (prompt +
+    generation) as a draft donor for speculative decode."""
+
+    uid: int
+    tokens: tuple
+    rows: list
+    stream: list | None = None
+    retired: bool = False
+
+
+@dataclasses.dataclass
 class GenerateOutput:
     """Raw product of one decode block, host-side."""
 
@@ -169,14 +203,15 @@ def _state_prop(name: str):
 
 
 class ServeEngine:
-    """Continuous-batching engine over a dense slot cache. See the module
-    docstring for the design."""
+    """Continuous-batching engine over a dense slot cache or paged pools.
+    See the module docstring for the design."""
 
     def __init__(self, cfg, rcfg, model, *, max_slots: int, max_len: int,
                  decode_block: int = 8, plan=None, mesh=None,
-                 cache_layout: str | None = None, pool_tokens: int | None = None,
-                 cache_compress: str | None = None,
-                 prefix_share: bool = False, speculative_k: int = 0):
+                 cache_layout: str | None = None, page_size: int | None = None,
+                 pool_tokens: int | None = None, cache_compress: str | None = None,
+                 prefix_share: bool = False, speculative_k: int = 0,
+                 prefix_cache: int = 8):
         if cfg.embed_inputs or cfg.n_codebooks:
             raise NotImplementedError(
                 "serving needs a token frontend; embed-input / multi-codebook "
@@ -184,29 +219,110 @@ class ServeEngine:
         kinds = {k for unit, _ in cfg.stages for k in unit}
         if not kinds <= set(SERVED_KINDS):
             raise NotImplementedError(f"{cfg.name}: {LATER_SLICE_KINDS}")
-        layout = cache_layout or rcfg.cache_layout
-        compress = rcfg.cache_compress if cache_compress is None else cache_compress
-        for cond, what in ((layout != "dense", f"cache_layout={layout!r}"),
-                           (pool_tokens is not None, "pool_tokens"),
-                           (bool(compress), "cache_compress"),
-                           (prefix_share, "prefix_share"),
-                           (speculative_k, "speculative_k")):
-            if cond:
-                raise NotImplementedError(LATER_SLICE_SERVING.format(what=what))
         if mesh is not None:
             raise NotImplementedError(LATER_SLICE_MULTI.format(what="mesh sharding"))
+        self.cache_layout = cache_layout or rcfg.cache_layout
+        if self.cache_layout not in ("dense", "paged"):
+            raise ValueError(f"cache_layout must be dense|paged, got {self.cache_layout!r}")
+        self.page_size = page_size or rcfg.kv_page_size
+        spec = rcfg.cache_compress if cache_compress is None else cache_compress
+        self.cache_plan = cache_plan_from_spec(spec or "").resolve(cfg)
+        if self.cache_plan.compressed_cache_sites and self.cache_layout != "paged":
+            raise ValueError(
+                f"cache_compress={spec!r} compresses the paged page pools; the dense "
+                "layout has no compressed storage path -- pass cache_layout='paged' "
+                "or drop cache_compress")
+        if pool_tokens is not None and self.cache_layout != "paged":
+            raise ValueError(
+                "pool_tokens budgets the paged layout's page pools; the dense layout "
+                "always reserves max_slots * max_len slabs -- pass "
+                "cache_layout='paged' or drop pool_tokens")
         # a plan routes prefill through site dispatch; outputs stay exact
         self.plan = plan if plan is not None else (rcfg.compression or None)
         self.cfg, self.rcfg, self.model = cfg, rcfg, model
         self.device = model.device
         self.max_slots, self.max_len = max_slots, max_len
         self.decode_block = decode_block
-        self.decode_state = DecodeState.init(
-            init_caches(cfg, rcfg, max_slots, max_len, self.device), max_slots)
-        self._kv_capacity_bytes = sum(
-            node.k.shape[1] * node.k.shape[2] * cache_lib.kv_token_bytes(node)
-            for node in cache_lib.kv_cache_nodes(self.caches))
+        # pool_tokens: the byte budget of each pool in tokens (None = the
+        # dense worst case, max_slots * max_len rounded up to pages)
+        pool_pages = None if pool_tokens is None else -(-pool_tokens // self.page_size)
+        caches = init_caches(cfg, rcfg, max_slots, max_len, self.device,
+                             layout=self.cache_layout, page_size=self.page_size,
+                             pool_pages=pool_pages, cache_plan=self.cache_plan)
+        if any(isinstance(n, SVDPagedKVCache) for n in cache_lib.kv_cache_nodes(caches)):
+            # calibration-free bases from the K/V projection spectra
+            cache_lib.install_svd_bases(caches, model, cfg)
+        self.decode_state = DecodeState.init(caches, max_slots)
+
+        # one host-side allocator per page pool, in cache-tree order (the
+        # order _alloc_rows walks); the dense layout has none and admission
+        # is the free-slot check
+        self.allocators: list[paging.PageAllocator] = []
+        self.pool_labels: list[str] = []
+        self.pool_formats: list[str] = []
+        dense_itemsize = torch.empty((), dtype=getattr(torch, rcfg.compute_dtype)).element_size()
+        comp_bytes = dense_bytes = 0
+        for si, ((unit, _), stage) in enumerate(zip(cfg.stages, caches)):
+            for kind, node in zip(unit, stage):
+                if not isinstance(node, PAGED_CACHE_TYPES):
+                    continue
+                tb = cache_lib.kv_token_bytes(node)
+                comp_bytes += tb
+                dense_bytes += (2 * node.k_pages.shape[0] * node.k_pages.shape[-2]
+                                * cfg.head_dim * dense_itemsize)
+                fmt = self.cache_plan.cache_format(si, kind)
+                self.allocators.append(paging.PageAllocator(paging.spec_from_cache(node, tb)))
+                self.pool_labels.append(f"stage{si}.{kind}")
+                self.pool_formats.append(str(fmt) if fmt else rcfg.compute_dtype)
+        # bytes per token against uncompressed pools (1.0 dense or fp paged):
+        # the admission multiplier at a fixed byte budget
+        self.kv_compression_x = dense_bytes / comp_bytes if comp_bytes else 1.0
+        self._kv_capacity_bytes = 0
+        for node in cache_lib.kv_cache_nodes(caches):
+            tb = cache_lib.kv_token_bytes(node)
+            if isinstance(node, PAGED_CACHE_TYPES):
+                pages, ps = cache_lib.pool_geometry(node)
+                self._kv_capacity_bytes += pages * ps * tb
+            else:
+                self._kv_capacity_bytes += node.k.shape[1] * node.k.shape[2] * tb
         self.bucket_lens: set[int] = set()
+
+        # --- copy-on-write prefix sharing + self-speculative decode ---
+        self.prefix_share = bool(prefix_share)
+        self.speculative_k = int(speculative_k)
+        self.prefix_cache = int(prefix_cache)
+        if self.speculative_k < 0 or self.prefix_cache < 0:
+            raise ValueError("speculative_k and prefix_cache must be >= 0")
+        if self.prefix_share:
+            if self.cache_layout != "paged":
+                raise ValueError(
+                    "prefix_share adopts page-pool pages between requests; the dense "
+                    "layout has no pages -- pass cache_layout='paged'")
+            if any(a.spec.ring for a in self.allocators):
+                raise ValueError(
+                    "prefix_share needs append-only pools; ring (sliding-window) "
+                    "pools overwrite their pages in place, so an adopted prefix "
+                    "page would be clobbered by the owner's later tokens")
+        if self.speculative_k:
+            if self.cache_layout != "paged":
+                raise ValueError(
+                    "speculative_k verifies k+1 draft rows in one call through the "
+                    "paged decode kernels -- pass cache_layout='paged'")
+            bad = sorted(kinds - {"attn"})
+            if bad:
+                raise ValueError(
+                    f"speculative_k needs every block to accept multi-row decode "
+                    f"queries; {'/'.join(bad)} blocks are sequential/windowed and "
+                    "verify row-by-row only")
+        # prefix index: live entries by uid; retired ones in an LRU whose
+        # prompt pages stay adoptable through ("prefix", uid) references
+        # until page pressure or the prefix_cache cap evicts them.
+        # _prefix_bykey maps (n_full_pages, hash(prompt prefix)) -> uid.
+        self._prefix_live: dict[int, _PrefixEntry] = {}
+        self._retired: collections.OrderedDict[int, _PrefixEntry] = collections.OrderedDict()
+        self._prefix_bykey: dict[tuple[int, int], int] = {}
+        self._draft_donor: dict[int, list[int]] = {}
+        self._donor_ok: dict[int, int] = {}
 
         self.queue: collections.deque[Request] = collections.deque()
         self._outputs: dict[int, list[int]] = {}
@@ -262,9 +378,10 @@ class ServeEngine:
 
     def insert(self, prefix: Prefix, decode_state: DecodeState,
                slot: int) -> DecodeState:
-        """Splice a Prefix into decode slot ``slot`` (in place) and arm the
-        slot's sampling/stop vectors. Raises on a consumed Prefix or an
-        occupied slot."""
+        """Splice a Prefix into decode slot ``slot`` (in place): reserve the
+        request's pages in every pool (paged layout), install the caches,
+        and arm the slot's sampling/stop vectors. Raises on a consumed
+        Prefix or an occupied slot."""
         if prefix.consumed:
             raise ValueError(
                 f"stale Prefix (uid={prefix.uid}): already inserted into slot "
@@ -278,8 +395,28 @@ class ServeEngine:
         req = prefix.request
         lp = prefix.prompt_len
         t0 = time.perf_counter()
-        cache_lib.write_slot(decode_state.caches,
-                             cache_lib.mask_pad_rows(prefix.caches, lp), slot)
+        if self.allocators:
+            share = self._match_prefix(req.tokens)
+            rows, starts, srcs, dsts, flat_rows = self._alloc_rows(req, slot, share)
+            cache_lib.write_slot_paged(decode_state.caches, prefix.caches, rows, slot,
+                                       lp, starts)
+            m = 0 if share is None else share[1]
+            lo = (m // self.page_size) * self.page_size
+            if lo < m:
+                # the divergent page is fresh but its leading rows are still
+                # shared content: copy them from the owner's page before any
+                # decode write lands on this slot
+                cache_lib.cow_split_pages(decode_state.caches, srcs, dsts, lo, m)
+            if self.prefix_share:
+                if self.speculative_k and share is not None and m == lp and share[0].stream:
+                    # full-prompt hit on a retired request: its recorded
+                    # continuation drafts this request's greedy stream
+                    self._draft_donor[req.uid] = list(share[0].stream)
+                    self._donor_ok[req.uid] = 0
+                self._register_prefix(req, flat_rows)
+        else:
+            cache_lib.write_slot(decode_state.caches,
+                                 cache_lib.mask_pad_rows(prefix.caches, lp), slot)
         _sync(self.device)
         self.insert_count += 1
         self.insert_time += time.perf_counter() - t0
@@ -305,13 +442,18 @@ class ServeEngine:
         """One decode block over every active slot: ``steps`` tokens
         (default ``decode_block``, capped at the longest remaining
         generation). The slot vectors stay on the device for the block;
-        the host reads them back once at its end."""
+        the host reads them back once at its end. With ``speculative_k``
+        and no sampling row active, one speculative verify instead."""
         ds = decode_state
         B = ds.active.shape[0]
         if not ds.active.any():
             return ds, GenerateOutput(emitted=np.full((0, B), PAD_TOKEN, np.int32),
                                       was_active=np.zeros((0, B), bool),
                                       steps=0, seconds=0.0)
+        if self.speculative_k and not np.any(ds.temps[ds.active] > 0):
+            # verify is greedy-only (draft == argmax is the acceptance rule);
+            # a sampling row drops the whole block to the sequential loop
+            return self._generate_spec(model, ds)
         steps = min(steps or self.decode_block, int(ds.remaining[ds.active].max()))
         steps = max(1, steps)
         dev = self.device
@@ -372,9 +514,137 @@ class ServeEngine:
                                   steps=steps, seconds=dt)
 
     # ------------------------------------------------------------------
+    # speculative verify
+    # ------------------------------------------------------------------
+    def _ngram_draft(self, hist: list, n: int) -> list:
+        """n cheap draft tokens from the request's own history: the longest
+        n-gram suffix match (3, 2, 1) over a bounded recent window, with
+        repeat-last as the floor. Host work only."""
+        out: list[int] = []
+        h = [int(x) for x in hist[-256:]]
+        for _ in range(n):
+            nxt = None
+            for g in (3, 2, 1):
+                if len(h) <= g:
+                    continue
+                pat = h[-g:]
+                for i in range(len(h) - g - 1, -1, -1):
+                    if h[i:i + g] == pat:
+                        nxt = h[i + g]
+                        break
+                if nxt is not None:
+                    break
+            if nxt is None:
+                nxt = h[-1]
+            out.append(nxt)
+            h.append(nxt)
+        return out
+
+    def _draft_tokens(self, uid: int, hist: list, k: int) -> list:
+        """k draft tokens for a request. A donor stream (a retired request
+        that shared the full prompt) drafts first: under greedy sampling
+        the new request reproduces it until they really diverge.
+        ``_donor_ok`` remembers how much of the history was already checked
+        against the donor, so each call checks only the new tokens."""
+        d: list[int] = []
+        donor = self._draft_donor.get(uid)
+        if donor is not None:
+            ok = self._donor_ok.get(uid, 0)
+            L = len(hist)
+            while ok < L and ok < len(donor) and int(donor[ok]) == int(hist[ok]):
+                ok += 1
+            if ok < L:            # diverged from the donor: it is spent
+                self._draft_donor.pop(uid, None)
+                self._donor_ok.pop(uid, None)
+            else:
+                self._donor_ok[uid] = ok
+                d = [int(x) for x in donor[L:L + k]]
+        if len(d) < k:
+            d.extend(self._ngram_draft(list(hist) + d, k - len(d)))
+        return d[:k]
+
+    def _generate_spec(self, model, decode_state: DecodeState
+                       ) -> tuple[DecodeState, GenerateOutput]:
+        """Speculative decode block: draft k tokens per active slot on the
+        host, verify them in ONE ``decode_step`` over (B, k+1) rows (the
+        last token plus the drafts, at consecutive positions; K7/K8 with
+        Lq = k+1), then emit the leading run of drafts that match the
+        greedy continuation plus the model's own next token, with the
+        sequential loop's stop rules. Row t's logits see exactly what a
+        sequential decode would have seen if drafts 1..t are right; rows
+        written for rejected drafts sit at positions the slot has not
+        reached, which causal masking keeps inert until they are
+        rewritten."""
+        ds = decode_state
+        k = self.speculative_k
+        B = self.max_slots
+        t0 = time.perf_counter()
+        drafts = np.zeros((B, k), np.int32)
+        for b in range(B):
+            if not ds.active[b]:
+                continue
+            uid = int(ds.slot_uid[b])
+            req = self._requests.get(uid)
+            if req is not None and uid in self._outputs:
+                hist = [int(x) for x in req.tokens] + [int(x) for x in self._outputs[uid]]
+            else:
+                # stage-API use without the orchestrator's bookkeeping
+                hist = [int(ds.tok[b])]
+            drafts[b] = np.asarray(self._draft_tokens(uid, hist, k), np.int32)
+        positions = np.where(ds.active[:, None],
+                             ds.pos[:, None] + np.arange(k + 1, dtype=np.int32)[None], -1)
+        toks = np.concatenate([ds.tok[:, None], drafts], axis=1)
+        logits, _ = decode_step(self.cfg, self.rcfg, model,
+                                torch.as_tensor(toks, device=self.device).long(),
+                                torch.as_tensor(positions.astype(np.int32), device=self.device),
+                                ds.caches)
+        logits = logits[..., : self.cfg.vocab_size]
+        act = torch.as_tensor(ds.active, device=self.device)
+        bad = ((~torch.isfinite(logits)).any(dim=-1).any(dim=-1) & act).sum()
+        packed = torch.cat([logits.argmax(dim=-1).reshape(-1), bad[None]]).cpu().numpy()
+        greedy = packed[:-1].reshape(B, k + 1)
+        self.nonfinite_logits += int(packed[-1])
+        emitted = np.full((k + 1, B), PAD_TOKEN, np.int32)
+        was_active = np.zeros((k + 1, B), bool)
+        n_act = int(ds.active.sum())
+        self.spec_verify_calls += 1
+        self.spec_tokens_drafted += k * n_act
+        for b in range(B):
+            if not ds.active[b]:
+                continue
+            a = 0
+            while a < k and drafts[b, a] == greedy[b, a]:
+                a += 1
+            self.spec_tokens_accepted += a
+            tok, pos = int(ds.tok[b]), int(ds.pos[b])
+            rem, gi, eos = int(ds.remaining[b]), int(ds.gen_idx[b]), int(ds.eos_ids[b])
+            alive = True
+            for t in range(a + 1):
+                nxt = int(greedy[b, t])
+                emitted[t, b] = nxt
+                was_active[t, b] = True
+                tok, pos, rem, gi = nxt, pos + 1, rem - 1, gi + 1
+                if not (rem > 0 and nxt != eos and pos < self.max_len - 1):
+                    alive = False
+                    break
+            ds.tok[b], ds.pos[b], ds.remaining[b], ds.gen_idx[b] = tok, pos, rem, gi
+            ds.active[b] = alive
+        dt = time.perf_counter() - t0
+        n_steps_run = int(was_active.any(axis=1).sum())
+        self.decode_tokens += int(was_active.sum())
+        self.decode_time += dt
+        self.decode_steps += 1
+        if n_steps_run:
+            self.latency_samples.extend([dt / n_steps_run] * n_steps_run)
+        return ds, GenerateOutput(emitted=emitted, was_active=was_active,
+                                  steps=k + 1, seconds=dt)
+
+    # ------------------------------------------------------------------
     # scheduling
     # ------------------------------------------------------------------
     def _validate_request(self, req: Request) -> None:
+        """Raise if the request can never be served by this engine: bad
+        sizes, or a pool it cannot fit in."""
         lp = len(req.tokens)
         if lp < 1 or req.max_new_tokens < 1:
             raise ValueError(f"request {req.uid}: empty prompt or generation")
@@ -382,6 +652,18 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.uid}: prompt_len={lp} + max_new_tokens="
                 f"{req.max_new_tokens} exceeds max_len={self.max_len}")
+        for alloc, label, fmt in zip(self.allocators, self.pool_labels,
+                                     self.pool_formats):
+            total = lp + req.max_new_tokens
+            need = alloc.blocks_for(total)
+            if need > alloc.spec.n_pages:
+                cap_tok = alloc.spec.n_pages * alloc.spec.page_size
+                raise ValueError(
+                    f"request {req.uid}: needs {need} pages ({total} tokens) but "
+                    f"pool {label} [{fmt}] has {alloc.spec.n_pages} pages "
+                    f"({cap_tok} tokens) total -- {total - cap_tok} tokens over "
+                    f"capacity; raise pool_tokens or shrink prompt_len + "
+                    f"max_new_tokens")
 
     def submit(self, req: Request) -> None:
         self._validate_request(req)
@@ -403,6 +685,170 @@ class ServeEngine:
         while b < lp:
             b <<= 1
         return min(b, self.max_len)
+
+    # ------------------------------------------------------------------
+    # copy-on-write prefix index
+    # ------------------------------------------------------------------
+    def _match_prefix(self, tokens) -> tuple[_PrefixEntry, int] | None:
+        """Longest live or retired prefix match of a prompt: ``(entry, m)``
+        with ``m`` the matched token count. Probes from the longest
+        full-page prefix down; the token comparison guards against hash
+        collisions, and the match extends at most into the first divergent
+        page (the one copy-on-write split an admission makes)."""
+        if not self.prefix_share:
+            return None
+        t = tuple(int(x) for x in tokens)
+        ps = self.page_size
+        for j in range(len(t) // ps, 0, -1):
+            key = (j, hash(t[: j * ps]))
+            uid = self._prefix_bykey.get(key)
+            if uid is None:
+                continue
+            entry = self._prefix_live.get(uid) or self._retired.get(uid)
+            if entry is None:
+                del self._prefix_bykey[key]   # evicted owner, stale key
+                continue
+            if entry.tokens[: j * ps] != t[: j * ps]:
+                continue                       # hash collision
+            m = j * ps
+            lim = min(len(entry.tokens), len(t), (j + 1) * ps)
+            while m < lim and entry.tokens[m] == t[m]:
+                m += 1
+            if entry.retired:
+                self._retired.move_to_end(uid)  # LRU touch
+            return entry, m
+        return None
+
+    def _register_prefix(self, req: Request, flat_rows: list) -> None:
+        """Index a just-admitted request as a live prefix owner."""
+        t = tuple(int(x) for x in req.tokens)
+        self._prefix_live[req.uid] = _PrefixEntry(uid=req.uid, tokens=t, rows=flat_rows)
+        for j in range(1, len(t) // self.page_size + 1):
+            self._prefix_bykey[(j, hash(t[: j * self.page_size]))] = req.uid
+
+    def _unindex_prefix(self, entry: _PrefixEntry) -> None:
+        for j in range(1, len(entry.tokens) // self.page_size + 1):
+            key = (j, hash(entry.tokens[: j * self.page_size]))
+            if self._prefix_bykey.get(key) == entry.uid:
+                del self._prefix_bykey[key]
+
+    def _drop_retired(self, uid: int) -> None:
+        """Evict a retired prefix entry: drop its ("prefix", uid) page
+        references (the pages free once no adopter maps them)."""
+        entry = self._retired.pop(uid)
+        for alloc in self.allocators:
+            alloc.release(("prefix", uid))
+        self._unindex_prefix(entry)
+
+    def _evict_one_retired(self) -> bool:
+        """Free the least recently matched retired prefix (page pressure);
+        False when nothing is left to evict."""
+        if not self._retired:
+            return False
+        self._drop_retired(next(iter(self._retired)))
+        return True
+
+    def _retire_prefix(self, uid: int, generated: list) -> None:
+        """Move a finishing request's entry from live to retired: retain
+        its prompt pages under a ("prefix", uid) reference (before the
+        slot releases them) and record its token stream as a draft donor.
+        The oldest retirees fall off the LRU cap."""
+        entry = self._prefix_live.pop(uid, None)
+        if entry is None:
+            return
+        if self.prefix_cache == 0:
+            self._unindex_prefix(entry)
+            return
+        n_prompt_pages = -(-len(entry.tokens) // self.page_size)
+        for alloc, row in zip(self.allocators, entry.rows):
+            alloc.retain(("prefix", uid), row[:n_prompt_pages])
+        entry.stream = list(entry.tokens) + [int(x) for x in generated]
+        entry.retired = True
+        self._retired[uid] = entry
+        while len(self._retired) > self.prefix_cache:
+            self._drop_retired(next(iter(self._retired)))
+
+    # ------------------------------------------------------------------
+    # page-aware admission
+    # ------------------------------------------------------------------
+    def _can_admit(self, req: Request) -> bool:
+        """Paged admission predicate: every pool has the free pages of the
+        request's full reservation (prompt + max_new_tokens; a prefix
+        match charges only the pages it does not adopt), so an admitted
+        request always runs to its stop condition with no preemption
+        mid-stream. Dense: always."""
+        if not self.allocators:
+            return True
+        total = len(req.tokens) + req.max_new_tokens
+        match = self._match_prefix(req.tokens)
+        s = 0 if match is None else match[1] // self.page_size
+        return all(a.can_allocate(a.blocks_for(total) - s) for a in self.allocators)
+
+    def try_place(self, req: Request) -> int | None:
+        """The slot the request should be admitted to, or None if nothing
+        fits now: the lowest free slot, if every pool has room. Under page
+        pressure, retired prefixes (a cache, not a reservation) give their
+        pages back one LRU entry at a time until the request fits or none
+        is left."""
+        free = self._free_slots()
+        if not free:
+            return None
+        while not self._can_admit(req):
+            if not self._evict_one_retired():
+                return None
+        return free[0]
+
+    def pool_load(self) -> float:
+        """Load factor in [0, 1]: the tightest pool's reserved fraction
+        (paged), or the occupied-slot fraction (dense)."""
+        if not self.allocators:
+            return float(self.active.sum()) / max(1, self.max_slots)
+        return max(a.reserved_pages / max(1, a.spec.n_pages) for a in self.allocators)
+
+    def _alloc_rows(self, req: Request, slot: int, share=None):
+        """Reserve the request's pages in every pool; returns ``(rows,
+        starts, srcs, dsts, flat_rows)``, the first four mirroring the
+        cache tree (None at non-paged nodes): the (nb,) block-table row,
+        the copy-on-write share boundary ``m`` in tokens (0 unshared), and
+        the owner's and this slot's page of the divergent page (-1 when
+        the boundary is page-aligned and nothing is copied); ``flat_rows``
+        are the rows in pool order (prefix index). ``share`` is an
+        ``(entry, m)`` match: the entry's first ``m // page_size`` full
+        pages are adopted (refcount, no free-list charge)."""
+        total = len(req.tokens) + req.max_new_tokens
+        ps = self.page_size
+        entry, m = share if share is not None else (None, 0)
+        s = m // ps
+        need_cow = s * ps < m
+        ai = 0
+        rows, starts, srcs, dsts = [], [], [], []
+        flat_rows: list[np.ndarray] = []
+        for stage in self.caches:
+            rst, sst, srst, dst = [], [], [], []
+            for node in stage:
+                if not isinstance(node, PAGED_CACHE_TYPES):
+                    for lst in (rst, sst, srst, dst):
+                        lst.append(None)
+                    continue
+                alloc = self.allocators[ai]
+                shared = None if entry is None else entry.rows[ai][:s]
+                row = alloc.allocate(slot, alloc.blocks_for(total), shared=shared).copy()
+                flat_rows.append(row)
+                rst.append(row)
+                sst.append(m)
+                srst.append(int(entry.rows[ai][s]) if need_cow else -1)
+                dst.append(int(row[s]) if need_cow else -1)
+                ai += 1
+            rows.append(rst)
+            starts.append(sst)
+            srcs.append(srst)
+            dsts.append(dst)
+        if m:
+            self.prefix_hits += 1
+            self.prefix_pages_adopted += s * ai
+            if need_cow:
+                self.cow_page_splits += ai
+        return rows, starts, srcs, dsts, flat_rows
 
     def _admit(self, req: Request, slot: int) -> Optional[RequestOutput]:
         prefix = self.prefill(self.model, req)
@@ -428,6 +874,16 @@ class ServeEngine:
         self.slot_uid[slot] = -1
         self.active[slot] = False
         self.pos[slot] = -1
+        # retirement precedes the slot's release: the prompt pages take
+        # their ("prefix", uid) reference while the slot still holds them
+        if self.prefix_share:
+            self._retire_prefix(uid, toks)
+        self._draft_donor.pop(uid, None)
+        self._donor_ok.pop(uid, None)
+        # the pages go back to the host free list; the device cache is
+        # untouched (no live block table maps them)
+        for alloc in self.allocators:
+            alloc.release(slot)
         # a stale temperature on a free slot would keep the sampling path on
         self.temps[slot] = 0.0
         self.topks[slot] = 0
@@ -436,19 +892,20 @@ class ServeEngine:
         return out
 
     def step(self, *, decode_steps: int | None = None) -> list[RequestOutput]:
-        """Admit what fits (strict FIFO), then run one decode block.
-        Returns the requests that finished during this step."""
+        """Admit what fits (strict FIFO: when the head request cannot get a
+        slot and its pages, later ones wait too), then run one decode
+        block. Returns the requests that finished during this step."""
         finished: list[RequestOutput] = []
         while self.queue:
-            free = self._free_slots()
-            if not free:
+            slot = self.try_place(self.queue[0])
+            if slot is None:
                 break
-            done = self._admit(self.queue.popleft(), free[0])
+            done = self._admit(self.queue.popleft(), slot)
             if done is not None:
                 finished.append(done)
 
         self.peak_active = max(self.peak_active, int(self.active.sum()))
-        reserved, used = self._cache_usage()
+        reserved, used, _, _ = self._cache_usage()
         self.peak_reserved_bytes = max(self.peak_reserved_bytes, reserved)
         self.peak_used_bytes = max(self.peak_used_bytes, used)
         if not self.active.any():
@@ -457,7 +914,7 @@ class ServeEngine:
         prev_active = self.active.copy()
         self.decode_state, out = self.generate(self.model, self.decode_state,
                                                steps=decode_steps)
-        _, used = self._cache_usage()
+        _, used, _, _ = self._cache_usage()
         self.peak_used_bytes = max(self.peak_used_bytes, used)
 
         for b in range(self.max_slots):
@@ -503,22 +960,47 @@ class ServeEngine:
         self.peak_active = 0
         self.peak_reserved_bytes = 0
         self.peak_used_bytes = 0
+        self.prefix_hits = 0
+        self.prefix_pages_adopted = 0
+        self.cow_page_splits = 0
+        self.spec_verify_calls = 0
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
 
-    def _cache_usage(self) -> tuple[int, int]:
-        """(reserved_bytes, used_bytes): every occupied slot reserves its
-        whole slab; ``used`` counts the tokens written."""
+    def _cache_usage(self) -> tuple[int, int, int, int]:
+        """(reserved_bytes, used_bytes, pages_total, pages_free) now. Dense:
+        every occupied slot reserves its whole slab. Paged: the pages the
+        allocators handed out. ``used`` counts the tokens written either
+        way, so the gap is what the paged layout gives back."""
         occupied = np.nonzero(self.slot_uid >= 0)[0]
-        reserved = used = 0
-        for node in cache_lib.kv_cache_nodes(self.caches):
-            S = node.k.shape[2]
-            tb = cache_lib.kv_token_bytes(node)
-            reserved += len(occupied) * S * tb
-            used += tb * sum(min(max(int(self.pos[s]), 0), S) for s in occupied)
-        return reserved, used
+        reserved = used = pages_total = pages_free = 0
+        if self.allocators:
+            for alloc in self.allocators:
+                pages_total += alloc.spec.n_pages
+                pages_free += alloc.free_pages
+                reserved += alloc.reserved_bytes
+                used += alloc.spec.token_bytes * sum(
+                    alloc.used_tokens(int(self.pos[s])) for s in occupied
+                    if alloc.owns(int(s)))
+        else:
+            for node in cache_lib.kv_cache_nodes(self.caches):
+                S = node.k.shape[2]
+                tb = cache_lib.kv_token_bytes(node)
+                reserved += len(occupied) * S * tb
+                used += tb * sum(min(max(int(self.pos[s]), 0), S) for s in occupied)
+        return reserved, used, pages_total, pages_free
+
+    def cache_telemetry(self) -> dict:
+        """Reserved-vs-used KV telemetry (core.stats.serving_cache_metrics)."""
+        reserved, used, pages_total, pages_free = self._cache_usage()
+        return stats_lib.serving_cache_metrics(
+            reserved_bytes=reserved, used_bytes=used,
+            capacity_bytes=self._kv_capacity_bytes,
+            pages_total=pages_total, pages_free=pages_free,
+            compression_x=self.kv_compression_x)
 
     def stats(self) -> dict:
         lat = sorted(self.latency_samples)
-        reserved, used = self._cache_usage()
         out = {
             "prefill_tokens": self.prefill_tokens,
             "prefill_s": self.prefill_time,
@@ -540,11 +1022,28 @@ class ServeEngine:
             "cache_slot_bytes": cache_lib.slot_bytes(self.caches, self.max_slots),
             "prefill_buckets": len(self.bucket_lens),
             "replica_shards": 1,
+            "prefix_share": self.prefix_share,
+            "prefix_hits": self.prefix_hits,
+            "prefix_pages_adopted": self.prefix_pages_adopted,
+            "cow_page_splits": self.cow_page_splits,
+            "shared_pages_now": sum(a.shared_pages for a in self.allocators),
+            "retired_prefixes": len(self._retired),
+            "speculative_k": self.speculative_k,
+            "spec_verify_calls": self.spec_verify_calls,
+            "spec_tokens_drafted": self.spec_tokens_drafted,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+            "spec_accept_rate": (self.spec_tokens_accepted / self.spec_tokens_drafted
+                                 if self.spec_tokens_drafted else 0.0),
             "peak_active": self.peak_active,
             "peak_kv_reserved_bytes": self.peak_reserved_bytes,
             "peak_kv_used_bytes": self.peak_used_bytes,
+            # per pool: stored format, true bytes per token (scales
+            # included) and pages minted
+            "cache_pools": {
+                label: {"format": fmt, "token_bytes": a.spec.token_bytes,
+                        "pages": a.spec.n_pages}
+                for label, fmt, a in zip(self.pool_labels, self.pool_formats,
+                                         self.allocators)},
         }
-        out.update(stats_lib.serving_cache_metrics(
-            reserved_bytes=reserved, used_bytes=used,
-            capacity_bytes=self._kv_capacity_bytes))
+        out.update(self.cache_telemetry())
         return out

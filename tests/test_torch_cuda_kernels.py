@@ -4,7 +4,7 @@ module imports no JAX, so it runs where only torch is installed:
 
   PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Tolerances: K3/K6 f32 atol 2e-5 on o (the same f32 math summed in another
+Tolerances: K3/K6/K7/K8 f32 atol 2e-5 on o (the same f32 math summed in another
 order); bf16 atol 5e-2 on o (both round o to bf16); lse atol 1e-3.
 K1: |cs| and norms to 1e-5 relative (f32 dots of up to a few thousand
 terms in another order); idx equal wherever the plain top-2 |csim| margin
@@ -16,7 +16,9 @@ order; bf16 rounds the outputs), and every row of dh to its own norm
 f32 1e-3, bf16 1e-2 (a bf16 rounding flip moves a row by at most 2^-7 of
 its norm; a row that loses one 64-key tile of its i live keys moves by the
 order of sqrt(64 / i) of it, which the largest-magnitude bound lets pass
-for late rows).
+for late rows). K7/K8 are compared on the rows that see at least one key;
+a fully masked (parked) row must only be finite (the kernels average V
+over the mapped pages, the plain versions over every gathered page).
 """
 import pytest
 import torch
@@ -26,7 +28,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_fwd_cuda,
                                                  flash_attention_fwd_ref)
-from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
+from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
+                                              flash_paged_decode_cuda,
+                                              flash_paged_decode_quant_cuda,
+                                              flash_paged_decode_quant_ref,
+                                              flash_paged_decode_ref)
 from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
 from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
@@ -215,3 +221,142 @@ def test_training_kernels_dispatch_count_and_refuse(cuda_device):
         flash_attention_bwd_cuda(big, big, big, o, lse, big)
     with pytest.raises(ValueError, match="int32"):
         segment_matmul_cuda(st.assign.long(), st.alpha, torch.randn(64, 16, device=cuda_device), 4)
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: paged decode
+# ---------------------------------------------------------------------------
+def _paging(B, nb, ps, fill, gen, *, hole=False, ring=0):
+    """Block tables of shuffled page ids (all nb blocks of a row mapped;
+    ``hole`` unmaps row 0's block 1) and page_pos for ``fill[b]`` tokens,
+    wrapped into a ring of nb*ps slots when ``ring``; the spare pages keep
+    random stale positions."""
+    dev = gen.device
+    n_pages = B * nb + 3
+    bt = torch.randperm(n_pages, generator=gen, device=dev)[:B * nb].reshape(B, nb)
+    ppos = torch.randint(0, nb * ps, (n_pages, ps), generator=gen, device=dev)
+    slots = torch.arange(nb * ps, device=dev).reshape(nb, ps)
+    for b in range(B):
+        n = int(fill[b])
+        last = n - 1 - ((n - 1 - slots) % (nb * ps)) if ring else slots
+        ppos[bt[b]] = torch.where((last >= 0) & (last < n), last, -1)
+    bt = bt.to(torch.int32)
+    if hole:
+        bt[0, 1] = -1
+    return n_pages, bt.contiguous(), ppos.to(torch.int32).contiguous()
+
+
+def _seen(bt, ppos, qpos, window):
+    """(B, Lq) rows that see at least one key."""
+    B, nb = bt.shape
+    spos = torch.where(bt[..., None] >= 0, ppos[bt.clamp_min(0).long()], -1).reshape(B, -1)
+    qp = qpos[:, :, None]
+    vis = (spos[:, None] >= 0) & (spos[:, None] <= qp)
+    if window:
+        vis &= qp - spos[:, None] < window
+    return vis.any(-1)
+
+
+K7_CASES = [
+    # B, nb, ps, H, KV, dh, Lq, window, hole, ring
+    (2, 5, 16, 4, 2, 64, 1, 0, True, 0),
+    (3, 4, 64, 16, 8, 128, 1, 0, True, 0),       # the serving shape's pages
+    (2, 4, 64, 16, 8, 128, 5, 0, False, 0),      # verify rows, Lq 5
+    (1, 3, 8, 4, 1, 80, 5, 0, True, 0),          # head dim 80, MQA, a hole
+    (2, 6, 16, 8, 2, 120, 1, 0, False, 0),       # head dim 120
+    (1, 2, 64, 4, 2, 128, 1, 64, False, 300),    # ring of 128, window 64
+    (2, 3, 12, 4, 4, 32, 2, 0, False, 0),        # page size 12, MHA
+    (1, 4, 16, 16, 1, 256, 1, 0, False, 0),      # G = 16 rows of dh 256
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nb,ps,H,KV,dh,Lq,window,hole,ring", K7_CASES)
+def test_k7_cuda_matches_plain(cuda_device, B, nb, ps, H, KV, dh, Lq, window, hole, ring,
+                               dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(nb * ps + dh + Lq)
+    S = nb * ps
+    fill = [ring] * B if ring else [S - 3 - 7 * b for b in range(B)]
+    n_pages, bt, ppos = _paging(B, nb, ps, fill, g, hole=hole, ring=ring)
+    q = _randn((B, Lq, H, dh), g, dtype)
+    k, v = (_randn((n_pages, ps, KV, dh), g, dtype) for _ in range(2))
+    qpos = (torch.tensor(fill, device=cuda_device)[:, None] - Lq
+            + torch.arange(Lq, device=cuda_device)[None]).to(torch.int32)
+    if B > 1:
+        qpos[-1, 0] = -1                                  # a parked row
+    o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, causal=True, window=window)
+    o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, causal=True, window=window)
+    assert torch.isfinite(o).all()
+    seen = _seen(bt, ppos, qpos, window)
+    torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+
+
+K8_CASES = [
+    # B, nb, ps, H, KV, dh, Lq, bits, ngr, hole
+    (2, 4, 16, 4, 2, 64, 1, 8, 1, True),
+    (2, 4, 64, 16, 8, 128, 1, 8, 4, False),      # the serving shape's pages
+    (2, 4, 64, 16, 8, 128, 5, 4, 1, True),       # verify rows, int4, a hole
+    (1, 3, 8, 4, 1, 128, 1, 4, 4, False),
+    (2, 3, 16, 8, 2, 80, 2, 8, 5, False),        # head dim 80, 5 groups of 16
+    (1, 3, 16, 8, 2, 120, 1, 4, 4, False),       # head dim 120, int4, groups of 30
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nb,ps,H,KV,dh,Lq,bits,ngr,hole", K8_CASES)
+def test_k8_cuda_matches_plain(cuda_device, B, nb, ps, H, KV, dh, Lq, bits, ngr, hole,
+                               dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(nb * ps + dh + bits)
+    S = nb * ps
+    fill = [S - 3 - 7 * b for b in range(B)]
+    n_pages, bt, ppos = _paging(B, nb, ps, fill, g, hole=hole)
+    q = _randn((B, Lq, H, dh), g, dtype)
+    w = dh if bits == 8 else dh // 2
+    k, v = (torch.randint(-128, 128, (n_pages, ps, KV, w), generator=g, device=cuda_device,
+                          dtype=torch.int8) for _ in range(2))
+    if bits == 8:                                    # the quantiser's symmetric range
+        k.clamp_(-127, 127)
+        v.clamp_(-127, 127)
+    ks, vs = (torch.rand((n_pages, ps, KV, ngr), generator=g, device=cuda_device) * 0.05
+              for _ in range(2))
+    qpos = (torch.tensor(fill, device=cuda_device)[:, None] - Lq
+            + torch.arange(Lq, device=cuda_device)[None]).to(torch.int32)
+    o = flash_paged_decode_quant_cuda(q, k, v, ks, vs, qpos, bt, ppos)
+    o_r = flash_paged_decode_quant_ref(q, k, v, ks, vs, qpos, bt, ppos)
+    assert torch.isfinite(o).all()
+    seen = _seen(bt, ppos, qpos, 0)
+    torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_dispatch_scale_and_refuse(cuda_device):
+    """ops routes CUDA tensors to K7 / K8 (counted as such); K7 honours a
+    ``scale`` override; both refuse what they do not take, never falling
+    back to a plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n_pages, bt, ppos = _paging(2, 3, 16, [40, 33], g)
+    q = _randn((2, 1, 4, 64), g, "float32")
+    k, v = (_randn((n_pages, 16, 2, 64), g, "float32") for _ in range(2))
+    qpos = torch.tensor([39, 32], dtype=torch.int32, device=cuda_device)
+    kq = torch.randint(-7, 8, (n_pages, 16, 2, 32), generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    sc = torch.rand((n_pages, 16, 2, 2), generator=g, device=cuda_device)
+    launches.reset()
+    o = ops.flash_paged_decode(q, k, v, qpos, bt, ppos, scale=0.05)
+    ops.flash_paged_decode_quant(q, kq, kq, sc, sc, qpos, bt, ppos)
+    assert launches.counts() == {"flash_paged_decode": 1, "flash_paged_decode_quant": 1}
+    torch.testing.assert_close(o, flash_paged_decode_ref(q, k, v, qpos, bt, ppos, scale=0.05),
+                               atol=2e-5, rtol=0)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash_paged_decode_cuda(q.cpu(), k.cpu(), v.cpu(), qpos.cpu(), bt.cpu(), ppos.cpu())
+    with pytest.raises(ValueError, match="pages must be"):
+        ops.flash_paged_decode(q, k.half(), v.half(), qpos, bt, ppos)
+    with pytest.raises(ValueError, match="int32"):
+        ops.flash_paged_decode(q, k, v, qpos.long(), bt, ppos)
+    with pytest.raises(ValueError, match="pages must be"):
+        ops.flash_paged_decode_quant(q, kq.float(), kq.float(), sc, sc, qpos, bt, ppos)
+    odd = _randn((2, 1, 4, 65), g, "float32")
+    with pytest.raises(ValueError, match="int4"):
+        ops.flash_paged_decode_quant(odd, kq, kq, sc, sc, qpos, bt, ppos)

@@ -175,18 +175,23 @@ def test_engine_eos_and_stage_api_errors():
         eng.submit(Request(uid=2, tokens=prompt, max_new_tokens=40))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"cache_layout": "paged"}, "paged-serving slice"),
-    ({"prefix_share": True}, "paged-serving slice"),
-    ({"speculative_k": 2}, "paged-serving slice"),
-    ({"cache_compress": "int8"}, "paged-serving slice"),
-    ({"mesh": object()}, "multi-GPU slice"),
+@pytest.mark.parametrize("arch,kwargs,match", [
+    ("internlm2-1.8b_smoke", {"mesh": object()}, "multi-GPU slice"),
+    ("granite-moe-3b-a800m_smoke", {}, "later slices"),
+    ("mamba2-370m_smoke", {}, "later slices"),
+    ("llama-3.2-vision-11b_smoke", {}, "later slices"),
+    ("recurrentgemma-9b_smoke", {}, "later slices"),
 ])
-def test_engine_refuses_later_slices(kwargs, match):
-    tcfg = torch_get_config("internlm2-1.8b_smoke")
-    model = t_init_model(tcfg, TRCFG, seed=0, device="cpu")
+def test_engine_refuses_later_slices(arch, kwargs, match):
+    """What the port does not serve yet raises, naming the slice: a mesh
+    (multi-GPU), and the moe / ssm / xattn / rec block kinds. (Paged,
+    compressed, prefix-shared and speculative serving are served since the
+    paged-serving slice: tests/test_torch_{paging,kvquant,cow_spec}.py.)"""
+    model = t_init_model(torch_get_config("internlm2-1.8b_smoke"), TRCFG, seed=0,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        ServeEngine(tcfg, TRCFG, model, max_slots=1, max_len=16, **kwargs)
+        ServeEngine(torch_get_config(arch), TRCFG, model, max_slots=1, max_len=16,
+                    **kwargs)
 
 
 def test_engine_with_a_plan_serves_the_same_tokens():
@@ -222,9 +227,9 @@ def test_serve_cli_smoke_and_refusals(capsys):
           "--compression", "attn.qkv=pamm(r=1/8)"])
     assert "decode" in capsys.readouterr().out
     with pytest.raises(SystemExit) as exc:
-        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--prefix-share"])
+        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--replicas", "2"])
     assert exc.value.code == 2
-    assert "paged-serving slice" in capsys.readouterr().err
+    assert "multi-GPU slice" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
