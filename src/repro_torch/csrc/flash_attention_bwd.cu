@@ -1,7 +1,8 @@
 // K4 and K5 on Hopper: FlashAttention-2 backward (causal / sliding window,
 // GQA), probabilities recomputed tile by tile from the saved lse.
 //
-// Replaces the TPU kernels of src/repro/kernels/flash_attention.py:_bwd_impl:
+// Replaces the TPU kernels of src/repro/kernels/flash_attention.py:_bwd_impl
+// and their offset variants (:371, :421, scalar prefetch of (q_off, k_off)):
 //   K4 flash_attention_dq  (body _dq_kernel):  dq = sum_k ds k, q-major;
 //   K5 flash_attention_dkv (body _dkv_kernel): dv = sum_q p^T dO and
 //      dk = sum_q ds^T q, kv-major, folding the G query heads of a kv head.
@@ -12,9 +13,11 @@
 // thread in a fixed order, with no atomics -- K4 owns a query tile, K5 owns
 // a kv tile and loops over the G heads and the live query tiles itself.
 //
-// Conventions of K3 (flash_attention_fwd.cu): NEG_INF = -1e30 stays finite
-// for keys the causal or window mask removes; keys and query rows past L do
-// not exist and get p = 0 outright; the q and kv edges are masked
+// Conventions of K3 (flash_attention_fwd.cu): positions are global, query
+// row i at q_off + i and key j at k_off + j, for the masks and the live-tile
+// loop bounds (flash_common.cuh); NEG_INF = -1e30 stays finite for keys the
+// causal or window mask removes; keys and query rows past L do not exist
+// and get p = 0 outright; the q and kv edges are masked
 // independently (the tail-key bug the TPU code documents at
 // flash_attention.py:244-253 cannot occur: a kv tile past the last query
 // tile still writes its dk/dv). No padding in device memory: (B, L, N, dh)
@@ -45,12 +48,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::NEG_INF;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -96,7 +102,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const float* __restrict__ delta, T* __restrict__ dq, int L, int H, int KV, int dh,
           long long sqb, long long sql, long long skb, long long skl, long long svb,
           long long svl, long long sdob, long long sdol, long long sdqb, long long sdql,
-          int causal, int window, float scale) {
+          int causal, int window, int q_off, int k_off, float scale) {
   constexpr int QS = DHP + 1;
   constexpr int PS = BK + 1;
   constexpr int NJ = DHP / 16;
@@ -135,10 +141,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   // live kv tiles, as in K3
-  const int q_last = min(L, q0 + BQ) - 1;
-  const int kt_end = causal ? q_last / BK + 1 : (L + BK - 1) / BK;
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  int kt_begin, kt_end;
+  flash::live_tiles(q0, min(L, q0 + BQ) - 1, L, BK, causal, window, q_off - k_off, &kt_begin,
+                    &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -176,12 +181,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = 4 * rg + i, qp = q0 + r;
+      const int r = 4 * rg + i, ql = q0 + r, qp = q_off + ql;  // global positions
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + cg + 16 * j;
+        const int kl = k0 + cg + 16 * j, kp = k_off + kl;
         float ds = 0.f;
-        if (kp < L && qp < L) {
+        if (kl < L && ql < L) {
           float x = s[i][j] * scale;
           if ((causal && kp > qp) || (window > 0 && qp - kp >= window)) x = NEG_INF;
           const float p = expf(x - sL[r]);
@@ -230,8 +235,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L,
            int H, int KV, int dh, long long sqb, long long sql, long long skb, long long skl,
            long long svb, long long svl, long long sdob, long long sdol, long long sdkb,
-           long long sdkl, long long sdvb, long long sdvl, int causal, int window,
-           float scale) {
+           long long sdkl, long long sdvb, long long sdvl, int causal, int window, int q_off,
+           int k_off, float scale) {
   constexpr int QS = DHP + 1;
   constexpr int PS = BQ + 1;
   constexpr int NJ = DHP / 16;
@@ -261,13 +266,12 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
 
-  // live query tiles: causal starts at the tile holding k0 (BQ == BK); a
-  // window ends at the tile of the last query that still sees the tile
-  const int nq = (L + BQ - 1) / BQ;
-  const int k_last = min(L, k0 + BK) - 1;
-  const int qt_begin = causal ? k0 / BQ : 0;
-  int qt_end = nq;
-  if (window > 0) qt_end = min(nq, (k_last + window - 1) / BQ + 1);
+  // live query tiles: causal starts at the tile of the first query that
+  // sees k0; a window ends at the tile of the last query that still sees
+  // the tile
+  int qt_begin, qt_end;
+  flash::live_q_tiles(k0, min(L, k0 + BK) - 1, L, BQ, causal, window, q_off - k_off, &qt_begin,
+                      &qt_end);
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -317,12 +321,12 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = 4 * rg + i, kp = k0 + r;
+        const int r = 4 * rg + i, kl = k0 + r, kp = k_off + kl;  // global positions
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int c = cg + 16 * j, qp = q0 + c;
+          const int c = cg + 16 * j, ql = q0 + c, qp = q_off + ql;
           float p = 0.f, ds = 0.f;
-          if (kp < L && qp < L) {
+          if (kl < L && ql < L) {
             float x = s[i][j] * scale;
             if ((causal && kp > qp) || (window > 0 && qp - kp >= window)) x = NEG_INF;
             p = expf(x - sL[c]);
@@ -377,7 +381,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 template <typename T, int DHP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO, const void* lse,
               const void* delta, void* dq, int B, int L, int H, int KV, int dh,
-              const long long* st, int causal, int window, float scale, cudaStream_t stream) {
+              const long long* st, int causal, int window, int q_off, int k_off, float scale,
+              cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DHP>();
   cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -386,14 +391,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO, const
   dq_kernel<T, DHP><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dO, (const float*)lse,
       (const float*)delta, (T*)dq, L, H, KV, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], causal, window, scale);
+      st[7], st[8], st[9], causal, window, q_off, k_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DHP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                const void* delta, void* dk, void* dv, int B, int L, int H, int KV, int dh,
-               const long long* st, int causal, int window, float scale, cudaStream_t stream) {
+               const long long* st, int causal, int window, int q_off, int k_off, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DHP>();
   cudaError_t err = cudaFuncSetAttribute(dkv_kernel<T, DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -402,39 +408,41 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO, cons
   dkv_kernel<T, DHP><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dO, (const float*)lse,
       (const float*)delta, (T*)dk, (T*)dv, L, H, KV, dh, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window, scale);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window, q_off, k_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_dq(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                 const void* delta, void* dq, int B, int L, int H, int KV, int dh,
-                const long long* st, int causal, int window, float scale, cudaStream_t s) {
+                const long long* st, int causal, int window, int q_off, int k_off,
+                float scale, cudaStream_t s) {
   if (dh <= 32)
     return launch_dq<T, 32>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                            scale, s);
+                            q_off, k_off, scale, s);
   if (dh <= 64)
     return launch_dq<T, 64>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                            scale, s);
+                            q_off, k_off, scale, s);
   if (dh <= 128)
     return launch_dq<T, 128>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                             scale, s);
+                             q_off, k_off, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch_dkv(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                  const void* delta, void* dk, void* dv, int B, int L, int H, int KV, int dh,
-                 const long long* st, int causal, int window, float scale, cudaStream_t s) {
+                 const long long* st, int causal, int window, int q_off, int k_off,
+                 float scale, cudaStream_t s) {
   if (dh <= 32)
     return launch_dkv<T, 32>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                             window, scale, s);
+                             window, q_off, k_off, scale, s);
   if (dh <= 64)
     return launch_dkv<T, 64>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                             window, scale, s);
+                             window, q_off, k_off, scale, s);
   if (dh <= 128)
     return launch_dkv<T, 128>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                              window, scale, s);
+                              window, q_off, k_off, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -447,17 +455,17 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, c
                                   int H, int KV, int dh, long long sqb, long long sql,
                                   long long skb, long long skl, long long svb, long long svl,
                                   long long sdob, long long sdol, long long sdqb,
-                                  long long sdql, int causal, int window, float scale,
-                                  int dtype, void* stream) {
+                                  long long sdql, int causal, int window, int q_off,
+                                  int k_off, float scale, int dtype, void* stream) {
   if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
   const long long st[10] = {sqb, sql, skb, skl, svb, svl, sdob, sdol, sdqb, sdql};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_dq<float>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                              scale, s);
+                              q_off, k_off, scale, s);
   if (dtype == 1)
     return dispatch_dq<__nv_bfloat16>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal,
-                                      window, scale, s);
+                                      window, q_off, k_off, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -468,15 +476,16 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
                                    long long skb, long long skl, long long svb, long long svl,
                                    long long sdob, long long sdol, long long sdkb,
                                    long long sdkl, long long sdvb, long long sdvl, int causal,
-                                   int window, float scale, int dtype, void* stream) {
+                                   int window, int q_off, int k_off, float scale, int dtype,
+                                   void* stream) {
   if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
   const long long st[12] = {sqb, sql, skb, skl, svb, svl, sdob, sdol, sdkb, sdkl, sdvb, sdvl};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch_dkv<float>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                               window, scale, s);
+                               window, q_off, k_off, scale, s);
   if (dtype == 1)
     return dispatch_dkv<__nv_bfloat16>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st,
-                                       causal, window, scale, s);
+                                       causal, window, q_off, k_off, scale, s);
   return (int)cudaErrorInvalidValue;
 }

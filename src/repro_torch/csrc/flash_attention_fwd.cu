@@ -1,58 +1,377 @@
-// K3 on Hopper: FlashAttention-2 forward (causal / sliding window, GQA).
+// K3 on Hopper: FlashAttention-2 forward (causal / sliding window, GQA,
+// global position offsets), in two routes chosen by dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:_fwd_impl
-// (body _fwd_kernel). Same function: o = softmax(scale * q k^T + mask) v per
+// (body _fwd_kernel) and its offset variant (:313, scalar prefetch of
+// (q_off, k_off)). Same function: o = softmax(scale * q k^T + mask) v per
 // query head, the kv head of query head h being h // G, and the row
 // statistic lse = m + log(l) that the backward recomputes probabilities
-// from. NEG_INF = -1e30 stays finite and the denominator is floored at
-// 1e-30, so a row whose first live tile is fully masked is erased by the
-// first unmasked tile (corr = exp(-1e30 - m) = 0) instead of turning NaN.
-//
-// Design: one thread block per (64-row query tile, query head, batch row).
-// The block walks only the kv tiles the causal and window limits leave
-// live -- the counterpart of _tile_live, computed as loop bounds rather
-// than tested per tile -- staging each 64-key tile of K and V in shared
-// memory as f32 and keeping the online softmax (m, l) and the output
-// accumulator in registers. 256 threads; each owns a 4 x 4 block of the
-// 64 x 64 score tile (4 rows, 4 strided columns) and the same 4 rows of
-// the output at 1/16 of the head dims, so every shared-memory operand is
-// reused 4 times per load.
+// from. Positions are global: query row i sits at q_off + i and key j at
+// k_off + j (0, 0 outside ring context parallelism); keys past the local
+// length L do not exist (-inf). NEG_INF = -1e30 stays finite for keys the
+// causal or window mask removes and the denominator is floored at 1e-30,
+// so a row whose first live tile is fully masked is erased by the first
+// unmasked tile (corr = exp(-1e30 - m) = 0) instead of turning NaN, and a
+// row that sees no key at all keeps lse <= NEG_INF / 2 with a finite o (an
+// average of V over its live tiles), which is all the ring merge needs.
+// The live kv tiles -- the counterpart of _tile_live -- are loop bounds,
+// not per-tile tests (flash_common.cuh:live_tiles).
 //
 // Layout: q (B, L, H, dh), k/v (B, L, KV, dh), o like q, read and written
-// in place through batch and row strides (head stride dh, dim stride 1).
-// No padding in device memory: the ragged sequence edge and the head dims
-// beyond dh (the tile is compiled for a padded width DHP in {32, 64, 128,
-// 256}) are masked on load. Keys past L get -inf (excluded outright);
-// keys the causal or window mask removes get NEG_INF, as on the TPU.
+// in place through batch and row strides (head stride dh, dim stride 1);
+// lse (B, H, L) f32. No padding in device memory: the ragged sequence edge
+// and the head dims past dh are zero-filled on the way into shared memory.
 //
 // Bound on the H100: operations. At internlm2-1.8b's prefill shape
-// (1, 1024, 16/8, 128) the causal half of the scores is ~4.3 GFLOP, about
-// 4.3 us at the bf16 tensor-core peak. This kernel uses scalar f32 FMAs
-// (67 TFLOP/s peak, and shared-memory bandwidth below that), so it is
-// expected to sit well above the bound; tensor cores (mma.sync / wgmma)
-// and TMA staging are the later work that closes the gap.
+// (1, 1024, 16/8, 128) the causal half of the scores is ~4.3 GFLOP, 4.3 us
+// at the bf16 tensor-core peak; at the training shape (4, 2048, 16/8, 128)
+// ~69 GFLOP, 0.07 ms.
+//
+// bf16 route (entry flash_attention_fwd, the main path): FlashAttention-2's
+// shape on mma.sync. One block of 8 warps covers 128 query rows of one
+// head; each warp owns 16 rows, so its row max, row sum and (16, dh) output
+// accumulator stay in its registers, and so do Q's A fragments (dh <= 128).
+// S = Q K^T is mma.sync.m16n8k16 in bf16 with f32 accumulation, fragments
+// loaded by ldmatrix; P is converted to bf16 in registers and the S
+// accumulator layout is reused as the A fragment of P V, V's B fragment
+// coming from ldmatrix.trans, so P never touches shared memory. K and V
+// tiles (64 keys; 32 at dh 256, for registers) are staged as bf16 with
+// cp.async, double-buffered, in rows padded by 16 bytes (8 rows of an
+// ldmatrix hit 8 distinct bank groups).
+// Head dims compile at 16, 32, 64, 80, 112, 128 and 256 (dh 120 runs at
+// 128). Causal q tiles are issued heaviest first (the tile index is the
+// slowest grid dimension, walked from the last tile). wgmma, TMA and warp
+// specialisation are the next step.
+// Departures from the TPU kernel, within chip_smoke.py's TOL_O 2e-2 and
+// TOL_ROW 1e-2: P is rounded to bf16 before P V (the TPU keeps P in f32),
+// and the softmax runs in base 2 (exp2 of log2(e)-scaled scores).
+//
+// f32 route (entry flash_attention_fwd_f32): the scalar kernel of the first
+// port, kept for f32 inputs (the card-versus-CPU check in f32 and the f32
+// tests). One block of 256 threads per 64-row query tile; each thread owns
+// a 4 x 4 block of the 64 x 64 score tile and the same 4 rows of the output
+// at 1/16 of the head dims, K/V staged in shared memory as f32. A bf16
+// tensor never reaches it: the wrapper picks the route by dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using flash::DENOM_FLOOR;
+using flash::NEG_INF;
+typedef __nv_bfloat16 bf16;
+
+// One call's operands (strides in elements); vec: rows move as 16-byte chunks
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int B, L, H, KV, dh;
+  long long sqb, sql, skb, skl, svb, svl, sob, sol;
+  int causal, window, q_off, k_off;
+  float scale;
+  int vec;
+};
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+// 8 warps of 16 query rows and two copy stages (measured on the H100
+// against 4 warps and 3-4 stages)
+constexpr int NW = 8;
+constexpr int BQ = 16 * NW;  // query rows per block
+constexpr int NT = 32 * NW;
+constexpr int STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as one bf16x2 register, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows x DHP tile of a (B, L, N, dh) tensor from local row l0 into shared
+// memory rows of DHP + 8 elements, zero past L and past dh. With ``vec``
+// (dh % 8 == 0 and 16-byte aligned rows) as cp.async 16-byte chunks, else
+// element by element.
+template <int ROWS, int DHP>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long sl, int l0, int L,
+                                          int dh, bool vec) {
+  constexpr int SR = DHP + 8;
+  constexpr int CH = DHP / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, d = (i % CH) * 8, l = l0 + r;
+    bf16* to = dst + r * SR + d;
+    if (vec) {
+      const bool in = l < L && d < dh;
+      flash::cp_async16(to, in ? src + (long long)l * sl + d : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        to[e] = (l < L && d + e < dh) ? src[(long long)l * sl + d + e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int DHP, int BK>
+constexpr size_t smem_bytes() {
+  // sQ (BQ rows), sK and sV (STAGES x BK rows each), rows of DHP + 8 bf16
+  return sizeof(bf16) * (size_t)(BQ + 2 * STAGES * BK) * (DHP + 8);
+}
+
+// BK: keys per tile, 64, or 32 at dh 256 (for registers)
+template <int DHP, int BK>
+__global__ void __launch_bounds__(NT)
+fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse, int L,
+               int H, int KV, int dh, long long sqb, long long sql, long long skb, long long skl,
+               long long svb, long long svl, long long sob, long long sol, int causal, int window,
+               int q_off, int k_off, float scale_log2, int vec) {
+  constexpr bool QREG = DHP <= 128;  // Q's A fragments in registers (dh 256: too many)
+  constexpr int SR = DHP + 8;
+  constexpr int KS = DHP / 16;  // k-steps of Q K^T
+  constexpr int NS = BK / 8;    // n-tiles of a warp's (16, BK) score tile
+  constexpr int ND = DHP / 8;   // n-tiles of its (16, DHP) output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ * SR;  // stage s at sK + s * BK * SR
+  bf16* sV = sK + STAGES * BK * SR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int q0 = iq * BQ;
+  const int kvh = h / (H / KV);
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, tg = lane & 3;  // the mma fragment's row group and column pair
+
+  const bf16* qb = q + (long long)b * sqb + (long long)h * dh;
+  const bf16* kb = k + (long long)b * skb + (long long)kvh * dh;
+  const bf16* vb = v + (long long)b * svb + (long long)kvh * dh;
+
+  int kt_begin, kt_end;
+  flash::live_tiles(q0, min(L, q0 + BQ) - 1, L, BK, causal, window, q_off - k_off, &kt_begin,
+                    &kt_end);
+
+  // Q and the first STAGES - 1 live tiles, one copy group per tile (Q
+  // joins the first); every loop turn commits one group, maybe empty
+  load_tile<BQ, DHP>(sQ, qb, sql, q0, L, dh, vec);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (kt_begin + i < kt_end) {
+      load_tile<BK, DHP>(sK + i * BK * SR, kb, skl, (kt_begin + i) * BK, L, dh, vec);
+      load_tile<BK, DHP>(sV + i * BK * SR, vb, svl, (kt_begin + i) * BK, L, dh, vec);
+    }
+    flash::cp_async_commit();
+  }
+
+  // this thread's rows: row0 + g (hr = 0) and row0 + g + 8 (hr = 1)
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max, log2 units
+  float l[2] = {0.f, 0.f};          // this thread's share of the running sum
+  uint32_t qf[QREG ? KS : 1][4];    // Q's A fragments, when held in registers
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin;
+    const int nxt = kt + STAGES - 1;  // refill the stage the last turn read
+    if (nxt < kt_end) {
+      const int ns = (it + STAGES - 1) % STAGES;
+      load_tile<BK, DHP>(sK + ns * BK * SR, kb, skl, nxt * BK, L, dh, vec);
+      load_tile<BK, DHP>(sV + ns * BK * SR, vb, svl, nxt * BK, L, dh, vec);
+    }
+    flash::cp_async_commit();
+    flash::cp_async_wait<STAGES - 1>();  // this tile's group (and Q) has landed
+    __syncthreads();
+    const bf16* cK = sK + (it % STAGES) * BK * SR;
+    const bf16* cV = sV + (it % STAGES) * BK * SR;
+    if constexpr (QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          ldsm_x4(qf[ks], sQ + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + ks * 16 +
+                              (lane >> 4) * 8);
+      }
+    }
+
+    // S = Q K^T: A from Q (16 x 16 per k-step), B from K's rows (keys)
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
+      } else {
+        ldsm_x4(qa, sQ + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + ks * 16 +
+                        (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, cK + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * SR + ks * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma16816(s[2 * n2], qa, kf[0], kf[1]);
+        mma16816(s[2 * n2 + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // scale into log2 units and mask; only tiles on an edge need the tests
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > L || (causal && k_off + k0 + BK - 1 > q_off + q0) ||
+                      (window > 0 && q_off + q0 + BQ - 1 - (k_off + k0) >= window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kl = k0 + j * 8 + tg * 2 + (e & 1), kp = k_off + kl;
+          const int qp = q_off + q0 + row0 + g + (e >> 1) * 8;
+          if (kl >= L)
+            x = -INFINITY;  // past the sequence: no key at all
+          else if ((causal && kp > qp) || (window > 0 && qp - kp >= window))
+            x = NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax per row; a row's BK scores live in the 4 lanes of a group
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hr], s[j][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float corr = exp2f(m[hr] - m_new);
+      m[hr] = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p0 = exp2f(s[j][2 * hr] - m_new), p1 = exp2f(s[j][2 * hr + 1] - m_new);
+        s[j][2 * hr] = p0;
+        s[j][2 * hr + 1] = p1;
+        ps += p0 + p1;
+      }
+      l[hr] = l[hr] * corr + ps;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * hr] *= corr;
+        acc[j][2 * hr + 1] *= corr;
+      }
+    }
+
+    // O += P V: the S accumulators of two n-tiles are P's A fragment
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + d2 * 16 +
+                              (lane >> 4) * 8);
+        mma16816(acc[2 * d2], a, vf[0], vf[1]);
+        mma16816(acc[2 * d2 + 1], a, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  flash::cp_async_wait<0>();  // no copy left in flight (a block without live tiles)
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float sum = l[hr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int ql = q0 + row0 + g + hr * 8;
+    if (ql >= L) continue;
+    const float den = fmaxf(sum, DENOM_FLOOR);
+    bf16* orow = o + (long long)b * sob + (long long)ql * sol + (long long)h * dh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = j * 8 + tg * 2;
+      if (d < dh) orow[d] = __float2bfloat16(acc[j][2 * hr] / den);
+      if (d + 1 < dh) orow[d + 1] = __float2bfloat16(acc[j][2 * hr + 1] / den);
+    }
+    if (tg == 0) lse[((long long)b * H + h) * L + ql] = m[hr] * LN2 + logf(den);
+  }
+}
+
+template <int DHP>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int BK = DHP > 128 ? 32 : 64;
+  constexpr size_t smem = smem_bytes<DHP, BK>();
+  auto kernel = fwd_kernel_mma<DHP, BK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.H, a.B, (a.L + BQ - 1) / BQ);
+  kernel<<<grid, NT, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (bf16*)a.o, (float*)a.lse, a.L, a.H,
+      a.KV, a.dh, a.sqb, a.sql, a.skb, a.skl, a.svb, a.svl, a.sob, a.sol, a.causal, a.window,
+      a.q_off, a.k_off, a.scale * LOG2E, a.vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const Args& a, cudaStream_t s) {
+  if (a.dh <= 16) return launch<16>(a, s);
+  if (a.dh <= 32) return launch<32>(a, s);
+  if (a.dh <= 64) return launch<64>(a, s);
+  if (a.dh <= 80) return launch<80>(a, s);
+  if (a.dh <= 112) return launch<112>(a, s);
+  if (a.dh <= 128) return launch<128>(a, s);
+  if (a.dh <= 256) return launch<256>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32 route: scalar FMAs
+// ---------------------------------------------------------------------------
+namespace f32 {
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr float NEG_INF = -1e30f;
-constexpr float DENOM_FLOOR = 1e-30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DHP>
 constexpr size_t smem_bytes() {
@@ -60,12 +379,13 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (DHP + 1) + BK * (DHP + 1) + BK * DHP + BQ * (BK + 1));
 }
 
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(NT)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, float* __restrict__ lse, int L, int H, int KV, int dh,
-           long long sqb, long long sql, long long skb, long long skl, long long svb,
-           long long svl, long long sob, long long sol, int causal, int window, float scale) {
+fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+               int L, int H, int KV, int dh, long long sqb, long long sql, long long skb,
+               long long skl, long long svb, long long svl, long long sob, long long sol,
+               int causal, int window, int q_off, int k_off, float scale) {
   constexpr int QS = DHP + 1;  // padded row stride: conflict-free column reads
   constexpr int PS = BK + 1;
   constexpr int NJ = DHP / 16;  // output dims per thread
@@ -82,13 +402,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int rg = t >> 4;  // rows 4*rg .. 4*rg+3
   const int cg = t & 15;  // score columns cg + 16*j, output dims cg + 16*j
 
-  const T* qb = q + (long long)b * sqb + (long long)h * dh;
-  const T* kb = k + (long long)b * skb + (long long)kvh * dh;
-  const T* vb = v + (long long)b * svb + (long long)kvh * dh;
+  const float* qb = q + (long long)b * sqb + (long long)h * dh;
+  const float* kb = k + (long long)b * skb + (long long)kvh * dh;
+  const float* vb = v + (long long)b * svb + (long long)kvh * dh;
 
   for (int i = t; i < BQ * DHP; i += NT) {
     const int r = i / DHP, d = i % DHP, l = q0 + r;
-    sQ[r * QS + d] = (l < L && d < dh) ? to_f(qb[(long long)l * sql + d]) : 0.f;
+    sQ[r * QS + d] = (l < L && d < dh) ? qb[(long long)l * sql + d] : 0.f;
   }
 
   float m[4], lsum[4], acc[4][NJ];
@@ -100,13 +420,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // live kv tiles (the _tile_live bounds): causal stops at the tile of the
-  // last real query row; a window starts at the tile of the first key the
-  // first row of this tile can still see.
-  const int q_last = min(L, q0 + BQ) - 1;
-  const int kt_end = causal ? q_last / BK + 1 : (L + BK - 1) / BK;
-  int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
+  int kt_begin, kt_end;
+  flash::live_tiles(q0, min(L, q0 + BQ) - 1, L, BK, causal, window, q_off - k_off, &kt_begin,
+                    &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -114,8 +430,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int i = t; i < BK * DHP; i += NT) {
       const int r = i / DHP, d = i % DHP, l = k0 + r;
       const bool in = l < L && d < dh;
-      sK[r * QS + d] = in ? to_f(kb[(long long)l * skl + d]) : 0.f;
-      sV[r * DHP + d] = in ? to_f(vb[(long long)l * svl + d]) : 0.f;
+      sK[r * QS + d] = in ? kb[(long long)l * skl + d] : 0.f;
+      sV[r * DHP + d] = in ? vb[(long long)l * svl + d] : 0.f;
     }
     __syncthreads();
 
@@ -139,13 +455,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * rg + i;
+      const int qp = q_off + q0 + 4 * rg + i;  // global positions
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + cg + 16 * j;
+        const int kl = k0 + cg + 16 * j, kp = k_off + kl;
         float x = s[i][j] * scale;
-        if (kp >= L)
+        if (kl >= L)
           x = -INFINITY;  // past the sequence: no key at all
         else if ((causal && kp > qp) || (window > 0 && qp - kp >= window))
           x = NEG_INF;
@@ -193,67 +509,66 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int l = q0 + 4 * rg + i;
     if (l >= L) continue;
     const float den = fmaxf(lsum[i], DENOM_FLOOR);
-    T* orow = o + (long long)b * sob + (long long)l * sol + (long long)h * dh;
+    float* orow = o + (long long)b * sob + (long long)l * sol + (long long)h * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = cg + 16 * j;
-      if (d < dh) orow[d] = from_f<T>(acc[i][j] / den);
+      if (d < dh) orow[d] = acc[i][j] / den;
     }
     if (cg == 0) lse[((long long)b * H + h) * L + l] = m[i] + logf(den);
   }
 }
 
-template <typename T, int DHP>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L, int H,
-           int KV, int dh, long long sqb, long long sql, long long skb, long long skl,
-           long long svb, long long svl, long long sob, long long sol, int causal, int window,
-           float scale, cudaStream_t stream) {
+template <int DHP>
+int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DHP>();
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, DHP>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel_f32<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  fwd_kernel<T, DHP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, L, H, KV, dh, sqb, sql, skb, skl,
-      svb, svl, sob, sol, causal, window, scale);
+  dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
+  fwd_kernel_f32<DHP><<<grid, NT, smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, (float*)a.lse, a.L,
+      a.H, a.KV, a.dh, a.sqb, a.sql, a.skb, a.skl, a.svb, a.svl, a.sob, a.sol, a.causal, a.window,
+      a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int L, int H,
-             int KV, int dh, long long sqb, long long sql, long long skb, long long skl,
-             long long svb, long long svl, long long sob, long long sol, int causal, int window,
-             float scale, cudaStream_t s) {
-  if (dh <= 32)
-    return launch<T, 32>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl, sob, sol,
-                         causal, window, scale, s);
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl, sob, sol,
-                         causal, window, scale, s);
-  if (dh <= 128)
-    return launch<T, 128>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl, sob,
-                          sol, causal, window, scale, s);
-  if (dh <= 256)
-    return launch<T, 256>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl, sob,
-                          sol, causal, window, scale, s);
+int dispatch(const Args& a, cudaStream_t s) {
+  if (a.dh <= 32) return launch<32>(a, s);
+  if (a.dh <= 64) return launch<64>(a, s);
+  if (a.dh <= 128) return launch<128>(a, s);
+  if (a.dh <= 256) return launch<256>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
+}  // namespace f32
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// K3, bf16 route (tensor cores): q, k, v, o bf16; lse f32. Strides are in
+// elements. Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                    int B, int L, int H, int KV, int dh, long long sqb,
                                    long long sql, long long skb, long long skl, long long svb,
                                    long long svl, long long sob, long long sol, int causal,
-                                   int window, float scale, int dtype, void* stream) {
+                                   int window, int q_off, int k_off, float scale, void* stream) {
   if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl, sob,
-                           sol, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl,
-                                   sob, sol, causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const int vec = dh % 8 == 0 && flash::aligned16(q, 2, {sqb, sql}) &&
+                  flash::aligned16(k, 2, {skb, skl}) && flash::aligned16(v, 2, {svb, svl});
+  const Args a{q,   k,   v,   o,   lse, B,   L,      H,      KV,    dh,    sqb,   sql,
+               skb, skl, svb, svl, sob, sol, causal, window, q_off, k_off, scale, vec};
+  return tc::dispatch(a, (cudaStream_t)stream);
+}
+
+// K3, f32 route (scalar): q, k, v, o, lse f32. Returns a cudaError_t.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int L, int H, int KV, int dh,
+                                       long long sqb, long long sql, long long skb,
+                                       long long skl, long long svb, long long svl,
+                                       long long sob, long long sol, int causal, int window,
+                                       int q_off, int k_off, float scale, void* stream) {
+  if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  const Args a{q,   k,   v,   o,   lse, B,   L,      H,      KV,    dh,    sqb,   sql,
+               skb, skl, svb, svl, sob, sol, causal, window, q_off, k_off, scale, 0};
+  return f32::dispatch(a, (cudaStream_t)stream);
 }

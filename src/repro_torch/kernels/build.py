@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes plain C entry points (SIGNATURES; most
 sources hold one entry point of their own name) and compiles, on first
 use, into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
-repository root (the hash covers the source text and the flags, so an
-edited source rebuilds and a stale library is never loaded). No PyTorch
-header is included, which keeps one build to seconds.
+repository root (the hash covers the source text, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source rebuilds and a stale
+library is never loaded). No PyTorch header is included, which keeps one
+build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with neither ``nvcc`` nor a card.
@@ -28,9 +29,12 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of each C entry point; an entry point lives in ``csrc/<name>.cu``
 # unless SOURCE_OF names another source
 SIGNATURES = {
-    # q k v o lse, B L H KV dh, strides (q b,l  k b,l  v b,l  o b,l),
-    # causal window scale dtype stream
-    "flash_attention_fwd": [P] * 5 + [I] * 5 + [LL] * 8 + [I, I, F, I, P],
+    # K3, two routes of one signature: flash_attention_fwd (bf16, tensor
+    # cores) and flash_attention_fwd_f32 (f32, scalar). q k v o lse,
+    # B L H KV dh, strides (q b,l  k b,l  v b,l  o b,l), causal window
+    # q_off k_off scale stream
+    "flash_attention_fwd": [P] * 5 + [I] * 5 + [LL] * 8 + [I] * 4 + [F, P],
+    "flash_attention_fwd_f32": [P] * 5 + [I] * 5 + [LL] * 8 + [I] * 4 + [F, P],
     # q k v q_pos slot_pos o, B S H KV dh, strides (q b; k b,s; v b,s;
     # slot_pos b; o b), causal window scale dtype stream
     "flash_decode": [P] * 6 + [I] * 5 + [LL] * 7 + [I, I, F, I, P],
@@ -39,15 +43,15 @@ SIGNATURES = {
     # f alpha gz out, b m k, dtype stream
     "segment_matmul": [P] * 4 + [I] * 4 + [P],
     # q k v do lse delta dq, B L H KV dh, strides (q b,l  k b,l  v b,l
-    # do b,l  dq b,l), causal window scale dtype stream
-    "flash_attention_dq": [P] * 7 + [I] * 5 + [LL] * 10 + [I, I, F, I, P],
+    # do b,l  dq b,l), causal window q_off k_off scale dtype stream
+    "flash_attention_dq": [P] * 7 + [I] * 5 + [LL] * 10 + [I] * 4 + [F, I, P],
     # q k v do lse delta dk dv, B L H KV dh, strides (q b,l  k b,l  v b,l
-    # do b,l  dk b,l  dv b,l), causal window scale dtype stream
-    "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I, I, F, I, P],
-    # q k_pages v_pages q_pos block_table page_pos o, B Lq H KV dh ps nb,
-    # strides (q b,l  k page,off  v page,off  block_table b  page_pos page
-    # o b,l), causal window scale dtype stream
-    "flash_paged_decode": [P] * 7 + [I] * 7 + [LL] * 10 + [I, I, F, I, P],
+    # do b,l  dk b,l  dv b,l), causal window q_off k_off scale dtype stream
+    "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I] * 4 + [F, I, P],
+    # q k_pages v_pages q_pos block_table page_pos o part_acc part_ml,
+    # B Lq H KV dh ps nb nsplit pps, strides (q b,l  k page,off  v page,off
+    # block_table b  page_pos page  o b,l), causal window scale dtype stream
+    "flash_paged_decode": [P] * 9 + [I] * 9 + [LL] * 10 + [I, I, F, I, P],
     # q k_pages v_pages k_scale v_scale q_pos block_table page_pos o,
     # B Lq H KV dh ps nb ngr bits, strides (q b,l  k page,off  v page,off
     # k_scale page,off  v_scale page,off  block_table b  page_pos page
@@ -55,6 +59,7 @@ SIGNATURES = {
     "flash_paged_decode_quant": [P] * 9 + [I] * 9 + [LL] * 14 + [I, I, F, I, P],
 }
 SOURCE_OF = {
+    "flash_attention_fwd_f32": "flash_attention_fwd",
     "csim_argmax": "pamm_compress",
     "segment_matmul": "pamm_apply",
     "flash_attention_dq": "flash_attention_bwd",
@@ -78,6 +83,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -14,7 +14,9 @@ key; its output is finite and discarded by the engine.
   skipped whole), with in-page masks from ``page_pos`` (n_pages,
   page_size); Lq >= 1 rows with per-row positions ``q_pos`` (B, Lq)
   (speculative verify) and a ``scale`` override (svd pools score rank-r
-  coefficients with the original head dim's scale).
+  coefficients with the original head dim's scale). The kernel splits
+  the keys over blocks and merges the partials in a second launch, so
+  its f32 sums run in another order than K6's over the same keys.
 * K8 (``flash_paged_decode_quant``): K7 over int8 pages, or int4 pages
   (two nibbles per byte), with f32 absmax scales per (token, kv head,
   group), dequantised in f32 per tile (both in
@@ -28,9 +30,12 @@ models and the serving cache share one convention.
 The plain versions take any Lq >= 1 and are what the CPU tests hold
 against the JAX kernels. On a fully masked row (a parked slot) the K7/K8
 kernels, like the TPU ones, average V over the mapped pages only, the
-plain versions over every gathered page: both finite, both discarded.
+plain versions over every gathered page (K7 gives 0 where no page is
+mapped): all finite, all discarded.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -270,20 +275,43 @@ def _check_paged(name, q, k_pages, v_pages, q_pos, block_table, page_pos,
     return q_pos.reshape(B, -1).expand(B, Lq).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(B: int, KV: int, nb: int, device):
+    """(split count, block-table entries per split) of K7's key range,
+    from the shapes alone: enough splits for two blocks per SM, at most one
+    per table entry. Never read from the table or page_pos: that would
+    cost a host sync per layer."""
+    splits = -(-2 * _sm_count(device.index) // (B * KV))
+    per = -(-nb // max(1, min(nb, splits)))
+    return -(-nb // per), per
+
+
 def flash_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table, page_pos, *,
                             causal: bool = True, window: int = 0,
                             scale: float | None = None):
     """Launch K7 on q's current CUDA stream; returns (B, Lq, H, dh). The
-    pool is read in place through its strides: no pad, no transpose."""
+    pool is read in place through its strides: no pad, no transpose. The
+    keys are split over blocks (:func:`_splits`); the per-split partials
+    (acc, then (m, l) per row, in one f32 scratch allocated here) are
+    merged by a second kernel, the two launches counted as one."""
     qp = _check_paged("K7", q, k_pages, v_pages, q_pos, block_table, page_pos,
                       q.dtype, q.shape[-1])
     B, Lq, H, dh = q.shape
     _, ps, KV, _ = k_pages.shape
+    nb = block_table.shape[1]
+    nsplit, per = _splits(B, KV, nb, q.device)
+    rows = nsplit * B * KV * Lq * (H // KV)
     o = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
+    part = torch.empty(rows * (dh + 2), dtype=torch.float32, device=q.device)
     fn = build.entry("flash_paged_decode")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), qp.data_ptr(),
              block_table.data_ptr(), page_pos.data_ptr(), o.data_ptr(),
-             B, Lq, H, KV, dh, ps, block_table.shape[1],
+             part.data_ptr(), part.data_ptr() + 4 * rows * dh,
+             B, Lq, H, KV, dh, ps, nb, nsplit, per,
              q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1),
              v_pages.stride(0), v_pages.stride(1), block_table.stride(0),
              page_pos.stride(0), o.stride(0), o.stride(1), int(causal), int(window),

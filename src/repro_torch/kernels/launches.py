@@ -2,7 +2,9 @@
 
 Each CUDA wrapper adds one under its own name right after its kernel
 launched, and each plain version adds one under ``<name>_ref`` per call,
-so a run can show which path its attention took. The counts are
+so a run can show which path its attention took. K3's two routes count
+apart: ``flash_attention_fwd`` (bf16, tensor cores) and
+``flash_attention_fwd_f32`` (f32, scalar). The counts are
 process-wide: a caller that reads them zeroes them first with
 :func:`reset`.
 """

@@ -32,22 +32,27 @@ def _route(x, name: str):
     return x.device.type == "cuda"
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0):
-    """K3 (prefill attention): (o (B,L,H,dh), lse (B,H,L) f32)."""
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        offs=None):
+    """K3 (prefill attention): (o (B,L,H,dh), lse (B,H,L) f32). ``offs``:
+    None or (q_off, k_off), the global positions of the first query and
+    key (ring context parallelism)."""
     if _route(q, "flash_attention_fwd"):
-        return _fa.flash_attention_fwd_cuda(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
+        return _fa.flash_attention_fwd_cuda(q, k, v, causal=causal, window=window,
+                                            offs=offs)
+    return _fa.flash_attention_fwd_ref(q, k, v, causal=causal, window=window, offs=offs)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, offs=None):
     """K4 + K5 (attention backward): (dq, dk, dv) from the saved
-    (q, k, v, o, lse) and the output gradient dO."""
+    (q, k, v, o, lse) and the output gradient dO; ``offs`` as in the
+    forward."""
     if _route(q, "flash_attention_bwd"):
         return _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
-                                            window=window)
+                                            window=window, offs=offs)
     return _fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window)
+                                       window=window, offs=offs)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -57,28 +62,29 @@ class FlashAttention(torch.autograd.Function):
     K5)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal: bool, window: int, offs=None):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, offs=offs)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.offs = causal, window, offs
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         offs=ctx.offs)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, offs=None):
     """Attention output (B, L, H, dh). Differentiable: under autograd it
     runs K3 forward and K4/K5 backward; otherwise (serving) K3 alone, with
-    nothing saved."""
+    nothing saved. ``offs`` as in :func:`flash_attention_fwd`."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window)
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+        return FlashAttention.apply(q, k, v, causal, window, offs)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window, offs=offs)[0]
 
 
 def flash_decode(q, k, v, q_pos, slot_pos, *, causal: bool = True,

@@ -18,13 +18,18 @@ its norm; a row that loses one 64-key tile of its i live keys moves by the
 order of sqrt(64 / i) of it, which the largest-magnitude bound lets pass
 for late rows). K7/K8 are compared on the rows that see at least one key;
 a fully masked (parked) row must only be finite (the kernels average V
-over the mapped pages, the plain versions over every gathered page).
+over the mapped pages, the plain versions over every gathered page), and
+K7, split over the keys, must give the same bits on a second launch. The
+bf16 K3 and K7 are also held per row: f32 1e-5, bf16 1e-2 (K3 rounds P to
+bf16 before P V). K3 with offsets is compared on the rows that see a key;
+a row that sees none must have lse <= NEG_INF / 2 and a finite o.
 """
 import pytest
 import torch
 
-from repro_torch.kernels import launches, ops
-from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+from repro_torch.kernels import flash_decode, launches, ops
+from repro_torch.kernels.flash_attention import (NEG_INF, _iota_mask,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_fwd_cuda,
                                                  flash_attention_fwd_ref)
@@ -46,6 +51,10 @@ K3_CASES = [
     (1, 24, 2, 2, 16, False, 0),
     (1, 200, 4, 1, 112, True, 0),     # kimi's head dim
     (1, 150, 16, 1, 256, True, 64),   # recurrentgemma's head dim, MQA
+    (1, 1000, 16, 2, 120, True, 0),   # danube's head dim, G 8, L not a multiple of 64
+    (2, 257, 8, 8, 64, True, 100),    # MHA, dh 64, a window
+    (1, 333, 16, 8, 32, False, 0),    # non-causal past five tiles
+    (2, 1030, 16, 8, 128, True, 256), # internlm2's heads, a ring window of 256
 ]
 K6_CASES = [
     # B, S, H, KV, dh, window, n_valid
@@ -82,11 +91,36 @@ def _randn(shape, gen, dtype):
 def test_k3_cuda_matches_plain(cuda_device, B, L, H, KV, dh, causal, window, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(L + dh)
     q, k, v = (_randn(s, g, dtype) for s in ((B, L, H, dh), (B, L, KV, dh), (B, L, KV, dh)))
+    launches.reset()
     o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window)
+    route = "flash_attention_fwd" if dtype == "bfloat16" else "flash_attention_fwd_f32"
+    assert launches.counts() == {route: 1}
     o_r, lse_r = flash_attention_fwd_ref(q, k, v, causal=causal, window=window)
     assert o.dtype == q.dtype and lse.dtype == torch.float32
     torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype], rtol=0)
     torch.testing.assert_close(lse, lse_r, atol=1e-3, rtol=0)
+    # every row to its own norm (bf16: P is rounded to bf16 before P V)
+    assert _row_err(o, o_r) <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 120])
+def test_k3_unaligned_rows_take_elementwise_loads(cuda_device, dh):
+    """Tensors whose rows are not 16-byte aligned (a one-element offset
+    into their storage) go through the tensor-core route's element-wise
+    loads instead of cp.async, with the same result."""
+    g = torch.Generator(device=cuda_device).manual_seed(dh)
+    views = []
+    for shape in ((1, 130, 4, dh), (1, 130, 2, dh), (1, 130, 2, dh)):
+        n = torch.Size(shape).numel()
+        views.append(_randn((n + 1,), g, "bfloat16")[1:].view(shape))
+    q, k, v = views
+    assert q.data_ptr() % 16 != 0
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=True, window=40)
+    o_r, lse_r = flash_attention_fwd_ref(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(lse, lse_r, atol=1e-3, rtol=0)
+    assert _row_err(o, o_r) <= 1e-2
 
 
 @pytest.mark.cuda
@@ -117,7 +151,9 @@ def test_cuda_tensors_reach_the_kernels_or_raise(cuda_device):
     pos = torch.arange(8, dtype=torch.int32, device=cuda_device)[None]
     ops.flash_decode(q[:, :1], k, k, torch.tensor([7], dtype=torch.int32,
                                                   device=cuda_device), pos)
-    assert launches.counts() == {"flash_attention_fwd": 1, "flash_decode": 1}
+    assert launches.counts() == {"flash_attention_fwd_f32": 1, "flash_decode": 1}
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert launches.counts()["flash_attention_fwd"] == 1   # bf16: the tensor-core route
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ops.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="int32"):
@@ -201,6 +237,52 @@ def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dt
         assert _row_err(a, r) <= row_tol, (name, _row_err(a, r))
 
 
+OFFSET_CASES = [
+    # B, L, H, KV, dh, window, q_off, k_off: chunk pairs of a ring
+    (1, 100, 4, 2, 64, 0, 300, 100),      # fully visible
+    (2, 130, 4, 2, 128, 0, 130, 130),     # the diagonal at an offset, L past two tiles
+    (1, 96, 8, 1, 80, 32, 96, 0),         # window edge: late rows see no key
+    (1, 70, 4, 4, 16, 0, 0, 70),          # dead: the q chunk before the k chunk
+    (1, 200, 16, 2, 120, 64, 400, 300),   # window edge, G 8
+    (1, 256, 4, 2, 128, 256, 512, 256),   # a ring window of 256 across the seam
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,KV,dh,window,q_off,k_off", OFFSET_CASES)
+def test_k3_k4_k5_offsets_cuda_match_plain(cuda_device, B, L, H, KV, dh, window, q_off,
+                                           k_off, dtype):
+    """The (q_off, k_off) operand: K3 (either route) on the rows that see a
+    key, lse <= NEG_INF / 2 and a finite o on the rows that see none;
+    K4/K5 against the merged lse a ring passes them (finite everywhere)."""
+    g = torch.Generator(device=cuda_device).manual_seed(L + dh + q_off)
+    q, k, v = (_randn(s, g, dtype) for s in ((B, L, H, dh), (B, L, KV, dh), (B, L, KV, dh)))
+    offs = (q_off, k_off)
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=True, window=window, offs=offs)
+    o_r, lse_r = flash_attention_fwd_ref(q, k, v, causal=True, window=window, offs=offs)
+    seen = _iota_mask(L, True, window, cuda_device, offs).any(-1)
+    assert torch.isfinite(o).all()
+    assert bool((lse[..., ~seen] <= NEG_INF / 2).all())
+    torch.testing.assert_close(o[:, seen].float(), o_r[:, seen].float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse[..., seen], lse_r[..., seen], atol=1e-3, rtol=0)
+    do = _randn((B, L, H, dh), g, dtype)
+    lse_m = torch.logaddexp(lse_r, torch.rand(lse_r.shape, generator=g, device=cuda_device))
+    o_m = o_r.contiguous()
+    got = flash_attention_bwd_cuda(q, k, v, o_m, lse_m, do, causal=True, window=window,
+                                   offs=offs)
+    ref = flash_attention_bwd_ref(q, k, v, o_m, lse_m, do, causal=True, window=window,
+                                  offs=offs)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    row_tol = 1e-3 if dtype == "float32" else 1e-2
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= tol * float(r.float().abs().max()), (name, err)
+        assert _row_err(a, r) <= row_tol, (name, _row_err(a, r))
+
+
 @pytest.mark.cuda
 def test_training_kernels_dispatch_count_and_refuse(cuda_device):
     """ops routes CUDA tensors to K1, K2, K4 and K5 (counted as such) and
@@ -213,7 +295,7 @@ def test_training_kernels_dispatch_count_and_refuse(cuda_device):
     kv = torch.randn(1, 16, 1, 16, device=cuda_device, requires_grad=True)
     ops.flash_attention(q, kv, kv).sum().backward()
     assert launches.counts() == {"csim_argmax": 1, "segment_matmul": 1,
-                                 "flash_attention_fwd": 1, "flash_attention_dq": 1,
+                                 "flash_attention_fwd_f32": 1, "flash_attention_dq": 1,
                                  "flash_attention_dkv": 1}
     big = torch.randn(1, 4, 1, 160, device=cuda_device)
     o, lse = flash_attention_fwd_cuda(big, big, big)
@@ -290,6 +372,64 @@ def test_k7_cuda_matches_plain(cuda_device, B, nb, ps, H, KV, dh, Lq, window, ho
     assert torch.isfinite(o).all()
     seen = _seen(bt, ppos, qpos, window)
     torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+
+
+def _fixed_splits(n):
+    """A stand-in for ``flash_decode._splits`` that fixes K7's split count
+    at ``n`` (at most one per table entry), whatever the shapes."""
+    def splits(B, KV, nb, device):
+        per = -(-nb // min(nb, n))
+        return -(-nb // per), per
+    return splits
+
+
+K7_SPLIT_CASES = [
+    # B, nb, ps, H, KV, dh, Lq, window, ring, scale, splits, empty_row
+    (8, 18, 64, 16, 8, 128, 1, 0, 0, None, None, False),   # the serving shape, splits from shapes
+    (2, 7, 12, 4, 2, 64, 5, 0, 0, None, 3, True),          # pages of 12: tiles straddle pages
+    (2, 6, 64, 16, 8, 64, 1, 0, 0, 128 ** -0.5, 4, False), # svd rank 64 with the dh-128 scale
+    (2, 8, 64, 16, 8, 128, 1, 256, 600, None, 2, False),   # a ring of 512 slots, window 256
+    (1, 5, 16, 8, 2, 128, 1, 0, 0, None, 5, False),        # a page a split: the hole's has none
+    (2, 9, 16, 4, 1, 256, 3, 0, 0, None, 2, False),        # dh 256 (32-key tiles), MQA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nb,ps,H,KV,dh,Lq,window,ring,scale,splits,empty_row",
+                         K7_SPLIT_CASES)
+def test_k7_splits_match_plain_and_repeat_bitwise(cuda_device, monkeypatch, B, nb, ps, H, KV,
+                                                  dh, Lq, window, ring, scale, splits,
+                                                  empty_row, dtype):
+    """K7 split over the keys: split boundaries between pages and tile
+    boundaries inside them, a split without a mapped page, a parked row,
+    a row whose whole table is unmapped (o = 0, finite), Lq 5, the svd
+    width, a ring window; two launches give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(nb * ps + dh + Lq + 1)
+    S = nb * ps
+    fill = [ring] * B if ring else [S - 3 - 7 * b for b in range(B)]
+    n_pages, bt, ppos = _paging(B, nb, ps, fill, g, hole=True, ring=ring)
+    if empty_row:
+        bt[1] = -1
+    q = _randn((B, Lq, H, dh), g, dtype)
+    k, v = (_randn((n_pages, ps, KV, dh), g, dtype) for _ in range(2))
+    qpos = (torch.tensor(fill, device=cuda_device)[:, None] - Lq
+            + torch.arange(Lq, device=cuda_device)[None]).to(torch.int32)
+    if B > 1:
+        qpos[-1, 0] = -1                                  # a parked row
+    if splits is not None:
+        monkeypatch.setattr(flash_decode, "_splits", _fixed_splits(splits))
+    kw = dict(causal=True, window=window, scale=scale)
+    o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
+    again = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
+    o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, **kw)
+    assert torch.equal(o, again)                          # no atomics, a fixed merge order
+    assert torch.isfinite(o).all()
+    if empty_row:
+        assert not o[1].any()
+    seen = _seen(bt, ppos, qpos, window)
+    torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+    assert _row_err(o[seen], o_r[seen]) <= (1e-5 if dtype == "float32" else 1e-2)
 
 
 K8_CASES = [

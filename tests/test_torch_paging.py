@@ -42,7 +42,7 @@ from repro_torch import bridge
 from repro_torch.configs import RunConfig as TorchRunConfig
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.core.plan import cache_plan_from_spec as t_cache_plan
-from repro_torch.kernels import launches, ops
+from repro_torch.kernels import flash_decode, launches, ops
 from repro_torch.kernels.flash_decode import flash_paged_decode_ref
 from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import init_caches as t_init_caches
@@ -170,6 +170,23 @@ def test_k7_dispatch_counts_and_scale_override():
     assert launches.counts() == {"flash_paged_decode_ref": 1}
     want = jax_paged_ref(*(jnp.asarray(a) for a in (q, k, v, qpos, bt, ppos)), scale=0.3)
     np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,KV,nb,want", [
+    (8, 8, 18, (5, 4)),      # the serving shape: 320 blocks on 132 SMs
+    (1, 8, 18, (18, 1)),     # few slots: a page a split
+    (12, 8, 18, (3, 6)),
+    (33, 8, 18, (1, 18)),    # enough blocks already: one split
+    (2, 2, 7, (7, 1)),
+])
+def test_k7_split_count_comes_from_the_shapes(monkeypatch, B, KV, nb, want):
+    """K7's split count from (B, KV, nb, SMs) alone: two blocks per SM on
+    a 132-SM card, at most one split per table entry, every entry in one
+    split."""
+    monkeypatch.setattr(flash_decode, "_sm_count", lambda index: 132)
+    nsplit, per = flash_decode._splits(B, KV, nb, torch.device("cpu"))
+    assert (nsplit, per) == want
+    assert (nsplit - 1) * per < nb <= nsplit * per
 
 
 # ---------------------------------------------------------------------------
