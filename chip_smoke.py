@@ -65,10 +65,11 @@ is caught and ignored:
                         bf16 and f32 and at k = b/8; K2 at m 2048 and 1024,
                         two launches bitwise equal; K3 (whose o and lse
                         feed the backward) and K4/K5 at (4, 2048, 16/8,
-                        128) bf16, a window of 256, head dims 80, 120,
-                        two ring chunk pairs' offsets (the backward given
-                        a merged lse), each output row held to its own
-                        norm
+                        128) bf16 (the tensor-core routes), a window of
+                        256, head dims 80, 120, two ring chunk pairs'
+                        offsets (the backward given a merged lse), each
+                        output row held to its own norm, two launches of
+                        K4/K5 bitwise equal; and one f32-route case
   9. card vs CPU        one train step of internlm2-1.8b_smoke in f32 with
                         the same parameters and generator rows on the card
                         (kernels) and on the CPU (plain versions)
@@ -76,7 +77,8 @@ is caught and ignored:
                         bf16 compute, attn.qkv=pamm(r=1/512), AdamW, batch
                         4 x 2048 from SyntheticStream: one warm-up step and
                         3 measured ones (finite losses, per-step launch
-                        counts K1 24, K2 72, K3 = K4 = K5 24, plain 0), a
+                        counts K1 24, K2 72, K3 = K4 = K5 24 on the
+                        tensor-core routes, f32 routes and plain 0), a
                         second run from the seed (same step-0 loss), the
                         peak memory against attn.qkv=none, and a
                         torch.profiler split of one step
@@ -98,6 +100,8 @@ import contextlib
 import copy
 import hashlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -116,11 +120,13 @@ PROMPT_LEN, N_REQUESTS, GEN = 1024, 16, 64
 SAMPLED = {3, 7, 11, 15}          # uids served at temperature 0.8 / top-k 40
 TOL_O = 2e-2                       # bf16 outputs: a few bf16 ulps at |o| <= 1
 # times of the first versions of the kernels redesigned since (scalar K3,
-# one-block-per-slot K7), from PERF.md's kernel table (an H100 80GB HBM3 at
-# 700 W, timed as time_ms does by default), printed beside the new ones with
-# the redesign's targets (a fifth of K3's time, 0.125 ms for K7)
-FIRST_MS = {"K3 serving": 0.6391, "K3 training": 5.1018, "K7": 0.6230}
-TARGET_MS = {"K3 serving": 0.128, "K3 training": 1.02, "K7": 0.125}
+# K4 and K5, one-block-per-slot K7), from PERF.md's kernel table (an H100
+# 80GB HBM3 at 700 W, timed as time_ms does by default), printed beside the
+# new ones with the redesign's targets (a fifth of K3's time, 0.125 ms for
+# K7, 1.2 and 1.6 ms for K4 and K5)
+FIRST_MS = {"K3 serving": 0.6391, "K3 training": 5.1018, "K7": 0.6230, "K4": 5.8892,
+            "K5": 6.7245}
+TARGET_MS = {"K3 serving": 0.128, "K3 training": 1.02, "K7": 0.125, "K4": 1.2, "K5": 1.6}
 TOL_LSE = 1e-3                     # f32 lse from the same bf16 inputs
 K3_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 K6_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
@@ -156,6 +162,9 @@ TOL_K45 = 2e-2       # of each gradient's max |.|: bf16 outputs
 # 64-key tile of its ~i live keys moves by the order of sqrt(64 / i) of
 # its norm, 0.18 at i = 2000, which the max-|.| tolerances above let pass
 TOL_ROW = 1e-2
+# K4/K5's f32 route: f32 sums over up to L terms in another order, of each
+# gradient's max |.| and per row (the card tests' f32 bounds)
+TOL_K45_F32, TOL_ROW_F32 = 1e-4, 1e-3
 TOL_CPU_LOSS = 1e-5  # card vs CPU in f32: relative loss
 TOL_CPU_GRAD = 1e-3  # card vs CPU in f32: relative norm of each gradient's difference
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
@@ -326,10 +335,27 @@ def phase_device_and_build():
     print(f"[build] {len(libs)} kernels built/found in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(log.read_text() if log.exists() else ""):
+            print(f"[build] {name}: {kernel}: {line}")
     return smi
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each registers / spill line of an nvcc -Xptxas -v
+    log, the kernel's symbol shortened to its name and template arguments
+    (demangled by c++filt where the toolkit has one)."""
+    filt = shutil.which("c++filt") or shutil.which("cu++filt")
+    kernel = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+            if filt:
+                name = subprocess.run([filt, kernel], capture_output=True, text=True).stdout
+                short = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
+                kernel = short.group(1) if short else kernel
+        elif "registers" in line or "spill" in line:
+            yield kernel, line.split("ptxas info    :")[-1].strip()
 
 
 def _randn(shape, gen, dtype=None):
@@ -1226,35 +1252,55 @@ def phase_training_kernels(gen):
               f"{scale:.1f}); two launches bitwise equal: {same}")
         check(e <= TOL_K2 * scale and same, f"K2 disagrees or is not deterministic at m={m}")
         errs["K2"] = max(errs["K2"], e)
-    B, L, H, KV = TRAIN_BATCH, TRAIN_SEQ, 16, 8
-    # dh, window, offs: a ring's chunk pairs get the merged lse (finite on
-    # every row), as its backward does
-    for dh, window, offs in ((128, 0, None), (128, 256, None), (80, 0, None), (120, 0, None),
-                             (128, 0, (L, 0)), (128, 256, (2 * L, L))):
-        q = _randn((B, L, H, dh), gen)
-        k, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
-        do = _randn((B, L, H, dh), gen)
+    H, KV = 16, 8
+    bf16 = torch.bfloat16
+    # B, L, dh, window, offs, dtype: a ring's chunk pairs get the merged lse
+    # (finite on every row), as its backward does; the last case takes the
+    # f32 routes
+    for B, L, dh, window, offs, dtype in (
+            (TRAIN_BATCH, TRAIN_SEQ, 128, 0, None, bf16),
+            (TRAIN_BATCH, TRAIN_SEQ, 128, 256, None, bf16),
+            (TRAIN_BATCH, TRAIN_SEQ, 80, 0, None, bf16),
+            (TRAIN_BATCH, TRAIN_SEQ, 120, 0, None, bf16),
+            (TRAIN_BATCH, TRAIN_SEQ, 128, 0, (TRAIN_SEQ, 0), bf16),
+            (TRAIN_BATCH, TRAIN_SEQ, 128, 256, (2 * TRAIN_SEQ, TRAIN_SEQ), bf16),
+            (2, 1100, 128, 0, None, torch.float32)):
+        q = _randn((B, L, H, dh), gen, dtype)
+        k, v = _randn((B, L, KV, dh), gen, dtype), _randn((B, L, KV, dh), gen, dtype)
+        do = _randn((B, L, H, dh), gen, dtype)
         e_o, o, lse = check_k3(q, k, v, window=window, offs=offs, label=", training shape")
-        errs["K3"] = max(errs["K3"], e_o)
+        if dtype == bf16:
+            errs["K3"] = max(errs["K3"], e_o)
         if offs is not None:
             lse = torch.logaddexp(lse, torch.rand(lse.shape, generator=gen, device="cuda"))
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
                                        offs=offs)
         ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window,
                                       offs=offs)
+        tol, tol_row = (TOL_K45, TOL_ROW) if dtype == bf16 else (TOL_K45_F32, TOL_ROW_F32)
         parts = []
         for name, a, r in zip(("dq", "dk", "dv"), got, ref):
             scale = r.float().abs().max().item()
             e = (a.float() - r.float()).abs().max().item()
             e_r = row_err(a, r)
             parts.append(f"{name} {e:.3e} of {scale:.2f}, row rel {e_r:.3e}")
-            check(bool(a.isfinite().all()) and e <= TOL_K45 * scale and e_r <= TOL_ROW,
-                  f"K4/K5 {name} disagrees with the plain version at dh={dh} window={window} "
-                  f"offs={offs}")
-            kk = "K4" if name == "dq" else "K5"
-            errs[kk] = max(errs[kk], e)
-        print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} offs={offs} bf16: "
-              f"max |d-d_ref| {'; '.join(parts)} (tol {TOL_K45} x max, row {TOL_ROW})")
+            check(bool(a.isfinite().all()) and e <= tol * scale and e_r <= tol_row,
+                  f"K4/K5 {name} disagrees with the plain version at {(B, L, dh, window, offs)} "
+                  f"{dtype}")
+            if dtype == bf16:
+                kk = "K4" if name == "dq" else "K5"
+                errs[kk] = max(errs[kk], e)
+        same = ""
+        if (dh, window, offs, dtype) == (128, 0, None, bf16):
+            again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "two launches of the bf16 K4/K5 give other bits")
+            same = "; two launches bitwise equal"
+            del again
+        route = "tensor cores" if dtype == bf16 else "f32 route"
+        print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} offs={offs} "
+              f"{str(dtype)[6:]} ({route}): max |d-d_ref| {'; '.join(parts)} (tol {tol} x max, "
+              f"row {tol_row}){same}")
         del q, k, v, do, o, lse, got, ref
     torch.cuda.empty_cache()
     return errs
@@ -1408,7 +1454,8 @@ def phase_training(smi):
           "a training loss or grad norm is not finite")
     print(f"[train] launches per step {per_step}")
     want = {"csim_argmax": 24, "segment_matmul": 72, "flash_attention_fwd": 24,
-            "flash_attention_dq": 24, "flash_attention_dkv": 24, "flash_attention_fwd_f32": 0}
+            "flash_attention_dq": 24, "flash_attention_dkv": 24, "flash_attention_fwd_f32": 0,
+            "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0}
     check({k: per_step.get(k, 0) for k in want} == want,
           f"training launches per step {per_step} != {want}")
     check(not any(k.endswith("_ref") for k in rec["counts"]),
@@ -1473,6 +1520,7 @@ def trace_training_step(state, step_fn, cfg, step_ms, step):
         float(m["loss"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # symbols of both routes: dq_kernel(_mma), dkv_kernel(_mma), fwd_kernel_f32 / _mma
     names = (("csim_argmax", "K1"), ("segment_matmul", "K2"), ("dkv_kernel", "K5"),
              ("dq_kernel", "K4"), ("fwd_kernel", "K3"))
     groups: dict[str, float] = {}
@@ -1554,12 +1602,12 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     dot = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), dot, retain_graph=True)
     plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True)
-    k4 = _kernel_row("flash_attention_dq (K4)", K45_SOURCE, K4_REPLACES,
+    k4 = _kernel_row("flash_attention_dq (K4, bf16 tensor-core route)", K45_SOURCE, K4_REPLACES,
                      launches.get("flash_attention_dq", 0), errs["K4"],
                      lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0),
                      plain_bwd, sdpa_bwd,
                      k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K4"))
-    k5 = _kernel_row("flash_attention_dkv (K5)", K45_SOURCE, K5_REPLACES,
+    k5 = _kernel_row("flash_attention_dkv (K5, bf16 tensor-core route)", K45_SOURCE, K5_REPLACES,
                      launches.get("flash_attention_dkv", 0), errs["K5"],
                      lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0),
                      plain_bwd, sdpa_bwd,
@@ -1574,10 +1622,10 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     k3_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
                       flush=flush)
     k3_bound, k3_by = bound(*k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2))
-    for row in rows:
+    for row, key in zip(rows, (None, None, "K4", "K5")):
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | device only "
-              f"{row['device_ms']:.4f} ms | plain "
+        note = timing_note(row, key) if key else f" | device only {row['device_ms']:.4f} ms"
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{note} | plain "
               f"{row['plain_ms']:.4f} ms | library {lib} | bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}) | {row['launches']} launches on the training path "
               f"({TRAIN_STEPS} steps) {tag}")

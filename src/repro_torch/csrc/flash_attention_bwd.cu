@@ -1,8 +1,10 @@
 // K4 and K5 on Hopper: FlashAttention-2 backward (causal / sliding window,
-// GQA), probabilities recomputed tile by tile from the saved lse.
+// GQA, global position offsets), probabilities recomputed tile by tile from
+// the saved lse, in two routes chosen by dtype.
 //
-// Replaces the TPU kernels of src/repro/kernels/flash_attention.py:_bwd_impl
-// and their offset variants (:371, :421, scalar prefetch of (q_off, k_off)):
+// Replaces the TPU kernels of src/repro/kernels/flash_attention.py:325
+// _bwd_impl (pallas_call :371, :379 and :421, :429, the first of each pair
+// with scalar prefetch of (q_off, k_off)):
 //   K4 flash_attention_dq  (body _dq_kernel):  dq = sum_k ds k, q-major;
 //   K5 flash_attention_dkv (body _dkv_kernel): dv = sum_q p^T dO and
 //      dk = sum_q ds^T q, kv-major, folding the G query heads of a kv head.
@@ -10,73 +12,559 @@
 // ds = p * (dO v^T - delta) * scale, delta = rowsum(dO * O) precomputed by
 // the caller in f32 (a jnp op outside Pallas on the TPU too). Keeping the
 // TPU's split keeps its determinism: every output element is summed by one
-// thread in a fixed order, with no atomics -- K4 owns a query tile, K5 owns
-// a kv tile and loops over the G heads and the live query tiles itself.
+// thread in a fixed order, with no atomics -- K4 owns a query tile and walks
+// its kv tiles, K5 owns a kv tile and walks the G heads, then their live
+// query tiles -- so two launches give the same bits. The split recomputes S
+// and dP in both kernels: 7 products where a fused backward has 5.
 //
 // Conventions of K3 (flash_attention_fwd.cu): positions are global, query
 // row i at q_off + i and key j at k_off + j, for the masks and the live-tile
 // loop bounds (flash_common.cuh); NEG_INF = -1e30 stays finite for keys the
 // causal or window mask removes; keys and query rows past L do not exist
-// and get p = 0 outright; the q and kv edges are masked
-// independently (the tail-key bug the TPU code documents at
-// flash_attention.py:244-253 cannot occur: a kv tile past the last query
-// tile still writes its dk/dv). No padding in device memory: (B, L, N, dh)
-// tensors are read through batch and row strides, the head dims beyond dh
-// of the padded width DHP in {32, 64, 128} are zero-filled on load, and
-// only real rows and dims are written. Outputs are in the input dtype.
+// and get p = 0 outright; the q and kv edges are masked independently (the
+// tail-key bug the TPU code documents at flash_attention.py:244-253 cannot
+// occur: a kv tile past the last query tile still writes its dk/dv). No
+// padding in device memory: (B, L, N, dh) tensors are read through batch
+// and row strides, the head dims past dh of the compiled width are
+// zero-filled on load, and only real rows and dims are written. Outputs
+// are in the input dtype.
 //
-// Design: 256 threads per block, 64 x 64 tiles staged in shared memory as
-// f32 with a padded row stride (conflict-free column reads). Each thread
-// owns a 4 x 4 block of a score tile (4 rows, 4 strided columns) and 4 rows
-// of its output accumulators at 1/16 of the head dims, as in K3.
-//   K4: one block per (64-row query tile, query head, batch row); q, dO,
-//       lse, delta stay resident; the block walks only the live kv tiles
-//       (K3's causal / window loop bounds) and accumulates dq in registers.
-//   K5: one block per (64-key kv tile, kv head, batch row); k, v stay
-//       resident; for each of the G query heads it walks the live query
-//       tiles (causal: from the kv tile on; window: up to the last query
-//       that still sees the tile) and accumulates dk and dv in registers.
+// Bound on the H100: operations. At the training shape (4, 2048, 16/8,
+// 128), causal, the ~2.1 M visible (query, key) pairs per head cost 6 * dh
+// flops each in K4 (q k^T, dO v^T, ds k) and 8 * dh in K5 (k q^T, v dO^T,
+// p^T dO, ds^T q): 0.1043 and 0.1390 ms at the bf16 tensor-core peak.
 //
-// Bound on the H100: operations. At the training slice's shape
-// (4, 2048, 16/8, 128), causal, the ~8.4 M visible (query, key) pairs per
-// head cost 6 * dh flops each in K4 (q k^T, dO v^T, ds k) and 8 * dh in K5
-// (q k^T, dO v^T, p^T dO, ds^T q): 0.10 and 0.14 ms at the bf16
-// tensor-core peak. These kernels use scalar f32 FMAs from shared memory,
-// so, like K3, they sit far above the bound; mma.sync / wgmma with TMA
-// staging is the later work.
+// bf16 route (entries flash_attention_dq / flash_attention_dkv, the main
+// path): FlashAttention-2's shape on mma.sync m16n8k16 (bf16 in, f32
+// accumulate), fragments by ldmatrix, tiles staged as bf16 with cp.async,
+// double-buffered, in rows padded by 16 bytes (flash_mma.cuh).
+//   K4: one block of DQ_WARPS warps covers 16 query rows a warp of one
+//       query head. Each warp keeps its Q and dO A fragments, its rows' lse
+//       and delta and its (16, dh) f32 dq accumulator in registers and walks
+//       the live kv tiles of 64 keys: S = Q K^T and dP = dO V^T (K's and V's
+//       B fragments by ldmatrix), P = exp2(S scale log2e - lse log2e)
+//       masked, dS = P (dP - delta) scale in f32, packed to bf16 in registers
+//       as the A fragment of dQ += dS K (K's B fragment by ldmatrix.trans).
+//       Causal q tiles are issued heaviest first, as in K3.
+//   K5: one block of DKV_WARPS warps covers 16 keys a warp of one kv head;
+//       K and V stay in shared memory (their fragments are re-read by
+//       ldmatrix each q tile: the dk and dv accumulators alone take 128
+//       registers a thread at dh 128). It walks the G heads and their live
+//       q tiles of 64 queries, Q, dO, lse and delta staged per tile. Per
+//       tile and warp: S^T = K Q^T, P^T with lse per column, dV += P^T dO (P^T packed as the A fragment,
+//       dO's B fragment by ldmatrix.trans), dP^T = V dO^T, dS^T = P^T
+//       (dP^T - delta) scale, dK += dS^T Q. Causal kv tiles are issued
+//       heaviest first: the first tiles, which see the most queries.
+// Head dims compile at 16, 32, 64, 80, 112 and 128 (dh 120 runs at 128).
+// Departures from the TPU kernels, within chip_smoke.py's TOL_K45 2e-2 and
+// TOL_ROW 1e-2: P and dS are rounded to bf16 before their products (the TPU
+// keeps them in f32), and the exponent runs in base 2 (exp2 of
+// log2(e)-scaled operands). Left for later: wgmma with TMA staging and warp
+// specialisation, and one fused kernel for dq, dk and dv.
+//
+// f32 route (entries flash_attention_dq_f32 / flash_attention_dkv_f32): the
+// scalar kernels of the first port, kept for f32 inputs (the card-versus-CPU
+// check in f32 and the f32 tests). 256 threads per block, 64 x 64 tiles
+// staged in shared memory as f32 with a padded row stride; each thread owns
+// a 4 x 4 block of a score tile and 4 rows of its accumulators at 1/16 of
+// the head dims. A bf16 tensor never reaches them: the wrapper picks the
+// route by dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 using flash::NEG_INF;
 
+// One call's operands (strides in elements). o1 is dq (K4) or dk (K5), o2
+// dv (K5); vec: q, k, v, dO rows move as 16-byte chunks.
+struct Args {
+  const void *q, *k, *v, *dO, *lse, *delta;
+  void *o1, *o2;
+  int B, L, H, KV, dh;
+  long long sqb, sql, skb, skl, svb, svl, sdob, sdol, s1b, s1l, s2b, s2l;
+  int causal, window, q_off, k_off;
+  float scale;
+  int vec;
+};
+
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using flash::acc_as_a;
+using flash::bf16;
+using flash::frag_a;
+using flash::frag_b;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::LOG2E;
+using flash::mma16816;
+
+// warps per block, 16 rows (K4: queries, K5: keys) a warp: measured on the
+// H100 at the training shape against 4 (K4) and 8 (K5) warps, and against
+// K5 taking its 64 queries in two chunks of 32
+constexpr int DQ_WARPS = 8;
+constexpr int DKV_WARPS = 4;
+constexpr int BK = 64;   // K4: keys per staged tile
+constexpr int BQT = 64;  // K5: queries per staged tile
+constexpr int STAGES = 2;
+constexpr float NEG_INF_LOG2 = NEG_INF * LOG2E;  // a masked score in log2 units
+
+// 4-byte copy global -> shared; src_bytes 0 zero-fills without reading
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ bool masked(int causal, int window, int qp, int kp) {
+  return (causal && kp > qp) || (window > 0 && qp - kp >= window);
+}
+
+template <int DHP>
+constexpr size_t dq_smem_bytes() {
+  // sQ, sdO (the block's query rows), sK and sV (STAGES x BK rows each)
+  return sizeof(bf16) * (size_t)(2 * 16 * DQ_WARPS + 2 * STAGES * BK) * (DHP + 8);
+}
+
+template <int DHP>
+constexpr size_t dkv_smem_bytes() {
+  // sK, sV (the block's keys), sQ and sdO (STAGES x BQT rows each); sL, sD
+  // (STAGES x BQT f32 each)
+  return sizeof(bf16) * (size_t)(2 * 16 * DKV_WARPS + 2 * STAGES * BQT) * (DHP + 8) +
+         sizeof(float) * 2 * STAGES * BQT;
+}
+
+// ---------------------------------------------------------------------------
+// K4: dq, q-major
+// ---------------------------------------------------------------------------
+template <int DHP>
+__global__ void __launch_bounds__(32 * DQ_WARPS)
+dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int L, int H, int KV, int dh, long long sqb, long long sql,
+              long long skb, long long skl, long long svb, long long svl, long long sdob,
+              long long sdol, long long sdqb, long long sdql, int causal, int window, int q_off,
+              int k_off, float scale, int vec) {
+  constexpr int NT = 32 * DQ_WARPS;
+  constexpr int BQ = 16 * DQ_WARPS;  // query rows per block
+  constexpr int SR = DHP + 8;
+  constexpr int KS = DHP / 16;  // k-steps of Q K^T and dO V^T
+  constexpr int NS = BK / 8;    // n-tiles of a warp's (16, BK) score tile
+  constexpr int ND = DHP / 8;   // n-tiles of its (16, DHP) dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + BQ * SR;
+  bf16* sK = sdO + BQ * SR;  // stage s at sK + s * BK * SR
+  bf16* sV = sK + STAGES * BK * SR;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
+  const int q0 = iq * BQ;
+  const int kvh = h / (H / KV);
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, tg = lane & 3;  // the mma fragment's row group and column pair
+  const float scale_log2 = scale * LOG2E;
+
+  const bf16* kb = k + (long long)b * skb + (long long)kvh * dh;
+  const bf16* vb = v + (long long)b * svb + (long long)kvh * dh;
+
+  int kt_begin, kt_end;
+  flash::live_tiles(q0, min(L, q0 + BQ) - 1, L, BK, causal, window, q_off - k_off, &kt_begin,
+                    &kt_end);
+
+  // Q, dO and the first STAGES - 1 live tiles, one copy group per tile (Q
+  // and dO join the first); every loop turn commits one group, maybe empty
+  flash::load_tile<NT, BQ, DHP>(sQ, q + (long long)b * sqb + (long long)h * dh, sql, q0, L, dh,
+                                vec);
+  flash::load_tile<NT, BQ, DHP>(sdO, dO + (long long)b * sdob + (long long)h * dh, sdol, q0, L,
+                                dh, vec);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (kt_begin + i < kt_end) {
+      flash::load_tile<NT, BK, DHP>(sK + i * BK * SR, kb, skl, (kt_begin + i) * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sV + i * BK * SR, vb, svl, (kt_begin + i) * BK, L, dh, vec);
+    }
+    flash::cp_async_commit();
+  }
+
+  // this thread's rows: row0 + g (hr = 0) and row0 + g + 8 (hr = 1)
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ql = q0 + row0 + g + hr * 8;
+    const long long at = ((long long)b * H + h) * L + ql;
+    lse2[hr] = ql < L ? lse[at] * LOG2E : 0.f;
+    dl[hr] = ql < L ? delta[at] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qf[KS][4], gf[KS][4];  // Q's and dO's A fragments
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin;
+    const int nxt = kt + STAGES - 1;  // refill the stage the last turn read
+    if (nxt < kt_end) {
+      const int ns = (it + STAGES - 1) % STAGES;
+      flash::load_tile<NT, BK, DHP>(sK + ns * BK * SR, kb, skl, nxt * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sV + ns * BK * SR, vb, svl, nxt * BK, L, dh, vec);
+    }
+    flash::cp_async_commit();
+    flash::cp_async_wait<STAGES - 1>();  // this tile's group (and Q, dO) has landed
+    __syncthreads();
+    const bf16* cK = sK + (it % STAGES) * BK * SR;
+    const bf16* cV = sV + (it % STAGES) * BK * SR;
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldsm_x4(qf[ks], frag_a(sQ, SR, row0, ks * 16, lane));
+        ldsm_x4(gf[ks], frag_a(sdO, SR, row0, ks * 16, lane));
+      }
+    }
+
+    // S = Q K^T and dP = dO V^T: B fragments from K's and V's rows (keys)
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, frag_b(cK, SR, n2 * 16, ks * 16, lane));
+        mma16816(s[2 * n2], qf[ks], bf[0], bf[1]);
+        mma16816(s[2 * n2 + 1], qf[ks], bf[2], bf[3]);
+        ldsm_x4(bf, frag_b(cV, SR, n2 * 16, ks * 16, lane));
+        mma16816(dp[2 * n2], gf[ks], bf[0], bf[1]);
+        mma16816(dp[2 * n2 + 1], gf[ks], bf[2], bf[3]);
+      }
+    }
+
+    // P and dS (into s); only tiles on an edge need the mask tests
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > L || (causal && k_off + k0 + BK - 1 > q_off + q0) ||
+                      (window > 0 && q_off + q0 + BQ - 1 - (k_off + k0) >= window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kl = k0 + j * 8 + tg * 2 + (e & 1);
+          if (kl >= L)
+            x = -INFINITY;  // past the sequence: p = 0
+          else if (masked(causal, window, q_off + q0 + row0 + g + hr * 8, k_off + kl))
+            x = NEG_INF_LOG2;
+        }
+        const float p = exp2f(x - lse2[hr]);
+        s[j][e] = p * (dp[j][e] - dl[hr]) * scale;
+      }
+
+    // dQ += dS K: two dS n-tiles are one A fragment, K's B fragment by
+    // ldmatrix.trans (k runs down K's rows)
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      acc_as_a(a, s, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, frag_a(cK, SR, kk * 16, d2 * 16, lane));
+        mma16816(acc[2 * d2], a, bf[0], bf[1]);
+        mma16816(acc[2 * d2 + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  flash::cp_async_wait<0>();  // no copy left in flight (a block without live tiles)
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int ql = q0 + row0 + g + hr * 8;
+    if (ql >= L) continue;
+    bf16* row = dq + (long long)b * sdqb + (long long)ql * sdql + (long long)h * dh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = j * 8 + tg * 2;
+      if (d < dh) row[d] = __float2bfloat16(acc[j][2 * hr]);
+      if (d + 1 < dh) row[d + 1] = __float2bfloat16(acc[j][2 * hr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: dk, dv, kv-major with the G query heads folded in
+// ---------------------------------------------------------------------------
+template <int DHP>
+__global__ void __launch_bounds__(32 * DKV_WARPS)
+dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dO,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, int KV, int dh,
+               long long sqb, long long sql, long long skb, long long skl, long long svb,
+               long long svl, long long sdob, long long sdol, long long sdkb, long long sdkl,
+               long long sdvb, long long sdvl, int causal, int window, int q_off, int k_off,
+               float scale, int vec) {
+  constexpr int NT = 32 * DKV_WARPS;
+  constexpr int BKB = 16 * DKV_WARPS;  // keys per block
+  constexpr int SR = DHP + 8;
+  constexpr int KS = DHP / 16;  // k-steps of K Q^T and V dO^T
+  constexpr int NQ = BQT / 8;   // n-tiles of a warp's (16, BQT) transposed score tile
+  constexpr int ND = DHP / 8;   // n-tiles of its (16, DHP) dk and dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BKB * SR;
+  bf16* sQ = sV + BKB * SR;  // stage s at sQ + s * BQT * SR
+  bf16* sdO = sQ + STAGES * BQT * SR;
+  float* sL = reinterpret_cast<float*>(sdO + STAGES * BQT * SR);  // stage s at sL + s * BQT
+  float* sD = sL + STAGES * BQT;
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int ik = blockIdx.z;  // causal: the first kv tiles see the most queries
+  const int k0 = ik * BKB;
+  const int G = H / KV;
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, tg = lane & 3;
+  const float scale_log2 = scale * LOG2E;
+
+  // live query tiles: causal starts at the tile of the first query that
+  // sees k0; a window ends at the tile of the last query that still sees
+  // the block's keys
+  int qt_begin, qt_end;
+  flash::live_q_tiles(k0, min(L, k0 + BKB) - 1, L, BQT, causal, window, q_off - k_off,
+                      &qt_begin, &qt_end);
+  const int nqt = max(0, qt_end - qt_begin);
+  const int total = G * nqt;  // (head, q tile) turns: heads outer, tiles inner
+
+  // K and V join the first copy group
+  flash::load_tile<NT, BKB, DHP>(sK, k + (long long)b * skb + (long long)kvh * dh, skl, k0, L, dh,
+                                 vec);
+  flash::load_tile<NT, BKB, DHP>(sV, v + (long long)b * svb + (long long)kvh * dh, svl, k0, L, dh,
+                                 vec);
+  // Q, dO, lse and delta of turn t into stage st
+  auto stage = [&](int t, int st) {
+    const int h = kvh * G + t / nqt, q0 = (qt_begin + t % nqt) * BQT;
+    flash::load_tile<NT, BQT, DHP>(sQ + st * BQT * SR, q + (long long)b * sqb + (long long)h * dh,
+                                   sql, q0, L, dh, vec);
+    flash::load_tile<NT, BQT, DHP>(sdO + st * BQT * SR,
+                                   dO + (long long)b * sdob + (long long)h * dh, sdol, q0, L, dh,
+                                   vec);
+    const long long at = ((long long)b * H + h) * L;
+    for (int i = threadIdx.x; i < 2 * BQT; i += NT) {
+      const int r = i % BQT, l = q0 + r;
+      const float* src = (i < BQT ? lse : delta) + at;
+      cp_async4((i < BQT ? sL : sD) + st * BQT + r, l < L ? src + l : src, l < L ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < total) stage(i, i);
+    flash::cp_async_commit();
+  }
+
+  // this thread's keys: row0 + g (elements 0, 1) and row0 + g + 8 (2, 3)
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int t = 0; t < total; ++t) {
+    const int nxt = t + STAGES - 1;
+    if (nxt < total) stage(nxt, nxt % STAGES);
+    flash::cp_async_commit();
+    flash::cp_async_wait<STAGES - 1>();  // this turn's group (and K, V) has landed
+    __syncthreads();
+    const bf16* cQ = sQ + (t % STAGES) * BQT * SR;
+    const bf16* cdO = sdO + (t % STAGES) * BQT * SR;
+    const float* cL = sL + (t % STAGES) * BQT;
+    const float* cD = sD + (t % STAGES) * BQT;
+    const int q0 = (qt_begin + t % nqt) * BQT;
+    const bool edge = q0 + BQT > L || k0 + BKB > L ||
+                      (causal && k_off + k0 + BKB - 1 > q_off + q0) ||
+                      (window > 0 && q_off + q0 + BQT - 1 - (k_off + k0) >= window);
+
+    // S^T = K Q^T: A from K's rows, B from Q's rows (queries)
+    float s[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(sK, SR, row0, ks * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < NQ / 2; ++n2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, frag_b(cQ, SR, n2 * 16, ks * 16, lane));
+        mma16816(s[2 * n2], a, bf[0], bf[1]);
+        mma16816(s[2 * n2 + 1], a, bf[2], bf[3]);
+      }
+    }
+    // P^T, lse per column; keys and queries past L get p = 0
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tg * 2 + (e & 1);
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int ql = q0 + c, kl = k0 + row0 + g + (e >> 1) * 8;
+          if (ql >= L || kl >= L)
+            x = -INFINITY;
+          else if (masked(causal, window, q_off + ql, k_off + kl))
+            x = NEG_INF_LOG2;
+        }
+        s[j][e] = exp2f(x - cL[c] * LOG2E);
+      }
+    // dV += P^T dO: k runs over the tile's queries, dO's B fragment by
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) {
+      uint32_t a[4];
+      acc_as_a(a, s, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, frag_a(cdO, SR, kk * 16, d2 * 16, lane));
+        mma16816(dva[2 * d2], a, bf[0], bf[1]);
+        mma16816(dva[2 * d2 + 1], a, bf[2], bf[3]);
+      }
+    }
+    // dP^T = V dO^T, then dS^T = P^T (dP^T - delta) scale (into s)
+    float dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, frag_a(sV, SR, row0, ks * 16, lane));
+#pragma unroll
+      for (int n2 = 0; n2 < NQ / 2; ++n2) {
+        uint32_t bf[4];
+        ldsm_x4(bf, frag_b(cdO, SR, n2 * 16, ks * 16, lane));
+        mma16816(dp[2 * n2], a, bf[0], bf[1]);
+        mma16816(dp[2 * n2 + 1], a, bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = s[j][e] * (dp[j][e] - cD[j * 8 + tg * 2 + (e & 1)]) * scale;
+    // dK += dS^T Q: Q's B fragment by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk) {
+      uint32_t a[4];
+      acc_as_a(a, s, kk);
+#pragma unroll
+      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, frag_a(cQ, SR, kk * 16, d2 * 16, lane));
+        mma16816(dka[2 * d2], a, bf[0], bf[1]);
+        mma16816(dka[2 * d2 + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  flash::cp_async_wait<0>();  // no copy left in flight (a block without live tiles)
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int kl = k0 + row0 + g + hr * 8;
+    if (kl >= L) continue;
+    bf16* krow = dk + (long long)b * sdkb + (long long)kl * sdkl + (long long)kvh * dh;
+    bf16* vrow = dv + (long long)b * sdvb + (long long)kl * sdvl + (long long)kvh * dh;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = j * 8 + tg * 2;
+      if (d < dh) {
+        krow[d] = __float2bfloat16(dka[j][2 * hr]);
+        vrow[d] = __float2bfloat16(dva[j][2 * hr]);
+      }
+      if (d + 1 < dh) {
+        krow[d + 1] = __float2bfloat16(dka[j][2 * hr + 1]);
+        vrow[d + 1] = __float2bfloat16(dva[j][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+template <int DHP>
+int launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<DHP>();
+  auto kernel = dq_kernel_mma<DHP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BQ = 16 * DQ_WARPS;
+  dim3 grid(a.H, a.B, (a.L + BQ - 1) / BQ);
+  kernel<<<grid, 32 * DQ_WARPS, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dO,
+      (const float*)a.lse, (const float*)a.delta, (bf16*)a.o1, a.L, a.H, a.KV, a.dh, a.sqb,
+      a.sql, a.skb, a.skl, a.svb, a.svl, a.sdob, a.sdol, a.s1b, a.s1l, a.causal, a.window,
+      a.q_off, a.k_off, a.scale, a.vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DHP>
+int launch_dkv(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<DHP>();
+  auto kernel = dkv_kernel_mma<DHP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BKB = 16 * DKV_WARPS;
+  dim3 grid(a.KV, a.B, (a.L + BKB - 1) / BKB);
+  kernel<<<grid, 32 * DKV_WARPS, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dO,
+      (const float*)a.lse, (const float*)a.delta, (bf16*)a.o1, (bf16*)a.o2, a.L, a.H, a.KV, a.dh,
+      a.sqb, a.sql, a.skb, a.skl, a.svb, a.svl, a.sdob, a.sdol, a.s1b, a.s1l, a.s2b, a.s2l,
+      a.causal, a.window, a.q_off, a.k_off, a.scale, a.vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool DKV>
+int dispatch(const Args& a, cudaStream_t s) {
+  if (a.dh <= 16) return DKV ? launch_dkv<16>(a, s) : launch_dq<16>(a, s);
+  if (a.dh <= 32) return DKV ? launch_dkv<32>(a, s) : launch_dq<32>(a, s);
+  if (a.dh <= 64) return DKV ? launch_dkv<64>(a, s) : launch_dq<64>(a, s);
+  if (a.dh <= 80) return DKV ? launch_dkv<80>(a, s) : launch_dq<80>(a, s);
+  if (a.dh <= 112) return DKV ? launch_dkv<112>(a, s) : launch_dq<112>(a, s);
+  if (a.dh <= 128) return DKV ? launch_dkv<128>(a, s) : launch_dq<128>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// f32 route: scalar FMAs
+// ---------------------------------------------------------------------------
+namespace f32 {
+
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // rows x DHP tile of (B, L, N, dh) at sequence offset l0, zero past L / dh
-template <typename T, int DHP>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, long long sl, int l0, int L,
-                                          int dh) {
+template <int DHP>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, long long sl, int l0,
+                                          int L, int dh) {
   constexpr int QS = DHP + 1;
   for (int i = threadIdx.x; i < 64 * DHP; i += NT) {
     const int r = i / DHP, d = i % DHP, l = l0 + r;
-    dst[r * QS + d] = (l < L && d < dh) ? to_f(base[(long long)l * sl + d]) : 0.f;
+    dst[r * QS + d] = (l < L && d < dh) ? base[(long long)l * sl + d] : 0.f;
   }
 }
 
@@ -92,14 +580,12 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (size_t)(4 * 64 * (DHP + 1) + 2 * 64 * (BQ + 1) + 2 * 64);
 }
 
-// ---------------------------------------------------------------------------
 // K4: dq, q-major
-// ---------------------------------------------------------------------------
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dO, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int L, int H, int KV, int dh,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ dO, const float* __restrict__ lse,
+          const float* __restrict__ delta, float* __restrict__ dq, int L, int H, int KV, int dh,
           long long sqb, long long sql, long long skb, long long skl, long long svb,
           long long svl, long long sdob, long long sdol, long long sdqb, long long sdql,
           int causal, int window, int q_off, int k_off, float scale) {
@@ -122,10 +608,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int rg = t >> 4;  // query rows 4*rg .. 4*rg+3
   const int cg = t & 15;  // key columns cg + 16*j, head dims cg + 16*j
 
-  const T* kb = k + (long long)b * skb + (long long)kvh * dh;
-  const T* vb = v + (long long)b * svb + (long long)kvh * dh;
-  load_tile<T, DHP>(sQ, q + (long long)b * sqb + (long long)h * dh, sql, q0, L, dh);
-  load_tile<T, DHP>(sdO, dO + (long long)b * sdob + (long long)h * dh, sdol, q0, L, dh);
+  const float* kb = k + (long long)b * skb + (long long)kvh * dh;
+  const float* vb = v + (long long)b * svb + (long long)kvh * dh;
+  load_tile<DHP>(sQ, q + (long long)b * sqb + (long long)h * dh, sql, q0, L, dh);
+  load_tile<DHP>(sdO, dO + (long long)b * sdob + (long long)h * dh, sdol, q0, L, dh);
   const float* lse_row = lse + ((long long)b * H + h) * L;
   const float* delta_row = delta + ((long long)b * H + h) * L;
   for (int r = t; r < BQ; r += NT) {
@@ -148,8 +634,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // previous tile's sK/sV/sS reads are done (and sQ.. loads)
-    load_tile<T, DHP>(sK, kb, skl, k0, L, dh);
-    load_tile<T, DHP>(sV, vb, svl, k0, L, dh);
+    load_tile<DHP>(sK, kb, skl, k0, L, dh);
+    load_tile<DHP>(sV, vb, svl, k0, L, dh);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -216,23 +702,21 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < 4; ++i) {
     const int l = q0 + 4 * rg + i;
     if (l >= L) continue;
-    T* row = dq + (long long)b * sdqb + (long long)l * sdql + (long long)h * dh;
+    float* row = dq + (long long)b * sdqb + (long long)l * sdql + (long long)h * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = cg + 16 * j;
-      if (d < dh) row[d] = from_f<T>(acc[i][j]);
+      if (d < dh) row[d] = acc[i][j];
     }
   }
 }
 
-// ---------------------------------------------------------------------------
 // K5: dk, dv, kv-major with the G query heads folded in
-// ---------------------------------------------------------------------------
-template <typename T, int DHP>
+template <int DHP>
 __global__ void __launch_bounds__(NT)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dO, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int L,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dO, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int L,
            int H, int KV, int dh, long long sqb, long long sql, long long skb, long long skl,
            long long svb, long long svl, long long sdob, long long sdol, long long sdkb,
            long long sdkl, long long sdvb, long long sdvl, int causal, int window, int q_off,
@@ -257,8 +741,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int rg = t >> 4;  // kv rows 4*rg .. 4*rg+3
   const int cg = t & 15;  // query columns cg + 16*j, head dims cg + 16*j
 
-  load_tile<T, DHP>(sK, k + (long long)b * skb + (long long)kvh * dh, skl, k0, L, dh);
-  load_tile<T, DHP>(sV, v + (long long)b * svb + (long long)kvh * dh, svl, k0, L, dh);
+  load_tile<DHP>(sK, k + (long long)b * skb + (long long)kvh * dh, skl, k0, L, dh);
+  load_tile<DHP>(sV, v + (long long)b * svb + (long long)kvh * dh, svl, k0, L, dh);
 
   float dka[4][NJ], dva[4][NJ];
 #pragma unroll
@@ -275,15 +759,15 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const T* qb = q + (long long)b * sqb + (long long)h * dh;
-    const T* gb = dO + (long long)b * sdob + (long long)h * dh;
+    const float* qb = q + (long long)b * sqb + (long long)h * dh;
+    const float* gb = dO + (long long)b * sdob + (long long)h * dh;
     const float* lse_row = lse + ((long long)b * H + h) * L;
     const float* delta_row = delta + ((long long)b * H + h) * L;
     for (int iq = qt_begin; iq < qt_end; ++iq) {
       const int q0 = iq * BQ;
       __syncthreads();  // previous tile's sQ/sdO/sP/sS reads are done
-      load_tile<T, DHP>(sQ, qb, sql, q0, L, dh);
-      load_tile<T, DHP>(sdO, gb, sdol, q0, L, dh);
+      load_tile<DHP>(sQ, qb, sql, q0, L, dh);
+      load_tile<DHP>(sdO, gb, sdol, q0, L, dh);
       for (int r = t; r < BQ; r += NT) {
         const int l = q0 + r;
         sL[r] = l < L ? lse_row[l] : 0.f;
@@ -365,127 +849,150 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int i = 0; i < 4; ++i) {
     const int l = k0 + 4 * rg + i;
     if (l >= L) continue;
-    T* krow = dk + (long long)b * sdkb + (long long)l * sdkl + (long long)kvh * dh;
-    T* vrow = dv + (long long)b * sdvb + (long long)l * sdvl + (long long)kvh * dh;
+    float* krow = dk + (long long)b * sdkb + (long long)l * sdkl + (long long)kvh * dh;
+    float* vrow = dv + (long long)b * sdvb + (long long)l * sdvl + (long long)kvh * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = cg + 16 * j;
       if (d < dh) {
-        krow[d] = from_f<T>(dka[i][j]);
-        vrow[d] = from_f<T>(dva[i][j]);
+        krow[d] = dka[i][j];
+        vrow[d] = dva[i][j];
       }
     }
   }
 }
 
-template <typename T, int DHP>
-int launch_dq(const void* q, const void* k, const void* v, const void* dO, const void* lse,
-              const void* delta, void* dq, int B, int L, int H, int KV, int dh,
-              const long long* st, int causal, int window, int q_off, int k_off, float scale,
-              cudaStream_t stream) {
+template <int DHP>
+int launch_dq(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DHP>();
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, DHP>,
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  dq_kernel<T, DHP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, (const float*)lse,
-      (const float*)delta, (T*)dq, L, H, KV, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], causal, window, q_off, k_off, scale);
+  dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
+  dq_kernel<DHP><<<grid, NT, smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dO,
+      (const float*)a.lse, (const float*)a.delta, (float*)a.o1, a.L, a.H, a.KV, a.dh, a.sqb,
+      a.sql, a.skb, a.skl, a.svb, a.svl, a.sdob, a.sdol, a.s1b, a.s1l, a.causal, a.window,
+      a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DHP>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dO, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int L, int H, int KV, int dh,
-               const long long* st, int causal, int window, int q_off, int k_off, float scale,
-               cudaStream_t stream) {
+template <int DHP>
+int launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DHP>();
-  cudaError_t err = cudaFuncSetAttribute(dkv_kernel<T, DHP>,
+  cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BK - 1) / BK, KV, B);
-  dkv_kernel<T, DHP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dO, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, L, H, KV, dh, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window, q_off, k_off, scale);
+  dim3 grid((a.L + BK - 1) / BK, a.KV, a.B);
+  dkv_kernel<DHP><<<grid, NT, smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dO,
+      (const float*)a.lse, (const float*)a.delta, (float*)a.o1, (float*)a.o2, a.L, a.H, a.KV,
+      a.dh, a.sqb, a.sql, a.skb, a.skl, a.svb, a.svl, a.sdob, a.sdol, a.s1b, a.s1l, a.s2b, a.s2l,
+      a.causal, a.window, a.q_off, a.k_off, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_dq(const void* q, const void* k, const void* v, const void* dO, const void* lse,
-                const void* delta, void* dq, int B, int L, int H, int KV, int dh,
-                const long long* st, int causal, int window, int q_off, int k_off,
-                float scale, cudaStream_t s) {
-  if (dh <= 32)
-    return launch_dq<T, 32>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                            q_off, k_off, scale, s);
-  if (dh <= 64)
-    return launch_dq<T, 64>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                            q_off, k_off, scale, s);
-  if (dh <= 128)
-    return launch_dq<T, 128>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                             q_off, k_off, scale, s);
+template <bool DKV>
+int dispatch(const Args& a, cudaStream_t s) {
+  if (a.dh <= 32) return DKV ? launch_dkv<32>(a, s) : launch_dq<32>(a, s);
+  if (a.dh <= 64) return DKV ? launch_dkv<64>(a, s) : launch_dq<64>(a, s);
+  if (a.dh <= 128) return DKV ? launch_dkv<128>(a, s) : launch_dq<128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch_dkv(const void* q, const void* k, const void* v, const void* dO, const void* lse,
-                 const void* delta, void* dk, void* dv, int B, int L, int H, int KV, int dh,
-                 const long long* st, int causal, int window, int q_off, int k_off,
-                 float scale, cudaStream_t s) {
-  if (dh <= 32)
-    return launch_dkv<T, 32>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                             window, q_off, k_off, scale, s);
-  if (dh <= 64)
-    return launch_dkv<T, 64>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                             window, q_off, k_off, scale, s);
-  if (dh <= 128)
-    return launch_dkv<T, 128>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                              window, q_off, k_off, scale, s);
-  return (int)cudaErrorInvalidValue;
+}  // namespace f32
+
+// K4's operands (o1 = dq); K5 adds o2 = dv and its strides
+Args make_args(const void* q, const void* k, const void* v, const void* dO, const void* lse,
+               const void* delta, void* o1, int B, int L, int H, int KV, int dh, long long sqb,
+               long long sql, long long skb, long long skl, long long svb, long long svl,
+               long long sdob, long long sdol, long long s1b, long long s1l, int causal,
+               int window, int q_off, int k_off, float scale, int vec) {
+  return Args{q,   k,   v,   dO,   lse,  delta, o1,  nullptr, B,      L,      H,     KV,
+              dh,  sqb, sql, skb,  skl,  svb,   svl, sdob,    sdol,   s1b,    s1l,   0,
+              0,   causal, window, q_off, k_off, scale, vec};
 }
+
+// q, k, v, dO rows in 16-byte chunks (the bf16 route's cp.async)
+int rows_vec(const void* q, const void* k, const void* v, const void* dO, int dh, long long sqb,
+             long long sql, long long skb, long long skl, long long svb, long long svl,
+             long long sdob, long long sdol) {
+  return dh % 8 == 0 && flash::aligned16(q, 2, {sqb, sql}) && flash::aligned16(k, 2, {skb, skl}) &&
+         flash::aligned16(v, 2, {svb, svl}) && flash::aligned16(dO, 2, {sdob, sdol});
+}
+
+bool bad_shape(int B, int L, int KV, int H) { return B < 1 || L < 1 || KV < 1 || H % KV != 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO, dq). lse, delta (B, H, L)
-// f32 contiguous. Returns a cudaError_t (0 = launched).
+// K4, bf16 route (tensor cores): q, k, v, dO, dq bf16; lse, delta (B, H, L)
+// f32 contiguous. Strides are in elements. Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, void* dq, int B, int L,
                                   int H, int KV, int dh, long long sqb, long long sql,
                                   long long skb, long long skl, long long svb, long long svl,
                                   long long sdob, long long sdol, long long sdqb,
                                   long long sdql, int causal, int window, int q_off,
-                                  int k_off, float scale, int dtype, void* stream) {
-  if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const long long st[10] = {sqb, sql, skb, skl, svb, svl, sdob, sdol, sdqb, sdql};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_dq<float>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal, window,
-                              q_off, k_off, scale, s);
-  if (dtype == 1)
-    return dispatch_dq<__nv_bfloat16>(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, st, causal,
-                                      window, q_off, k_off, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                  int k_off, float scale, void* stream) {
+  if (bad_shape(B, L, KV, H)) return (int)cudaErrorInvalidValue;
+  const int vec = rows_vec(q, k, v, dO, dh, sqb, sql, skb, skl, svb, svl, sdob, sdol);
+  return tc::dispatch<false>(make_args(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, sqb, sql,
+                                     skb, skl, svb, svl, sdob, sdol, sdqb, sdql, causal, window,
+                                     q_off, k_off, scale, vec),
+                             (cudaStream_t)stream);
 }
 
-// dtype as above (q, k, v, dO, dk, dv). Returns a cudaError_t.
+// K4, f32 route (scalar): every tensor f32. Returns a cudaError_t.
+extern "C" int flash_attention_dq_f32(const void* q, const void* k, const void* v,
+                                      const void* dO, const void* lse, const void* delta,
+                                      void* dq, int B, int L, int H, int KV, int dh,
+                                      long long sqb, long long sql, long long skb, long long skl,
+                                      long long svb, long long svl, long long sdob,
+                                      long long sdol, long long sdqb, long long sdql, int causal,
+                                      int window, int q_off, int k_off, float scale,
+                                      void* stream) {
+  if (bad_shape(B, L, KV, H)) return (int)cudaErrorInvalidValue;
+  return f32::dispatch<false>(make_args(q, k, v, dO, lse, delta, dq, B, L, H, KV, dh, sqb, sql,
+                                      skb, skl, svb, svl, sdob, sdol, sdqb, sdql, causal, window,
+                                      q_off, k_off, scale, 0),
+                              (cudaStream_t)stream);
+}
+
+// K5, bf16 route (tensor cores): q, k, v, dO, dk, dv bf16; lse, delta as
+// for K4. Returns a cudaError_t.
 extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dO,
                                    const void* lse, const void* delta, void* dk, void* dv, int B,
                                    int L, int H, int KV, int dh, long long sqb, long long sql,
                                    long long skb, long long skl, long long svb, long long svl,
                                    long long sdob, long long sdol, long long sdkb,
                                    long long sdkl, long long sdvb, long long sdvl, int causal,
-                                   int window, int q_off, int k_off, float scale, int dtype,
-                                   void* stream) {
-  if (B < 1 || L < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
-  const long long st[12] = {sqb, sql, skb, skl, svb, svl, sdob, sdol, sdkb, sdkl, sdvb, sdvl};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_dkv<float>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st, causal,
-                               window, q_off, k_off, scale, s);
-  if (dtype == 1)
-    return dispatch_dkv<__nv_bfloat16>(q, k, v, dO, lse, delta, dk, dv, B, L, H, KV, dh, st,
-                                       causal, window, q_off, k_off, scale, s);
-  return (int)cudaErrorInvalidValue;
+                                   int window, int q_off, int k_off, float scale, void* stream) {
+  if (bad_shape(B, L, KV, H)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, dO, lse, delta, dk, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl,
+                   sdob, sdol, sdkb, sdkl, causal, window, q_off, k_off, scale,
+                   rows_vec(q, k, v, dO, dh, sqb, sql, skb, skl, svb, svl, sdob, sdol));
+  a.o2 = dv;
+  a.s2b = sdvb;
+  a.s2l = sdvl;
+  return tc::dispatch<true>(a, (cudaStream_t)stream);
+}
+
+// K5, f32 route (scalar): every tensor f32. Returns a cudaError_t.
+extern "C" int flash_attention_dkv_f32(const void* q, const void* k, const void* v,
+                                       const void* dO, const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int L, int H, int KV, int dh,
+                                       long long sqb, long long sql, long long skb,
+                                       long long skl, long long svb, long long svl,
+                                       long long sdob, long long sdol, long long sdkb,
+                                       long long sdkl, long long sdvb, long long sdvl,
+                                       int causal, int window, int q_off, int k_off, float scale,
+                                       void* stream) {
+  if (bad_shape(B, L, KV, H)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, dO, lse, delta, dk, B, L, H, KV, dh, sqb, sql, skb, skl, svb, svl,
+                   sdob, sdol, sdkb, sdkl, causal, window, q_off, k_off, scale, 0);
+  a.o2 = dv;
+  a.s2b = sdvb;
+  a.s2l = sdvl;
+  return f32::dispatch<true>(a, (cudaStream_t)stream);
 }

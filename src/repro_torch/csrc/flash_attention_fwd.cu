@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -87,61 +88,14 @@ constexpr int NW = 8;
 constexpr int BQ = 16 * NW;  // query rows per block
 constexpr int NT = 32 * NW;
 constexpr int STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 as one bf16x2 register, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows x DHP tile of a (B, L, N, dh) tensor from local row l0 into shared
-// memory rows of DHP + 8 elements, zero past L and past dh. With ``vec``
-// (dh % 8 == 0 and 16-byte aligned rows) as cp.async 16-byte chunks, else
-// element by element.
-template <int ROWS, int DHP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long sl, int l0, int L,
-                                          int dh, bool vec) {
-  constexpr int SR = DHP + 8;
-  constexpr int CH = DHP / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, d = (i % CH) * 8, l = l0 + r;
-    bf16* to = dst + r * SR + d;
-    if (vec) {
-      const bool in = l < L && d < dh;
-      flash::cp_async16(to, in ? src + (long long)l * sl + d : src, in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        to[e] = (l < L && d + e < dh) ? src[(long long)l * sl + d + e] : __float2bfloat16(0.f);
-    }
-  }
-}
+using flash::acc_as_a;
+using flash::frag_a;
+using flash::frag_b;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::LOG2E;
+using flash::mma16816;
 
 template <int DHP, int BK>
 constexpr size_t smem_bytes() {
@@ -184,12 +138,12 @@ fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Q and the first STAGES - 1 live tiles, one copy group per tile (Q
   // joins the first); every loop turn commits one group, maybe empty
-  load_tile<BQ, DHP>(sQ, qb, sql, q0, L, dh, vec);
+  flash::load_tile<NT, BQ, DHP>(sQ, qb, sql, q0, L, dh, vec);
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (kt_begin + i < kt_end) {
-      load_tile<BK, DHP>(sK + i * BK * SR, kb, skl, (kt_begin + i) * BK, L, dh, vec);
-      load_tile<BK, DHP>(sV + i * BK * SR, vb, svl, (kt_begin + i) * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sK + i * BK * SR, kb, skl, (kt_begin + i) * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sV + i * BK * SR, vb, svl, (kt_begin + i) * BK, L, dh, vec);
     }
     flash::cp_async_commit();
   }
@@ -207,8 +161,8 @@ fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int nxt = kt + STAGES - 1;  // refill the stage the last turn read
     if (nxt < kt_end) {
       const int ns = (it + STAGES - 1) % STAGES;
-      load_tile<BK, DHP>(sK + ns * BK * SR, kb, skl, nxt * BK, L, dh, vec);
-      load_tile<BK, DHP>(sV + ns * BK * SR, vb, svl, nxt * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sK + ns * BK * SR, kb, skl, nxt * BK, L, dh, vec);
+      flash::load_tile<NT, BK, DHP>(sV + ns * BK * SR, vb, svl, nxt * BK, L, dh, vec);
     }
     flash::cp_async_commit();
     flash::cp_async_wait<STAGES - 1>();  // this tile's group (and Q) has landed
@@ -219,8 +173,7 @@ fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (it == 0) {
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks)
-          ldsm_x4(qf[ks], sQ + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + ks * 16 +
-                              (lane >> 4) * 8);
+          ldsm_x4(qf[ks], frag_a(sQ, SR, row0, ks * 16, lane));
       }
     }
 
@@ -235,14 +188,12 @@ fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) qa[e] = qf[ks][e];
       } else {
-        ldsm_x4(qa, sQ + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + ks * 16 +
-                        (lane >> 4) * 8);
+        ldsm_x4(qa, frag_a(sQ, SR, row0, ks * 16, lane));
       }
 #pragma unroll
       for (int n2 = 0; n2 < NS / 2; ++n2) {
         uint32_t kf[4];
-        ldsm_x4(kf, cK + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * SR + ks * 16 +
-                        ((lane >> 3) & 1) * 8);
+        ldsm_x4(kf, frag_b(cK, SR, n2 * 16, ks * 16, lane));
         mma16816(s[2 * n2], qa, kf[0], kf[1]);
         mma16816(s[2 * n2 + 1], qa, kf[2], kf[3]);
       }
@@ -299,15 +250,11 @@ fwd_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      acc_as_a(a, s, kk);
 #pragma unroll
       for (int d2 = 0; d2 < DHP / 16; ++d2) {
         uint32_t vf[4];
-        ldsm_x4_trans(vf, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SR + d2 * 16 +
-                              (lane >> 4) * 8);
+        ldsm_x4_trans(vf, frag_a(cV, SR, kk * 16, d2 * 16, lane));
         mma16816(acc[2 * d2], a, vf[0], vf[1]);
         mma16816(acc[2 * d2 + 1], a, vf[2], vf[3]);
       }

@@ -42,12 +42,17 @@ SIGNATURES = {
     "csim_argmax": [P] * 5 + [I] * 4 + [P],
     # f alpha gz out, b m k, dtype stream
     "segment_matmul": [P] * 4 + [I] * 4 + [P],
-    # q k v do lse delta dq, B L H KV dh, strides (q b,l  k b,l  v b,l
-    # do b,l  dq b,l), causal window q_off k_off scale dtype stream
-    "flash_attention_dq": [P] * 7 + [I] * 5 + [LL] * 10 + [I] * 4 + [F, I, P],
-    # q k v do lse delta dk dv, B L H KV dh, strides (q b,l  k b,l  v b,l
-    # do b,l  dk b,l  dv b,l), causal window q_off k_off scale dtype stream
-    "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I] * 4 + [F, I, P],
+    # K4, two routes of one signature: flash_attention_dq (bf16, tensor
+    # cores) and flash_attention_dq_f32 (f32, scalar). q k v do lse delta
+    # dq, B L H KV dh, strides (q b,l  k b,l  v b,l  do b,l  dq b,l),
+    # causal window q_off k_off scale stream
+    "flash_attention_dq": [P] * 7 + [I] * 5 + [LL] * 10 + [I] * 4 + [F, P],
+    "flash_attention_dq_f32": [P] * 7 + [I] * 5 + [LL] * 10 + [I] * 4 + [F, P],
+    # K5, likewise flash_attention_dkv and flash_attention_dkv_f32. q k v
+    # do lse delta dk dv, B L H KV dh, strides (q b,l  k b,l  v b,l  do b,l
+    # dk b,l  dv b,l), causal window q_off k_off scale stream
+    "flash_attention_dkv": [P] * 8 + [I] * 5 + [LL] * 12 + [I] * 4 + [F, P],
+    "flash_attention_dkv_f32": [P] * 8 + [I] * 5 + [LL] * 12 + [I] * 4 + [F, P],
     # q k_pages v_pages q_pos block_table page_pos o part_acc part_ml,
     # B Lq H KV dh ps nb nsplit pps, strides (q b,l  k page,off  v page,off
     # block_table b  page_pos page  o b,l), causal window scale dtype stream
@@ -64,6 +69,8 @@ SOURCE_OF = {
     "segment_matmul": "pamm_apply",
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
+    "flash_attention_dq_f32": "flash_attention_bwd",
+    "flash_attention_dkv_f32": "flash_attention_bwd",
     "flash_paged_decode_quant": "flash_paged_decode",
 }
 SOURCES = tuple(dict.fromkeys(SOURCE_OF.get(e, e) for e in SIGNATURES))

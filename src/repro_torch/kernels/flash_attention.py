@@ -44,7 +44,7 @@ from repro_torch.kernels.launches import LAUNCHES
 
 NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)   # each has its own route
 
 
 def _offsets(offs) -> tuple[int, int]:
@@ -173,41 +173,55 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _bwd_entry(name: str, q) -> str:
+    """The route of K4 (``flash_attention_dq``) or K5 (``flash_attention_dkv``)
+    for q's dtype: the entry itself for bf16 (tensor cores), its ``_f32``
+    twin for f32 (scalar)."""
+    return name if q.dtype == torch.bfloat16 else name + "_f32"
+
+
 def _launch_dq(q, k, v, lse, delta, do, dq, causal: bool, window: int, offs=(0, 0)):
-    """Launch K4 into ``dq`` on q's current CUDA stream; the caller has
-    checked the operands."""
+    """Launch K4 into ``dq`` on q's current CUDA stream, on the route of q's
+    dtype (counted under its entry's name); the caller has checked the
+    operands."""
     B, L, H, dh = q.shape
-    err = build.entry("flash_attention_dq")(
+    name = _bwd_entry("flash_attention_dq", q)
+    err = build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), B, L, H, k.shape[2], dh,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),
-        int(causal), int(window), *offs, dh ** -0.5, _DTYPES[q.dtype],
+        int(causal), int(window), *offs, dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch("flash_attention_dq", err)
-    LAUNCHES["flash_attention_dq"] += 1
+    build.check_launch(name, err)
+    LAUNCHES[name] += 1
 
 
 def _launch_dkv(q, k, v, lse, delta, do, dk, dv, causal: bool, window: int,
                 offs=(0, 0)):
-    """Launch K5 into ``dk``, ``dv`` on q's current CUDA stream; the caller
-    has checked the operands."""
+    """Launch K5 into ``dk``, ``dv`` on q's current CUDA stream, on the route
+    of q's dtype (counted under its entry's name); the caller has checked
+    the operands."""
     B, L, H, dh = q.shape
-    err = build.entry("flash_attention_dkv")(
+    name = _bwd_entry("flash_attention_dkv", q)
+    err = build.entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H, k.shape[2], dh,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         do.stride(0), do.stride(1), dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
-        int(causal), int(window), *offs, dh ** -0.5, _DTYPES[q.dtype],
+        int(causal), int(window), *offs, dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
-    build.check_launch("flash_attention_dkv", err)
-    LAUNCHES["flash_attention_dkv"] += 1
+    build.check_launch(name, err)
+    LAUNCHES[name] += 1
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, offs=None):
     """Check the operands once, compute delta as a torch op, then launch K4
-    and K5 on q's current CUDA stream; returns (dq, dk, dv)."""
+    and K5 on q's current CUDA stream; returns (dq, dk, dv). The route is
+    the dtype's, as for K3: bf16 runs the tensor-core kernels
+    (``flash_attention_dq``, ``flash_attention_dkv``), f32 the scalar ones
+    (``flash_attention_dq_f32``, ``flash_attention_dkv_f32``)."""
     _check(q, k, v, kernel="K4/K5", max_dh=128, extra=(("o", o), ("do", do)))
     B, L, H, _ = q.shape
     if (lse.shape != (B, H, L) or lse.dtype != torch.float32

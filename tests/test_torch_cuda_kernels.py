@@ -11,12 +11,13 @@ terms in another order); idx equal wherever the plain top-2 |csim| margin
 exceeds 1e-4. K2: 1e-5 of the output's scale (f32 sums in another order)
 and bitwise equal across two launches. K4/K5: f32 1e-4 and bf16 2e-2 of
 each gradient's largest magnitude (f32 sums over up to L terms in another
-order; bf16 rounds the outputs), and every row of dh to its own norm
+order; bf16 rounds the outputs, and the tensor-core route rounds P and dS
+to bf16 before their products), and every row of dh to its own norm
 (floored at 1e-2 of the largest row, for rows near 0 by cancellation):
 f32 1e-3, bf16 1e-2 (a bf16 rounding flip moves a row by at most 2^-7 of
 its norm; a row that loses one 64-key tile of its i live keys moves by the
 order of sqrt(64 / i) of it, which the largest-magnitude bound lets pass
-for late rows). K7/K8 are compared on the rows that see at least one key;
+for late rows); the bf16 route gives the same bits on a second launch. K7/K8 are compared on the rows that see at least one key;
 a fully masked (parked) row must only be finite (the kernels average V
 over the mapped pages, the plain versions over every gathered page), and
 K7, split over the keys, must give the same bits on a second launch. The
@@ -176,6 +177,10 @@ K45_CASES = [
     (1, 200, 4, 1, 120, True, 0),
     (2, 256, 16, 8, 128, True, 64),
     (2, 1100, 4, 2, 128, True, 0),    # a batch stride, L past 1024
+    (1, 150, 4, 2, 32, True, 0),      # dh 32
+    (1, 300, 8, 2, 112, True, 40),    # kimi's head dim, a window
+    (1, 1100, 16, 1, 128, True, 0),   # MQA: G = 16 folded in K5; L not a multiple of a tile
+    (2, 33, 16, 1, 16, True, 0),      # MQA at dh 16, L 33
 ]
 
 
@@ -216,16 +221,10 @@ def test_k2_cuda_matches_plain_and_is_deterministic(cuda_device, b, m, k, dtype)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,L,H,KV,dh,causal,window", K45_CASES)
-def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(L + dh + H)
-    q, k, v = (_randn(s, g, dtype) for s in ((B, L, H, dh), (B, L, KV, dh), (B, L, KV, dh)))
-    do = _randn((B, L, H, dh), g, dtype)
-    o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window)
-    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
-    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+def _check_k45(got, ref, dtype):
+    """dq, dk, dv against the plain version: finite, of its dtype and shape,
+    within the dtype's tolerance of each gradient's largest magnitude and
+    of each row's norm."""
     tol = 1e-4 if dtype == "float32" else 2e-2
     row_tol = 1e-3 if dtype == "float32" else 1e-2
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
@@ -235,6 +234,57 @@ def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dt
         err = float((a.float() - r.float()).abs().max())
         assert err <= tol * scale, (name, err, scale)
         assert _row_err(a, r) <= row_tol, (name, _row_err(a, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,H,KV,dh,causal,window", K45_CASES)
+def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(L + dh + H)
+    q, k, v = (_randn(s, g, dtype) for s in ((B, L, H, dh), (B, L, KV, dh), (B, L, KV, dh)))
+    do = _randn((B, L, H, dh), g, dtype)
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=causal, window=window)
+    launches.reset()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window)
+    sfx = "" if dtype == "bfloat16" else "_f32"     # the route of the dtype
+    assert launches.counts() == {"flash_attention_dq" + sfx: 1, "flash_attention_dkv" + sfx: 1}
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+    _check_k45(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 120])
+def test_k4_k5_unaligned_rows_take_elementwise_loads(cuda_device, dh):
+    """bf16 tensors whose rows are not 16-byte aligned (a one-element
+    offset into their storage) go through the tensor-core route's
+    element-wise loads instead of cp.async, with the same result."""
+    g = torch.Generator(device=cuda_device).manual_seed(dh + 1)
+    views = []
+    for shape in ((1, 130, 4, dh), (1, 130, 2, dh), (1, 130, 2, dh), (1, 130, 4, dh)):
+        n = torch.Size(shape).numel()
+        views.append(_randn((n + 1,), g, "bfloat16")[1:].view(shape))
+    q, k, v, do = views
+    assert q.data_ptr() % 16 != 0
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=True, window=40)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=40)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=40)
+    _check_k45(got, ref, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,KV,dh,window", [(2, 1100, 16, 8, 128, 0),
+                                                (1, 300, 16, 1, 80, 64)])
+def test_k4_k5_bf16_repeat_bitwise(cuda_device, B, L, H, KV, dh, window):
+    """Two launches of the tensor-core route give the same bits: every
+    output element is summed by one thread in a fixed order."""
+    g = torch.Generator(device=cuda_device).manual_seed(L + dh + 2)
+    q, k, v, do = (_randn(s, g, "bfloat16") for s in ((B, L, H, dh), (B, L, KV, dh),
+                                                      (B, L, KV, dh), (B, L, H, dh)))
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal=True, window=window)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 OFFSET_CASES = [
@@ -274,18 +324,13 @@ def test_k3_k4_k5_offsets_cuda_match_plain(cuda_device, B, L, H, KV, dh, window,
                                    offs=offs)
     ref = flash_attention_bwd_ref(q, k, v, o_m, lse_m, do, causal=True, window=window,
                                   offs=offs)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    row_tol = 1e-3 if dtype == "float32" else 1e-2
-    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-        assert torch.isfinite(a).all(), name
-        err = float((a.float() - r.float()).abs().max())
-        assert err <= tol * float(r.float().abs().max()), (name, err)
-        assert _row_err(a, r) <= row_tol, (name, _row_err(a, r))
+    _check_k45(got, ref, dtype)
 
 
 @pytest.mark.cuda
 def test_training_kernels_dispatch_count_and_refuse(cuda_device):
-    """ops routes CUDA tensors to K1, K2, K4 and K5 (counted as such) and
+    """ops routes CUDA tensors to K1, K2, K4 and K5 (counted as such; f32
+    takes the scalar route of K3, K4 and K5, bf16 the tensor-core one) and
     the backward refuses what it does not take."""
     launches.reset()
     x = torch.randn(64, 32, device=cuda_device)
@@ -295,7 +340,12 @@ def test_training_kernels_dispatch_count_and_refuse(cuda_device):
     kv = torch.randn(1, 16, 1, 16, device=cuda_device, requires_grad=True)
     ops.flash_attention(q, kv, kv).sum().backward()
     assert launches.counts() == {"csim_argmax": 1, "segment_matmul": 1,
-                                 "flash_attention_fwd_f32": 1, "flash_attention_dq": 1,
+                                 "flash_attention_fwd_f32": 1, "flash_attention_dq_f32": 1,
+                                 "flash_attention_dkv_f32": 1}
+    launches.reset()
+    qb, kvb = (x.detach().bfloat16().requires_grad_() for x in (q, kv))
+    ops.flash_attention(qb, kvb, kvb).float().sum().backward()
+    assert launches.counts() == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
                                  "flash_attention_dkv": 1}
     big = torch.randn(1, 4, 1, 160, device=cuda_device)
     o, lse = flash_attention_fwd_cuda(big, big, big)

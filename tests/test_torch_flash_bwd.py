@@ -10,6 +10,11 @@ Tolerances: f32 1e-5 relative (the norm of the difference over the norm
 of the JAX gradient; the same f32 math in another order, the bound of the
 JAX package's own ``tests/test_flash_bwd.py``); bf16 2e-2 relative (the
 gradients are rounded to bf16 in both packages; the JAX test's bound).
+
+The numerics budget of the CUDA kernels' bf16 route (tensor cores): its
+rounding points, emulated here on the plain backward, against the plain
+version at the card's tolerances (``chip_smoke.py``'s TOL_K45 2e-2 of each
+gradient's largest magnitude and TOL_ROW 1e-2 of each row's norm).
 """
 import jax
 import jax.numpy as jnp
@@ -19,7 +24,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels import launches, ops
-from repro_torch.kernels.flash_attention import (_iota_mask, flash_attention_bwd_ref,
+from repro_torch.kernels.flash_attention import (NEG_INF, _delta, _iota_mask,
+                                                 flash_attention_bwd_ref,
                                                  flash_attention_fwd_ref)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -100,3 +106,57 @@ def test_flash_attention_function_matches_plain_autograd(window):
     with torch.no_grad():
         ops.flash_attention(*leaves, causal=True, window=window)
     assert launches.counts() == {"flash_attention_fwd_ref": 1}
+
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16_route(q, k, v, o, lse, do, causal, window):
+    """The rounding points of K4/K5's bf16 route on the plain backward: bf16
+    operands, every product summed in f32, P = exp2 of log2(e)-scaled
+    operands, and P and dS rounded to bf16 before the products that take
+    them (dV = P^T dO; dQ = dS K, dK = dS^T Q); outputs in bf16."""
+    B, L, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    qg = q.reshape(B, L, KV, G, dh).float()
+    dog = do.reshape(B, L, KV, G, dh).float()
+    k32, v32 = k.float(), v.float()
+    s = torch.einsum("bqkgd,blkd->bkgql", qg, k32) * (scale * LOG2E)
+    s = s.masked_fill(~_iota_mask(L, causal, window, q.device), NEG_INF * LOG2E)
+    p = torch.exp2(s - lse.reshape(B, KV, G, L, 1) * LOG2E)
+    dp = torch.einsum("bqkgd,blkd->bkgql", dog, v32)
+    ds = p * (dp - _delta(o, do).reshape(B, KV, G, L, 1)) * scale
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dq = torch.einsum("bkgql,blkd->bqkgd", ds16, k32).reshape(B, L, H, dh)
+    dk = torch.einsum("bkgql,bqkgd->blkd", ds16, qg)
+    dv = torch.einsum("bkgql,bqkgd->blkd", p16, dog)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _row_err(a, ref) -> float:
+    """chip_smoke.py's row_err: the largest |a_row - ref_row| relative to
+    |ref_row| + 1e-2 of the largest reference row."""
+    a, ref = a.float(), ref.float()
+    den = ref.norm(dim=-1)
+    return float(((a - ref).norm(dim=-1) / (den + 1e-2 * den.max()).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("window", [0, 256], ids=["causal", "sliding-window"])
+def test_k45_bf16_route_rounding_fits_the_card_tolerances(window):
+    """P and dS rounded to bf16 (the tensor-core route) keep dq, dk, dv
+    within 2e-2 of each gradient's largest magnitude and 1e-2 of each row's
+    norm of the f32 plain version, at a GQA shape (8 query heads on 2 kv
+    heads) with L 1024 and dh 128, causal with and without a window."""
+    B, L, H, KV, dh = 1, 1024, 8, 2, 128
+    q, k, v, do = (torch.from_numpy(a).bfloat16()
+                   for a in _inputs(B, L, H, KV, dh, seed=window + 7))
+    o, lse = flash_attention_fwd_ref(q, k, v, causal=True, window=window)
+    got = _bf16_route(q, k, v, o, lse, do, True, window)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= 2e-2 * float(r.float().abs().max()), (name, err)
+        assert _row_err(a, r) <= 1e-2, (name, _row_err(a, r))
+        assert not torch.equal(a, r), name        # the rounding points do move the result
