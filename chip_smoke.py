@@ -19,8 +19,10 @@ is caught and ignored:
                         head dims 80 and 120, the (q_off, k_off) operand
                         of two ring chunk pairs (one whose late rows see
                         no key), and one f32-route case
-  3. K6 vs plain        flash decode, bf16: 8 slots x 1089, a parked row,
-                        a ring cache, head dims 80 and 120
+  3. K6 vs plain        flash decode, bf16: 8 slots x 1089 (5 splits of
+                        256 slots), a parked row, a ring cache, head dims
+                        80 and 120; two launches bitwise equal, and each
+                        row alone bitwise equal to the same row at B = 8
   4. serving            internlm2-1.8b (24 layers, d 2048, 16/8 heads,
                         vocab 92544), bf16, random weights from seed 0,
                         8 slots, 16 requests of ~1024 prompt tokens and 64
@@ -41,9 +43,10 @@ is caught and ignored:
                         17 pages of 64): shuffled pages, a hole, a parked
                         row (finite only), a ring, Lq 5, head dims 80 and
                         120, svd coefficients (r 64) with the dh-128
-                        scale, K7 at 18, 3 and 1 splits (a split without
-                        a mapped page; two launches bitwise equal), int8
-                        and int4 pages at 1 and 4 scale groups
+                        scale, K7 and K8 at 18, 3 and 1 splits (a split
+                        without a mapped page; two launches bitwise
+                        equal), int8 and int4 pages at 1 and 4 scale
+                        groups
   7. paged serving      the serving phase's requests through page pools of
                         64: fp (tokens against the dense run up to near
                         ties, every token of each greedy stream against a
@@ -53,7 +56,8 @@ is caught and ignored:
                         int4 and svd(r=1/2) at one byte budget of four bf16
                         reservations (pages, admitted concurrency, released
                         pages, throughput, first-step logits against fp
-                        within the JAX bounds, K8 on int8/int4); prefix
+                        within the JAX bounds, K8 on int8/int4, a profiler
+                        split of one int8 decode block); prefix
                         sharing of a 768-token head (tokens equal unshared,
                         the sharing counters, K7 launches); speculative
                         verify at k = 4 (tokens equal sequential greedy up
@@ -120,13 +124,14 @@ PROMPT_LEN, N_REQUESTS, GEN = 1024, 16, 64
 SAMPLED = {3, 7, 11, 15}          # uids served at temperature 0.8 / top-k 40
 TOL_O = 2e-2                       # bf16 outputs: a few bf16 ulps at |o| <= 1
 # times of the first versions of the kernels redesigned since (scalar K3,
-# K4 and K5, one-block-per-slot K7), from PERF.md's kernel table (an H100
-# 80GB HBM3 at 700 W, timed as time_ms does by default), printed beside the
-# new ones with the redesign's targets (a fifth of K3's time, 0.125 ms for
-# K7, 1.2 and 1.6 ms for K4 and K5)
+# K4 and K5, one-block-per-slot K6, K7 and K8), from PERF.md's kernel table
+# (an H100 80GB HBM3 at 700 W, timed as time_ms does by default), printed
+# beside the new ones with the redesign's targets (a fifth of K3's time,
+# 0.125 ms for K7, 1.2 and 1.6 ms for K4 and K5, 0.10 ms for K6 and K8)
 FIRST_MS = {"K3 serving": 0.6391, "K3 training": 5.1018, "K7": 0.6230, "K4": 5.8892,
-            "K5": 6.7245}
-TARGET_MS = {"K3 serving": 0.128, "K3 training": 1.02, "K7": 0.125, "K4": 1.2, "K5": 1.6}
+            "K5": 6.7245, "K6": 0.4142, "K8 int8": 0.6889, "K8 int4": 0.6720}
+TARGET_MS = {"K3 serving": 0.128, "K3 training": 1.02, "K7": 0.125, "K4": 1.2, "K5": 1.6,
+             "K6": 0.10, "K8 int8": 0.10, "K8 int4": 0.10}
 TOL_LSE = 1e-3                     # f32 lse from the same bf16 inputs
 K3_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 K6_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
@@ -340,6 +345,27 @@ def phase_device_and_build():
     return smi
 
 
+def short_symbol(name: str) -> str:
+    """A demangled kernel symbol without its return type, parameters and
+    namespaces: ``split_kernel<Dense<__nv_bfloat16>, 128>``."""
+    name = name.strip().replace("(anonymous namespace)::", "")
+    depth, start, end = 0, 0, len(name)
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and ch == " ":
+            start = i + 1                       # past the return type
+        elif depth == 0 and ch == "(":
+            end = i                             # the parameter list
+            break
+    head = name[start:end]
+    depth, cut = 0, 0
+    for i, ch in enumerate(head):
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and head.startswith("::", i):
+            cut = i + 2                         # past a namespace
+    return head[cut:] or name
+
+
 def ptxas_lines(log: str):
     """(kernel, line) for each registers / spill line of an nvcc -Xptxas -v
     log, the kernel's symbol shortened to its name and template arguments
@@ -351,9 +377,8 @@ def ptxas_lines(log: str):
         if m:
             kernel = m.group(1)
             if filt:
-                name = subprocess.run([filt, kernel], capture_output=True, text=True).stdout
-                short = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
-                kernel = short.group(1) if short else kernel
+                kernel = short_symbol(subprocess.run([filt, kernel], capture_output=True,
+                                                     text=True).stdout) or kernel
         elif "registers" in line or "spill" in line:
             yield kernel, line.split("ptxas info    :")[-1].strip()
 
@@ -444,10 +469,19 @@ def phase_k6(gen):
             qpos = (fills - 1).to(torch.int32)
         qpos[3] = -1                                   # a parked slot
         o = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+        again = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+        check(torch.equal(o, again), f"K6: a second launch gave other bits (dh={dh} ring={ring})")
+        # the split count is a function of S alone: a row alone = the row at B = 8
+        alone = all(torch.equal(flash_decode_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                  qpos[b:b + 1], spos[b:b + 1], causal=True,
+                                                  window=window), o[b:b + 1])
+                    for b in range(B))
+        check(alone, f"K6: a row decoded alone differs from it at B={B} (dh={dh} ring={ring})")
         o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
         e = (o.float() - o_r.float()).abs().max().item()
         print(f"[K6] B={B} S={Sx} H={H} KV={KV} dh={dh} window={window} "
-              f"(row 3 parked): max|o-o_ref|={e:.3e} (tol {TOL_O})")
+              f"(row 3 parked): max|o-o_ref|={e:.3e} (tol {TOL_O}); two launches bitwise "
+              f"equal; each row alone bitwise equal to it at B={B}")
         check(bool(o.isfinite().all()), "K6 output of a parked row is not finite")
         check(e <= TOL_O, f"K6 disagrees with its plain version at dh={dh} ring={ring}")
         worst = max(worst, e)
@@ -591,13 +625,20 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict, tag: str = ""):
             if evt.device_type != DeviceType.CUDA or us <= 0:
                 continue
             name = evt.key
-            group = ("K3" if "fwd_kernel" in name else "K7/K8" if "paged_decode" in name
-                     else "K6" if "decode_kernel" in name
+            # the decode kernels share one split body (decode_split::
+            # split_kernel<source, width>) and one merge_kernel
+            split = "split_kernel" in name
+            group = ("K3" if "fwd_kernel" in name else "K6" if split and "Dense" in name
+                     else "K7/K8" if split and ("Paged" in name or "Quant" in name)
+                     else "merge" if "merge_kernel" in name
                      else "GEMM" if any(s in name.lower() for s in GEMM_NAMES)
                      else "other")
             groups[group] = groups.get(group, 0.0) + us / 1e3
             if group == "other":
                 others[name] = us / 1e3
+        if "merge" in groups:    # a block runs one decode kernel: the merge is its second launch
+            owner = "K6" if "K6" in groups else "K7/K8"
+            groups[owner] = groups.get(owner, 0.0) + groups.pop("merge")
         busy = sum(groups.values())
         if busy == 0:
             print(f"[trace] {tag}{label}: device time not measured (the profiler recorded "
@@ -673,17 +714,16 @@ def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
     kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
     qt = q.transpose(1, 2)
     k6 = _kernel_row(
-        "flash_decode (K6)", K6_SOURCE, K6_REPLACES, counts.get("flash_decode", 0), err6,
+        "flash_decode (K6, split over the keys)", K6_SOURCE, K6_REPLACES,
+        counts.get("flash_decode", 0), err6,
         lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True),
         lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True),
         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
         k6_work(qpos, spos, H, KV, dh, window=0, itemsize=2))
 
     tag = f"[{smi}]"
-    for row, key in ((k3, "K3 serving"), (k6, None)):
-        was = (timing_note(row, key) if key else
-               f" | device only {row['device_ms']:.4f} ms | wrapper host "
-               f"{1e3 * row['host_ms']:.1f} us/call")
+    for row, key in ((k3, "K3 serving"), (k6, "K6")):
+        was = timing_note(row, key)
         print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{was} | plain "
               f"{row['plain_ms']:.4f} ms | SDPA {row['library_ms']:.4f} ms | bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
@@ -792,7 +832,7 @@ def phase_k7_k8(gen):
     errs = {"K7": 0.0, "K8": 0.0}
     cases = [
         # label, dh (stored width), Lq, hole, ring/window, scale, quant (bits, ngr),
-        # K7's split count (None: from the shapes, 5 splits of 4 pages here)
+        # K7's and K8's split count (None: from the shapes, 5 splits of 4 pages here)
         ("shuffled, row 3 parked", 128, 1, False, 0, None, None, None),
         ("a hole", 128, 1, True, 0, None, None, None),
         ("ring of 256, window 256", 128, 1, False, 256, None, None, None),
@@ -807,6 +847,10 @@ def phase_k7_k8(gen):
         ("int8 ngr 4", 128, 5, False, 0, None, (8, 4), None),
         ("int4 ngr 1", 128, 1, False, 0, None, (4, 1), None),
         ("int4 ngr 4", 128, 5, True, 0, None, (4, 4), None),
+        ("int8, 18 splits of a page: the hole's split has no page", 128, 1, True, 0, None,
+         (8, 1), 18),
+        ("int4 ngr 4, 3 splits of 6 pages, Lq 5", 128, 5, False, 0, None, (4, 4), 3),
+        ("int8 ngr 4, 1 split", 128, 1, True, 0, None, (8, 4), 1),
     ]
     for label, dh, Lq, hole, ring, scale, quant, splits in cases:
         nbx = 4 if ring else nb
@@ -823,19 +867,23 @@ def phase_k7_k8(gen):
             with k7_split_count(splits):
                 o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
                 again = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
-            check(torch.equal(o, again), f"K7: a second launch gave other bits ({label})")
             o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, **kw)
             name = "K7"
         else:
             bits, ngr = quant
             (kq, ks), (vq, vs) = (quantize_kv(t, bits, ngr) for t in (k, v))
-            o = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
+            with k7_split_count(splits):                  # K8 splits as K7 does
+                o = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
+                                                  window=window)
+                again = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
+                                                      window=window)
             o_r = flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
             name = "K8"
+        check(torch.equal(o, again), f"{name}: a second launch gave other bits ({label})")
         e, e_r = _paged_err(o, o_r, bt, ppos, qpos, window)
         print(f"[{name}] B={B} nb={nbx} ps={PAGE} H={H} KV={KV} w={dh} Lq={Lq} ({label}) bf16: "
-              f"max|o-o_ref|={e:.3e} (tol {TOL_O}) worst row rel {e_r:.3e} (tol {TOL_ROW})"
-              + ("; two launches bitwise equal" if name == "K7" else ""))
+              f"max|o-o_ref|={e:.3e} (tol {TOL_O}) worst row rel {e_r:.3e} (tol {TOL_ROW}); "
+              f"two launches bitwise equal")
         check(bool(o.isfinite().all()), f"{name} output not finite ({label})")
         check(e <= TOL_O and e_r <= TOL_ROW, f"{name} disagrees with its plain version ({label})")
         errs[name] = max(errs[name], e)
@@ -844,9 +892,10 @@ def phase_k7_k8(gen):
 
 @contextlib.contextmanager
 def k7_split_count(n):
-    """K7 at ``n`` splits (at most one per table entry) inside the block,
-    whatever the shapes give; None leaves the count to the shapes. The
-    wrapper has no such option: its count is a function of the shapes."""
+    """K7 and K8 at ``n`` splits (at most one per table entry) inside the
+    block, whatever the shapes give; None leaves the count to the shapes.
+    The wrappers have no such option: their count is a function of the
+    shapes."""
     from repro_torch.kernels import flash_decode
 
     real = flash_decode._splits
@@ -1018,7 +1067,8 @@ def phase_compressed_pools(dense, smi):
     """fp, int8, int4 and svd(r=1/2) pools at one byte budget (pool_tokens
     = four requests' bf16 reservation): pages minted, admitted concurrency,
     allocator invariant and release, throughput; first spliced decode step
-    against fp within the JAX bounds; K8 carries int8/int4, K7 svd."""
+    against fp within the JAX bounds; K8 carries int8/int4, K7 svd; a
+    profiler split of one int8 decode block of 8 slots."""
     import torch
 
     from repro_torch.serve import ServeEngine
@@ -1064,6 +1114,13 @@ def phase_compressed_pools(dense, smi):
         res[label] = {"peak_active": st["peak_active"], "counts": counts, "stats": st}
         del eng
         torch.cuda.empty_cache()
+        if spec == "int8":      # K8's share of a decode block of 8 slots (the pool at 8 x 18 pages)
+            trace_breakdown(cfg, lambda: ServeEngine(
+                cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
+                cache_layout="paged", page_size=PAGE, cache_compress="int8"), model, {
+                "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
+                tag="int8 paged ")
+            torch.cuda.empty_cache()
     check(res["fp"]["peak_active"] == 4 and res["int8"]["peak_active"] > 4,
           f"admission: fp {res['fp']['peak_active']}, int8 {res['int8']['peak_active']} "
           f"(want 4 and more)")
@@ -1186,17 +1243,16 @@ def phase_paged_numbers(gen, paged_counts, pool_res, smi, errs):
     for bits, label in ((8, "int8"), (4, "int4")):
         (kq, ks), (vq, vs) = (quantize_kv(t, bits, 1) for t in (k, v))
         rows.append(_kernel_row(
-            f"flash_paged_decode_quant (K8, {label})", K78_SOURCE, K8_REPLACES,
+            f"flash_paged_decode_quant (K8, {label}, split over the keys)", K78_SOURCE,
+            K8_REPLACES,
             pool_res[label]["counts"].get("flash_paged_decode_quant", 0), errs["K8"],
             lambda: flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos),
             lambda: flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos), None,
             paged_work(bt, ppos, qpos, H, KV, dh, kq.shape[-1] + 4 * ks.shape[-1], dh)))
-    for row in rows:
+    for row, key in zip(rows, ("K7", "K8 int8", "K8 int4")):
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms (SDPA over the keys laid out densely)")
-        was = (timing_note(row, "K7") if "K7" in row["name"] else
-               f" | device only {row['device_ms']:.4f} ms | wrapper host "
-               f"{1e3 * row['host_ms']:.1f} us/call")
+        was = timing_note(row, key)
         print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{was} | plain {row['plain_ms']:.4f} "
               f"ms | library {lib} | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
               f"{row['launches']} launches on its serving run [{smi}]")

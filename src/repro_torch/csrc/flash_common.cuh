@@ -1,4 +1,4 @@
-// Shared by the attention kernels (K3, K4/K5, K7): the finite mask value,
+// Shared by the attention kernels (K3, K4/K5, K6-K8): the finite mask value,
 // the live-tile bounds of the causal / window masks at global positions,
 // and the cp.async copies that stage tiles in shared memory.
 #pragma once
@@ -59,6 +59,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
                "r"(src_bytes));
+}
+// 4-byte copy global -> shared (through L1): a position or a scale
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

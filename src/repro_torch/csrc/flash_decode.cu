@@ -10,213 +10,121 @@
 // on the TPU. A parked slot (q_pos = -1) masks every key: its output is
 // the finite mean of V over the slab, which the engine discards.
 //
-// Design: one thread block per (kv head, batch row). The G query heads that
-// share the kv head are the rows of the block's little matrix, as in the
-// TPU layout (flash_decode.py:163-164), so GQA reads each K/V row once for
-// all G heads. The block walks the S cache slots in 64-key tiles staged in
-// shared memory as f32, with the online softmax (m, l, corr) and the
-// (G, dh) accumulator in shared memory. Head dims beyond dh are masked on
-// load (compiled widths 32/64/128/256); slots past S are excluded (-inf).
-//
 // Bound on the H100: bytes. Every step reads the whole K/V slab of its
-// slots: at 8 slots x 1089 x 8 kv heads x 128 x bf16 that is ~35.7 MB,
-// ~10.6 us at 3.35 TB/s. With one block per (slot, kv head) -- 64 blocks
-// on 132 SMs -- and a load-then-compute loop without overlap, this kernel
-// reaches only a fraction of that rate. Splitting S across blocks
-// (flash-decoding) and pipelining the tile loads are the later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// slots once: at 8 slots x 1089 x 8 kv heads x 128 x bf16 that is ~35.7
+// MB, ~10.6 us at 3.35 TB/s, against ~0.5 MFLOP of arithmetic.
+//
+// Design: the split-over-keys body of flash_decode_split.cuh (K7's), over
+// a dense slab. The grid is (split, kv head, slot); split s covers the
+// contiguous slots [s * per, min(S, (s + 1) * per)), and `per` is a fixed
+// number of keys (256, from the wrapper), so the split count is a function
+// of S alone -- never of B, the card or the data -- and a batch row's sums
+// run in one order whatever the batch: batched decode stays bit-identical
+// per sequence to a batch-of-1 run. At the serving shape that is 5 splits
+// and 320 blocks on 132 SMs. The G query heads of the kv head are the
+// rows of a block's little matrix, so K/V is read once for GQA. Each split
+// walks its slots in 64-key tiles (32 where a row is wider than 256 bytes)
+// whose K and V rows, in bf16 or f32, and slot_pos entries are staged with
+// cp.async (16-byte chunks for rows whose address is 16-byte aligned, else
+// element by element; 4 bytes a position), double-buffered; every split
+// holds a slot, so its max is
+// finite and the merge never sees a split without a key. Head dims up to
+// 256 (compiled widths 32 / 64 / 128 / 256; dims past dh are zero on the
+// way into shared memory), nothing padded in device memory.
+#include "flash_decode_split.cuh"
 
 namespace {
 
-constexpr int BK = 64;
-constexpr int NT = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float DENOM_FLOOR = 1e-30f;
+using decode_split::NO_KEY;
+using decode_split::Stage;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// the slab of row b: slot j's K row at k + b * skb + j * sks + kvh * dh
+// (elements), its position at slot_pos[b * spb + j]
+template <typename T>
+struct Dense {
+  using Q = T;
+  const T *k, *v;
+  const int* slot_pos;
+  int S, per, dh;
+  long long skb, sks, svb, svs, spb;
+  int vec;
 
-template <int DHP>
-size_t smem_bytes(int G) {
-  // sQ (G, DHP), sAcc (G, DHP), sK (BK, DHP+1), sV (BK, DHP), sS (G, BK),
-  // sM/sL/sC (G) -- f32; sPos (BK) int
-  return sizeof(float) * ((size_t)2 * G * DHP + BK * (DHP + 1) + BK * DHP + G * BK + 3 * G) +
-         sizeof(int) * BK;
-}
-
-template <typename T, int DHP>
-__global__ void __launch_bounds__(NT)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ q_pos, const int* __restrict__ slot_pos, T* __restrict__ o,
-              int S, int H, int KV, int dh, long long sqb, long long skb, long long sks,
-              long long svb, long long svs, long long spb, long long sob, int causal, int window,
-              float scale) {
-  constexpr int KS = DHP + 1;
-  const int G = H / KV;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sAcc = sQ + G * DHP;
-  float* sK = sAcc + G * DHP;
-  float* sV = sK + BK * KS;
-  float* sS = sV + BK * DHP;
-  float* sM = sS + G * BK;
-  float* sL = sM + G;
-  float* sC = sL + G;
-  int* sPos = (int*)(sC + G);
-
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const T* qb = q + (long long)b * sqb + (long long)kvh * G * dh;
-  const T* kb = k + (long long)b * skb + (long long)kvh * dh;
-  const T* vb = v + (long long)b * svb + (long long)kvh * dh;
-  const int* pb = slot_pos + (long long)b * spb;
-  const int qp = q_pos[b];
-
-  for (int i = t; i < G * DHP; i += NT) {
-    const int g = i / DHP, d = i % DHP;
-    sQ[i] = d < dh ? to_f(qb[(long long)g * dh + d]) : 0.f;
-    sAcc[i] = 0.f;
+  template <int DHP>
+  __host__ __device__ static constexpr int row_bytes() {
+    return DHP * (int)sizeof(T);
   }
-  for (int g = t; g < G; g += NT) {
-    sM[g] = NEG_INF;
-    sL[g] = 0.f;
+  __host__ __device__ int scales() const { return 0; }
+  __host__ __device__ int table_len() const { return 0; }
+
+  __device__ void range(int sp, int, int*, int* begin, int* end) const {
+    *begin = sp * per;
+    *end = min(S, *begin + per);
   }
+  __device__ int next_tile(int k, int, int end, int, const int*) const { return min(k, end); }
 
-  for (int s0 = 0; s0 < S; s0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and init visible)
-    for (int i = t; i < BK * DHP; i += NT) {
-      const int r = i / DHP, d = i % DHP, j = s0 + r;
-      const bool in = j < S && d < dh;
-      sK[r * KS + d] = in ? to_f(kb[(long long)j * sks + d]) : 0.f;
-      sV[r * DHP + d] = in ? to_f(vb[(long long)j * svs + d]) : 0.f;
+  template <int DHP, int BK>
+  __device__ void load_tile(const Stage& st, int k0, int, int end, int b, int kvh,
+                            const int*) const {
+    constexpr int EPC = 16 / (int)sizeof(T);
+    constexpr int CH = DHP / EPC;
+    for (int i = threadIdx.x; i < BK * CH; i += decode_split::NT) {
+      const int r = i / CH, d = (i % CH) * EPC, key = k0 + r;
+      const long long ko = (long long)b * skb + (long long)key * sks + (long long)kvh * dh;
+      const long long vo = (long long)b * svb + (long long)key * svs + (long long)kvh * dh;
+      decode_split::stage_fp_rows<T, DHP>(st, k, v, r, d, key < end, ko, vo, dh, vec);
     }
-    for (int r = t; r < BK; r += NT) sPos[r] = s0 + r < S ? pb[s0 + r] : 0;
-    __syncthreads();
-
-    for (int i = t; i < G * BK; i += NT) {
-      const int g = i / BK, r = i % BK, j = s0 + r;
-      float x;
-      if (j >= S) {
-        x = -INFINITY;  // past the slab: no slot at all
-      } else {
-        const float* qr = sQ + g * DHP;
-        const float* kr = sK + r * KS;
-        float dot = 0.f;
-#pragma unroll 4
-        for (int d = 0; d < dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-        const int sp = sPos[r];
-        bool live = sp >= 0;
-        if (causal) live = live && sp <= qp;
-        if (window > 0) live = live && qp - sp < window;
-        x = live ? dot * scale : NEG_INF;
-      }
-      sS[i] = x;
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row, two scores per lane
-    for (int g = warp; g < G; g += NT / 32) {
-      const float a0 = sS[g * BK + lane], a1 = sS[g * BK + lane + 32];
-      float mx = fmaxf(a0, a1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sM[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(a0 - m_new), p1 = expf(a1 - m_new);
-      sS[g * BK + lane] = p0;
-      sS[g * BK + lane + 32] = p1;
-      float ps = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        sC[g] = corr;
-        sL[g] = corr * sL[g] + ps;
-        sM[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    const int n_live = min(BK, S - s0);
-    for (int i = t; i < G * DHP; i += NT) {
-      const int g = i / DHP, d = i % DHP;
-      const float* pr = sS + g * BK;
-      float a = sAcc[i] * sC[g];
-#pragma unroll 4
-      for (int r = 0; r < n_live; ++r) a = fmaf(pr[r], sV[r * DHP + d], a);
-      sAcc[i] = a;
+    for (int r = threadIdx.x; r < BK; r += decode_split::NT) {
+      const int key = k0 + r;
+      if (key < end)
+        flash::cp_async4(st.pos + r, slot_pos + (long long)b * spb + key);
+      else
+        st.pos[r] = NO_KEY;  // past the split: no slot
     }
   }
-  __syncthreads();
-
-  T* ob = o + (long long)b * sob + (long long)kvh * G * dh;
-  for (int i = t; i < G * DHP; i += NT) {
-    const int g = i / DHP, d = i % DHP;
-    if (d < dh) ob[(long long)g * dh + d] = from_f<T>(sAcc[i] / fmaxf(sL[g], DENOM_FLOOR));
+  template <int DHP>
+  __device__ float dot(const float* qr, const Stage& st, int j) const {
+    return decode_split::dot_fp<T, DHP>(qr, st, j);
   }
-}
-
-template <typename T, int DHP>
-int launch(const void* q, const void* k, const void* v, const void* q_pos, const void* slot_pos,
-           void* o, int B, int S, int H, int KV, int dh, long long sqb, long long skb,
-           long long sks, long long svb, long long svs, long long spb, long long sob, int causal,
-           int window, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DHP>(H / KV);
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, DHP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(KV, B);
-  decode_kernel<T, DHP><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)q_pos, (const int*)slot_pos, (T*)o, S, H,
-      KV, dh, sqb, skb, sks, svb, svs, spb, sob, causal, window, scale);
-  return (int)cudaGetLastError();
-}
+  __device__ int prep(int) const { return 0; }
+  template <int DHP>
+  __device__ float2 pair(const Stage& st, int j, int d, int) const {
+    return decode_split::pair_fp<T, DHP>(st, j, d);
+  }
+};
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* qp, const void* sp, void* o,
-             int B, int S, int H, int KV, int dh, long long sqb, long long skb, long long sks,
-             long long svb, long long svs, long long spb, long long sob, int causal, int window,
-             float scale, cudaStream_t s) {
-  if (dh <= 32)
-    return launch<T, 32>(q, k, v, qp, sp, o, B, S, H, KV, dh, sqb, skb, sks, svb, svs, spb, sob,
-                         causal, window, scale, s);
-  if (dh <= 64)
-    return launch<T, 64>(q, k, v, qp, sp, o, B, S, H, KV, dh, sqb, skb, sks, svb, svs, spb, sob,
-                         causal, window, scale, s);
-  if (dh <= 128)
-    return launch<T, 128>(q, k, v, qp, sp, o, B, S, H, KV, dh, sqb, skb, sks, svb, svs, spb, sob,
-                          causal, window, scale, s);
-  if (dh <= 256)
-    return launch<T, 256>(q, k, v, qp, sp, o, B, S, H, KV, dh, sqb, skb, sks, svb, svs, spb, sob,
-                          causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+int run(const decode_split::Common& c, const void* k, const void* v, const void* slot_pos,
+        int S, int per, long long skb, long long sks, long long svb, long long svs,
+        long long spb, cudaStream_t s) {
+  const long long eb = sizeof(T);
+  const int vec = (c.dh * eb) % 16 == 0 && flash::aligned16(k, eb, {skb, sks}) &&
+                  flash::aligned16(v, eb, {svb, svs});
+  const Dense<T> src{(const T*)k, (const T*)v, (const int*)slot_pos, S, per, c.dh,
+                     skb, sks, svb, svs, spb, vec};
+  return decode_split::by_width(c, src, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. part_acc
+// (nsplit, B, KV, G, dh) and part_ml (nsplit, B, KV, G, 2) f32 are the
+// wrapper's scratch; split s covers slots [s * per, (s + 1) * per). Returns
+// a cudaError_t (0 = launched).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* q_pos,
-                            const void* slot_pos, void* o, int B, int S, int H, int KV, int dh,
-                            long long sqb, long long skb, long long sks, long long svb,
-                            long long svs, long long spb, long long sob, int causal, int window,
-                            float scale, int dtype, void* stream) {
-  if (B < 1 || S < 1 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
+                            const void* slot_pos, void* o, void* part_acc, void* part_ml, int B,
+                            int S, int H, int KV, int dh, int nsplit, int per, long long sqb,
+                            long long skb, long long sks, long long svb, long long svs,
+                            long long spb, long long sob, int causal, int window, float scale,
+                            int dtype, void* stream) {
+  if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || per < 1 || nsplit != (S + per - 1) / per)
+    return (int)cudaErrorInvalidValue;
+  // one query row a slot: Lq 1, so the l strides of q and o are never used
+  const decode_split::Common c{q,   (const int*)q_pos, o,      (float*)part_acc, (float*)part_ml,
+                               B,   1, H, KV, dh, nsplit, sqb, 0, sob, 0,
+                               causal, window, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, q_pos, slot_pos, o, B, S, H, KV, dh, sqb, skb, sks, svb, svs,
-                           spb, sob, causal, window, scale, s);
+  if (dtype == 0) return run<float>(c, k, v, slot_pos, S, per, skb, sks, svb, svs, spb, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, q_pos, slot_pos, o, B, S, H, KV, dh, sqb, skb, sks,
-                                   svb, svs, spb, sob, causal, window, scale, s);
+    return run<__nv_bfloat16>(c, k, v, slot_pos, S, per, skb, sks, svb, svs, spb, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -35,9 +35,10 @@ SIGNATURES = {
     # q_off k_off scale stream
     "flash_attention_fwd": [P] * 5 + [I] * 5 + [LL] * 8 + [I] * 4 + [F, P],
     "flash_attention_fwd_f32": [P] * 5 + [I] * 5 + [LL] * 8 + [I] * 4 + [F, P],
-    # q k v q_pos slot_pos o, B S H KV dh, strides (q b; k b,s; v b,s;
-    # slot_pos b; o b), causal window scale dtype stream
-    "flash_decode": [P] * 6 + [I] * 5 + [LL] * 7 + [I, I, F, I, P],
+    # q k v q_pos slot_pos o part_acc part_ml, B S H KV dh nsplit per,
+    # strides (q b; k b,s; v b,s; slot_pos b; o b), causal window scale
+    # dtype stream
+    "flash_decode": [P] * 8 + [I] * 7 + [LL] * 7 + [I, I, F, I, P],
     # x c cs idx norm, b n k, dtype stream
     "csim_argmax": [P] * 5 + [I] * 4 + [P],
     # f alpha gz out, b m k, dtype stream
@@ -57,11 +58,11 @@ SIGNATURES = {
     # B Lq H KV dh ps nb nsplit pps, strides (q b,l  k page,off  v page,off
     # block_table b  page_pos page  o b,l), causal window scale dtype stream
     "flash_paged_decode": [P] * 9 + [I] * 9 + [LL] * 10 + [I, I, F, I, P],
-    # q k_pages v_pages k_scale v_scale q_pos block_table page_pos o,
-    # B Lq H KV dh ps nb ngr bits, strides (q b,l  k page,off  v page,off
-    # k_scale page,off  v_scale page,off  block_table b  page_pos page
-    # o b,l), causal window scale dtype stream
-    "flash_paged_decode_quant": [P] * 9 + [I] * 9 + [LL] * 14 + [I, I, F, I, P],
+    # q k_pages v_pages k_scale v_scale q_pos block_table page_pos o
+    # part_acc part_ml, B Lq H KV dh ps nb ngr bits nsplit pps, strides (q
+    # b,l  k page,off  v page,off  k_scale page,off  v_scale page,off
+    # block_table b  page_pos page  o b,l), causal window scale dtype stream
+    "flash_paged_decode_quant": [P] * 11 + [I] * 11 + [LL] * 14 + [I, I, F, I, P],
 }
 SOURCE_OF = {
     "flash_attention_fwd_f32": "flash_attention_fwd",

@@ -9,18 +9,23 @@ key; its output is finite and discarded by the engine.
 
 * K6 (``flash_decode``): one query row (Lq = 1) over a dense slot cache
   ``(B, S, KV, dh)`` with ``slot_pos`` (B, S) (``csrc/flash_decode.cu``).
+  The kernel splits the slots into ranges of a fixed 256 keys
+  (:func:`_dense_splits`, a function of S alone) and merges the partials
+  in a second launch.
 * K7 (``flash_paged_decode``): decode through a page pool ``(n_pages,
   page_size, KV, dh)`` and a block table ``(B, nb)`` (-1 = unmapped page,
   skipped whole), with in-page masks from ``page_pos`` (n_pages,
   page_size); Lq >= 1 rows with per-row positions ``q_pos`` (B, Lq)
   (speculative verify) and a ``scale`` override (svd pools score rank-r
   coefficients with the original head dim's scale). The kernel splits
-  the keys over blocks and merges the partials in a second launch, so
-  its f32 sums run in another order than K6's over the same keys.
+  the keys over blocks at page boundaries (:func:`_splits`) and merges
+  the partials in a second launch, so its f32 sums run in another order
+  than K6's over the same keys.
 * K8 (``flash_paged_decode_quant``): K7 over int8 pages, or int4 pages
   (two nibbles per byte), with f32 absmax scales per (token, kv head,
-  group), dequantised in f32 per tile (both in
-  ``csrc/flash_paged_decode.cu``).
+  group), split as K7 and dequantised in f32 from the staged raw bytes
+  (both in ``csrc/flash_paged_decode.cu``; the three kernels share the
+  split body and merge of ``csrc/flash_decode_split.cuh``).
 
 The host-side quantisation helpers (``quantize_kv`` / ``dequantize_kv`` /
 ``pack_int4`` / ``unpack_int4``) live here too, with the JAX package's
@@ -136,6 +141,9 @@ def flash_decode_ref(q, k, v, q_pos, slot_pos, *, causal: bool = True,
 
 
 def _check(q, k, v, q_pos, slot_pos):
+    """K6's argument checks; returns the strides of q, k, v and slot_pos
+    (each tensor's read once: the wrapper is on the decode step's host
+    path)."""
     if q.device.type != "cuda":
         raise ValueError(f"K6 kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -157,28 +165,50 @@ def _check(q, k, v, q_pos, slot_pos):
                          f"{tuple(q_pos.shape)}, {tuple(slot_pos.shape)}")
     if q_pos.dtype != torch.int32 or slot_pos.dtype != torch.int32:
         raise ValueError("K6 kernel: q_pos and slot_pos must be int32")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device or x.stride(3) != 1 or x.stride(2) != dh:
+    strides = [t.stride() for t in (q, k, v, slot_pos)]
+    for name, x, xs in zip("qkv", (q, k, v), strides):
+        if x.device != q.device or xs[3] != 1 or xs[2] != dh:
             raise ValueError(f"K6 kernel: {name} must lie on {q.device} with "
-                             f"contiguous (heads, dh) rows; strides {x.stride()}")
+                             f"contiguous (heads, dh) rows; strides {xs}")
     if (q_pos.device != q.device or slot_pos.device != q.device
-            or not q_pos.is_contiguous() or slot_pos.stride(1) != 1):
+            or not q_pos.is_contiguous() or strides[3][1] != 1):
         raise ValueError("K6 kernel: q_pos/slot_pos must lie on q's device "
                          "with contiguous slots")
+    return strides
+
+
+DENSE_SPLIT_KEYS = 256
+
+
+def _dense_splits(S: int) -> tuple[int, int]:
+    """(split count, slots per split) of K6's slot range: a fixed 256
+    slots a split, so the count is a function of S alone -- never of B,
+    the card or the data. A batch row's sums then run in one order
+    whatever the batch, and batched decode stays bit-identical per
+    sequence to a batch-of-1 run (K7's :func:`_splits` depends on B and
+    the SM count, so K6 does not use it)."""
+    return -(-S // DENSE_SPLIT_KEYS), DENSE_SPLIT_KEYS
 
 
 def flash_decode_cuda(q, k, v, q_pos, slot_pos, *, causal: bool = True,
                       window: int = 0):
-    """Launch K6 on q's current CUDA stream; returns (B, 1, H, dh)."""
-    _check(q, k, v, q_pos, slot_pos)
+    """Launch K6 on q's current CUDA stream; returns (B, 1, H, dh). The
+    slots are split over blocks (:func:`_dense_splits`); the per-split
+    partials (acc, then (m, l) per row, in one f32 scratch allocated
+    here) are merged by a second kernel, the two launches counted as
+    one."""
+    qs, ks, vs, sps = _check(q, k, v, q_pos, slot_pos)
     B, _, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
+    nsplit, per = _dense_splits(S)
+    rows = nsplit * B * H
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    part = torch.empty(rows * (dh + 2), dtype=torch.float32, device=q.device)
     fn = build.entry("flash_decode")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-             slot_pos.data_ptr(), o.data_ptr(), B, S, H, KV, dh,
-             q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-             slot_pos.stride(0), o.stride(0), int(causal), int(window),
+             slot_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+             part.data_ptr() + 4 * rows * dh, B, S, H, KV, dh, nsplit, per,
+             qs[0], ks[0], ks[1], vs[0], vs[1], sps[0], H * dh, int(causal), int(window),
              dh ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_decode", err)
@@ -232,7 +262,9 @@ def flash_paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale, q_pos,
 def _check_paged(name, q, k_pages, v_pages, q_pos, block_table, page_pos,
                  page_dtype, width):
     """Shared argument checks of K7 and K8; returns q_pos as (B, Lq)
-    contiguous int32."""
+    contiguous int32 and the strides of q, k_pages, v_pages, block_table
+    and page_pos (each tensor's read once: the wrappers are on the decode
+    step's host path)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES or q.dim() != 4:
@@ -263,16 +295,20 @@ def _check_paged(name, q, k_pages, v_pages, q_pos, block_table, page_pos,
         if t.dtype != torch.int32 or t.device != q.device:
             raise ValueError(f"{name} kernel: q_pos, block_table and page_pos must "
                              f"be int32 on {q.device}")
-    if block_table.stride(1) != 1 or page_pos.stride(1) != 1:
+    strides = [t.stride() for t in (q, k_pages, v_pages, block_table, page_pos)]
+    qs, ks, vs, bts, pps = strides
+    if bts[1] != 1 or pps[1] != 1:
         raise ValueError(f"{name} kernel: block_table and page_pos need contiguous rows")
-    if q.stride(3) != 1 or q.stride(2) != dh:
+    if qs[3] != 1 or qs[2] != dh:
         raise ValueError(f"{name} kernel: q needs contiguous (heads, dh) rows; "
-                         f"strides {q.stride()}")
-    for nm, x in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.device != q.device or x.stride(3) != 1 or x.stride(2) != w:
+                         f"strides {qs}")
+    for nm, x, xs in (("k_pages", k_pages, ks), ("v_pages", v_pages, vs)):
+        if x.device != q.device or xs[3] != 1 or xs[2] != w:
             raise ValueError(f"{name} kernel: {nm} must lie on {q.device} with "
-                             f"contiguous (kv heads, w) rows; strides {x.stride()}")
-    return q_pos.reshape(B, -1).expand(B, Lq).contiguous()
+                             f"contiguous (kv heads, w) rows; strides {xs}")
+    if q_pos.numel() == B * Lq and q_pos.is_contiguous():
+        return q_pos, strides          # (B,) at Lq 1 or (B, Lq): already the kernel's layout
+    return q_pos.reshape(B, -1).expand(B, Lq).contiguous(), strides
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,8 +334,8 @@ def flash_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table, page_pos, *
     keys are split over blocks (:func:`_splits`); the per-split partials
     (acc, then (m, l) per row, in one f32 scratch allocated here) are
     merged by a second kernel, the two launches counted as one."""
-    qp = _check_paged("K7", q, k_pages, v_pages, q_pos, block_table, page_pos,
-                      q.dtype, q.shape[-1])
+    qp, (qs, ks, vs, bts, pps) = _check_paged("K7", q, k_pages, v_pages, q_pos,
+                                              block_table, page_pos, q.dtype, q.shape[-1])
     B, Lq, H, dh = q.shape
     _, ps, KV, _ = k_pages.shape
     nb = block_table.shape[1]
@@ -312,9 +348,8 @@ def flash_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table, page_pos, *
              block_table.data_ptr(), page_pos.data_ptr(), o.data_ptr(),
              part.data_ptr(), part.data_ptr() + 4 * rows * dh,
              B, Lq, H, KV, dh, ps, nb, nsplit, per,
-             q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1),
-             v_pages.stride(0), v_pages.stride(1), block_table.stride(0),
-             page_pos.stride(0), o.stride(0), o.stride(1), int(causal), int(window),
+             qs[0], qs[1], ks[0], ks[1], vs[0], vs[1], bts[0], pps[0],
+             Lq * H * dh, H * dh, int(causal), int(window),
              dh ** -0.5 if scale is None else float(scale), _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_paged_decode", err)
@@ -326,35 +361,41 @@ def flash_paged_decode_quant_cuda(q, k_pages, v_pages, k_scale, v_scale, q_pos,
                                   block_table, page_pos, *, causal: bool = True,
                                   window: int = 0):
     """Launch K8 on q's current CUDA stream; returns (B, Lq, H, dh). int4
-    iff the pages' last dim is dh/2; the scale group is dh / ngr."""
+    iff the pages' last dim is dh/2; the scale group is dh / ngr. Split
+    over the keys as K7 (:func:`_splits`), the two launches counted as
+    one."""
     dh = q.shape[-1]
     width = k_pages.shape[-1] if k_pages.dim() == 4 else -1
     try:
         bits = quant_bits(width, dh)
     except ValueError as e:
         raise ValueError(f"K8 kernel: {e}") from None
-    qp = _check_paged("K8", q, k_pages, v_pages, q_pos, block_table, page_pos,
-                      torch.int8, width)
+    qp, (qs, ks, vs, bts, pps) = _check_paged("K8", q, k_pages, v_pages, q_pos,
+                                              block_table, page_pos, torch.int8, width)
     B, Lq, H, _ = q.shape
     n_pages, ps, KV, _ = k_pages.shape
     ngr = k_scale.shape[-1] if k_scale.dim() == 4 else 0
-    for nm, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+    kss, vss = k_scale.stride(), v_scale.stride()
+    for nm, s, ss in (("k_scale", k_scale, kss), ("v_scale", v_scale, vss)):
         if (s.shape != (n_pages, ps, KV, ngr) or s.dtype != torch.float32
-                or s.device != q.device or s.stride(3) != 1 or s.stride(2) != ngr):
+                or s.device != q.device or ss[3] != 1 or ss[2] != ngr):
             raise ValueError(f"K8 kernel: {nm} must be f32 (n_pages,ps,KV,ngr) with "
                              f"contiguous (kv heads, groups) rows on {q.device}")
     if ngr < 1 or dh % ngr:
         raise ValueError(f"K8 kernel: {ngr} scale groups must divide dh={dh}")
+    nb = block_table.shape[1]
+    nsplit, per = _splits(B, KV, nb, q.device)
+    rows = nsplit * B * Lq * H
     o = torch.empty((B, Lq, H, dh), dtype=q.dtype, device=q.device)
+    part = torch.empty(rows * (dh + 2), dtype=torch.float32, device=q.device)
     fn = build.entry("flash_paged_decode_quant")
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
              v_scale.data_ptr(), qp.data_ptr(), block_table.data_ptr(),
-             page_pos.data_ptr(), o.data_ptr(),
-             B, Lq, H, KV, dh, ps, block_table.shape[1], ngr, bits,
-             q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1),
-             v_pages.stride(0), v_pages.stride(1), k_scale.stride(0),
-             k_scale.stride(1), v_scale.stride(0), v_scale.stride(1),
-             block_table.stride(0), page_pos.stride(0), o.stride(0), o.stride(1),
+             page_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+             part.data_ptr() + 4 * rows * dh,
+             B, Lq, H, KV, dh, ps, nb, ngr, bits, nsplit, per,
+             qs[0], qs[1], ks[0], ks[1], vs[0], vs[1], kss[0], kss[1], vss[0], vss[1],
+             bts[0], pps[0], Lq * H * dh, H * dh,
              int(causal), int(window), dh ** -0.5, _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_paged_decode_quant", err)

@@ -16,8 +16,10 @@ int8 / int4 / svd, ``--prefix-share`` shares prompt pages copy-on-write and
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --cache-compress int8 --smoke
 
-Flags of the JAX launcher that need the port's multi-GPU slice (replicas,
-a dedicated prefill engine, meshes) are refused with the slice named.
+Flags of the JAX launcher that later slices bring are refused with the
+slice named: replicas and a dedicated prefill engine (N engines on one card
+behind the host-level router) with the single-card serving-front slice,
+meshes with the multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -66,16 +68,18 @@ def _serve_once(cfg, rcfg, model, args):
     return results, engine.stats()
 
 
-_LATER = "arrives with the port's multi-GPU slice"
+_FRONT = ("arrives with the port's single-card serving-front slice (engines on one "
+          "card behind the host-level router)")
+_MULTI_GPU = "arrives with the port's multi-GPU slice"
 
 
 def _refuse_later_slices(ap, args) -> None:
-    asked = {"replicas": args.replicas > 1,
-             "dedicated_prefill": args.dedicated_prefill,
-             "mesh_data": args.mesh_data > 1}
-    for flag, on in asked.items():
+    asked = {"replicas": (args.replicas > 1, _FRONT),
+             "dedicated_prefill": (args.dedicated_prefill, _FRONT),
+             "mesh_data": (args.mesh_data > 1, _MULTI_GPU)}
+    for flag, (on, later) in asked.items():
         if on:
-            ap.error(f"--{flag.replace('_', '-')}: {flag.replace('_', ' ')} {_LATER}")
+            ap.error(f"--{flag.replace('_', '-')}: {flag.replace('_', ' ')} {later}")
 
 
 def main(argv=None):

@@ -20,7 +20,8 @@ order of sqrt(64 / i) of it, which the largest-magnitude bound lets pass
 for late rows); the bf16 route gives the same bits on a second launch. K7/K8 are compared on the rows that see at least one key;
 a fully masked (parked) row must only be finite (the kernels average V
 over the mapped pages, the plain versions over every gathered page), and
-K7, split over the keys, must give the same bits on a second launch. The
+K6, K7 and K8, split over the keys, must give the same bits on a second
+launch; K6's rows alone equal the same rows in a batch of 8, bit for bit. The
 bf16 K3 and K7 are also held per row: f32 1e-5, bf16 1e-2 (K3 rounds P to
 bf16 before P V). K3 with offsets is compared on the rows that see a key;
 a row that sees none must have lse <= NEG_INF / 2 and a finite o.
@@ -139,6 +140,73 @@ def test_k6_cuda_matches_plain(cuda_device, B, S, H, KV, dh, window, n_valid, dt
     o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
     assert torch.isfinite(o).all()
     torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype], rtol=0)
+
+
+K6_SPLIT_CASES = [
+    # B, S, H, KV, dh, window, n_valid, ring: S past several 256-slot splits
+    (2, 1100, 16, 8, 128, 0, 1000, 0),    # five splits, the last of 76 slots
+    (3, 900, 8, 2, 80, 0, 400, 0),        # splits 2 and 3 hold no live key
+    (2, 600, 16, 8, 128, 256, 0, 1500),   # a ring of 600, window 256: split 2 sees nothing
+    (1, 513, 16, 1, 256, 0, 513, 0),      # G = 16 rows of dh 256 (32-slot tiles), a 1-slot split
+    (2, 777, 4, 2, 120, 0, 700, 0),       # head dim 120
+]
+
+
+def _k6_inputs(B, S, H, KV, dh, window, n_valid, ring, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _randn((B, 1, H, dh), g, dtype)
+    k, v = _randn((B, S, KV, dh), g, dtype), _randn((B, S, KV, dh), g, dtype)
+    j = torch.arange(S, device=dev)
+    if ring:
+        spos = (ring - 1 - ((ring - 1 - j) % S)).to(torch.int32).expand(B, S).contiguous()
+        qpos = torch.full((B,), ring - 1, dtype=torch.int32, device=dev)
+    else:
+        spos = torch.where(j < n_valid, j, -1).to(torch.int32).expand(B, S).contiguous()
+        qpos = torch.full((B,), n_valid - 1, dtype=torch.int32, device=dev)
+    return q, k, v, qpos, spos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,window,n_valid,ring", K6_SPLIT_CASES)
+def test_k6_splits_match_plain_and_repeat_bitwise(cuda_device, B, S, H, KV, dh, window,
+                                                  n_valid, ring, dtype):
+    """K6 split over the slots (256 a split): S past several splits,
+    splits whose keys are all masked for every live row, a parked row
+    (the mean of V over the slab, as the plain version), a ring window;
+    two launches give the same bits."""
+    q, k, v, qpos, spos = _k6_inputs(B, S, H, KV, dh, window, n_valid, ring, dtype,
+                                     cuda_device, S + dh + ring)
+    if B > 1:
+        qpos[-1] = -1                                     # a parked row
+    launches.reset()
+    o = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+    again = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+    assert launches.counts() == {"flash_decode": 2}       # split + merge count once
+    o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
+    assert torch.equal(o, again)                          # no atomics, a fixed merge order
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype], rtol=0)
+    assert _row_err(o, o_r) <= (1e-5 if dtype == "float32" else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_batch_of_one_rows_bitwise_equal_batched(cuda_device, dtype):
+    """The split count is a function of S alone, so each row of a batch
+    of 8 is the same bits as that row decoded alone (the continuous-
+    batching invariant)."""
+    B, S, H, KV, dh = 8, 1089, 16, 8, 128
+    q, k, v, qpos, spos = _k6_inputs(B, S, H, KV, dh, 0, S, 0, dtype, cuda_device, 11)
+    fill = torch.tensor([S - 97 * b for b in range(B)], device=cuda_device)
+    spos = torch.where(spos < fill[:, None], spos, -1).to(torch.int32)
+    qpos = (fill - 1).to(torch.int32)
+    qpos[3] = -1                                          # a parked row
+    o = flash_decode_cuda(q, k, v, qpos, spos, causal=True)
+    for b in range(B):
+        one = flash_decode_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1], qpos[b:b + 1],
+                                spos[b:b + 1], causal=True)
+        assert torch.equal(one, o[b:b + 1]), b
 
 
 @pytest.mark.cuda
@@ -518,6 +586,54 @@ def test_k8_cuda_matches_plain(cuda_device, B, nb, ps, H, KV, dh, Lq, bits, ngr,
     assert torch.isfinite(o).all()
     seen = _seen(bt, ppos, qpos, 0)
     torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+
+
+K8_SPLIT_CASES = [
+    # B, nb, ps, H, KV, dh, Lq, bits, ngr, splits
+    (3, 18, 64, 16, 8, 128, 1, 8, 1, None),    # the serving pages, splits from the shapes
+    (3, 18, 64, 16, 8, 128, 1, 4, 4, 18),      # a page a split: the hole's split has none
+    (3, 7, 12, 4, 2, 64, 5, 8, 2, 3),          # pages of 12: tiles straddle pages, Lq 5
+    (3, 5, 16, 8, 2, 80, 2, 4, 5, 2),          # int4 at dh 80: 40-byte rows, byte copies
+    (3, 6, 16, 8, 2, 120, 1, 4, 4, 4),         # int4 at dh 120: 60-byte rows, groups of 30
+    (3, 4, 16, 16, 1, 256, 1, 8, 2, 1),        # int8 at dh 256, MQA, one split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,nb,ps,H,KV,dh,Lq,bits,ngr,splits", K8_SPLIT_CASES)
+def test_k8_splits_match_plain_and_repeat_bitwise(cuda_device, monkeypatch, B, nb, ps, H, KV,
+                                                  dh, Lq, bits, ngr, splits, dtype):
+    """K8 split over the keys as K7: forced split counts, a hole, a parked
+    row (finite), a row whose whole table is unmapped (o = 0), the
+    unaligned int4 widths; two launches give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(nb * ps + dh + bits + 3)
+    S = nb * ps
+    fill = [S - 3 - 7 * b for b in range(B)]
+    n_pages, bt, ppos = _paging(B, nb, ps, fill, g, hole=True)
+    bt[1] = -1                                            # no mapped page: o = 0
+    q = _randn((B, Lq, H, dh), g, dtype)
+    w = dh if bits == 8 else dh // 2
+    k, v = (torch.randint(-127, 128, (n_pages, ps, KV, w), generator=g, device=cuda_device,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((n_pages, ps, KV, ngr), generator=g, device=cuda_device) * 0.05
+              for _ in range(2))
+    qpos = (torch.tensor(fill, device=cuda_device)[:, None] - Lq
+            + torch.arange(Lq, device=cuda_device)[None]).to(torch.int32)
+    qpos[-1, 0] = -1                                      # a parked row
+    if splits is not None:
+        monkeypatch.setattr(flash_decode, "_splits", _fixed_splits(splits))
+    launches.reset()
+    o = flash_paged_decode_quant_cuda(q, k, v, ks, vs, qpos, bt, ppos)
+    again = flash_paged_decode_quant_cuda(q, k, v, ks, vs, qpos, bt, ppos)
+    assert launches.counts() == {"flash_paged_decode_quant": 2}
+    o_r = flash_paged_decode_quant_ref(q, k, v, ks, vs, qpos, bt, ppos)
+    assert torch.equal(o, again)                          # no atomics, a fixed merge order
+    assert torch.isfinite(o).all()
+    assert not o[1].any()
+    seen = _seen(bt, ppos, qpos, 0)
+    torch.testing.assert_close(o[seen].float(), o_r[seen].float(), atol=TOL[dtype], rtol=0)
+    assert _row_err(o[seen], o_r[seen]) <= (1e-5 if dtype == "float32" else 1e-2)
 
 
 @pytest.mark.cuda

@@ -226,10 +226,15 @@ def test_serve_cli_smoke_and_refusals(capsys):
           "--requests", "2", "--prompt-len", "8", "--gen", "3",
           "--compression", "attn.qkv=pamm(r=1/8)"])
     assert "decode" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as exc:
-        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--replicas", "2"])
-    assert exc.value.code == 2
-    assert "multi-GPU slice" in capsys.readouterr().err
+    # replicas and a dedicated prefill engine run on one card in the
+    # reference (engines behind the host-level router); meshes need cards
+    for flag, later in ((["--replicas", "2"], "single-card serving-front slice"),
+                        (["--dedicated-prefill"], "single-card serving-front slice"),
+                        (["--mesh-data", "2"], "multi-GPU slice")):
+        with pytest.raises(SystemExit) as exc:
+            main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *flag])
+        assert exc.value.code == 2
+        assert later in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
