@@ -66,8 +66,10 @@ is caught and ignored:
                         verify call through K7 at Lq 5)
   8. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
-                        bf16 and f32 and at k = b/8; K2 at m 2048 and 1024,
-                        two launches bitwise equal; K3 (whose o and lse
+                        bf16 (tensor cores) and f32 and at k = b/8; K2 at m
+                        2048 and 1024 (its split rule) and at m 1024 at 3 and
+                        17 forced splits, each case's two launches bitwise
+                        equal; K3 (whose o and lse
                         feed the backward) and K4/K5 at (4, 2048, 16/8,
                         128) bf16 (the tensor-core routes), a window of
                         256, head dims 80, 120, two ring chunk pairs'
@@ -86,10 +88,15 @@ is caught and ignored:
                         second run from the seed (same step-0 loss), the
                         peak memory against attn.qkv=none, and a
                         torch.profiler split of one step
-  11. training numbers  K1, K2, K4, K5 (and K3 at the training shape) next
-                        to their plain versions, the SDPA backward and the
-                        bound; then K7 and K8 (int8, int4) at the serving
-                        shape beside their plain versions, the bound and,
+  11. training numbers  K1, K2 (m 2048 and 1024), K4, K5 (and K3 at the
+                        training shape) next to their plain versions, the
+                        SDPA backward and the bound, K1 and K2 beside their
+                        first versions and targets and beside the nearest
+                        single PyTorch call (torch.mm of the dots, an
+                        index_add_ of prescaled rows; neither computes the
+                        kernel's function); then K7 and K8 (int8, int4) at
+                        the serving shape beside their plain versions, the
+                        bound and,
                         for K7, SDPA over the keys laid out densely
 
 The line before the last is the JSON kernel table; the last line is
@@ -124,14 +131,18 @@ PROMPT_LEN, N_REQUESTS, GEN = 1024, 16, 64
 SAMPLED = {3, 7, 11, 15}          # uids served at temperature 0.8 / top-k 40
 TOL_O = 2e-2                       # bf16 outputs: a few bf16 ulps at |o| <= 1
 # times of the first versions of the kernels redesigned since (scalar K3,
-# K4 and K5, one-block-per-slot K6, K7 and K8), from PERF.md's kernel table
-# (an H100 80GB HBM3 at 700 W, timed as time_ms does by default), printed
-# beside the new ones with the redesign's targets (a fifth of K3's time,
-# 0.125 ms for K7, 1.2 and 1.6 ms for K4 and K5, 0.10 ms for K6 and K8)
+# K4 and K5, one-block-per-slot K6, K7 and K8, one-block-per-column-tile K2,
+# scalar bf16 K1), from PERF.md's kernel table (an H100 80GB HBM3 at 700 W,
+# timed as time_ms does by default), printed beside the new ones with the
+# redesign's targets (a fifth of K3's time, 0.125 ms for K7, 1.2 and 1.6 ms
+# for K4 and K5, 0.10 ms for K6 and K8, 0.05 ms for K1 and K2 at m 2048,
+# 0.04 ms for K2 at m 1024)
 FIRST_MS = {"K3 serving": 0.6391, "K3 training": 5.1018, "K7": 0.6230, "K4": 5.8892,
-            "K5": 6.7245, "K6": 0.4142, "K8 int8": 0.6889, "K8 int4": 0.6720}
+            "K5": 6.7245, "K6": 0.4142, "K8 int8": 0.6889, "K8 int4": 0.6720, "K1": 0.2310,
+            "K2 m2048": 0.2859, "K2 m1024": 0.2668}
 TARGET_MS = {"K3 serving": 0.128, "K3 training": 1.02, "K7": 0.125, "K4": 1.2, "K5": 1.6,
-             "K6": 0.10, "K8 int8": 0.10, "K8 int4": 0.10}
+             "K6": 0.10, "K8 int8": 0.10, "K8 int4": 0.10, "K1": 0.05, "K2 m2048": 0.05,
+             "K2 m1024": 0.04}
 TOL_LSE = 1e-3                     # f32 lse from the same bf16 inputs
 K3_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 K6_SOURCE = "src/repro_torch/csrc/flash_decode.cu"
@@ -912,6 +923,27 @@ def k7_split_count(n):
         flash_decode._splits = real
 
 
+@contextlib.contextmanager
+def k2_split_count(n):
+    """K2 at ``n`` row splits (at most one a row) inside the block, whatever
+    the shapes give; None leaves the count to the shapes, as the wrapper
+    always does."""
+    from repro_torch.kernels import pamm_apply
+
+    real = pamm_apply._splits
+
+    def fixed(b, m, k):
+        per = -(-b // n)
+        return -(-b // per), per
+
+    if n is not None:
+        pamm_apply._splits = fixed
+    try:
+        yield
+    finally:
+        pamm_apply._splits = real
+
+
 def _counted(drive):
     """Launch counts of ``drive()``: set to 0 just before, read just after."""
     import torch
@@ -1270,6 +1302,7 @@ def phase_training_kernels(gen):
 
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_ref)
+    from repro_torch.kernels import pamm_apply
     from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
     from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
@@ -1294,19 +1327,23 @@ def phase_training_kernels(gen):
         check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0,
               f"K1 disagrees with its plain version at k={k} {dtype}")
         errs["K1"] = max(errs["K1"], e_cs)
-    for m in (2048, 1024):
+    for m, splits in ((2048, None), (1024, None), (1024, 3), (1024, 17)):
         f = torch.randint(0, 16, (b,), generator=gen, device="cuda", dtype=torch.int32)
         alpha = torch.randn(b, generator=gen, device="cuda")
         gz = _randn((b, m), gen)
-        out = segment_matmul_cuda(f, alpha, gz, 16)
-        again = segment_matmul_cuda(f, alpha, gz, 16)
+        with k2_split_count(splits):
+            out = segment_matmul_cuda(f, alpha, gz, 16)
+            again = segment_matmul_cuda(f, alpha, gz, 16)
+            S = pamm_apply._splits(b, m, 16)[0]
         ref = segment_matmul_ref(f, alpha, gz, 16)
         scale = ref.abs().max().item()
         e = (out - ref).abs().max().item()
         same = bool(torch.equal(out, again))
-        print(f"[K2] b={b} m={m} k=16 bf16: max|B-B_ref|={e:.3e} (tol {TOL_K2} x "
-              f"{scale:.1f}); two launches bitwise equal: {same}")
-        check(e <= TOL_K2 * scale and same, f"K2 disagrees or is not deterministic at m={m}")
+        print(f"[K2] b={b} m={m} k=16 bf16, {S} splits"
+              f"{' (the rule)' if splits is None else ' (forced)'}: max|B-B_ref|={e:.3e} "
+              f"(tol {TOL_K2} x {scale:.1f}); two launches bitwise equal: {same}")
+        check(e <= TOL_K2 * scale and same,
+              f"K2 disagrees or is not deterministic at m={m}, {S} splits")
         errs["K2"] = max(errs["K2"], e)
     H, KV = 16, 8
     bf16 = torch.bfloat16
@@ -1626,24 +1663,40 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     b, n, k = TRAIN_BATCH * TRAIN_SEQ, 2048, 16
     x = _randn((b, n), gen)
     c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
-    k1 = _kernel_row("csim_argmax (K1)", K1_SOURCE, K1_REPLACES,
+    flush = _flush_buffer()
+    k1 = _kernel_row("csim_argmax (K1, bf16 tensor-core route)", K1_SOURCE, K1_REPLACES,
                      launches.get("csim_argmax", 0), errs["K1"],
                      lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
                      k1_work(b, n, k, 2))
+    # the nearest single PyTorch calls (side numbers, not the library column:
+    # neither computes the kernel's function)
+    side = {"K1": ("torch.mm(x, c.T), the dots alone",
+                   time_ms(lambda: torch.mm(x, c.T), flush=flush))}
     f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
     alpha = torch.randn(b, generator=gen, device="cuda")
-    rows = [k1]
+    fl = f.long()
+    k2 = {}
     for m in (2048, 1024):
         gz = _randn((b, m), gen)
-        row = _kernel_row("segment_matmul (K2)", K2_SOURCE, K2_REPLACES,
-                          launches.get("segment_matmul", 0), errs["K2"],
-                          lambda: segment_matmul_cuda(f, alpha, gz, k),
-                          lambda: segment_matmul_ref(f, alpha, gz, k), None,
-                          k2_work(b, m, k, 2))
-        if m == 2048:
-            rows.append(row)
-        print(f"[numbers] segment_matmul (K2) at m={m}: {row['ms']:.4f} ms/call | plain "
-              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms {tag}")
+        k2[m] = _kernel_row("segment_matmul (K2, split over the rows)", K2_SOURCE, K2_REPLACES,
+                            launches.get("segment_matmul", 0), errs["K2"],
+                            lambda: segment_matmul_cuda(f, alpha, gz, k),
+                            lambda: segment_matmul_ref(f, alpha, gz, k), None,
+                            k2_work(b, m, k, 2))
+        bprime = alpha[:, None] * gz.float()
+        side[f"K2 m{m}"] = (
+            "index_add_ of prescaled f32 alpha*dZ (atomics, not deterministic)",
+            time_ms(lambda: torch.zeros((k, m), device="cuda").index_add_(0, fl, bprime),
+                    flush=flush))
+        del bprime
+    rows = [k1, k2[2048]]
+    for row, key in ((k1, "K1"), (k2[2048], "K2 m2048"), (k2[1024], "K2 m1024")):
+        label, side_ms = side[key]
+        at = f" at m={key[4:]}" if key.startswith("K2") else f" at ({b}, {n}, k {k})"
+        print(f"[numbers] {row['name']}{at}: {row['ms']:.4f} ms/call{timing_note(row, key)} | "
+              f"plain {row['plain_ms']:.4f} ms | side: {label} {side_ms:.4f} ms | library n/a | "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} launches "
+              f"on the training path ({TRAIN_STEPS} steps) {tag}")
     B, L, H, KV, dh = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
     q = _randn((B, L, H, dh), gen)
     kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
@@ -1669,7 +1722,6 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
                      plain_bwd, sdpa_bwd,
                      k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K5"))
     rows += [k4, k5]
-    flush = _flush_buffer()
     k3_fn = lambda: flash_attention_fwd_cuda(q, kk, v, causal=True)
     k3 = {"ms": time_ms(k3_fn, flush=flush), "device_ms": time_ms(k3_fn, flush=flush, pad=True),
           "host_ms": host_ms(k3_fn)}
@@ -1678,13 +1730,11 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     k3_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
                       flush=flush)
     k3_bound, k3_by = bound(*k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2))
-    for row, key in zip(rows, (None, None, "K4", "K5")):
-        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-        note = timing_note(row, key) if key else f" | device only {row['device_ms']:.4f} ms"
-        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{note} | plain "
-              f"{row['plain_ms']:.4f} ms | library {lib} | bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) | {row['launches']} launches on the training path "
-              f"({TRAIN_STEPS} steps) {tag}")
+    for row, key in ((k4, "K4"), (k5, "K5")):
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{timing_note(row, key)} | "
+              f"plain {row['plain_ms']:.4f} ms | library {row['library_ms']:.4f} ms | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} launches on "
+              f"the training path ({TRAIN_STEPS} steps) {tag}")
     print(f"[numbers] flash_attention_fwd (K3, bf16 tensor-core route) at the training shape "
           f"({B}, {L}, {H}/{KV}, {dh}): {k3['ms']:.4f} ms/call"
           f"{timing_note(k3, 'K3 training')} | plain "
@@ -1693,8 +1743,9 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
           f"training shapes | {per_step.get('flash_attention_fwd', 0):.0f} "
           f"launches per training step {tag}")
     step_ms = statistics.median(rec["ms"][1:])
-    print(f"[numbers] train step {step_ms:.1f} ms: K1 x24 {24 * k1['ms']:.1f} ms, K2 x72 "
-          f"~{72 * rows[1]['ms']:.1f} ms (at m=2048), K3 x24 {24 * k3['ms']:.1f} ms, K4 x24 "
+    k2_step = 24 * k2[2048]["ms"] + 48 * k2[1024]["ms"]
+    print(f"[numbers] train step {step_ms:.1f} ms: K1 x24 {24 * k1['ms']:.2f} ms, K2 x72 "
+          f"{k2_step:.2f} ms (24 at m=2048, 48 at m=1024), K3 x24 {24 * k3['ms']:.1f} ms, K4 x24 "
           f"{24 * k4['ms']:.1f} ms, K5 x24 {24 * k5['ms']:.1f} ms (isolated, L2 flushed) {tag}")
     return rows
 

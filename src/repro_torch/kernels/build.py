@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,8 +43,8 @@ SIGNATURES = {
     "flash_decode": [P] * 8 + [I] * 7 + [LL] * 7 + [I, I, F, I, P],
     # x c cs idx norm, b n k, dtype stream
     "csim_argmax": [P] * 5 + [I] * 4 + [P],
-    # f alpha gz out, b m k, dtype stream
-    "segment_matmul": [P] * 4 + [I] * 4 + [P],
+    # f alpha gz out part, b m k nsplit per, dtype stream
+    "segment_matmul": [P] * 5 + [I] * 6 + [P],
     # K4, two routes of one signature: flash_attention_dq (bf16, tensor
     # cores) and flash_attention_dq_f32 (f32, scalar). q k v do lse delta
     # dq, B L H KV dh, strides (q b,l  k b,l  v b,l  do b,l  dq b,l),
@@ -140,6 +142,18 @@ def entry(name: str):
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def raw_stream(t) -> int:
+    """The handle of the current CUDA stream on tensor ``t``'s device, as
+    the C entry points take it (K1's and K2's wrappers read it here). torch's
+    raw-stream accessor (the one its compiled Triton launchers call) costs
+    about 4 us less host time a call than
+    ``torch.cuda.current_stream(device).cuda_stream``, which builds a Stream
+    object (tools/pamm_probe.py). It is private to torch: the card test
+    ``test_k1_k2_cuda_launch_on_the_callers_stream`` holds it to the stream
+    that ``torch.cuda.stream(s)`` sets."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_launch(name: str, err: int) -> None:

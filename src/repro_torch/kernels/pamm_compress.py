@@ -8,7 +8,9 @@ row of x, the signed cosine similarity at argmax_j |csim(x_i, c_j)| (f32),
 that index (int32; ties to the lowest j) and ||x_i|| (f32).
 
 The kernel (``csrc/pamm_compress.cu``) says in its header what bounds it
-on the H100 and what its design does about that. The plain version is what
+on the H100 and what its design does about that: bf16 runs on the tensor
+cores (mma.sync, x streamed by cp.async), f32 on a scalar route; both walk
+the generators in chunks with a running best per row. The plain version is what
 the CPU tests hold against the JAX kernel; nothing on the card's main path
 calls it.
 """
@@ -59,12 +61,11 @@ def csim_argmax_cuda(x, c):
     """Launch K1 on x's current CUDA stream; returns (cs, idx, norm_a)."""
     _check(x, c)
     b, n = x.shape
-    cs = torch.empty(b, dtype=torch.float32, device=x.device)
-    idx = torch.empty(b, dtype=torch.int32, device=x.device)
-    norm = torch.empty(b, dtype=torch.float32, device=x.device)
+    out = torch.empty((3, b), dtype=torch.float32, device=x.device)  # cs, idx, norm
+    cs, idx, norm = out[0], out[1].view(torch.int32), out[2]
     err = build.entry("csim_argmax")(
         x.data_ptr(), c.data_ptr(), cs.data_ptr(), idx.data_ptr(), norm.data_ptr(),
-        b, n, c.shape[0], _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        b, n, c.shape[0], _DTYPES[x.dtype], build.raw_stream(x))
     build.check_launch("csim_argmax", err)
     LAUNCHES["csim_argmax"] += 1
     return cs, idx, norm

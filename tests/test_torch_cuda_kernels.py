@@ -29,7 +29,7 @@ a row that sees none must have lse <= NEG_INF / 2 and a finite o.
 import pytest
 import torch
 
-from repro_torch.kernels import flash_decode, launches, ops
+from repro_torch.kernels import flash_decode, launches, ops, pamm_apply
 from repro_torch.kernels.flash_attention import (NEG_INF, _iota_mask,
                                                  flash_attention_bwd_cuda,
                                                  flash_attention_bwd_ref,
@@ -233,9 +233,13 @@ def test_cuda_tensors_reach_the_kernels_or_raise(cuda_device):
 
 
 K1_CASES = [(64, 16, 4), (512, 64, 16), (300, 200, 7), (1024, 512, 128), (100, 33, 1),
-            (2048, 2048, 16), (4096, 256, 512)]
+            (2048, 2048, 16), (4096, 256, 512),
+            (8192, 2048, 16),    # the training slice's shape
+            (300, 1003, 24)]     # n not a multiple of 8: element loads, two chunks
 K2_CASES = [(64, 16, 4), (512, 48, 16), (300, 200, 7), (2048, 1024, 128), (16, 8, 1),
-            (8192, 2048, 16)]
+            (8192, 2048, 16),
+            (8192, 1024, 16),    # the training slice's wk / wv shape
+            (300, 203, 5)]       # m not a multiple of 8: element loads
 K45_CASES = [
     # B, L, H, KV, dh, causal, window
     (1, 40, 4, 2, 16, True, 0),
@@ -287,6 +291,85 @@ def test_k2_cuda_matches_plain_and_is_deterministic(cuda_device, b, m, k, dtype)
     assert torch.equal(out, again)                  # bitwise, no atomics
     scale = float(ref.abs().max()) or 1.0
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
+
+
+def _k2_fixed_splits(n):
+    """A stand-in for ``pamm_apply._splits`` that fixes K2's split count at
+    ``n`` (at most one a row), whatever the shapes."""
+    def splits(b, m, k):
+        per = -(-b // n)
+        return -(-b // per), per
+    return splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [None, 1, 3, 17, 64])
+def test_k2_cuda_forced_split_counts(cuda_device, monkeypatch, splits, dtype):
+    """K2 at the training slice's wk / wv shape at the rule's split count
+    and at forced ones (``_splits`` swapped): each within 1e-5 of the
+    output's scale and bitwise equal to itself on a second launch (another
+    count may give other bits)."""
+    b, m, k = 8192, 1024, 16
+    if splits is not None:
+        monkeypatch.setattr(pamm_apply, "_splits", _k2_fixed_splits(splits))
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    f = torch.randint(0, k, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    alpha = torch.randn(b, generator=g, device=cuda_device)
+    gz = _randn((b, m), g, dtype)
+    out = segment_matmul_cuda(f, alpha, gz, k)
+    again = segment_matmul_cuda(f, alpha, gz, k)
+    ref = segment_matmul_ref(f, alpha, gz, k)
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,k", [(2048, 1024, 16), (1000, 203, 40), (300, 64, 1)])
+def test_k2_cuda_skips_rows_outside_the_generators(cuda_device, b, m, k):
+    """Rows with f outside [0, k) add nothing: the kernel against the plain
+    version over the other rows (index_add_ refuses such an index)."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + m + k)
+    f = torch.randint(0, k, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    f[::37] = -1
+    f[5::41] = k + 3
+    f[9::53] = 2**30
+    alpha = torch.randn(b, generator=g, device=cuda_device)
+    gz = _randn((b, m), g, "bfloat16")
+    keep = (f >= 0) & (f < k)
+    out = segment_matmul_cuda(f, alpha, gz, k)
+    ref = segment_matmul_ref(f[keep], alpha[keep], gz[keep], k)
+    assert torch.equal(out, segment_matmul_cuda(f, alpha, gz, k))
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_k1_k2_cuda_launch_on_the_callers_stream(cuda_device, kernel):
+    """K1 and K2 launched under ``torch.cuda.stream(s)`` run on s: their
+    input is written on s behind a ~30 ms sleep, so a launch on any other
+    stream would read it before it is there. Only s is synchronised before
+    the result is read."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    b, n, k = 4096, 1024, 16
+    src = _randn((b, n), g, "bfloat16")
+    f = torch.randint(0, k, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    alpha = torch.randn(b, generator=g, device=cuda_device)
+    c = src[torch.randperm(b, generator=g, device=cuda_device)[:k]].contiguous()
+    ref = (csim_argmax_ref(src, c) if kernel == "K1"
+           else segment_matmul_ref(f, alpha, src, k))
+    torch.cuda.synchronize(cuda_device)
+    s = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x = src.clone()
+        out = csim_argmax_cuda(x, c) if kernel == "K1" else segment_matmul_cuda(f, alpha, x, k)
+    s.synchronize()
+    if kernel == "K1":
+        torch.testing.assert_close(out[0].abs(), ref[0].abs(), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out[2], ref[2], rtol=1e-5, atol=1e-6)
+    else:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
 def _check_k45(got, ref, dtype):

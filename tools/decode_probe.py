@@ -34,6 +34,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 
 OUT = ROOT / "build" / "decode_probe"
+SOURCES = build.CSRC              # the port's sources, copied for each variant
 HEADER = "flash_decode_split.cuh"
 PDL = [
     ("  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;\n",
@@ -71,18 +72,25 @@ VARIANTS = {
 }
 
 
-def variant_sources(name, patches):
-    d = OUT / name / "csrc"
+def use_variant(out, name, source, patches):
+    """Build from here on from a copy of the port's sources under
+    out/name/csrc, with each (old, new) text patch applied to the file
+    ``source`` there (the port's own sources are not touched), into
+    out/name/lib. Every variant is copied from the port's sources, never
+    from the variant before it."""
+    d = out / name / "csrc"
     if d.exists():
         shutil.rmtree(d)
-    shutil.copytree(build.CSRC, d)
-    text = (d / HEADER).read_text()
-    for old, new in patches:
-        if old not in text:
-            raise RuntimeError(f"variant {name}: the patch no longer applies to {HEADER}")
-        text = text.replace(old, new)
-    (d / HEADER).write_text(text)
-    return d
+    shutil.copytree(SOURCES, d)
+    if patches:
+        text = (d / source).read_text()
+        for old, new in patches:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: the patch no longer applies to {source}")
+            text = text.replace(old, new)
+        (d / source).write_text(text)
+    build.CSRC, build.BUILD_DIR = d, out / name / "lib"
+    build._LIBS.clear()
 
 
 def fixed_splits(n):
@@ -120,9 +128,7 @@ def main():
     real_splits, real_per = fd._splits, fd.DENSE_SPLIT_KEYS
     print(f"[probe] {torch.cuda.get_device_name(0)}; device-only ms (L2 flushed)")
     for name, patches in VARIANTS.items():
-        build.CSRC = variant_sources(name, patches)
-        build.BUILD_DIR = OUT / name / "lib"
-        build._LIBS.clear()
+        use_variant(OUT, name, HEADER, patches)
         for per in (real_per, 128, 512) if name == "base" else (real_per,):
             fd.DENSE_SPLIT_KEYS = per
             fn = lambda: fd.flash_decode_cuda(q, kc, vc, qpos, spos)  # noqa: E731
