@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's slices on one NVIDIA H100: dense-cache serving,
-paged / quantised / low-rank KV-cache serving and PAMM-compressed training
-of internlm2-1.8b.
+paged / quantised / low-rank KV-cache serving, the serving front (a Router
+over engine replicas on the card) and PAMM-compressed training of
+internlm2-1.8b.
 
   python3 chip_smoke.py
 
@@ -64,7 +65,24 @@ is caught and ignored:
                         to a near tie, every token of each stream against
                         a teacher-forced forward, every decode step a
                         verify call through K7 at Lq 5)
-  8. K1, K2, K4/K5      the training kernels against their plain versions
+  8. serving front      the serving phase's requests at 32 new tokens
+                        through Routers over 1, 2 and 4 paged fp replicas
+                        (8 slots and a fixed pool of 2176 tokens each):
+                        aggregate concurrency 2 / 4 / 8, greedy tokens at 2
+                        and 4 replicas equal to 1 replica's (or near ties
+                        held to a teacher-forced forward), sampled ones
+                        bitwise equal, K3 = 24 x 16 prefills and K7 = 24 x
+                        the replicas' decode steps, plain 0; 2 replicas
+                        behind a 1-slot prefill engine (tokens equal, no
+                        replica prefills, the host hand-off timed); one
+                        engine holding the 4-replica budget as the
+                        yardstick; the reference's decode_tok_s beside the
+                        wall aggregate; a profiler split of one router step
+                        at 4 replicas; then train.serve_step's
+                        greedy_decode against greedy_decode_per_token (8 x
+                        1024 prompts, 64 steps, dense: tokens up to near
+                        ties, launches, wall ms per decode step)
+  9. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
                         bf16 (tensor cores) and f32 and at k = b/8; K2 at m
                         2048 and 1024 (its split rule) and at m 1024 at 3 and
@@ -76,10 +94,10 @@ is caught and ignored:
                         offsets (the backward given a merged lse), each
                         output row held to its own norm, two launches of
                         K4/K5 bitwise equal; and one f32-route case
-  9. card vs CPU        one train step of internlm2-1.8b_smoke in f32 with
+  10. card vs CPU       one train step of internlm2-1.8b_smoke in f32 with
                         the same parameters and generator rows on the card
                         (kernels) and on the CPU (plain versions)
-  10. training          internlm2-1.8b, full width and depth, f32 params /
+  11. training          internlm2-1.8b, full width and depth, f32 params /
                         bf16 compute, attn.qkv=pamm(r=1/512), AdamW, batch
                         4 x 2048 from SyntheticStream: one warm-up step and
                         3 measured ones (finite losses, per-step launch
@@ -88,7 +106,7 @@ is caught and ignored:
                         second run from the seed (same step-0 loss), the
                         peak memory against attn.qkv=none, and a
                         torch.profiler split of one step
-  11. training numbers  K1, K2 (m 2048 and 1024), K4, K5 (and K3 at the
+  12. training numbers  K1, K2 (m 2048 and 1024), K4, K5 (and K3 at the
                         training shape) next to their plain versions, the
                         SDPA backward and the bound, K1 and K2 beside their
                         first versions and targets and beside the nearest
@@ -155,6 +173,13 @@ PAGE = 64                          # kv_page_size's default
 POOL_TOKENS = 4 * 1152             # four requests' reservation (18 pages of 64) in bf16
 SHARED_PREFIX = 768                # prefix-sharing phase: shared head, 256-token tails
 SPEC_K = 4
+# serving front: a fixed pool per decode replica, two requests' reservation
+# of 17 pages of 64 (the JAX package's BENCH_serving_disagg.json setting),
+# capacity scaled by adding replicas behind the Router
+FRONT_POOL = 2 * 17 * PAGE
+FRONT_REPLICAS = (1, 2, 4)
+FRONT_GEN = 32                     # new tokens: 64 would add more than ~90 s
+SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 64
 # first spliced decode step, compressed pool against fp paged: the JAX
 # package's per-format bounds (tests/test_kvquant.py:364-367)
 FORMAT_TOL = {"int8": 0.15, "int4": 1.5, "svd(r=1/2)": 8.0}
@@ -499,11 +524,11 @@ def phase_k6(gen):
     return worst
 
 
-def _requests(cfg):
+def _requests(cfg, gen: int = GEN):
     from repro_torch.launch.serve import _build_requests
     from repro_torch.serve import SamplingParams
 
-    args = argparse.Namespace(prompt_len=PROMPT_LEN, requests=N_REQUESTS, gen=GEN,
+    args = argparse.Namespace(prompt_len=PROMPT_LEN, requests=N_REQUESTS, gen=gen,
                               temperature=0.0, top_k=0, seed=0)
     reqs = _build_requests(cfg, args)
     for r in reqs:
@@ -608,8 +633,6 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict, tag: str = ""):
     time in the measured main-path run (``unprofiled_ms``; the profiler's
     own host overhead inflates the wall time it sees)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     eng = engine()
     reqs = _requests(cfg)[:SLOTS]
@@ -622,48 +645,60 @@ def trace_breakdown(cfg, engine, model, unprofiled_ms: dict, tag: str = ""):
         if label not in unprofiled_ms:
             work()
             continue
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            work()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        groups: dict[str, float] = {}
-        others: dict[str, float] = {}
-        for evt in prof.key_averages():
-            # device-side entries only: a CPU op (aten::mm) carries its
-            # kernels' time too, and counting both would count it twice
-            us = getattr(evt, "self_device_time_total", 0) or 0
-            if evt.device_type != DeviceType.CUDA or us <= 0:
-                continue
-            name = evt.key
-            # the decode kernels share one split body (decode_split::
-            # split_kernel<source, width>) and one merge_kernel
-            split = "split_kernel" in name
-            group = ("K3" if "fwd_kernel" in name else "K6" if split and "Dense" in name
-                     else "K7/K8" if split and ("Paged" in name or "Quant" in name)
-                     else "merge" if "merge_kernel" in name
-                     else "GEMM" if any(s in name.lower() for s in GEMM_NAMES)
-                     else "other")
-            groups[group] = groups.get(group, 0.0) + us / 1e3
-            if group == "other":
-                others[name] = us / 1e3
-        if "merge" in groups:    # a block runs one decode kernel: the merge is its second launch
-            owner = "K6" if "K6" in groups else "K7/K8"
-            groups[owner] = groups.get(owner, 0.0) + groups.pop("merge")
-        busy = sum(groups.values())
-        if busy == 0:
-            print(f"[trace] {tag}{label}: device time not measured (the profiler recorded "
-                  f"no device activity); wall {wall_ms:.2f} ms")
+        profile_split(label, work, unprofiled_ms[label], tag)
+
+
+def profile_split(label, work, base_ms: float, tag: str = ""):
+    """Device time by kernel group of one ``work()`` under torch.profiler,
+    printed against ``base_ms``, the same work's unprofiled wall time.
+    Returns the groups' device ms (empty if the profiler saw no device
+    activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    groups: dict[str, float] = {}
+    others: dict[str, float] = {}
+    for evt in prof.key_averages():
+        # device-side entries only: a CPU op (aten::mm) carries its
+        # kernels' time too, and counting both would count it twice
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if evt.device_type != DeviceType.CUDA or us <= 0:
             continue
-        parts = " | ".join(f"{g} {ms:.3f} ms" for g, ms in
-                           sorted(groups.items(), key=lambda kv: -kv[1]))
-        base = unprofiled_ms[label]
-        print(f"[trace] {tag}{label}: device busy {busy:.3f} ms of {base:.2f} ms unprofiled "
-              f"wall ({100 * busy / base:.1f}% busy, {100 - 100 * busy / base:.1f}% idle; "
-              f"{wall_ms:.2f} ms under the profiler) | {parts}")
-        top = sorted(others.items(), key=lambda kv: -kv[1])[:4]
-        print(f"[trace] {tag}{label}: largest other kernels: "
-              + " | ".join(f"{ms:.3f} ms {name[:60]}" for name, ms in top))
+        name = evt.key
+        # the decode kernels share one split body (decode_split::
+        # split_kernel<source, width>) and one merge_kernel
+        split = "split_kernel" in name
+        group = ("K3" if "fwd_kernel" in name else "K6" if split and "Dense" in name
+                 else "K7/K8" if split and ("Paged" in name or "Quant" in name)
+                 else "merge" if "merge_kernel" in name
+                 else "GEMM" if any(s in name.lower() for s in GEMM_NAMES)
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        if group == "other":
+            others[name] = us / 1e3
+    if "merge" in groups:    # a block runs one decode kernel: the merge is its second launch
+        owner = "K6" if "K6" in groups else "K7/K8"
+        groups[owner] = groups.get(owner, 0.0) + groups.pop("merge")
+    busy = sum(groups.values())
+    if busy == 0:
+        print(f"[trace] {tag}{label}: device time not measured (the profiler recorded "
+              f"no device activity); wall {wall_ms:.2f} ms")
+        return groups
+    parts = " | ".join(f"{g} {ms:.3f} ms" for g, ms in
+                       sorted(groups.items(), key=lambda kv: -kv[1]))
+    print(f"[trace] {tag}{label}: device busy {busy:.3f} ms of {base_ms:.2f} ms unprofiled "
+          f"wall ({100 * busy / base_ms:.1f}% busy, {100 - 100 * busy / base_ms:.1f}% idle; "
+          f"{wall_ms:.2f} ms under the profiler) | {parts}")
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[trace] {tag}{label}: largest other kernels: "
+          + " | ".join(f"{ms:.3f} ms {name[:60]}" for name, ms in top))
+    return groups
 
 
 def _kernel_row(name, source, replaces, launches, err, fn, plain, lib, work):
@@ -957,7 +992,7 @@ def _counted(drive):
     return out, launches.counts()
 
 
-def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what):
+def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged"):
     """Where two greedy streams of one request differ, the first
     divergence must sit at a near tie: a fresh prefill over the prompt and
     the shared tokens has a top-2 margin below 0.25 (the dense phase's
@@ -974,7 +1009,7 @@ def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what):
     logits, _ = prefill(cfg, rcfg, model, {"tokens": seq}, seq.shape[1])
     top2 = logits[0, -1, : cfg.vocab_size].topk(2).values
     margin = float(top2[0] - top2[1])
-    print(f"[paged] {what}: request {req.uid} first differs at token {t}, top-2 margin "
+    print(f"[{tag}] {what}: request {req.uid} first differs at token {t}, top-2 margin "
           f"{margin:.4f}")
     check(margin < 0.25, f"{what}: request {req.uid} diverged at token {t} at a margin of "
                          f"{margin:.3f}, not a near tie")
@@ -1289,6 +1324,290 @@ def phase_paged_numbers(gen, paged_counts, pool_res, smi, errs):
               f"ms | library {lib} | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
               f"{row['launches']} launches on its serving run [{smi}]")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# serving front: a Router over replicas on one card, and serve_step
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _timed_to_host(times: list):
+    """Host-clock ms of every ``Prefix.to_host()`` (the hand-off's copy of
+    a prefill cache to the host) made inside the block."""
+    import torch
+
+    from repro_torch.serve.engine import Prefix
+
+    real = Prefix.to_host
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    Prefix.to_host = timed
+    try:
+        yield
+    finally:
+        Prefix.to_host = real
+
+
+def _front_serve(cfg, front, replicas, prefill_engines, label):
+    """Serve the phase-4 requests at FRONT_GEN new tokens through ``front``
+    (a Router or one engine) with the launch counts set to 0 just before
+    and read just after; check that every request finished with finite
+    logits and no page stayed reserved, and the launches: K3 = 24 x 16
+    prefills, K7 = 24 x the replicas' summed decode steps, K6, the f32
+    route and every plain version 0. Returns what the phase prints."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    handoff: list[float] = []
+    with _timed_to_host(handoff):
+        t0 = time.perf_counter()
+        out, counts = _counted(lambda: front.run(_requests(cfg, FRONT_GEN)))
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    per = [e.stats() for e in replicas]
+    check(sorted(out) == list(range(N_REQUESTS))
+          and all(len(out[u].tokens) == FRONT_GEN for u in out),
+          f"{label}: a request did not finish with {FRONT_GEN} tokens")
+    check(sum(e.nonfinite_logits for e in replicas + prefill_engines) == 0,
+          f"{label}: non-finite logits")
+    for e in replicas:
+        for a in e.allocators:
+            a.check_invariant()
+            check(a.free_pages == a.spec.n_pages, f"{label}: pages stayed reserved")
+    n = cfg.n_layers
+    steps = sum(s["decode_steps"] for s in per)
+    prefills = sum(e.prefill_count for e in replicas + prefill_engines)
+    check(prefills == N_REQUESTS
+          and counts.get("flash_attention_fwd", 0) == n * N_REQUESTS
+          and counts.get("flash_paged_decode", 0) == n * steps
+          and counts.get("flash_attention_fwd_f32", 0) == 0
+          and counts.get("flash_decode", 0) == 0
+          and not any(k.endswith("_ref") for k in counts),
+          f"{label}: launches {counts}, {prefills} prefills: want K3 = {n} x {N_REQUESTS} "
+          f"prefills, K7 = {n} x {steps} decode steps, K6, f32 route and plain 0")
+    st = front.stats()
+    dec_tokens = sum(s["decode_tokens"] for s in per)
+    inserts = sum(s["insert_count"] for s in per)
+    return {"tokens": {u: out[u].tokens for u in out}, "counts": counts, "wall": wall,
+            "peak": peak, "steps": steps, "stats": st, "decode_tokens": dec_tokens,
+            "wall_tok_s": dec_tokens / wall,
+            "insert_ms": 1e3 * sum(s["insert_s"] for s in per) / max(1, inserts),
+            "handoff_ms": handoff,
+            "peak_active": st.get("peak_active_aggregate", st.get("peak_active"))}
+
+
+def _front_line(label, r, smi):
+    st = r["stats"]
+    print(f"[front] {label}: peak aggregate concurrency {r['peak_active']} | decode_tok_s "
+          f"(reference: summed tokens / largest replica decode wall) "
+          f"{st['decode_tok_s']:.1f} | wall aggregate {r['wall_tok_s']:.1f} tok/s "
+          f"({r['decode_tokens']} decode tokens / {r['wall']:.3f} s of run) | prefill "
+          f"{st['prefill_tok_s']:.1f} tok/s | insert {r['insert_ms']:.2f} ms avg | peak "
+          f"{r['peak'] / 2**30:.3f} GiB | decode steps {r['steps']} | launches "
+          f"{r['counts']} [{smi}]")
+
+
+def _front_tokens(cfg, rcfg, model, label, got, base, base_label):
+    """Tokens of one front run against another's: sampled requests bitwise
+    equal (their draws are a function of (seed, index)); each greedy one
+    equal, or else diverging first at a near tie and held, token by token,
+    to a teacher-forced forward (the paged phase's rule)."""
+    reqs = _requests(cfg, FRONT_GEN)
+    for r in reqs:
+        if r.sampling.temperature > 0:
+            check(got[r.uid] == base[r.uid],
+                  f"{label}: sampled request {r.uid} differs from {base_label}")
+    near = [r for r in reqs if r.sampling.temperature == 0 and got[r.uid] != base[r.uid]]
+    for r in near:
+        first_divergence_near_tie(cfg, rcfg, model, r, base[r.uid], got[r.uid],
+                                  f"{label} vs {base_label}", tag="front")
+        teacher_forced(cfg, rcfg, model, r, got[r.uid], label)
+    held = ("exact equality" if not near else
+            f"near ties: greedy requests {[r.uid for r in near]} first differ at a top-2 "
+            f"margin < 0.25 and agree with a teacher-forced forward")
+    print(f"[front] {label} tokens vs {base_label}: "
+          f"{sum(got[u] == base[u] for u in base)}/{N_REQUESTS} equal; held by {held}")
+
+
+def phase_serving_front(dense, smi):
+    """Routers over 1, 2 and 4 paged fp replicas at a fixed pool of
+    FRONT_POOL tokens each (aggregate concurrency 2 / 4 / 8; tokens
+    against the 1-replica run), 2 replicas behind a dedicated prefill
+    engine (tokens equal the 2-replica run's, no replica prefills, the
+    hand-off timed), one engine holding the 4-replica budget as the
+    yardstick, and a profiler split of one router step at 4 replicas."""
+    import torch
+
+    from repro_torch.serve import Router, ServeEngine
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    t_phase = time.perf_counter()
+
+    def engine(slots=SLOTS, pool=FRONT_POOL):
+        return ServeEngine(cfg, rcfg, model, max_slots=slots, max_len=MAX_LEN,
+                           decode_block=DECODE_BLOCK, cache_layout="paged", page_size=PAGE,
+                           pool_tokens=pool)
+
+    print(f"[front] {N_REQUESTS} requests of ~{PROMPT_LEN} prompt and {FRONT_GEN} new tokens "
+          f"(12 greedy, 4 sampled); replicas of {SLOTS} slots and a fixed pool of "
+          f"{FRONT_POOL} tokens ({FRONT_POOL // PAGE} pages of {PAGE}) each")
+    runs = {}
+    for n_rep in FRONT_REPLICAS:
+        replicas = [engine() for _ in range(n_rep)]
+        router = Router(replicas)
+        label = f"{n_rep} replica{'s' if n_rep > 1 else ''}"
+        runs[n_rep] = r = _front_serve(cfg, router, replicas, [], label)
+        _front_line(label, r, smi)
+        check(r["peak_active"] == 2 * n_rep,
+              f"{label}: peak aggregate concurrency {r['peak_active']}, want {2 * n_rep}")
+        if n_rep > 1:
+            _front_tokens(cfg, rcfg, model, label, r["tokens"], runs[1]["tokens"],
+                          "1 replica")
+        del router, replicas
+    print(f"[front] aggregate concurrency 1 -> {FRONT_REPLICAS[-1]} replicas: "
+          f"{runs[FRONT_REPLICAS[-1]]['peak_active'] / runs[1]['peak_active']:.1f}x "
+          f"(the reference's acceptance: >= 3x); wall aggregate "
+          + " / ".join(f"{runs[k]['wall_tok_s']:.1f}" for k in FRONT_REPLICAS)
+          + " tok/s, reference decode_tok_s "
+          + " / ".join(f"{runs[k]['stats']['decode_tok_s']:.1f}" for k in FRONT_REPLICAS)
+          + f" at {' / '.join(map(str, FRONT_REPLICAS))} replicas [{smi}]")
+
+    replicas, pf = [engine() for _ in range(2)], engine(slots=1)
+    label = "2 replicas + dedicated prefill"
+    r = _front_serve(cfg, Router(replicas, prefill_engine=pf), replicas, [pf], label)
+    _front_line(label, r, smi)
+    check(all(r["tokens"][u] == runs[2]["tokens"][u] for u in r["tokens"]),
+          f"{label}: tokens differ from the 2-replica run's")
+    check(all(e.prefill_count == 0 for e in replicas) and pf.prefill_count == N_REQUESTS
+          and len(r["handoff_ms"]) == N_REQUESTS,
+          f"{label}: a decode replica prefilled, or a Prefix skipped the host hand-off")
+    pf_ms = 1e3 * pf.prefill_time / pf.prefill_count
+    to_host = statistics.median(r["handoff_ms"])
+    print(f"[front] {label}: tokens equal to the 2-replica run's for {N_REQUESTS}/{N_REQUESTS}; "
+          f"decode replicas' prefill_count {[e.prefill_count for e in replicas]}, prefill "
+          f"engine's {pf.prefill_count} | hand-off per request: to_host {to_host:.2f} ms "
+          f"(median; mean {statistics.mean(r['handoff_ms']):.2f}) + insert "
+          f"{r['insert_ms']:.2f} ms = {to_host + r['insert_ms']:.2f} ms, against a prefill "
+          f"of {pf_ms:.2f} ms [{smi}]")
+    del replicas, pf
+
+    yard = engine(pool=FRONT_REPLICAS[-1] * FRONT_POOL)
+    label = f"one engine, {SLOTS} slots, pool {FRONT_REPLICAS[-1]} x {FRONT_POOL} (yardstick)"
+    r = _front_serve(cfg, yard, [yard], [], label)
+    _front_line(label, r, smi)
+    check(r["peak_active"] == SLOTS, f"yardstick: peak concurrency {r['peak_active']}")
+    _front_tokens(cfg, rcfg, model, "yardstick", r["tokens"], runs[1]["tokens"], "1 replica")
+    last = runs[FRONT_REPLICAS[-1]]
+    print(f"[front] yardstick wall aggregate {r['wall_tok_s']:.1f} tok/s = "
+          f"{r['wall_tok_s'] / last['wall_tok_s']:.2f}x the {FRONT_REPLICAS[-1]}-replica "
+          f"router's {last['wall_tok_s']:.1f} at the same pool bytes [{smi}]")
+    del yard
+
+    # one steady router step at 4 replicas x 2 active: each replica one block
+    replicas = [engine() for _ in range(FRONT_REPLICAS[-1])]
+    router = Router(replicas)
+    for req in _requests(cfg, FRONT_GEN)[:2 * len(replicas)]:
+        router.submit(req)
+    router.step()                                 # admissions and the first blocks
+    torch.cuda.synchronize()
+    check(all(int(e.active.sum()) == 2 for e in replicas),
+          "router step: a replica does not hold 2 active requests")
+    t0 = time.perf_counter()
+    router.step()
+    torch.cuda.synchronize()
+    base_ms = 1e3 * (time.perf_counter() - t0)
+    groups = profile_split(f"router step, {len(replicas)} replicas x 2 active, one decode "
+                           f"block each", router.step, base_ms, tag="front ")
+    k7 = groups.get("K7/K8", 0.0)
+    print(f"[front] router step at {len(replicas)} replicas: {base_ms:.2f} ms wall, "
+          f"{len(replicas)} host syncs; K7 {k7:.3f} ms and all kernels "
+          f"{sum(groups.values()):.3f} ms of device time, the rest "
+          f"{base_ms - sum(groups.values()):.2f} ms host [{smi}]")
+    del router, replicas
+    torch.cuda.empty_cache()
+    print(f"[front] Router runs and trace: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def phase_serve_step(dense, smi):
+    """``train.serve_step``: greedy_decode (the engine's decode blocks)
+    against greedy_decode_per_token (one batched prefill, then a Python
+    loop of decode_step) on the first 8 prompts at 1024 tokens, 64 steps,
+    dense: tokens up to near ties, the launches, and the wall ms per
+    decode step of each, (wall at 64 steps - wall at 1 step) / 63."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import SyntheticStream
+    from repro_torch.serve import Request
+    from repro_torch.train import greedy_decode, greedy_decode_per_token
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    t_phase = time.perf_counter()
+    B, steps, n = SERVE_STEP_ROWS, SERVE_STEP_STEPS, cfg.n_layers
+    toks = np.asarray(SyntheticStream.for_arch(cfg, PROMPT_LEN, N_REQUESTS)
+                      .get_batch(0)["tokens"])[:B, :PROMPT_LEN]
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+
+    def timed(fn, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(cfg, rcfg, model, batch, steps=k, max_len=MAX_LEN)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fns = {"greedy_decode": (greedy_decode, n * B),
+           "greedy_decode_per_token": (greedy_decode_per_token, n)}
+    # the prefill alone (its shapes warmed too), then 64 steps in turns
+    # (engine, loop, loop, engine: the host's speed drifts within a call)
+    res = {name: {"w1": timed(fn, 1)[1], "ms": []} for name, (fn, _) in fns.items()}
+    for name in ("greedy_decode", "greedy_decode_per_token", "greedy_decode_per_token",
+                 "greedy_decode"):
+        fn, k3 = fns[name]
+        (out, w), counts = _counted(lambda: timed(fn, steps))
+        check(tuple(out.shape) == (B, steps) and out.dtype == torch.int64,
+              f"{name}: tokens of shape {tuple(out.shape)} {out.dtype}")
+        check(counts.get("flash_attention_fwd", 0) == k3
+              and counts.get("flash_decode", 0) == n * (steps - 1)
+              and counts.get("flash_attention_fwd_f32", 0) == 0
+              and counts.get("flash_paged_decode", 0) == 0
+              and not any(c.endswith("_ref") for c in counts),
+              f"{name}: launches {counts}: want K3 {k3}, K6 {n} x {steps - 1}, plain 0")
+        tokens = out.cpu().tolist()
+        check(res[name].setdefault("tokens", tokens) == tokens,
+              f"{name}: a second call gave other tokens")
+        res[name]["counts"] = counts
+        res[name]["ms"].append(1e3 * (w - res[name]["w1"]) / (steps - 1))
+    fused, loop = res["greedy_decode"]["tokens"], res["greedy_decode_per_token"]["tokens"]
+    reqs = [Request(uid=i, tokens=toks[i].tolist(), max_new_tokens=steps) for i in range(B)]
+    for r in reqs:
+        if fused[r.uid] != loop[r.uid]:
+            first_divergence_near_tie(cfg, rcfg, model, r, loop[r.uid], fused[r.uid],
+                                      "greedy_decode vs per-token loop", tag="front")
+    tf = [teacher_forced(cfg, rcfg, model, r, t[r.uid], "serve_step")
+          for t in (fused, loop) for r in reqs]
+    a = statistics.mean(res["greedy_decode"]["ms"])
+    b = statistics.mean(res["greedy_decode_per_token"]["ms"])
+    print(f"[front] serve_step, {B} prompts x {PROMPT_LEN} tokens, {steps} steps, dense: "
+          f"{sum(fused[i] == loop[i] for i in range(B))}/{B} rows equal; every token of both "
+          f"vs a teacher-forced forward: {sum(d for d, _ in tf)} of {2 * B * steps} differ, "
+          f"largest gap {max(g for _, g in tf):.4f} (near tie < 0.25) | launches engine "
+          f"{res['greedy_decode']['counts']}, loop {res['greedy_decode_per_token']['counts']}")
+    print(f"[front] serve_step wall ms per decode step, (wall at {steps} steps - wall at 1) / "
+          f"{steps - 1}, in turns engine, loop, loop, engine: greedy_decode (engine block of "
+          f"{steps - 1}) {a:.3f} ({' / '.join(f'{x:.3f}' for x in res['greedy_decode']['ms'])}) "
+          f"| greedy_decode_per_token (loop) {b:.3f} "
+          f"({' / '.join(f'{x:.3f}' for x in res['greedy_decode_per_token']['ms'])}) | "
+          f"loop / engine {b / a:.2f}x [{smi}]")
+    print(f"[front] serve_step: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1774,6 +2093,8 @@ def main() -> int:
     pool_res = phase_compressed_pools(dense, smi)
     phase_prefix_and_spec(dense, paged_tokens, smi)
     paged_rows = phase_paged_numbers(gen, paged_counts, pool_res, smi, errs78)
+    phase_serving_front(dense, smi)
+    phase_serve_step(dense, smi)
     del dense
     torch.cuda.empty_cache()
     errs = phase_training_kernels(gen)

@@ -16,10 +16,17 @@ int8 / int4 / svd, ``--prefix-share`` shares prompt pages copy-on-write and
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --cache-compress int8 --smoke
 
-Flags of the JAX launcher that later slices bring are refused with the
-slice named: replicas and a dedicated prefill engine (N engines on one card
-behind the host-level router) with the single-card serving-front slice,
-meshes with the multi-GPU slice.
+``--replicas N`` serves through the serving front instead of one engine: a
+``serve.Router`` over N decode replicas on the one device (each with
+``--batch`` slots and its own page pools, all sharing the weights) with
+page-aware least-loaded admission; ``--dedicated-prefill`` adds a 1-slot
+prefill engine whose Prefixes cross to the decode replicas in host form:
+
+  python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
+      --cache-layout paged --replicas 2 --dedicated-prefill --smoke
+
+``--mesh-data`` (one engine's pools sharded over cards) is refused, naming
+the multi-GPU slice that brings it.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import numpy as np
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
 from repro_torch.models import init_model
-from repro_torch.serve import Request, SamplingParams, ServeEngine
+from repro_torch.serve import Request, Router, SamplingParams, ServeEngine
 
 
 def _build_requests(cfg, args) -> list[Request]:
@@ -51,8 +58,8 @@ def _build_requests(cfg, args) -> list[Request]:
     return requests
 
 
-def _make_engine(cfg, rcfg, model, args) -> ServeEngine:
-    return ServeEngine(cfg, rcfg, model, max_slots=args.batch,
+def _make_engine(cfg, rcfg, model, args, *, slots=None) -> ServeEngine:
+    return ServeEngine(cfg, rcfg, model, max_slots=slots or args.batch,
                        max_len=args.prompt_len + args.gen + 1,
                        decode_block=args.decode_block,
                        cache_layout=args.cache_layout, page_size=args.page_size,
@@ -63,23 +70,21 @@ def _make_engine(cfg, rcfg, model, args) -> ServeEngine:
 
 
 def _serve_once(cfg, rcfg, model, args):
+    if args.replicas > 1:
+        replicas = [_make_engine(cfg, rcfg, model, args) for _ in range(args.replicas)]
+        pf = (_make_engine(cfg, rcfg, model, args, slots=1)
+              if args.dedicated_prefill else None)
+        router = Router(replicas, prefill_engine=pf)
+        results = router.run(_build_requests(cfg, args))
+        return results, router.stats()
     engine = _make_engine(cfg, rcfg, model, args)
     results = engine.run(_build_requests(cfg, args))
     return results, engine.stats()
 
 
-_FRONT = ("arrives with the port's single-card serving-front slice (engines on one "
-          "card behind the host-level router)")
-_MULTI_GPU = "arrives with the port's multi-GPU slice"
-
-
 def _refuse_later_slices(ap, args) -> None:
-    asked = {"replicas": (args.replicas > 1, _FRONT),
-             "dedicated_prefill": (args.dedicated_prefill, _FRONT),
-             "mesh_data": (args.mesh_data > 1, _MULTI_GPU)}
-    for flag, (on, later) in asked.items():
-        if on:
-            ap.error(f"--{flag.replace('_', '-')}: {flag.replace('_', ' ')} {later}")
+    if args.mesh_data > 1:
+        ap.error("--mesh-data: mesh data arrives with the port's multi-GPU slice")
 
 
 def main(argv=None):
@@ -103,8 +108,12 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0, help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0, help="0 = full vocab")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--dedicated-prefill", action="store_true")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="decode replicas behind a serve.Router (each gets --batch "
+                         "slots and its own page pools)")
+    ap.add_argument("--dedicated-prefill", action="store_true",
+                    help="with --replicas: prefill on a separate engine and hand "
+                         "Prefixes to decode replicas in host form")
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--prefix-share", action="store_true")
     ap.add_argument("--speculative-k", type=int, default=0)
@@ -126,6 +135,29 @@ def main(argv=None):
         print(f"req {uid}: prompt={r.prompt_len} new={len(r.tokens)} "
               f"finish={r.finish_reason} {r.decode_tok_s:.1f} tok/s "
               f"sample={r.tokens[:8]}")
+    if args.replicas > 1:
+        print(f"router: {stats['replicas']} replicas"
+              + (" + dedicated prefill" if stats["dedicated_prefill"] else "")
+              + f" | prefill {stats['prefill_tok_s']:.1f} tok/s | "
+              f"decode {stats['decode_tok_s']:.1f} tok/s | "
+              f"peak aggregate concurrency {stats['peak_active_aggregate']} | "
+              f"peak reserved {stats['peak_kv_reserved_bytes'] / 2**20:.2f} MB | "
+              f"device {model.device}")
+    else:
+        _print_engine_stats(args, stats, model.device)
+
+    if args.smoke:
+        again, _ = _serve_once(cfg, rcfg, model, args)
+        if not all(again[u].tokens == results[u].tokens for u in results):
+            print("SMOKE FAIL: outputs not deterministic", file=sys.stderr)
+            sys.exit(1)
+        if not (stats["decode_tok_s"] > 0 and stats["prefill_tok_s"] > 0):
+            print("SMOKE FAIL: zero throughput", file=sys.stderr)
+            sys.exit(1)
+        print("SMOKE OK")
+
+
+def _print_engine_stats(args, stats, device) -> None:
     print(f"prefill {stats['prefill_tok_s']:.1f} tok/s | "
           f"decode {stats['decode_tok_s']:.1f} tok/s | "
           f"p50 {stats['p50_token_latency_ms']:.2f} ms | "
@@ -139,8 +171,7 @@ def main(argv=None):
           f"replica shards {stats['replica_shards']} | "
           f"compression x{stats['cache/kv_compression_x']:.2f} | "
           f"{stats['prefill_buckets']} prefill buckets | "
-          f"device {model.device}")
-
+          f"device {device}")
     if args.prefix_share:
         print(f"[prefix-share] hits {stats['prefix_hits']} | pages adopted "
               f"{stats['prefix_pages_adopted']} | cow splits {stats['cow_page_splits']} "
@@ -150,16 +181,6 @@ def main(argv=None):
               f"{stats['spec_verify_calls']} | drafted {stats['spec_tokens_drafted']} | "
               f"accepted {stats['spec_tokens_accepted']} | accept rate "
               f"{stats['spec_accept_rate']:.2f}")
-
-    if args.smoke:
-        again, stats2 = _serve_once(cfg, rcfg, model, args)
-        if not all(again[u].tokens == results[u].tokens for u in results):
-            print("SMOKE FAIL: outputs not deterministic", file=sys.stderr)
-            sys.exit(1)
-        if not (stats["decode_tok_s"] > 0 and stats["prefill_tok_s"] > 0):
-            print("SMOKE FAIL: zero throughput", file=sys.stderr)
-            sys.exit(1)
-        print("SMOKE OK")
 
 
 if __name__ == "__main__":

@@ -43,10 +43,11 @@ def kv_cache_nodes(caches):
 
 def write_slot(full, one, slot: int):
     """Splice a batch-1 dense cache tree ``one`` into batch slot ``slot``
-    of the dense tree ``full``, in place. Returns ``full``."""
+    of the dense tree ``full``, in place; ``one`` may lie on another device
+    (a Prefix handed off in host form). Returns ``full``."""
     for fn, on in zip(kv_cache_nodes(full), kv_cache_nodes(one)):
         for a, b in zip(fn.tensors(), on.tensors()):
-            a[:, slot] = b[:, 0].to(a.dtype)
+            a[:, slot] = b[:, 0].to(device=a.device, dtype=a.dtype)
     return full
 
 

@@ -38,8 +38,11 @@ drafts k tokens per slot on the host and verifies them in one
 ``decode_step`` over (B, k+1) rows (K7/K8 with Lq = k+1), emitting the
 leading run that matches greedy decoding.
 
-Still refused: mesh sharding and per-replica pools (the port's multi-GPU
-slice) and the moe / ssm / rec / xattn kinds (later slices).
+Several engines on one card, each with its own slots and pools, sit
+behind ``serve.router.Router``; a Prefix crosses between them in host
+form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
+Still refused: mesh sharding (the port's multi-GPU slice) and the moe /
+ssm / rec / xattn kinds (later slices).
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ from repro_torch.serve.sampling import SamplingParams, sample_tokens
 
 PAD_TOKEN = -1
 LATER_SLICE_MULTI = ("{what} arrives with the port's multi-GPU slice; this "
-                     "slice serves one engine on one device")
+                     "slice serves engines on one device")
 
 
 def _percentile(sorted_samples, p: float) -> float:
@@ -851,8 +854,16 @@ class ServeEngine:
         return rows, starts, srcs, dsts, flat_rows
 
     def _admit(self, req: Request, slot: int) -> Optional[RequestOutput]:
-        prefix = self.prefill(self.model, req)
+        """Orchestrated admission: prefill + insert + bookkeeping."""
+        return self.admit_prefix(self.prefill(self.model, req), slot)
+
+    def admit_prefix(self, prefix: Prefix, slot: int) -> Optional[RequestOutput]:
+        """Insert a (possibly handed-off, host-form) Prefix and register its
+        request with the orchestrator's output bookkeeping. Returns the
+        finished RequestOutput when the first token already hit a stop
+        condition."""
         self.decode_state = self.insert(prefix, self.decode_state, slot)
+        req = prefix.request
         self._requests[req.uid] = req
         self._outputs[req.uid] = [prefix.first_token]
         self._prefill_s[req.uid] = prefix.prefill_s

@@ -30,7 +30,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     for m in ("repro_torch.serve.engine", "repro_torch.bridge", "repro_torch.launch.train",
               "repro_torch.train.train_step", "repro_torch.optim.optimizers",
               "repro_torch.core.pamm", "repro_torch.core.keys", "repro_torch.core.policies",
-              "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply"):
+              "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply",
+              "repro_torch.serve.router", "repro_torch.train.serve_step"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"

@@ -226,15 +226,22 @@ def test_serve_cli_smoke_and_refusals(capsys):
           "--requests", "2", "--prompt-len", "8", "--gen", "3",
           "--compression", "attn.qkv=pamm(r=1/8)"])
     assert "decode" in capsys.readouterr().out
-    # replicas and a dedicated prefill engine run on one card in the
-    # reference (engines behind the host-level router); meshes need cards
-    for flag, later in ((["--replicas", "2"], "single-card serving-front slice"),
-                        (["--dedicated-prefill"], "single-card serving-front slice"),
-                        (["--mesh-data", "2"], "multi-GPU slice")):
-        with pytest.raises(SystemExit) as exc:
-            main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *flag])
-        assert exc.value.code == 2
-        assert later in capsys.readouterr().err
+    # replicas behind the router, with and without a dedicated prefill
+    # engine, run on one device as in the reference
+    for extra, front in (([], "router: 2 replicas |"),
+                         (["--dedicated-prefill"], "router: 2 replicas + dedicated prefill |")):
+        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--batch", "2",
+              "--requests", "4", "--prompt-len", "10", "--gen", "4",
+              "--cache-layout", "paged", "--page-size", "8", "--replicas", "2", *extra,
+              "--smoke"])
+        out = capsys.readouterr().out
+        assert "SMOKE OK" in out and front in out
+        assert "peak aggregate concurrency 4" in out
+    # a mesh needs cards: refused, naming the slice that brings it
+    with pytest.raises(SystemExit) as exc:
+        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--mesh-data", "2"])
+    assert exc.value.code == 2
+    assert "multi-GPU slice" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
