@@ -19,7 +19,9 @@ is caught and ignored:
                         in bf16 (the tensor-core route), a sliding window,
                         head dims 80 and 120, the (q_off, k_off) operand
                         of two ring chunk pairs (one whose late rows see
-                        no key), and one f32-route case
+                        no key), one f32-route case, and the batched
+                        prefill of train.serve_step's per-token loop
+                        (B 8 x 1024) in bf16
   3. K6 vs plain        flash decode, bf16: 8 slots x 1089 (5 splits of
                         256 slots), a parked row, a ring cache, head dims
                         80 and 120; two launches bitwise equal, and each
@@ -81,7 +83,8 @@ is caught and ignored:
                         at 4 replicas; then train.serve_step's
                         greedy_decode against greedy_decode_per_token (8 x
                         1024 prompts, 64 steps, dense: tokens up to near
-                        ties, launches, wall ms per decode step)
+                        ties, launches, wall ms per decode step: median
+                        and quartiles over 6 rounds, the order alternating)
   9. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
                         bf16 (tensor cores) and f32 and at k = b/8; K2 at m
@@ -180,6 +183,7 @@ FRONT_POOL = 2 * 17 * PAGE
 FRONT_REPLICAS = (1, 2, 4)
 FRONT_GEN = 32                     # new tokens: 64 would add more than ~90 s
 SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 64
+SERVE_STEP_ROUNDS = 6              # engine / loop turns, each order half the time
 # first spliced decode step, compressed pool against fp paged: the JAX
 # package's per-format bounds (tests/test_kvquant.py:364-367)
 FORMAT_TOL = {"int8": 0.15, "int4": 1.5, "svd(r=1/2)": 8.0}
@@ -470,6 +474,8 @@ def phase_k3(gen):
         (1, 1024, 16, 8, 128, 0, (1024, 0), torch.bfloat16),
         (1, 1024, 16, 8, 128, 256, (2048, 1024), torch.bfloat16),
         (1, 1000, 16, 8, 128, 256, (2048, 1024), torch.float32),
+        # greedy_decode_per_token's batched prefill (phase 8)
+        (SERVE_STEP_ROWS, PROMPT_LEN, 16, 8, 128, 0, None, torch.bfloat16),
     ]
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for B, L, H, KV, dh, window, offs, dtype in cases:
@@ -1540,7 +1546,9 @@ def phase_serve_step(dense, smi):
     against greedy_decode_per_token (one batched prefill, then a Python
     loop of decode_step) on the first 8 prompts at 1024 tokens, 64 steps,
     dense: tokens up to near ties, the launches, and the wall ms per
-    decode step of each, (wall at 64 steps - wall at 1 step) / 63."""
+    decode step of each, (wall at 64 steps - wall at 1 step) / 63, over
+    rounds whose order alternates: median and quartiles, and of the
+    loop / engine ratio within a round."""
     import numpy as np
     import torch
 
@@ -1564,26 +1572,30 @@ def phase_serve_step(dense, smi):
 
     fns = {"greedy_decode": (greedy_decode, n * B),
            "greedy_decode_per_token": (greedy_decode_per_token, n)}
-    # the prefill alone (its shapes warmed too), then 64 steps in turns
-    # (engine, loop, loop, engine: the host's speed drifts within a call)
-    res = {name: {"w1": timed(fn, 1)[1], "ms": []} for name, (fn, _) in fns.items()}
-    for name in ("greedy_decode", "greedy_decode_per_token", "greedy_decode_per_token",
-                 "greedy_decode"):
-        fn, k3 = fns[name]
-        (out, w), counts = _counted(lambda: timed(fn, steps))
-        check(tuple(out.shape) == (B, steps) and out.dtype == torch.int64,
-              f"{name}: tokens of shape {tuple(out.shape)} {out.dtype}")
-        check(counts.get("flash_attention_fwd", 0) == k3
-              and counts.get("flash_decode", 0) == n * (steps - 1)
-              and counts.get("flash_attention_fwd_f32", 0) == 0
-              and counts.get("flash_paged_decode", 0) == 0
-              and not any(c.endswith("_ref") for c in counts),
-              f"{name}: launches {counts}: want K3 {k3}, K6 {n} x {steps - 1}, plain 0")
-        tokens = out.cpu().tolist()
-        check(res[name].setdefault("tokens", tokens) == tokens,
-              f"{name}: a second call gave other tokens")
-        res[name]["counts"] = counts
-        res[name]["ms"].append(1e3 * (w - res[name]["w1"]) / (steps - 1))
+    for fn, _ in fns.values():                  # warm both paths' shapes
+        timed(fn, 1)
+    # rounds of (1 step, 64 steps) per path, the paths' order alternating
+    # (the host's speed drifts within a call); each sample is
+    # (wall at 64 - wall at 1 just before it) / 63
+    res = {name: {"ms": []} for name in fns}
+    for i in range(SERVE_STEP_ROUNDS):
+        for name in list(fns)[:: 1 if i % 2 == 0 else -1]:
+            fn, k3 = fns[name]
+            w1 = timed(fn, 1)[1]
+            (out, w), counts = _counted(lambda: timed(fn, steps))
+            check(tuple(out.shape) == (B, steps) and out.dtype == torch.int64,
+                  f"{name}: tokens of shape {tuple(out.shape)} {out.dtype}")
+            check(counts.get("flash_attention_fwd", 0) == k3
+                  and counts.get("flash_decode", 0) == n * (steps - 1)
+                  and counts.get("flash_attention_fwd_f32", 0) == 0
+                  and counts.get("flash_paged_decode", 0) == 0
+                  and not any(c.endswith("_ref") for c in counts),
+                  f"{name}: launches {counts}: want K3 {k3}, K6 {n} x {steps - 1}, plain 0")
+            tokens = out.cpu().tolist()
+            check(res[name].setdefault("tokens", tokens) == tokens,
+                  f"{name}: a second call gave other tokens")
+            res[name]["counts"] = counts
+            res[name]["ms"].append(1e3 * (w - w1) / (steps - 1))
     fused, loop = res["greedy_decode"]["tokens"], res["greedy_decode_per_token"]["tokens"]
     reqs = [Request(uid=i, tokens=toks[i].tolist(), max_new_tokens=steps) for i in range(B)]
     for r in reqs:
@@ -1592,19 +1604,22 @@ def phase_serve_step(dense, smi):
                                       "greedy_decode vs per-token loop", tag="front")
     tf = [teacher_forced(cfg, rcfg, model, r, t[r.uid], "serve_step")
           for t in (fused, loop) for r in reqs]
-    a = statistics.mean(res["greedy_decode"]["ms"])
-    b = statistics.mean(res["greedy_decode_per_token"]["ms"])
+    quart = {name: statistics.quantiles(r["ms"], n=4) for name, r in res.items()}
+    ratios = [b / a for a, b in zip(res["greedy_decode"]["ms"],
+                                    res["greedy_decode_per_token"]["ms"])]
+    rq = statistics.quantiles(ratios, n=4)
     print(f"[front] serve_step, {B} prompts x {PROMPT_LEN} tokens, {steps} steps, dense: "
           f"{sum(fused[i] == loop[i] for i in range(B))}/{B} rows equal; every token of both "
           f"vs a teacher-forced forward: {sum(d for d, _ in tf)} of {2 * B * steps} differ, "
           f"largest gap {max(g for _, g in tf):.4f} (near tie < 0.25) | launches engine "
           f"{res['greedy_decode']['counts']}, loop {res['greedy_decode_per_token']['counts']}")
-    print(f"[front] serve_step wall ms per decode step, (wall at {steps} steps - wall at 1) / "
-          f"{steps - 1}, in turns engine, loop, loop, engine: greedy_decode (engine block of "
-          f"{steps - 1}) {a:.3f} ({' / '.join(f'{x:.3f}' for x in res['greedy_decode']['ms'])}) "
-          f"| greedy_decode_per_token (loop) {b:.3f} "
-          f"({' / '.join(f'{x:.3f}' for x in res['greedy_decode_per_token']['ms'])}) | "
-          f"loop / engine {b / a:.2f}x [{smi}]")
+    print(f"[front] serve_step wall ms per decode step over {SERVE_STEP_ROUNDS} rounds, "
+          f"median [quartiles]: "
+          + " | ".join(f"{name} {q[1]:.3f} [{q[0]:.3f}, {q[2]:.3f}] "
+                       f"({' / '.join(f'{x:.3f}' for x in res[name]['ms'])})"
+                       for name, q in quart.items())
+          + f" | loop / engine within a round {rq[1]:.2f}x [{rq[0]:.2f}, {rq[2]:.2f}] "
+          f"({' / '.join(f'{x:.2f}' for x in ratios)}) [{smi}]")
     print(f"[front] serve_step: {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return res

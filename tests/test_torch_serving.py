@@ -236,12 +236,15 @@ def test_serve_cli_smoke_and_refusals(capsys):
               "--smoke"])
         out = capsys.readouterr().out
         assert "SMOKE OK" in out and front in out
-        assert "peak aggregate concurrency 4" in out
-    # a mesh needs cards: refused, naming the slice that brings it
-    with pytest.raises(SystemExit) as exc:
-        main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--mesh-data", "2"])
-    assert exc.value.code == 2
-    assert "multi-GPU slice" in capsys.readouterr().err
+        assert "peak aggregate concurrency 4" in out and "tok/s wall aggregate" in out
+    # a mesh needs cards: refused, naming the slice that brings it; a
+    # dedicated prefill engine needs a router, so it is refused alone
+    for argv, msg in ((["--mesh-data", "2"], "multi-GPU slice"),
+                      (["--dedicated-prefill"], "--dedicated-prefill needs --replicas > 1")):
+        with pytest.raises(SystemExit) as exc:
+            main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *argv])
+        assert exc.value.code == 2
+        assert msg in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
