@@ -2,7 +2,8 @@
 """Drive the PyTorch port's slices on one NVIDIA H100: dense-cache serving,
 paged / quantised / low-rank KV-cache serving, the serving front (a Router
 over engine replicas on the card) and PAMM-compressed training of
-internlm2-1.8b.
+internlm2-1.8b, with rematerialisation, reversible blocks and
+checkpoint/restart.
 
   python3 chip_smoke.py
 
@@ -109,7 +110,25 @@ is caught and ignored:
                         second run from the seed (same step-0 loss), the
                         peak memory against attn.qkv=none, and a
                         torch.profiler split of one step
-  12. training numbers  K1, K2 (m 2048 and 1024), K4, K5 (and K3 at the
+  12. training memory   the training cell under remat='full', remat='pamm'
+      modes             and reversible blocks: one warm-up step and 2
+                        measured ones each (peak memory beside phase 11's
+                        remat='none', ms per step, tokens/s, launches per
+                        step: K1 48 / 24 / 48, K2 72, K3 48, K4 = K5 24 on
+                        the tensor-core routes, f32 routes and plain 0;
+                        the step-0 loss of 'full' and 'pamm' against
+                        'none''s within 1e-6); 4 x 8192 tokens under
+                        'pamm' and reversible (one warm-up, one measured
+                        step; remat='none' does not fit and is not run);
+                        reversible on internlm2-1.8b_smoke in f32, the
+                        card against the CPU (phase 10's bounds) and
+                        against reversible_ref on the card (1e-4), and
+                        the bf16 drift of the two printed; run_supervised
+                        over 6 steps of internlm2-1.8b_smoke (a checkpoint
+                        every 2, a fault injected at step 3: 1 restart, 6
+                        steps, losses equal to an uninterrupted run's
+                        within 1e-3), the save and load timed
+  13. training numbers  K1, K2 (m 2048 and 1024), K4, K5 (and K3 at the
                         training shape) next to their plain versions, the
                         SDPA backward and the bound, K1 and K2 beside their
                         first versions and targets and beside the nearest
@@ -130,6 +149,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import hashlib
 import json
 import re
@@ -210,6 +230,15 @@ TOL_ROW = 1e-2
 # K4/K5's f32 route: f32 sums over up to L terms in another order, of each
 # gradient's max |.| and per row (the card tests' f32 bounds)
 TOL_K45_F32, TOL_ROW_F32 = 1e-4, 1e-3
+# training memory modes: launches a step of K1, K2, K3, K4, K5 (bf16 routes)
+MODE_LAUNCHES = {"none": (24, 72, 24, 24, 24), "full": (48, 72, 48, 24, 24),
+                 "pamm": (24, 72, 48, 24, 24), "reversible": (48, 72, 48, 24, 24)}
+MODE_RCFG = {"full": {"remat": "full"}, "pamm": {"remat": "pamm"},
+             "reversible": {"block_structure": "reversible"}}
+MODE_STEPS = 2
+LONG_SEQ = 8192                    # the longer context: remat='none' does not fit
+TOL_REV = 1e-4       # reversible vs reversible_ref, f32: max |diff| / max |ref| per leaf
+TOL_RESTART = 1e-3   # restored vs uninterrupted losses: phase 11's second-run bound
 TOL_CPU_LOSS = 1e-5  # card vs CPU in f32: relative loss
 TOL_CPU_GRAD = 1e-3  # card vs CPU in f32: relative norm of each gradient's difference
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
@@ -1820,36 +1849,50 @@ def phase_card_vs_cpu():
           "the card's train step disagrees with the CPU's")
 
 
-def _train_run(cfg, rcfg, n_steps: int, *, measure: bool):
-    """init_train_state + make_train_step on the card: step 0 is the
-    warm-up; with ``measure`` the launch counts are set to 0 just before
-    steps 1..n_steps and read just after. Returns (state, step_fn, record)."""
+def _train_run(cfg, rcfg, n_steps: int, *, measure: bool, seq: int = TRAIN_SEQ):
+    """init_train_state + make_train_step on the card at TRAIN_BATCH x
+    ``seq``: step 0 is the warm-up; with ``measure`` the launch counts are
+    set to 0 just before steps 1..n_steps and read just after. Returns
+    (state, step_fn, record)."""
     import torch
 
     from repro_torch.data import SyntheticStream
     from repro_torch.kernels import launches
     from repro_torch.train import init_train_state, make_train_step
 
-    stream = SyntheticStream.for_arch(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=rcfg.seed)
+    stream = SyntheticStream.for_arch(cfg, seq, TRAIN_BATCH, seed=rcfg.seed)
     batches = [stream.get_batch(s) for s in range(n_steps + 1)]
     state = init_train_state(cfg, rcfg, device="cuda")
     step_fn = make_train_step(cfg, rcfg, total_steps=100)
-    rec = {"loss": [], "gnorm": [], "ms": []}
-    for s in range(n_steps + 1):
-        if s == 1 and measure:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            launches.reset()
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batches[s], s)
-        rec["loss"].append(float(m["loss"]))   # waits for the step
-        rec["gnorm"].append(float(m["grad_norm"]))
-        rec["ms"].append(1e3 * (time.perf_counter() - t0))
-        if s == n_steps and measure:
-            torch.cuda.synchronize()
-            rec["counts"] = launches.counts()
-            rec["peak"] = torch.cuda.max_memory_allocated()
-            rec["metrics"] = {k: float(v) for k, v in m.items()}
+    rec = {"loss": [], "gnorm": [], "ms": [], "gc_ms": []}
+    gc_s = [0.0, 0.0]   # seconds in the host's garbage collector; its last start
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+
+    gc.callbacks.append(on_gc)
+    try:
+        for s in range(n_steps + 1):
+            if s == 1 and measure:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                launches.reset()
+            t0, gc0 = time.perf_counter(), gc_s[0]
+            state, m = step_fn(state, batches[s], s)
+            rec["loss"].append(float(m["loss"]))   # waits for the step
+            rec["gnorm"].append(float(m["grad_norm"]))
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            rec["gc_ms"].append(1e3 * (gc_s[0] - gc0))
+            if s == n_steps and measure:
+                torch.cuda.synchronize()
+                rec["counts"] = launches.counts()
+                rec["peak"] = torch.cuda.max_memory_allocated()
+                rec["metrics"] = {k: float(v) for k, v in m.items()}
+    finally:
+        gc.callbacks.remove(on_gc)
     return state, step_fn, rec
 
 
@@ -1928,6 +1971,240 @@ def phase_training(smi):
     torch.cuda.empty_cache()
     rec["peak_none"], rec["peak_pamm_step"] = peaks["none"], peaks["pamm"]
     return per_step, rec
+
+
+def _mode_launches(label, counts, n_steps):
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    k1, k2, k3, k4, k5 = MODE_LAUNCHES[label]
+    want = {"csim_argmax": k1, "segment_matmul": k2, "flash_attention_fwd": k3,
+            "flash_attention_dq": k4, "flash_attention_dkv": k5, "flash_attention_fwd_f32": 0,
+            "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0}
+    check({k: per_step.get(k, 0) for k in want} == want,
+          f"{label}: launches per step {per_step} != {want}")
+    check(not any(k.endswith("_ref") for k in counts), f"{label}: a plain version ran")
+    return {k: v for k, v in per_step.items() if v}
+
+
+def _fwd_bwd_peak(cfg, rcfg, state, seq) -> int:
+    """Peak memory of one loss_and_grad (forward, backward, the grads) on
+    a trained state, its AdamW moments resident: the part of a step the
+    memory modes change, without the optimizer's update."""
+    import torch
+
+    from repro_torch.core.keys import Key
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.data import SyntheticStream
+    from repro_torch.train import loss_and_grad
+    from repro_torch.train.train_step import batch_to_device
+
+    batch = batch_to_device(SyntheticStream.for_arch(cfg, seq, TRAIN_BATCH).get_batch(99),
+                            state.params.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss_and_grad(cfg, rcfg, resolve_for_run(cfg, rcfg), state.params, batch,
+                  Key(rcfg.seed))
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_memory_modes(smi, rec_none):
+    """The training cell under remat='full', remat='pamm' and reversible
+    blocks, then 4 x LONG_SEQ under 'pamm' and reversible (see the module
+    docstring). Returns {(label, seq): (step peak bytes, forward +
+    backward peak bytes, ms per step, launches per step)}."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+
+    cfg = get_config(ARCH)
+    tag = f"[{smi}]"
+    t_phase = time.perf_counter()
+    none_ms = statistics.median(rec_none["ms"][1:])
+    rcfg = RunConfig(compression=TRAIN_SPEC, policy_name="none")
+    state, _, _ = _train_run(cfg, rcfg, 0, measure=False)
+    none_fb = _fwd_bwd_peak(cfg, rcfg, state, TRAIN_SEQ)
+    del state
+    print(f"[modes] remat='none' (phase 11): step peak {rec_none['peak'] / 2**30:.3f} GiB, "
+          f"forward + backward peak {none_fb / 2**30:.3f} GiB, {none_ms:.1f} ms per step, "
+          f"step-0 loss {rec_none['loss'][0]!r}")
+    out = {}
+    for seq, labels, n in ((TRAIN_SEQ, ("full", "pamm", "reversible"), MODE_STEPS),
+                           (LONG_SEQ, ("pamm", "reversible"), 1)):
+        for label in labels:
+            rcfg = RunConfig(compression=TRAIN_SPEC, policy_name="none", **MODE_RCFG[label])
+            torch.cuda.empty_cache()
+            state, _, rec = _train_run(cfg, rcfg, n, measure=True, seq=seq)
+            fb = _fwd_bwd_peak(cfg, rcfg, state, seq)
+            del state
+            torch.cuda.empty_cache()
+            check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+                  f"{label} at {TRAIN_BATCH} x {seq}: a loss or grad norm is not finite")
+            per_step = _mode_launches(label, rec["counts"], n)
+            ms = statistics.median(rec["ms"][1:])
+            line = (f"[modes] {label}, {TRAIN_BATCH} x {seq}: peak torch.cuda."
+                    f"max_memory_allocated {rec['peak'] / 2**30:.3f} GiB a step, "
+                    f"{fb / 2**30:.3f} GiB in forward + backward | {ms:.1f} ms per step "
+                    f"(median of {[round(t, 1) for t in rec['ms'][1:]]}, of which in the "
+                    f"host's garbage collector {[round(t, 1) for t in rec['gc_ms'][1:]]}; "
+                    f"warm-up {rec['ms'][0]:.1f}) | "
+                    f"{1e3 * TRAIN_BATCH * seq / ms:.1f} tokens/s | losses {rec['loss']}")
+            if seq == TRAIN_SEQ:
+                line += (f" | {rec['peak'] / rec_none['peak']:.3f}x none's step peak, "
+                         f"{fb / none_fb:.3f}x its forward + backward peak, "
+                         f"{ms / none_ms:.3f}x its ms")
+            print(f"{line} | launches per step {per_step} {tag}")
+            if seq == TRAIN_SEQ and label in ("full", "pamm"):
+                a, b = rec["loss"][0], rec_none["loss"][0]
+                rel = abs(a - b) / abs(b)
+                print(f"[modes] {label}: step-0 loss {a!r} vs remat='none' {b!r}: "
+                      f"{'bitwise equal' if a == b else f'rel {rel:.2e}'} (tol 1e-6)")
+                check(rel <= 1e-6, f"{label}: the step-0 loss differs from remat='none'")
+            out[label, seq] = (rec["peak"], fb, ms, per_step)
+    print(f"[modes] remat='none' at {TRAIN_BATCH} x {LONG_SEQ} is not run: by the 4 x "
+          f"{TRAIN_SEQ} breakdown (PERF.md) its activations are about 4 x 27 GiB next to "
+          f"28 GiB of parameters, grads and moments, beyond 80 GB")
+    print(f"[modes] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_reversible_card_vs_cpu():
+    """Reversible blocks on internlm2-1.8b_smoke in f32, same parameters
+    and draws: the card (kernels) against the CPU (plain versions), and
+    reversible against reversible_ref on the card; then the bf16 drift of
+    reversible against reversible_ref, printed, not held (the compensated
+    bf16 pair has 16 bits: PERF.md)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.keys import Key
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import launches
+    from repro_torch.models import init_model
+    from repro_torch.train import loss_and_grad
+    from repro_torch.train.train_step import batch_to_device
+
+    cfg = get_config("internlm2-1.8b_smoke")
+    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none",
+                     compute_dtype="float32", param_dtype="float32",
+                     block_structure="reversible")
+    cpu = init_model(cfg, rcfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = SyntheticStream.for_arch(cfg, 64, 4).get_batch(0)
+    key = Key(rcfg.seed, sampler=NumpySampler()).fold_in(3)
+
+    def run(model, r):
+        launches.reset()
+        loss, _, grads = loss_and_grad(cfg, r, resolve_for_run(cfg, r), model,
+                                       batch_to_device(batch, model.device), key)
+        return float(loss), {n: g.cpu() for n, g in grads.items()}, launches.counts()
+
+    def worst(g, ref, per_leaf_max: bool):
+        if per_leaf_max:
+            return max(((g[n] - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30))
+                       .item() for n in ref)
+        return max(((g[n] - ref[n]).norm() / ref[n].norm().clamp_min(1e-30)).item()
+                   for n in ref)
+
+    (l_card, g_card, c_card), (l_cpu, g_cpu, c_cpu) = run(card, rcfg), run(cpu, rcfg)
+    rel_l, rel_g = abs(l_card - l_cpu) / abs(l_cpu), worst(g_card, g_cpu, False)
+    print(f"[rev card vs cpu] internlm2-1.8b_smoke f32 reversible: loss {l_card:.7f} vs "
+          f"{l_cpu:.7f} (rel {rel_l:.2e}, tol {TOL_CPU_LOSS}); worst gradient rel "
+          f"{rel_g:.2e} (tol {TOL_CPU_GRAD}) | card launches {c_card} | cpu {c_cpu}")
+    check(rel_l <= TOL_CPU_LOSS and rel_g <= TOL_CPU_GRAD,
+          "reversible: the card's gradients disagree with the CPU's")
+    check(not any(k.endswith("_ref") for k in c_card) and
+          all(k.endswith("_ref") for k in c_cpu), "a reversible path took the wrong kernels")
+    ref = dataclasses.replace(rcfg, block_structure="reversible_ref")
+    l_ref, g_ref, c_ref = run(card, ref)
+    rel_l, rel_g = abs(l_card - l_ref) / abs(l_ref), worst(g_card, g_ref, True)
+    print(f"[rev card vs cpu] on the card, reversible vs reversible_ref (f32): loss rel "
+          f"{rel_l:.2e} (tol 1e-6), worst gradient max|diff|/max|ref| {rel_g:.2e} (tol "
+          f"{TOL_REV}) | launches reversible {c_card} | reversible_ref {c_ref}")
+    check(rel_l <= 1e-6 and rel_g <= TOL_REV, "reversible disagrees with reversible_ref")
+    bf = {s: dataclasses.replace(rcfg, compute_dtype="bfloat16", block_structure=s)
+          for s in ("reversible", "reversible_ref")}
+    (l_a, g_a, _), (l_b, g_b, _) = run(card, bf["reversible"]), run(card, bf["reversible_ref"])
+    print(f"[rev card vs cpu] bf16 compute on the card, reversible vs reversible_ref: loss "
+          f"{l_a!r} vs {l_b!r}; worst gradient max|diff|/max|ref| {worst(g_a, g_b, True):.3e} "
+          f"(not held: the bf16 pair rebuilds the streams to 16 bits only)")
+
+
+def phase_supervised_restart(smi):
+    """run_supervised over 6 steps of internlm2-1.8b_smoke on the card
+    (bf16 compute, f32 parameters; the smoke arch keeps the checkpoint
+    small), a checkpoint every 2 steps and a fault injected at step 3,
+    against an uninterrupted run; then the save and load of its state
+    timed. Checkpoints go under build/ and are removed."""
+    import math
+
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import load, save
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.runtime.fault import FaultInjector, StragglerWatchdog, run_supervised
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config("internlm2-1.8b_smoke")
+    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none")
+    steps, seq = 6, 256
+    stream = SyntheticStream.for_arch(cfg, seq, TRAIN_BATCH, seed=rcfg.seed)
+    step_fn = make_train_step(cfg, rcfg, total_steps=steps)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        plain = init_train_state(cfg, rcfg, device="cuda")
+        want = []
+        for s in range(steps):
+            plain, m = step_fn(plain, stream.get_batch(s), s)
+            want.append(float(m["loss"]))
+        holder = {"state": init_train_state(cfg, rcfg, device="cuda")}
+        got: dict[int, float] = {}
+        runs = []
+
+        def one_step(s):
+            holder["state"], m = step_fn(holder["state"], stream.get_batch(s), s)
+            got[s] = float(m["loss"])
+            runs.append(s)
+            return {}
+
+        report = run_supervised(
+            total_steps=steps, step_fn=one_step,
+            state_provider=lambda: bridge.train_state_tree(holder["state"]),
+            state_restorer=lambda tree, s: holder.__setitem__(
+                "state", bridge.install_train_state_tree(holder["state"], tree)),
+            ckpt_root=str(root / "run"), ckpt_every=2, watchdog=StragglerWatchdog(),
+            injector=FaultInjector(fail_at=(3,)))
+        rel = [abs(got[s] - want[s]) / abs(want[s]) for s in range(steps)]
+        print(f"[restart] internlm2-1.8b_smoke, {TRAIN_BATCH} x {seq}, bf16 compute: "
+              f"{report}; steps run {runs}; losses {[got[s] for s in range(steps)]} vs "
+              f"uninterrupted {want}: worst rel {max(rel):.2e} (tol {TOL_RESTART})")
+        check(report.restarts == 1 and report.completed_steps == steps,
+              f"the supervisor did not recover: {report}")
+        check(all(math.isfinite(x) for x in want) and max(rel) <= TOL_RESTART,
+              "the restored run's losses differ from the uninterrupted run's")
+        tree = bridge.train_state_tree(holder["state"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(save(str(root / "timed"), steps, tree))
+        t1 = time.perf_counter()
+        loaded, _ = load(str(root / "timed"), tree)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        check(torch.equal(loaded.params["embed"], tree.params["embed"]),
+              "a loaded checkpoint differs from the saved state")
+        print(f"[restart] checkpoint of the train state (parameters and AdamW moments, "
+              f"{nbytes} bytes written): save {1e3 * (t1 - t0):.1f} ms, load with CRC "
+              f"{1e3 * (t2 - t1):.1f} ms [{smi}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def trace_training_step(state, step_fn, cfg, step_ms, step):
@@ -2115,6 +2392,9 @@ def main() -> int:
     errs = phase_training_kernels(gen)
     phase_card_vs_cpu()
     per_step, rec = phase_training(smi)
+    phase_memory_modes(smi, rec)
+    phase_reversible_card_vs_cpu()
+    phase_supervised_restart(smi)
     kernels[0]["max_abs_err"] = max(err3, errs["K3"])   # K3: serving and training shapes
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     kernels += paged_rows

@@ -16,6 +16,11 @@ the inverse, returning numpy leaves.
 :func:`opt_state_to_jax` and :func:`opt_state_from_jax` carry an optimizer
 state the same way: the JAX ``OptState`` as ``(step, m, v)`` with ``m``
 and ``v`` trees of numpy leaves shaped like the parameter tree.
+
+:func:`train_state_tree` gives a port ``TrainState`` the JAX
+``TrainState``'s tree with the port's own tensors as leaves (what the
+checkpointer writes, under the JAX paths), and
+:func:`install_train_state_tree` puts such a tree back.
 """
 from __future__ import annotations
 
@@ -125,3 +130,33 @@ def opt_state_from_jax(step, m: dict, v: dict, model: Model):
     dev = model.device
     conv = lambda tree: {n: _to_torch(a, dev) for n, a in _flatten(tree).items()}
     return OptState(step=int(np.asarray(step)), m=conv(m), v=conv(v))
+
+
+def train_state_tree(state):
+    """A port ``TrainState`` as the JAX ``TrainState``'s tree, its leaves
+    the port's tensors (no copy): ``params`` the JAX parameter tree,
+    ``opt`` an ``OptState`` of an int32 step and the moments in that tree."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.train_step import TrainState
+
+    model = state.params
+    params = _nest({n: p.detach() for n, p in model.named_parameters()}, model)
+    return TrainState(params=params, opt=OptState(
+        step=np.int32(state.opt.step), m=_nest(state.opt.m, model),
+        v=_nest(state.opt.v, model)))
+
+
+def install_train_state_tree(state, tree):
+    """Inverse of :func:`train_state_tree`: copies ``tree``'s parameters
+    into ``state``'s model in place and returns the ``TrainState`` with
+    the tree's optimizer state."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.train_step import TrainState
+
+    model = state.params
+    flat = _flatten(tree.params)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(flat[name])
+    opt = OptState(step=int(tree.opt.step), m=_flatten(tree.opt.m), v=_flatten(tree.opt.v))
+    return TrainState(params=model, opt=opt)

@@ -11,18 +11,26 @@ policy's estimate. Without autograd (serving) nothing is saved, so a site
 skips compression altogether: the JAX package gets the same by dead-code
 elimination.
 
+A region that runs twice -- a rematerialised layer, recomputed in backward,
+or a reversible stage, whose backward re-runs each sublayer -- hands its
+sites a :class:`SiteMode`. It says whether the recompute takes the states
+the first run compressed (``remat='pamm'``, the JAX package's
+``save_only_these_names('pamm_state')``) or compresses again from the same
+key (``remat='full'``, reversible), and it keeps telemetry to the first run.
+
 Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``.
 ``apply_batched`` (MoE experts) arrives with the MoE slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
 from repro_torch.core.policies import CompressionPolicy, ExactPolicy
 
-__all__ = ["CompressedSite", "STATS_LEN"]
+__all__ = ["CompressedSite", "SiteMode", "STATS_LEN"]
 
 # Per-site telemetry vector layout (summed over layers):
 #   [stored_bytes, kept_rows, total_rows, beta_sum, n_observations]
@@ -80,6 +88,49 @@ def _state_stats(policy: CompressionPolicy, state, b: int, device) -> torch.Tens
     return out
 
 
+class SiteMode:
+    """How the compressed sites of one region behave when it runs twice.
+
+    ``keep_states``: the first run records each state, in call order, and
+    the recompute takes them back in the same order instead of
+    compressing (``remat='pamm'``); otherwise the recompute compresses
+    again from the same key, which gives the same state.
+    ``stats_without_grad``: the first run compresses for its telemetry
+    although autograd is off (a reversible stage's forward, which saves no
+    state). The recompute runs inside the mode (``with mode:``, the
+    context ``torch.utils.checkpoint`` enters around its recompute) and
+    reports no telemetry. One mode serves one region of one step: it
+    holds that region's states until autograd frees the region's graph."""
+
+    def __init__(self, *, keep_states: bool = False, stats_without_grad: bool = False):
+        self.keep_states = keep_states
+        self.stats_without_grad = stats_without_grad
+        self.recomputing = False
+        self._states: list = []
+        self._pos = 0
+
+    def __enter__(self):
+        self.recomputing, self._pos = True, 0
+        return self
+
+    def __exit__(self, *exc):
+        self.recomputing = False
+
+    def checkpoint_contexts(self):
+        """``context_fn`` of ``torch.utils.checkpoint``: (forward, recompute)."""
+        return contextlib.nullcontext(), self
+
+    def compress(self, policy: CompressionPolicy, x2d, key):
+        if self.recomputing and self.keep_states:
+            state = self._states[self._pos]
+            self._pos += 1
+            return state
+        state = policy.compress(x2d, key)
+        if self.keep_states:
+            self._states.append(state)
+        return state
+
+
 def _wants_grad(x, ws, biases) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, *ws, *biases))
@@ -109,19 +160,22 @@ class CompressedSite:
     def derive_key(self, key):
         return None if key is None else key.fold_in(self.site_id)
 
-    def apply(self, x, w, bias, key):
+    def apply(self, x, w, bias, key, mode: SiteMode | None = None):
         """``x @ w (+ bias)`` under this site's policy: (z, stats), stats
         None when nothing was compressed."""
-        (z,), stats = self.apply_shared(x, [w], [bias], key)
+        (z,), stats = self.apply_shared(x, [w], [bias], key, mode)
         return z, stats
 
-    def apply_shared(self, x, ws, biases, key):
+    def apply_shared(self, x, ws, biases, key, mode: SiteMode | None = None):
         """Several projections of one input sharing ONE compressed state
-        (paper Fig. 2: Q, K, V all read the same X)."""
+        (paper Fig. 2: Q, K, V all read the same X). ``mode``: the
+        :class:`SiteMode` of a region that runs twice."""
         n = ws[0].shape[0]
         lead = x.shape[:-1]
         x2d = x.reshape(-1, n)
-        if self.is_exact or not _wants_grad(x, ws, biases):
+        grad = _wants_grad(x, ws, biases)
+        for_stats = mode is not None and mode.stats_without_grad and not mode.recomputing
+        if self.is_exact or not (grad or for_stats):
             outs = [_exact_linear(x2d, w, b).reshape(*lead, w.shape[1])
                     for w, b in zip(ws, biases)]
             return outs, None
@@ -129,7 +183,15 @@ class CompressedSite:
         if site_key is None:
             raise ValueError(f"site {self.path!r} ({self.policy.name}) needs a key")
         with torch.no_grad():
-            state = self.policy.compress(x2d.detach(), site_key)
-        outs = [_CompressedMatmul.apply(x2d, w, b, self.policy, state).reshape(
-                    *lead, w.shape[1]) for w, b in zip(ws, biases)]
+            x_in = x2d.detach()
+            state = (self.policy.compress(x_in, site_key) if mode is None
+                     else mode.compress(self.policy, x_in, site_key))
+        if grad:
+            outs = [_CompressedMatmul.apply(x2d, w, b, self.policy, state).reshape(
+                        *lead, w.shape[1]) for w, b in zip(ws, biases)]
+        else:
+            outs = [_exact_linear(x2d, w, b).reshape(*lead, w.shape[1])
+                    for w, b in zip(ws, biases)]
+        if mode is not None and mode.recomputing:
+            return outs, None
         return outs, _state_stats(self.policy, state, x2d.shape[0], x.device)

@@ -573,8 +573,8 @@ class ResolvedPlan:
             if s.shared_with is None
         }
 
-    def ctx(self, stage: int, kind: str, tele: dict | None) -> "SiteCtx":
-        return SiteCtx(self, stage, kind, tele)
+    def ctx(self, stage: int, kind: str, tele: dict | None, mode=None) -> "SiteCtx":
+        return SiteCtx(self, stage, kind, tele, mode)
 
     def describe(self) -> str:
         lines = []
@@ -592,16 +592,19 @@ class SiteCtx:
     The telemetry dict is updated in place, so per-layer contributions
     accumulate over the layer loop. A ``None`` resolved plan (or missing
     site) degrades to exact matmuls — that is the decode/prefill path.
+    ``mode``: the :class:`core.linear.SiteMode` of a region that runs twice
+    (a rematerialised layer, a reversible stage), handed to every site.
     """
 
-    __slots__ = ("resolved", "stage", "kind", "tele")
+    __slots__ = ("resolved", "stage", "kind", "tele", "mode")
 
     def __init__(self, resolved: ResolvedPlan | None, stage: int, kind: str,
-                 tele: dict | None):
+                 tele: dict | None, mode=None):
         self.resolved = resolved
         self.stage = stage
         self.kind = kind
         self.tele = tele
+        self.mode = mode
 
     def site(self, role: str) -> CompressedSite | None:
         if self.resolved is None:
@@ -619,7 +622,7 @@ class SiteCtx:
             return _exact_linear(x.reshape(-1, w.shape[0]), w, bias).reshape(
                 *lead, w.shape[1]
             )
-        z, stats = site.apply(x, w, bias, key)
+        z, stats = site.apply(x, w, bias, key, self.mode)
         self.record(site, stats)
         return z
 
@@ -632,7 +635,7 @@ class SiteCtx:
                 _exact_linear(x2d, w, b).reshape(*lead, w.shape[1])
                 for w, b in zip(ws, biases)
             ]
-        outs, stats = site.apply_shared(x, ws, biases, key)
+        outs, stats = site.apply_shared(x, ws, biases, key, self.mode)
         self.record(site, stats)
         return outs
 

@@ -8,9 +8,13 @@ Parameters are f32 and compute is bf16 by default (RunConfig's defaults);
 the batches come from the deterministic ``SyntheticStream``. On a CUDA
 device the compressed QKV projections run K1/K2 and attention runs K3
 forward and K4/K5 backward; ``--device cpu`` runs their plain versions
-(use a ``*_smoke`` arch there). Flags of the JAX launcher that need later
-slices of the port (meshes, the shard_map executor, gradient compression,
-reversible blocks, checkpointing) are refused with the slice named.
+(use a ``*_smoke`` arch there). ``--block-structure reversible`` trains
+the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
+the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
+checkpoint every ``--ckpt-every`` steps, resuming from the latest one).
+Flags of the JAX launcher that need the multi-GPU slice of the port
+(meshes, the shard_map executor, gradient compression) are refused with
+the slice named.
 """
 from __future__ import annotations
 
@@ -18,8 +22,10 @@ import argparse
 import math
 import time
 
+from repro_torch import bridge
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
+from repro_torch.runtime.fault import StragglerWatchdog, run_supervised
 from repro_torch.train import init_train_state, make_train_step
 
 _LATER = {
@@ -27,8 +33,6 @@ _LATER = {
     "mesh_context": "ring context parallelism arrives with the port's multi-GPU slice",
     "grad_compress": "gradient compression arrives with the port's multi-GPU slice",
     "data_model": "meshes arrive with the port's multi-GPU slice",
-    "block_structure": "reversible blocks arrive with the port's reversible-training slice",
-    "ckpt_dir": "checkpointing arrives with the port's fault-tolerance slice",
 }
 
 
@@ -38,8 +42,6 @@ def _refuse_later_slices(ap, args) -> None:
         "mesh_context": args.mesh_context > 1,
         "grad_compress": args.grad_compress != "none",
         "data_model": args.data_model is not None,
-        "block_structure": args.block_structure != "residual",
-        "ckpt_dir": args.ckpt_dir is not None,
     }
     for flag, on in asked.items():
         if on:
@@ -64,35 +66,59 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--data-model", type=int, nargs=2, default=None,
                     metavar=("DATA", "MODEL"))
     ap.add_argument("--mesh-context", type=int, default=1)
     ap.add_argument("--executor", default="jit", choices=["jit", "shard_map"])
     ap.add_argument("--grad-compress", default="none", choices=["none", "int8_ef"])
     ap.add_argument("--block-structure", default="residual",
-                    choices=["residual", "reversible"])
+                    choices=["residual", "reversible"],
+                    help="reversible = two-stream blocks whose backward rebuilds "
+                         "the residual stream instead of saving it (attn/swa "
+                         "kinds; excludes remat, see models/blocks.py)")
     args = ap.parse_args(argv)
     _refuse_later_slices(ap, args)
 
     cfg = get_config(args.arch)
     rcfg = RunConfig(compression=args.compression, policy_name=args.policy,
-                     pamm_ratio=1.0 / args.ratio, lr=args.lr)
+                     pamm_ratio=1.0 / args.ratio, lr=args.lr,
+                     block_structure=args.block_structure)
     stream = SyntheticStream.for_arch(cfg, args.seq_len, args.global_batch)
-    state = init_train_state(cfg, rcfg, device=args.device)
     step_fn = make_train_step(cfg, rcfg, total_steps=args.steps)
+    holder = {"state": init_train_state(cfg, rcfg, device=args.device), "metrics": None}
 
-    t0 = time.monotonic()
-    m = None
-    for step in range(args.steps):
-        state, m = step_fn(state, stream.get_batch(step), step)
+    def one_step(step: int):
+        holder["state"], m = step_fn(holder["state"], stream.get_batch(step), step)
+        holder["metrics"] = m
         if step % args.log_every == 0 or step == args.steps - 1:
             f = {k: float(v) for k, v in m.items()}
             print(f"step {step:6d} loss {f['loss']:.4f} ppl {math.exp(min(f['nll'], 20)):.2f} "
                   f"gnorm {f['grad_norm']:.3f} lr {f['lr']:.2e}", flush=True)
+        return {}
+
+    t0 = time.monotonic()
+    if args.ckpt_dir:
+        report = run_supervised(
+            total_steps=args.steps,
+            step_fn=one_step,
+            state_provider=lambda: bridge.train_state_tree(holder["state"]),
+            state_restorer=lambda tree, s: holder.__setitem__(
+                "state", bridge.install_train_state_tree(holder["state"], tree)),
+            ckpt_root=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
+            watchdog=StragglerWatchdog(),
+        )
+        print(f"supervisor: {report}")
+    else:
+        for step in range(args.steps):
+            one_step(step)
     dt = time.monotonic() - t0
     tokens = args.steps * args.global_batch * args.seq_len
-    print(f"done: {args.steps} steps, {tokens / dt:.0f} tok/s, final loss "
-          f"{float(m['loss']):.4f}, device {state.params.device}")
+    last = holder["metrics"]
+    final = f"{float(last['loss']):.4f}" if last is not None else "n/a (resumed at the end)"
+    print(f"done: {args.steps} steps, {tokens / dt:.0f} tok/s, final loss {final}, "
+          f"device {holder['state'].params.device}")
 
 
 if __name__ == "__main__":

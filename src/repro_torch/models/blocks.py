@@ -1,6 +1,7 @@
-"""Residual blocks of the dense slice (``repro/models/blocks.py``): the
-self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN, trained and
-served on the residual structure without rematerialisation.
+"""Blocks of the dense slice (``repro/models/blocks.py``): the
+self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN, on the
+residual structure (with or without rematerialisation) or as reversible
+two-stream blocks.
 
 A block's parameters are stacked over the layers of its stage (leading
 axis ``rep``, as the JAX package stacks them for ``lax.scan``);
@@ -12,17 +13,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.linear import STATS_LEN, SiteMode
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
 
 SERVED_KINDS = ("attn", "swa")
 LATER_SLICE_KINDS = ("block kinds moe, latt, rec, ssm and xattn arrive with "
                      "the port's later slices; this slice runs attn/swa")
-LATER_SLICE_STRUCTURE = ("block_structure='reversible' arrives with the port's "
-                         "reversible-training slice; this slice trains the "
-                         "residual structure")
-LATER_SLICE_REMAT = ("remat='full' and remat='pamm' arrive with the port's "
-                     "rematerialisation slice; this slice trains with remat='none'")
+BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
+REMAT_MODES = ("none", "full", "pamm")
+# Kinds with the two-sublayer mixer/FFN split the F/G decomposition needs
+# (the JAX package's list; of these the port runs attn and swa so far)
+REVERSIBLE_KINDS = ("attn", "swa", "latt", "moe", "rec")
 
 
 def _window_for(kind: str, cfg) -> int:
@@ -39,17 +41,42 @@ def _require_served(kind: str) -> None:
 
 
 def resolve_block_structure(cfg, rcfg) -> str:
-    """Config-time check of block kinds, block structure and remat: this
-    slice trains the residual structure of attn/swa blocks with no
-    rematerialisation; anything else raises, naming the later slice."""
-    for unit, _ in cfg.stages:
-        for kind in unit:
-            _require_served(kind)
-    if getattr(rcfg, "block_structure", "residual") != "residual":
-        raise NotImplementedError(LATER_SLICE_STRUCTURE)
-    if getattr(rcfg, "remat", "none") != "none":
-        raise NotImplementedError(LATER_SLICE_REMAT)
-    return "residual"
+    """Validate ``rcfg.block_structure`` against the architecture and
+    remat (the JAX package's checks and texts, ``cp`` aside: context
+    parallelism needs several cards), then that the port runs every kind.
+
+    ``reversible_ref`` is the same two-stream math under plain autograd
+    (every stream saved): the parity and memory baseline of the
+    memory-saving path, not a setting for real runs."""
+    structure = getattr(rcfg, "block_structure", "residual") or "residual"
+    if structure not in BLOCK_STRUCTURES:
+        raise ValueError(
+            f"RunConfig.block_structure={structure!r}: must be one of "
+            f"{BLOCK_STRUCTURES}")
+    remat = getattr(rcfg, "remat", "none")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"RunConfig.remat={remat!r}: must be one of {REMAT_MODES}")
+    kinds = sorted({k for unit, _ in cfg.stages for k in unit})
+    if structure != "residual":
+        bad = [k for k in kinds if k not in REVERSIBLE_KINDS]
+        if bad:
+            raise ValueError(
+                f"block_structure={structure!r} supports kinds "
+                f"{REVERSIBLE_KINDS}; stage kind(s) {bad} have no two-sublayer "
+                f"F/G split (ssm is single-sublayer, xattn consumes cross-modal "
+                f"extras). Use block_structure='residual' for this architecture.")
+        if remat != "none":
+            raise ValueError(
+                f"remat={remat!r} x block_structure={structure!r} is "
+                f"invalid: the reversible backward already reconstructs the "
+                f"residual stream from the stage outputs, and a checkpoint "
+                f"around the stage would re-save the very (y1, y2) carries it "
+                f"erases, then recompute F/G a second time on top. Use "
+                f"remat='none' with reversible blocks; remat='full'|'pamm' "
+                f"belongs to block_structure='residual'.")
+    for kind in kinds:
+        _require_served(kind)
+    return structure
 
 
 def init_block(kind: str, cfg, gen: torch.Generator, dtype) -> dict:
@@ -130,6 +157,192 @@ def _stack(layers: list[dict]) -> dict:
     if isinstance(first, dict):
         return {k: _stack([l[k] for l in layers]) for k in first}
     return torch.stack(layers)
+
+
+# ---------------------------------------------------------------------------
+# reversible two-stream blocks
+# ---------------------------------------------------------------------------
+def block_f(kind, cfg, rcfg, ctx, params, x, positions, key):
+    """First reversible sublayer (token mixer): norm1 -> attention.
+    Returns the pre-residual output; the caller forms y1 = x1 + F(x2)."""
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    out, _ = attn_lib.attn_train(params["attn"], h, positions, cfg, ctx, key,
+                                 window=_window_for(kind, cfg))
+    return out
+
+
+def block_g(kind, cfg, rcfg, ctx, params, y1, key):
+    """Second reversible sublayer: norm2 -> FFN through its sites. The
+    caller forms y2 = x2 + G(y1). (The served kinds add no aux loss.)"""
+    return ffn_sites(params["ffn"], rms_norm(y1, params["norm2"], cfg.norm_eps), ctx, key)
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s = fl(a + b) and its exact rounding error e."""
+    s = a + b
+    z = s - a
+    e = (a - (s - z)) + (b - z)
+    return s, e
+
+
+def _dd_add(hi, lo, b):
+    """Compensated stream add: (hi, lo) + b -> renormalised (hi, lo).
+
+    The streams ride as double-word pairs because the plain inverse
+    (x + f) - f loses the forward add's rounding error, about an ulp a
+    layer, compounding through the reconstruction. With the error in
+    ``lo`` the backward rebuilds the forward's f32 streams bit for bit; a
+    bf16 pair holds 16 bits, and its drift grows through the layers below.
+    Sublayers read only ``hi``; under autograd TwoSum's error channel
+    has an exactly zero Jacobian. Eager ops only: a compiler that fuses
+    or reassociates these adds destroys the compensation."""
+    s, e = _two_sum(hi, b)
+    return _two_sum(s, lo + e)
+
+
+def _nest(names, tensors) -> dict:
+    """Dotted parameter names and their tensors -> a nested dict."""
+    out: dict = {}
+    for name, t in zip(names, tensors):
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return out
+
+
+class _Stage:
+    """What a reversible stage runs besides its tensors: the unit's
+    kinds, each block's parameter names and its span of the flat
+    parameter list, the layers' keys (stage ``fold_in(si)``, layer
+    ``split(rep)``, block ``fold_in(bi)`` -- the residual path's chain)
+    and the positions. (The JAX stage pins each stream's sharding
+    between layers; on one card there is nothing to pin.)"""
+
+    def __init__(self, cfg, rcfg, unit, si, resolved, blocks, positions, key, paths):
+        self.cfg, self.rcfg, self.unit, self.si = cfg, rcfg, unit, si
+        self.resolved, self.positions, self.paths = resolved, positions, paths
+        self.rep = blocks[0].rep
+        self.keys = key.fold_in(si).split(self.rep)
+        self.names, self.spans, start = [], [], 0
+        for block in blocks:
+            names = [n for n, _ in block.named_parameters()]
+            self.names.append(names)
+            self.spans.append((start, start + len(names)))
+            start += len(names)
+
+    def layer(self, leaves) -> list[dict]:
+        """One layer's flat leaves -> per-block parameter dicts."""
+        return [_nest(names, leaves[a:b]) for names, (a, b) in zip(self.names, self.spans)]
+
+    def run_layer(self, params, r, x1h, x1l, x2h, x2l, tele, mode):
+        """y1 = x1 + F(x2), y2 = x2 + G(y1) for each block of layer r."""
+        cfg, rcfg = self.cfg, self.rcfg
+        for bi, kind in enumerate(self.unit):
+            ctx = self.resolved.ctx(self.si, kind, tele, mode)
+            bkey = self.keys[r].fold_in(bi)
+            f = block_f(kind, cfg, rcfg, ctx, params[bi], x2h, self.positions, bkey)
+            x1h, x1l = _dd_add(x1h, x1l, f)
+            g = block_g(kind, cfg, rcfg, ctx, params[bi], x1h, bkey)
+            x2h, x2l = _dd_add(x2h, x2l, g)
+        return x1h, x1l, x2h, x2l
+
+
+class _ReversibleStage(torch.autograd.Function):
+    """One stage of reversible layers whose backward saves no activation:
+    the forward keeps only the output streams (and the parameters, its
+    inputs); the backward walks the layers top-down, rebuilds each
+    layer's input streams from its outputs and takes the sublayers'
+    vector-Jacobian products on the way.
+
+    The forward runs without autograd, so a site would neither compress
+    nor report; its :class:`SiteMode` makes each compress for the
+    telemetry, which leaves as a non-differentiable (sites, STATS_LEN)
+    output. The backward's recompute compresses again from the same key
+    (the same state) and reports nothing: K1 runs twice a site a layer,
+    K3 twice a layer, as in the JAX package's custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, stage, x1h, x1l, x2h, x2l, *flat):
+        tele = {p: torch.zeros(STATS_LEN, dtype=torch.float32, device=x1h.device)
+                for p in stage.paths}
+        mode = SiteMode(stats_without_grad=True)
+        per_layer = list(zip(*(t.unbind(0) for t in flat)))
+        for r in range(stage.rep):
+            x1h, x1l, x2h, x2l = stage.run_layer(stage.layer(per_layer[r]), r,
+                                                 x1h, x1l, x2h, x2l, tele, mode)
+        ctx.stage = stage
+        ctx.save_for_backward(x1h, x1l, x2h, x2l, *flat)
+        stats = torch.stack([tele[p] for p in stage.paths]) if stage.paths else \
+            torch.zeros((0, STATS_LEN), device=x1h.device)
+        ctx.mark_non_differentiable(stats)
+        return x1h, x1l, x2h, x2l, stats
+
+    @staticmethod
+    def backward(ctx, dy1, _dy1l, dy2, _dy2l, _dstats):
+        stage = ctx.stage
+        cfg, rcfg = stage.cfg, stage.rcfg
+        y1h, y1l, y2h, y2l, *flat = ctx.saved_tensors
+        dflat = [torch.zeros_like(t) for t in flat]
+        # TwoSum's error channel carries no gradient: the lo outputs'
+        # cotangents are dropped, and a lo input's equals its hi one's
+        mode = SiteMode()
+        with mode:
+            for r in reversed(range(stage.rep)):
+                leaves = [t[r].detach().requires_grad_() for t in flat]
+                params = stage.layer(leaves)
+                for bi in reversed(range(len(stage.unit))):
+                    kind, bkey = stage.unit[bi], stage.keys[r].fold_in(bi)
+                    a, b = stage.spans[bi]
+                    sctx = stage.resolved.ctx(stage.si, kind, None, mode)
+                    # one call is both the reconstruction and the vjp's
+                    # primal: eager ops on the same input give the
+                    # forward's output bit for bit
+                    with torch.enable_grad():
+                        y1 = y1h.detach().requires_grad_()
+                        g = block_g(kind, cfg, rcfg, sctx, params[bi], y1, bkey)
+                    x2h, x2l = _dd_add(y2h, y2l, -g.detach())
+                    dy1_g, *dpg = torch.autograd.grad(g, [y1, *leaves[a:b]], dy2,
+                                                      allow_unused=True)
+                    dy1 = dy1 + dy1_g
+                    with torch.enable_grad():
+                        x2 = x2h.detach().requires_grad_()
+                        f = block_f(kind, cfg, rcfg, sctx, params[bi], x2, stage.positions,
+                                    bkey)
+                    x1h, x1l = _dd_add(y1h, y1l, -f.detach())
+                    dx2_f, *dpf = torch.autograd.grad(f, [x2, *leaves[a:b]], dy1,
+                                                      allow_unused=True)
+                    dy2 = dy2 + dx2_f
+                    for i, (pg, pf) in enumerate(zip(dpg, dpf), start=a):
+                        for part in (pg, pf):
+                            if part is not None:
+                                dflat[i][r] += part
+                    y1h, y1l, y2h, y2l = x1h, x1l, x2h, x2l
+        return (None, dy1, dy1, dy2, dy2, *dflat)
+
+
+def reversible_stage(cfg, rcfg, unit, si, resolved, blocks, streams, tele, positions,
+                     key, *, save_memory: bool = True):
+    """Run one (unit x rep) stage of the two-stream reversible stack
+    (``repro/models/blocks.py:reversible_stage``). ``streams``: (x1h,
+    x1l, x2h, x2l), compensated pairs (:func:`_dd_add`); ``tele``: the
+    run's telemetry dict, updated in place; ``key``: the step's key.
+
+    ``save_memory=True`` is one :class:`_ReversibleStage` (the output
+    streams saved, every layer rebuilt in backward); ``False``
+    (``reversible_ref``) the same layers under plain autograd."""
+    stage = _Stage(cfg, rcfg, unit, si, resolved, blocks, positions, key, sorted(tele))
+    flat = [p for block in blocks for _, p in block.named_parameters()]
+    if save_memory:
+        *streams, stats = _ReversibleStage.apply(stage, *streams, *flat)
+        for path, row in zip(stage.paths, stats):
+            tele[path] = tele[path] + row
+        return tuple(streams)
+    per_layer = list(zip(*(t.unbind(0) for t in flat)))
+    for r in range(stage.rep):
+        streams = stage.run_layer(stage.layer(per_layer[r]), r, *streams, tele, None)
+    return tuple(streams)
 
 
 # ---------------------------------------------------------------------------

@@ -86,9 +86,8 @@ def ffn_sites(params, x, ctx, key=None):
     up_site = ctx.site("ffn.up")
     if (gate_site is not None and up_site is not None
             and up_site.shared_with == gate_site.path):
-        (g, u), stats = gate_site.apply_shared(
-            x, [params["w_gate"], params["w_up"]], [None, None], key)
-        ctx.record(gate_site, stats)
+        g, u = ctx.apply_shared("ffn.gate", x, [params["w_gate"], params["w_up"]],
+                                [None, None], key)
     else:
         g = ctx.apply("ffn.gate", x, params["w_gate"], None, key)
         u = ctx.apply("ffn.up", x, params["w_up"], None, key)

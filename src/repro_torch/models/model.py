@@ -19,11 +19,15 @@ Serving (prefill, decode) runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.keys import Key
+from repro_torch.core.linear import SiteMode
 from repro_torch.core.plan import exact_ctx
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
@@ -135,17 +139,44 @@ def _positions(B: int, L: int, device) -> torch.Tensor:
     return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
 
 
+def _require_residual_serving(cfg, rcfg, fn_name: str):
+    if blk.resolve_block_structure(cfg, rcfg) != "residual":
+        raise NotImplementedError(
+            f"{fn_name} does not implement the reversible two-stream stack: "
+            f"block_structure='reversible' is a train-time activation-memory "
+            f"optimization, and a reversibly-trained model computes a "
+            f"different function than the residual stack. Score through "
+            f"forward()/loss_fn, or serve with a residual-trained model.")
+
+
 # ---------------------------------------------------------------------------
 # staged forward (training / scoring)
 # ---------------------------------------------------------------------------
+def _layer(cfg, rcfg, resolved, unit, si, params, x, aux, positions, key, tele, mode):
+    """One step of a stage's layer loop: every block of the unit."""
+    for bi, kind in enumerate(unit):
+        ctx = resolved.ctx(si, kind, tele, mode)
+        x, aux = blk.block_train(kind, cfg, rcfg, ctx, params[bi], x, positions,
+                                 key.fold_in(bi), aux)
+    return x, aux
+
+
 def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
             telemetry: dict | None = None):
     """Returns (hidden (B, L, d), aux_loss).
 
     ``telemetry``: pass a dict to receive the per-site stats vectors (site
-    path -> STATS_LEN tensor) summed over all layers."""
+    path -> STATS_LEN tensor) summed over all layers.
+
+    ``rcfg.remat``: ``full`` recomputes each layer in backward
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` of the layer
+    body), compressing again from the same key; ``pamm`` recomputes it
+    too but keeps the compressed states across the boundary
+    (:class:`core.linear.SiteMode`), so K1 runs once. ``block_structure``
+    ``reversible`` / ``reversible_ref`` runs the two-stream stack
+    (:func:`blocks.reversible_stage`)."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
-    blk.resolve_block_structure(cfg, rcfg)
+    structure = blk.resolve_block_structure(cfg, rcfg)
     if cfg.embed_inputs or cfg.n_codebooks or cfg.vision_tokens:
         raise NotImplementedError("embed-input, multi-codebook and vision archs "
                                   "arrive with later slices of the port")
@@ -155,14 +186,31 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     positions = _positions(B, L, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     tele = resolved.zero_telemetry(x.device)
-    for si, ((unit, rep), stage) in enumerate(zip(cfg.stages, model.stages)):
-        keys = key.fold_in(si).split(rep)
-        layers = [block.layers() for block in stage]
-        for r in range(rep):
-            for bi, kind in enumerate(unit):
-                ctx = resolved.ctx(si, kind, tele)
-                x, aux = blk.block_train(kind, cfg, rcfg, ctx, layers[bi][r], x,
-                                         positions, keys[r].fold_in(bi), aux)
+    if structure != "residual":
+        # both streams start at the embedding; the merge averages them
+        zero = torch.zeros_like(x)
+        streams = (x, zero, x, zero)
+        for si, (unit, _) in enumerate(cfg.stages):
+            streams = blk.reversible_stage(
+                cfg, rcfg, unit, si, resolved, list(model.stages[si]), streams, tele,
+                positions, key, save_memory=structure == "reversible")
+        x1h, x1l, x2h, x2l = streams
+        x = 0.5 * ((x1h + x1l) + (x2h + x2l))
+    else:
+        for si, ((unit, rep), stage) in enumerate(zip(cfg.stages, model.stages)):
+            keys = key.fold_in(si).split(rep)
+            layers = [block.layers() for block in stage]
+            for r in range(rep):
+                params = [layer[r] for layer in layers]
+                step = functools.partial(_layer, cfg, rcfg, resolved, unit, si, params)
+                if rcfg.remat == "none":
+                    x, aux = step(x, aux, positions, keys[r], tele, None)
+                    continue
+                mode = SiteMode(keep_states=rcfg.remat == "pamm")
+                # the layer draws no global RNG: its samplers own their generators
+                x, aux = checkpoint(step, x, aux, positions, keys[r], tele, mode,
+                                    use_reentrant=False, preserve_rng_state=False,
+                                    context_fn=mode.checkpoint_contexts)
     if telemetry is not None:
         telemetry.update(tele)
     return rms_norm(x, model.final_norm, cfg.norm_eps), aux
@@ -208,6 +256,7 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
     (length-bucketed) prompts: their pad rows are never written to the
     cache, and the logits row is taken at ``prompt_len - 1``.
     """
+    _require_residual_serving(cfg, rcfg, "prefill")
     resolved = None if plan is None else plan_lib.as_resolved(plan, cfg, rcfg)
     cdt, _ = _dtype(rcfg)
     tokens = batch["tokens"]
@@ -248,6 +297,7 @@ def decode_step(cfg, rcfg, model: Model, tokens, pos, caches):
     a speculative-verify block, whose rows are scored in one call, each
     masked by its own position (paged caches). The caches are updated in
     place. Returns (logits (B, L, V*) f32, caches)."""
+    _require_residual_serving(cfg, rcfg, "decode_step")
     cdt, _ = _dtype(rcfg)
     x = _embed(model, tokens, cdt)
     for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):

@@ -11,8 +11,13 @@ fraction / beta) lands in the returned metrics under ``site/<path>/...``.
 
 On a CUDA model the compressed QKV projections run K1 (compress, forward)
 and K2 (apply, backward), and attention runs K3 forward and K4/K5
-backward. The mesh executor, gradient compression and checkpointing are
-later slices of the port.
+backward. ``rcfg.remat`` (``full`` / ``pamm``) and ``rcfg.block_structure``
+(``reversible`` / ``reversible_ref``) act inside ``models.forward``: the
+recompute runs K3 again, and K1 too except under ``pamm``; each
+microbatch of ``grad_accum`` is its own forward and backward, so they
+compose. Checkpoints go through :mod:`repro_torch.checkpoint` (with
+``bridge.train_state_tree``). The mesh executor and gradient compression
+are the port's multi-GPU slice.
 """
 from __future__ import annotations
 

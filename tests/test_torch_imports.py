@@ -1,5 +1,5 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``; and every C entry
+neither JAX, nor ``ml_dtypes``, nor anything of the JAX package ``repro``; and every C entry
 point the ctypes bindings declare exists in its CUDA source with the
 declared number of arguments."""
 import json
@@ -31,7 +31,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.train.train_step", "repro_torch.optim.optimizers",
               "repro_torch.core.pamm", "repro_torch.core.keys", "repro_torch.core.policies",
               "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply",
-              "repro_torch.serve.router", "repro_torch.train.serve_step"):
+              "repro_torch.serve.router", "repro_torch.train.serve_step",
+              "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.fault"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -44,7 +45,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "chip_smoke.k45_work(1, 8, 2, 1, 16, causal=True, window=0, itemsize=2, which='K5')\n"
         "chip_smoke.NumpySampler().choice(0, (('fold_in', 1),), 10, 3, 'cpu')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))))\n"
+        "('jax', 'jaxlib', 'repro', 'ml_dtypes'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,

@@ -6,7 +6,7 @@ every gradient and the site telemetry of ``loss_fn`` with
 ``JaxSampler``). JAX runs with ``attn_kernel="jnp"``, which the JAX
 package's ``tests/test_flash_bwd.py`` holds equal to its Pallas path; the
 port runs its plain kernel versions. Plus the optimizers, the CLI and the
-later-slice refusals.
+refusals that remain.
 
 Tolerances (f32): loss 1e-5 absolute and gradients 1e-4 relative (the
 norm of the difference over the norm of the JAX gradient), the JAX
@@ -17,6 +17,8 @@ lr * g / (|g| + eps), which turns the rounding of a gradient element near
 eps into an O(1) relative change of that element, so those leaves are
 held to 1e-2 * lr per element instead.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,28 +176,47 @@ def test_prefill_with_a_plan_is_exact_and_compresses_nothing():
 
 
 def test_later_slices_are_refused():
+    """What the port still refuses, naming the slice: gradient compression
+    (multi-GPU) and block kinds it does not run yet. Remat and reversible
+    blocks train now (tests/test_torch_remat.py, test_torch_revnet.py)."""
     cfg = get_config("internlm2-1.8b_smoke")
-    with pytest.raises(NotImplementedError, match="rematerialisation slice"):
-        make_train_step(cfg, RunConfig(remat="full"))
-    with pytest.raises(NotImplementedError, match="reversible-training slice"):
-        make_train_step(cfg, RunConfig(block_structure="reversible"))
+    for kw in ({"remat": "full"}, {"remat": "pamm"}, {"block_structure": "reversible"},
+               {"block_structure": "reversible_ref"}):
+        make_train_step(cfg, RunConfig(**kw))
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         make_train_step(cfg, RunConfig(grad_compress="int8_ef"))
     with pytest.raises(NotImplementedError, match="later slices"):
         make_train_step(get_config("granite-moe-3b-a800m_smoke"), RunConfig())
+    with pytest.raises(NotImplementedError, match="later slices"):
+        make_train_step(get_config("granite-moe-3b-a800m_smoke"),
+                        RunConfig(block_structure="reversible"))
 
 
-def test_train_cli_runs_on_the_cpu(capsys):
+def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
+    """The CLI on the CPU: residual, reversible, and under the
+    checkpoint/restart supervisor (a second run resumes from the last
+    checkpoint); the multi-GPU flags are refused with their slice."""
     from repro_torch.launch import train
 
-    train.main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--steps", "3",
-                "--seq-len", "16", "--global-batch", "2", "--log-every", "1",
-                "--compression", "attn.qkv=pamm(r=1/8);ffn.*=compact(r=1/4)"])
+    common = ["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--seq-len", "16",
+              "--global-batch", "2", "--log-every", "1",
+              "--compression", "attn.qkv=pamm(r=1/8);ffn.*=compact(r=1/4)"]
+    train.main([*common, "--steps", "3"])
     out = capsys.readouterr().out
     assert out.count("step ") == 3 and "done: 3 steps" in out and "device cpu" in out
-    for flag in (["--executor", "shard_map"], ["--ckpt-dir", "x"], ["--mesh-context", "2"],
-                 ["--grad-compress", "int8_ef"], ["--data-model", "1", "1"],
-                 ["--block-structure", "reversible"]):
+    train.main([*common, "--steps", "3", "--block-structure", "reversible"])
+    out = capsys.readouterr().out
+    assert out.count("step ") == 3 and "done: 3 steps" in out
+    ck = str(tmp_path / "ck")
+    train.main([*common, "--steps", "3", "--ckpt-dir", ck, "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert "supervisor: SupervisorReport(restarts=0, completed_steps=3" in out
+    assert sorted(os.listdir(ck)) == ["step_000000002", "step_000000003"]
+    train.main([*common, "--steps", "5", "--ckpt-dir", ck, "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert out.count("step ") == 2 and "completed_steps=2" in out
+    for flag in (["--executor", "shard_map"], ["--mesh-context", "2"],
+                 ["--grad-compress", "int8_ef"], ["--data-model", "1", "1"]):
         with pytest.raises(SystemExit):
             train.main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *flag])
-        assert "slice" in capsys.readouterr().err
+        assert "multi-GPU slice" in capsys.readouterr().err
