@@ -3,7 +3,8 @@
 paged / quantised / low-rank KV-cache serving, the serving front (a Router
 over engine replicas on the card) and PAMM-compressed training of
 internlm2-1.8b, with rematerialisation, reversible blocks and
-checkpoint/restart.
+checkpoint/restart; then serving and PAMM training of the MoE model
+granite-moe-3b-a800m.
 
   python3 chip_smoke.py
 
@@ -138,6 +139,46 @@ is caught and ignored:
                         the serving shape beside their plain versions, the
                         bound and,
                         for K7, SDPA over the keys laid out densely
+  14. MoE kernels        the batched K1 / K2 (every expert of the moe.expert
+                        site in one launch) at its shapes: E 40 x 2048
+                        capacity rows x d 1536, k 4 (and one f32-route K1
+                        case), K2 at m 512 at the rule's split count and at
+                        1, 3 and 17 forced ones; one expert all zero and
+                        half of another; two launches and each of experts
+                        0-2 against a 2-D launch bitwise equal; then K3,
+                        K4/K5, K6 and K7 at granite's 24 / 8 heads of 64
+                        (G 3) at the serving and training shapes
+  15. MoE serving       granite-moe-3b-a800m (32 layers, d 1536, 40 experts
+                        top-8, 3.374 B params), bf16, random weights from
+                        seed 0, the serving phase's 16 requests: dense (K3,
+                        K6) and paged fp (K7) layouts, launch counts K3 =
+                        32 x prefills and K6 / K7 = 32 x decode steps,
+                        prefill bucketing off, finite logits, a second run
+                        identical, paged against dense equal up to near
+                        ties of the batched decode step's own logits (expert
+                        capacity couples a step's slots, so no solo run is
+                        a reference); at capacity factor 16 (nothing
+                        dropped) every greedy token against a
+                        teacher-forced forward; a profiler split of one
+                        prefill and one decode block
+  16. MoE training      granite-moe-3b-a800m, full width and depth, f32
+                        params / bf16 compute, attn.qkv=pamm(r=1/512);
+                        moe.expert=pamm(r=1/512), remat='pamm', AdamW,
+                        batch 4 x 2048: one warm-up and 3 measured steps
+                        (finite losses; launches a step K1 32 + 32 batched,
+                        K2 96 + 64 batched, K3 64, K4 = K5 32, f32 routes
+                        and plain 0; the sites' telemetry; the step and
+                        forward + backward peaks; a profiler split), a
+                        second run from the seed, and forward + backward
+                        at 8 of the 32 layers under remat='none' with and
+                        without the moe.expert rule (the site's saving);
+                        then granite-moe-3b-a800m_smoke in f32, card
+                        against CPU, and reversible against the CPU and
+                        reversible_ref (1e-4)
+  17. MoE numbers       the batched K1 / K2 as kernel rows (plain version,
+                        bound, launches on the MoE training path), and
+                        K3-K7 at granite's shapes beside their plain
+                        versions, SDPA and the bound
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -241,6 +282,16 @@ TOL_REV = 1e-4       # reversible vs reversible_ref, f32: max |diff| / max |ref|
 TOL_RESTART = 1e-3   # restored vs uninterrupted losses: phase 11's second-run bound
 TOL_CPU_LOSS = 1e-5  # card vs CPU in f32: relative loss
 TOL_CPU_GRAD = 1e-3  # card vs CPU in f32: relative norm of each gradient's difference
+# the MoE slice: granite-moe-3b-a800m (32 layers, d 1536, 24 / 8 heads of 64,
+# 40 experts top-8, moe_d_ff 512), the paper's QKV rule plus the moe.expert
+# site; at 4 x 2048 tokens an expert's capacity is 2048 rows, k = 2048 / 512
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_SPEC = "attn.qkv=pamm(r=1/512);moe.expert=pamm(r=1/512)"
+MOE_E, MOE_CAP, MOE_D, MOE_F, MOE_K = 40, 2048, 1536, 512, 4
+MOE_HEADS = (24, 8, 64)              # H, KV, dh: G 3
+MOE_CUT_LAYERS = 8                   # the site's saving, measured under remat='none'
+MOE_SMOKE, MOE_SMOKE_SPEC = ("granite-moe-3b-a800m_smoke",
+                             "attn.qkv=pamm(r=1/8);moe.expert=pamm(r=1/4)")
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 
@@ -516,47 +567,51 @@ def phase_k3(gen):
     return worst[torch.bfloat16]
 
 
-def phase_k6(gen):
+def check_k6(gen, B, S, H, KV, dh, *, ring: bool) -> float:
+    """K6 against its plain version at one decode shape (slot b filled to
+    S - 97 b, row 3 parked; or a ring of 256 after 600 tokens): two launches
+    and each row alone bitwise equal to the batch. Returns max |o - o_ref|."""
     import torch
 
     from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
 
-    B, S, H, KV = SLOTS, MAX_LEN, 16, 8
-    worst = 0.0
     fills = torch.tensor([S - 97 * b for b in range(B)], device="cuda")
-    for dh, ring in ((128, False), (128, True), (80, False), (120, False)):
-        Sx = 256 if ring else S
-        window = 256 if ring else 0
-        q = _randn((B, 1, H, dh), gen)
-        k = _randn((B, Sx, KV, dh), gen)
-        v = _randn((B, Sx, KV, dh), gen)
-        if ring:
-            n = 600
-            spos = ring_slot_pos(B, Sx, n, "cuda")
-            qpos = torch.full((B,), n - 1, dtype=torch.int32, device="cuda")
-        else:
-            j = torch.arange(Sx, device="cuda")
-            spos = torch.where(j[None, :] < fills[:, None], j[None, :], -1).to(torch.int32)
-            qpos = (fills - 1).to(torch.int32)
-        qpos[3] = -1                                   # a parked slot
-        o = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
-        again = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
-        check(torch.equal(o, again), f"K6: a second launch gave other bits (dh={dh} ring={ring})")
-        # the split count is a function of S alone: a row alone = the row at B = 8
-        alone = all(torch.equal(flash_decode_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1],
-                                                  qpos[b:b + 1], spos[b:b + 1], causal=True,
-                                                  window=window), o[b:b + 1])
-                    for b in range(B))
-        check(alone, f"K6: a row decoded alone differs from it at B={B} (dh={dh} ring={ring})")
-        o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
-        e = (o.float() - o_r.float()).abs().max().item()
-        print(f"[K6] B={B} S={Sx} H={H} KV={KV} dh={dh} window={window} "
-              f"(row 3 parked): max|o-o_ref|={e:.3e} (tol {TOL_O}); two launches bitwise "
-              f"equal; each row alone bitwise equal to it at B={B}")
-        check(bool(o.isfinite().all()), "K6 output of a parked row is not finite")
-        check(e <= TOL_O, f"K6 disagrees with its plain version at dh={dh} ring={ring}")
-        worst = max(worst, e)
-    return worst
+    Sx = 256 if ring else S
+    window = 256 if ring else 0
+    q = _randn((B, 1, H, dh), gen)
+    k = _randn((B, Sx, KV, dh), gen)
+    v = _randn((B, Sx, KV, dh), gen)
+    if ring:
+        n = 600
+        spos = ring_slot_pos(B, Sx, n, "cuda")
+        qpos = torch.full((B,), n - 1, dtype=torch.int32, device="cuda")
+    else:
+        j = torch.arange(Sx, device="cuda")
+        spos = torch.where(j[None, :] < fills[:, None], j[None, :], -1).to(torch.int32)
+        qpos = (fills - 1).to(torch.int32)
+    qpos[3] = -1                                   # a parked slot
+    o = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+    again = flash_decode_cuda(q, k, v, qpos, spos, causal=True, window=window)
+    check(torch.equal(o, again), f"K6: a second launch gave other bits (dh={dh} ring={ring})")
+    # the split count is a function of S alone: a row alone = the row at B = 8
+    alone = all(torch.equal(flash_decode_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                              qpos[b:b + 1], spos[b:b + 1], causal=True,
+                                              window=window), o[b:b + 1])
+                for b in range(B))
+    check(alone, f"K6: a row decoded alone differs from it at B={B} (dh={dh} ring={ring})")
+    o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
+    e = (o.float() - o_r.float()).abs().max().item()
+    print(f"[K6] B={B} S={Sx} H={H} KV={KV} dh={dh} window={window} "
+          f"(row 3 parked): max|o-o_ref|={e:.3e} (tol {TOL_O}); two launches bitwise "
+          f"equal; each row alone bitwise equal to it at B={B}")
+    check(bool(o.isfinite().all()), "K6 output of a parked row is not finite")
+    check(e <= TOL_O, f"K6 disagrees with its plain version at dh={dh} ring={ring}")
+    return e
+
+
+def phase_k6(gen):
+    return max(check_k6(gen, SLOTS, MAX_LEN, 16, 8, dh, ring=ring)
+               for dh, ring in ((128, False), (128, True), (80, False), (120, False)))
 
 
 def _requests(cfg, gen: int = GEN):
@@ -901,15 +956,6 @@ def phase_k7_k8(gen):
     """K7 and K8 against their plain versions at the serving shape (8 slots
     x 17 mapped pages of 64 of an 18-block table, H 16 / KV 8, dh 128,
     bf16), and around it. Returns the largest errors."""
-    import torch
-
-    from repro_torch.kernels.flash_decode import (flash_paged_decode_cuda,
-                                                  flash_paged_decode_quant_cuda,
-                                                  flash_paged_decode_quant_ref,
-                                                  flash_paged_decode_ref, quantize_kv)
-
-    B, nb, H, KV = SLOTS, 18, 16, 8
-    fills = [1088 - 97 * b for b in range(B)]
     errs = {"K7": 0.0, "K8": 0.0}
     cases = [
         # label, dh (stored width), Lq, hole, ring/window, scale, quant (bits, ngr),
@@ -933,42 +979,59 @@ def phase_k7_k8(gen):
         ("int4 ngr 4, 3 splits of 6 pages, Lq 5", 128, 5, False, 0, None, (4, 4), 3),
         ("int8 ngr 4, 1 split", 128, 1, True, 0, None, (8, 4), 1),
     ]
-    for label, dh, Lq, hole, ring, scale, quant, splits in cases:
-        nbx = 4 if ring else nb
-        fill = [600] * B if ring else fills
-        window = ring
-        q = _randn((B, Lq, H, dh), gen)
-        qpos = (torch.tensor(fill, device="cuda")[:, None] - Lq
-                + torch.arange(Lq, device="cuda")[None]).to(torch.int32)
-        qpos[3, 0] = -1                                   # a parked row
-        k, v, bt, ppos = paged_inputs(gen, B, nbx, PAGE, KV, dh, fill, hole=hole, ring=ring,
-                                      n_mapped=None if ring else 17)
-        if quant is None:
-            kw = dict(window=window, scale=scale)
-            with k7_split_count(splits):
-                o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
-                again = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
-            o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, **kw)
-            name = "K7"
-        else:
-            bits, ngr = quant
-            (kq, ks), (vq, vs) = (quantize_kv(t, bits, ngr) for t in (k, v))
-            with k7_split_count(splits):                  # K8 splits as K7 does
-                o = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
-                                                  window=window)
-                again = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
-                                                      window=window)
-            o_r = flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
-            name = "K8"
-        check(torch.equal(o, again), f"{name}: a second launch gave other bits ({label})")
-        e, e_r = _paged_err(o, o_r, bt, ppos, qpos, window)
-        print(f"[{name}] B={B} nb={nbx} ps={PAGE} H={H} KV={KV} w={dh} Lq={Lq} ({label}) bf16: "
-              f"max|o-o_ref|={e:.3e} (tol {TOL_O}) worst row rel {e_r:.3e} (tol {TOL_ROW}); "
-              f"two launches bitwise equal")
-        check(bool(o.isfinite().all()), f"{name} output not finite ({label})")
-        check(e <= TOL_O and e_r <= TOL_ROW, f"{name} disagrees with its plain version ({label})")
+    for case in cases:
+        name, e = check_paged(gen, *case)
         errs[name] = max(errs[name], e)
     return errs
+
+
+def check_paged(gen, label, dh, Lq, hole, ring, scale, quant, splits, H=16, KV=8):
+    """K7 (or K8 with ``quant`` = (bits, groups)) against its plain version
+    at the serving shape: 8 slots x 17 mapped pages of 64 of an 18-block
+    table (a ring of 4 blocks when ``ring``), row 3 parked; two launches
+    bitwise equal. Returns (kernel, max |o - o_ref|)."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import (flash_paged_decode_cuda,
+                                                  flash_paged_decode_quant_cuda,
+                                                  flash_paged_decode_quant_ref,
+                                                  flash_paged_decode_ref, quantize_kv)
+
+    B, nb = SLOTS, 18
+    nbx = 4 if ring else nb
+    fill = [600] * B if ring else [1088 - 97 * b for b in range(B)]
+    window = ring
+    q = _randn((B, Lq, H, dh), gen)
+    qpos = (torch.tensor(fill, device="cuda")[:, None] - Lq
+            + torch.arange(Lq, device="cuda")[None]).to(torch.int32)
+    qpos[3, 0] = -1                                   # a parked row
+    k, v, bt, ppos = paged_inputs(gen, B, nbx, PAGE, KV, dh, fill, hole=hole, ring=ring,
+                                  n_mapped=None if ring else 17)
+    if quant is None:
+        kw = dict(window=window, scale=scale)
+        with k7_split_count(splits):
+            o = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
+            again = flash_paged_decode_cuda(q, k, v, qpos, bt, ppos, **kw)
+        o_r = flash_paged_decode_ref(q, k, v, qpos, bt, ppos, **kw)
+        name = "K7"
+    else:
+        bits, ngr = quant
+        (kq, ks), (vq, vs) = (quantize_kv(t, bits, ngr) for t in (k, v))
+        with k7_split_count(splits):                  # K8 splits as K7 does
+            o = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
+                                              window=window)
+            again = flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos,
+                                                  window=window)
+        o_r = flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos, window=window)
+        name = "K8"
+    check(torch.equal(o, again), f"{name}: a second launch gave other bits ({label})")
+    e, e_r = _paged_err(o, o_r, bt, ppos, qpos, window)
+    print(f"[{name}] B={B} nb={nbx} ps={PAGE} H={H} KV={KV} w={dh} Lq={Lq} ({label}) bf16: "
+          f"max|o-o_ref|={e:.3e} (tol {TOL_O}) worst row rel {e_r:.3e} (tol {TOL_ROW}); "
+          f"two launches bitwise equal")
+    check(bool(o.isfinite().all()), f"{name} output not finite ({label})")
+    check(e <= TOL_O and e_r <= TOL_ROW, f"{name} disagrees with its plain version ({label})")
+    return name, e
 
 
 @contextlib.contextmanager
@@ -995,23 +1058,25 @@ def k7_split_count(n):
 
 @contextlib.contextmanager
 def k2_split_count(n):
-    """K2 at ``n`` row splits (at most one a row) inside the block, whatever
-    the shapes give; None leaves the count to the shapes, as the wrapper
-    always does."""
+    """K2 (2-D or batched, n splits an expert) at ``n`` row splits (at most
+    one a row) inside the block, whatever the shapes give; None leaves the
+    count to the shapes, as the wrapper always does. The 2-D rule
+    ``_splits`` is ``_splits_batched`` at one expert, so one swap holds
+    both."""
     from repro_torch.kernels import pamm_apply
 
-    real = pamm_apply._splits
+    real = pamm_apply._splits_batched
 
-    def fixed(b, m, k):
+    def fixed(e, b, m, k):
         per = -(-b // n)
         return -(-b // per), per
 
     if n is not None:
-        pamm_apply._splits = fixed
+        pamm_apply._splits_batched = fixed
     try:
         yield
     finally:
-        pamm_apply._splits = real
+        pamm_apply._splits_batched = real
 
 
 def _counted(drive):
@@ -1663,8 +1728,6 @@ def phase_training_kernels(gen):
     of each."""
     import torch
 
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_ref)
     from repro_torch.kernels import pamm_apply
     from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
     from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
@@ -1708,7 +1771,6 @@ def phase_training_kernels(gen):
         check(e <= TOL_K2 * scale and same,
               f"K2 disagrees or is not deterministic at m={m}, {S} splits")
         errs["K2"] = max(errs["K2"], e)
-    H, KV = 16, 8
     bf16 = torch.bfloat16
     # B, L, dh, window, offs, dtype: a ring's chunk pairs get the merged lse
     # (finite on every row), as its backward does; the last case takes the
@@ -1721,45 +1783,59 @@ def phase_training_kernels(gen):
             (TRAIN_BATCH, TRAIN_SEQ, 128, 0, (TRAIN_SEQ, 0), bf16),
             (TRAIN_BATCH, TRAIN_SEQ, 128, 256, (2 * TRAIN_SEQ, TRAIN_SEQ), bf16),
             (2, 1100, 128, 0, None, torch.float32)):
-        q = _randn((B, L, H, dh), gen, dtype)
-        k, v = _randn((B, L, KV, dh), gen, dtype), _randn((B, L, KV, dh), gen, dtype)
-        do = _randn((B, L, H, dh), gen, dtype)
-        e_o, o, lse = check_k3(q, k, v, window=window, offs=offs, label=", training shape")
-        if dtype == bf16:
-            errs["K3"] = max(errs["K3"], e_o)
-        if offs is not None:
-            lse = torch.logaddexp(lse, torch.rand(lse.shape, generator=gen, device="cuda"))
-        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
-                                       offs=offs)
-        ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window,
-                                      offs=offs)
-        tol, tol_row = (TOL_K45, TOL_ROW) if dtype == bf16 else (TOL_K45_F32, TOL_ROW_F32)
-        parts = []
-        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-            scale = r.float().abs().max().item()
-            e = (a.float() - r.float()).abs().max().item()
-            e_r = row_err(a, r)
-            parts.append(f"{name} {e:.3e} of {scale:.2f}, row rel {e_r:.3e}")
-            check(bool(a.isfinite().all()) and e <= tol * scale and e_r <= tol_row,
-                  f"K4/K5 {name} disagrees with the plain version at {(B, L, dh, window, offs)} "
-                  f"{dtype}")
-            if dtype == bf16:
-                kk = "K4" if name == "dq" else "K5"
-                errs[kk] = max(errs[kk], e)
-        same = ""
-        if (dh, window, offs, dtype) == (128, 0, None, bf16):
-            again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  "two launches of the bf16 K4/K5 give other bits")
-            same = "; two launches bitwise equal"
-            del again
-        route = "tensor cores" if dtype == bf16 else "f32 route"
-        print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} offs={offs} "
-              f"{str(dtype)[6:]} ({route}): max |d-d_ref| {'; '.join(parts)} (tol {tol} x max, "
-              f"row {tol_row}){same}")
-        del q, k, v, do, o, lse, got, ref
+        check_k3_k45(gen, B, L, 16, 8, dh, window, offs, dtype, errs,
+                     repeat=(dh, window, offs, dtype) == (128, 0, None, bf16))
     torch.cuda.empty_cache()
     return errs
+
+
+def check_k3_k45(gen, B, L, H, KV, dh, window, offs, dtype, errs, *, repeat: bool = False):
+    """K3 and then K4/K5 (fed K3's o and lse) against their plain versions
+    at one training shape, each gradient to its largest magnitude and per
+    row; ``repeat``: two launches of K4/K5 bitwise equal. The bf16 routes'
+    largest errors go into ``errs``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_ref)
+
+    bf16 = torch.bfloat16
+    q = _randn((B, L, H, dh), gen, dtype)
+    k, v = _randn((B, L, KV, dh), gen, dtype), _randn((B, L, KV, dh), gen, dtype)
+    do = _randn((B, L, H, dh), gen, dtype)
+    e_o, o, lse = check_k3(q, k, v, window=window, offs=offs, label=", training shape")
+    if dtype == bf16:
+        errs["K3"] = max(errs["K3"], e_o)
+    if offs is not None:
+        lse = torch.logaddexp(lse, torch.rand(lse.shape, generator=gen, device="cuda"))
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
+                                   offs=offs)
+    ref = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=window,
+                                  offs=offs)
+    tol, tol_row = (TOL_K45, TOL_ROW) if dtype == bf16 else (TOL_K45_F32, TOL_ROW_F32)
+    parts = []
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        scale = r.float().abs().max().item()
+        e = (a.float() - r.float()).abs().max().item()
+        e_r = row_err(a, r)
+        parts.append(f"{name} {e:.3e} of {scale:.2f}, row rel {e_r:.3e}")
+        check(bool(a.isfinite().all()) and e <= tol * scale and e_r <= tol_row,
+              f"K4/K5 {name} disagrees with the plain version at "
+              f"{(B, L, H, KV, dh, window, offs)} {dtype}")
+        if dtype == bf16:
+            kk = "K4" if name == "dq" else "K5"
+            errs[kk] = max(errs[kk], e)
+    same = ""
+    if repeat:
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "two launches of the bf16 K4/K5 give other bits")
+        same = "; two launches bitwise equal"
+        del again
+    route = "tensor cores" if dtype == bf16 else "f32 route"
+    print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} offs={offs} "
+          f"{str(dtype)[6:]} ({route}): max |d-d_ref| {'; '.join(parts)} (tol {tol} x max, "
+          f"row {tol_row}){same}")
 
 
 class NumpySampler:
@@ -1786,9 +1862,10 @@ class NumpySampler:
             shape, dtype=np.float32)).to(device)
 
 
-def phase_card_vs_cpu():
-    """One train step of internlm2-1.8b_smoke in f32: the card (kernels)
-    against the CPU (plain versions), same parameters and draws."""
+def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
+    """One train step of ``arch`` (a smoke arch) in f32 under ``spec``: the
+    card (kernels) against the CPU (plain versions), same parameters and
+    draws."""
     import torch
 
     from repro_torch.configs import RunConfig, get_config
@@ -1801,8 +1878,8 @@ def phase_card_vs_cpu():
     from repro_torch.train import TrainState, loss_and_grad, make_train_step
     from repro_torch.train.train_step import batch_to_device
 
-    cfg = get_config("internlm2-1.8b_smoke")
-    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none",
+    cfg = get_config(arch)
+    rcfg = RunConfig(compression=spec, policy_name="none",
                      compute_dtype="float32", param_dtype="float32")
     cpu = init_model(cfg, rcfg, seed=0, device="cpu")
     card = copy.deepcopy(cpu).to("cuda")
@@ -1819,7 +1896,7 @@ def phase_card_vs_cpu():
     rel_l = abs(l_card - l_cpu) / abs(l_cpu)
     rel_g = max(((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm().clamp_min(1e-30)).item()
                 for n in g_cpu)
-    print(f"[card vs cpu] internlm2-1.8b_smoke f32 pamm(r=1/8): loss {l_card:.7f} vs "
+    print(f"[card vs cpu] {arch} f32 {spec}: loss {l_card:.7f} vs "
           f"{l_cpu:.7f} (rel {rel_l:.2e}, tol {TOL_CPU_LOSS}); worst gradient rel "
           f"{rel_g:.2e} (tol {TOL_CPU_GRAD}) | card launches {c_card} | cpu {c_cpu}")
     check(rel_l <= TOL_CPU_LOSS and rel_g <= TOL_CPU_GRAD,
@@ -2069,12 +2146,12 @@ def phase_memory_modes(smi, rec_none):
     return out
 
 
-def phase_reversible_card_vs_cpu():
-    """Reversible blocks on internlm2-1.8b_smoke in f32, same parameters
-    and draws: the card (kernels) against the CPU (plain versions), and
-    reversible against reversible_ref on the card; then the bf16 drift of
-    reversible against reversible_ref, printed, not held (the compensated
-    bf16 pair has 16 bits: PERF.md)."""
+def phase_reversible_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
+    """Reversible blocks on ``arch`` (a smoke arch) in f32 under ``spec``,
+    same parameters and draws: the card (kernels) against the CPU (plain
+    versions), and reversible against reversible_ref on the card; then the
+    bf16 drift of reversible against reversible_ref, printed, not held
+    (the compensated bf16 pair has 16 bits: PERF.md)."""
     import dataclasses
 
     import torch
@@ -2088,8 +2165,8 @@ def phase_reversible_card_vs_cpu():
     from repro_torch.train import loss_and_grad
     from repro_torch.train.train_step import batch_to_device
 
-    cfg = get_config("internlm2-1.8b_smoke")
-    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none",
+    cfg = get_config(arch)
+    rcfg = RunConfig(compression=spec, policy_name="none",
                      compute_dtype="float32", param_dtype="float32",
                      block_structure="reversible")
     cpu = init_model(cfg, rcfg, seed=0, device="cpu")
@@ -2112,7 +2189,7 @@ def phase_reversible_card_vs_cpu():
 
     (l_card, g_card, c_card), (l_cpu, g_cpu, c_cpu) = run(card, rcfg), run(cpu, rcfg)
     rel_l, rel_g = abs(l_card - l_cpu) / abs(l_cpu), worst(g_card, g_cpu, False)
-    print(f"[rev card vs cpu] internlm2-1.8b_smoke f32 reversible: loss {l_card:.7f} vs "
+    print(f"[rev card vs cpu] {arch} f32 reversible {spec}: loss {l_card:.7f} vs "
           f"{l_cpu:.7f} (rel {rel_l:.2e}, tol {TOL_CPU_LOSS}); worst gradient rel "
           f"{rel_g:.2e} (tol {TOL_CPU_GRAD}) | card launches {c_card} | cpu {c_cpu}")
     check(rel_l <= TOL_CPU_LOSS and rel_g <= TOL_CPU_GRAD,
@@ -2207,9 +2284,11 @@ def phase_supervised_restart(smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def trace_training_step(state, step_fn, cfg, step_ms, step):
+def trace_training_step(state, step_fn, cfg, step_ms, step, tag=""):
     """torch.profiler split of one training step by kernel group, and the
-    device's idle share against the unprofiled step time."""
+    device's idle share against the unprofiled step time. K1 and K2 count
+    their 2-D and batched (moe.expert) launches together: both run the same
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2242,16 +2321,16 @@ def trace_training_step(state, step_fn, cfg, step_ms, step):
             others[name] = others.get(name, 0.0) + us / 1e3
     busy = sum(groups.values())
     if busy == 0:
-        print(f"[trace] train step: device time not measured (the profiler recorded no "
+        print(f"[trace] {tag}train step: device time not measured (the profiler recorded no "
               f"device activity); wall {wall_ms:.1f} ms")
         return
     parts = " | ".join(f"{g} {ms:.2f} ms" for g, ms in
                        sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"[trace] train step: device busy {busy:.1f} ms of {step_ms:.1f} ms unprofiled "
+    print(f"[trace] {tag}train step: device busy {busy:.1f} ms of {step_ms:.1f} ms unprofiled "
           f"wall ({100 * busy / step_ms:.1f}% busy, {100 - 100 * busy / step_ms:.1f}% idle; "
           f"{wall_ms:.1f} ms under the profiler) | {parts}")
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
-    print("[trace] train step: largest other kernels: "
+    print(f"[trace] {tag}train step: largest other kernels: "
           + " | ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in top))
 
 
@@ -2361,7 +2440,468 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     return rows
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the MoE slice: granite-moe-3b-a800m
+# ---------------------------------------------------------------------------
+def moe_site_inputs(gen, E, b, n, k, dtype=None):
+    """x (E, b, n) as the moe.expert site sees it: expert 0 empty (all
+    rows zero), the second half of expert 1's capacity zero padding; each
+    expert's generator rows ``c`` (E, k, n)."""
+    import torch
+
+    x = _randn((E, b, n), gen, dtype)
+    x[0] = 0
+    x[1, b // 2:] = 0
+    idx = torch.stack([torch.randperm(b, generator=gen, device="cuda")[:k] for _ in range(E)])
+    c = x[torch.arange(E, device="cuda")[:, None], idx].contiguous()
+    return x, c
+
+
+def phase_moe_kernels(gen):
+    """The batched K1 / K2 at the moe.expert site's shapes (E 40 x b 2048
+    capacity x n 1536, k 4; K2 at m 512 at the rule's split count and at
+    1, 3 and 17 forced splits; one f32-route K1 case), each against its
+    plain version, two launches bitwise equal, and experts 0-2 bitwise
+    equal to a 2-D launch on their own inputs; then K3-K7 at granite's G 3
+    / dh 64 shapes (prefill, training with K4/K5, decode 8 x 1089, paged
+    8 x 17 pages). Returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels import pamm_apply
+    from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
+                                                segment_matmul_batched_ref, segment_matmul_cuda)
+    from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
+                                                   csim_argmax_batched_ref, csim_argmax_cuda)
+
+    errs = {"K1b": 0.0, "K2b": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "K7": 0.0}
+    E, b, n, k, m = MOE_E, MOE_CAP, MOE_D, MOE_K, MOE_F
+    for E_, b_, n_, k_, dtype in ((E, b, n, k, torch.bfloat16), (3, 1000, 200, 20, torch.float32)):
+        x, c = moe_site_inputs(gen, E_, b_, n_, k_, dtype)
+        out = csim_argmax_batched_cuda(x, c)
+        again = csim_argmax_batched_cuda(x, c)
+        same = all(torch.equal(a, a2) for a, a2 in zip(out, again))
+        alone = all(torch.equal(a[e], a2) for e in range(3)
+                    for a, a2 in zip(out, csim_argmax_cuda(x[e], c[e])))
+        cs, f, na = out
+        cs_r, f_r, na_r = csim_argmax_batched_ref(x, c)
+        e_cs = (cs.abs() - cs_r.abs()).abs().max().item()
+        e_n = ((na - na_r).abs() / na_r.clamp_min(1e-30)).max().item()
+        csim = torch.bmm(x.float(), c.float().transpose(1, 2)) / (
+            na_r.clamp_min(1e-20)[..., None] * c.float().norm(dim=2).clamp_min(1e-20)[:, None])
+        top2 = csim.abs().topk(2, dim=2).values
+        clear = top2[..., 0] - top2[..., 1] > TOL_K1_MARGIN
+        n_bad = int((f[clear] != f_r[clear]).sum())
+        empty = not (cs[0].any() or f[0].any() or na[0].any())
+        print(f"[K1 batched] E={E_} b={b_} n={n_} k={k_} {str(dtype)[6:]}: "
+              f"max||cs|-|cs_ref||={e_cs:.3e} max rel |norm err|={e_n:.3e} (tol {TOL_K1}); idx "
+              f"equal on {int(clear.sum())}/{E_ * b_} rows with a top-2 margin > "
+              f"{TOL_K1_MARGIN} ({n_bad} differ); the empty expert cs = idx = norm = 0: "
+              f"{empty}; two launches bitwise equal: {same}; experts 0-2 bitwise equal to 2-D "
+              f"launches: {alone}")
+        check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0 and empty and same and alone,
+              f"the batched K1 disagrees with its plain version at E={E_} {dtype}")
+        errs["K1b"] = max(errs["K1b"], e_cs)
+    x, c = moe_site_inputs(gen, E, b, n, k)
+    f = csim_argmax_batched_cuda(x, c)[1]
+    alpha = torch.randn((E, b), generator=gen, device="cuda")
+    alpha[0], alpha[1, b // 2:] = 0, 0                     # the padding rows
+    gz = _randn((E, b, m), gen)
+    ref = segment_matmul_batched_ref(f, alpha, gz, k)
+    scale = ref.abs().max().item()
+    for splits in (None, 1, 3, 17):
+        with k2_split_count(splits):
+            out = segment_matmul_batched_cuda(f, alpha, gz, k)
+            again = segment_matmul_batched_cuda(f, alpha, gz, k)
+            S, per = pamm_apply._splits_batched(E, b, m, k)
+        real = pamm_apply._splits
+        pamm_apply._splits = lambda b_, m_, k_: (S, per)   # each expert alone, same splits
+        try:
+            alone = all(torch.equal(out[e], segment_matmul_cuda(f[e], alpha[e], gz[e], k))
+                        for e in range(3))
+        finally:
+            pamm_apply._splits = real
+        e = (out - ref).abs().max().item()
+        same = bool(torch.equal(out, again))
+        print(f"[K2 batched] E={E} b={b} m={m} k={k} bf16, {S} splits an expert"
+              f"{' (the rule)' if splits is None else ' (forced)'}: max|B-B_ref|={e:.3e} (tol "
+              f"{TOL_K2} x {scale:.1f}); the empty expert all zero: {not out[0].any()}; two "
+              f"launches bitwise equal: {same}; experts 0-2 bitwise equal to 2-D launches at "
+              f"{S} splits: {alone}")
+        check(e <= TOL_K2 * scale and same and alone and not out[0].any(),
+              f"the batched K2 disagrees or is not deterministic at {S} splits")
+        errs["K2b"] = max(errs["K2b"], e)
+    del x, c, gz
+    H, KV, dh = MOE_HEADS
+    bf16 = torch.bfloat16
+    for B, L, dtype in ((1, PROMPT_LEN, bf16), (1, 1000, torch.float32)):
+        q = _randn((B, L, H, dh), gen, dtype)
+        kk, v = _randn((B, L, KV, dh), gen, dtype), _randn((B, L, KV, dh), gen, dtype)
+        e, _, _ = check_k3(q, kk, v, window=0, label=", granite serving shape")
+        if dtype == bf16:
+            errs["K3"] = max(errs["K3"], e)
+    check_k3_k45(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh, 0, None, bf16, errs, repeat=True)
+    errs["K6"] = check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False)
+    for case in (("granite heads, shuffled, row 3 parked", dh, 1, False, 0, None, None, None),
+                 ("granite heads, a hole, 1 split", dh, 1, True, 0, None, None, 1)):
+        errs["K7"] = max(errs["K7"], check_paged(gen, *case, H=H, KV=KV)[1])
+    torch.cuda.empty_cache()
+    return errs
+
+
+class _DecodeMargins:
+    """Wraps the engine's ``decode_step`` to keep, for each decode step, the
+    top-2 logit margin of every slot, its position and the uid it serves
+    (read after the run: no host sync inside it)."""
+
+    def __init__(self, engine_mod, eng):
+        self.mod, self.eng, self.real = engine_mod, eng, engine_mod.decode_step
+        self.steps = []
+
+    def __enter__(self):
+        def recording(cfg, rcfg, model, tokens, pos, caches):
+            logits, caches = self.real(cfg, rcfg, model, tokens, pos, caches)
+            top2 = logits[:, -1, : cfg.vocab_size].topk(2, dim=-1).values
+            self.steps.append((self.eng.decode_state.slot_uid.copy(), pos[:, -1].clone(),
+                               top2[:, 0] - top2[:, 1]))
+            return logits, caches
+
+        self.mod.decode_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_step = self.real
+
+    def margin(self, uid, pos):
+        """The margin of the step that decoded ``uid`` at ``pos`` (the
+        token emitted there is its generated token pos - prompt_len + 1)."""
+        for uids, p, mg in self.steps:
+            for slot in range(len(uids)):
+                if int(uids[slot]) == uid and int(p[slot]) == pos:
+                    return float(mg[slot])
+        return None
+
+
+def phase_moe_serving(smi):
+    """granite-moe-3b-a800m served at full width and depth (see the module
+    docstring). Returns what the numbers phase prints."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = get_config(MOE_ARCH)
+    rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
+    t0 = time.perf_counter()
+    model = init_model(cfg, rcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[moe serve] {MOE_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
+          f"layers, {cfg.n_experts} experts top-{cfg.n_experts_per_tok}, initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    engine = lambda layout="dense", c=cfg: ServeEngine(
+        c, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
+        cache_layout=layout, page_size=PAGE)
+    n = cfg.n_layers
+    tag = f"[{smi}]"
+    res = {}
+    warm_eng = engine()
+    with _DecodeMargins(engine_mod, warm_eng) as margins:   # the warm-up run, recorded
+        warm = warm_eng.run(_requests(cfg))
+    for layout in ("dense", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(layout)
+        out, counts = _counted(lambda: eng.run(_requests(cfg)))
+        peak = torch.cuda.max_memory_allocated()
+        stats = eng.stats()
+        check(sorted(out) == list(range(N_REQUESTS))
+              and all(len(out[u].tokens) == GEN for u in out),
+              f"moe {layout}: not every request finished with {GEN} tokens")
+        check(stats["nonfinite_logits"] == 0,
+              f"moe {layout}: {stats['nonfinite_logits']} non-finite logits rows")
+        check(stats["buckets_enabled"] is False, "moe: prefill bucketing is on")
+        print(f"[moe serve] {layout} launches {counts} | prefills {stats['prefill_count']} | "
+              f"decode steps {stats['decode_steps']} | buckets_enabled "
+              f"{stats['buckets_enabled']}")
+        want = {"flash_attention_fwd": n * stats["prefill_count"],
+                "flash_decode": n * stats["decode_steps"] if layout == "dense" else 0,
+                "flash_paged_decode": n * stats["decode_steps"] if layout == "paged" else 0,
+                "flash_attention_fwd_f32": 0}
+        check({k: counts.get(k, 0) for k in want} == want
+              and not any(k.endswith("_ref") for k in counts),
+              f"moe {layout}: launches {counts}, want {want} and no plain version")
+        print(f"[moe serve] {layout}: decode {stats['decode_tok_s']:.1f} tok/s | p50 "
+              f"{stats['p50_token_latency_ms']:.3f} / p95 {stats['p95_token_latency_ms']:.3f} "
+              f"ms per step | prefill {stats['prefill_tok_s']:.1f} tok/s | peak "
+              f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
+        res[layout] = {"out": out, "counts": counts, "stats": stats, "peak": peak}
+    dense, paged = res["dense"]["out"], res["paged"]["out"]
+    check(all(warm[u].tokens == dense[u].tokens for u in dense),
+          "moe dense: a second run gave different tokens")
+    # dense against paged: a greedy stream may part only at a near tie of
+    # the batched decode step's own logits (a solo prefill is no reference
+    # here: expert capacity couples the slots of a step)
+    reqs = {r.uid: r for r in _requests(cfg)}
+    parted = []
+    for u in dense:
+        diff = [t for t in range(GEN) if dense[u].tokens[t] != paged[u].tokens[t]]
+        if not diff:
+            continue
+        t = diff[0]
+        mg = margins.margin(u, len(reqs[u].tokens) + t - 1) if t else None
+        parted.append((u, t, mg))
+        if reqs[u].sampling.temperature == 0:
+            check(mg is not None and mg < 0.25,
+                  f"moe paged vs dense: greedy request {u} parts at token {t} at a top-2 "
+                  f"margin of {mg}, not a near tie")
+    print(f"[moe serve] paged tokens equal to dense for {N_REQUESTS - len(parted)}/"
+          f"{N_REQUESTS} requests; parted (uid, token, dense top-2 margin there): {parted}; "
+          f"dense second run identical")
+    # teacher forcing at capacity factor 16 (nothing dropped: a token's
+    # output does not depend on the batch, tests/test_models_smoke.py:82-84)
+    cfg16 = dataclasses.replace(cfg, capacity_factor=16.0)
+    out16 = engine(c=cfg16).run(_requests(cfg16))
+    greedy = [r for r in _requests(cfg16) if r.sampling.temperature == 0]
+    tf = [teacher_forced(cfg16, rcfg, model, r, out16[r.uid].tokens, "moe cf 16")
+          for r in greedy]
+    print(f"[moe serve] capacity factor 16: every token of the {len(greedy)} greedy streams "
+          f"vs a teacher-forced forward over its own tokens: {sum(d for d, _ in tf)} of "
+          f"{len(greedy) * GEN} differ, their largest gap to the top logit "
+          f"{max(w for _, w in tf):.4f} (near tie < 0.25)")
+    st = res["dense"]["stats"]
+    trace_breakdown(cfg, engine, model, {
+        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
+        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
+        tag="moe ")
+    del model, warm_eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_training(smi):
+    """granite-moe-3b-a800m trained at full width and depth under
+    attn.qkv and moe.expert PAMM (see the module docstring). Returns the
+    per-step launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.train import init_train_state
+
+    cfg = get_config(MOE_ARCH)
+    rcfg = RunConfig(compression=MOE_SPEC, policy_name="none", remat="pamm")
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cfg, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    print(f"[moe train] {MOE_ARCH}: {n_params / 1e9:.3f} B params f32, compute "
+          f"{rcfg.compute_dtype}, {MOE_SPEC}, remat='pamm', AdamW, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; losses {rec['loss']} | grad norms "
+          f"{[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "moe: a training loss or grad norm is not finite")
+    L = cfg.n_layers
+    want = {"csim_argmax": L, "csim_argmax_batched": L, "segment_matmul": 3 * L,
+            "segment_matmul_batched": 2 * L, "flash_attention_fwd": 2 * L,
+            "flash_attention_dq": L, "flash_attention_dkv": L, "flash_attention_fwd_f32": 0,
+            "flash_attention_dq_f32": 0, "flash_attention_dkv_f32": 0}
+    k1 = per_step.get("csim_argmax", 0) + per_step.get("csim_argmax_batched", 0)
+    k2 = per_step.get("segment_matmul", 0) + per_step.get("segment_matmul_batched", 0)
+    print(f"[moe train] launches per step {per_step} (K1 {k1:.0f}, K2 {k2:.0f})")
+    check({k: per_step.get(k, 0) for k in want} == want,
+          f"moe training launches per step {per_step} != {want}")
+    check(not any(k.endswith("_ref") for k in rec["counts"]),
+          "moe: a plain version ran on the training path")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[moe train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}: {[round(t, 1) for t in rec['ms'][1:]]}; warm-up step "
+          f"{rec['ms'][0]:.1f} ms) | step peak torch.cuda.max_memory_allocated "
+          f"{rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[moe train] site telemetry (summed over {L} layers) {sites}")
+    trace_training_step(state, step_fn, cfg, step_ms, n + 1, tag="moe ")
+    rec["fb_peak"] = _fwd_bwd_peak(cfg, rcfg, state, TRAIN_SEQ)
+    print(f"[moe train] forward + backward peak (one loss_and_grad, AdamW moments resident) "
+          f"{rec['fb_peak'] / 2**30:.3f} GiB {tag}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    _, _, rec2 = _train_run(cfg, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[moe train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 "
+          f"equal: {rec2['loss'][0] == rec['loss'][0]}; later steps worst rel "
+          f"{max(rel[1:]):.2e}, tol 1e-3)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "moe: a second run from the seed gives other losses")
+    torch.cuda.empty_cache()
+
+    # the moe.expert site's saving on the card: forward + backward at 8 of
+    # the 32 layers (remat='none' holds every layer's activations: all 32
+    # would not fit next to the state), with and without the rule
+    cut = dataclasses.replace(cfg, stages=((("moe",), MOE_CUT_LAYERS),),
+                              n_layers=MOE_CUT_LAYERS)
+    peaks = {}
+    state = init_train_state(cut, rcfg, device="cuda")
+    for label, spec in (("attn.qkv only", TRAIN_SPEC), ("attn.qkv + moe.expert", MOE_SPEC)):
+        peaks[label] = _fwd_bwd_peak(cut, dataclasses.replace(rcfg, compression=spec,
+                                                              remat="none"),
+                                     state, TRAIN_SEQ)
+    saved = peaks["attn.qkv only"] - peaks["attn.qkv + moe.expert"]
+    print(f"[moe train] cut to {MOE_CUT_LAYERS} of {L} layers, remat='none', batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: forward + backward peak "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+          + f"; the moe.expert site saves {saved / 2**20:.1f} MiB "
+          f"({saved / 2**20 / MOE_CUT_LAYERS:.1f} MiB a layer) {tag}")
+    rec["cut_peaks"] = peaks
+    del state
+    torch.cuda.empty_cache()
+    return per_step, rec
+
+
+def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
+    """Kernel rows of the batched K1 / K2 at the moe.expert site's shapes,
+    next to their plain versions and the bound; then K3-K7 at granite's
+    shapes timed beside the same protocol (printed, not JSON rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
+                                                  flash_paged_decode_cuda,
+                                                  flash_paged_decode_ref)
+    from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
+                                                segment_matmul_batched_ref)
+    from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
+                                                   csim_argmax_batched_ref)
+
+    tag = f"[{smi}]"
+    per_step, _ = moe_train
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    E, b, n, k, m = MOE_E, MOE_CAP, MOE_D, MOE_K, MOE_F
+    x, c = moe_site_inputs(gen, E, b, n, k)
+    f = csim_argmax_batched_cuda(x, c)[1]
+    alpha = torch.randn((E, b), generator=gen, device="cuda")
+    gz = _randn((E, b, m), gen)
+    w1, w2 = k1_work(b, n, k, 2), k2_work(b, m, k, 2)
+    k1 = _kernel_row("csim_argmax_batched (K1, the moe.expert site's experts in one launch)",
+                     K1_SOURCE, K1_REPLACES, launches.get("csim_argmax_batched", 0), errs["K1b"],
+                     lambda: csim_argmax_batched_cuda(x, c),
+                     lambda: csim_argmax_batched_ref(x, c), None,
+                     (E * w1[0], E * w1[1]))
+    k2 = _kernel_row("segment_matmul_batched (K2, the moe.expert site's experts in one launch)",
+                     K2_SOURCE, K2_REPLACES, launches.get("segment_matmul_batched", 0),
+                     errs["K2b"], lambda: segment_matmul_batched_cuda(f, alpha, gz, k),
+                     lambda: segment_matmul_batched_ref(f, alpha, gz, k), None,
+                     (E * w2[0], E * w2[1]))
+    for row, at in ((k1, f"({E} x {b}, {n}, k {k})"), (k2, f"({E} x {b}, m {m}, k {k})")):
+        print(f"[numbers] {row['name']} at {at}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"plain {row['plain_ms']:.4f} ms | library n/a | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) | {row['launches']} launches on the moe training path "
+              f"({TRAIN_STEPS} steps) {tag}")
+    del x, c, gz
+    # the site's generator rows, drawn once a layer before K1: the experts
+    # in one draw, against the draw per expert it replaced
+    from repro_torch.core.keys import Key, choice_batched
+
+    keys = Key(0).fold_in(1).split(E)
+    draws = per_step.get("csim_argmax_batched", 0)
+    for label, fn in (("one draw for the experts", lambda: choice_batched(keys, b, k, "cuda")),
+                      ("a draw per expert", lambda: torch.stack(
+                          [key.choice(b, k, "cuda") for key in keys]))):
+        host = host_ms(fn, calls=20)
+        print(f"[numbers] moe.expert generator rows ({E} experts x {b} rows, k {k}), {label}: "
+              f"host {1e3 * host:.1f} us/call, {draws * host:.2f} ms a step ({draws:.0f} "
+              f"draws) | wall {time_ms(fn, reps=10):.4f} ms/call {tag}")
+    flush = _flush_buffer()
+    H, KV, dh = MOE_HEADS
+
+    def line(label, fn, plain, lib, work, launch_note):
+        ms, dev = time_ms(fn, flush=flush), time_ms(fn, flush=flush, pad=True)
+        plain_ms = time_ms(plain, reps=10, flush=flush)
+        lib_ms = time_ms(lib, flush=flush)
+        bms, by = bound(*work)
+        print(f"[numbers] granite {label}: {ms:.4f} ms/call | device only {dev:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | library {lib_ms:.4f} ms | bound {bms:.4f} ms ({by}) | "
+              f"{launch_note} {tag}")
+
+    sl, st = moe_serve["dense"]["counts"], moe_serve["dense"]["stats"]
+    for B, L in ((1, PROMPT_LEN), (TRAIN_BATCH, TRAIN_SEQ)):
+        q = _randn((B, L, H, dh), gen)
+        kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
+                  for t in (kk, v))
+        line(f"K3 ({B}, {L}, {H}/{KV}, {dh})",
+             lambda: flash_attention_fwd_cuda(q, kk, v, causal=True),
+             lambda: flash_attention_fwd_ref(q, kk, v, causal=True),
+             lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
+             k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2),
+             f"{sl.get('flash_attention_fwd', 0)} launches serving" if B == 1 else
+             f"{launches.get('flash_attention_fwd', 0)} launches training")
+    do = _randn((B, L, H, dh), gen)
+    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True)
+    delta = _delta(o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
+    out = F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), do.transpose(1, 2),
+                                           retain_graph=True)
+    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True)
+    line(f"K4 ({B}, {L}, {H}/{KV}, {dh})",
+         lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0), plain_bwd, sdpa_bwd,
+         k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K4"),
+         f"{launches.get('flash_attention_dq', 0)} launches training")
+    line(f"K5 ({B}, {L}, {H}/{KV}, {dh})",
+         lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0), plain_bwd, sdpa_bwd,
+         k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K5"),
+         f"{launches.get('flash_attention_dkv', 0)} launches training")
+    del q, kk, v, do, o, out, qt, kx, vx, dq, dk, dv
+    B, S = SLOTS, MAX_LEN
+    q = _randn((B, 1, H, dh), gen)
+    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
+    qpos = torch.full((B,), PROMPT_LEN + GEN // 2, dtype=torch.int32, device="cuda")
+    j = torch.arange(S, device="cuda", dtype=torch.int32)
+    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
+    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
+    qt = q.transpose(1, 2)
+    line(f"K6 ({B} slots x {S}, {H}/{KV}, {dh})",
+         lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True),
+         lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True),
+         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+         k6_work(qpos, spos, H, KV, dh, window=0, itemsize=2),
+         f"{sl.get('flash_decode', 0)} launches serving ({st['decode_steps']} steps)")
+    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
+    kp, vp, bt, ppos = paged_inputs(gen, B, 18, PAGE, KV, dh, fill, n_mapped=17)
+    qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
+    mask = paged_visible(bt, ppos, qpos, 0)[:, None]
+    kx, vx = (t[bt.clamp_min(0).long()].reshape(B, -1, KV, dh).repeat_interleave(
+        H // KV, dim=2).transpose(1, 2) for t in (kp, vp))
+    pl = moe_serve["paged"]
+    line(f"K7 ({B} slots x 17 pages of {PAGE}, {H}/{KV}, {dh})",
+         lambda: flash_paged_decode_cuda(q, kp, vp, qpos, bt, ppos),
+         lambda: flash_paged_decode_ref(q, kp, vp, qpos, bt, ppos),
+         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+         paged_work(bt, ppos, qpos, H, KV, dh, 2 * dh, dh),
+         f"{pl['counts'].get('flash_paged_decode', 0)} launches paged serving "
+         f"({pl['stats']['decode_steps']} steps)")
+    return [k1, k2]
+
+
+def start():
+    """What every run does first: a card and the package next to this
+    script, f32 products out of TF32, every kernel built (phase 1).
+    Returns nvidia-smi's line and the seeded generator of the phases."""
     try:
         import torch
     except ImportError:
@@ -2371,9 +2911,28 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail(f"the repro_torch package is not next to {Path(__file__).name}")
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
     smi = phase_device_and_build()
-    gen = torch.Generator(device="cuda").manual_seed(1234)
+    return smi, torch.Generator(device="cuda").manual_seed(1234)
+
+
+def run_moe_phases(gen, smi):
+    """Phases 14-17: the batched K1 / K2 and granite's K3-K7 against their
+    plain versions, granite-moe-3b-a800m served and trained, granite smoke
+    card against CPU (residual and reversible), the MoE kernel rows.
+    Returns (the kernels' errors, the rows)."""
+    errs = phase_moe_kernels(gen)
+    serve = phase_moe_serving(smi)
+    train = phase_moe_training(smi)
+    phase_card_vs_cpu(MOE_SMOKE, MOE_SMOKE_SPEC)
+    phase_reversible_card_vs_cpu(MOE_SMOKE, MOE_SMOKE_SPEC)
+    return errs, phase_moe_numbers(gen, serve, train, smi, errs)
+
+
+def main() -> int:
+    import torch
+
+    t0 = time.perf_counter()
+    smi, gen = start()
     err3 = phase_k3(gen)
     err6 = phase_k6(gen)
     counts, stats, peak, dense = phase_serving()
@@ -2395,9 +2954,12 @@ def main() -> int:
     phase_memory_modes(smi, rec)
     phase_reversible_card_vs_cpu()
     phase_supervised_restart(smi)
-    kernels[0]["max_abs_err"] = max(err3, errs["K3"])   # K3: serving and training shapes
+    errs_moe, moe_rows = run_moe_phases(gen, smi)
+    # K3: serving and training shapes, internlm2's and granite's
+    kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     kernels += paged_rows
+    kernels += moe_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ a sampler turns (seed, path) into draws.
 
 The default sampler, :class:`TorchSampler`, seeds a ``torch.Generator`` on
 the site's device with a hash of (seed, path) and draws
-``torch.randperm(b)[:k]`` or ``torch.randn``. A caller that wants other
+``torch.randperm(b)[:k]`` or ``torch.randn`` (the experts of a MoE site
+in one draw: :func:`choice_batched`). A caller that wants other
 draws (a test holding the port to the JAX package's threefry streams, or a
 check that compares the card with the CPU) passes its own sampler with the
 same two methods; the path is what makes both streams line up.
@@ -42,6 +43,16 @@ class TorchSampler:
         gen = self._generator(seed, path, device)
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
+    def choice_batched(self, seed: int, paths: tuple, b: int, k: int,
+                       device) -> torch.Tensor:
+        """``k`` distinct rows of ``range(b)`` for each path, (len(paths), k)
+        int64, from one generator and one sort: the rows of a uniform
+        random permutation per path (f64 keys, so ties are negligible)."""
+        gen = self._generator(seed, paths, device)
+        keys = torch.rand((len(paths), b), generator=gen, device=device,
+                          dtype=torch.float64)
+        return keys.argsort(dim=1)[:, :k]
+
 
 class Key:
     """A point of the key chain: the run seed plus the ``fold_in`` /
@@ -71,3 +82,15 @@ class Key:
 
     def __repr__(self) -> str:
         return f"Key(seed={self.seed}, path={self.path})"
+
+
+def choice_batched(keys: list[Key], b: int, k: int, device) -> torch.Tensor:
+    """Each key's :meth:`Key.choice`, stacked (len(keys), k): the MoE
+    site's experts. The keys share a seed and a sampler (``Key.split``);
+    :class:`TorchSampler` draws them all at once, and any other sampler (a
+    test's threefry or numpy draws) key by key."""
+    sampler = keys[0].sampler
+    if isinstance(sampler, TorchSampler):
+        return sampler.choice_batched(keys[0].seed, tuple(key.path for key in keys),
+                                      b, k, device)
+    return torch.stack([key.choice(b, k, device) for key in keys])

@@ -19,7 +19,8 @@ the first run compressed (``remat='pamm'``, the JAX package's
 key (``remat='full'``, reversible), and it keeps telemetry to the first run.
 
 Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``.
-``apply_batched`` (MoE experts) arrives with the MoE slice.
+``apply_batched`` (the MoE experts) takes ``xs (E, T, n)`` and ``w (E, n,
+m)`` and keeps one state per expert, all compressed in one K1 launch.
 """
 from __future__ import annotations
 
@@ -49,16 +50,19 @@ def _leaves(state) -> tuple:
 
 
 class _CompressedMatmul(torch.autograd.Function):
-    """``x2d @ w (+ bias)`` whose backward reads only ``(w, state)``."""
+    """``x2d @ w (+ bias)`` whose backward reads only ``(w, state)``;
+    ``batched``: the experts' ``xs (E, T, n) @ w (E, n, m)``, no bias."""
 
     @staticmethod
-    def forward(ctx, x2d, w, bias, policy, state):
+    def forward(ctx, x2d, w, bias, policy, state, batched=False):
         leaves = _leaves(state)
         ctx.save_for_backward(w, *(t for t in leaves if isinstance(t, torch.Tensor)))
         # the state's structure and its non-tensor leaves (a CompAct key)
         ctx.rebuild = (type(state) if isinstance(state, tuple) else None,
                        [None if isinstance(t, torch.Tensor) else t for t in leaves])
-        ctx.policy, ctx.has_bias = policy, bias is not None
+        ctx.policy, ctx.has_bias, ctx.batched = policy, bias is not None, batched
+        if batched:
+            return torch.bmm(x2d, w.to(x2d.dtype))
         return _exact_linear(x2d, w, bias)
 
     @staticmethod
@@ -68,24 +72,41 @@ class _CompressedMatmul(torch.autograd.Function):
         it = iter(tensors)
         leaves = [next(it) if s is None else s for s in slots]
         state = kind(*leaves) if kind is not None else leaves[0]
-        dx = (g @ w.T.to(g.dtype)) if ctx.needs_input_grad[0] else None
-        dw = ctx.policy.grad_w(state, g, w.shape[0]).to(w.dtype)
+        dx = (g @ w.transpose(-2, -1).to(g.dtype)) if ctx.needs_input_grad[0] else None
+        if ctx.batched:
+            dw = ctx.policy.grad_w_batched(state, g, w.shape[-2]).to(w.dtype)
+        else:
+            dw = ctx.policy.grad_w(state, g, w.shape[0]).to(w.dtype)
         dbias = g.sum(0).to(w.dtype) if ctx.has_bias else None
-        return dx, dw, dbias, None, None
+        return dx, dw, dbias, None, None, None
+
+
+def _stats_vector(stored, kept, rows, beta, n, device) -> torch.Tensor:
+    """[stored_bytes, kept_rows, rows, beta, n_observations] as STATS_LEN
+    f32 on ``device``, filled in place so that nothing waits for the card
+    (kept and beta may be tensors on it)."""
+    out = torch.empty(STATS_LEN, dtype=torch.float32, device=device)
+    out[0] = float(stored)
+    out[1] = kept
+    out[2] = float(rows)
+    out[3] = beta
+    out[4] = float(n)
+    return out
 
 
 def _state_stats(policy: CompressionPolicy, state, b: int, device) -> torch.Tensor:
-    """Telemetry vector (STATS_LEN f32 on ``device``) of one compressed
-    state: [stored_bytes, kept_rows, b, beta, 1]. Filled in place so that
-    nothing waits for the card."""
+    """Telemetry vector of one compressed state: [stored_bytes,
+    kept_rows, b, beta, 1]."""
     kept, beta = policy.state_stats(state, b)
-    out = torch.empty(STATS_LEN, dtype=torch.float32, device=device)
-    out[0] = float(policy.stored_bytes(state))
-    out[1] = kept
-    out[2] = float(b)
-    out[3] = beta
-    out[4] = 1.0
-    return out
+    return _stats_vector(policy.stored_bytes(state), kept, b, beta, 1, device)
+
+
+def _batched_stats(policy: CompressionPolicy, state, b: int, n_experts: int,
+                   device) -> torch.Tensor:
+    """Telemetry of a batched (per-expert) state: the experts' vectors
+    summed, [stored_bytes, kept_rows, E b, beta summed, E]."""
+    kept, beta, stored = policy.batched_stats(state, b, n_experts)
+    return _stats_vector(stored, kept, n_experts * b, beta, n_experts, device)
 
 
 class SiteMode:
@@ -120,12 +141,13 @@ class SiteMode:
         """``context_fn`` of ``torch.utils.checkpoint``: (forward, recompute)."""
         return contextlib.nullcontext(), self
 
-    def compress(self, policy: CompressionPolicy, x2d, key):
+    def compress(self, policy: CompressionPolicy, x2d, key, batched: bool = False):
+        """``batched``: x2d is the experts' (E, b, n) and key their keys."""
         if self.recomputing and self.keep_states:
             state = self._states[self._pos]
             self._pos += 1
             return state
-        state = policy.compress(x2d, key)
+        state = policy.compress_batched(x2d, key) if batched else policy.compress(x2d, key)
         if self.keep_states:
             self._states.append(state)
         return state
@@ -195,3 +217,31 @@ class CompressedSite:
         if mode is not None and mode.recomputing:
             return outs, None
         return outs, _state_stats(self.policy, state, x2d.shape[0], x.device)
+
+    def apply_batched(self, xs, ws, key, mode: SiteMode | None = None):
+        """The MoE experts: ``xs (E, T, n)``, each w in ws ``(E, n, m)``,
+        returns ``([z (E, T, m)...], stats)``. One compressed state per
+        expert, shared by the ws (gate and up), expert e's drawn from
+        ``key.fold_in(site_id).split(E)[e]`` (``jax.random.split(site_key,
+        e)``); all experts compress in one K1 launch and each weight's
+        gradient runs one K2 launch. Stats are summed over the experts."""
+        grad = _wants_grad(xs, ws, ())
+        for_stats = mode is not None and mode.stats_without_grad and not mode.recomputing
+        if self.is_exact or not (grad or for_stats):
+            return [torch.bmm(xs, w.to(xs.dtype)) for w in ws], None
+        site_key = self.derive_key(key)
+        if site_key is None:
+            raise ValueError(f"site {self.path!r} ({self.policy.name}) needs a key")
+        keys = site_key.split(xs.shape[0])
+        with torch.no_grad():
+            x_in = xs.detach()
+            state = (self.policy.compress_batched(x_in, keys) if mode is None
+                     else mode.compress(self.policy, x_in, keys, batched=True))
+        if grad:
+            outs = [_CompressedMatmul.apply(xs, w, None, self.policy, state, True)
+                    for w in ws]
+        else:
+            outs = [torch.bmm(xs, w.to(xs.dtype)) for w in ws]
+        if mode is not None and mode.recomputing:
+            return outs, None
+        return outs, _batched_stats(self.policy, state, xs.shape[1], xs.shape[0], xs.device)

@@ -20,7 +20,10 @@ f32 rows.
 
 The draw of generator rows is injectable: ``idx`` given, or drawn from
 ``key`` (:class:`repro_torch.core.keys.Key`). The blocked (shard-local)
-variants loop over the blocks where JAX uses ``vmap``.
+variants loop over the blocks where JAX uses ``vmap``. The batched
+variants (the MoE site's experts, ``vmap`` over experts in the JAX
+package) take a leading expert axis and run one K1 / K2 launch for all
+experts.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.keys import choice_batched
+
 __all__ = [
     "PammState",
     "num_generators",
@@ -36,6 +41,8 @@ __all__ = [
     "pamm_apply",
     "pamm_compress_blocked",
     "pamm_apply_blocked",
+    "pamm_compress_batched",
+    "pamm_apply_batched",
     "pamm_reconstruct",
     "stored_elements",
 ]
@@ -106,6 +113,27 @@ def pamm_apply_blocked(state: PammState, bmat) -> torch.Tensor:
                           bmat[s * b_loc:(s + 1) * b_loc])
         out = part if out is None else out + part
     return out
+
+
+def pamm_compress_batched(a, k: int, eps: float, keys) -> PammState:
+    """Compress each expert's ``a[e]`` (``a: (E, b, n)``) into ``k``
+    generators drawn from ``keys[e]`` (all in one draw with the default
+    sampler), one K1 launch for all experts. The
+    state's leaves carry the expert axis: generators (E, k, n), alpha and
+    assign (E, b), beta (E,)."""
+    from repro_torch.kernels import ops
+
+    b = a.shape[1]
+    k = min(k, b)
+    return ops.pamm_compress_batched(a, k, eps, choice_batched(keys, b, k, a.device))
+
+
+def pamm_apply_batched(state: PammState, bmat) -> torch.Tensor:
+    """Approximate each expert's ``A_e^T @ B_e`` (``bmat: (E, b, m)``), (E,
+    n, m) f32, one K2 launch for all experts."""
+    from repro_torch.kernels import ops
+
+    return ops.pamm_apply_batched(state, bmat)
 
 
 def pamm_reconstruct(state: PammState) -> torch.Tensor:

@@ -18,6 +18,11 @@ Policies (all from the paper):
 
 CRS and CompAct have no Pallas kernel in the JAX package and stay torch
 ops here. ``key`` is a :class:`repro_torch.core.keys.Key`.
+
+The ``*_batched`` methods serve the MoE site (one state per expert, the
+JAX package's ``vmap`` over experts): inputs carry a leading expert axis
+and so do the state's leaves. The base class loops over the experts; PAMM
+compresses and applies every expert in one K1 / K2 launch.
 """
 from __future__ import annotations
 
@@ -45,6 +50,24 @@ def _tensor_bytes(state) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _stack_states(states: list):
+    """Per-expert states -> one state whose leaves carry the expert axis
+    (tensors stacked, other leaves -- a CompAct key -- listed)."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(states)
+    leaves = zip(*states)
+    return type(first)(*(torch.stack(list(ls)) if isinstance(ls[0], torch.Tensor)
+                         else list(ls) for ls in leaves))
+
+
+def _state_at(state, e: int):
+    """Expert ``e``'s state of a batched one."""
+    if isinstance(state, torch.Tensor):
+        return state[e]
+    return type(state)(*(leaf[e] for leaf in state))
+
+
 @dataclasses.dataclass(frozen=True)
 class CompressionPolicy:
     """Base class. Frozen and hashable, like the JAX policies."""
@@ -70,6 +93,24 @@ class CompressionPolicy:
     def stored_bytes(self, state: Any) -> int:
         """Bytes the state holds for backward (its tensors)."""
         return _tensor_bytes(state)
+
+    def compress_batched(self, xs: torch.Tensor, keys) -> Any:
+        """One state per expert of ``xs (E, b, n)``, expert e's from
+        ``keys[e]``; the leaves carry the expert axis."""
+        return _stack_states([self.compress(x, key) for x, key in zip(xs, keys)])
+
+    def grad_w_batched(self, state: Any, gz: torch.Tensor, n: int) -> torch.Tensor:
+        """(E, n, m) f32: each expert's :meth:`grad_w`."""
+        return torch.stack([self.grad_w(_state_at(state, e), gz[e], n)
+                            for e in range(gz.shape[0])])
+
+    def batched_stats(self, state: Any, b: int, n_experts: int) -> tuple[Any, Any, int]:
+        """(kept_rows, beta, stored_bytes), each summed over the experts of
+        a batched state (the JAX package sums the experts' telemetry)."""
+        per = [_state_at(state, e) for e in range(n_experts)]
+        stats = [self.state_stats(s, b) for s in per]
+        return (sum(k for k, _ in stats), sum(beta for _, beta in stats),
+                sum(self.stored_bytes(s) for s in per))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +174,38 @@ class PammPolicy(CompressionPolicy):
         # all-zero rows (padding), which never contribute
         kept = (state.alpha != 0).float().sum()
         return kept, state.beta.float().mean()
+
+    def compress_batched(self, xs, keys):
+        """Every expert in one K1 launch. Blocked: each expert's rows split
+        into ``n_blocks`` blocks drawn from ``keys[e].split(n_blocks)`` (as
+        :func:`pamm_lib.pamm_compress_blocked` per expert), all E x blocks
+        problems in one launch; leaves (E, S, ...)."""
+        E, b, n = xs.shape
+        k = self.k_for(b)
+        if self.n_blocks <= 1:
+            return pamm_lib.pamm_compress_batched(xs, k, self.eps, keys)
+        s = self.n_blocks if b % self.n_blocks == 0 else 1
+        sub = [kb for key in keys for kb in (key.split(s) if s > 1 else [key])]
+        st = pamm_lib.pamm_compress_batched(xs.reshape(E * s, b // s, n),
+                                            max(1, k // s), self.eps, sub)
+        return pamm_lib.PammState(*(leaf.reshape(E, s, *leaf.shape[1:]) for leaf in st))
+
+    def grad_w_batched(self, state, gz, n):
+        if state.alpha.dim() == 2:
+            return pamm_lib.pamm_apply_batched(state, gz)
+        E, s, b_loc = state.alpha.shape
+        flat = pamm_lib.PammState(*(leaf.reshape(E * s, *leaf.shape[2:]) for leaf in state))
+        parts = pamm_lib.pamm_apply_batched(flat, gz.reshape(E * s, b_loc, gz.shape[-1]))
+        parts = parts.view(E, s, *parts.shape[1:])
+        out = parts[:, 0]
+        for i in range(1, s):      # the blocks in order, as pamm_apply_blocked sums them
+            out = out + parts[:, i]
+        return out
+
+    def batched_stats(self, state, b, n_experts):
+        kept = (state.alpha != 0).float().sum()
+        beta = state.beta.float().reshape(n_experts, -1).mean(1).sum()
+        return kept, beta, _tensor_bytes(state)
 
 
 class _CRSState(NamedTuple):

@@ -41,10 +41,11 @@ SIGNATURES = {
     # strides (q b; k b,s; v b,s; slot_pos b; o b), causal window scale
     # dtype stream
     "flash_decode": [P] * 8 + [I] * 7 + [LL] * 7 + [I, I, F, I, P],
-    # x c cs idx norm, b n k, dtype stream
-    "csim_argmax": [P] * 5 + [I] * 4 + [P],
-    # f alpha gz out part, b m k nsplit per, dtype stream
-    "segment_matmul": [P] * 5 + [I] * 6 + [P],
+    # K1 and K2 over E problems (the MoE site's experts; E 1 for one):
+    # x c cs idx norm, E b n k, dtype stream; f alpha gz out part, E b m k
+    # nsplit per, dtype stream
+    "csim_argmax_batched": [P] * 5 + [I] * 5 + [P],
+    "segment_matmul_batched": [P] * 5 + [I] * 7 + [P],
     # K4, two routes of one signature: flash_attention_dq (bf16, tensor
     # cores) and flash_attention_dq_f32 (f32, scalar). q k v do lse delta
     # dq, B L H KV dh, strides (q b,l  k b,l  v b,l  do b,l  dq b,l),
@@ -68,8 +69,8 @@ SIGNATURES = {
 }
 SOURCE_OF = {
     "flash_attention_fwd_f32": "flash_attention_fwd",
-    "csim_argmax": "pamm_compress",
-    "segment_matmul": "pamm_apply",
+    "csim_argmax_batched": "pamm_compress",
+    "segment_matmul_batched": "pamm_apply",
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",
     "flash_attention_dq_f32": "flash_attention_bwd",

@@ -23,7 +23,8 @@ from repro_torch.kernels import pamm_compress as _pc
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention",
            "flash_decode", "flash_paged_decode", "flash_paged_decode_quant",
            "csim_argmax", "segment_matmul", "pamm_compress",
-           "pamm_apply", "FlashAttention"]
+           "pamm_apply", "csim_argmax_batched", "segment_matmul_batched",
+           "pamm_compress_batched", "pamm_apply_batched", "FlashAttention"]
 
 
 def _route(x, name: str):
@@ -139,6 +140,36 @@ def segment_matmul(f, alpha, gz, k: int):
     return _pa.segment_matmul_ref(f, alpha, gz, k)
 
 
+def csim_argmax_batched(x, c):
+    """Batched K1, the experts in one launch: x (E, b, n), c (E, k, n) ->
+    (cs, idx, ||x_i||), each (E, b)."""
+    if _route(x, "csim_argmax_batched"):
+        return _pc.csim_argmax_batched_cuda(x, c)
+    return _pc.csim_argmax_batched_ref(x, c)
+
+
+def segment_matmul_batched(f, alpha, gz, k: int):
+    """Batched K2, the experts in one launch: f, alpha (E, b), dZ (E, b, m)
+    -> Btilde (E, k, m) f32."""
+    if _route(gz, "segment_matmul_batched"):
+        return _pa.segment_matmul_batched_cuda(f, alpha, gz, k)
+    return _pa.segment_matmul_batched_ref(f, alpha, gz, k)
+
+
+def _epilogue(cs, norm_a, norm_c_at, eps: float, dim: int):
+    """alpha, beta of a PAMM state from K1's outputs (``kernels/ops.py``'s
+    JAX epilogue): ``norm_c_at`` is the norm of each row's generator; zero
+    rows (padding) count in neither side of beta. ``dim``: the row axis."""
+    alpha = cs * norm_a / norm_c_at.clamp_min(1e-20)
+    keep = (cs * cs >= 1.0 - float(eps) * float(eps)) if math.isfinite(eps) \
+        else torch.ones_like(cs, dtype=torch.bool)
+    nonzero = norm_a > 0
+    contributing = keep & nonzero
+    alpha = torch.where(contributing, alpha, torch.zeros_like(alpha))
+    beta = nonzero.float().sum(dim) / contributing.float().sum(dim).clamp_min(1.0)
+    return alpha, beta
+
+
 def pamm_compress(x, k: int, eps: float, idx):
     """PAMM compress of x (b, n) around the generator rows ``idx`` (k,):
     K1 plus the alpha / eps / beta epilogue (in torch, as the JAX wrapper
@@ -151,15 +182,7 @@ def pamm_compress(x, k: int, eps: float, idx):
     c = x.index_select(0, idx.to(x.device))
     cs, assign, norm_a = csim_argmax(x, c)
     norm_c = norm_a.index_select(0, idx.to(x.device))
-    alpha = cs * norm_a / norm_c.index_select(0, assign.long()).clamp_min(1e-20)
-    keep = (cs * cs >= 1.0 - float(eps) * float(eps)) if math.isfinite(eps) \
-        else torch.ones_like(cs, dtype=torch.bool)
-    # mirror core.pamm: zero rows (padding) count in neither side of beta
-    nonzero = norm_a > 0
-    contributing = keep & nonzero
-    alpha = torch.where(contributing, alpha, torch.zeros_like(alpha))
-    b_eff = nonzero.float().sum()
-    beta = b_eff / contributing.float().sum().clamp_min(1.0)
+    alpha, beta = _epilogue(cs, norm_a, norm_c.index_select(0, assign.long()), eps, 0)
     return PammState(c, alpha, assign, beta)
 
 
@@ -169,3 +192,32 @@ def pamm_apply(state, gz):
     k = state.generators.shape[0]
     btilde = segment_matmul(state.assign, state.alpha, gz.contiguous(), k)
     return state.beta * (state.generators.float().T @ btilde)
+
+
+def pamm_compress_batched(x, k: int, eps: float, idx):
+    """PAMM compress of each expert's x[e] (b, n) around its generator rows
+    ``idx[e]`` (E, min(k, b)), in one batched K1 launch: a
+    :class:`PammState` whose leaves carry the leading expert axis
+    (generators (E, k, n), alpha and assign (E, b), beta (E,)); expert e's
+    equals :func:`pamm_compress` of x[e] around idx[e]."""
+    from repro_torch.core.pamm import PammState
+
+    E, b, n = x.shape
+    if idx.shape != (E, min(k, b)):
+        raise ValueError(f"pamm_compress_batched: idx must be (E, min(k, b)) = "
+                         f"{(E, min(k, b))}, got {tuple(idx.shape)}")
+    idx = idx.to(x.device)
+    c = x[torch.arange(E, device=x.device)[:, None], idx]
+    cs, assign, norm_a = csim_argmax_batched(x, c)
+    norm_c = torch.gather(norm_a, 1, idx)
+    alpha, beta = _epilogue(cs, norm_a, torch.gather(norm_c, 1, assign.long()), eps, 1)
+    return PammState(c, alpha, assign, beta)
+
+
+def pamm_apply_batched(state, gz):
+    """PAMM apply of a batched state: beta_e C_e^T K2(f_e, alpha_e, dZ_e),
+    (E, n, m) f32, the segment sums in one batched K2 launch."""
+    k = state.generators.shape[1]
+    btilde = segment_matmul_batched(state.assign, state.alpha, gz.contiguous(), k)
+    return state.beta[:, None, None] * torch.bmm(
+        state.generators.float().transpose(1, 2), btilde)

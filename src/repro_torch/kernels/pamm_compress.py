@@ -13,6 +13,13 @@ cores (mma.sync, x streamed by cp.async), f32 on a scalar route; both walk
 the generators in chunks with a running best per row. The plain version is what
 the CPU tests hold against the JAX kernel; nothing on the card's main path
 calls it.
+
+The batched pair (:func:`csim_argmax_batched_ref`,
+:func:`csim_argmax_batched_cuda`) takes E problems at once, x (E, b, n)
+and c (E, k, n), and returns (E, b) each: the MoE site's experts in one
+launch, the counterpart of the JAX package's ``vmap`` over
+``pamm_compress`` (``repro/core/linear.py:250``). The 2-D pair is the
+batched one at E 1, each with its own launch count.
 """
 from __future__ import annotations
 
@@ -25,18 +32,31 @@ NORM_EPS = 1e-20
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def csim_argmax_ref(x, c):
-    """Plain version of K1: csim in f32, arg-max of |csim| (first maximum),
-    the signed value there, and the row norms of x."""
-    LAUNCHES["csim_argmax_ref"] += 1
+def _plain(x, c):
+    """K1 in plain PyTorch over the expert axis: x (E, b, n), c (E, k, n)
+    -> (cs, idx, norm_a), each (E, b). csim in f32 as one batched product,
+    arg-max of |csim| (first maximum), the signed value there."""
     x32, c32 = x.float(), c.float()
-    norm_a = torch.linalg.vector_norm(x32, dim=1)
-    norm_c = torch.linalg.vector_norm(c32, dim=1)
-    csim = (x32 @ c32.T) / (norm_a.clamp_min(NORM_EPS)[:, None]
-                            * norm_c.clamp_min(NORM_EPS)[None, :])
-    idx = torch.argmax(csim.abs(), dim=1)
-    cs = torch.gather(csim, 1, idx[:, None])[:, 0]
+    norm_a = torch.linalg.vector_norm(x32, dim=2)
+    norm_c = torch.linalg.vector_norm(c32, dim=2)
+    csim = torch.bmm(x32, c32.transpose(1, 2)) / (
+        norm_a.clamp_min(NORM_EPS)[:, :, None] * norm_c.clamp_min(NORM_EPS)[:, None, :])
+    idx = torch.argmax(csim.abs(), dim=2)
+    cs = torch.gather(csim, 2, idx[..., None])[..., 0]
     return cs, idx.to(torch.int32), norm_a
+
+
+def csim_argmax_ref(x, c):
+    """Plain version of K1: x (b, n), c (k, n) -> (cs, idx, norm_a) (b,)."""
+    LAUNCHES["csim_argmax_ref"] += 1
+    return tuple(t[0] for t in _plain(x[None], c[None]))
+
+
+def csim_argmax_batched_ref(x, c):
+    """Plain version of the batched K1: :func:`csim_argmax_ref` of each
+    expert's x[e] (b, n) against its c[e] (k, n)."""
+    LAUNCHES["csim_argmax_batched_ref"] += 1
+    return _plain(x, c)
 
 
 def _check(x, c):
@@ -45,27 +65,45 @@ def _check(x, c):
     if x.dtype not in _DTYPES or c.dtype != x.dtype:
         raise ValueError(f"K1 kernel takes float32 or bfloat16 x/c of one dtype, "
                          f"got {x.dtype}/{c.dtype}")
-    if x.dim() != 2 or c.dim() != 2 or c.shape[1] != x.shape[1]:
-        raise ValueError(f"K1 kernel: x (b, n) and c (k, n); got {tuple(x.shape)}, "
-                         f"{tuple(c.shape)}")
-    if x.shape[0] < 1 or c.shape[0] < 1 or x.shape[1] < 1:
+    if x.dim() != 3 or c.dim() != 3 or c.shape[2] != x.shape[2] or c.shape[0] != x.shape[0]:
+        raise ValueError(f"K1 kernel: x (E, b, n) and c (E, k, n), E 1 for the 2-D "
+                         f"entry; got {tuple(x.shape)}, {tuple(c.shape)}")
+    if min(x.shape) < 1 or c.shape[1] < 1:
         raise ValueError(f"K1 kernel: empty x or c: {tuple(x.shape)}, {tuple(c.shape)}")
-    if max(x.numel(), c.numel()) >= 2**31 or c.device != x.device:
-        raise ValueError("K1 kernel: x and c must lie on one device with < 2^31 elements")
+    if (max(x[0].numel(), c[0].numel()) >= 2**31 or x.shape[0] > 65535
+            or c.device != x.device):
+        raise ValueError("K1 kernel: x and c must lie on one device with < 2^31 elements "
+                         "an expert and at most 65535 experts")
     if not (x.is_contiguous() and c.is_contiguous()):
         raise ValueError(f"K1 kernel: x and c must be contiguous; strides "
                          f"{x.stride()}, {c.stride()}")
 
 
-def csim_argmax_cuda(x, c):
-    """Launch K1 on x's current CUDA stream; returns (cs, idx, norm_a)."""
+def _launch(x, c):
+    """One launch of K1 over x (E, b, n) and c (E, k, n) on x's current CUDA
+    stream, the expert the outermost grid axis; (cs, idx, norm_a) (E, b)."""
     _check(x, c)
-    b, n = x.shape
-    out = torch.empty((3, b), dtype=torch.float32, device=x.device)  # cs, idx, norm
+    E, b, n = x.shape
+    out = torch.empty((3, E, b), dtype=torch.float32, device=x.device)  # cs, idx, norm
     cs, idx, norm = out[0], out[1].view(torch.int32), out[2]
-    err = build.entry("csim_argmax")(
+    err = build.entry("csim_argmax_batched")(
         x.data_ptr(), c.data_ptr(), cs.data_ptr(), idx.data_ptr(), norm.data_ptr(),
-        b, n, c.shape[0], _DTYPES[x.dtype], build.raw_stream(x))
-    build.check_launch("csim_argmax", err)
-    LAUNCHES["csim_argmax"] += 1
+        E, b, n, c.shape[1], _DTYPES[x.dtype], build.raw_stream(x))
+    build.check_launch("csim_argmax_batched", err)
     return cs, idx, norm
+
+
+def csim_argmax_cuda(x, c):
+    """Launch K1 on x (b, n) (the batched launch at E 1); returns (cs, idx,
+    norm_a)."""
+    out = tuple(t[0] for t in _launch(x[None], c[None]))
+    LAUNCHES["csim_argmax"] += 1
+    return out
+
+
+def csim_argmax_batched_cuda(x, c):
+    """Launch the batched K1 (every expert in one launch); returns (cs, idx,
+    norm_a), each (E, b)."""
+    out = _launch(x, c)
+    LAUNCHES["csim_argmax_batched"] += 1
+    return out

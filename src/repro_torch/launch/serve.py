@@ -28,6 +28,10 @@ which counts the replicas' walls as overlapping though they step in turn:
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --replicas 2 --dedicated-prefill --smoke
 
+A moe arch (``--arch granite-moe-3b-a800m``) is served the same way; its
+prompts are prefilled at their own lengths (bucketing off: pad rows would
+take expert capacity), which the stats line says.
+
 ``--mesh-data`` (one engine's pools sharded over cards) is refused, naming
 the multi-GPU slice that brings it.
 """
@@ -183,7 +187,8 @@ def _print_engine_stats(args, stats, device) -> None:
           f"peak concurrency {stats['peak_active']} | "
           f"replica shards {stats['replica_shards']} | "
           f"compression x{stats['cache/kv_compression_x']:.2f} | "
-          f"{stats['prefill_buckets']} prefill buckets | "
+          f"{stats['prefill_buckets']} prefill buckets"
+          f"{'' if stats['buckets_enabled'] else ' (bucketing off: one per prompt length)'} | "
           f"device {device}")
     if args.prefix_share:
         print(f"[prefix-share] hits {stats['prefix_hits']} | pages adopted "

@@ -8,7 +8,10 @@ Parameters are f32 and compute is bf16 by default (RunConfig's defaults);
 the batches come from the deterministic ``SyntheticStream``. On a CUDA
 device the compressed QKV projections run K1/K2 and attention runs K3
 forward and K4/K5 backward; ``--device cpu`` runs their plain versions
-(use a ``*_smoke`` arch there). ``--block-structure reversible`` trains
+(use a ``*_smoke`` arch there). A moe arch trains the same way, and its
+experts' gate / up projections compress through the ``moe.expert`` rule
+(``--compression 'attn.qkv=pamm(r=1/512);moe.expert=pamm(r=1/512)'``: K1 /
+K2 once a layer for all experts). ``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).
@@ -75,7 +78,7 @@ def main(argv=None):
     ap.add_argument("--block-structure", default="residual",
                     choices=["residual", "reversible"],
                     help="reversible = two-stream blocks whose backward rebuilds "
-                         "the residual stream instead of saving it (attn/swa "
+                         "the residual stream instead of saving it (attn/swa/moe "
                          "kinds; excludes remat, see models/blocks.py)")
     args = ap.parse_args(argv)
     _refuse_later_slices(ap, args)

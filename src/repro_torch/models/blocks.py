@@ -1,5 +1,6 @@
-"""Blocks of the dense slice (``repro/models/blocks.py``): the
-self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN, on the
+"""Blocks of the served kinds (``repro/models/blocks.py``): the
+self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN and ``moe``
+(self-attention with a mixture-of-experts FFN, ``models/moe.py``), on the
 residual structure (with or without rematerialisation) or as reversible
 two-stream blocks.
 
@@ -15,15 +16,16 @@ from torch import nn
 
 from repro_torch.core.linear import STATS_LEN, SiteMode
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
 
-SERVED_KINDS = ("attn", "swa")
-LATER_SLICE_KINDS = ("block kinds moe, latt, rec, ssm and xattn arrive with "
-                     "the port's later slices; this slice runs attn/swa")
+SERVED_KINDS = ("attn", "swa", "moe")
+LATER_SLICE_KINDS = ("block kinds latt, rec, ssm and xattn arrive with the "
+                     "port's later slices; the port runs attn/swa/moe")
 BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
 REMAT_MODES = ("none", "full", "pamm")
 # Kinds with the two-sublayer mixer/FFN split the F/G decomposition needs
-# (the JAX package's list; of these the port runs attn and swa so far)
+# (the JAX package's list; of these the port runs attn, swa and moe so far)
 REVERSIBLE_KINDS = ("attn", "swa", "latt", "moe", "rec")
 
 
@@ -79,15 +81,27 @@ def resolve_block_structure(cfg, rcfg) -> str:
     return structure
 
 
-def init_block(kind: str, cfg, gen: torch.Generator, dtype) -> dict:
-    """One layer's parameters (a plain dict with the JAX names)."""
+def init_block(kind: str, cfg, gen: torch.Generator, dtype, *, e_pad: int = 0) -> dict:
+    """One layer's parameters (a plain dict with the JAX names); ``e_pad``
+    pads a moe block's expert axis with dead experts."""
     _require_served(kind)
     return {
         "norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
         "attn": attn_lib.init_attention(gen, cfg, dtype),
         "norm2": init_rms_norm(cfg.d_model, dtype, gen.device),
-        "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype),
+        "ffn": (moe_lib.init_moe(gen, cfg, dtype, e_pad=e_pad) if kind == "moe"
+                else init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)),
     }
+
+
+def _ffn_train(kind, cfg, rcfg, ctx, params, h, key):
+    """The block's FFN sublayer through its sites: (out, aux), aux None
+    for the dense FFN."""
+    if kind == "moe":
+        return moe_lib.moe_ffn(params["ffn"], h, cfg,
+                               gather_dispatch=rcfg.moe_gather_dispatch,
+                               token_blocks=rcfg.moe_token_blocks, ctx=ctx, key=key)
+    return ffn_sites(params["ffn"], h, ctx, key), None
 
 
 def _params_module(tree: dict, trainable: bool) -> nn.Module:
@@ -172,9 +186,11 @@ def block_f(kind, cfg, rcfg, ctx, params, x, positions, key):
 
 
 def block_g(kind, cfg, rcfg, ctx, params, y1, key):
-    """Second reversible sublayer: norm2 -> FFN through its sites. The
-    caller forms y2 = x2 + G(y1). (The served kinds add no aux loss.)"""
-    return ffn_sites(params["ffn"], rms_norm(y1, params["norm2"], cfg.norm_eps), ctx, key)
+    """Second reversible sublayer: norm2 -> (Mo)FFN through its sites.
+    Returns ``(G(y1), aux)``, aux the MoE balance loss (None for the dense
+    FFN); the caller forms y2 = x2 + G(y1) and sums aux."""
+    return _ffn_train(kind, cfg, rcfg, ctx, params,
+                      rms_norm(y1, params["norm2"], cfg.norm_eps), key)
 
 
 def _two_sum(a, b):
@@ -236,17 +252,20 @@ class _Stage:
         """One layer's flat leaves -> per-block parameter dicts."""
         return [_nest(names, leaves[a:b]) for names, (a, b) in zip(self.names, self.spans)]
 
-    def run_layer(self, params, r, x1h, x1l, x2h, x2l, tele, mode):
-        """y1 = x1 + F(x2), y2 = x2 + G(y1) for each block of layer r."""
+    def run_layer(self, params, r, x1h, x1l, x2h, x2l, aux, tele, mode):
+        """y1 = x1 + F(x2), y2 = x2 + G(y1) for each block of layer r; the
+        blocks' aux losses added to ``aux``."""
         cfg, rcfg = self.cfg, self.rcfg
         for bi, kind in enumerate(self.unit):
             ctx = self.resolved.ctx(self.si, kind, tele, mode)
             bkey = self.keys[r].fold_in(bi)
             f = block_f(kind, cfg, rcfg, ctx, params[bi], x2h, self.positions, bkey)
             x1h, x1l = _dd_add(x1h, x1l, f)
-            g = block_g(kind, cfg, rcfg, ctx, params[bi], x1h, bkey)
+            g, a = block_g(kind, cfg, rcfg, ctx, params[bi], x1h, bkey)
             x2h, x2l = _dd_add(x2h, x2l, g)
-        return x1h, x1l, x2h, x2l
+            if a is not None:
+                aux = aux + a
+        return x1h, x1l, x2h, x2l, aux
 
 
 class _ReversibleStage(torch.autograd.Function):
@@ -261,7 +280,9 @@ class _ReversibleStage(torch.autograd.Function):
     telemetry, which leaves as a non-differentiable (sites, STATS_LEN)
     output. The backward's recompute compresses again from the same key
     (the same state) and reports nothing: K1 runs twice a site a layer,
-    K3 twice a layer, as in the JAX package's custom_vjp."""
+    K3 twice a layer, as in the JAX package's custom_vjp. The stage's
+    summed MoE aux loss is an output too; its cotangent reaches each
+    moe block's G with the stream's (``g_vjp((dy2, daux))`` in JAX)."""
 
     @staticmethod
     def forward(ctx, stage, x1h, x1l, x2h, x2l, *flat):
@@ -269,18 +290,19 @@ class _ReversibleStage(torch.autograd.Function):
                 for p in stage.paths}
         mode = SiteMode(stats_without_grad=True)
         per_layer = list(zip(*(t.unbind(0) for t in flat)))
+        aux = torch.zeros((), dtype=torch.float32, device=x1h.device)
         for r in range(stage.rep):
-            x1h, x1l, x2h, x2l = stage.run_layer(stage.layer(per_layer[r]), r,
-                                                 x1h, x1l, x2h, x2l, tele, mode)
+            x1h, x1l, x2h, x2l, aux = stage.run_layer(stage.layer(per_layer[r]), r,
+                                                      x1h, x1l, x2h, x2l, aux, tele, mode)
         ctx.stage = stage
         ctx.save_for_backward(x1h, x1l, x2h, x2l, *flat)
         stats = torch.stack([tele[p] for p in stage.paths]) if stage.paths else \
             torch.zeros((0, STATS_LEN), device=x1h.device)
         ctx.mark_non_differentiable(stats)
-        return x1h, x1l, x2h, x2l, stats
+        return x1h, x1l, x2h, x2l, aux, stats
 
     @staticmethod
-    def backward(ctx, dy1, _dy1l, dy2, _dy2l, _dstats):
+    def backward(ctx, dy1, _dy1l, dy2, _dy2l, daux, _dstats):
         stage = ctx.stage
         cfg, rcfg = stage.cfg, stage.rcfg
         y1h, y1l, y2h, y2l, *flat = ctx.saved_tensors
@@ -301,9 +323,13 @@ class _ReversibleStage(torch.autograd.Function):
                     # forward's output bit for bit
                     with torch.enable_grad():
                         y1 = y1h.detach().requires_grad_()
-                        g = block_g(kind, cfg, rcfg, sctx, params[bi], y1, bkey)
+                        g, g_aux = block_g(kind, cfg, rcfg, sctx, params[bi], y1, bkey)
                     x2h, x2l = _dd_add(y2h, y2l, -g.detach())
-                    dy1_g, *dpg = torch.autograd.grad(g, [y1, *leaves[a:b]], dy2,
+                    outs, cots = [g], [dy2]
+                    if g_aux is not None:     # the moe block's balance loss
+                        outs.append(g_aux)
+                        cots.append(daux)
+                    dy1_g, *dpg = torch.autograd.grad(outs, [y1, *leaves[a:b]], cots,
                                                       allow_unused=True)
                     dy1 = dy1 + dy1_g
                     with torch.enable_grad():
@@ -328,6 +354,8 @@ def reversible_stage(cfg, rcfg, unit, si, resolved, blocks, streams, tele, posit
     (``repro/models/blocks.py:reversible_stage``). ``streams``: (x1h,
     x1l, x2h, x2l), compensated pairs (:func:`_dd_add`); ``tele``: the
     run's telemetry dict, updated in place; ``key``: the step's key.
+    Returns (streams, aux): the output streams and the stage's summed MoE
+    aux loss (f32, 0 without moe blocks).
 
     ``save_memory=True`` is one :class:`_ReversibleStage` (the output
     streams saved, every layer rebuilt in backward); ``False``
@@ -335,14 +363,16 @@ def reversible_stage(cfg, rcfg, unit, si, resolved, blocks, streams, tele, posit
     stage = _Stage(cfg, rcfg, unit, si, resolved, blocks, positions, key, sorted(tele))
     flat = [p for block in blocks for _, p in block.named_parameters()]
     if save_memory:
-        *streams, stats = _ReversibleStage.apply(stage, *streams, *flat)
+        *streams, aux, stats = _ReversibleStage.apply(stage, *streams, *flat)
         for path, row in zip(stage.paths, stats):
             tele[path] = tele[path] + row
-        return tuple(streams)
+        return tuple(streams), aux
     per_layer = list(zip(*(t.unbind(0) for t in flat)))
+    aux = torch.zeros((), dtype=torch.float32, device=streams[0].device)
     for r in range(stage.rep):
-        streams = stage.run_layer(stage.layer(per_layer[r]), r, *streams, tele, None)
-    return tuple(streams)
+        *streams, aux = stage.run_layer(stage.layer(per_layer[r]), r, *streams, aux, tele,
+                                        None)
+    return tuple(streams), aux
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +382,9 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
                 cache=None, cache_positions=None):
     """Returns (x, aux). ``ctx`` is this block's SiteCtx and ``key`` its
     key (None when no site draws, as in serving); ``aux`` is the auxiliary
-    loss carried through (0 for attn/swa). ``cache``: this layer's KVCache
-    to fill in place with the prompt's (roped) K/V (prefill);
+    loss carried through (the moe kind adds its balance loss). ``cache``:
+    this layer's KVCache to fill in place with the prompt's (roped) K/V
+    (prefill);
     ``cache_positions`` marks bucketing pad rows -1 so they are dropped,
     not written (a pad row would evict a real tail token from a ring
     cache)."""
@@ -366,8 +397,9 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
         attn_lib.cache_insert(
             cache, k_roped, v,
             positions if cache_positions is None else cache_positions)
-    h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-    return x + ffn_sites(params["ffn"], h2, ctx, key), aux
+    out2, a = _ffn_train(kind, cfg, rcfg, ctx, params,
+                         rms_norm(x, params["norm2"], cfg.norm_eps), key)
+    return x + out2, aux if a is None else aux + a
 
 
 def block_decode(kind, cfg, rcfg, params, x, positions, cache, write=None):
@@ -380,6 +412,11 @@ def block_decode(kind, cfg, rcfg, params, x, positions, cache, write=None):
                                       window=_window_for(kind, cfg), write=write)
     x = x + out
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
+    if kind == "moe":
+        out2, _ = moe_lib.moe_ffn(params["ffn"], h2, cfg,
+                                  gather_dispatch=rcfg.moe_gather_dispatch,
+                                  token_blocks=rcfg.moe_token_blocks, with_aux=False)
+        return x + out2, cache
     return x + ffn(params["ffn"], h2), cache
 
 

@@ -1,4 +1,4 @@
-"""Model assembly of the dense slice (``repro/models/model.py``):
+"""Model assembly (``repro/models/model.py``):
 embedding -> staged block stack -> final norm -> head.
 
   init_model(cfg, rcfg, seed=0, device="cuda")          -> Model
@@ -92,12 +92,14 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
     _, pdt = _dtype(rcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     v_pad = _padded_vocab(cfg, rcfg)
+    em = getattr(rcfg, "pad_experts_multiple", 0)
+    e_pad = -(-cfg.n_experts // em) * em if (em and cfg.n_experts) else 0
     embed = embed_init(gen, v_pad, cfg.d_model, pdt)
     stages = []
     for unit, rep in cfg.stages:
         stages.append([
-            blk.Block.from_layers(kind, [blk.init_block(kind, cfg, gen, pdt)
-                             for _ in range(rep)])
+            blk.Block.from_layers(kind, [blk.init_block(kind, cfg, gen, pdt, e_pad=e_pad)
+                                         for _ in range(rep)])
             for kind in unit])
     final_norm = init_rms_norm(cfg.d_model, pdt, device)
     head = (torch.randn((cfg.d_model, v_pad), generator=gen, device=device)
@@ -191,9 +193,10 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
         zero = torch.zeros_like(x)
         streams = (x, zero, x, zero)
         for si, (unit, _) in enumerate(cfg.stages):
-            streams = blk.reversible_stage(
+            streams, stage_aux = blk.reversible_stage(
                 cfg, rcfg, unit, si, resolved, list(model.stages[si]), streams, tele,
                 positions, key, save_memory=structure == "reversible")
+            aux = aux + stage_aux
         x1h, x1l, x2h, x2l = streams
         x = 0.5 * ((x1h + x1l) + (x2h + x2l))
     else:
@@ -217,7 +220,7 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
 
 
 def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
-    """Mean token NLL (+ the MoE aux term, 0 here) and its metrics
+    """Mean token NLL (+ the MoE aux term) and its metrics
     ``{"nll", "aux", "sites"}`` -- the port of the JAX ``loss_fn``."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     tele: dict = {}

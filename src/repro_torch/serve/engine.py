@@ -8,7 +8,8 @@ Three explicit stages, as in the JAX engine --
 
 -- with the ``submit``/``step``/``run`` continuous-batching loop as a thin
 orchestrator on top. A request is prefilled alone (batch 1, prompt padded
-to a power-of-two bucket; attention through K3), its cache spliced into a
+to a power-of-two bucket unless the arch's prefill couples rows beyond
+causal attention; attention through K3), its cache spliced into a
 free slot of the engine's dense cache, and then decoded with every other
 active slot, ``decode_block`` tokens per ``generate`` call (attention
 through K6). Where the JAX engine runs the block as one jitted
@@ -16,9 +17,14 @@ through K6). Where the JAX engine runs the block as one jitted
 token, position, activity, budget and sample-index vectors on the device
 and synchronises with the host once per block, not once per token.
 
-Per-sequence math is row-independent, so a request's tokens do not depend
-on which other requests share the batch. On the card this holds for a
-fixed slot count: the matrix products see the same shapes either way.
+For attn / swa blocks per-sequence math is row-independent, so a
+request's tokens do not depend on which other requests share the batch.
+On the card this holds for a fixed slot count: the matrix products see
+the same shapes either way. A moe block couples the rows of a step
+through its expert capacity, as in the JAX engine: every slot, a parked
+one too, takes part in each decode step with the token it carries, and a
+prompt is prefilled at its own length (bucketing off, ``stats()
+["buckets_enabled"]`` False), since pad rows would take capacity.
 
 Cache layouts (``cache_layout=dense|paged``): ``dense`` reserves a
 ``(layers, B, max_len, KV, dh)`` slab, so a short request pays for
@@ -41,8 +47,8 @@ leading run that matches greedy decoding.
 Several engines on one card, each with its own slots and pools, sit
 behind ``serve.router.Router``; a Prefix crosses between them in host
 form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
-Still refused: mesh sharding (the port's multi-GPU slice) and the moe /
-ssm / rec / xattn kinds (later slices).
+Still refused: mesh sharding (the port's multi-GPU slice) and the ssm /
+rec / latt / xattn kinds (later slices).
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ import collections
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -65,6 +72,7 @@ from repro_torch.serve import paging
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 
 PAD_TOKEN = -1
+_BUCKET_WARNED: set[str] = set()
 LATER_SLICE_MULTI = ("{what} arrives with the port's multi-GPU slice; this "
                      "slice serves engines on one device")
 
@@ -288,6 +296,24 @@ class ServeEngine:
                 self._kv_capacity_bytes += pages * ps * tb
             else:
                 self._kv_capacity_bytes += node.k.shape[1] * node.k.shape[2] * tb
+
+        # prompt-length bucketing: off for archs whose prefill couples
+        # rows / positions beyond causal attention (MoE expert capacity;
+        # recurrent state in later slices): pad tokens there would change
+        # the spliced state, not just dead cache rows
+        coupled = sorted(kinds & {"rec", "ssm", "moe"})
+        self.prefill_buckets = not coupled
+        if coupled:
+            arch = getattr(cfg, "name", "+".join(coupled))
+            if arch not in _BUCKET_WARNED:
+                _BUCKET_WARNED.add(arch)
+                warnings.warn(
+                    f"prefill buckets auto-disabled for arch {arch!r}: "
+                    f"its {'/'.join(coupled)} blocks carry sequence-"
+                    "coupled prefill state, so pad tokens would perturb "
+                    "the spliced caches — every distinct prompt length "
+                    "compiles its own prefill (engine stats() reports "
+                    "buckets_enabled=False)", stacklevel=2)
         self.bucket_lens: set[int] = set()
 
         # --- copy-on-write prefix sharing + self-speculative decode ---
@@ -681,9 +707,12 @@ class ServeEngine:
 
     def _bucket_len(self, lp: int) -> int:
         """The next power of two (>= 16) at or above ``lp``, capped at
-        max_len: a handful of prefill shapes instead of one per length.
-        Every served kind (attn/swa) couples rows only through causal
-        attention, so pad rows cannot perturb the real rows' state."""
+        max_len: a handful of prefill shapes instead of one per length
+        (attn / swa couple rows only through causal attention, so pad rows
+        cannot perturb the real rows' state). ``lp`` itself when bucketing
+        is off (a moe arch: pad rows would take expert capacity)."""
+        if not self.prefill_buckets:
+            return lp
         b = 16
         while b < lp:
             b <<= 1
@@ -1032,6 +1061,7 @@ class ServeEngine:
             "nonfinite_logits": self.nonfinite_logits,
             "cache_slot_bytes": cache_lib.slot_bytes(self.caches, self.max_slots),
             "prefill_buckets": len(self.bucket_lens),
+            "buckets_enabled": self.prefill_buckets,
             "replica_shards": 1,
             "prefix_share": self.prefix_share,
             "prefix_hits": self.prefix_hits,

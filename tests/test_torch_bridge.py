@@ -9,7 +9,8 @@ from repro.models import init_model
 from repro_torch import bridge
 from repro_torch.configs import get_config as torch_get_config
 
-ARCHS = ["llama-tiny", "internlm2-1.8b_smoke", "qwen2-72b_smoke", "qwen3-32b_smoke"]
+ARCHS = ["llama-tiny", "internlm2-1.8b_smoke", "qwen2-72b_smoke", "qwen3-32b_smoke",
+         "granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke"]
 
 
 def _jax_params(arch, dtype="float32"):
@@ -60,3 +61,45 @@ def test_bridge_round_trip_bfloat16():
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(bridge.to_jax_params(model))):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint16), b.view(np.uint16))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke"])
+def test_bridge_moe_leaves_and_train_state(arch):
+    """The MoE leaves with bf16 parameters: the router stays f32 (rep, d,
+    E), the experts stack (rep, E, d, f) / (rep, E, f, d), kimi's shared
+    expert is a dense FFN; a JAX TrainState's optimizer state goes both
+    ways, and ``train_state_tree`` has the JAX TrainState's paths."""
+    from repro.configs import RunConfig as JaxRunConfig
+    from repro.train import init_train_state as jax_init_train_state
+    from repro_torch.configs import RunConfig as TorchRunConfig
+    from repro_torch.train import init_train_state
+
+    cfg = torch_get_config(arch)
+    jr = JaxRunConfig(compression="", param_dtype="bfloat16")
+    jstate, _ = jax_init_train_state(get_config(arch), jr, jax.random.key(0))
+    params = jax.tree.map(np.asarray, jstate.params)
+    model = bridge.from_jax_params(params, cfg, device="cpu")
+    si = next(i for i, (unit, _) in enumerate(cfg.stages) if "moe" in unit)
+    rep = cfg.stages[si][1]
+    moe = model.stages[si][0].ffn
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    assert moe.router.dtype == torch.float32 and tuple(moe.router.shape) == (rep, d, e)
+    assert moe.w_gate.dtype == torch.bfloat16
+    assert tuple(moe.w_gate.shape) == tuple(moe.w_up.shape) == (rep, e, d, f)
+    assert tuple(moe.w_down.shape) == (rep, e, f, d)
+    assert hasattr(moe, "shared") == bool(cfg.n_shared_experts)
+    if cfg.n_shared_experts:
+        assert tuple(moe.shared.w_gate.shape) == (rep, d, f * cfg.n_shared_experts)
+    m = jax.tree.map(lambda p: np.full(p.shape, 0.5, np.float32), params)
+    v = jax.tree.map(lambda p: np.full(p.shape, 0.25, np.float32), params)
+    opt = bridge.opt_state_from_jax(np.int32(3), m, v, model)
+    assert opt.step == 3 and set(opt.m) == {n for n, _ in model.named_parameters()}
+    step, m2, v2 = bridge.opt_state_to_jax(opt, model)
+    assert jax.tree.structure(m2) == jax.tree.structure(m)
+    for a, b in zip(jax.tree.leaves(v), jax.tree.leaves(v2)):
+        np.testing.assert_array_equal(a, b)
+    port = init_train_state(cfg, TorchRunConfig(compression="", param_dtype="bfloat16"),
+                            device="cpu", seed=1)
+    flat = lambda t: [jax.tree_util.keystr(p) for p, _ in
+                      jax.tree_util.tree_flatten_with_path(t)[0]]
+    assert flat(bridge.train_state_tree(port)) == flat(jstate)

@@ -9,7 +9,9 @@ order); bf16 atol 5e-2 on o (both round o to bf16); lse atol 1e-3.
 K1: |cs| and norms to 1e-5 relative (f32 dots of up to a few thousand
 terms in another order); idx equal wherever the plain top-2 |csim| margin
 exceeds 1e-4. K2: 1e-5 of the output's scale (f32 sums in another order)
-and bitwise equal across two launches. K4/K5: f32 1e-4 and bf16 2e-2 of
+and bitwise equal across two launches. The batched K1 / K2 (the MoE
+site's experts in one launch) are held the same way, and each expert's
+output bitwise to a 2-D launch on that expert's inputs. K4/K5: f32 1e-4 and bf16 2e-2 of
 each gradient's largest magnitude (f32 sums over up to L terms in another
 order; bf16 rounds the outputs, and the tensor-core route rounds P and dS
 to bf16 before their products), and every row of dh to its own norm
@@ -40,8 +42,12 @@ from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_re
                                               flash_paged_decode_quant_cuda,
                                               flash_paged_decode_quant_ref,
                                               flash_paged_decode_ref)
-from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
-from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
+                                            segment_matmul_batched_ref, segment_matmul_cuda,
+                                            segment_matmul_ref)
+from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
+                                               csim_argmax_batched_ref, csim_argmax_cuda,
+                                               csim_argmax_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 K3_CASES = [
@@ -57,6 +63,7 @@ K3_CASES = [
     (2, 257, 8, 8, 64, True, 100),    # MHA, dh 64, a window
     (1, 333, 16, 8, 32, False, 0),    # non-causal past five tiles
     (2, 1030, 16, 8, 128, True, 256), # internlm2's heads, a ring window of 256
+    (1, 1030, 24, 8, 64, True, 0),    # granite's heads: G 3 at dh 64
 ]
 K6_CASES = [
     # B, S, H, KV, dh, window, n_valid
@@ -66,6 +73,7 @@ K6_CASES = [
     (1, 16, 2, 2, 128, 8, 16),
     (3, 300, 16, 1, 256, 0, 260),     # G = 16 rows of dh 256
     (2, 129, 8, 8, 112, 0, 100),      # MHA, S past two tiles
+    (8, 1089, 24, 8, 64, 0, 1000),    # granite's serving shape: G 3 at dh 64
 ]
 
 
@@ -253,6 +261,7 @@ K45_CASES = [
     (1, 300, 8, 2, 112, True, 40),    # kimi's head dim, a window
     (1, 1100, 16, 1, 128, True, 0),   # MQA: G = 16 folded in K5; L not a multiple of a tile
     (2, 33, 16, 1, 16, True, 0),      # MQA at dh 16, L 33
+    (2, 1030, 24, 8, 64, True, 0),    # granite's heads: G 3 folded in K5 at dh 64
 ]
 
 
@@ -341,6 +350,90 @@ def test_k2_cuda_skips_rows_outside_the_generators(cuda_device, b, m, k):
     ref = segment_matmul_ref(f[keep], alpha[keep], gz[keep], k)
     assert torch.equal(out, segment_matmul_cuda(f, alpha, gz, k))
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def _expert_rows(E, b, n, g, dtype):
+    """x (E, b, n): expert 0 all zero, the second half of expert 1's rows
+    zero (the MoE site's capacity padding)."""
+    x = _randn((E, b, n), g, dtype)
+    x[0] = 0
+    if E > 1:
+        x[1, b // 2:] = 0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E", [1, 3, 40])
+def test_k1_batched_cuda_matches_plain(cuda_device, E, dtype):
+    """The batched K1 (E 40 at the MoE site's b 2048 x n 1536, k 4) against
+    its plain version, as the 2-D K1 is held; an all-zero row gives cs 0,
+    index 0 and norm 0; two launches and each expert's 2-D launch give
+    the same bits."""
+    b, n, k = (2048, 1536, 4) if E == 40 else (1000, 200, 20)
+    g = torch.Generator(device=cuda_device).manual_seed(E + n)
+    x = _expert_rows(E, b, n, g, dtype)
+    idx = torch.stack([torch.randperm(b, generator=g, device=cuda_device)[:k]
+                       for _ in range(E)])
+    c = x[torch.arange(E, device=cuda_device)[:, None], idx].contiguous()
+    cs, f, na = csim_argmax_batched_cuda(x, c)
+    for a, b_ in zip((cs, f, na), csim_argmax_batched_cuda(x, c)):
+        assert torch.equal(a, b_)
+    cs_r, f_r, na_r = csim_argmax_batched_ref(x, c)
+    assert f.dtype == torch.int32 and f.shape == (E, b) and int(f.max()) < k
+    assert not cs[0].any() and not f[0].any() and not na[0].any()
+    torch.testing.assert_close(cs.abs(), cs_r.abs(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(na, na_r, rtol=1e-5, atol=1e-6)
+    csim = torch.bmm(x.float(), c.float().transpose(1, 2)) / (
+        na_r.clamp_min(1e-20)[..., None] * c.float().norm(dim=2).clamp_min(1e-20)[:, None])
+    top2 = csim.abs().topk(min(2, k), dim=2).values
+    clear = top2[..., 0] - top2[..., -1] > 1e-4
+    assert torch.equal(f[clear], f_r[clear])
+    for e in range(min(E, 3)):
+        for a, b_ in zip((cs[e], f[e], na[e]), csim_argmax_cuda(x[e], c[e])):
+            assert torch.equal(a, b_)
+
+
+def _k2_fixed_batched_splits(n):
+    """A stand-in for ``pamm_apply._splits_batched`` fixing K2's split count
+    at ``n`` (at most one a row)."""
+    def splits(e, b, m, k):
+        per = -(-b // n)
+        return -(-b // per), per
+    return splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [None, 1, 3, 17])
+@pytest.mark.parametrize("E", [1, 3, 40])
+def test_k2_batched_cuda_matches_plain_and_is_deterministic(cuda_device, monkeypatch, E,
+                                                             splits, dtype):
+    """The batched K2 (E 40 at the MoE site's b 2048, k 4, m 512) against
+    its plain version at the rule's split count and forced ones; two
+    launches give the same bits, and so does each expert's 2-D launch at
+    the same split count. Expert 0's rows are the all-zero padding (alpha
+    0), expert 1's second half too."""
+    b, m, k = (2048, 512, 4) if E == 40 else (1000, 203, 5)
+    if splits is not None:
+        monkeypatch.setattr(pamm_apply, "_splits_batched", _k2_fixed_batched_splits(splits))
+    g = torch.Generator(device=cuda_device).manual_seed(E + m)
+    f = torch.randint(0, k, (E, b), generator=g, device=cuda_device, dtype=torch.int32)
+    alpha = torch.randn((E, b), generator=g, device=cuda_device)
+    alpha[0] = 0
+    if E > 1:
+        alpha[1, b // 2:] = 0
+        f[1, b // 2:] = 0
+    gz = _randn((E, b, m), g, dtype)
+    out = segment_matmul_batched_cuda(f, alpha, gz, k)
+    assert out.shape == (E, k, m) and not out[0].any()
+    assert torch.equal(out, segment_matmul_batched_cuda(f, alpha, gz, k))
+    ref = segment_matmul_batched_ref(f, alpha, gz, k)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    nsplit, per = pamm_apply._splits_batched(E, b, m, k)
+    monkeypatch.setattr(pamm_apply, "_splits", lambda b_, m_, k_: (nsplit, per))
+    for e in range(min(E, 3)):
+        assert torch.equal(out[e], segment_matmul_cuda(f[e], alpha[e], gz[e], k))
 
 
 @pytest.mark.cuda

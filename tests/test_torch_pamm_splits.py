@@ -10,6 +10,9 @@ oracles (``repro/kernels/ref.py``) and the port's plain versions:
   order into its own f32 accumulator at row f_i (a row with f_i outside
   [0, k) is skipped), the block sums its warps in order, and a second pass
   sums the splits in the order s = 0..S-1.
+* The batched K2 (the MoE site's experts in one launch) runs the same
+  split-and-merge per expert, S from :func:`_splits_batched` (e, b, m, k),
+  which counts the experts' blocks together.
 * K1 walks the generators in chunks of 16 and keeps a running best per
   row, replaced only by a strictly larger |csim| of a later chunk, so a tie
   across a chunk boundary goes to the lower index, as in the plain arg-max.
@@ -21,6 +24,7 @@ rows built to tie (integer data: every sum exact).
 """
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,8 +33,12 @@ import torch
 from repro.kernels import ref as jax_ref
 from repro.kernels.pamm_apply import segment_matmul
 from repro.kernels.pamm_compress import csim_argmax
-from repro_torch.kernels.pamm_apply import _splits, segment_matmul_cuda, segment_matmul_ref
-from repro_torch.kernels.pamm_compress import NORM_EPS, csim_argmax_cuda, csim_argmax_ref
+from repro_torch.kernels.pamm_apply import (_splits, _splits_batched, segment_matmul_batched_cuda,
+                                            segment_matmul_batched_ref, segment_matmul_cuda,
+                                            segment_matmul_ref)
+from repro_torch.kernels.pamm_compress import (NORM_EPS, csim_argmax_batched_cuda,
+                                               csim_argmax_batched_ref, csim_argmax_cuda,
+                                               csim_argmax_ref)
 
 TOL = 1e-5
 MARGIN = 1e-4
@@ -160,6 +168,50 @@ def test_k2_split_merge_matches_jax_kernel_and_oracle(b, m, k, splits, dtype):
         np.testing.assert_allclose(mine.numpy(), other, rtol=0, atol=TOL * scale)
 
 
+def test_k2_batched_split_rule_counts_the_experts_blocks():
+    assert list(inspect.signature(_splits_batched).parameters) == ["e", "b", "m", "k"]
+    assert _splits_batched(40, 2048, 512, 4) == (4, 621)    # the MoE site (granite)
+    S, _ = _splits_batched(40, 2048, 512, 4)
+    assert S * 2 * 40 == 320                                # 2 column tiles x 40 experts
+    for b in (1, 129, 2048, 8192, 70001):
+        for m in (1, 203, 512, 4096):
+            for k in (1, 4, 16, 17):
+                assert _splits_batched(1, b, m, k) == _splits(b, m, k)
+                for e in (3, 40, 384):
+                    S, per = _splits_batched(e, b, m, k)
+                    assert per >= 64 and S <= 65535
+                    assert (S - 1) * per < b <= S * per     # no split is empty
+                    assert S <= _splits(b, m, k)[0]         # more experts, fewer splits
+
+
+@pytest.mark.parametrize("E", [1, 3, 40])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_batched_split_merge_matches_jax_kernel_and_oracle(E, dtype):
+    """Each expert's split-and-merge at the batched rule's S against the
+    JAX kernel vmapped over the experts (interpret mode) and the batched
+    plain version; expert 0's rows all skipped (an all-zero Btilde)."""
+    b, m, k = 300, 72, 4
+    rng = np.random.default_rng(E)
+    f = rng.integers(0, k, (E, b)).astype(np.int32)
+    f[0] = -1
+    alpha = rng.standard_normal((E, b), dtype=np.float32)
+    gz = rng.standard_normal((E, b, m), dtype=np.float32)
+    gzt = torch.from_numpy(gz).to(getattr(torch, dtype))
+    nsplit, per = _splits_batched(E, b, m, k)
+    mine = torch.stack([split_merge(torch.from_numpy(f[e]), torch.from_numpy(alpha[e]),
+                                    gzt[e], k, nsplit, per) for e in range(E)])
+    assert float(mine[0].abs().max()) == 0
+    keep = f >= 0
+    plain = segment_matmul_batched_ref(torch.from_numpy(np.where(keep, f, 0)),
+                                       torch.from_numpy(np.where(keep, alpha, 0)), gzt, k)
+    jk = jax.vmap(lambda ff, aa, gg: segment_matmul(ff, aa, gg, k, interpret=True))(
+        jnp.asarray(f), jnp.asarray(alpha), jnp.asarray(gz, getattr(jnp, dtype)))
+    for other in (jk, plain):
+        other = np.asarray(other, np.float32)
+        scale = float(np.abs(other).max())
+        np.testing.assert_allclose(mine.numpy(), other, rtol=0, atol=TOL * scale)
+
+
 def test_k1_k2_cuda_wrappers_refuse_cpu_tensors():
     """The kernels' wrappers launch or raise: a CPU tensor goes to the plain
     version through ops, never through a wrapper."""
@@ -168,6 +220,11 @@ def test_k1_k2_cuda_wrappers_refuse_cpu_tensors():
                             torch.zeros(4, 8), 2)
     with pytest.raises(ValueError, match="CUDA"):
         csim_argmax_cuda(torch.zeros(4, 8), torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        segment_matmul_batched_cuda(torch.zeros(2, 4, dtype=torch.int32), torch.zeros(2, 4),
+                                    torch.zeros(2, 4, 8), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        csim_argmax_batched_cuda(torch.zeros(2, 4, 8), torch.zeros(2, 2, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -224,3 +281,28 @@ def test_k1_chunk_walk_breaks_ties_across_chunks_to_the_lowest_index():
                          jax_ref.csim_argmax_ref(jnp.asarray(x), jnp.asarray(c))):
         np.testing.assert_array_equal(f.numpy()[clear], np.asarray(o_f)[clear])
         np.testing.assert_allclose(cs.numpy()[:3], np.asarray(o_cs)[:3], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("E", [1, 3])
+def test_k1_batched_chunk_walk_matches_the_batched_plain_version(E):
+    """The batched K1 runs the 2-D body per expert (blockIdx.y): each
+    expert's chunk walk against the batched plain version, the indices
+    where the margin is clear; an all-zero expert gives cs 0, index 0 and
+    norm 0."""
+    b, n, k = 200, 64, 20
+    rng = np.random.default_rng(E + 11)
+    x = rng.standard_normal((E, b, n), dtype=np.float32)
+    x[0] = 0
+    sel = np.stack([rng.permutation(b)[:k] for _ in range(E)])
+    xt = torch.from_numpy(x)
+    c = xt[torch.arange(E)[:, None], torch.from_numpy(sel)]
+    cs, f, na = csim_argmax_batched_ref(xt, c)
+    assert float(cs[0].abs().max()) == 0 and int(f[0].abs().max()) == 0
+    assert float(na[0].max()) == 0
+    for e in range(E):
+        cs_e, f_e, na_e = chunked_argmax(xt[e], c[e])
+        np.testing.assert_allclose(np.abs(cs_e.numpy()), np.abs(cs[e].numpy()), rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(na_e.numpy(), na[e].numpy(), rtol=TOL, atol=1e-6)
+        clear = _clear(xt[e], c[e]).numpy()
+        np.testing.assert_array_equal(f_e.numpy()[clear], f[e].numpy()[clear])

@@ -167,8 +167,8 @@ REFUSALS = {
     "ssm": ("mamba2-370m_smoke", dict(block_structure="reversible"), ValueError, "ssm"),
     "xattn": ("llama-3.2-vision-11b_smoke", dict(block_structure="reversible"), ValueError,
               "xattn"),
-    "moe": ("granite-moe-3b-a800m_smoke", dict(block_structure="reversible"),
-            NotImplementedError, "later slices"),
+    "moe": ("granite-moe-3b-a800m_smoke", dict(block_structure="reversible", remat="pamm"),
+            ValueError, "remat"),
     "rec": ("recurrentgemma-9b_smoke", dict(block_structure="reversible"),
             NotImplementedError, "later slices"),
 }
@@ -176,9 +176,10 @@ REFUSALS = {
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_config_time_refusals(case):
-    """The JAX package's checks and texts (remat x reversible, an unknown
-    structure, kinds without an F/G split); kinds the port does not run
-    yet raise NotImplementedError naming the later slice."""
+    """The JAX package's checks and texts (remat x reversible, also on a
+    moe arch, whose reversible stack trains since the MoE slice; an
+    unknown structure, kinds without an F/G split); kinds the port does
+    not run yet raise NotImplementedError naming the later slice."""
     arch, kw, exc, match = REFUSALS[case]
     with pytest.raises(exc, match=match):
         make_train_step(get_config(arch), RunConfig(compression="", **kw))

@@ -178,17 +178,20 @@ def test_prefill_with_a_plan_is_exact_and_compresses_nothing():
 def test_later_slices_are_refused():
     """What the port still refuses, naming the slice: gradient compression
     (multi-GPU) and block kinds it does not run yet. Remat and reversible
-    blocks train now (tests/test_torch_remat.py, test_torch_revnet.py)."""
+    blocks train now (tests/test_torch_remat.py, test_torch_revnet.py), and
+    moe blocks under both structures (tests/test_torch_moe.py)."""
     cfg = get_config("internlm2-1.8b_smoke")
     for kw in ({"remat": "full"}, {"remat": "pamm"}, {"block_structure": "reversible"},
                {"block_structure": "reversible_ref"}):
         make_train_step(cfg, RunConfig(**kw))
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         make_train_step(cfg, RunConfig(grad_compress="int8_ef"))
+    for kw in ({}, {"block_structure": "reversible"}):
+        make_train_step(get_config("granite-moe-3b-a800m_smoke"), RunConfig(**kw))
     with pytest.raises(NotImplementedError, match="later slices"):
-        make_train_step(get_config("granite-moe-3b-a800m_smoke"), RunConfig())
+        make_train_step(get_config("mamba2-370m_smoke"), RunConfig())
     with pytest.raises(NotImplementedError, match="later slices"):
-        make_train_step(get_config("granite-moe-3b-a800m_smoke"),
+        make_train_step(get_config("recurrentgemma-9b_smoke"),
                         RunConfig(block_structure="reversible"))
 
 

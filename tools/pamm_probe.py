@@ -198,12 +198,12 @@ def main():
     # host time of the wrappers' pieces (the last variant's build: K2 as is)
     m = 2048
     S, per = pa._splits(b, m, k)
-    entry = build.entry("segment_matmul")
+    entry = build.entry("segment_matmul_batched")
     out = torch.empty((k, m), device="cuda")
     part = torch.empty((S, k, m), device="cuda")
     stream = torch.cuda.current_stream(gz[m].device).cuda_stream
     args = (f.data_ptr(), alpha.data_ptr(), gz[m].data_ptr(), out.data_ptr(), part.data_ptr(),
-            b, m, k, S, per, 1, stream)
+            1, b, m, k, S, per, 1, stream)
     pieces = {
         "K2 wrapper": lambda: pa.segment_matmul_cuda(f, alpha, gz[m], k),
         "K2 _check": lambda: pa._check(f, alpha, gz[m], k),
@@ -214,7 +214,7 @@ def main():
             gz[m].device).cuda_stream,
         "build.raw_stream": lambda: build.raw_stream(gz[m]),
         "K2 one torch.empty": lambda: torch.empty((S + 1) * k * m, device=gz[m].device),
-        "build.entry": lambda: build.entry("segment_matmul"),
+        "build.entry": lambda: build.entry("segment_matmul_batched"),
         "K2 ctypes call (launches)": lambda: entry(*args),
         "K1 wrapper": lambda: pc.csim_argmax_cuda(x, c),
         "K1 _check": lambda: pc._check(x, c),
