@@ -4,7 +4,7 @@ paged / quantised / low-rank KV-cache serving, the serving front (a Router
 over engine replicas on the card) and PAMM-compressed training of
 internlm2-1.8b, with rematerialisation, reversible blocks and
 checkpoint/restart; then serving and PAMM training of the MoE model
-granite-moe-3b-a800m.
+granite-moe-3b-a800m and of the state-space model mamba2-370m.
 
   python3 chip_smoke.py
 
@@ -86,7 +86,7 @@ is caught and ignored:
                         greedy_decode against greedy_decode_per_token (8 x
                         1024 prompts, 64 steps, dense: tokens up to near
                         ties, launches, wall ms per decode step: median
-                        and quartiles over 6 rounds, the order alternating)
+                        and quartiles over 4 rounds, the order alternating)
   9. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
                         bf16 (tensor cores) and f32 and at k = b/8; K2 at m
@@ -146,8 +146,9 @@ is caught and ignored:
                         1, 3 and 17 forced ones; one expert all zero and
                         half of another; two launches and each of experts
                         0-2 against a 2-D launch bitwise equal; then K3,
-                        K4/K5, K6 and K7 at granite's 24 / 8 heads of 64
-                        (G 3) at the serving and training shapes
+                        K4/K5, K6, K7 and K8 (int8, int4) at granite's 24 /
+                        8 heads of 64 (G 3) at the serving and training
+                        shapes
   15. MoE serving       granite-moe-3b-a800m (32 layers, d 1536, 40 experts
                         top-8, 3.374 B params), bf16, random weights from
                         seed 0, the serving phase's 16 requests: dense (K3,
@@ -159,8 +160,14 @@ is caught and ignored:
                         capacity couples a step's slots, so no solo run is
                         a reference); at capacity factor 16 (nothing
                         dropped) every greedy token against a
-                        teacher-forced forward; a profiler split of one
-                        prefill and one decode block
+                        teacher-forced forward; then int8 and int4 page
+                        pools at capacity factor 16 (K8 = 32 x decode
+                        steps, no other decode kernel; greedy streams
+                        against the fp run parting only at a near tie
+                        widened by the format's JAX logit bound, 0.25 + 2
+                        x 0.15 / 1.5, and every greedy token against a
+                        teacher-forced forward at that margin); a profiler
+                        split of one prefill and one decode block
   16. MoE training      granite-moe-3b-a800m, full width and depth, f32
                         params / bf16 compute, attn.qkv=pamm(r=1/512);
                         moe.expert=pamm(r=1/512), remat='pamm', AdamW,
@@ -177,8 +184,38 @@ is caught and ignored:
                         reversible_ref (1e-4)
   17. MoE numbers       the batched K1 / K2 as kernel rows (plain version,
                         bound, launches on the MoE training path), and
-                        K3-K7 at granite's shapes beside their plain
+                        K3-K8 at granite's shapes beside their plain
                         versions, SDPA and the bound
+  18. ssm kernels       K1 at the ssm.in site's shape (8192 x 1024, k 16)
+                        and K2 at its gradient's (b 8192, k 16, m 4384: 17
+                        column tiles of 256 and a ragged one of 32, at the
+                        rule's split count and at 3), bf16, against their
+                        plain versions, two launches bitwise equal
+  19. ssm serving       mamba2-370m (48 layers, d 1024, d_inner 2048, 32
+                        heads of 64, state 128), bf16, random weights from
+                        seed 0, the serving phase's 16 requests, dense then
+                        paged (no page pool: the state stays a dense slot
+                        cache): no attention kernel and no plain version
+                        launched, every request finished, finite logits,
+                        bucketing off, both layouts' tokens equal to a
+                        warm-up run's, greedy requests 0 and 1 alone equal
+                        to batched, every greedy token against a
+                        teacher-forced forward within the near tie; a
+                        profiler split of one prefill and one decode block
+  20. ssm training      mamba2-370m, full width and depth, f32 params /
+                        bf16 compute, ssm.in=pamm(r=1/512), remat='pamm'
+                        ('none' does not hold 48 layers at 4 x 2048),
+                        AdamW, batch 4 x 2048: one warm-up and 3 measured
+                        steps (finite losses; launches a step K1 = K2 = 48,
+                        K3-K8 and plain 0; telemetry; step and forward +
+                        backward peaks; a profiler split), forward +
+                        backward under remat='none' at 16 of the 48 layers
+                        with and without the ssm.in rule (the site's
+                        saving), a second run from the seed; then
+                        mamba2-370m_smoke in f32, card against CPU
+  21. ssm numbers       K1 and K2 at the ssm.in site's shapes as kernel rows
+                        (plain version, bound, launches on the mamba2
+                        training path)
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -244,10 +281,13 @@ FRONT_POOL = 2 * 17 * PAGE
 FRONT_REPLICAS = (1, 2, 4)
 FRONT_GEN = 32                     # new tokens: 64 would add more than ~90 s
 SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 64
-SERVE_STEP_ROUNDS = 6              # engine / loop turns, each order half the time
+SERVE_STEP_ROUNDS = 4              # engine / loop turns, each order half the time
 # first spliced decode step, compressed pool against fp paged: the JAX
 # package's per-format bounds (tests/test_kvquant.py:364-367)
 FORMAT_TOL = {"int8": 0.15, "int4": 1.5, "svd(r=1/2)": 8.0}
+# a near tie of bf16 logits (O(10)) after a deep stack: the top-2 margin
+# under which two bf16 paths may pick different tokens
+TOL_NEAR = 0.25
 K1_SOURCE = "src/repro_torch/csrc/pamm_compress.cu"
 K2_SOURCE = "src/repro_torch/csrc/pamm_apply.cu"
 K45_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
@@ -292,6 +332,23 @@ MOE_HEADS = (24, 8, 64)              # H, KV, dh: G 3
 MOE_CUT_LAYERS = 8                   # the site's saving, measured under remat='none'
 MOE_SMOKE, MOE_SMOKE_SPEC = ("granite-moe-3b-a800m_smoke",
                              "attn.qkv=pamm(r=1/8);moe.expert=pamm(r=1/4)")
+# the ssm slice: mamba2-370m (48 layers, d 1024, d_inner 2048, 32 heads of 64,
+# state 128, 1 group, conv 4, chunk 128): its in-projection is the ssm.in site,
+# K1 at n 1024 and K2 at m = d_in_proj 4384 (17 column tiles of 256 and a
+# ragged one of 32); k = 8192 / 512
+SSM_ARCH = "mamba2-370m"
+SSM_SPEC = "ssm.in=pamm(r=1/512)"
+SSM_D, SSM_M, SSM_K = 1024, 4384, 16
+SSM_SMOKE, SSM_SMOKE_SPEC = "mamba2-370m_smoke", "ssm.in=pamm(r=1/8)"
+# remat='none' cannot hold 48 layers' activations at 4 x 2048 (about 1.45
+# GiB a layer: out of memory on the 80 GB card), so the cell trains under
+# 'pamm', and the site's saving is measured under 'none' at a cut depth
+SSM_REMAT = "pamm"
+SSM_CUT_LAYERS = 16
+# the kernels of the other slices: none may launch on the ssm path
+ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_dq",
+                "flash_attention_dkv", "flash_attention_dq_f32", "flash_attention_dkv_f32",
+                "flash_decode", "flash_paged_decode", "flash_paged_decode_quant")
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 
@@ -1092,11 +1149,12 @@ def _counted(drive):
     return out, launches.counts()
 
 
-def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged"):
+def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged",
+                              tol=TOL_NEAR):
     """Where two greedy streams of one request differ, the first
     divergence must sit at a near tie: a fresh prefill over the prompt and
-    the shared tokens has a top-2 margin below 0.25 (the dense phase's
-    rule). Returns the index of the first divergence or None."""
+    the shared tokens has a top-2 margin below ``tol`` (the dense phase's
+    0.25). Returns the index of the first divergence or None."""
     import torch
 
     from repro_torch.models import prefill
@@ -1111,17 +1169,18 @@ def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged
     margin = float(top2[0] - top2[1])
     print(f"[{tag}] {what}: request {req.uid} first differs at token {t}, top-2 margin "
           f"{margin:.4f}")
-    check(margin < 0.25, f"{what}: request {req.uid} diverged at token {t} at a margin of "
-                         f"{margin:.3f}, not a near tie")
+    check(margin < tol, f"{what}: request {req.uid} diverged at token {t} at a margin of "
+                        f"{margin:.3f}, not a near tie (< {tol})")
     return t
 
 
-def teacher_forced(cfg, rcfg, model, req, tokens, what):
+def teacher_forced(cfg, rcfg, model, req, tokens, what, tol=TOL_NEAR):
     """Every token of a greedy stream against the argmax of one forward
-    pass over the prompt and the stream's own earlier tokens (K3 only):
-    where they differ, the emitted token's logit must lie within 0.25 of
-    the forward's largest, the dense phase's near-tie margin. Returns
-    (differences, largest such gap)."""
+    pass over the prompt and the stream's own earlier tokens (K3 only, or
+    no kernel for an ssm arch): where they differ, the emitted token's
+    logit must lie within ``tol`` of the forward's largest (the dense
+    phase's near-tie margin, 0.25). Returns (differences, largest such
+    gap)."""
     import torch
 
     from repro_torch.core.keys import Key
@@ -1137,8 +1196,8 @@ def teacher_forced(cfg, rcfg, model, req, tokens, what):
     gap = (rows.max(-1).values - rows.gather(1, got[:, None])[:, 0]).cpu()
     diff = (rows.argmax(-1) != got).nonzero().flatten().tolist()
     worst = max((float(gap[t]) for t in diff), default=0.0)
-    check(worst < 0.25, f"{what}: request {req.uid} disagrees with the teacher-forced "
-                        f"argmax at a margin of {worst:.3f}, not a near tie")
+    check(worst < tol, f"{what}: request {req.uid} disagrees with the teacher-forced "
+                       f"argmax at a margin of {worst:.3f}, not a near tie (< {tol})")
     return len(diff), worst
 
 
@@ -2332,6 +2391,12 @@ def trace_training_step(state, step_fn, cfg, step_ms, step, tag=""):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     print(f"[trace] {tag}train step: largest other kernels: "
           + " | ".join(f"{ms:.2f} ms {name[:60]}" for name, ms in top))
+    # the same device time by the PyTorch op that launched it
+    ops = sorted(((getattr(e, "self_device_time_total", 0) or 0, e.count, e.key)
+                  for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                 reverse=True)[:8]
+    print(f"[trace] {tag}train step: device time by launching op: "
+          + " | ".join(f"{key} {us / 1e3:.2f} ms ({n} calls)" for us, n, key in ops))
 
 
 def phase_training_numbers(gen, per_step, rec, smi, errs):
@@ -2473,7 +2538,8 @@ def phase_moe_kernels(gen):
     from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
                                                    csim_argmax_batched_ref, csim_argmax_cuda)
 
-    errs = {"K1b": 0.0, "K2b": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "K7": 0.0}
+    errs = {"K1b": 0.0, "K2b": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "K7": 0.0,
+            "K8": 0.0}
     E, b, n, k, m = MOE_E, MOE_CAP, MOE_D, MOE_K, MOE_F
     for E_, b_, n_, k_, dtype in ((E, b, n, k, torch.bfloat16), (3, 1000, 200, 20, torch.float32)):
         x, c = moe_site_inputs(gen, E_, b_, n_, k_, dtype)
@@ -2542,8 +2608,11 @@ def phase_moe_kernels(gen):
     check_k3_k45(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh, 0, None, bf16, errs, repeat=True)
     errs["K6"] = check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False)
     for case in (("granite heads, shuffled, row 3 parked", dh, 1, False, 0, None, None, None),
-                 ("granite heads, a hole, 1 split", dh, 1, True, 0, None, None, 1)):
-        errs["K7"] = max(errs["K7"], check_paged(gen, *case, H=H, KV=KV)[1])
+                 ("granite heads, a hole, 1 split", dh, 1, True, 0, None, None, 1),
+                 ("granite heads, int8 ngr 1, a hole", dh, 1, True, 0, None, (8, 1), None),
+                 ("granite heads, int4 ngr 1", dh, 1, False, 0, None, (4, 1), None)):
+        name, e = check_paged(gen, *case, H=H, KV=KV)
+        errs[name] = max(errs[name], e)
     torch.cuda.empty_cache()
     return errs
 
@@ -2602,9 +2671,9 @@ def phase_moe_serving(smi):
     print(f"[moe serve] {MOE_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
           f"layers, {cfg.n_experts} experts top-{cfg.n_experts_per_tok}, initialised on the "
           f"card in {time.perf_counter() - t0:.1f} s")
-    engine = lambda layout="dense", c=cfg: ServeEngine(
+    engine = lambda layout="dense", c=cfg, compress="": ServeEngine(
         c, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
-        cache_layout=layout, page_size=PAGE)
+        cache_layout=layout, page_size=PAGE, cache_compress=compress)
     n = cfg.n_layers
     tag = f"[{smi}]"
     res = {}
@@ -2671,6 +2740,7 @@ def phase_moe_serving(smi):
           f"vs a teacher-forced forward over its own tokens: {sum(d for d, _ in tf)} of "
           f"{len(greedy) * GEN} differ, their largest gap to the top logit "
           f"{max(w for _, w in tf):.4f} (near tie < 0.25)")
+    moe_quant_pools(cfg16, rcfg, model, engine, out16, res, tag)
     st = res["dense"]["stats"]
     trace_breakdown(cfg, engine, model, {
         "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
@@ -2679,6 +2749,63 @@ def phase_moe_serving(smi):
     del model, warm_eng
     torch.cuda.empty_cache()
     return res
+
+
+def moe_quant_pools(cfg16, rcfg, model, engine, out16, res, tag):
+    """granite on int8 and int4 page pools (K8 at G 3, dh 64) at capacity
+    factor 16, where nothing drops and a teacher-forced forward is the
+    reference: the serving phase's requests, launches K8 = 32 x decode
+    steps and no other decode kernel, the first spliced decode step's
+    logits against the fp pool's (printed), each greedy stream against
+    the fp (dense) run's, parting only at a near tie widened by the JAX
+    package's logit bound of the format on both top logits, and every
+    token against a teacher-forced forward at the same margin. Adds each
+    format's record to ``res``."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    n = cfg16.n_layers
+    probe = ServeEngine(cfg16, rcfg, model, max_slots=1, max_len=MAX_LEN, cache_layout="paged",
+                        page_size=PAGE)
+    prefix = probe.prefill(model, _requests(cfg16)[0])
+    ref = _spliced_logits(cfg16, rcfg, model, "", prefix)
+    greedy = [r for r in _requests(cfg16) if r.sampling.temperature == 0]
+    for spec in ("int8", "int4"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine("paged", c=cfg16, compress=spec)
+        out, counts = _counted(lambda: eng.run(_requests(cfg16)))
+        peak = torch.cuda.max_memory_allocated()
+        st = eng.stats()
+        check(sorted(out) == list(range(N_REQUESTS)) and st["nonfinite_logits"] == 0
+              and all(len(out[u].tokens) == GEN for u in out),
+              f"moe {spec}: a request did not finish or logits were not finite")
+        want = {"flash_attention_fwd": n * st["prefill_count"],
+                "flash_paged_decode_quant": n * st["decode_steps"],
+                "flash_paged_decode": 0, "flash_decode": 0}
+        check({k: counts.get(k, 0) for k in want} == want
+              and not any(k.endswith("_ref") for k in counts),
+              f"moe {spec}: launches {counts}, want {want} and no plain version")
+        err = float((_spliced_logits(cfg16, rcfg, model, spec, prefix) - ref).abs().max())
+        near = TOL_NEAR + 2 * FORMAT_TOL[spec]
+        parted = [(r.uid, t) for r in greedy
+                  if (t := first_divergence_near_tie(cfg16, rcfg, model, r, out16[r.uid].tokens,
+                                                     out[r.uid].tokens, f"moe {spec} vs fp",
+                                                     tag="moe serve", tol=near)) is not None]
+        tf = [teacher_forced(cfg16, rcfg, model, r, out[r.uid].tokens, f"moe {spec}", tol=near)
+              for r in greedy]
+        print(f"[moe serve] {spec} pool, capacity factor 16: launches {counts} | decode "
+              f"{st['decode_tok_s']:.1f} tok/s | p50 {st['p50_token_latency_ms']:.3f} / p95 "
+              f"{st['p95_token_latency_ms']:.3f} ms per step | prefill {st['prefill_tok_s']:.1f} "
+              f"tok/s | peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB | "
+              f"kv_compression_x {eng.kv_compression_x:.3f} | first-step logits vs fp max |d| "
+              f"{err:.4f} (printed; the JAX bound {FORMAT_TOL[spec]} is for f32 smoke archs) | "
+              f"greedy streams parted from fp (uid, token): "
+              f"{parted} | teacher-forced: {sum(d for d, _ in tf)} of {len(greedy) * GEN} "
+              f"differ, largest gap {max(w for _, w in tf):.4f} (< {near}) {tag}")
+        res[spec] = {"out": out, "counts": counts, "stats": st, "peak": peak}
+        del eng
+        torch.cuda.empty_cache()
 
 
 def phase_moe_training(smi):
@@ -2778,7 +2905,9 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
                                                      flash_attention_fwd_ref)
     from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
                                                   flash_paged_decode_cuda,
-                                                  flash_paged_decode_ref)
+                                                  flash_paged_decode_quant_cuda,
+                                                  flash_paged_decode_quant_ref,
+                                                  flash_paged_decode_ref, quantize_kv)
     from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
                                                 segment_matmul_batched_ref)
     from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
@@ -2829,10 +2958,10 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
     def line(label, fn, plain, lib, work, launch_note):
         ms, dev = time_ms(fn, flush=flush), time_ms(fn, flush=flush, pad=True)
         plain_ms = time_ms(plain, reps=10, flush=flush)
-        lib_ms = time_ms(lib, flush=flush)
+        lib_ms = "none" if lib is None else f"{time_ms(lib, flush=flush):.4f} ms"
         bms, by = bound(*work)
         print(f"[numbers] granite {label}: {ms:.4f} ms/call | device only {dev:.4f} ms | plain "
-              f"{plain_ms:.4f} ms | library {lib_ms:.4f} ms | bound {bms:.4f} ms ({by}) | "
+              f"{plain_ms:.4f} ms | library {lib_ms} | bound {bms:.4f} ms ({by}) | "
               f"{launch_note} {tag}")
 
     sl, st = moe_serve["dense"]["counts"], moe_serve["dense"]["stats"]
@@ -2895,7 +3024,279 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
          paged_work(bt, ppos, qpos, H, KV, dh, 2 * dh, dh),
          f"{pl['counts'].get('flash_paged_decode', 0)} launches paged serving "
          f"({pl['stats']['decode_steps']} steps)")
+    for bits, label in ((8, "int8"), (4, "int4")):
+        (kq, ks), (vq, vs) = (quantize_kv(t, bits, 1) for t in (kp, vp))
+        ql = moe_serve[label]
+        line(f"K8 {label} ({B} slots x 17 pages of {PAGE}, {H}/{KV}, {dh})",
+             lambda: flash_paged_decode_quant_cuda(q, kq, vq, ks, vs, qpos, bt, ppos),
+             lambda: flash_paged_decode_quant_ref(q, kq, vq, ks, vs, qpos, bt, ppos), None,
+             paged_work(bt, ppos, qpos, H, KV, dh, kq.shape[-1] + 4 * ks.shape[-1], dh),
+             f"{ql['counts'].get('flash_paged_decode_quant', 0)} launches on its serving run "
+             f"({ql['stats']['decode_steps']} steps)")
     return [k1, k2]
+
+
+# ---------------------------------------------------------------------------
+# the ssm slice: mamba2-370m
+# ---------------------------------------------------------------------------
+def phase_ssm_kernels(gen):
+    """K1 at the ssm.in site's shape (8192 x 1024, k 16) and K2 at its
+    gradient's (b 8192, k 16, m 4384: a ragged last column tile of 32), both
+    bf16, each against its plain version with two launches bitwise equal;
+    K2 also at 3 forced splits. Returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels import pamm_apply
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    b, n, m, k = TRAIN_BATCH * TRAIN_SEQ, SSM_D, SSM_M, SSM_K
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    out, again = csim_argmax_cuda(x, c), csim_argmax_cuda(x, c)
+    same = all(torch.equal(a, a2) for a, a2 in zip(out, again))
+    cs, f, na = out
+    cs_r, f_r, na_r = csim_argmax_ref(x, c)
+    e_cs = (cs.abs() - cs_r.abs()).abs().max().item()
+    e_n = ((na - na_r).abs() / na_r).max().item()
+    csim = (x.float() @ c.float().T) / (na_r[:, None] * c.float().norm(dim=1)[None])
+    top2 = csim.abs().topk(2, dim=1).values
+    clear = top2[:, 0] - top2[:, 1] > TOL_K1_MARGIN
+    n_bad = int((f[clear] != f_r[clear]).sum())
+    print(f"[K1 ssm.in] b={b} n={n} k={k} bf16: max||cs|-|cs_ref||={e_cs:.3e} max rel |norm "
+          f"err|={e_n:.3e} (tol {TOL_K1}); idx equal on {int(clear.sum())}/{b} rows with a "
+          f"top-2 margin > {TOL_K1_MARGIN} ({n_bad} differ); two launches bitwise equal: {same}")
+    check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0 and same,
+          "K1 disagrees with its plain version at the ssm.in shape, or is not deterministic")
+    errs = {"K1": e_cs, "K2": 0.0}
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    gz = _randn((b, m), gen)
+    ref = segment_matmul_ref(f, alpha, gz, k)
+    scale = ref.abs().max().item()
+    for splits in (None, 3):
+        with k2_split_count(splits):
+            got = segment_matmul_cuda(f, alpha, gz, k)
+            again = segment_matmul_cuda(f, alpha, gz, k)
+            S = pamm_apply._splits(b, m, k)[0]
+        e = (got - ref).abs().max().item()
+        e_tail = (got[:, 17 * 256:] - ref[:, 17 * 256:]).abs().max().item()
+        same = bool(torch.equal(got, again))
+        print(f"[K2 ssm.in] b={b} m={m} k={k} bf16, {S} splits"
+              f"{' (the rule)' if splits is None else ' (forced)'}: max|B-B_ref|={e:.3e}, in the "
+              f"ragged last column tile (32 of 256 columns) {e_tail:.3e} (tol {TOL_K2} x "
+              f"{scale:.1f}); two launches bitwise equal: {same}")
+        check(e <= TOL_K2 * scale and same,
+              f"K2 disagrees or is not deterministic at m={m}, {S} splits")
+        errs["K2"] = max(errs["K2"], e)
+    del x, c, gz
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_ssm_serving(smi):
+    """mamba2-370m served at full width and depth, bf16, random weights
+    from seed 0: the serving phase's 16 requests through the dense layout
+    (a warm-up run, then the measured one with its launch counts, a second
+    run's tokens, greedy requests 0 and 1 alone), then the paged layout
+    (no page pool: the state stays a dense slot cache; tokens equal the
+    dense run's); every greedy token against a teacher-forced forward
+    within the near tie; no attention kernel launches (mamba2 has none:
+    its serving path runs no hand-written kernel, as the JAX engine's
+    runs no Pallas one); a profiler split of one prefill and one decode
+    block."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import init_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(SSM_ARCH)
+    rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
+    t0 = time.perf_counter()
+    model = init_model(cfg, rcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[ssm serve] {SSM_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
+          f"layers, d_inner {cfg.ssm_d_inner}, {cfg.ssm_nheads} heads of {cfg.ssm_headdim}, "
+          f"state {cfg.ssm_state}, initialised on the card in {time.perf_counter() - t0:.1f} s")
+    engine = lambda layout="dense": ServeEngine(
+        cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
+        cache_layout=layout, page_size=PAGE)
+    tag = f"[{smi}]"
+    warm = engine().run(_requests(cfg))
+    res = {}
+    for layout in ("dense", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(layout)
+        out, counts = _counted(lambda: eng.run(_requests(cfg)))
+        peak = torch.cuda.max_memory_allocated()
+        st = eng.stats()
+        check(sorted(out) == list(range(N_REQUESTS))
+              and all(len(out[u].tokens) == GEN for u in out),
+              f"ssm {layout}: not every request finished with {GEN} tokens")
+        check(st["nonfinite_logits"] == 0,
+              f"ssm {layout}: {st['nonfinite_logits']} non-finite logits rows")
+        check(st["buckets_enabled"] is False and eng.allocators == [],
+              f"ssm {layout}: prefill bucketing is on or a page pool was built")
+        check(not any(counts.get(k, 0) for k in ATTN_KERNELS)
+              and not any(k.endswith("_ref") for k in counts),
+              f"ssm {layout}: launches {counts}: an attention kernel or a plain version ran")
+        check(all(out[u].tokens == warm[u].tokens for u in out),
+              f"ssm {layout}: tokens differ from the warm-up dense run")
+        print(f"[ssm serve] {layout}: launches {counts} | prefills {st['prefill_count']} | "
+              f"decode steps {st['decode_steps']} | buckets_enabled {st['buckets_enabled']} | "
+              f"cache {st['cache_slot_bytes'] / 2**20:.2f} MiB a slot | decode "
+              f"{st['decode_tok_s']:.1f} tok/s | p50 {st['p50_token_latency_ms']:.3f} / p95 "
+              f"{st['p95_token_latency_ms']:.3f} ms per step | prefill {st['prefill_tok_s']:.1f} "
+              f"tok/s | peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
+        res[layout] = {"out": out, "stats": st}
+    dense = res["dense"]["out"]
+    for uid in (0, 1):                                 # greedy, alone
+        solo = engine().run([r for r in _requests(cfg) if r.uid == uid])[uid]
+        check(solo.tokens == dense[uid].tokens,
+              f"ssm: greedy request {uid} alone differs from its batched run")
+    greedy = [r for r in _requests(cfg) if r.sampling.temperature == 0]
+    tf = [teacher_forced(cfg, rcfg, model, r, dense[r.uid].tokens, "ssm") for r in greedy]
+    print(f"[ssm serve] second run and paged identical to the warm-up run; greedy requests 0 "
+          f"and 1 identical alone and batched; every token of the {len(greedy)} greedy streams "
+          f"vs a teacher-forced forward over its own tokens: {sum(d for d, _ in tf)} of "
+          f"{len(greedy) * GEN} differ, their largest gap to the top logit "
+          f"{max(w for _, w in tf):.4f} (near tie < {TOL_NEAR})")
+    st = res["dense"]["stats"]
+    trace_breakdown(cfg, engine, model, {
+        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
+        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
+        tag="ssm ")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_training(smi):
+    """mamba2-370m trained at full width and depth under ssm.in PAMM: f32
+    params / bf16 compute, AdamW, batch 4 x 2048, remat SSM_REMAT; one
+    warm-up and 3 measured steps (finite losses; launches a step K1 = K2 =
+    48, the attention kernels and plain versions 0; the site's telemetry;
+    step and forward + backward peaks; a profiler split), forward +
+    backward under remat='none' with and without the ssm.in rule at a cut
+    depth (the site's saving), and a second run from the seed. Returns
+    the per-step launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.train import init_train_state
+
+    cfg = get_config(SSM_ARCH)
+    rcfg = RunConfig(compression=SSM_SPEC, policy_name="none", remat=SSM_REMAT)
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cfg, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    print(f"[ssm train] {SSM_ARCH}: {n_params / 1e9:.3f} B params f32, compute "
+          f"{rcfg.compute_dtype}, {SSM_SPEC}, remat={SSM_REMAT!r}, AdamW, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; losses {rec['loss']} | grad norms {[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "ssm: a training loss or grad norm is not finite")
+    L = cfg.n_layers
+    want = {"csim_argmax": L, "segment_matmul": L, **{k: 0 for k in ATTN_KERNELS}}
+    print(f"[ssm train] launches per step {per_step}")
+    check({k: per_step.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in rec["counts"]),
+          f"ssm training launches per step {per_step} != {want}, or a plain version ran")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[ssm train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}: {[round(t, 1) for t in rec['ms'][1:]]}; warm-up step "
+          f"{rec['ms'][0]:.1f} ms) | step peak torch.cuda.max_memory_allocated "
+          f"{rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[ssm train] site telemetry (summed over {L} layers) {sites}")
+    trace_training_step(state, step_fn, cfg, step_ms, n + 1, tag="ssm ")
+    rec["fb_peak"] = _fwd_bwd_peak(cfg, rcfg, state, TRAIN_SEQ)
+    print(f"[ssm train] forward + backward peak (one loss_and_grad, AdamW moments resident) "
+          f"{rec['fb_peak'] / 2**30:.3f} GiB {tag}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    # the site's saving: forward + backward under remat='none' with and
+    # without the rule, at SSM_CUT_LAYERS of the 48 layers (all 48 do not
+    # fit under 'none'), a fresh state's AdamW moments resident in both
+    cut = dataclasses.replace(cfg, stages=((("ssm",), SSM_CUT_LAYERS),),
+                              n_layers=SSM_CUT_LAYERS)
+    state = init_train_state(cut, rcfg, device="cuda")
+    peaks = {label: _fwd_bwd_peak(cut, dataclasses.replace(rcfg, compression=spec,
+                                                           remat="none"), state, TRAIN_SEQ)
+             for label, spec in (("ssm.in exact", "ssm.in=none"), (SSM_SPEC, SSM_SPEC))}
+    saved = peaks["ssm.in exact"] - peaks[SSM_SPEC]
+    rec["cut_peaks"] = peaks
+    print(f"[ssm train] cut to {SSM_CUT_LAYERS} of {L} layers, remat='none', batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: forward + backward peak "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+          + f"; the ssm.in site saves {saved / 2**20:.1f} MiB ({saved / 2**20 / SSM_CUT_LAYERS:.2f}"
+          f" MiB a layer; its bf16 input is {tokens * SSM_D * 2 / 2**20:.1f} MiB a layer) {tag}")
+    del state
+    torch.cuda.empty_cache()
+    _, _, rec2 = _train_run(cfg, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[ssm train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 "
+          f"equal: {rec2['loss'][0] == rec['loss'][0]}; later steps worst rel "
+          f"{max(rel[1:]):.2e}, tol 1e-3)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "ssm: a second run from the seed gives other losses")
+    torch.cuda.empty_cache()
+    return per_step, rec
+
+
+def phase_ssm_numbers(gen, per_step, rec, smi, errs):
+    """Kernel rows of K1 and K2 at the ssm.in site's shapes (plain version,
+    bound, launches on the mamba2 training path)."""
+    import torch
+
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    tag = f"[{smi}]"
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    b, n, m, k = TRAIN_BATCH * TRAIN_SEQ, SSM_D, SSM_M, SSM_K
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    gz = _randn((b, m), gen)
+    rows = [
+        _kernel_row("csim_argmax (K1, mamba2's ssm.in site)", K1_SOURCE, K1_REPLACES,
+                    launches.get("csim_argmax", 0), errs["K1"],
+                    lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
+                    k1_work(b, n, k, 2)),
+        _kernel_row("segment_matmul (K2, mamba2's ssm.in site, a ragged last column tile)",
+                    K2_SOURCE, K2_REPLACES, launches.get("segment_matmul", 0), errs["K2"],
+                    lambda: segment_matmul_cuda(f, alpha, gz, k),
+                    lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2))]
+    for row, at in zip(rows, (f"({b}, {n}, k {k})", f"(b {b}, m {m}, k {k})")):
+        print(f"[numbers] {row['name']} at {at}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"plain {row['plain_ms']:.4f} ms | library n/a | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) | {row['launches']} launches on the mamba2 training path "
+              f"({TRAIN_STEPS} steps) {tag}")
+    step_ms = statistics.median(rec["ms"][1:])
+    L = int(per_step.get("csim_argmax", 0))
+    print(f"[numbers] mamba2 train step {step_ms:.1f} ms: K1 x{L} "
+          f"{L * rows[0]['ms']:.2f} ms, K2 x{L} {L * rows[1]['ms']:.2f} ms (isolated, L2 "
+          f"flushed) {tag}")
+    return rows
+
+
+def run_ssm_phases(gen, smi):
+    """Phases 18-21: K1 / K2 at the ssm.in site's shapes against their
+    plain versions, mamba2-370m served and trained, mamba2 smoke card
+    against CPU, the ssm kernel rows. Returns the rows."""
+    errs = phase_ssm_kernels(gen)
+    phase_ssm_serving(smi)
+    per_step, rec = phase_ssm_training(smi)
+    phase_card_vs_cpu(SSM_SMOKE, SSM_SMOKE_SPEC)
+    return phase_ssm_numbers(gen, per_step, rec, smi, errs)
 
 
 def start():
@@ -2948,18 +3349,23 @@ def main() -> int:
     phase_serve_step(dense, smi)
     del dense
     torch.cuda.empty_cache()
+    print(f"[time] serving phases 2-8 done at {time.perf_counter() - t0:.1f} s")
     errs = phase_training_kernels(gen)
     phase_card_vs_cpu()
     per_step, rec = phase_training(smi)
     phase_memory_modes(smi, rec)
     phase_reversible_card_vs_cpu()
     phase_supervised_restart(smi)
+    print(f"[time] training phases 9-12 done at {time.perf_counter() - t0:.1f} s")
     errs_moe, moe_rows = run_moe_phases(gen, smi)
+    print(f"[time] MoE phases 14-17 done at {time.perf_counter() - t0:.1f} s")
+    ssm_rows = run_ssm_phases(gen, smi)
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     kernels += paged_rows
     kernels += moe_rows
+    kernels += ssm_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,9 +28,12 @@ which counts the replicas' walls as overlapping though they step in turn:
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --replicas 2 --dedicated-prefill --smoke
 
-A moe arch (``--arch granite-moe-3b-a800m``) is served the same way; its
-prompts are prefilled at their own lengths (bucketing off: pad rows would
-take expert capacity), which the stats line says.
+A moe arch (``--arch granite-moe-3b-a800m``) and an ssm arch (``--arch
+mamba2-370m``) are served the same way; their prompts are prefilled at
+their own lengths (bucketing off: pad rows would take expert capacity or
+enter the recurrent state), which the stats line says. An ssm arch has no
+attention, so it has no page pool: under ``--cache-layout paged`` its
+state stays a dense slot cache and ``--prefix-share`` adopts nothing.
 
 ``--mesh-data`` (one engine's pools sharded over cards) is refused, naming
 the multi-GPU slice that brings it.

@@ -11,7 +11,12 @@ forward and K4/K5 backward; ``--device cpu`` runs their plain versions
 (use a ``*_smoke`` arch there). A moe arch trains the same way, and its
 experts' gate / up projections compress through the ``moe.expert`` rule
 (``--compression 'attn.qkv=pamm(r=1/512);moe.expert=pamm(r=1/512)'``: K1 /
-K2 once a layer for all experts). ``--block-structure reversible`` trains
+K2 once a layer for all experts). An ssm arch (mamba2) has no attention:
+its in-projection is the ``ssm.in`` site (``--arch mamba2-370m
+--compression 'ssm.in=pamm(r=1/512)'``: K1 / K2 once a layer), which
+RunConfig's legacy ``pamm_on_ssm_inproj=True`` also resolves to; the
+default ``--policy pamm`` alone names only ``attn.qkv`` and leaves it
+exact. ``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).
@@ -64,8 +69,8 @@ def main(argv=None):
                     help="legacy single-policy shorthand (see --compression)")
     ap.add_argument("--ratio", type=float, default=512, help="compression divisor r=1/x")
     ap.add_argument("--compression", default="",
-                    help="CompressionPlan spec, e.g. 'attn.qkv=pamm(r=1/512)'; "
-                         "overrides --policy/--ratio")
+                    help="CompressionPlan spec, e.g. 'attn.qkv=pamm(r=1/512)' or, "
+                         "for mamba2, 'ssm.in=pamm(r=1/512)'; overrides --policy/--ratio")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--ckpt-dir", default=None)
@@ -79,7 +84,7 @@ def main(argv=None):
                     choices=["residual", "reversible"],
                     help="reversible = two-stream blocks whose backward rebuilds "
                          "the residual stream instead of saving it (attn/swa/moe "
-                         "kinds; excludes remat, see models/blocks.py)")
+                         "kinds, not ssm; excludes remat, see models/blocks.py)")
     args = ap.parse_args(argv)
     _refuse_later_slices(ap, args)
 

@@ -95,6 +95,33 @@ def ffn_sites(params, x, ctx, key=None):
 
 
 # ---------------------------------------------------------------------------
+# causal depthwise conv (width W), used by the ssm block
+# ---------------------------------------------------------------------------
+def causal_depthwise_conv(x, w, state=None):
+    """x: (B, L, C); w: (W, C). Returns (y, new_state).
+
+    ``state`` is the last W-1 inputs of the previous segment (B, W-1, C);
+    None means zero history (training from position 0). The new state is
+    the last W-1 rows of ``concat(state, x)``, so a segment shorter than
+    W-1 keeps part of the old state."""
+    width = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)            # (B, W-1+L, C)
+    L = x.shape[1]
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i:i + L] * w[i].to(x.dtype)
+    new_state = xp[:, -(width - 1):] if width > 1 else state
+    return y, new_state
+
+
+def init_depthwise_conv(gen: torch.Generator, width: int, channels: int, dtype) -> torch.Tensor:
+    w = torch.randn((width, channels), generator=gen, device=gen.device)
+    return (w / math.sqrt(width)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # chunked softmax cross-entropy
 # ---------------------------------------------------------------------------
 def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,

@@ -2,17 +2,23 @@
 
 The engine owns ONE batched cache tree (``models.init_caches`` with B =
 max_slots): a list per stage of stacked cache nodes whose tensors carry
-the layer stack at axis 0. Dense nodes (:class:`KVCache`) hold the batch
-slot at axis 1 -- ``k``/``v`` (layers, B, S, KV, dh), ``slot_pos``
-(layers, B, S). Paged nodes hold page pools (layers, n_pages, page_size,
-KV, w), ``page_pos`` (layers, n_pages, page_size) and block tables
-(layers, B, nb), one row per slot shared by every layer of the stack.
+the layer stack at axis 0. Dense nodes hold the batch slot at axis 1:
+:class:`KVCache` -- ``k``/``v`` (layers, B, S, KV, dh), ``slot_pos``
+(layers, B, S) -- and the recurrent :class:`SSMCache` -- ``state``
+(layers, B, H, P, N), ``conv_state`` (layers, B, W-1, conv_dim). Paged
+nodes hold page pools (layers, n_pages, page_size, KV, w), ``page_pos``
+(layers, n_pages, page_size) and block tables (layers, B, nb), one row
+per slot shared by every layer of the stack. Every node lists its device
+tensors in ``tensors()``; the splices, copies and byte counts below walk
+those.
 
 Admission = prefill the request alone (batch 1, a dense cache), then
 splice its cache into the slot. The JAX package returns new trees and
 donates the old buffers on the TPU; the port writes the engine's cache in
 place and never copies a whole cache. Dense: slice assignment of the
-slot. Paged: :func:`write_slot_paged` installs the slot's block-table row
+slot, every tensor of the node; a recurrent state node splices whole and
+is never pad-masked (its arch prefills at the prompt's own length).
+Paged: :func:`write_slot_paged` installs the slot's block-table row
 (the only time a table changes: a request reserves its pages up front),
 resets ``page_pos`` on the newly owned pages (they may carry a previous
 owner's positions) and scatters the prompt's rows through the row --
@@ -22,6 +28,8 @@ a freed slot's decode position is parked at -1, which masks every key and
 drops the write, and no live block table maps a freed page.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -41,11 +49,27 @@ def kv_cache_nodes(caches):
                 yield node
 
 
+def cache_nodes(caches):
+    """Every node of a cache tree (KV, paged or recurrent state), in stage
+    order."""
+    for stage in caches:
+        yield from stage
+
+
+def map_tensors(node, fn):
+    """Replace each of ``node``'s device tensors ``t`` by ``fn(t)``, in
+    place. Returns ``node``."""
+    for name in node.LEAVES:
+        setattr(node, name, fn(getattr(node, name)))
+    return node
+
+
 def write_slot(full, one, slot: int):
     """Splice a batch-1 dense cache tree ``one`` into batch slot ``slot``
-    of the dense tree ``full``, in place; ``one`` may lie on another device
-    (a Prefix handed off in host form). Returns ``full``."""
-    for fn, on in zip(kv_cache_nodes(full), kv_cache_nodes(one)):
+    of the dense tree ``full`` (every tensor of every node), in place;
+    ``one`` may lie on another device (a Prefix handed off in host form).
+    Returns ``full``."""
+    for fn, on in zip(cache_nodes(full), cache_nodes(one)):
         for a, b in zip(fn.tensors(), on.tensors()):
             a[:, slot] = b[:, 0].to(device=a.device, dtype=a.dtype)
     return full
@@ -53,8 +77,8 @@ def write_slot(full, one, slot: int):
 
 def read_slot(full, slot: int):
     """Copy batch slot ``slot`` of a dense tree out as a batch-1 tree (tests)."""
-    return [[KVCache(*(t[:, slot:slot + 1].clone() for t in node.tensors()),
-                     ring=node.ring) for node in stage] for stage in full]
+    return [[map_tensors(dataclasses.replace(node), lambda t: t[:, slot:slot + 1].clone())
+             for node in stage] for stage in full]
 
 
 def mask_pad_rows(caches, prompt_len: int):
@@ -138,8 +162,8 @@ def write_slot_paged(full, one, rows, slot: int, prompt_len: int, starts=None):
     int32 block-table row (numpy) per paged node, None elsewhere.
     ``starts`` (optional) mirrors it too: the copy-on-write share boundary
     in tokens per paged node (None = 0, an unshared admission). Dense
-    nodes take the ordinary slot splice with the pad rows masked. Returns
-    ``full``."""
+    nodes take the ordinary slot splice with the pad rows masked (a KV
+    node's; a recurrent state node splices whole). Returns ``full``."""
     for si, (fstage, ostage) in enumerate(zip(full, one)):
         for bi, (fn, on) in enumerate(zip(fstage, ostage)):
             if isinstance(fn, PAGED_CACHE_TYPES):
@@ -207,9 +231,10 @@ def pool_geometry(node) -> tuple[int, int]:
 
 
 def cache_bytes(caches) -> int:
-    """Total decode-cache footprint in bytes (every device leaf)."""
+    """Total decode-cache footprint in bytes (every device leaf of every
+    node, recurrent state included)."""
     return sum(t.numel() * t.element_size()
-               for node in kv_cache_nodes(caches) for t in node.tensors())
+               for node in cache_nodes(caches) for t in node.tensors())
 
 
 def slot_bytes(caches, max_slots: int) -> int:

@@ -17,14 +17,20 @@ through K6). Where the JAX engine runs the block as one jitted
 token, position, activity, budget and sample-index vectors on the device
 and synchronises with the host once per block, not once per token.
 
-For attn / swa blocks per-sequence math is row-independent, so a
+For attn / swa / ssm blocks per-sequence math is row-independent, so a
 request's tokens do not depend on which other requests share the batch.
 On the card this holds for a fixed slot count: the matrix products see
 the same shapes either way. A moe block couples the rows of a step
 through its expert capacity, as in the JAX engine: every slot, a parked
-one too, takes part in each decode step with the token it carries, and a
-prompt is prefilled at its own length (bucketing off, ``stats()
-["buckets_enabled"]`` False), since pad rows would take capacity.
+one too, takes part in each decode step with the token it carries. An
+ssm block's recurrent state (``models/ssm.SSMCache``) advances in every
+slot each step, a parked one too; an admission overwrites it whole.
+Prompts of a moe or ssm arch are prefilled at their own lengths
+(bucketing off, ``stats()["buckets_enabled"]`` False), since pad rows
+would take capacity or enter the state. ``prefill_buckets`` follows the
+JAX engine: None decides by the kinds (with a one-time warning per
+coupled arch), False turns bucketing off for any arch without the
+warning, True cannot turn it on for a coupled kind.
 
 Cache layouts (``cache_layout=dense|paged``): ``dense`` reserves a
 ``(layers, B, max_len, KV, dh)`` slab, so a short request pays for
@@ -37,7 +43,10 @@ the card once, at ``insert`` -- so the predicate becomes *a free slot AND
 enough free pages in every pool*; eviction returns the pages to the host
 free list with no device work. ``cache_compress`` stores the pools as
 int8 / int4 / svd at proportionally more pages for the same
-``pool_tokens`` byte budget. ``prefix_share`` adopts the full-page
+``pool_tokens`` byte budget. An ssm block's recurrent state has no
+pages: it stays a dense slot cache under either layout, and an arch of
+ssm blocks alone has no pool, so admission is the free-slot check and
+``prefix_share`` finds nothing to adopt. ``prefix_share`` adopts the full-page
 prefix of a live or retired request with the same prompt head
 (copy-on-write: only the divergent page is copied). ``speculative_k``
 drafts k tokens per slot on the host and verifies them in one
@@ -47,8 +56,9 @@ leading run that matches greedy decoding.
 Several engines on one card, each with its own slots and pools, sit
 behind ``serve.router.Router``; a Prefix crosses between them in host
 form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
-Still refused: mesh sharding (the port's multi-GPU slice) and the ssm /
-rec / latt / xattn kinds (later slices).
+Still refused: mesh sharding (the port's multi-GPU slice), the rec /
+latt / xattn kinds (later slices), and ``speculative_k`` on any kind but
+attn (as in the JAX engine).
 """
 from __future__ import annotations
 
@@ -135,8 +145,8 @@ class Prefix:
     inserted_slot: int | None = None
 
     def to_host(self) -> "Prefix":
-        for node in cache_lib.kv_cache_nodes(self.caches):
-            node.k, node.v, node.slot_pos = (t.cpu() for t in node.tensors())
+        for node in cache_lib.cache_nodes(self.caches):
+            cache_lib.map_tensors(node, lambda t: t.cpu())
         return self
 
 
@@ -221,8 +231,8 @@ class ServeEngine:
                  decode_block: int = 8, plan=None, mesh=None,
                  cache_layout: str | None = None, page_size: int | None = None,
                  pool_tokens: int | None = None, cache_compress: str | None = None,
-                 prefix_share: bool = False, speculative_k: int = 0,
-                 prefix_cache: int = 8):
+                 prefill_buckets: bool | None = None, prefix_share: bool = False,
+                 speculative_k: int = 0, prefix_cache: int = 8):
         if cfg.embed_inputs or cfg.n_codebooks:
             raise NotImplementedError(
                 "serving needs a token frontend; embed-input / multi-codebook "
@@ -298,12 +308,17 @@ class ServeEngine:
                 self._kv_capacity_bytes += node.k.shape[1] * node.k.shape[2] * tb
 
         # prompt-length bucketing: off for archs whose prefill couples
-        # rows / positions beyond causal attention (MoE expert capacity;
-        # recurrent state in later slices): pad tokens there would change
-        # the spliced state, not just dead cache rows
+        # rows / positions beyond causal attention (recurrent state, MoE
+        # expert capacity): pad tokens there would change the spliced
+        # state, not just dead cache rows. prefill_buckets=None decides by
+        # the kinds, False turns bucketing off for any arch (and, being
+        # asked for, without the warning), True cannot turn it on for a
+        # coupled kind
         coupled = sorted(kinds & {"rec", "ssm", "moe"})
-        self.prefill_buckets = not coupled
-        if coupled:
+        bucketable = not coupled
+        self.prefill_buckets = (bucketable if prefill_buckets is None
+                                else bool(prefill_buckets) and bucketable)
+        if coupled and prefill_buckets is not False:
             arch = getattr(cfg, "name", "+".join(coupled))
             if arch not in _BUCKET_WARNED:
                 _BUCKET_WARNED.add(arch)
@@ -710,7 +725,8 @@ class ServeEngine:
         max_len: a handful of prefill shapes instead of one per length
         (attn / swa couple rows only through causal attention, so pad rows
         cannot perturb the real rows' state). ``lp`` itself when bucketing
-        is off (a moe arch: pad rows would take expert capacity)."""
+        is off (a moe or ssm arch: pad rows would take expert capacity or
+        enter the recurrent state; or ``prefill_buckets=False``)."""
         if not self.prefill_buckets:
             return lp
         b = 16

@@ -10,7 +10,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as torch_get_config
 
 ARCHS = ["llama-tiny", "internlm2-1.8b_smoke", "qwen2-72b_smoke", "qwen3-32b_smoke",
-         "granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke"]
+         "granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke", "mamba2-370m_smoke"]
 
 
 def _jax_params(arch, dtype="float32"):

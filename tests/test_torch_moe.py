@@ -279,7 +279,7 @@ def test_engine_greedy_streams_match_jax_engine(layout):
     jout = jeng.run([JaxRequest(uid=i, tokens=p, max_new_tokens=gen)
                      for i, p in enumerate(prompts)])
     teng = ServeEngine(get_config(arch), tr, model, max_slots=2, max_len=40, decode_block=4,
-                       cache_layout=layout, page_size=8)
+                       cache_layout=layout, page_size=8, prefill_buckets=True)
     tout = teng.run([Request(uid=i, tokens=p, max_new_tokens=gen)
                      for i, p in enumerate(prompts)])
     assert teng.stats()["buckets_enabled"] is False
@@ -287,6 +287,74 @@ def test_engine_greedy_streams_match_jax_engine(layout):
     assert teng.bucket_lens == {12, 7, 10}
     for i in range(len(prompts)):
         assert tout[i].tokens == jout[i].tokens, i
+
+
+def _granite_engines(prompts, gen=8, **kw):
+    """granite smoke (f32) through the JAX and the port engine with the same
+    options: (JAX engine, its outputs, port engine, its outputs)."""
+    arch = "granite-moe-3b-a800m_smoke"
+    jr = JaxRunConfig(compute_dtype="float32", param_dtype="float32", policy_name="none")
+    tr = RunConfig(compute_dtype="float32", param_dtype="float32", policy_name="none")
+    params, _ = jax_init_model(jax_get_config(arch), jr, jax.random.key(0))
+    model = bridge.from_jax_params(jax.tree.map(np.asarray, params), get_config(arch),
+                                   device="cpu")
+    kw = dict(max_slots=2, max_len=48, decode_block=4, cache_layout="paged", page_size=8,
+              **kw)
+    jeng = JaxServeEngine(jax_get_config(arch), jr, params, **kw)
+    jout = jeng.run([JaxRequest(uid=i, tokens=p, max_new_tokens=gen)
+                     for i, p in enumerate(prompts)])
+    teng = ServeEngine(get_config(arch), tr, model, **kw)
+    tout = teng.run([Request(uid=i, tokens=p, max_new_tokens=gen)
+                     for i, p in enumerate(prompts)])
+    return jeng, jout, teng, tout
+
+
+@pytest.mark.parametrize("pool", ["int8", "int4", "svd(r=1/2)"])
+def test_engine_compressed_pools_match_jax_engine(pool):
+    """granite on int8 / int4 / svd page pools (K8, K7 on coefficients):
+    greedy tokens equal the JAX engine's on the same format, the capacity
+    coupling of a step included."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, size=n).tolist() for n in (12, 7, 10)]
+    jeng, jout, teng, tout = _granite_engines(prompts, cache_compress=pool)
+    assert teng.stats()["cache_pools"] == jeng.stats()["cache_pools"]
+    for i in range(len(prompts)):
+        assert tout[i].tokens == jout[i].tokens, i
+
+
+def test_engine_prefix_sharing_matches_jax_engine():
+    """Three prompts on a 20-token head (8-token pages: two pages adopted
+    and a copy-on-write split each): tokens and the sharing counters equal
+    the JAX engine's."""
+    rng = np.random.default_rng(6)
+    head = rng.integers(1, 256, size=20).tolist()
+    prompts = [head + rng.integers(1, 256, size=3 + i).tolist() for i in range(3)]
+    jeng, jout, teng, tout = _granite_engines(prompts, gen=6, prefix_share=True)
+    counters = ("prefix_hits", "prefix_pages_adopted", "cow_page_splits", "retired_prefixes")
+    st, jst = teng.stats(), jeng.stats()
+    assert {c: st[c] for c in counters} == {c: jst[c] for c in counters}
+    assert st["prefix_hits"] >= 1 and st["prefix_pages_adopted"] > 0
+    for i in range(len(prompts)):
+        assert tout[i].tokens == jout[i].tokens, i
+
+
+def test_speculative_k_is_refused_as_in_jax():
+    """The JAX engine verifies drafts on attn blocks only
+    (``repro/serve/engine.py:443-454``): granite's moe blocks get the same
+    refusal, word for word."""
+    arch = "granite-moe-3b-a800m_smoke"
+    jr = JaxRunConfig(compute_dtype="float32", param_dtype="float32", policy_name="none")
+    tr = RunConfig(compute_dtype="float32", param_dtype="float32", policy_name="none")
+    params, _ = jax_init_model(jax_get_config(arch), jr, jax.random.key(0))
+    model = bridge.from_jax_params(jax.tree.map(np.asarray, params), get_config(arch),
+                                   device="cpu")
+    kw = dict(max_slots=2, max_len=48, cache_layout="paged", page_size=8, speculative_k=2)
+    with pytest.raises(ValueError) as jexc:
+        JaxServeEngine(jax_get_config(arch), jr, params, **kw)
+    with pytest.raises(ValueError) as texc:
+        ServeEngine(get_config(arch), tr, model, **kw)
+    assert str(texc.value) == str(jexc.value)
+    assert "moe blocks are sequential" in str(texc.value)
 
 
 # ---------------------------------------------------------------------------

@@ -178,8 +178,9 @@ def test_prefill_with_a_plan_is_exact_and_compresses_nothing():
 def test_later_slices_are_refused():
     """What the port still refuses, naming the slice: gradient compression
     (multi-GPU) and block kinds it does not run yet. Remat and reversible
-    blocks train now (tests/test_torch_remat.py, test_torch_revnet.py), and
-    moe blocks under both structures (tests/test_torch_moe.py)."""
+    blocks train now (tests/test_torch_remat.py, test_torch_revnet.py), moe
+    blocks under both structures (tests/test_torch_moe.py), and ssm blocks
+    on the residual structure in every remat mode (tests/test_torch_ssm.py)."""
     cfg = get_config("internlm2-1.8b_smoke")
     for kw in ({"remat": "full"}, {"remat": "pamm"}, {"block_structure": "reversible"},
                {"block_structure": "reversible_ref"}):
@@ -188,8 +189,8 @@ def test_later_slices_are_refused():
         make_train_step(cfg, RunConfig(grad_compress="int8_ef"))
     for kw in ({}, {"block_structure": "reversible"}):
         make_train_step(get_config("granite-moe-3b-a800m_smoke"), RunConfig(**kw))
-    with pytest.raises(NotImplementedError, match="later slices"):
-        make_train_step(get_config("mamba2-370m_smoke"), RunConfig())
+    for kw in ({}, {"remat": "full"}, {"remat": "pamm"}):
+        make_train_step(get_config("mamba2-370m_smoke"), RunConfig(**kw))
     with pytest.raises(NotImplementedError, match="later slices"):
         make_train_step(get_config("recurrentgemma-9b_smoke"),
                         RunConfig(block_structure="reversible"))
