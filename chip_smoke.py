@@ -4,7 +4,8 @@ paged / quantised / low-rank KV-cache serving, the serving front (a Router
 over engine replicas on the card) and PAMM-compressed training of
 internlm2-1.8b, with rematerialisation, reversible blocks and
 checkpoint/restart; then serving and PAMM training of the MoE model
-granite-moe-3b-a800m and of the state-space model mamba2-370m.
+granite-moe-3b-a800m, of the state-space model mamba2-370m and of the
+hybrid recurrentgemma-9b (RG-LRU and local-attention blocks).
 
   python3 chip_smoke.py
 
@@ -216,6 +217,35 @@ is caught and ignored:
   21. ssm numbers       K1 and K2 at the ssm.in site's shapes as kernel rows
                         (plain version, bound, launches on the mamba2
                         training path)
+  22. rec kernels       K3-K8 at recurrentgemma's heads (16 / 1 of 256):
+                        K4/K5 bf16 at (4, 2048) window 2048 and (1, 1030)
+                        window 256, two launches bitwise equal, one f32
+                        case; K3 at a 2100-token prompt; K6 over 1089 slots
+                        and a wrapped 2048-slot ring; K7 / K8 int8 at the
+                        paged shape and a 2048 ring pool; K1 (8192, 4096,
+                        k 16), K2 m 4096 and 256
+  23. rec serving       recurrentgemma-9b (38 layers, d 4096, lru_width
+                        4096, window 2048, vocab 256000), bf16, seed 0: the
+                        serving phase's 16 requests, dense then paged (one
+                        ring pool): K3 = 12 x prefills, K6 / K7 = 12 x
+                        decode steps, no plain version, a second run, solo
+                        = batched, paged = dense up to near ties, every
+                        greedy token against a teacher-forced forward; one
+                        2100-token request at max_len 2176 (the ring holds
+                        positions 52..2099 after prefill), dense and paged;
+                        a profiler split of one prefill and decode block
+  24. rec training      recurrentgemma-9b_smoke in f32, card against CPU,
+                        residual and reversible; then recurrentgemma-9b at
+                        full width cut to 5 layers, f32 params / bf16
+                        compute, attn.qkv and rglru.in PAMM (r=1/512),
+                        remat='none', AdamW, 4 x 2048: one warm-up and 3
+                        measured steps (finite losses; K1 5, K2 7, K3 = K4
+                        = K5 1 a step; peaks; the f32 gate products' and
+                        the scan's time), the sites' saving at 3 layers, a
+                        second run
+  25. rec numbers       K3 / K4 / K5 at dh 256 (SDPA as library), K1 and
+                        K2 at recurrentgemma's shapes as kernel rows; K3,
+                        K6, K7 at its serving shapes, printed
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -227,9 +257,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import gc
 import hashlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -240,6 +272,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# recurrentgemma's training cell under remat='none' peaks at 77.7 of the
+# card's 79.2 GiB; after the earlier phases, fixed-size allocator segments
+# left 4 GiB reserved but unusable at its step. Segments that grow in place
+# leave no such gaps (read before torch first allocates on the card)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): the bound's denominators
 PEAK_BF16_FLOPS = 989e12
@@ -322,6 +359,7 @@ TOL_REV = 1e-4       # reversible vs reversible_ref, f32: max |diff| / max |ref|
 TOL_RESTART = 1e-3   # restored vs uninterrupted losses: phase 11's second-run bound
 TOL_CPU_LOSS = 1e-5  # card vs CPU in f32: relative loss
 TOL_CPU_GRAD = 1e-3  # card vs CPU in f32: relative norm of each gradient's difference
+ADAM_EPS = 1e-8      # optim.adamw_update's eps: a zero-initialised leaf's first step
 # the MoE slice: granite-moe-3b-a800m (32 layers, d 1536, 24 / 8 heads of 64,
 # 40 experts top-8, moe_d_ff 512), the paper's QKV rule plus the moe.expert
 # site; at 4 x 2048 tokens an expert's capacity is 2048 rows, k = 2048 / 512
@@ -345,6 +383,27 @@ SSM_SMOKE, SSM_SMOKE_SPEC = "mamba2-370m_smoke", "ssm.in=pamm(r=1/8)"
 # 'pamm', and the site's saving is measured under 'none' at a cut depth
 SSM_REMAT = "pamm"
 SSM_CUT_LAYERS = 16
+# the rec slice: recurrentgemma-9b (38 layers, (rec, rec, latt) x 12 + (rec,
+# rec); d 4096, lru_width 4096, 16 / 1 heads of 256 (MQA, G 16),
+# local_window 2048, d_ff 12288, vocab 256000). Its rglru.in site is a rec
+# block's w_x: K1 at n 4096, K2 at m 4096; a latt block's attn.qkv: K1 at n
+# 4096, K2 at m 4096 (wq) and 256 (wk, wv); k = 8192 / 512
+REC_ARCH, REC_SMOKE = "recurrentgemma-9b", "recurrentgemma-9b_smoke"
+REC_SPEC = "attn.qkv=pamm(r=1/512);rglru.in=pamm(r=1/512)"
+REC_SMOKE_SPEC = "attn.qkv=pamm(r=1/8);rglru.in=pamm(r=1/8)"
+REC_HEADS = (16, 1, 256)             # H, KV, dh: G 16
+REC_WINDOW = 2048
+REC_D, REC_K, REC_M = 4096, 16, (4096, 256)
+# one request whose 2100-token prompt wraps the 2048-slot ring in prefill
+REC_LONG_PROMPT, REC_LONG_MAX = 2100, 2176
+# training at full width, cut to the smoke arch's stage layout (5 layers,
+# 3.23 B parameters; all 38 would need about 156 GiB of f32 state). Its
+# parameters, gradients and AdamW moments take 48 GiB, and with remat='none'
+# its step still fits the card's 80 GB, so it trains under 'none'; the
+# sites' saving is measured at REC_CUT_STAGES, where an exact run fits too
+REC_TRAIN_STAGES = ((("rec", "rec", "latt"), 1), (("rec", "rec"), 1))
+REC_CUT_STAGES = ((("rec", "rec", "latt"), 1),)
+REC_REMAT = "none"
 # the kernels of the other slices: none may launch on the ssm path
 ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_dq",
                 "flash_attention_dkv", "flash_attention_dq_f32", "flash_attention_dkv_f32",
@@ -624,22 +683,24 @@ def phase_k3(gen):
     return worst[torch.bfloat16]
 
 
-def check_k6(gen, B, S, H, KV, dh, *, ring: bool) -> float:
+def check_k6(gen, B, S, H, KV, dh, *, ring: bool, ring_slots: int = 256,
+             n_ring: int = 600) -> float:
     """K6 against its plain version at one decode shape (slot b filled to
-    S - 97 b, row 3 parked; or a ring of 256 after 600 tokens): two launches
-    and each row alone bitwise equal to the batch. Returns max |o - o_ref|."""
+    S - 97 b, row 3 parked; or a ring of ``ring_slots`` after ``n_ring``
+    tokens, window ``ring_slots``): two launches and each row alone bitwise
+    equal to the batch. Returns max |o - o_ref|."""
     import torch
 
     from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
 
     fills = torch.tensor([S - 97 * b for b in range(B)], device="cuda")
-    Sx = 256 if ring else S
-    window = 256 if ring else 0
+    Sx = ring_slots if ring else S
+    window = ring_slots if ring else 0
     q = _randn((B, 1, H, dh), gen)
     k = _randn((B, Sx, KV, dh), gen)
     v = _randn((B, Sx, KV, dh), gen)
     if ring:
-        n = 600
+        n = n_ring
         spos = ring_slot_pos(B, Sx, n, "cuda")
         qpos = torch.full((B,), n - 1, dtype=torch.int32, device="cuda")
     else:
@@ -864,6 +925,109 @@ def _kernel_row(name, source, replaces, launches, err, fn, plain, lib, work):
             "host_ms": wrapper_ms}
 
 
+def timed_line(model, tag, label, fn, plain, lib, work, launch_note):
+    """Print a kernel's time at one of ``model``'s shapes beside its
+    device-only time, its plain version, ``lib`` (one PyTorch call of the
+    same function, or None) and the bound, as the kernel rows time them."""
+    flush = _flush_buffer()
+    ms, dev = time_ms(fn, flush=flush), time_ms(fn, flush=flush, pad=True)
+    plain_ms = time_ms(plain, reps=10, flush=flush)
+    lib_ms = "none" if lib is None else f"{time_ms(lib, flush=flush):.4f} ms"
+    bms, by = bound(*work)
+    print(f"[numbers] {model} {label}: {ms:.4f} ms/call | device only {dev:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | library {lib_ms} | bound {bms:.4f} ms ({by}) | "
+          f"{launch_note} {tag}")
+
+
+def attention_inputs(gen, B, L, H, KV, dh, window=0):
+    """Random bf16 inputs of K3, K4 and K5 at (B, L, H / KV, dh), causal
+    with ``window`` (0, or at least L: SDPA's causal mask then computes the
+    same function). Returns {"K3" | "K4" | "K5": (kernel, plain, library,
+    work)}: the library column is SDPA's forward, or its backward through
+    the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda,
+                                                     flash_attention_fwd_ref)
+
+    check(window == 0 or window >= L, f"SDPA's causal mask is not window {window} at L {L}")
+    q = _randn((B, L, H, dh), gen)
+    kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
+    do = _randn((B, L, H, dh), gen)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
+              for t in (kk, v))
+    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True, window=window)
+    delta = _delta(o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
+    out = F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), do.transpose(1, 2),
+                                           retain_graph=True)
+    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True,
+                                                window=window)
+    work = functools.partial(k45_work, B, L, H, KV, dh, causal=True, window=window, itemsize=2)
+    return {
+        "K3": (lambda: flash_attention_fwd_cuda(q, kk, v, causal=True, window=window),
+               lambda: flash_attention_fwd_ref(q, kk, v, causal=True, window=window),
+               lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
+               k3_work(B, L, H, KV, dh, causal=True, window=window, itemsize=2)),
+        "K4": (lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, window), plain_bwd,
+               sdpa_bwd, work(which="K4")),
+        "K5": (lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, window), plain_bwd,
+               sdpa_bwd, work(which="K5"))}
+
+
+def decode_lines(gen, line, H, KV, dh, window, serve):
+    """Print K6 over SLOTS dense slots of MAX_LEN and K7 over 17 pages of
+    PAGE a slot, mid-generation, at (H / KV, dh) and ``window`` (0, or
+    wider than the cache), beside the launches of ``serve``'s dense and
+    paged runs, through ``line`` (a timed_line). Returns K7's inputs
+    (q, kp, vp, qpos, bt, ppos)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
+                                                  flash_paged_decode_cuda,
+                                                  flash_paged_decode_ref)
+
+    B, S = SLOTS, MAX_LEN
+    q = _randn((B, 1, H, dh), gen)
+    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
+    qpos = torch.full((B,), PROMPT_LEN + GEN // 2, dtype=torch.int32, device="cuda")
+    j = torch.arange(S, device="cuda", dtype=torch.int32)
+    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
+    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
+    qt = q.transpose(1, 2)
+    dense = serve["dense"]
+    line(f"K6 ({B} slots x {S}, {H}/{KV}, {dh})",
+         lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True, window=window),
+         lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True, window=window),
+         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+         k6_work(qpos, spos, H, KV, dh, window=window, itemsize=2),
+         f"{dense['counts'].get('flash_decode', 0)} launches serving "
+         f"({dense['stats']['decode_steps']} steps)")
+    del kc, vc
+    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
+    kp, vp, bt, ppos = paged_inputs(gen, B, 18, PAGE, KV, dh, fill, n_mapped=17)
+    qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
+    mask = paged_visible(bt, ppos, qpos, window)[:, None]
+    kx, vx = (t[bt.clamp_min(0).long()].reshape(B, -1, KV, dh).repeat_interleave(
+        H // KV, dim=2).transpose(1, 2) for t in (kp, vp))
+    paged = serve["paged"]
+    line(f"K7 ({B} slots x 17 pages of {PAGE}, {H}/{KV}, {dh})",
+         lambda: flash_paged_decode_cuda(q, kp, vp, qpos, bt, ppos, window=window),
+         lambda: flash_paged_decode_ref(q, kp, vp, qpos, bt, ppos, window=window),
+         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+         paged_work(bt, ppos, qpos, H, KV, dh, 2 * dh, dh, window=window),
+         f"{paged['counts'].get('flash_paged_decode', 0)} launches paged serving "
+         f"({paged['stats']['decode_steps']} steps)")
+    return q, kp, vp, qpos, bt, ppos
+
+
 _FLUSH = []
 
 
@@ -1045,8 +1209,9 @@ def phase_k7_k8(gen):
 def check_paged(gen, label, dh, Lq, hole, ring, scale, quant, splits, H=16, KV=8):
     """K7 (or K8 with ``quant`` = (bits, groups)) against its plain version
     at the serving shape: 8 slots x 17 mapped pages of 64 of an 18-block
-    table (a ring of 4 blocks when ``ring``), row 3 parked; two launches
-    bitwise equal. Returns (kernel, max |o - o_ref|)."""
+    table (a ring of ``ring`` slots, the window, when ``ring``: 600 tokens
+    written, or ring + 300 past 300), row 3 parked; two launches bitwise
+    equal. Returns (kernel, max |o - o_ref|)."""
     import torch
 
     from repro_torch.kernels.flash_decode import (flash_paged_decode_cuda,
@@ -1055,8 +1220,8 @@ def check_paged(gen, label, dh, Lq, hole, ring, scale, quant, splits, H=16, KV=8
                                                   flash_paged_decode_ref, quantize_kv)
 
     B, nb = SLOTS, 18
-    nbx = 4 if ring else nb
-    fill = [600] * B if ring else [1088 - 97 * b for b in range(B)]
+    nbx = ring // PAGE if ring else nb
+    fill = [max(600, ring + 300)] * B if ring else [1088 - 97 * b for b in range(B)]
     window = ring
     q = _randn((B, Lq, H, dh), gen)
     qpos = (torch.tensor(fill, device="cuda")[:, None] - Lq
@@ -1925,8 +2090,6 @@ def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
     """One train step of ``arch`` (a smoke arch) in f32 under ``spec``: the
     card (kernels) against the CPU (plain versions), same parameters and
     draws."""
-    import torch
-
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core.keys import Key
     from repro_torch.core.plan import resolve_for_run
@@ -1974,15 +2137,51 @@ def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
     rel_l = abs(l_card - l_cpu) / abs(l_cpu)
     rel_p = max(((p_card[n] - p_cpu[n]).norm() / p_cpu[n].norm()).item()
                 for n in p_cpu if n not in zero_init)
-    # a leaf that starts at zero (the norm scales) holds only the first Adam
-    # step lr * g / (|g| + eps), in which an element with |g| near eps turns
-    # rounding into an O(1) change: held to 1e-2 * lr per element instead
-    abs_z = max((p_card[n] - p_cpu[n]).abs().max().item() for n in zero_init)
     print(f"[card vs cpu] make_train_step at step 3: loss rel {rel_l:.2e}; updated "
-          f"parameters worst rel {rel_p:.2e} (tol {TOL_CPU_GRAD}); zero-initialised "
-          f"leaves worst |diff| {abs_z:.2e} (tol 1e-2 x lr = {1e-2 * lr:.2e})")
-    check(rel_l <= TOL_CPU_LOSS and rel_p <= TOL_CPU_GRAD and abs_z <= 1e-2 * lr,
+          f"parameters worst rel {rel_p:.2e} (tol {TOL_CPU_GRAD})")
+    check(rel_l <= TOL_CPU_LOSS and rel_p <= TOL_CPU_GRAD,
           "the card's train step disagrees with the CPU's")
+    check_zero_init_leaves(rcfg, zero_init, lr, g_card, g_cpu, p_card, p_cpu)
+
+
+def check_zero_init_leaves(rcfg, names, lr, g_card, g_cpu, p_card, p_cpu):
+    """A leaf that starts at zero (the norm scales) holds only the first
+    Adam step lr * g / (|g| + eps) of the step's clipped gradient g (the
+    step at ``p_*`` takes the batch and key of the gradients ``g_*``): held
+    to 1e-2 * lr per element, card against CPU. Where the CPU's clipped |g|
+    is under NEAR_EPS Adam eps, that step turns rounding of g into an O(1)
+    change, so there the card's gradient is held to the CPU's within
+    TOL_CPU_GRAD x the leaf's RMS gradient, and the card's step to the
+    step that adamw_update takes from the card's own gradient, within
+    1e-2 * lr."""
+    import torch
+
+    from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
+
+    near_eps = 100
+    gk, _ = clip_by_global_norm({n: g.clone() for n, g in g_card.items()}, rcfg.grad_clip)
+    gc, _ = clip_by_global_norm({n: g.clone() for n, g in g_cpu.items()}, rcfg.grad_clip)
+    own = {n: torch.zeros_like(gk[n]) for n in names}
+    adamw_update({n: gk[n] for n in names}, adamw_init(own), own, lr,
+                 weight_decay=rcfg.weight_decay, pamm_lr_scale=rcfg.pamm_lr_scale)
+    far_d = near_d = near_g = 0.0
+    n_near = 0
+    for n in names:
+        near = gc[n].abs() < near_eps * ADAM_EPS
+        n_near += int(near.sum())
+        d = (p_card[n] - p_cpu[n]).abs()
+        far_d = max(far_d, float(d[~near].max()) if (~near).any() else 0.0)
+        if near.any():
+            rms = float(gc[n].norm()) / gc[n].numel() ** 0.5
+            near_g = max(near_g, float((gk[n] - gc[n])[near].abs().max()) / (TOL_CPU_GRAD * rms))
+            near_d = max(near_d, float((p_card[n] - own[n])[near].abs().max()))
+    print(f"[card vs cpu] zero-initialised leaves: worst |update diff| {far_d:.2e} (tol 1e-2 x "
+          f"lr = {1e-2 * lr:.2e}); at the {n_near} elements whose clipped CPU |g| is under "
+          f"{near_eps} eps: worst |g_card - g_cpu| {near_g:.3f} of {TOL_CPU_GRAD} x the leaf's "
+          f"RMS gradient, worst |card update - Adam step of the card's gradient| "
+          f"{near_d:.2e} (tol {1e-2 * lr:.2e})")
+    check(far_d <= 1e-2 * lr and near_g <= 1.0 and near_d <= 1e-2 * lr,
+          "the card's train step disagrees with the CPU's at a zero-initialised leaf")
 
 
 def _train_run(cfg, rcfg, n_steps: int, *, measure: bool, seq: int = TRAIN_SEQ):
@@ -2404,12 +2603,7 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
     time there), next to the plain versions, the SDPA backward and the
     bound."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_fwd_cuda,
-                                                     flash_attention_fwd_ref)
     from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
     from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
@@ -2453,38 +2647,18 @@ def phase_training_numbers(gen, per_step, rec, smi, errs):
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} launches "
               f"on the training path ({TRAIN_STEPS} steps) {tag}")
     B, L, H, KV, dh = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128
-    q = _randn((B, L, H, dh), gen)
-    kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
-    do = _randn((B, L, H, dh), gen)
-    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True)
-    delta = _delta(o, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
-    qt = q.transpose(1, 2).detach().requires_grad_()
-    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
-              for t in (kk, v))
-    out = F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
-    dot = do.transpose(1, 2)
-    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), dot, retain_graph=True)
-    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True)
+    att = attention_inputs(gen, B, L, H, KV, dh)
     k4 = _kernel_row("flash_attention_dq (K4, bf16 tensor-core route)", K45_SOURCE, K4_REPLACES,
-                     launches.get("flash_attention_dq", 0), errs["K4"],
-                     lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0),
-                     plain_bwd, sdpa_bwd,
-                     k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K4"))
+                     launches.get("flash_attention_dq", 0), errs["K4"], *att["K4"])
     k5 = _kernel_row("flash_attention_dkv (K5, bf16 tensor-core route)", K45_SOURCE, K5_REPLACES,
-                     launches.get("flash_attention_dkv", 0), errs["K5"],
-                     lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0),
-                     plain_bwd, sdpa_bwd,
-                     k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K5"))
+                     launches.get("flash_attention_dkv", 0), errs["K5"], *att["K5"])
     rows += [k4, k5]
-    k3_fn = lambda: flash_attention_fwd_cuda(q, kk, v, causal=True)
+    k3_fn, k3_plain_fn, k3_sdpa_fn, k3_w = att["K3"]
     k3 = {"ms": time_ms(k3_fn, flush=flush), "device_ms": time_ms(k3_fn, flush=flush, pad=True),
           "host_ms": host_ms(k3_fn)}
-    k3_plain = time_ms(lambda: flash_attention_fwd_ref(q, kk, v, causal=True), reps=10,
-                       flush=flush)
-    k3_sdpa = time_ms(lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
-                      flush=flush)
-    k3_bound, k3_by = bound(*k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2))
+    k3_plain = time_ms(k3_plain_fn, reps=10, flush=flush)
+    k3_sdpa = time_ms(k3_sdpa_fn, flush=flush)
+    k3_bound, k3_by = bound(*k3_w)
     for row, key in ((k4, "K4"), (k5, "K5")):
         print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call{timing_note(row, key)} | "
               f"plain {row['plain_ms']:.4f} ms | library {row['library_ms']:.4f} ms | bound "
@@ -2897,17 +3071,9 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
     next to their plain versions and the bound; then K3-K7 at granite's
     shapes timed beside the same protocol (printed, not JSON rows)."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_fwd_cuda,
-                                                     flash_attention_fwd_ref)
-    from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
-                                                  flash_paged_decode_cuda,
-                                                  flash_paged_decode_quant_cuda,
-                                                  flash_paged_decode_quant_ref,
-                                                  flash_paged_decode_ref, quantize_kv)
+    from repro_torch.kernels.flash_decode import (flash_paged_decode_quant_cuda,
+                                                  flash_paged_decode_quant_ref, quantize_kv)
     from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
                                                 segment_matmul_batched_ref)
     from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
@@ -2952,78 +3118,20 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
         print(f"[numbers] moe.expert generator rows ({E} experts x {b} rows, k {k}), {label}: "
               f"host {1e3 * host:.1f} us/call, {draws * host:.2f} ms a step ({draws:.0f} "
               f"draws) | wall {time_ms(fn, reps=10):.4f} ms/call {tag}")
-    flush = _flush_buffer()
     H, KV, dh = MOE_HEADS
-
-    def line(label, fn, plain, lib, work, launch_note):
-        ms, dev = time_ms(fn, flush=flush), time_ms(fn, flush=flush, pad=True)
-        plain_ms = time_ms(plain, reps=10, flush=flush)
-        lib_ms = "none" if lib is None else f"{time_ms(lib, flush=flush):.4f} ms"
-        bms, by = bound(*work)
-        print(f"[numbers] granite {label}: {ms:.4f} ms/call | device only {dev:.4f} ms | plain "
-              f"{plain_ms:.4f} ms | library {lib_ms} | bound {bms:.4f} ms ({by}) | "
-              f"{launch_note} {tag}")
-
-    sl, st = moe_serve["dense"]["counts"], moe_serve["dense"]["stats"]
+    line = functools.partial(timed_line, "granite", tag)
+    serving = moe_serve["dense"]["counts"].get("flash_attention_fwd", 0)
     for B, L in ((1, PROMPT_LEN), (TRAIN_BATCH, TRAIN_SEQ)):
-        q = _randn((B, L, H, dh), gen)
-        kk, v = _randn((B, L, KV, dh), gen), _randn((B, L, KV, dh), gen)
-        qt = q.transpose(1, 2).detach().requires_grad_()
-        kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
-                  for t in (kk, v))
-        line(f"K3 ({B}, {L}, {H}/{KV}, {dh})",
-             lambda: flash_attention_fwd_cuda(q, kk, v, causal=True),
-             lambda: flash_attention_fwd_ref(q, kk, v, causal=True),
-             lambda: F.scaled_dot_product_attention(qt, kx, vx, is_causal=True),
-             k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2),
-             f"{sl.get('flash_attention_fwd', 0)} launches serving" if B == 1 else
+        att = attention_inputs(gen, B, L, H, KV, dh)
+        line(f"K3 ({B}, {L}, {H}/{KV}, {dh})", *att["K3"],
+             f"{serving} launches serving" if B == 1 else
              f"{launches.get('flash_attention_fwd', 0)} launches training")
-    do = _randn((B, L, H, dh), gen)
-    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True)
-    delta = _delta(o, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
-    out = F.scaled_dot_product_attention(qt, kx, vx, is_causal=True)
-    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), do.transpose(1, 2),
-                                           retain_graph=True)
-    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True)
-    line(f"K4 ({B}, {L}, {H}/{KV}, {dh})",
-         lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0), plain_bwd, sdpa_bwd,
-         k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K4"),
-         f"{launches.get('flash_attention_dq', 0)} launches training")
-    line(f"K5 ({B}, {L}, {H}/{KV}, {dh})",
-         lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0), plain_bwd, sdpa_bwd,
-         k45_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2, which="K5"),
-         f"{launches.get('flash_attention_dkv', 0)} launches training")
-    del q, kk, v, do, o, out, qt, kx, vx, dq, dk, dv
-    B, S = SLOTS, MAX_LEN
-    q = _randn((B, 1, H, dh), gen)
-    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
-    qpos = torch.full((B,), PROMPT_LEN + GEN // 2, dtype=torch.int32, device="cuda")
-    j = torch.arange(S, device="cuda", dtype=torch.int32)
-    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
-    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
-    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
-    qt = q.transpose(1, 2)
-    line(f"K6 ({B} slots x {S}, {H}/{KV}, {dh})",
-         lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True),
-         lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True),
-         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
-         k6_work(qpos, spos, H, KV, dh, window=0, itemsize=2),
-         f"{sl.get('flash_decode', 0)} launches serving ({st['decode_steps']} steps)")
-    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
-    kp, vp, bt, ppos = paged_inputs(gen, B, 18, PAGE, KV, dh, fill, n_mapped=17)
-    qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
-    mask = paged_visible(bt, ppos, qpos, 0)[:, None]
-    kx, vx = (t[bt.clamp_min(0).long()].reshape(B, -1, KV, dh).repeat_interleave(
-        H // KV, dim=2).transpose(1, 2) for t in (kp, vp))
-    pl = moe_serve["paged"]
-    line(f"K7 ({B} slots x 17 pages of {PAGE}, {H}/{KV}, {dh})",
-         lambda: flash_paged_decode_cuda(q, kp, vp, qpos, bt, ppos),
-         lambda: flash_paged_decode_ref(q, kp, vp, qpos, bt, ppos),
-         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
-         paged_work(bt, ppos, qpos, H, KV, dh, 2 * dh, dh),
-         f"{pl['counts'].get('flash_paged_decode', 0)} launches paged serving "
-         f"({pl['stats']['decode_steps']} steps)")
+    for kern, name in (("K4", "flash_attention_dq"), ("K5", "flash_attention_dkv")):
+        line(f"{kern} ({B}, {L}, {H}/{KV}, {dh})", *att[kern],
+             f"{launches.get(name, 0)} launches training")
+    del att
+    q, kp, vp, qpos, bt, ppos = decode_lines(gen, line, H, KV, dh, 0, moe_serve)
+    B = SLOTS
     for bits, label in ((8, "int8"), (4, "int4")):
         (kq, ks), (vq, vs) = (quantize_kv(t, bits, 1) for t in (kp, vp))
         ql = moe_serve[label]
@@ -3039,18 +3147,13 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
 # ---------------------------------------------------------------------------
 # the ssm slice: mamba2-370m
 # ---------------------------------------------------------------------------
-def phase_ssm_kernels(gen):
-    """K1 at the ssm.in site's shape (8192 x 1024, k 16) and K2 at its
-    gradient's (b 8192, k 16, m 4384: a ragged last column tile of 32), both
-    bf16, each against its plain version with two launches bitwise equal;
-    K2 also at 3 forced splits. Returns the largest errors."""
+def check_site_k1(gen, b, n, k, tag):
+    """K1 (bf16) at a site's shape (b, n, k) against its plain version,
+    two launches bitwise equal. Returns (max ||cs| - |cs_ref||, idx)."""
     import torch
 
-    from repro_torch.kernels import pamm_apply
-    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
     from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
-    b, n, m, k = TRAIN_BATCH * TRAIN_SEQ, SSM_D, SSM_M, SSM_K
     x = _randn((b, n), gen)
     c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
     out, again = csim_argmax_cuda(x, c), csim_argmax_cuda(x, c)
@@ -3063,32 +3166,61 @@ def phase_ssm_kernels(gen):
     top2 = csim.abs().topk(2, dim=1).values
     clear = top2[:, 0] - top2[:, 1] > TOL_K1_MARGIN
     n_bad = int((f[clear] != f_r[clear]).sum())
-    print(f"[K1 ssm.in] b={b} n={n} k={k} bf16: max||cs|-|cs_ref||={e_cs:.3e} max rel |norm "
+    print(f"[K1 {tag}] b={b} n={n} k={k} bf16: max||cs|-|cs_ref||={e_cs:.3e} max rel |norm "
           f"err|={e_n:.3e} (tol {TOL_K1}); idx equal on {int(clear.sum())}/{b} rows with a "
           f"top-2 margin > {TOL_K1_MARGIN} ({n_bad} differ); two launches bitwise equal: {same}")
     check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0 and same,
-          "K1 disagrees with its plain version at the ssm.in shape, or is not deterministic")
-    errs = {"K1": e_cs, "K2": 0.0}
+          f"K1 disagrees with its plain version at the {tag} shape, or is not deterministic")
+    return e_cs, f
+
+
+def check_site_k2(gen, f, m, k, tag) -> float:
+    """K2 (bf16 dZ) at a site's gradient shape (b, m, k, the idx ``f`` of
+    K1) against its plain version at the rule's split count and at 3, two
+    launches bitwise equal each; a ragged last column tile (m not a
+    multiple of 256) is reported apart. Returns the largest error."""
+    import torch
+
+    from repro_torch.kernels import pamm_apply
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+
+    b = f.shape[0]
     alpha = torch.randn(b, generator=gen, device="cuda")
     gz = _randn((b, m), gen)
     ref = segment_matmul_ref(f, alpha, gz, k)
     scale = ref.abs().max().item()
+    tail = m % 256
+    worst = 0.0
     for splits in (None, 3):
         with k2_split_count(splits):
             got = segment_matmul_cuda(f, alpha, gz, k)
             again = segment_matmul_cuda(f, alpha, gz, k)
             S = pamm_apply._splits(b, m, k)[0]
         e = (got - ref).abs().max().item()
-        e_tail = (got[:, 17 * 256:] - ref[:, 17 * 256:]).abs().max().item()
         same = bool(torch.equal(got, again))
-        print(f"[K2 ssm.in] b={b} m={m} k={k} bf16, {S} splits"
-              f"{' (the rule)' if splits is None else ' (forced)'}: max|B-B_ref|={e:.3e}, in the "
-              f"ragged last column tile (32 of 256 columns) {e_tail:.3e} (tol {TOL_K2} x "
-              f"{scale:.1f}); two launches bitwise equal: {same}")
+        ragged = ""
+        if tail:
+            e_tail = (got[:, m - tail:] - ref[:, m - tail:]).abs().max().item()
+            ragged = (f", in the ragged last column tile ({tail} of 256 columns) "
+                      f"{e_tail:.3e}")
+        print(f"[K2 {tag}] b={b} m={m} k={k} bf16, {S} splits"
+              f"{' (the rule)' if splits is None else ' (forced)'}: max|B-B_ref|={e:.3e}"
+              f"{ragged} (tol {TOL_K2} x {scale:.1f}); two launches bitwise equal: {same}")
         check(e <= TOL_K2 * scale and same,
               f"K2 disagrees or is not deterministic at m={m}, {S} splits")
-        errs["K2"] = max(errs["K2"], e)
-    del x, c, gz
+        worst = max(worst, e)
+    return worst
+
+
+def phase_ssm_kernels(gen):
+    """K1 at the ssm.in site's shape (8192 x 1024, k 16) and K2 at its
+    gradient's (b 8192, k 16, m 4384: a ragged last column tile of 32), both
+    bf16, each against its plain version with two launches bitwise equal;
+    K2 also at 3 forced splits. Returns the largest errors."""
+    import torch
+
+    e1, f = check_site_k1(gen, TRAIN_BATCH * TRAIN_SEQ, SSM_D, SSM_K, "ssm.in")
+    errs = {"K1": e1, "K2": check_site_k2(gen, f, SSM_M, SSM_K, "ssm.in")}
     torch.cuda.empty_cache()
     return errs
 
@@ -3299,6 +3431,384 @@ def run_ssm_phases(gen, smi):
     return phase_ssm_numbers(gen, per_step, rec, smi, errs)
 
 
+# ---------------------------------------------------------------------------
+# the rec slice: recurrentgemma-9b
+# ---------------------------------------------------------------------------
+def phase_rec_kernels(gen):
+    """K3-K8 at recurrentgemma's heads (16 / 1 of 256) and K1 / K2 at its
+    sites' shapes, bf16 unless stated, each against its plain version:
+    K4/K5 (fed K3's o and lse) at the training shape (4, 2048) with window
+    2048 and at a ragged (1, 1030) with window 256, two launches bitwise
+    equal, and one f32-route case; K3 at the long prompt (1, 2100) with
+    window 2048 (rows past 2048 lose their first keys); K6 over the cell's
+    1089-slot cache and over a wrapped 2048-slot ring; K7 and K8 (int8)
+    at the cell's paged decode shape and over a ring pool of 2048; K1 at
+    (8192, 4096, k 16) and K2 at m 4096 and 256 (the rule's split count and
+    3), two launches bitwise equal. Returns the largest errors."""
+    import torch
+
+    H, KV, dh = REC_HEADS
+    bf16 = torch.bfloat16
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "K7": 0.0,
+            "K8": 0.0}
+    check_k3_k45(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh, REC_WINDOW, None, bf16, errs,
+                 repeat=True)
+    check_k3_k45(gen, 1, 1030, H, KV, dh, 256, None, bf16, errs, repeat=True)
+    check_k3_k45(gen, 1, 300, H, KV, dh, 64, None, torch.float32, errs)
+    q = _randn((1, REC_LONG_PROMPT, H, dh), gen)
+    k, v = (_randn((1, REC_LONG_PROMPT, KV, dh), gen) for _ in range(2))
+    e, _, _ = check_k3(q, k, v, window=REC_WINDOW, label=", the long prompt")
+    errs["K3"] = max(errs["K3"], e)
+    del q, k, v
+    errs["K6"] = max(check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False),
+                     check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=True,
+                              ring_slots=REC_WINDOW, n_ring=REC_LONG_PROMPT + GEN // 2))
+    for case in (("recurrentgemma heads, row 3 parked", dh, 1, False, 0, None, None, None),
+                 ("recurrentgemma heads, a ring pool of 2048", dh, 1, False, REC_WINDOW, None,
+                  None, None),
+                 ("recurrentgemma heads, int8 ngr 1, a hole", dh, 1, True, 0, None, (8, 1),
+                  None),
+                 ("recurrentgemma heads, int8 ngr 1, a ring pool of 2048", dh, 1, False,
+                  REC_WINDOW, None, (8, 1), None)):
+        name, e = check_paged(gen, *case, H=H, KV=KV)
+        errs[name] = max(errs[name], e)
+    errs["K1"], f = check_site_k1(gen, TRAIN_BATCH * TRAIN_SEQ, REC_D, REC_K, "rec")
+    errs["K2"] = max(check_site_k2(gen, f, m, REC_K, "rec") for m in REC_M)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _n_kind(cfg, kind: str) -> int:
+    return sum(rep * unit.count(kind) for unit, rep in cfg.stages)
+
+
+def phase_rec_serving(smi):
+    """recurrentgemma-9b served at full width and depth, bf16, random
+    weights from seed 0: the serving phase's 16 requests, dense then paged
+    fp (the latt blocks' ring pools), launches K3 = 12 x prefills and K6 /
+    K7 = 12 x decode steps, no plain version; a second run, greedy requests
+    0 and 1 alone equal to batched, paged against dense up to near ties,
+    every greedy token against a teacher-forced forward; then one request
+    of a 2100-token prompt in an engine of max_len 2176, dense and paged,
+    whose 2048-slot ring wraps in prefill (the ring holds positions 52 to
+    2099 after it) and in decode; a profiler split of one prefill and one
+    decode block. Returns the dense and paged records."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(REC_ARCH)
+    rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
+    t0 = time.perf_counter()
+    model = init_model(cfg, rcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_latt = _n_kind(cfg, "latt")
+    print(f"[rec serve] {REC_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
+          f"layers ({_n_kind(cfg, 'rec')} rec, {n_latt} latt), lru_width {cfg.lru_width}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, local_window "
+          f"{cfg.local_window}, initialised on the card in {time.perf_counter() - t0:.1f} s; "
+          f"memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    engine = lambda layout="dense", max_len=MAX_LEN, slots=SLOTS: ServeEngine(
+        cfg, rcfg, model, max_slots=slots, max_len=max_len, decode_block=DECODE_BLOCK,
+        cache_layout=layout, page_size=PAGE)
+    tag = f"[{smi}]"
+
+    def served(label, eng, reqs, n_gen):
+        out, counts = _counted(lambda: eng.run(reqs))
+        st = eng.stats()
+        check(sorted(out) == sorted(r.uid for r in reqs)
+              and all(len(out[u].tokens) == n_gen for u in out),
+              f"rec {label}: not every request finished with {n_gen} tokens")
+        check(st["nonfinite_logits"] == 0,
+              f"rec {label}: {st['nonfinite_logits']} non-finite logits rows")
+        check(st["buckets_enabled"] is False, f"rec {label}: prefill bucketing is on")
+        paged = eng.cache_layout == "paged"
+        check(len(eng.allocators) == (1 if paged else 0)
+              and all(a.spec.ring for a in eng.allocators),
+              f"rec {label}: want one ring page pool (the latt blocks') when paged")
+        want = {"flash_attention_fwd": n_latt * st["prefill_count"],
+                "flash_decode": 0 if paged else n_latt * st["decode_steps"],
+                "flash_paged_decode": n_latt * st["decode_steps"] if paged else 0,
+                "flash_attention_fwd_f32": 0, "flash_paged_decode_quant": 0}
+        check({k: counts.get(k, 0) for k in want} == want
+              and not any(k.endswith("_ref") for k in counts),
+              f"rec {label}: launches {counts}, want {want} and no plain version")
+        return out, counts, st
+
+    warm = engine().run(_requests(cfg))
+    res = {}
+    for layout in ("dense", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts, st = served(layout, engine(layout), _requests(cfg), GEN)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[rec serve] {layout}: launches {counts} | prefills {st['prefill_count']} | "
+              f"decode steps {st['decode_steps']} | buckets_enabled {st['buckets_enabled']} | "
+              f"cache {st['cache_slot_bytes'] / 2**20:.2f} MiB a slot | decode "
+              f"{st['decode_tok_s']:.1f} tok/s | p50 {st['p50_token_latency_ms']:.3f} / p95 "
+              f"{st['p95_token_latency_ms']:.3f} ms per step | prefill {st['prefill_tok_s']:.1f} "
+              f"tok/s | peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
+        res[layout] = {"out": out, "counts": counts, "stats": st, "peak": peak}
+    dense, paged = res["dense"]["out"], res["paged"]["out"]
+    check(all(warm[u].tokens == dense[u].tokens for u in dense),
+          "rec dense: a second run gave different tokens")
+    for uid in (0, 1):                                 # greedy, alone
+        solo = engine().run([r for r in _requests(cfg) if r.uid == uid])[uid]
+        check(solo.tokens == dense[uid].tokens,
+              f"rec: greedy request {uid} alone differs from its batched run")
+    greedy = [r for r in _requests(cfg) if r.sampling.temperature == 0]
+    parted = [(r.uid, t) for r in greedy
+              if (t := first_divergence_near_tie(cfg, rcfg, model, r, dense[r.uid].tokens,
+                                                 paged[r.uid].tokens, "rec paged vs dense",
+                                                 tag="rec serve")) is not None]
+    n_equal = sum(paged[u].tokens == dense[u].tokens for u in dense)
+    tf = [teacher_forced(cfg, rcfg, model, r, dense[r.uid].tokens, "rec") for r in greedy]
+    print(f"[rec serve] second run identical; greedy requests 0 and 1 identical alone and "
+          f"batched; paged tokens equal to dense for {n_equal}/{N_REQUESTS} requests, greedy "
+          f"streams parted (uid, token) {parted}, each at a near tie; every token of the "
+          f"{len(greedy)} greedy streams vs a teacher-forced forward over its own tokens: "
+          f"{sum(d for d, _ in tf)} of {len(greedy) * GEN} differ, their largest gap to the "
+          f"top logit {max(w for _, w in tf):.4f} (near tie < {TOL_NEAR})")
+    # the long request: the ring wraps in prefill and keeps wrapping in decode
+    args = argparse.Namespace(prompt_len=REC_LONG_PROMPT, requests=1, gen=GEN,
+                              temperature=0.0, top_k=0, seed=0)
+    from repro_torch.launch.serve import _build_requests
+
+    long_req = _build_requests(cfg, args)[0]
+    _, caches = prefill(cfg, rcfg, model, {"tokens": torch.tensor([long_req.tokens],
+                                                                   device="cuda")},
+                        REC_LONG_MAX)
+    ring = next(node for node in caches[0] if isinstance(node, KVCache))
+    held = sorted(ring.slot_pos[0, 0].tolist())
+    first = REC_LONG_PROMPT - REC_WINDOW
+    check(ring.ring and held == list(range(first, REC_LONG_PROMPT)),
+          f"rec long prompt: the ring holds positions {held[:3]}..{held[-3:]}, want "
+          f"{first}..{REC_LONG_PROMPT - 1}")
+    del caches, ring
+    long_out = {}
+    for layout in ("dense", "paged"):
+        out, counts, st = served(f"long {layout}", engine(layout, REC_LONG_MAX, 1), [long_req],
+                                 GEN)
+        long_out[layout] = out[long_req.uid].tokens
+        d, w = teacher_forced(cfg, rcfg, model, long_req, long_out[layout], f"rec long {layout}")
+        print(f"[rec serve] long request ({REC_LONG_PROMPT}-token prompt, max_len "
+              f"{REC_LONG_MAX}, a {REC_WINDOW}-slot ring holding positions {first}.."
+              f"{REC_LONG_PROMPT - 1} after prefill), {layout}: launches {counts} | decode "
+              f"{st['decode_tok_s']:.1f} tok/s | prefill {st['prefill_tok_s']:.1f} tok/s | "
+              f"teacher-forced: {d} of {GEN} differ, largest gap {w:.4f} (< {TOL_NEAR}) {tag}")
+    first_divergence_near_tie(cfg, rcfg, model, long_req, long_out["dense"], long_out["paged"],
+                              "rec long paged vs dense", tag="rec serve")
+    st = res["dense"]["stats"]
+    trace_breakdown(cfg, engine, model, {
+        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
+        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
+        tag="rec ")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rec_hotspots(cut, step_ms, tag):
+    """Device time of the two f32 pieces of a rec layer that the JAX
+    package leaves to XLA, at the training shape (TF32 off), against the
+    step time: a gate product (8192 x 4096 @ 4096 x 4096: w_a and w_i once
+    each a forward pass, the recompute's included, and their dx and dW in
+    backward) and the linear scan (forward, and forward + backward)."""
+    import torch
+
+    from repro_torch.models.rglru import LinearScan
+
+    n_rec = _n_kind(cut, "rec")
+    tokens, w = TRAIN_BATCH * TRAIN_SEQ, cut.lru_width
+    x = torch.randn((tokens, w), device="cuda")
+    wa = torch.randn((w, w), device="cuda")
+    gemm = time_ms(lambda: x @ wa, reps=10)
+    a = torch.rand((TRAIN_BATCH, TRAIN_SEQ, w), device="cuda").requires_grad_()
+    b = torch.randn((TRAIN_BATCH, TRAIN_SEQ, w), device="cuda").requires_grad_()
+    g = torch.randn_like(b)
+    fwd = time_ms(lambda: LinearScan.apply(a, b), reps=10)
+    fb = time_ms(lambda: torch.autograd.grad(LinearScan.apply(a, b), (a, b), g), reps=10)
+    passes = 2 if REC_REMAT != "none" else 1         # the recompute runs the forward again
+    n_gemm = n_rec * (2 * passes + 4)                # w_a, w_i: forward; dx and dW each
+    scan_ms = n_rec * ((passes - 1) * fwd + fb)
+    print(f"[rec train] f32 gate product ({tokens} x {w} @ {w} x {w}, TF32 off) {gemm:.3f} ms; "
+          f"{n_gemm} a step = {n_gemm * gemm:.1f} ms ({100 * n_gemm * gemm / step_ms:.1f}% of "
+          f"the {step_ms:.1f} ms step) | linear scan ({TRAIN_BATCH}, {TRAIN_SEQ}, {w}) f32: "
+          f"forward {fwd:.3f} ms, forward + backward {fb:.3f} ms; a step {scan_ms:.1f} ms "
+          f"({100 * scan_ms / step_ms:.1f}%) (isolated, CUDA events) {tag}")
+    del x, wa, a, b, g
+    torch.cuda.empty_cache()
+
+
+def phase_rec_training(smi):
+    """recurrentgemma-9b at full width, cut to the smoke arch's stage layout
+    (5 layers), trained under attn.qkv and rglru.in PAMM: f32 params / bf16
+    compute, AdamW, batch 4 x 2048, remat REC_REMAT; one warm-up and 3
+    measured steps (finite losses; launches a step K1 5, K2 7, K3 1 (2
+    where the remat mode recomputes), K4 = K5 1; telemetry; step and
+    forward + backward peaks; a profiler split; the f32 gate products' and
+    the scan's time), the sites' saving under remat='none' at
+    REC_CUT_STAGES, and a second run from the seed. Returns the per-step
+    launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.train import init_train_state
+
+    full = get_config(REC_ARCH)
+    cut = dataclasses.replace(full, stages=REC_TRAIN_STAGES,
+                              n_layers=sum(len(u) * r for u, r in REC_TRAIN_STAGES))
+    rcfg = RunConfig(compression=REC_SPEC, policy_name="none", remat=REC_REMAT)
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cut, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    n_rec, n_latt = _n_kind(cut, "rec"), _n_kind(cut, "latt")
+    print(f"[rec train] {REC_ARCH} cut to {cut.n_layers} of {full.n_layers} layers "
+          f"{REC_TRAIN_STAGES}: {n_params / 1e9:.3f} B params f32, compute "
+          f"{rcfg.compute_dtype}, {REC_SPEC}, remat={REC_REMAT!r}, AdamW, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; losses {rec['loss']} | grad norms {[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "rec: a training loss or grad norm is not finite")
+    want = {"csim_argmax": n_rec + n_latt, "segment_matmul": n_rec + 3 * n_latt,
+            "flash_attention_fwd": (1 if REC_REMAT == "none" else 2) * n_latt,
+            "flash_attention_dq": n_latt, "flash_attention_dkv": n_latt,
+            **{k: 0 for k in ATTN_KERNELS if k.endswith("_f32") or "decode" in k}}
+    print(f"[rec train] launches per step {per_step}")
+    check({k: per_step.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in rec["counts"]),
+          f"rec training launches per step {per_step} != {want}, or a plain version ran")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[rec train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}: {[round(t, 1) for t in rec['ms'][1:]]}; warm-up step "
+          f"{rec['ms'][0]:.1f} ms) | step peak torch.cuda.max_memory_allocated "
+          f"{rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[rec train] site telemetry (summed over the layers) {sites}")
+    trace_training_step(state, step_fn, cut, step_ms, n + 1, tag="rec ")
+    rec["fb_peak"] = _fwd_bwd_peak(cut, rcfg, state, TRAIN_SEQ)
+    print(f"[rec train] forward + backward peak (one loss_and_grad, AdamW moments resident) "
+          f"{rec['fb_peak'] / 2**30:.3f} GiB {tag}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    _rec_hotspots(cut, step_ms, tag)
+    # the sites' saving: forward + backward under remat='none' at
+    # REC_CUT_STAGES, exact, with attn.qkv alone and with both rules
+    small = dataclasses.replace(full, stages=REC_CUT_STAGES,
+                                n_layers=sum(len(u) * r for u, r in REC_CUT_STAGES))
+    state = init_train_state(small, rcfg, device="cuda")
+    specs = (("exact", ""), ("attn.qkv", "attn.qkv=pamm(r=1/512)"), ("both", REC_SPEC))
+    peaks = {label: _fwd_bwd_peak(small, dataclasses.replace(rcfg, compression=spec,
+                                                             remat="none"), state, TRAIN_SEQ)
+             for label, spec in specs}
+    rec["cut_peaks"] = peaks
+    qkv, rg = peaks["exact"] - peaks["attn.qkv"], peaks["attn.qkv"] - peaks["both"]
+    print(f"[rec train] cut to {REC_CUT_STAGES}, remat='none', batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: forward + backward peak "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+          + f"; attn.qkv saves {qkv / 2**20:.1f} MiB ({_n_kind(small, 'latt')} latt layer), "
+          f"rglru.in {rg / 2**20:.1f} MiB ({rg / 2**20 / _n_kind(small, 'rec'):.1f} MiB a rec "
+          f"layer; a layer's bf16 input is {tokens * REC_D * 2 / 2**20:.1f} MiB) {tag}")
+    del state
+    torch.cuda.empty_cache()
+    _, _, rec2 = _train_run(cut, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[rec train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 "
+          f"equal: {rec2['loss'][0] == rec['loss'][0]}; later steps worst rel "
+          f"{max(rel[1:]):.2e}, tol 1e-3)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "rec: a second run from the seed gives other losses")
+    torch.cuda.empty_cache()
+    return per_step, rec
+
+
+def phase_rec_numbers(gen, serve, per_step, rec, smi, errs):
+    """Kernel rows at recurrentgemma's shapes (plain version, SDPA where it
+    computes the same function, bound, launches on the rec training path):
+    K3, K4 and K5 at the training shape (4, 2048, 16 / 1, 256), K1 at
+    (8192, 4096, k 16), K2 at m 4096 and 256; then K3 at the serving
+    prefill shape and K6 / K7 at the cell's decode shapes, printed."""
+    import torch
+
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    tag = f"[{smi}]"
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    H, KV, dh = REC_HEADS
+    B, L, W = TRAIN_BATCH, TRAIN_SEQ, REC_WINDOW
+    at = f"({B}, {L}, {H}/{KV}, {dh}), window {W}"
+    att = attention_inputs(gen, B, L, H, KV, dh, W)
+    rows = [
+        _kernel_row(f"flash_attention_fwd (K3, recurrentgemma's latt heads, {at})", K3_SOURCE,
+                    K3_REPLACES, launches.get("flash_attention_fwd", 0), errs["K3"], *att["K3"]),
+        _kernel_row(f"flash_attention_dq (K4, dh 256: two 128-wide halves, {at})", K45_SOURCE,
+                    K4_REPLACES, launches.get("flash_attention_dq", 0), errs["K4"], *att["K4"]),
+        _kernel_row(f"flash_attention_dkv (K5, dh 256: two 128-wide halves, {at})",
+                    K45_SOURCE, K5_REPLACES, launches.get("flash_attention_dkv", 0),
+                    errs["K5"], *att["K5"])]
+    del att
+    torch.cuda.empty_cache()
+    b, n, k = TRAIN_BATCH * TRAIN_SEQ, REC_D, REC_K
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    rows.append(_kernel_row("csim_argmax (K1, recurrentgemma's rglru.in and attn.qkv sites)",
+                            K1_SOURCE, K1_REPLACES, launches.get("csim_argmax", 0), errs["K1"],
+                            lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
+                            k1_work(b, n, k, 2)))
+    for m in REC_M:
+        gz = _randn((b, m), gen)
+        what = "w_x and wq" if m == REC_D else "wk and wv"
+        rows.append(_kernel_row(
+            f"segment_matmul (K2, recurrentgemma's {what}, m {m})", K2_SOURCE, K2_REPLACES,
+            launches.get("segment_matmul", 0), errs["K2"],
+            lambda: segment_matmul_cuda(f, alpha, gz, k),
+            lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2)))
+    for row in rows:
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"plain {row['plain_ms']:.4f} ms | library "
+              + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
+              + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
+              f"launches on the rec training path ({TRAIN_STEPS} steps) {tag}")
+    step_ms = statistics.median(rec["ms"][1:])
+    print(f"[numbers] rec train step {step_ms:.1f} ms: "
+          + ", ".join(f"{r['name'].split(' (')[0]} x{r['launches'] // TRAIN_STEPS} "
+                      f"{r['launches'] // TRAIN_STEPS * r['ms']:.2f} ms" for r in rows[:4])
+          + f" (isolated, L2 flushed) {tag}")
+    del x, c, gz
+    line = functools.partial(timed_line, "recurrentgemma", tag)
+    att = attention_inputs(gen, 1, PROMPT_LEN, H, KV, dh, W)
+    line(f"K3 (1, {PROMPT_LEN}, {H}/{KV}, {dh}), window {W}", *att["K3"],
+         f"{serve['dense']['counts'].get('flash_attention_fwd', 0)} launches serving")
+    del att
+    decode_lines(gen, line, H, KV, dh, W, serve)
+    return rows
+
+
+def run_rec_phases(gen, smi):
+    """Phases 22-25: recurrentgemma's kernels against their plain
+    versions, recurrentgemma-9b served at full size and trained at a cut
+    depth, recurrentgemma smoke card against CPU (residual and
+    reversible), the rec kernel rows. Returns the rows."""
+    errs = phase_rec_kernels(gen)
+    serve = phase_rec_serving(smi)
+    phase_card_vs_cpu(REC_SMOKE, REC_SMOKE_SPEC)
+    phase_reversible_card_vs_cpu(REC_SMOKE, REC_SMOKE_SPEC)
+    per_step, rec = phase_rec_training(smi)
+    return phase_rec_numbers(gen, serve, per_step, rec, smi, errs)
+
+
 def start():
     """What every run does first: a card and the package next to this
     script, f32 products out of TF32, every kernel built (phase 1).
@@ -3360,12 +3870,15 @@ def main() -> int:
     errs_moe, moe_rows = run_moe_phases(gen, smi)
     print(f"[time] MoE phases 14-17 done at {time.perf_counter() - t0:.1f} s")
     ssm_rows = run_ssm_phases(gen, smi)
+    print(f"[time] ssm phases 18-21 done at {time.perf_counter() - t0:.1f} s")
+    rec_rows = run_rec_phases(gen, smi)
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     kernels += paged_rows
     kernels += moe_rows
     kernels += ssm_rows
+    kernels += rec_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,8 @@
 // Bound on the H100: operations. At the training shape (4, 2048, 16/8,
 // 128), causal, the ~2.1 M visible (query, key) pairs per head cost 6 * dh
 // flops each in K4 (q k^T, dO v^T, ds k) and 8 * dh in K5 (k q^T, v dO^T,
-// p^T dO, ds^T q): 0.1043 and 0.1390 ms at the bf16 tensor-core peak.
+// p^T dO, ds^T q): 0.1043 and 0.1390 ms at the bf16 tensor-core peak; at
+// recurrentgemma's (4, 2048, 16/1, 256), 0.2086 and 0.2781 ms.
 //
 // bf16 route (entries flash_attention_dq / flash_attention_dkv, the main
 // path): FlashAttention-2's shape on mma.sync m16n8k16 (bf16 in, f32
@@ -55,7 +56,17 @@
 //       dO's B fragment by ldmatrix.trans), dP^T = V dO^T, dS^T = P^T
 //       (dP^T - delta) scale, dK += dS^T Q. Causal kv tiles are issued
 //       heaviest first: the first tiles, which see the most queries.
-// Head dims compile at 16, 32, 64, 80, 112 and 128 (dh 120 runs at 128).
+// Head dims compile at 16, 32, 64, 80, 112 and 128 (dh 120 runs at 128), and
+// at 256 (any dh in (128, 256], recurrentgemma's 256 with one kv head): there
+// the (16, 256) f32 accumulators (dq; dk and dv) and K4's register-resident
+// Q and dO fragments would pass 255 registers a thread, and the staged
+// tiles of the dh-128 shape 232,448 bytes of shared memory. So each block
+// owns one 128-wide half of the output head dims (blockIdx.x = head x 2 +
+// half) and recomputes S and dP over all 256 (K4 10 * dh flops a visible
+// pair where the split-free route has 6, K5 12 where it has 8); K4 keeps Q
+// and dO in shared memory and reads their fragments by ldmatrix per kv tile,
+// with 4 warps (64 query rows) a block: 202,752 bytes. K5 keeps its 4 warps:
+// 203,776 bytes. The accumulators are then as wide as at dh 128.
 // Departures from the TPU kernels, within chip_smoke.py's TOL_K45 2e-2 and
 // TOL_ROW 1e-2: P and dS are rounded to bf16 before their products (the TPU
 // keeps them in f32), and the exponent runs in base 2 (exp2 of
@@ -67,8 +78,10 @@
 // check in f32 and the f32 tests). 256 threads per block, 64 x 64 tiles
 // staged in shared memory as f32 with a padded row stride; each thread owns
 // a 4 x 4 block of a score tile and 4 rows of its accumulators at 1/16 of
-// the head dims. A bf16 tensor never reaches them: the wrapper picks the
-// route by dtype.
+// the head dims. At dh 256 the tiles are staged 128 head dims at a time
+// (scores summed over both chunks) and each block owns one 128-wide half of
+// the outputs, as on the bf16 route. A bf16 tensor never reaches them: the
+// wrapper picks the route by dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,10 +141,10 @@ __device__ __forceinline__ bool masked(int causal, int window, int qp, int kp) {
   return (causal && kp > qp) || (window > 0 && qp - kp >= window);
 }
 
-template <int DHP>
+template <int DHP, int WARPS>
 constexpr size_t dq_smem_bytes() {
   // sQ, sdO (the block's query rows), sK and sV (STAGES x BK rows each)
-  return sizeof(bf16) * (size_t)(2 * 16 * DQ_WARPS + 2 * STAGES * BK) * (DHP + 8);
+  return sizeof(bf16) * (size_t)(2 * 16 * WARPS + 2 * STAGES * BK) * (DHP + 8);
 }
 
 template <int DHP>
@@ -143,10 +156,11 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // ---------------------------------------------------------------------------
-// K4: dq, q-major
+// K4: dq, q-major. DHP: the staged (padded) head dims; WARPS: warps a block;
+// DOUT: the head dims of dq a block writes (DHP, or a half of 256)
 // ---------------------------------------------------------------------------
-template <int DHP>
-__global__ void __launch_bounds__(32 * DQ_WARPS)
+template <int DHP, int WARPS, int DOUT>
+__global__ void __launch_bounds__(32 * WARPS)
 dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dO,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -154,19 +168,21 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
               long long skb, long long skl, long long svb, long long svl, long long sdob,
               long long sdol, long long sdqb, long long sdql, int causal, int window, int q_off,
               int k_off, float scale, int vec) {
-  constexpr int NT = 32 * DQ_WARPS;
-  constexpr int BQ = 16 * DQ_WARPS;  // query rows per block
+  constexpr int NT = 32 * WARPS;
+  constexpr int BQ = 16 * WARPS;  // query rows per block
   constexpr int SR = DHP + 8;
-  constexpr int KS = DHP / 16;  // k-steps of Q K^T and dO V^T
-  constexpr int NS = BK / 8;    // n-tiles of a warp's (16, BK) score tile
-  constexpr int ND = DHP / 8;   // n-tiles of its (16, DHP) dq
+  constexpr int KS = DHP / 16;    // k-steps of Q K^T and dO V^T
+  constexpr int NS = BK / 8;      // n-tiles of a warp's (16, BK) score tile
+  constexpr int ND = DOUT / 8;    // n-tiles of its (16, DOUT) slice of dq
+  constexpr int NH = DHP / DOUT;  // slices of the head dims, one a block
+  constexpr bool QREG = DHP <= 128;  // Q's and dO's fragments held in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sdO = sQ + BQ * SR;
   bf16* sK = sdO + BQ * SR;  // stage s at sK + s * BK * SR
   bf16* sV = sK + STAGES * BK * SR;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / NH, d0 = (blockIdx.x % NH) * DOUT, b = blockIdx.y;
   const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // heaviest first
   const int q0 = iq * BQ;
   const int kvh = h / (H / KV);
@@ -208,7 +224,7 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[KS][4], gf[KS][4];  // Q's and dO's A fragments
+  uint32_t qf[QREG ? KS : 1][4], gf[QREG ? KS : 1][4];  // Q's and dO's A fragments
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int it = kt - kt_begin;
@@ -223,11 +239,13 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const bf16* cK = sK + (it % STAGES) * BK * SR;
     const bf16* cV = sV + (it % STAGES) * BK * SR;
-    if (it == 0) {
+    if constexpr (QREG) {
+      if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        ldsm_x4(qf[ks], frag_a(sQ, SR, row0, ks * 16, lane));
-        ldsm_x4(gf[ks], frag_a(sdO, SR, row0, ks * 16, lane));
+        for (int ks = 0; ks < KS; ++ks) {
+          ldsm_x4(qf[ks], frag_a(sQ, SR, row0, ks * 16, lane));
+          ldsm_x4(gf[ks], frag_a(sdO, SR, row0, ks * 16, lane));
+        }
       }
     }
 
@@ -239,15 +257,26 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], ga[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[ks][e];
+          ga[e] = gf[ks][e];
+        }
+      } else {  // re-read from shared memory each kv tile
+        ldsm_x4(qa, frag_a(sQ, SR, row0, ks * 16, lane));
+        ldsm_x4(ga, frag_a(sdO, SR, row0, ks * 16, lane));
+      }
 #pragma unroll
       for (int n2 = 0; n2 < NS / 2; ++n2) {
         uint32_t bf[4];
         ldsm_x4(bf, frag_b(cK, SR, n2 * 16, ks * 16, lane));
-        mma16816(s[2 * n2], qf[ks], bf[0], bf[1]);
-        mma16816(s[2 * n2 + 1], qf[ks], bf[2], bf[3]);
+        mma16816(s[2 * n2], qa, bf[0], bf[1]);
+        mma16816(s[2 * n2 + 1], qa, bf[2], bf[3]);
         ldsm_x4(bf, frag_b(cV, SR, n2 * 16, ks * 16, lane));
-        mma16816(dp[2 * n2], gf[ks], bf[0], bf[1]);
-        mma16816(dp[2 * n2 + 1], gf[ks], bf[2], bf[3]);
+        mma16816(dp[2 * n2], ga, bf[0], bf[1]);
+        mma16816(dp[2 * n2 + 1], ga, bf[2], bf[3]);
       }
     }
 
@@ -273,15 +302,15 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 
     // dQ += dS K: two dS n-tiles are one A fragment, K's B fragment by
-    // ldmatrix.trans (k runs down K's rows)
+    // ldmatrix.trans (k runs down K's rows), the block's head dims only
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
       acc_as_a(a, s, kk);
 #pragma unroll
-      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+      for (int d2 = 0; d2 < DOUT / 16; ++d2) {
         uint32_t bf[4];
-        ldsm_x4_trans(bf, frag_a(cK, SR, kk * 16, d2 * 16, lane));
+        ldsm_x4_trans(bf, frag_a(cK, SR, kk * 16, d0 + d2 * 16, lane));
         mma16816(acc[2 * d2], a, bf[0], bf[1]);
         mma16816(acc[2 * d2 + 1], a, bf[2], bf[3]);
       }
@@ -297,7 +326,7 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* row = dq + (long long)b * sdqb + (long long)ql * sdql + (long long)h * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      const int d = j * 8 + tg * 2;
+      const int d = d0 + j * 8 + tg * 2;
       if (d < dh) row[d] = __float2bfloat16(acc[j][2 * hr]);
       if (d + 1 < dh) row[d + 1] = __float2bfloat16(acc[j][2 * hr + 1]);
     }
@@ -305,9 +334,10 @@ dq_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K5: dk, dv, kv-major with the G query heads folded in
+// K5: dk, dv, kv-major with the G query heads folded in. DOUT: the head dims
+// of dk and dv a block writes (DHP, or a half of 256)
 // ---------------------------------------------------------------------------
-template <int DHP>
+template <int DHP, int DOUT>
 __global__ void __launch_bounds__(32 * DKV_WARPS)
 dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dO,
@@ -321,8 +351,9 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int BKB = 16 * DKV_WARPS;  // keys per block
   constexpr int SR = DHP + 8;
   constexpr int KS = DHP / 16;  // k-steps of K Q^T and V dO^T
-  constexpr int NQ = BQT / 8;   // n-tiles of a warp's (16, BQT) transposed score tile
-  constexpr int ND = DHP / 8;   // n-tiles of its (16, DHP) dk and dv
+  constexpr int NQ = BQT / 8;     // n-tiles of a warp's (16, BQT) transposed score tile
+  constexpr int ND = DOUT / 8;    // n-tiles of its (16, DOUT) slices of dk and dv
+  constexpr int NH = DHP / DOUT;  // slices of the head dims, one a block
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + BKB * SR;
@@ -331,7 +362,7 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sL = reinterpret_cast<float*>(sdO + STAGES * BQT * SR);  // stage s at sL + s * BQT
   float* sD = sL + STAGES * BQT;
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x / NH, d0 = (blockIdx.x % NH) * DOUT, b = blockIdx.y;
   const int ik = blockIdx.z;  // causal: the first kv tiles see the most queries
   const int k0 = ik * BKB;
   const int G = H / KV;
@@ -435,9 +466,9 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t a[4];
       acc_as_a(a, s, kk);
 #pragma unroll
-      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+      for (int d2 = 0; d2 < DOUT / 16; ++d2) {
         uint32_t bf[4];
-        ldsm_x4_trans(bf, frag_a(cdO, SR, kk * 16, d2 * 16, lane));
+        ldsm_x4_trans(bf, frag_a(cdO, SR, kk * 16, d0 + d2 * 16, lane));
         mma16816(dva[2 * d2], a, bf[0], bf[1]);
         mma16816(dva[2 * d2 + 1], a, bf[2], bf[3]);
       }
@@ -469,9 +500,9 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       uint32_t a[4];
       acc_as_a(a, s, kk);
 #pragma unroll
-      for (int d2 = 0; d2 < DHP / 16; ++d2) {
+      for (int d2 = 0; d2 < DOUT / 16; ++d2) {
         uint32_t bf[4];
-        ldsm_x4_trans(bf, frag_a(cQ, SR, kk * 16, d2 * 16, lane));
+        ldsm_x4_trans(bf, frag_a(cQ, SR, kk * 16, d0 + d2 * 16, lane));
         mma16816(dka[2 * d2], a, bf[0], bf[1]);
         mma16816(dka[2 * d2 + 1], a, bf[2], bf[3]);
       }
@@ -488,7 +519,7 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* vrow = dv + (long long)b * sdvb + (long long)kl * sdvl + (long long)kvh * dh;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      const int d = j * 8 + tg * 2;
+      const int d = d0 + j * 8 + tg * 2;
       if (d < dh) {
         krow[d] = __float2bfloat16(dka[j][2 * hr]);
         vrow[d] = __float2bfloat16(dva[j][2 * hr]);
@@ -501,16 +532,17 @@ dkv_kernel_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DHP>
+template <int DHP, int WARPS = DQ_WARPS, int DOUT = DHP>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<DHP>();
-  auto kernel = dq_kernel_mma<DHP>;
+  constexpr size_t smem = dq_smem_bytes<DHP, WARPS>();
+  static_assert(smem <= 232448, "K4's staged tiles exceed a block's shared memory");
+  auto kernel = dq_kernel_mma<DHP, WARPS, DOUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int BQ = 16 * DQ_WARPS;
-  dim3 grid(a.H, a.B, (a.L + BQ - 1) / BQ);
-  kernel<<<grid, 32 * DQ_WARPS, smem, stream>>>(
+  constexpr int BQ = 16 * WARPS;
+  dim3 grid(a.H * (DHP / DOUT), a.B, (a.L + BQ - 1) / BQ);
+  kernel<<<grid, 32 * WARPS, smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dO,
       (const float*)a.lse, (const float*)a.delta, (bf16*)a.o1, a.L, a.H, a.KV, a.dh, a.sqb,
       a.sql, a.skb, a.skl, a.svb, a.svl, a.sdob, a.sdol, a.s1b, a.s1l, a.causal, a.window,
@@ -518,15 +550,16 @@ int launch_dq(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int DHP>
+template <int DHP, int DOUT = DHP>
 int launch_dkv(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DHP>();
-  auto kernel = dkv_kernel_mma<DHP>;
+  static_assert(smem <= 232448, "K5's staged tiles exceed a block's shared memory");
+  auto kernel = dkv_kernel_mma<DHP, DOUT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int BKB = 16 * DKV_WARPS;
-  dim3 grid(a.KV, a.B, (a.L + BKB - 1) / BKB);
+  dim3 grid(a.KV * (DHP / DOUT), a.B, (a.L + BKB - 1) / BKB);
   kernel<<<grid, 32 * DKV_WARPS, smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dO,
       (const float*)a.lse, (const float*)a.delta, (bf16*)a.o1, (bf16*)a.o2, a.L, a.H, a.KV, a.dh,
@@ -543,6 +576,8 @@ int dispatch(const Args& a, cudaStream_t s) {
   if (a.dh <= 80) return DKV ? launch_dkv<80>(a, s) : launch_dq<80>(a, s);
   if (a.dh <= 112) return DKV ? launch_dkv<112>(a, s) : launch_dq<112>(a, s);
   if (a.dh <= 128) return DKV ? launch_dkv<128>(a, s) : launch_dq<128>(a, s);
+  // two 128-wide halves of the outputs; K4 at 4 warps
+  if (a.dh <= 256) return DKV ? launch_dkv<256, 128>(a, s) : launch_dq<256, 4, 128>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -557,27 +592,35 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
 
-// rows x DHP tile of (B, L, N, dh) at sequence offset l0, zero past L / dh
+// Head dims staged at a time: all of them up to 128; at 256 two chunks of
+// 128, each block then writing one chunk's slice of the outputs.
+__host__ __device__ constexpr int chunk_of(int dhp) { return dhp < 128 ? dhp : 128; }
+// the first head dim of the last chunk (what the score loop leaves staged)
 template <int DHP>
+__host__ __device__ constexpr int c_last() { return DHP - chunk_of(DHP); }
+
+// rows x DC tile of (B, L, N, dh) at sequence offset l0, zero past L / dh
+// (base and dh taken from the chunk's first head dim)
+template <int DC>
 __device__ __forceinline__ void load_tile(float* dst, const float* base, long long sl, int l0,
                                           int L, int dh) {
-  constexpr int QS = DHP + 1;
-  for (int i = threadIdx.x; i < 64 * DHP; i += NT) {
-    const int r = i / DHP, d = i % DHP, l = l0 + r;
+  constexpr int QS = DC + 1;
+  for (int i = threadIdx.x; i < 64 * DC; i += NT) {
+    const int r = i / DC, d = i % DC, l = l0 + r;
     dst[r * QS + d] = (l < L && d < dh) ? base[(long long)l * sl + d] : 0.f;
   }
 }
 
 template <int DHP>
 constexpr size_t dq_smem_bytes() {
-  // sQ, sdO, sK, sV: (64, DHP + 1); sS: (64, 65); sL, sD: 64 -- all f32
-  return sizeof(float) * (size_t)(4 * 64 * (DHP + 1) + 64 * (BK + 1) + 2 * 64);
+  // sQ, sdO, sK, sV: (64, DC + 1); sS: (64, 65); sL, sD: 64 -- all f32
+  return sizeof(float) * (size_t)(4 * 64 * (chunk_of(DHP) + 1) + 64 * (BK + 1) + 2 * 64);
 }
 
 template <int DHP>
 constexpr size_t dkv_smem_bytes() {
-  // sK, sV, sQ, sdO: (64, DHP + 1); sP, sS: (64, 65); sL, sD: 64
-  return sizeof(float) * (size_t)(4 * 64 * (DHP + 1) + 2 * 64 * (BQ + 1) + 2 * 64);
+  // sK, sV, sQ, sdO: (64, DC + 1); sP, sS: (64, 65); sL, sD: 64
+  return sizeof(float) * (size_t)(4 * 64 * (chunk_of(DHP) + 1) + 2 * 64 * (BQ + 1) + 2 * 64);
 }
 
 // K4: dq, q-major
@@ -589,9 +632,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
           long long sqb, long long sql, long long skb, long long skl, long long svb,
           long long svl, long long sdob, long long sdol, long long sdqb, long long sdql,
           int causal, int window, int q_off, int k_off, float scale) {
-  constexpr int QS = DHP + 1;
+  constexpr int DC = chunk_of(DHP);  // head dims staged at a time
+  constexpr int NCH = DHP / DC;      // chunks; the block writes chunk c_out of dq
+  constexpr int QS = DC + 1;
   constexpr int PS = BK + 1;
-  constexpr int NJ = DHP / 16;
+  constexpr int NJ = DC / 16;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + BQ * QS;
@@ -601,17 +646,22 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
   float* sL = sS + BQ * PS;
   float* sD = sL + BQ;
 
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int iq = blockIdx.x, h = blockIdx.y / NCH, b = blockIdx.z;
+  const int c_out = (blockIdx.y % NCH) * DC;
   const int kvh = h / (H / KV);
   const int q0 = iq * BQ;
   const int t = threadIdx.x;
   const int rg = t >> 4;  // query rows 4*rg .. 4*rg+3
-  const int cg = t & 15;  // key columns cg + 16*j, head dims cg + 16*j
+  const int cg = t & 15;  // key columns cg + 16*j, head dims c_out + cg + 16*j
 
   const float* kb = k + (long long)b * skb + (long long)kvh * dh;
   const float* vb = v + (long long)b * svb + (long long)kvh * dh;
-  load_tile<DHP>(sQ, q + (long long)b * sqb + (long long)h * dh, sql, q0, L, dh);
-  load_tile<DHP>(sdO, dO + (long long)b * sdob + (long long)h * dh, sdol, q0, L, dh);
+  const float* qb = q + (long long)b * sqb + (long long)h * dh;
+  const float* gb = dO + (long long)b * sdob + (long long)h * dh;
+  if constexpr (NCH == 1) {  // Q and dO stay staged for every kv tile
+    load_tile<DC>(sQ, qb, sql, q0, L, dh);
+    load_tile<DC>(sdO, gb, sdol, q0, L, dh);
+  }
   const float* lse_row = lse + ((long long)b * H + h) * L;
   const float* delta_row = delta + ((long long)b * H + h) * L;
   for (int r = t; r < BQ; r += NT) {
@@ -633,36 +683,42 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    __syncthreads();  // previous tile's sK/sV/sS reads are done (and sQ.. loads)
-    load_tile<DHP>(sK, kb, skl, k0, L, dh);
-    load_tile<DHP>(sV, vb, svl, k0, L, dh);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int c0 = ch * DC, dc = min(DC, dh - c0);
+      __syncthreads();  // previous reads of the staged tiles are done (and sQ.. loads)
+      if constexpr (NCH > 1) {
+        load_tile<DC>(sQ, qb + c0, sql, q0, L, dh - c0);
+        load_tile<DC>(sdO, gb + c0, sdol, q0, L, dh - c0);
+      }
+      load_tile<DC>(sK, kb + c0, skl, k0, L, dh - c0);
+      load_tile<DC>(sV, vb + c0, svl, k0, L, dh - c0);
+      __syncthreads();
 #pragma unroll 2
-    for (int d = 0; d < dh; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
+      for (int d = 0; d < dc; ++d) {
+        float qv[4], gv[4], kv[4], vv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(4 * rg + i) * QS + d];
-        gv[i] = sdO[(4 * rg + i) * QS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(cg + 16 * j) * QS + d];
-        vv[j] = sV[(cg + 16 * j) * QS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = sQ[(4 * rg + i) * QS + d];
+          gv[i] = sdO[(4 * rg + i) * QS + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+          kv[j] = sK[(cg + 16 * j) * QS + d];
+          vv[j] = sV[(cg + 16 * j) * QS + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -680,6 +736,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
         }
         sS[r * PS + cg + 16 * j] = ds;
       }
+    }
+    if (NCH > 1 && c_out != c_last<DHP>()) {  // sK holds the last chunk: stage dq's
+      __syncthreads();
+      load_tile<DC>(sK, kb + c_out, skl, k0, L, dh - c_out);
     }
     __syncthreads();
 
@@ -705,7 +765,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
     float* row = dq + (long long)b * sdqb + (long long)l * sdql + (long long)h * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int d = cg + 16 * j;
+      const int d = c_out + cg + 16 * j;
       if (d < dh) row[d] = acc[i][j];
     }
   }
@@ -721,9 +781,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
            long long svb, long long svl, long long sdob, long long sdol, long long sdkb,
            long long sdkl, long long sdvb, long long sdvl, int causal, int window, int q_off,
            int k_off, float scale) {
-  constexpr int QS = DHP + 1;
+  constexpr int DC = chunk_of(DHP);  // head dims staged at a time
+  constexpr int NCH = DHP / DC;      // chunks; the block writes chunk c_out of dk, dv
+  constexpr int QS = DC + 1;
   constexpr int PS = BQ + 1;
-  constexpr int NJ = DHP / 16;
+  constexpr int NJ = DC / 16;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + BK * QS;
@@ -734,15 +796,20 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   float* sL = sS + BK * PS;
   float* sD = sL + BQ;
 
-  const int ik = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int ik = blockIdx.x, kvh = blockIdx.y / NCH, b = blockIdx.z;
+  const int c_out = (blockIdx.y % NCH) * DC;
   const int G = H / KV;
   const int k0 = ik * BK;
   const int t = threadIdx.x;
   const int rg = t >> 4;  // kv rows 4*rg .. 4*rg+3
-  const int cg = t & 15;  // query columns cg + 16*j, head dims cg + 16*j
+  const int cg = t & 15;  // query columns cg + 16*j, head dims c_out + cg + 16*j
 
-  load_tile<DHP>(sK, k + (long long)b * skb + (long long)kvh * dh, skl, k0, L, dh);
-  load_tile<DHP>(sV, v + (long long)b * svb + (long long)kvh * dh, svl, k0, L, dh);
+  const float* kb = k + (long long)b * skb + (long long)kvh * dh;
+  const float* vb = v + (long long)b * svb + (long long)kvh * dh;
+  if constexpr (NCH == 1) {  // K and V stay staged for every query tile
+    load_tile<DC>(sK, kb, skl, k0, L, dh);
+    load_tile<DC>(sV, vb, svl, k0, L, dh);
+  }
 
   float dka[4][NJ], dva[4][NJ];
 #pragma unroll
@@ -765,42 +832,50 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     const float* delta_row = delta + ((long long)b * H + h) * L;
     for (int iq = qt_begin; iq < qt_end; ++iq) {
       const int q0 = iq * BQ;
-      __syncthreads();  // previous tile's sQ/sdO/sP/sS reads are done
-      load_tile<DHP>(sQ, qb, sql, q0, L, dh);
-      load_tile<DHP>(sdO, gb, sdol, q0, L, dh);
-      for (int r = t; r < BQ; r += NT) {
-        const int l = q0 + r;
-        sL[r] = l < L ? lse_row[l] : 0.f;
-        sD[r] = l < L ? delta_row[l] : 0.f;
-      }
-      __syncthreads();
-
       // transposed tile: kv row 4*rg+i against query column cg + 16*j
       float s[4][4], dpt[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dpt[i][j] = 0.f;
+      for (int ch = 0; ch < NCH; ++ch) {
+        const int c0 = ch * DC, dc = min(DC, dh - c0);
+        __syncthreads();  // previous reads of the staged tiles are done
+        if constexpr (NCH > 1) {
+          load_tile<DC>(sK, kb + c0, skl, k0, L, dh - c0);
+          load_tile<DC>(sV, vb + c0, svl, k0, L, dh - c0);
+        }
+        load_tile<DC>(sQ, qb + c0, sql, q0, L, dh - c0);
+        load_tile<DC>(sdO, gb + c0, sdol, q0, L, dh - c0);
+        if (ch == 0) {
+          for (int r = t; r < BQ; r += NT) {
+            const int l = q0 + r;
+            sL[r] = l < L ? lse_row[l] : 0.f;
+            sD[r] = l < L ? delta_row[l] : 0.f;
+          }
+        }
+        __syncthreads();
 #pragma unroll 2
-      for (int d = 0; d < dh; ++d) {
-        float kv[4], vv[4], qv[4], gv[4];
+        for (int d = 0; d < dc; ++d) {
+          float kv[4], vv[4], qv[4], gv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sK[(4 * rg + i) * QS + d];
-          vv[i] = sV[(4 * rg + i) * QS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sQ[(cg + 16 * j) * QS + d];
-          gv[j] = sdO[(cg + 16 * j) * QS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            kv[i] = sK[(4 * rg + i) * QS + d];
+            vv[i] = sV[(4 * rg + i) * QS + d];
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
+            qv[j] = sQ[(cg + 16 * j) * QS + d];
+            gv[j] = sdO[(cg + 16 * j) * QS + d];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
+              dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
+            }
+        }
       }
 
 #pragma unroll
@@ -819,6 +894,11 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
           sP[r * PS + c] = p;
           sS[r * PS + c] = ds;
         }
+      }
+      if (NCH > 1 && c_out != c_last<DHP>()) {  // sQ, sdO hold the last chunk
+        __syncthreads();
+        load_tile<DC>(sQ, qb + c_out, sql, q0, L, dh - c_out);
+        load_tile<DC>(sdO, gb + c_out, sdol, q0, L, dh - c_out);
       }
       __syncthreads();
 
@@ -853,7 +933,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
     float* vrow = dv + (long long)b * sdvb + (long long)l * sdvl + (long long)kvh * dh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int d = cg + 16 * j;
+      const int d = c_out + cg + 16 * j;
       if (d < dh) {
         krow[d] = dka[i][j];
         vrow[d] = dva[i][j];
@@ -868,7 +948,7 @@ int launch_dq(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(dq_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
+  dim3 grid((a.L + BQ - 1) / BQ, a.H * (DHP / chunk_of(DHP)), a.B);
   dq_kernel<DHP><<<grid, NT, smem, stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dO,
       (const float*)a.lse, (const float*)a.delta, (float*)a.o1, a.L, a.H, a.KV, a.dh, a.sqb,
@@ -883,7 +963,7 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(dkv_kernel<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.L + BK - 1) / BK, a.KV, a.B);
+  dim3 grid((a.L + BK - 1) / BK, a.KV * (DHP / chunk_of(DHP)), a.B);
   dkv_kernel<DHP><<<grid, NT, smem, stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (const float*)a.dO,
       (const float*)a.lse, (const float*)a.delta, (float*)a.o1, (float*)a.o2, a.L, a.H, a.KV,
@@ -897,6 +977,7 @@ int dispatch(const Args& a, cudaStream_t s) {
   if (a.dh <= 32) return DKV ? launch_dkv<32>(a, s) : launch_dq<32>(a, s);
   if (a.dh <= 64) return DKV ? launch_dkv<64>(a, s) : launch_dq<64>(a, s);
   if (a.dh <= 128) return DKV ? launch_dkv<128>(a, s) : launch_dq<128>(a, s);
+  if (a.dh <= 256) return DKV ? launch_dkv<256>(a, s) : launch_dq<256>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

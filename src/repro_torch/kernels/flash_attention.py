@@ -45,6 +45,7 @@ from repro_torch.kernels.launches import LAUNCHES
 NEG_INF = -1e30
 DENOM_FLOOR = 1e-30
 _DTYPES = (torch.float32, torch.bfloat16)   # each has its own route
+MAX_DH = 256                                # the widest head each route instantiates
 
 
 def _offsets(offs) -> tuple[int, int]:
@@ -88,7 +89,7 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
             lse.reshape(B, H, L))
 
 
-def _check(q, k, v, *, kernel: str = "K3", max_dh: int = 256, extra=()):
+def _check(q, k, v, *, kernel: str = "K3", extra=()):
     """Raise unless q, k, v (and the ``extra`` (name, tensor) pairs shaped
     like q) are what the attention kernels take."""
     if q.device.type != "cuda":
@@ -103,9 +104,9 @@ def _check(q, k, v, *, kernel: str = "K3", max_dh: int = 256, extra=()):
     if k.shape[0] != B or k.shape[1] != L or k.shape[3] != dh:
         raise ValueError(f"{kernel} kernel: k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if H % k.shape[2] or dh > max_dh:
+    if H % k.shape[2] or dh > MAX_DH:
         raise ValueError(f"{kernel} kernel: H={H} must be a multiple of KV="
-                         f"{k.shape[2]} and dh={dh} at most {max_dh}")
+                         f"{k.shape[2]} and dh={dh} at most {MAX_DH}")
     for name, x in (("q", q), ("k", k), ("v", v)) + tuple(extra):
         if x.shape != (q.shape if name not in ("k", "v") else k.shape):
             raise ValueError(f"{kernel} kernel: {name} {tuple(x.shape)} does not "
@@ -222,7 +223,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     the dtype's, as for K3: bf16 runs the tensor-core kernels
     (``flash_attention_dq``, ``flash_attention_dkv``), f32 the scalar ones
     (``flash_attention_dq_f32``, ``flash_attention_dkv_f32``)."""
-    _check(q, k, v, kernel="K4/K5", max_dh=128, extra=(("o", o), ("do", do)))
+    _check(q, k, v, kernel="K4/K5", extra=(("o", o), ("do", do)))
     B, L, H, _ = q.shape
     if (lse.shape != (B, H, L) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):

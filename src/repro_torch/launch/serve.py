@@ -28,12 +28,16 @@ which counts the replicas' walls as overlapping though they step in turn:
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --replicas 2 --dedicated-prefill --smoke
 
-A moe arch (``--arch granite-moe-3b-a800m``) and an ssm arch (``--arch
-mamba2-370m``) are served the same way; their prompts are prefilled at
-their own lengths (bucketing off: pad rows would take expert capacity or
+A moe arch (``--arch granite-moe-3b-a800m``), an ssm arch (``--arch
+mamba2-370m``) and the hybrid recurrentgemma (``--arch recurrentgemma-9b``:
+rec and latt blocks) are served the same way; their prompts are prefilled
+at their own lengths (bucketing off: pad rows would take expert capacity or
 enter the recurrent state), which the stats line says. An ssm arch has no
 attention, so it has no page pool: under ``--cache-layout paged`` its
 state stays a dense slot cache and ``--prefix-share`` adopts nothing.
+recurrentgemma's latt blocks get ring page pools (their window is the
+ring), so ``--prefix-share`` is refused there, as the JAX engine refuses
+it, and ``--speculative-k`` on every kind but attn.
 
 ``--mesh-data`` (one engine's pools sharded over cards) is refused, naming
 the multi-GPU slice that brings it.

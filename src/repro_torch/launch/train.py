@@ -16,7 +16,11 @@ its in-projection is the ``ssm.in`` site (``--arch mamba2-370m
 --compression 'ssm.in=pamm(r=1/512)'``: K1 / K2 once a layer), which
 RunConfig's legacy ``pamm_on_ssm_inproj=True`` also resolves to; the
 default ``--policy pamm`` alone names only ``attn.qkv`` and leaves it
-exact. ``--block-structure reversible`` trains
+exact. recurrentgemma (``--arch recurrentgemma-9b``) adds the rec blocks'
+recurrent-branch input projection as the ``rglru.in`` site (``--compression
+'attn.qkv=pamm(r=1/512);rglru.in=pamm(r=1/512)'``: K1 / K2 once a rec
+layer), and its latt blocks' attention runs K3-K5 at head dim 256 within
+the local window. ``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).
@@ -83,8 +87,8 @@ def main(argv=None):
     ap.add_argument("--block-structure", default="residual",
                     choices=["residual", "reversible"],
                     help="reversible = two-stream blocks whose backward rebuilds "
-                         "the residual stream instead of saving it (attn/swa/moe "
-                         "kinds, not ssm; excludes remat, see models/blocks.py)")
+                         "the residual stream instead of saving it (attn/swa/latt/"
+                         "moe/rec kinds, not ssm; excludes remat, see models/blocks.py)")
     args = ap.parse_args(argv)
     _refuse_later_slices(ap, args)
 

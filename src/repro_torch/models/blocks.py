@@ -1,9 +1,10 @@
 """Blocks of the served kinds (``repro/models/blocks.py``): the
-self-attention kinds ``attn`` and ``swa`` with a SwiGLU FFN, ``moe``
-(self-attention with a mixture-of-experts FFN, ``models/moe.py``) and
-``ssm`` (a single Mamba-2 sublayer, ``models/ssm.py``), on the residual
-structure (with or without rematerialisation) or, all but ``ssm``, as
-reversible two-stream blocks.
+self-attention kinds ``attn``, ``swa`` and ``latt`` (local attention over
+``cfg.local_window``) with a SwiGLU FFN, ``moe`` (self-attention with a
+mixture-of-experts FFN, ``models/moe.py``), ``rec`` (an RG-LRU sublayer,
+``models/rglru.py``, then a SwiGLU FFN) and ``ssm`` (a single Mamba-2
+sublayer, ``models/ssm.py``), on the residual structure (with or without
+rematerialisation) or, all but ``ssm``, as reversible two-stream blocks.
 
 A block's parameters are stacked over the layers of its stage (leading
 axis ``rep``, as the JAX package stacks them for ``lax.scan``);
@@ -18,17 +19,17 @@ from torch import nn
 from repro_torch.core.linear import STATS_LEN, SiteMode
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
 
-SERVED_KINDS = ("attn", "swa", "moe", "ssm")
-LATER_SLICE_KINDS = ("block kinds latt, rec and xattn arrive with the "
-                     "port's later slices; the port runs attn/swa/moe/ssm")
+SERVED_KINDS = ("attn", "swa", "latt", "moe", "rec", "ssm")
+LATER_SLICE_KINDS = ("block kind xattn arrives with the port's later slices; "
+                     "the port runs attn/swa/latt/moe/rec/ssm")
 BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
 REMAT_MODES = ("none", "full", "pamm")
 # Kinds with the two-sublayer mixer/FFN split the F/G decomposition needs
-# (the JAX package's list; of these the port runs attn, swa and moe so far;
-# ssm is single-sublayer and never reversible)
+# (the JAX package's list; ssm is single-sublayer and never reversible)
 REVERSIBLE_KINDS = ("attn", "swa", "latt", "moe", "rec")
 
 
@@ -91,6 +92,11 @@ def init_block(kind: str, cfg, gen: torch.Generator, dtype, *, e_pad: int = 0) -
     if kind == "ssm":
         return {"norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
                 "ssm": ssm_lib.init_ssm(gen, cfg, dtype)}
+    if kind == "rec":
+        return {"norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
+                "rec": rglru_lib.init_rglru(gen, cfg, dtype),
+                "norm2": init_rms_norm(cfg.d_model, dtype, gen.device),
+                "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)}
     return {
         "norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
         "attn": attn_lib.init_attention(gen, cfg, dtype),
@@ -183,9 +189,12 @@ def _stack(layers: list[dict]) -> dict:
 # reversible two-stream blocks
 # ---------------------------------------------------------------------------
 def block_f(kind, cfg, rcfg, ctx, params, x, positions, key):
-    """First reversible sublayer (token mixer): norm1 -> attention.
-    Returns the pre-residual output; the caller forms y1 = x1 + F(x2)."""
+    """First reversible sublayer (token mixer): norm1 -> attention or the
+    recurrence. Returns the pre-residual output; the caller forms
+    y1 = x1 + F(x2)."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    if kind == "rec":
+        return rglru_lib.rglru_train(params["rec"], h, cfg, ctx, key)
     out, _ = attn_lib.attn_train(params["attn"], h, positions, cfg, ctx, key,
                                  window=_window_for(kind, cfg))
     return out
@@ -390,26 +399,30 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     key (None when no site draws, as in serving); ``aux`` is the auxiliary
     loss carried through (the moe kind adds its balance loss). ``cache``:
     this layer's cache to fill in place (prefill): a KVCache with the
-    prompt's (roped) K/V, an SSMCache with the state the prompt leaves;
-    ``cache_positions`` marks bucketing pad rows -1 so they are dropped,
-    not written (a pad row would evict a real tail token from a ring
-    cache)."""
+    prompt's (roped) K/V, an SSMCache or RGLRUCache with the state the
+    prompt leaves; ``cache_positions`` marks bucketing pad rows -1 so they
+    are dropped, not written (a pad row would evict a real tail token from
+    a ring cache)."""
     _require_served(kind)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    if kind == "ssm":
+    if kind in ("ssm", "rec"):
+        train = ssm_lib.ssm_train if kind == "ssm" else rglru_lib.rglru_train
         if cache is None:
-            return x + ssm_lib.ssm_train(params["ssm"], h, cfg, ctx, key), aux
-        out, filled = ssm_lib.ssm_train(params["ssm"], h, cfg, ctx, key, return_cache=True)
-        for dst, src in zip(cache.tensors(), filled.tensors()):
-            dst.copy_(src)
-        return x + out, aux
-    out, (k_roped, v) = attn_lib.attn_train(
-        params["attn"], h, positions, cfg, ctx, key, window=_window_for(kind, cfg))
+            out = train(params[kind], h, cfg, ctx, key)
+        else:
+            out, filled = train(params[kind], h, cfg, ctx, key, return_cache=True)
+            for dst, src in zip(cache.tensors(), filled.tensors()):
+                dst.copy_(src)
+    else:
+        out, (k_roped, v) = attn_lib.attn_train(
+            params["attn"], h, positions, cfg, ctx, key, window=_window_for(kind, cfg))
+        if cache is not None:
+            attn_lib.cache_insert(
+                cache, k_roped, v,
+                positions if cache_positions is None else cache_positions)
     x = x + out
-    if cache is not None:
-        attn_lib.cache_insert(
-            cache, k_roped, v,
-            positions if cache_positions is None else cache_positions)
+    if kind == "ssm":
+        return x, aux
     out2, a = _ffn_train(kind, cfg, rcfg, ctx, params,
                          rms_norm(x, params["norm2"], cfg.norm_eps), key)
     return x + out2, aux if a is None else aux + a
@@ -424,8 +437,11 @@ def block_decode(kind, cfg, rcfg, params, x, positions, cache, write=None):
     if kind == "ssm":
         out, cache = ssm_lib.ssm_decode(params["ssm"], h, cache, cfg)
         return x + out, cache
-    out, cache = attn_lib.attn_decode(params["attn"], h, positions, cache, cfg,
-                                      window=_window_for(kind, cfg), write=write)
+    if kind == "rec":
+        out, cache = rglru_lib.rglru_decode(params["rec"], h, cache, cfg)
+    else:
+        out, cache = attn_lib.attn_decode(params["attn"], h, positions, cache, cfg,
+                                          window=_window_for(kind, cfg), write=write)
     x = x + out
     h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
     if kind == "moe":
@@ -452,12 +468,14 @@ def init_block_cache(kind, cfg, B: int, max_len: int, dtype, device, *,
     the pool for its int8 / int4 / svd variant. ``pool_pages`` is a byte
     budget expressed in dense pages, so a compressed pool gets
     proportionally more pages at the same budget, capped at the dense
-    worst case (``repro/models/blocks.py:512-567``). An ssm block's
+    worst case (``repro/models/blocks.py:512-567``). An ssm or rec block's
     recurrent state is a dense slot cache under either layout: it has no
     pages."""
     _require_served(kind)
     if kind == "ssm":
         return ssm_lib.init_ssm_cache(cfg, B, dtype, device, layers=layers)
+    if kind == "rec":
+        return rglru_lib.init_rglru_cache(cfg, B, dtype, device, layers=layers)
     win = _window_for(kind, cfg)
     size = min(max_len, win) if win else max_len
     kv, dh = cfg.n_kv_heads, cfg.head_dim

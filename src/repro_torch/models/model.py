@@ -15,8 +15,8 @@ axis) and runs as a Python loop over them, where the JAX package runs
 ``lax.scan``; the keys follow the JAX chain (stage ``fold_in``, layer
 ``split``, block ``fold_in``). Caches mirror the JAX tree: one list per
 stage, one stacked cache node per block of the stage's unit (a
-:class:`KVCache` or page pool for attention, an :class:`SSMCache` for an
-ssm block).
+:class:`KVCache` or page pool for attention, an :class:`SSMCache` or
+:class:`RGLRUCache` for an ssm or rec block).
 Serving (prefill, decode) runs under ``torch.no_grad``.
 """
 from __future__ import annotations

@@ -17,20 +17,21 @@ through K6). Where the JAX engine runs the block as one jitted
 token, position, activity, budget and sample-index vectors on the device
 and synchronises with the host once per block, not once per token.
 
-For attn / swa / ssm blocks per-sequence math is row-independent, so a
-request's tokens do not depend on which other requests share the batch.
-On the card this holds for a fixed slot count: the matrix products see
-the same shapes either way. A moe block couples the rows of a step
-through its expert capacity, as in the JAX engine: every slot, a parked
-one too, takes part in each decode step with the token it carries. An
-ssm block's recurrent state (``models/ssm.SSMCache``) advances in every
-slot each step, a parked one too; an admission overwrites it whole.
-Prompts of a moe or ssm arch are prefilled at their own lengths
-(bucketing off, ``stats()["buckets_enabled"]`` False), since pad rows
-would take capacity or enter the state. ``prefill_buckets`` follows the
-JAX engine: None decides by the kinds (with a one-time warning per
-coupled arch), False turns bucketing off for any arch without the
-warning, True cannot turn it on for a coupled kind.
+For attn / swa / latt / rec / ssm blocks per-sequence math is
+row-independent, so a request's tokens do not depend on which other
+requests share the batch. On the card this holds for a fixed slot count: the
+matrix products see the same shapes either way. A moe block couples the
+rows of a step through its expert capacity, as in the JAX engine: every
+slot, a parked one too, takes part in each decode step with the token it
+carries. An ssm or rec block's recurrent state (``models/ssm.SSMCache``,
+``models/rglru.RGLRUCache``) advances in every slot each step, a parked
+one too; an admission overwrites it whole. Prompts of a moe, ssm or rec
+arch are prefilled at their own lengths (bucketing off,
+``stats()["buckets_enabled"]`` False), since pad rows would take capacity
+or enter the state. ``prefill_buckets`` follows the JAX engine: None
+decides by the kinds (with a one-time warning per coupled arch), False
+turns bucketing off for any arch without the warning, True cannot turn it
+on for a coupled kind.
 
 Cache layouts (``cache_layout=dense|paged``): ``dense`` reserves a
 ``(layers, B, max_len, KV, dh)`` slab, so a short request pays for
@@ -43,22 +44,25 @@ the card once, at ``insert`` -- so the predicate becomes *a free slot AND
 enough free pages in every pool*; eviction returns the pages to the host
 free list with no device work. ``cache_compress`` stores the pools as
 int8 / int4 / svd at proportionally more pages for the same
-``pool_tokens`` byte budget. An ssm block's recurrent state has no
+``pool_tokens`` byte budget. An ssm or rec block's recurrent state has no
 pages: it stays a dense slot cache under either layout, and an arch of
 ssm blocks alone has no pool, so admission is the free-slot check and
-``prefix_share`` finds nothing to adopt. ``prefix_share`` adopts the full-page
-prefix of a live or retired request with the same prompt head
-(copy-on-write: only the divergent page is copied). ``speculative_k``
-drafts k tokens per slot on the host and verifies them in one
-``decode_step`` over (B, k+1) rows (K7/K8 with Lq = k+1), emitting the
-leading run that matches greedy decoding.
+``prefix_share`` finds nothing to adopt. A swa or latt block's window
+makes its pool a ring (a slot's pages are overwritten in place as its
+stream passes the window), which ``prefix_share`` refuses, as the JAX
+engine does. ``prefix_share`` adopts the full-page prefix of a live or
+retired request with the same prompt head (copy-on-write: only the
+divergent page is copied). ``speculative_k`` drafts k tokens per slot on
+the host and verifies them in one ``decode_step`` over (B, k+1) rows
+(K7/K8 with Lq = k+1), emitting the leading run that matches greedy
+decoding.
 
 Several engines on one card, each with its own slots and pools, sit
 behind ``serve.router.Router``; a Prefix crosses between them in host
 form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
-Still refused: mesh sharding (the port's multi-GPU slice), the rec /
-latt / xattn kinds (later slices), and ``speculative_k`` on any kind but
-attn (as in the JAX engine).
+Still refused: mesh sharding (the port's multi-GPU slice), the xattn
+kind (a later slice), and ``speculative_k`` on any kind but attn (as in
+the JAX engine).
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as torch_get_config
 
 ARCHS = ["llama-tiny", "internlm2-1.8b_smoke", "qwen2-72b_smoke", "qwen3-32b_smoke",
-         "granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke", "mamba2-370m_smoke"]
+         "granite-moe-3b-a800m_smoke", "kimi-k2-1t-a32b_smoke", "mamba2-370m_smoke",
+         "recurrentgemma-9b_smoke"]
 
 
 def _jax_params(arch, dtype="float32"):
@@ -96,6 +97,48 @@ def test_bridge_moe_leaves_and_train_state(arch):
     assert opt.step == 3 and set(opt.m) == {n for n, _ in model.named_parameters()}
     step, m2, v2 = bridge.opt_state_to_jax(opt, model)
     assert jax.tree.structure(m2) == jax.tree.structure(m)
+    for a, b in zip(jax.tree.leaves(v), jax.tree.leaves(v2)):
+        np.testing.assert_array_equal(a, b)
+    port = init_train_state(cfg, TorchRunConfig(compression="", param_dtype="bfloat16"),
+                            device="cpu", seed=1)
+    flat = lambda t: [jax.tree_util.keystr(p) for p, _ in
+                      jax.tree_util.tree_flatten_with_path(t)[0]]
+    assert flat(bridge.train_state_tree(port)) == flat(jstate)
+
+
+def test_bridge_rec_leaves_and_train_state():
+    """recurrentgemma smoke with bf16 parameters: a rec block's RG-LRU
+    leaves (w_y, w_x, conv_w, w_a, w_i, lambda, out) name for name in the
+    JAX layout, ``lambda`` staying f32 and w used as ``x @ w``; the latt
+    block's attention leaves; a JAX TrainState's AdamW state both ways,
+    and ``train_state_tree`` with the JAX TrainState's paths."""
+    from repro.configs import RunConfig as JaxRunConfig
+    from repro.train import init_train_state as jax_init_train_state
+    from repro_torch.configs import RunConfig as TorchRunConfig
+    from repro_torch.train import init_train_state
+
+    arch = "recurrentgemma-9b_smoke"
+    cfg = torch_get_config(arch)
+    jr = JaxRunConfig(compression="", param_dtype="bfloat16")
+    jstate, _ = jax_init_train_state(get_config(arch), jr, jax.random.key(0))
+    params = jax.tree.map(np.asarray, jstate.params)
+    model = bridge.from_jax_params(params, cfg, device="cpu")
+    (unit, rep), d, w = cfg.stages[0], cfg.d_model, cfg.lru_width
+    rec = model.stages[0][unit.index("rec")].rec
+    assert [n for n, _ in rec.named_parameters()] == list(params["stages"][0][0]["rec"])
+    assert rec.__getattr__("lambda").dtype == torch.float32
+    assert tuple(rec.__getattr__("lambda").shape) == (rep, w)
+    assert tuple(rec.w_x.shape) == (rep, d, w) and tuple(rec.out.shape) == (rep, w, d)
+    assert tuple(rec.conv_w.shape) == (rep, cfg.conv_width, w)
+    assert rec.w_a.dtype == torch.bfloat16 and tuple(rec.w_a.shape) == (rep, w, w)
+    latt = model.stages[0][unit.index("latt")].attn
+    assert tuple(latt.wk.shape) == (rep, d, cfg.n_kv_heads * cfg.head_dim)
+    m = jax.tree.map(lambda p: np.full(p.shape, 0.5, np.float32), params)
+    v = jax.tree.map(lambda p: np.full(p.shape, 0.25, np.float32), params)
+    opt = bridge.opt_state_from_jax(np.int32(3), m, v, model)
+    assert opt.step == 3 and set(opt.m) == {n for n, _ in model.named_parameters()}
+    step, m2, v2 = bridge.opt_state_to_jax(opt, model)
+    assert int(step) == 3 and jax.tree.structure(m2) == jax.tree.structure(m)
     for a, b in zip(jax.tree.leaves(v), jax.tree.leaves(v2)):
         np.testing.assert_array_equal(a, b)
     port = init_train_state(cfg, TorchRunConfig(compression="", param_dtype="bfloat16"),

@@ -262,6 +262,10 @@ K45_CASES = [
     (1, 1100, 16, 1, 128, True, 0),   # MQA: G = 16 folded in K5; L not a multiple of a tile
     (2, 33, 16, 1, 16, True, 0),      # MQA at dh 16, L 33
     (2, 1030, 24, 8, 64, True, 0),    # granite's heads: G 3 folded in K5 at dh 64
+    (1, 300, 16, 1, 256, True, 0),    # recurrentgemma's heads: G 16 at dh 256, two halves
+    (1, 1030, 16, 1, 256, True, 256), # dh 256, a window, L not a multiple of a tile
+    (2, 130, 4, 2, 256, False, 0),    # dh 256 non-causal, a batch stride
+    (1, 100, 4, 1, 200, True, 40),    # dh in (128, 256): the tail of the second half
 ]
 
 
@@ -497,7 +501,7 @@ def test_k4_k5_cuda_match_plain(cuda_device, B, L, H, KV, dh, causal, window, dt
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 120])
+@pytest.mark.parametrize("dh", [64, 120, 256])
 def test_k4_k5_unaligned_rows_take_elementwise_loads(cuda_device, dh):
     """bf16 tensors whose rows are not 16-byte aligned (a one-element
     offset into their storage) go through the tensor-core route's
@@ -517,7 +521,8 @@ def test_k4_k5_unaligned_rows_take_elementwise_loads(cuda_device, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,KV,dh,window", [(2, 1100, 16, 8, 128, 0),
-                                                (1, 300, 16, 1, 80, 64)])
+                                                (1, 300, 16, 1, 80, 64),
+                                                (1, 1030, 16, 1, 256, 256)])
 def test_k4_k5_bf16_repeat_bitwise(cuda_device, B, L, H, KV, dh, window):
     """Two launches of the tensor-core route give the same bits: every
     output element is summed by one thread in a fixed order."""
@@ -539,6 +544,7 @@ OFFSET_CASES = [
     (1, 70, 4, 4, 16, 0, 0, 70),          # dead: the q chunk before the k chunk
     (1, 200, 16, 2, 120, 64, 400, 300),   # window edge, G 8
     (1, 256, 4, 2, 128, 256, 512, 256),   # a ring window of 256 across the seam
+    (1, 200, 16, 1, 256, 64, 400, 300),   # window edge at dh 256, G 16
 ]
 
 
@@ -591,10 +597,10 @@ def test_training_kernels_dispatch_count_and_refuse(cuda_device):
     ops.flash_attention(qb, kvb, kvb).float().sum().backward()
     assert launches.counts() == {"flash_attention_fwd": 1, "flash_attention_dq": 1,
                                  "flash_attention_dkv": 1}
-    big = torch.randn(1, 4, 1, 160, device=cuda_device)
-    o, lse = flash_attention_fwd_cuda(big, big, big)
-    with pytest.raises(ValueError, match="at most 128"):
-        flash_attention_bwd_cuda(big, big, big, o, lse, big)
+    big = torch.randn(1, 4, 1, 264, device=cuda_device)
+    lse = torch.zeros(1, 1, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 256"):
+        flash_attention_bwd_cuda(big, big, big, big, lse, big)
     with pytest.raises(ValueError, match="int32"):
         segment_matmul_cuda(st.assign.long(), st.alpha, torch.randn(64, 16, device=cuda_device), 4)
 

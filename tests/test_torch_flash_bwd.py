@@ -36,6 +36,8 @@ CASES = [
     (1, 130, 4, 2, 128, True, 24),    # window, L past one tile, dh 128
     (1, 33, 2, 2, 16, True, 8),       # MHA, odd L, window
     (1, 24, 2, 1, 16, False, 0),      # non-causal
+    (1, 40, 16, 1, 256, True, 0),     # recurrentgemma's heads: MQA, G 16 at dh 256
+    (1, 33, 4, 1, 256, True, 8),      # dh 256, a window, odd L
 ]
 
 

@@ -32,7 +32,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.core.pamm", "repro_torch.core.keys", "repro_torch.core.policies",
               "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply",
               "repro_torch.serve.router", "repro_torch.train.serve_step",
-              "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.fault"):
+              "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.fault",
+              "repro_torch.models.rglru", "repro_torch.models.ssm"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -57,6 +58,8 @@ def test_no_source_imports_jax_or_repro():
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("*.py")))
     assert ROOT / "tools" / "ssm_phases.py" in files
+    assert ROOT / "tools" / "rec_phases.py" in files
+    assert PORT / "models" / "rglru.py" in files
     offenders = {}
     for path in files:
         hits = IMPORT_RE.findall(path.read_text())

@@ -169,17 +169,17 @@ REFUSALS = {
               "xattn"),
     "moe": ("granite-moe-3b-a800m_smoke", dict(block_structure="reversible", remat="pamm"),
             ValueError, "remat"),
-    "rec": ("recurrentgemma-9b_smoke", dict(block_structure="reversible"),
-            NotImplementedError, "later slices"),
+    "rec": ("recurrentgemma-9b_smoke", dict(block_structure="reversible", remat="full"),
+            ValueError, "remat"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_config_time_refusals(case):
     """The JAX package's checks and texts (remat x reversible, also on a
-    moe arch, whose reversible stack trains since the MoE slice; an
-    unknown structure, kinds without an F/G split); kinds the port does
-    not run yet raise NotImplementedError naming the later slice."""
+    moe arch, whose reversible stack trains since the MoE slice, and on
+    recurrentgemma's rec / latt stack, since the rec slice; an unknown
+    structure, kinds without an F/G split)."""
     arch, kw, exc, match = REFUSALS[case]
     with pytest.raises(exc, match=match):
         make_train_step(get_config(arch), RunConfig(compression="", **kw))

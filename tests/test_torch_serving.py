@@ -178,15 +178,16 @@ def test_engine_eos_and_stage_api_errors():
 @pytest.mark.parametrize("arch,kwargs,match", [
     ("internlm2-1.8b_smoke", {"mesh": object()}, "multi-GPU slice"),
     ("llama-3.2-vision-11b_smoke", {}, "later slices"),
-    ("recurrentgemma-9b_smoke", {}, "later slices"),
+    ("recurrentgemma-9b_smoke", {"mesh": object()}, "multi-GPU slice"),
 ])
 def test_engine_refuses_later_slices(arch, kwargs, match):
     """What the port does not serve yet raises, naming the slice: a mesh
-    (multi-GPU), and the xattn / rec block kinds. (Paged, compressed,
-    prefix-shared and speculative serving are served since the
+    (multi-GPU), also on a hybrid arch, and the xattn block kind. (Paged,
+    compressed, prefix-shared and speculative serving are served since the
     paged-serving slice: tests/test_torch_{paging,kvquant,cow_spec}.py; moe
     since the MoE slice: tests/test_torch_moe.py; ssm since the ssm slice:
-    tests/test_torch_ssm.py.)"""
+    tests/test_torch_ssm.py; rec and latt since the rec slice:
+    tests/test_torch_rglru_serve.py.)"""
     model = t_init_model(torch_get_config("internlm2-1.8b_smoke"), TRCFG, seed=0,
                          device="cpu")
     with pytest.raises(NotImplementedError, match=match):
