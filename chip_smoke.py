@@ -4,8 +4,10 @@ paged / quantised / low-rank KV-cache serving, the serving front (a Router
 over engine replicas on the card) and PAMM-compressed training of
 internlm2-1.8b, with rematerialisation, reversible blocks and
 checkpoint/restart; then serving and PAMM training of the MoE model
-granite-moe-3b-a800m, of the state-space model mamba2-370m and of the
-hybrid recurrentgemma-9b (RG-LRU and local-attention blocks).
+granite-moe-3b-a800m, of the state-space model mamba2-370m, of the
+hybrid recurrentgemma-9b (RG-LRU and local-attention blocks) and of the
+vision model llama-3.2-vision-11b (gated cross-attention over image
+embeddings, decoded through K6 non-causal).
 
   python3 chip_smoke.py
 
@@ -246,6 +248,51 @@ is caught and ignored:
   25. rec numbers       K3 / K4 / K5 at dh 256 (SDPA as library), K1 and
                         K2 at recurrentgemma's shapes as kernel rows; K3,
                         K6, K7 at its serving shapes, printed
+  26. vision kernels    K6 non-causal at llama-vision's decode shape (8
+                        slots x 1601 image slots: 7 splits of 256, the
+                        last 65 wide; 32 / 8 heads of 128, q_pos 0) in
+                        bf16, with a row parked at -1, and in f32: every
+                        row within 1e-2 of its norm, two launches bitwise
+                        equal, each row alone bitwise equal to it at B =
+                        8; at the same heads (G 4) K3 at (1, 1024) bf16
+                        and (1, 1000) f32, K3 and K4/K5 at (4, 2048) (two
+                        launches bitwise equal), K6 causal over 8 x 1089,
+                        K7 (a parked row; a hole at 1 split) and K8 int8
+                        at 8 x 17 pages; K1 at the attn.cross_kv site's
+                        (6404, 4096, k 13) and K2 at b 6404, m 1024
+  27. vision serving    llama-3.2-vision-11b (40 layers, (attn x4, xattn)
+                        x 8, d 4096, 32 / 8 heads of 128, vocab 128256,
+                        1601 image tokens), bf16, seed 0, every gate_attn
+                        and gate_ffn filled with 0.5 (zero at init: the
+                        block would be the identity); the serving phase's
+                        16 requests, each with its own image embeddings
+                        from the stream, dense then paged fp: K3 = 32 x
+                        prefills, dense K6 = 40 x decode steps, paged K7 =
+                        32 x and K6 = 8 x decode steps (every one
+                        non-causal), no plain version; bucketing on, a
+                        second run, solo = batched, paged = dense up to
+                        near ties, every greedy token of both layouts
+                        against a teacher-forced forward (the einsum sdpa
+                        over the image keys); a profiler split of one
+                        prefill and one decode block
+  28. vision training   llama-3.2-vision-11b_smoke in f32 (gates filled),
+                        card against CPU; then llama-3.2-vision-11b at
+                        full width cut to one unit (5 layers), gates
+                        filled, f32 params / bf16 compute, attn.qkv and
+                        attn.cross_kv PAMM (r=1/512), remat='none',
+                        AdamW, 4 x 2048 tokens with 4 x 1601 image
+                        tokens: one warm-up and 3 measured steps (finite
+                        losses; K1 6, K2 15, K3 = K4 = K5 4 a step, f32
+                        routes and plain 0; telemetry; peaks; a profiler
+                        split), forward + backward peaks exact, under
+                        attn.qkv alone and under both rules (the
+                        attn.cross_kv site's saving), the cross-attention
+                        sdpa's time a step, a second run
+  29. vision numbers    K6 non-causal over the 1601 image slots (SDPA
+                        non-causal as library), K3 / K4 / K5 at the
+                        training shape (SDPA as library), K1 / K2 at the
+                        attn.cross_kv site's shapes as kernel rows; K3,
+                        K6 causal and K7 at its serving shapes, printed
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -404,6 +451,24 @@ REC_LONG_PROMPT, REC_LONG_MAX = 2100, 2176
 REC_TRAIN_STAGES = ((("rec", "rec", "latt"), 1), (("rec", "rec"), 1))
 REC_CUT_STAGES = ((("rec", "rec", "latt"), 1),)
 REC_REMAT = "none"
+# the xattn slice: llama-3.2-vision-11b (40 layers, (attn x4, xattn) x 8; d
+# 4096, 32 / 8 heads of 128, d_ff 14336, vocab 128256, 1601 image tokens).
+# Its attn.qkv site is every layer's input (K1 at n 4096; K2 at m 4096 for
+# wq, 1024 for wk and wv); its attn.cross_kv site the image embeddings
+# (4 x 1601 = 6404 rows, k 13; K2 at m 1024). Both gates start at zero,
+# which makes an xattn block the identity: every vision phase fills them
+# with VIS_GATE first, so that cross-attention moves the logits
+VIS_ARCH, VIS_SMOKE = "llama-3.2-vision-11b", "llama-3.2-vision-11b_smoke"
+VIS_SPEC = "attn.qkv=pamm(r=1/512);attn.cross_kv=pamm(r=1/512)"
+VIS_SMOKE_SPEC = "attn.qkv=pamm(r=1/8);attn.cross_kv=pamm(r=1/8)"
+VIS_HEADS = (32, 8, 128)             # H, KV, dh: G 4
+VIS_TOKENS, VIS_D = 1601, 4096
+VIS_CROSS_B, VIS_CROSS_K, VIS_CROSS_M = 4 * 1601, 13, 1024
+VIS_GATE = 0.5
+# training at full width, cut to one unit (5 layers, 2.14 B parameters:
+# about 32 GiB of f32 parameters, gradients and AdamW moments)
+VIS_TRAIN_STAGES = ((("attn", "attn", "attn", "attn", "xattn"), 1),)
+VIS_REMAT = "none"
 # the kernels of the other slices: none may launch on the ssm path
 ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_dq",
                 "flash_attention_dkv", "flash_attention_dq_f32", "flash_attention_dkv_f32",
@@ -457,11 +522,15 @@ def k3_work(B, L, H, KV, dh, *, causal: bool, window: int, itemsize: int):
     return flops, nbytes
 
 
-def k6_work(q_pos, slot_pos, H, KV, dh, *, window: int, itemsize: int):
+def k6_work(q_pos, slot_pos, H, KV, dh, *, window: int, itemsize: int,
+            causal: bool = True):
     """(flops, bytes) of one K6 call on this data: the K/V rows of the
-    slots each query can see (read once), q, o, the positions."""
+    slots each query can see (read once), q, o, the positions. A
+    non-causal call sees every live slot whatever its ``q_pos``."""
     qp = q_pos[:, None]
-    live = (slot_pos >= 0) & (slot_pos <= qp)
+    live = slot_pos >= 0
+    if causal:
+        live &= slot_pos <= qp
     if window > 0:
         live &= qp - slot_pos < window
     n_live = int(live.sum())
@@ -1329,7 +1398,7 @@ def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged
         return None
     t = diff[0]
     seq = torch.tensor([list(req.tokens) + want[:t]], device="cuda")
-    logits, _ = prefill(cfg, rcfg, model, {"tokens": seq}, seq.shape[1])
+    logits, _ = prefill(cfg, rcfg, model, request_batch(req, seq), seq.shape[1])
     top2 = logits[0, -1, : cfg.vocab_size].topk(2).values
     margin = float(top2[0] - top2[1])
     print(f"[{tag}] {what}: request {req.uid} first differs at token {t}, top-2 margin "
@@ -1337,6 +1406,17 @@ def first_divergence_near_tie(cfg, rcfg, model, req, want, got, what, tag="paged
     check(margin < tol, f"{what}: request {req.uid} diverged at token {t} at a margin of "
                         f"{margin:.3f}, not a near tie (< {tol})")
     return t
+
+
+def request_batch(req, seq) -> dict:
+    """A batch of one request's tokens ``seq`` (1, L) on the card, with
+    its image embeddings where it has them (a vision arch)."""
+    import torch
+
+    batch = {"tokens": seq}
+    if req.image_embeds is not None:
+        batch["image_embeds"] = torch.as_tensor(req.image_embeds, device="cuda")[None]
+    return batch
 
 
 def teacher_forced(cfg, rcfg, model, req, tokens, what, tol=TOL_NEAR):
@@ -1353,7 +1433,7 @@ def teacher_forced(cfg, rcfg, model, req, tokens, what, tol=TOL_NEAR):
 
     seq = torch.tensor([list(req.tokens) + tokens[:-1]], device="cuda")
     with torch.no_grad():
-        h, _ = forward(cfg, rcfg, None, model, {"tokens": seq}, Key(0))
+        h, _ = forward(cfg, rcfg, None, model, request_batch(req, seq), Key(0))
         rows = (h[0, len(req.tokens) - 1:] @ model.head.to(h.dtype)).float()
     rows = rows[:, : cfg.vocab_size]
     check(bool(torch.isfinite(rows).all()), f"{what}: non-finite teacher-forced logits")
@@ -2104,6 +2184,9 @@ def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
     rcfg = RunConfig(compression=spec, policy_name="none",
                      compute_dtype="float32", param_dtype="float32")
     cpu = init_model(cfg, rcfg, seed=0, device="cpu")
+    if cfg.vision_tokens:
+        print(f"[card vs cpu] {arch}: gate_attn and gate_ffn of {set_gates(cpu)} xattn "
+              f"layers filled with {VIS_GATE} (zero at init: the block is the identity)")
     card = copy.deepcopy(cpu).to("cuda")
     batch = SyntheticStream.for_arch(cfg, 64, 4).get_batch(0)
     resolved = resolve_for_run(cfg, rcfg)
@@ -2187,8 +2270,9 @@ def check_zero_init_leaves(rcfg, names, lr, g_card, g_cpu, p_card, p_cpu):
 def _train_run(cfg, rcfg, n_steps: int, *, measure: bool, seq: int = TRAIN_SEQ):
     """init_train_state + make_train_step on the card at TRAIN_BATCH x
     ``seq``: step 0 is the warm-up; with ``measure`` the launch counts are
-    set to 0 just before steps 1..n_steps and read just after. Returns
-    (state, step_fn, record)."""
+    set to 0 just before steps 1..n_steps and read just after. A vision
+    arch's gates are filled with VIS_GATE. Returns (state, step_fn,
+    record)."""
     import torch
 
     from repro_torch.data import SyntheticStream
@@ -2198,6 +2282,8 @@ def _train_run(cfg, rcfg, n_steps: int, *, measure: bool, seq: int = TRAIN_SEQ):
     stream = SyntheticStream.for_arch(cfg, seq, TRAIN_BATCH, seed=rcfg.seed)
     batches = [stream.get_batch(s) for s in range(n_steps + 1)]
     state = init_train_state(cfg, rcfg, device="cuda")
+    if cfg.vision_tokens:
+        set_gates(state.params)
     step_fn = make_train_step(cfg, rcfg, total_steps=100)
     rec = {"loss": [], "gnorm": [], "ms": [], "gc_ms": []}
     gc_s = [0.0, 0.0]   # seconds in the host's garbage collector; its last start
@@ -3225,22 +3311,112 @@ def phase_ssm_kernels(gen):
     return errs
 
 
+def serve_phase(cfg, rcfg, model, name, smi, want, pools, *, buckets: bool,
+                paged_exact: bool = False, tf_layouts=("dense",)):
+    """The serving phase's 16 requests through ``model`` at full size: a
+    warm-up dense run, then the dense and paged fp layouts, each checked by
+    ``served``: every request finished, finite logits, bucketing on iff
+    ``buckets``, ``pools(eng, paged)`` (the page pools the layout builds),
+    the launch counts ``want(st, paged)`` (every other attention kernel 0,
+    no plain version). Then the dense tokens equal the warm-up's, greedy
+    requests 0 and 1 alone equal to batched, paged tokens equal to dense
+    (``paged_exact``) or parted only at near ties, every greedy token of
+    each layout in ``tf_layouts`` against a teacher-forced forward, and a
+    profiler split of one prefill and one decode block. Returns (engine,
+    served, res): the engine factory, the checked run (for a phase's own
+    requests) and each layout's record."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    engine = lambda layout="dense", max_len=MAX_LEN, slots=SLOTS: ServeEngine(
+        cfg, rcfg, model, max_slots=slots, max_len=max_len, decode_block=DECODE_BLOCK,
+        cache_layout=layout, page_size=PAGE)
+    tag = f"[{smi}]"
+
+    def served(label, eng, reqs, n_gen=GEN):
+        out, counts = _counted(lambda: eng.run(reqs))
+        st = eng.stats()
+        paged = eng.cache_layout == "paged"
+        check(sorted(out) == sorted(r.uid for r in reqs)
+              and all(len(out[u].tokens) == n_gen for u in out),
+              f"{name} {label}: not every request finished with {n_gen} tokens")
+        check(st["nonfinite_logits"] == 0,
+              f"{name} {label}: {st['nonfinite_logits']} non-finite logits rows")
+        check(st["buckets_enabled"] is buckets,
+              f"{name} {label}: buckets_enabled {st['buckets_enabled']}, want {buckets}")
+        check(pools(eng, paged), f"{name} {label}: {len(eng.allocators)} page pools, or "
+                                 f"the wrong ones, for the {eng.cache_layout} layout")
+        w = {**{k: 0 for k in ATTN_KERNELS}, **want(st, paged)}
+        check({k: counts.get(k, 0) for k in w} == w
+              and not any(k.endswith("_ref") for k in counts),
+              f"{name} {label}: launches {counts}, want {w} and no plain version")
+        return out, counts, st
+
+    reqs = _requests(cfg)
+    warm = engine().run(reqs)
+    res = {}
+    for layout in ("dense", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts, st = served(layout, engine(layout), reqs)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{name} serve] {layout}: launches {counts} | prefills {st['prefill_count']} | "
+              f"decode steps {st['decode_steps']} | {st['prefill_buckets']} prefill buckets "
+              f"(enabled {st['buckets_enabled']}) | cache {st['cache_slot_bytes'] / 2**20:.2f} "
+              f"MiB a slot | decode {st['decode_tok_s']:.1f} tok/s | p50 "
+              f"{st['p50_token_latency_ms']:.3f} / p95 {st['p95_token_latency_ms']:.3f} ms per "
+              f"step | prefill {st['prefill_tok_s']:.1f} tok/s | peak "
+              f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
+        res[layout] = {"out": out, "counts": counts, "stats": st, "peak": peak}
+    dense, paged = res["dense"]["out"], res["paged"]["out"]
+    check(all(warm[u].tokens == dense[u].tokens for u in dense),
+          f"{name} dense: a second run gave different tokens")
+    for uid in (0, 1):                                 # greedy, alone
+        solo = engine().run([r for r in reqs if r.uid == uid])[uid]
+        check(solo.tokens == dense[uid].tokens,
+              f"{name}: greedy request {uid} alone differs from its batched run")
+    greedy = [r for r in reqs if r.sampling.temperature == 0]
+    n_equal = sum(paged[u].tokens == dense[u].tokens for u in dense)
+    if paged_exact:
+        check(n_equal == N_REQUESTS, f"{name} paged: tokens differ from the dense run")
+        vs_dense = "paged tokens identical to dense"
+    else:
+        parted = [(r.uid, t) for r in greedy
+                  if (t := first_divergence_near_tie(cfg, rcfg, model, r, dense[r.uid].tokens,
+                                                     paged[r.uid].tokens,
+                                                     f"{name} paged vs dense",
+                                                     tag=f"{name} serve")) is not None]
+        vs_dense = (f"paged tokens equal to dense for {n_equal}/{N_REQUESTS} requests, greedy "
+                    f"streams parted (uid, token) {parted}, each at a near tie")
+    tf = {layout: [teacher_forced(cfg, rcfg, model, r, res[layout]["out"][r.uid].tokens,
+                                  f"{name} {layout}") for r in greedy]
+          for layout in tf_layouts}
+    print(f"[{name} serve] second run identical; greedy requests 0 and 1 identical alone and "
+          f"batched; {vs_dense}; every token of the {len(greedy)} greedy streams vs a "
+          f"teacher-forced forward over its own tokens: "
+          + "; ".join(f"{layout} {sum(d for d, _ in v)} of {len(greedy) * GEN} differ, "
+                      f"largest gap to the top logit {max(w for _, w in v):.4f}"
+                      for layout, v in tf.items())
+          + f" (near tie < {TOL_NEAR})")
+    st = res["dense"]["stats"]
+    trace_breakdown(cfg, engine, model, {
+        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
+        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
+        tag=f"{name} ")
+    return engine, served, res
+
+
 def phase_ssm_serving(smi):
     """mamba2-370m served at full width and depth, bf16, random weights
-    from seed 0: the serving phase's 16 requests through the dense layout
-    (a warm-up run, then the measured one with its launch counts, a second
-    run's tokens, greedy requests 0 and 1 alone), then the paged layout
-    (no page pool: the state stays a dense slot cache; tokens equal the
-    dense run's); every greedy token against a teacher-forced forward
-    within the near tie; no attention kernel launches (mamba2 has none:
-    its serving path runs no hand-written kernel, as the JAX engine's
-    runs no Pallas one); a profiler split of one prefill and one decode
-    block."""
+    from seed 0, through :func:`serve_phase`: dense, then paged (no page
+    pool: the state stays a dense slot cache; tokens equal the dense
+    run's); bucketing off; no attention kernel launches (mamba2 has none:
+    its serving path runs no hand-written kernel, as the JAX engine's runs
+    no Pallas one)."""
     import torch
 
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.models import init_model
-    from repro_torch.serve import ServeEngine
 
     cfg = get_config(SSM_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
@@ -3251,54 +3427,8 @@ def phase_ssm_serving(smi):
     print(f"[ssm serve] {SSM_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
           f"layers, d_inner {cfg.ssm_d_inner}, {cfg.ssm_nheads} heads of {cfg.ssm_headdim}, "
           f"state {cfg.ssm_state}, initialised on the card in {time.perf_counter() - t0:.1f} s")
-    engine = lambda layout="dense": ServeEngine(
-        cfg, rcfg, model, max_slots=SLOTS, max_len=MAX_LEN, decode_block=DECODE_BLOCK,
-        cache_layout=layout, page_size=PAGE)
-    tag = f"[{smi}]"
-    warm = engine().run(_requests(cfg))
-    res = {}
-    for layout in ("dense", "paged"):
-        torch.cuda.reset_peak_memory_stats()
-        eng = engine(layout)
-        out, counts = _counted(lambda: eng.run(_requests(cfg)))
-        peak = torch.cuda.max_memory_allocated()
-        st = eng.stats()
-        check(sorted(out) == list(range(N_REQUESTS))
-              and all(len(out[u].tokens) == GEN for u in out),
-              f"ssm {layout}: not every request finished with {GEN} tokens")
-        check(st["nonfinite_logits"] == 0,
-              f"ssm {layout}: {st['nonfinite_logits']} non-finite logits rows")
-        check(st["buckets_enabled"] is False and eng.allocators == [],
-              f"ssm {layout}: prefill bucketing is on or a page pool was built")
-        check(not any(counts.get(k, 0) for k in ATTN_KERNELS)
-              and not any(k.endswith("_ref") for k in counts),
-              f"ssm {layout}: launches {counts}: an attention kernel or a plain version ran")
-        check(all(out[u].tokens == warm[u].tokens for u in out),
-              f"ssm {layout}: tokens differ from the warm-up dense run")
-        print(f"[ssm serve] {layout}: launches {counts} | prefills {st['prefill_count']} | "
-              f"decode steps {st['decode_steps']} | buckets_enabled {st['buckets_enabled']} | "
-              f"cache {st['cache_slot_bytes'] / 2**20:.2f} MiB a slot | decode "
-              f"{st['decode_tok_s']:.1f} tok/s | p50 {st['p50_token_latency_ms']:.3f} / p95 "
-              f"{st['p95_token_latency_ms']:.3f} ms per step | prefill {st['prefill_tok_s']:.1f} "
-              f"tok/s | peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
-        res[layout] = {"out": out, "stats": st}
-    dense = res["dense"]["out"]
-    for uid in (0, 1):                                 # greedy, alone
-        solo = engine().run([r for r in _requests(cfg) if r.uid == uid])[uid]
-        check(solo.tokens == dense[uid].tokens,
-              f"ssm: greedy request {uid} alone differs from its batched run")
-    greedy = [r for r in _requests(cfg) if r.sampling.temperature == 0]
-    tf = [teacher_forced(cfg, rcfg, model, r, dense[r.uid].tokens, "ssm") for r in greedy]
-    print(f"[ssm serve] second run and paged identical to the warm-up run; greedy requests 0 "
-          f"and 1 identical alone and batched; every token of the {len(greedy)} greedy streams "
-          f"vs a teacher-forced forward over its own tokens: {sum(d for d, _ in tf)} of "
-          f"{len(greedy) * GEN} differ, their largest gap to the top logit "
-          f"{max(w for _, w in tf):.4f} (near tie < {TOL_NEAR})")
-    st = res["dense"]["stats"]
-    trace_breakdown(cfg, engine, model, {
-        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
-        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
-        tag="ssm ")
+    serve_phase(cfg, rcfg, model, "ssm", smi, lambda st, paged: {},
+                lambda eng, paged: eng.allocators == [], buckets=False, paged_exact=True)
     del model
     torch.cuda.empty_cache()
 
@@ -3484,21 +3614,17 @@ def _n_kind(cfg, kind: str) -> int:
 
 def phase_rec_serving(smi):
     """recurrentgemma-9b served at full width and depth, bf16, random
-    weights from seed 0: the serving phase's 16 requests, dense then paged
-    fp (the latt blocks' ring pools), launches K3 = 12 x prefills and K6 /
-    K7 = 12 x decode steps, no plain version; a second run, greedy requests
-    0 and 1 alone equal to batched, paged against dense up to near ties,
-    every greedy token against a teacher-forced forward; then one request
-    of a 2100-token prompt in an engine of max_len 2176, dense and paged,
-    whose 2048-slot ring wraps in prefill (the ring holds positions 52 to
-    2099 after it) and in decode; a profiler split of one prefill and one
-    decode block. Returns the dense and paged records."""
+    weights from seed 0, through :func:`serve_phase`: dense then paged fp
+    (the latt blocks' ring pools), launches K3 = 12 x prefills and K6 / K7
+    = 12 x decode steps, bucketing off; then one request of a 2100-token
+    prompt in an engine of max_len 2176, dense and paged, whose 2048-slot
+    ring wraps in prefill (the ring holds positions 52 to 2099 after it)
+    and in decode. Returns the dense and paged records."""
     import torch
 
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.models import init_model, prefill
     from repro_torch.models.attention import KVCache
-    from repro_torch.serve import ServeEngine
 
     cfg = get_config(REC_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
@@ -3512,66 +3638,14 @@ def phase_rec_serving(smi):
           f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, local_window "
           f"{cfg.local_window}, initialised on the card in {time.perf_counter() - t0:.1f} s; "
           f"memory allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    engine = lambda layout="dense", max_len=MAX_LEN, slots=SLOTS: ServeEngine(
-        cfg, rcfg, model, max_slots=slots, max_len=max_len, decode_block=DECODE_BLOCK,
-        cache_layout=layout, page_size=PAGE)
     tag = f"[{smi}]"
-
-    def served(label, eng, reqs, n_gen):
-        out, counts = _counted(lambda: eng.run(reqs))
-        st = eng.stats()
-        check(sorted(out) == sorted(r.uid for r in reqs)
-              and all(len(out[u].tokens) == n_gen for u in out),
-              f"rec {label}: not every request finished with {n_gen} tokens")
-        check(st["nonfinite_logits"] == 0,
-              f"rec {label}: {st['nonfinite_logits']} non-finite logits rows")
-        check(st["buckets_enabled"] is False, f"rec {label}: prefill bucketing is on")
-        paged = eng.cache_layout == "paged"
-        check(len(eng.allocators) == (1 if paged else 0)
-              and all(a.spec.ring for a in eng.allocators),
-              f"rec {label}: want one ring page pool (the latt blocks') when paged")
-        want = {"flash_attention_fwd": n_latt * st["prefill_count"],
-                "flash_decode": 0 if paged else n_latt * st["decode_steps"],
-                "flash_paged_decode": n_latt * st["decode_steps"] if paged else 0,
-                "flash_attention_fwd_f32": 0, "flash_paged_decode_quant": 0}
-        check({k: counts.get(k, 0) for k in want} == want
-              and not any(k.endswith("_ref") for k in counts),
-              f"rec {label}: launches {counts}, want {want} and no plain version")
-        return out, counts, st
-
-    warm = engine().run(_requests(cfg))
-    res = {}
-    for layout in ("dense", "paged"):
-        torch.cuda.reset_peak_memory_stats()
-        out, counts, st = served(layout, engine(layout), _requests(cfg), GEN)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"[rec serve] {layout}: launches {counts} | prefills {st['prefill_count']} | "
-              f"decode steps {st['decode_steps']} | buckets_enabled {st['buckets_enabled']} | "
-              f"cache {st['cache_slot_bytes'] / 2**20:.2f} MiB a slot | decode "
-              f"{st['decode_tok_s']:.1f} tok/s | p50 {st['p50_token_latency_ms']:.3f} / p95 "
-              f"{st['p95_token_latency_ms']:.3f} ms per step | prefill {st['prefill_tok_s']:.1f} "
-              f"tok/s | peak torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB {tag}")
-        res[layout] = {"out": out, "counts": counts, "stats": st, "peak": peak}
-    dense, paged = res["dense"]["out"], res["paged"]["out"]
-    check(all(warm[u].tokens == dense[u].tokens for u in dense),
-          "rec dense: a second run gave different tokens")
-    for uid in (0, 1):                                 # greedy, alone
-        solo = engine().run([r for r in _requests(cfg) if r.uid == uid])[uid]
-        check(solo.tokens == dense[uid].tokens,
-              f"rec: greedy request {uid} alone differs from its batched run")
-    greedy = [r for r in _requests(cfg) if r.sampling.temperature == 0]
-    parted = [(r.uid, t) for r in greedy
-              if (t := first_divergence_near_tie(cfg, rcfg, model, r, dense[r.uid].tokens,
-                                                 paged[r.uid].tokens, "rec paged vs dense",
-                                                 tag="rec serve")) is not None]
-    n_equal = sum(paged[u].tokens == dense[u].tokens for u in dense)
-    tf = [teacher_forced(cfg, rcfg, model, r, dense[r.uid].tokens, "rec") for r in greedy]
-    print(f"[rec serve] second run identical; greedy requests 0 and 1 identical alone and "
-          f"batched; paged tokens equal to dense for {n_equal}/{N_REQUESTS} requests, greedy "
-          f"streams parted (uid, token) {parted}, each at a near tie; every token of the "
-          f"{len(greedy)} greedy streams vs a teacher-forced forward over its own tokens: "
-          f"{sum(d for d, _ in tf)} of {len(greedy) * GEN} differ, their largest gap to the "
-          f"top logit {max(w for _, w in tf):.4f} (near tie < {TOL_NEAR})")
+    want = lambda st, paged: {
+        "flash_attention_fwd": n_latt * st["prefill_count"],
+        "flash_decode": 0 if paged else n_latt * st["decode_steps"],
+        "flash_paged_decode": n_latt * st["decode_steps"] if paged else 0}
+    pools = lambda eng, paged: (len(eng.allocators) == (1 if paged else 0)
+                                and all(a.spec.ring for a in eng.allocators))
+    engine, served, res = serve_phase(cfg, rcfg, model, "rec", smi, want, pools, buckets=False)
     # the long request: the ring wraps in prefill and keeps wrapping in decode
     args = argparse.Namespace(prompt_len=REC_LONG_PROMPT, requests=1, gen=GEN,
                               temperature=0.0, top_k=0, seed=0)
@@ -3590,8 +3664,7 @@ def phase_rec_serving(smi):
     del caches, ring
     long_out = {}
     for layout in ("dense", "paged"):
-        out, counts, st = served(f"long {layout}", engine(layout, REC_LONG_MAX, 1), [long_req],
-                                 GEN)
+        out, counts, st = served(f"long {layout}", engine(layout, REC_LONG_MAX, 1), [long_req])
         long_out[layout] = out[long_req.uid].tokens
         d, w = teacher_forced(cfg, rcfg, model, long_req, long_out[layout], f"rec long {layout}")
         print(f"[rec serve] long request ({REC_LONG_PROMPT}-token prompt, max_len "
@@ -3601,11 +3674,6 @@ def phase_rec_serving(smi):
               f"teacher-forced: {d} of {GEN} differ, largest gap {w:.4f} (< {TOL_NEAR}) {tag}")
     first_divergence_near_tie(cfg, rcfg, model, long_req, long_out["dense"], long_out["paged"],
                               "rec long paged vs dense", tag="rec serve")
-    st = res["dense"]["stats"]
-    trace_breakdown(cfg, engine, model, {
-        "prefill": 1e3 * st["prefill_s"] / max(1, st["prefill_count"]),
-        "decode block": 1e3 * st["decode_s"] / max(1, st["decode_steps"]) * DECODE_BLOCK},
-        tag="rec ")
     del model
     torch.cuda.empty_cache()
     return res
@@ -3809,6 +3877,389 @@ def run_rec_phases(gen, smi):
     return phase_rec_numbers(gen, serve, per_step, rec, smi, errs)
 
 
+def set_gates(model, value: float = VIS_GATE) -> int:
+    """Fill every xattn block's gate_attn and gate_ffn (zero at init, which
+    makes the block the identity) with ``value``, in place. Returns the
+    number of xattn layers."""
+    import torch
+
+    n = 0
+    with torch.no_grad():
+        for stage in model.stages:
+            for block in stage:
+                if block.kind == "xattn":
+                    block.gate_ffn.fill_(value)
+                    block.attn.gate_attn.fill_(value)
+                    n += block.rep
+    return n
+
+
+def cross_decode_inputs(gen, B, S, H, KV, dh, dtype=None, parked: int | None = None):
+    """K6's non-causal inputs at an xattn layer's decode shape: q (B, 1,
+    H, dh), the image K / V (B, S, KV, dh), q_pos 0 (-1 on row ``parked``:
+    a parked slot still runs the xattn decode) and slot_pos arange(S)."""
+    import torch
+
+    q = _randn((B, 1, H, dh), gen, dtype)
+    k, v = _randn((B, S, KV, dh), gen, dtype), _randn((B, S, KV, dh), gen, dtype)
+    qpos = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    if parked is not None:
+        qpos[parked] = -1
+    spos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(B, 1)
+    return q, k, v, qpos, spos
+
+
+def check_k6_cross(gen, B, S, H, KV, dh, *, dtype=None, parked: int | None = None) -> float:
+    """K6 non-causal against its plain version: max |o - o_ref| under
+    TOL_O and every output row (a head of a slot) within TOL_ROW of its
+    own norm; two launches bitwise equal; each row alone bitwise equal to
+    it in the batch (the split count is a function of S alone). Returns
+    max |o - o_ref|."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import (_dense_splits, flash_decode_cuda,
+                                                  flash_decode_ref)
+
+    q, k, v, qpos, spos = cross_decode_inputs(gen, B, S, H, KV, dh, dtype, parked)
+    run = lambda b0, b1: flash_decode_cuda(q[b0:b1], k[b0:b1], v[b0:b1], qpos[b0:b1],
+                                           spos[b0:b1], causal=False)
+    o, again = run(0, B), run(0, B)
+    check(torch.equal(o, again), f"K6 non-causal: a second launch gave other bits (S={S})")
+    alone = all(torch.equal(run(b, b + 1), o[b:b + 1]) for b in range(B))
+    check(alone, f"K6 non-causal: a row decoded alone differs from it at B={B} (S={S})")
+    o_r = flash_decode_ref(q, k, v, qpos, spos, causal=False)
+    e = (o.float() - o_r.float()).abs().max().item()
+    e_row = row_err(o.reshape(-1, dh), o_r.reshape(-1, dh))
+    n, per = _dense_splits(S)
+    print(f"[K6 cross] B={B} S={S} ({n} splits of {per}, the last {S - (n - 1) * per} wide) "
+          f"H={H} KV={KV} dh={dh} {str(q.dtype).split('.')[-1]} causal=False q_pos 0"
+          + ("" if parked is None else f" (row {parked} parked at -1)")
+          + f": max|o-o_ref|={e:.3e} (tol {TOL_O}); worst row rel {e_row:.3e} (tol "
+          f"{TOL_ROW}); two launches bitwise equal; each row alone bitwise equal to it at "
+          f"B={B}")
+    check(bool(o.isfinite().all()), "K6 non-causal output is not finite")
+    check(e <= TOL_O and e_row <= TOL_ROW,
+          f"K6 non-causal disagrees with its plain version at S={S}")
+    return e
+
+
+def phase_vision_kernels(gen):
+    """llama-vision's kernels at its 32 / 8 heads of 128 (G 4), each
+    against its plain version: K6 non-causal over 8 slots x 1601 image
+    slots in bf16, with a parked row, and in f32; K3 at the prefill shape
+    (1, 1024) in bf16 and at (1, 1000) in f32; K3 and K4/K5 (fed K3's o
+    and lse) at the training shape (4, 2048), two launches bitwise equal;
+    K6 causal over the 1089-slot decode cache; K7 at the paged decode
+    shape (8 x 17 pages of 64: a parked row, a hole at 1 split) and K8
+    int8 beside it; K1 at the attn.cross_kv site's (6404, 4096, k 13) and
+    K2 at its gradient's (b 6404, m 1024), bf16, two launches bitwise
+    equal. Returns the largest errors ("K6 cross" the non-causal route's,
+    "K6" the causal one's)."""
+    import torch
+
+    H, KV, dh = VIS_HEADS
+    bf16 = torch.bfloat16
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K7": 0.0, "K8": 0.0}
+    errs["K6 cross"] = max(check_k6_cross(gen, SLOTS, VIS_TOKENS, H, KV, dh),
+                           check_k6_cross(gen, SLOTS, VIS_TOKENS, H, KV, dh, parked=3),
+                           check_k6_cross(gen, SLOTS, VIS_TOKENS, H, KV, dh,
+                                          dtype=torch.float32, parked=5))
+    for B, L, dtype in ((1, PROMPT_LEN, bf16), (1, 1000, torch.float32)):
+        q = _randn((B, L, H, dh), gen, dtype)
+        kk, v = _randn((B, L, KV, dh), gen, dtype), _randn((B, L, KV, dh), gen, dtype)
+        e, _, _ = check_k3(q, kk, v, window=0, label=", llama-vision serving shape")
+        if dtype == bf16:
+            errs["K3"] = max(errs["K3"], e)
+    del q, kk, v
+    check_k3_k45(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh, 0, None, bf16, errs, repeat=True)
+    errs["K6"] = check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False)
+    for case in (("llama-vision heads, shuffled, row 3 parked", dh, 1, False, 0, None, None,
+                  None),
+                 ("llama-vision heads, a hole, 1 split", dh, 1, True, 0, None, None, 1),
+                 ("llama-vision heads, int8 ngr 1, a hole", dh, 1, True, 0, None, (8, 1),
+                  None)):
+        name, e = check_paged(gen, *case, H=H, KV=KV)
+        errs[name] = max(errs[name], e)
+    errs["K1"], f = check_site_k1(gen, VIS_CROSS_B, VIS_D, VIS_CROSS_K, "cross_kv")
+    errs["K2"] = check_site_k2(gen, f, VIS_CROSS_M, VIS_CROSS_K, "cross_kv")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_vision_serving(smi):
+    """llama-3.2-vision-11b served at full width and depth, bf16, random
+    weights from seed 0, every gate filled with VIS_GATE, through
+    :func:`serve_phase`: each request with its own image embeddings from
+    the stream, dense then paged fp. Launches K3 = 32 x prefills; dense K6
+    = 40 x decode steps (32 causal, 8 non-causal); paged K7 = 32 x decode
+    steps and K6 = 8 x decode steps, every one of them non-causal.
+    Bucketing on; the xattn cache stays a dense slot cache; both layouts
+    teacher-forced. Returns the dense and paged records."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import init_model
+    from repro_torch.models.attention import XAttnCache
+
+    cfg = get_config(VIS_ARCH)
+    rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
+    t0 = time.perf_counter()
+    model = init_model(cfg, rcfg, seed=0, device="cuda")
+    n_x = set_gates(model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_attn = _n_kind(cfg, "attn")
+    n_pools = sum(unit.count("attn") for unit, _ in cfg.stages)   # a node per unit position
+    print(f"[vision serve] {VIS_ARCH}: {n_params / 1e9:.3f} B params (bf16), {cfg.n_layers} "
+          f"layers ({n_attn} attn, {n_x} xattn), {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.vision_tokens} image tokens, initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s; gate_attn and gate_ffn of the {n_x} xattn "
+          f"layers filled with {VIS_GATE} (zero at init); memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    check(all(r.image_embeds is not None and r.image_embeds.shape == (cfg.vision_tokens,
+                                                                       cfg.d_model)
+              for r in _requests(cfg)), "vision: a request without its image embeddings")
+    want = lambda st, paged: {
+        "flash_attention_fwd": n_attn * st["prefill_count"],
+        "flash_decode": (n_x if paged else n_attn + n_x) * st["decode_steps"],
+        "flash_paged_decode": n_attn * st["decode_steps"] if paged else 0}
+    pools = lambda eng, paged: (isinstance(eng.caches[0][4], XAttnCache)
+                                and len(eng.allocators) == (n_pools if paged else 0))
+    _, _, res = serve_phase(cfg, rcfg, model, "vision", smi, want, pools, buckets=True,
+                            tf_layouts=("dense", "paged"))
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _vision_hotspots(cut, rcfg, step_ms, tag):
+    """Device time of the xattn layers' attention core at the training
+    shape: the chunked f32 einsum ``sdpa`` of (4, 2048) queries over 4 x
+    1601 image keys at 32 / 8 heads of 128 (no kernel takes Lq != Lk),
+    bf16 in and out as the step feeds it; its forward alone, and what a
+    step runs under ``flash_sdp`` (the checkpointed forward, its recompute
+    and the backward), against the step time."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.attention import sdpa
+
+    H, KV, dh = VIS_HEADS
+    B, Lq, Lk = TRAIN_BATCH, TRAIN_SEQ, VIS_TOKENS
+    bf16 = torch.bfloat16
+    q = torch.randn((B, Lq, H, dh), device="cuda", dtype=bf16).requires_grad_()
+    k, v = (torch.randn((B, Lk, KV, dh), device="cuda", dtype=bf16).requires_grad_()
+            for _ in range(2))
+    sdp = functools.partial(
+        sdpa, q_pos=torch.arange(Lq, dtype=torch.int32, device="cuda").expand(B, Lq),
+        k_pos=torch.arange(Lk, dtype=torch.int32, device="cuda").expand(B, Lk),
+        causal=False, window=0, chunk=rcfg.attn_chunk)
+    g = torch.randn((B, Lq, H, dh), device="cuda", dtype=bf16)
+    with torch.no_grad():
+        fwd = time_ms(lambda: sdp(q, k, v), reps=10)
+    fb = time_ms(lambda: torch.autograd.grad(checkpoint(sdp, q, k, v, use_reentrant=False),
+                                             (q, k, v), g), reps=10)
+    n_x = _n_kind(cut, "xattn")
+    print(f"[vision train] cross-attention sdpa ({B}, {Lq}) over ({B}, {Lk}), {H}/{KV} heads "
+          f"of {dh}, f32 einsums in chunks of {rcfg.attn_chunk}: forward {fwd:.3f} ms, "
+          f"checkpointed forward + recompute + backward {fb:.3f} ms; x{n_x} a step = "
+          f"{n_x * fb:.1f} ms ({100 * n_x * fb / step_ms:.1f}% of the {step_ms:.1f} ms step) "
+          f"(isolated, CUDA events) {tag}")
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return n_x * fb
+
+
+def phase_vision_training(smi):
+    """llama-3.2-vision-11b at full width, cut to one unit (5 layers: 4
+    attn, 1 xattn), gates filled with VIS_GATE, trained under attn.qkv and
+    attn.cross_kv PAMM: f32 params / bf16 compute, AdamW, batch 4 x 2048
+    with 4 x 1601 image tokens, remat VIS_REMAT; one warm-up and 3
+    measured steps (finite losses; launches a step K1 6, K2 15, K3 = K4 =
+    K5 4; telemetry; step and forward + backward peaks; a profiler split),
+    forward + backward peaks exact, under attn.qkv alone and under both
+    rules (the attn.cross_kv site's saving), and a second run from the
+    seed. Returns the per-step launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+
+    full = get_config(VIS_ARCH)
+    cut = dataclasses.replace(full, stages=VIS_TRAIN_STAGES,
+                              n_layers=sum(len(u) * r for u, r in VIS_TRAIN_STAGES))
+    rcfg = RunConfig(compression=VIS_SPEC, policy_name="none", remat=VIS_REMAT)
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cut, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    n_attn, n_x = _n_kind(cut, "attn"), _n_kind(cut, "xattn")
+    print(f"[vision train] {VIS_ARCH} cut to {cut.n_layers} of {full.n_layers} layers "
+          f"{VIS_TRAIN_STAGES}, gates {VIS_GATE}: {n_params / 1e9:.3f} B params f32, compute "
+          f"{rcfg.compute_dtype}, {VIS_SPEC}, remat={VIS_REMAT!r}, AdamW, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} with {TRAIN_BATCH} x {VIS_TOKENS} image tokens; losses {rec['loss']} | "
+          f"grad norms {[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "vision: a training loss or grad norm is not finite")
+    # K1 once a site a layer: attn.qkv in every layer (the xattn layer's
+    # over its text input, wq alone) and attn.cross_kv in each xattn
+    # layer; K2 once a compressed weight: wq, wk, wv of each attn layer,
+    # the xattn layer's wq, wk, wv; K3-K5 in the self-attention layers only
+    want = {"csim_argmax": n_attn + 2 * n_x, "segment_matmul": 3 * n_attn + 3 * n_x,
+            "flash_attention_fwd": (1 if VIS_REMAT == "none" else 2) * n_attn,
+            "flash_attention_dq": n_attn, "flash_attention_dkv": n_attn,
+            **{k: 0 for k in ATTN_KERNELS if k.endswith("_f32") or "decode" in k}}
+    print(f"[vision train] launches per step {per_step} (K1: {n_attn} attn.qkv + {n_x} "
+          f"xattn attn.qkv + {n_x} attn.cross_kv; K2: {n_attn} x wq, wk, wv + {n_x} x wq "
+          f"(attn.qkv), wk, wv (attn.cross_kv); K3-K5: the {n_attn} self-attention layers)")
+    check({k: per_step.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in rec["counts"]),
+          f"vision training launches per step {per_step} != {want}, or a plain version ran")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[vision train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}: {[round(t, 1) for t in rec['ms'][1:]]}; warm-up step "
+          f"{rec['ms'][0]:.1f} ms) | step peak torch.cuda.max_memory_allocated "
+          f"{rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[vision train] site telemetry (summed over the layers) {sites}")
+    trace_training_step(state, step_fn, cut, step_ms, n + 1, tag="vision ")
+    rec["xattn_ms"] = _vision_hotspots(cut, rcfg, step_ms, tag)
+    specs = (("exact", ""), ("attn.qkv", "attn.qkv=pamm(r=1/512)"), ("both", VIS_SPEC))
+    peaks = {label: _fwd_bwd_peak(cut, dataclasses.replace(rcfg, compression=spec,
+                                                           remat="none"), state, TRAIN_SEQ)
+             for label, spec in specs}
+    rec["fb_peak"], rec["fb_peaks"] = peaks["both"], peaks
+    qkv, cross = peaks["exact"] - peaks["attn.qkv"], peaks["attn.qkv"] - peaks["both"]
+    img_mib = TRAIN_BATCH * VIS_TOKENS * VIS_D * 2 / 2**20
+    kv_mib = 2 * VIS_D * full.n_kv_heads * full.head_dim * 2 / 2**20
+    print(f"[vision train] forward + backward peak (one loss_and_grad, AdamW moments "
+          f"resident), remat='none': "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+          + f"; attn.qkv saves {qkv / 2**20:.1f} MiB ({n_attn + n_x} layers), attn.cross_kv "
+          f"{cross / 2**20:.1f} MiB ({n_x} xattn layer; the shared bf16 image embeddings are "
+          f"{img_mib:.1f} MiB, wk + wv's bf16 copies {kv_mib:.1f} MiB a layer) {tag}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    _, _, rec2 = _train_run(cut, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[vision train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 "
+          f"equal: {rec2['loss'][0] == rec['loss'][0]}; later steps worst rel "
+          f"{max(rel[1:]):.2e}, tol 1e-3)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "vision: a second run from the seed gives other losses")
+    torch.cuda.empty_cache()
+    return per_step, rec
+
+
+def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
+    """Kernel rows at llama-vision's shapes: K6 non-causal over the 1601
+    image slots of 8 slots (SDPA non-causal over the same K / V, GQA
+    expanded, as the library; launches: the paged serving run's K6, every
+    one non-causal); K3, K4 and K5 at the training shape (4, 2048, 32 / 8,
+    128) with SDPA as the library (launches: the vision training path's);
+    K1 at the attn.cross_kv site's (6404, 4096, k 13) and K2 at b 6404, m
+    1024 (launches: the vision training path's K1 / K2 of every site);
+    then K3 at the serving prefill shape and K6 causal / K7 at the cell's
+    decode shapes, printed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    tag = f"[{smi}]"
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    H, KV, dh = VIS_HEADS
+    B, S = SLOTS, VIS_TOKENS
+    q, kc, vc, qpos, spos = cross_decode_inputs(gen, B, S, H, KV, dh)
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
+    qt = q.transpose(1, 2)
+    paged = serve["paged"]
+    rows = [_kernel_row(
+        f"flash_decode (K6 non-causal, llama-vision's {S} image slots, {B} x {S}, {H}/{KV}, "
+        f"{dh})", K6_SOURCE, K6_REPLACES, paged["counts"].get("flash_decode", 0),
+        errs["K6 cross"],
+        lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=False),
+        lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=False),
+        lambda: F.scaled_dot_product_attention(qt, kx, vx),
+        k6_work(qpos, spos, H, KV, dh, window=0, itemsize=2, causal=False))]
+    del q, kc, vc, kx, vx
+    at = f"({TRAIN_BATCH}, {TRAIN_SEQ}, {H}/{KV}, {dh})"
+    att = attention_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh)
+    for kern, name, source, replaces in (
+            ("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+            ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+            ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES)):
+        rows.append(_kernel_row(f"{name} ({kern}, llama-vision's self-attention heads, {at})",
+                                source, replaces, launches.get(name, 0), errs[kern],
+                                *att[kern]))
+    del att
+    torch.cuda.empty_cache()
+    b, n, k, m = VIS_CROSS_B, VIS_D, VIS_CROSS_K, VIS_CROSS_M
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    gz = _randn((b, m), gen)
+    rows += [
+        _kernel_row("csim_argmax (K1, llama-vision's attn.cross_kv site)", K1_SOURCE,
+                    K1_REPLACES, launches.get("csim_argmax", 0), errs["K1"],
+                    lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
+                    k1_work(b, n, k, 2)),
+        _kernel_row("segment_matmul (K2, llama-vision's attn.cross_kv site: wk, wv)",
+                    K2_SOURCE, K2_REPLACES, launches.get("segment_matmul", 0), errs["K2"],
+                    lambda: segment_matmul_cuda(f, alpha, gz, k),
+                    lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2))]
+    train_note = f"launches on the vision training path ({TRAIN_STEPS} steps)"
+    notes = ((f"launches in the paged vision serving run ({paged['stats']['decode_steps']} "
+              f"steps, every one non-causal)", "q_pos 0"),
+             (train_note, ""), (train_note, ""), (train_note, ""),
+             (f"{train_note}, every site", f" at ({b}, {n}, k {k})"),
+             (f"{train_note}, every site", f" at (b {b}, m {m}, k {k})"))
+    for row, (note, at) in zip(rows, notes):
+        print(f"[numbers] {row['name']}{at}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"plain {row['plain_ms']:.4f} ms | library "
+              + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA)")
+              + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
+              f"{note} {tag}")
+    del x, c, gz
+    dense = serve["dense"]["stats"]
+    step_ms = 1e3 * dense["decode_s"] / max(1, dense["decode_steps"])
+    print(f"[numbers] vision dense decode step {step_ms:.2f} ms: K6 non-causal x8 "
+          f"{8 * rows[0]['ms']:.3f} ms (isolated, L2 flushed) {tag}")
+    line = functools.partial(timed_line, "llama-vision", tag)
+    att = attention_inputs(gen, 1, PROMPT_LEN, H, KV, dh)
+    line(f"K3 (1, {PROMPT_LEN}, {H}/{KV}, {dh})", *att["K3"],
+         f"{serve['dense']['counts'].get('flash_attention_fwd', 0)} launches serving")
+    del att
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VIS_ARCH)                 # the dense run's K6 launches, causal ones only
+    causal = {"counts": {"flash_decode": _n_kind(cfg, "attn") * dense["decode_steps"]},
+              "stats": dense}
+    decode_lines(gen, line, H, KV, dh, 0, {"dense": causal, "paged": paged})
+    return rows
+
+
+def run_vision_phases(gen, smi):
+    """Phases 26-29: K6 non-causal and the attn.cross_kv site's K1 / K2
+    against their plain versions, llama-3.2-vision-11b served at full size
+    (gates filled), vision smoke card against CPU, the model trained at
+    full width and a cut depth, the vision kernel rows. Returns the
+    rows."""
+    errs = phase_vision_kernels(gen)
+    serve = phase_vision_serving(smi)
+    phase_card_vs_cpu(VIS_SMOKE, VIS_SMOKE_SPEC)
+    per_step, rec = phase_vision_training(smi)
+    return phase_vision_numbers(gen, serve, per_step, rec, smi, errs)
+
+
 def start():
     """What every run does first: a card and the package next to this
     script, f32 products out of TF32, every kernel built (phase 1).
@@ -3872,6 +4323,8 @@ def main() -> int:
     ssm_rows = run_ssm_phases(gen, smi)
     print(f"[time] ssm phases 18-21 done at {time.perf_counter() - t0:.1f} s")
     rec_rows = run_rec_phases(gen, smi)
+    print(f"[time] rec phases 22-25 done at {time.perf_counter() - t0:.1f} s")
+    vision_rows = run_vision_phases(gen, smi)
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -3879,6 +4332,7 @@ def main() -> int:
     kernels += moe_rows
     kernels += ssm_rows
     kernels += rec_rows
+    kernels += vision_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

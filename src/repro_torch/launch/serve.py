@@ -28,6 +28,10 @@ which counts the replicas' walls as overlapping though they step in turn:
   python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
       --cache-layout paged --replicas 2 --dedicated-prefill --smoke
 
+A vision arch (``--arch llama-3.2-vision-11b``) takes each request's
+``image_embeds`` from the stream; its xattn blocks' image K/V stay a dense
+slot cache under ``--cache-layout paged``, and ``--prefix-share`` is
+refused there, as the JAX engine refuses it.
 A moe arch (``--arch granite-moe-3b-a800m``), an ssm arch (``--arch
 mamba2-370m``) and the hybrid recurrentgemma (``--arch recurrentgemma-9b``:
 rec and latt blocks) are served the same way; their prompts are prefilled
@@ -63,9 +67,11 @@ def _build_requests(cfg, args) -> list[Request]:
     for i in range(args.requests):
         # stagger prompt lengths so requests join/leave mid-stream
         lp = max(4, args.prompt_len - 3 * (i % 4))
+        img = batch["image_embeds"][i] if cfg.vision_tokens else None
         requests.append(Request(
             uid=i,
             tokens=np.asarray(batch["tokens"][i][:lp]).tolist(),
+            image_embeds=img,
             max_new_tokens=args.gen,
             sampling=SamplingParams(temperature=args.temperature,
                                     top_k=args.top_k, seed=args.seed + i),

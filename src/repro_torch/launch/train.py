@@ -20,7 +20,12 @@ exact. recurrentgemma (``--arch recurrentgemma-9b``) adds the rec blocks'
 recurrent-branch input projection as the ``rglru.in`` site (``--compression
 'attn.qkv=pamm(r=1/512);rglru.in=pamm(r=1/512)'``: K1 / K2 once a rec
 layer), and its latt blocks' attention runs K3-K5 at head dim 256 within
-the local window. ``--block-structure reversible`` trains
+the local window. A vision arch (``--arch llama-3.2-vision-11b``) reads
+the stream's ``image_embeds``; its xattn blocks' image K/V projection is
+the ``attn.cross_kv`` site (``--compression
+'attn.qkv=pamm(r=1/512);attn.cross_kv=pamm(r=1/512)'``), and their
+cross-attention is the chunked einsum ``sdpa`` (no kernel takes Lq != Lk).
+``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).

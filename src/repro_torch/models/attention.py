@@ -1,19 +1,27 @@
 """GQA attention of the dense slice (``repro/models/attention.py``).
 
-Covers the self-attention variants of the dense slice: grouped-query
-attention with any H/KV ratio (MQA included), RoPE, optional per-head
-qk-norm (qwen3) and QKV bias (qwen2), and sliding-window attention with a
-ring-buffer KV cache (h2o-danube).
+Covers the self-attention variants: grouped-query attention with any
+H/KV ratio (MQA included), RoPE, optional per-head qk-norm (qwen3) and QKV
+bias (qwen2), and sliding-window attention with a ring-buffer KV cache
+(h2o-danube); and gated cross-attention over precomputed image
+embeddings (llama-3.2-vision, the xattn kind).
 
 Training and prefill attention go through K3 (forward) and, under
 autograd, K4/K5 (backward); decode attention goes through K6 over the
 dense slot cache, K7 over a paged pool (fp, or the rank-r coefficients of
 an svd pool) and K8 over an int8 / int4 pool -- all by way of
 :mod:`repro_torch.kernels.ops`: the plain PyTorch versions for CPU
-tensors, the hand-written CUDA kernels for CUDA tensors. :func:`sdpa`
-stays as the plain reference the tests compare against. The Q/K/V
+tensors, the hand-written CUDA kernels for CUDA tensors. The Q/K/V
 projections run through the ``attn.qkv`` site of the run's plan: one
 compressed state per layer backs all three weight gradients (Fig. 2).
+
+Cross-attention (:func:`cross_attn`) takes Q from the text stream
+through ``attn.qkv`` (``wq`` alone) and K/V from the image embeddings
+through a second site, ``attn.cross_kv``; it has no RoPE and no causal
+mask. At training and prefill its Lq != Lk attention is the chunked
+einsum :func:`sdpa`, as in the JAX package, which has no TPU kernel for
+it either; decode (:func:`cross_attn_decode`) runs K6 non-causal over the
+image K/V that prefill cached (:class:`XAttnCache`).
 
 The KV caches are updated in place (``cache_insert``, ``paged_insert``,
 ``paged_insert_quant``): the JAX package returns a new cache and donates
@@ -27,9 +35,11 @@ together, each layer's through its own block table.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import ClassVar
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.plan import SiteCtx, exact_ctx
 from repro_torch.kernels import ops
@@ -44,7 +54,10 @@ LATER_SLICE_SHARDED = ("per-replica sharded page pools arrive with the port's "
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
-def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
+def init_attention(gen: torch.Generator, cfg, dtype, *, cross: bool = False) -> dict:
+    """``cross``: a cross-attention layer, which adds the scalar
+    ``gate_attn`` (zero, so tanh(gate) = 0 and the layer starts as the
+    identity)."""
     kv, d, dh, h = cfg.n_kv_heads, cfg.d_model, cfg.head_dim, cfg.n_heads
     params = {
         "wq": dense_init(gen, d, h * dh, dtype),
@@ -57,20 +70,31 @@ def init_attention(gen: torch.Generator, cfg, dtype) -> dict:
         params["bq"], params["bk"], params["bv"] = zeros(h * dh), zeros(kv * dh), zeros(kv * dh)
     if cfg.qk_norm:
         params["q_norm"], params["k_norm"] = zeros(dh), zeros(dh)
+    if cross:
+        params["gate_attn"] = torch.zeros((), dtype=dtype, device=gen.device)
     return params
 
 
-def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None):
-    """Q, K, V of self-attention from one shared projection site."""
+def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None, kv_src=None):
+    """Q from x; K, V from ``kv_src`` (None: x, self-attention). Self-
+    attention shares one site, ``attn.qkv``; cross-attention takes Q
+    through ``attn.qkv`` (``wq`` alone) and K, V through ``attn.cross_kv``,
+    two sites whose draws differ by their site ids (the JAX order)."""
     dh = cfg.head_dim
     h = params["wq"].shape[1] // dh
     kv = params["wk"].shape[1] // dh
     biases = [params.get("bq"), params.get("bk"), params.get("bv")]
-    q, k, v = ctx.apply_shared(
-        "attn.qkv", x, [params["wq"], params["wk"], params["wv"]], biases, key)
+    if kv_src is None:
+        kv_src = x
+        q, k, v = ctx.apply_shared(
+            "attn.qkv", x, [params["wq"], params["wk"], params["wv"]], biases, key)
+    else:
+        (q,) = ctx.apply_shared("attn.qkv", x, [params["wq"]], biases[:1], key)
+        k, v = ctx.apply_shared("attn.cross_kv", kv_src, [params["wk"], params["wv"]],
+                                biases[1:], key)
     q = q.reshape(*x.shape[:-1], h, dh)
-    k = k.reshape(*x.shape[:-1], kv, dh)
-    v = v.reshape(*x.shape[:-1], kv, dh)
+    k = k.reshape(*kv_src.shape[:-1], kv, dh)
+    v = v.reshape(*kv_src.shape[:-1], kv, dh)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -78,11 +102,14 @@ def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None):
 
 
 # ---------------------------------------------------------------------------
-# plain reference (tests only)
+# chunked attention (cross-attention at training and prefill)
 # ---------------------------------------------------------------------------
 def sdpa(q, k, v, q_pos, k_pos, *, causal: bool, window: int, chunk: int):
     """q: (B,Lq,H,dh); k,v: (B,Lk,KV,dh); *_pos: (B, L*) (-1 = invalid).
-    Position-masked attention over query chunks; returns (B, Lq, H, dh)."""
+    Position-masked attention over query chunks in f32 einsums; returns
+    (B, Lq, H, dh). On the main path for cross-attention's Lq != Lk
+    attention (:func:`cross_attn`), which K3 does not take; the tests
+    also hold the self-attention kernels' plain versions against it."""
     B, Lq, H, dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -136,6 +163,34 @@ class KVCache(_CacheNode):
     v: torch.Tensor
     slot_pos: torch.Tensor
     ring: bool
+
+
+@dataclasses.dataclass
+class XAttnCache(_CacheNode):
+    """Cross-attention cache: per layer the image K, V (B, vision_tokens,
+    KV, dh) that prefill computed, read by every decode step and never
+    written by one. It is a dense slot cache under either serving layout
+    (a fixed size a slot, no pages). ``q_pos`` (B,) zeros and ``slot_pos``
+    (B, vision_tokens) arange, int32, are K6's query and key positions:
+    every image slot is live for every row, a parked one too (the JAX
+    ``cross_attn_decode``'s ``qpos = 0``). They are not leaves: made once
+    by :func:`init_xattn_cache` for the node's batch, shared by its layer
+    views, and left alone by the slot splices."""
+
+    LEAVES: ClassVar[tuple[str, ...]] = ("k", "v")
+    k: torch.Tensor
+    v: torch.Tensor
+    q_pos: torch.Tensor
+    slot_pos: torch.Tensor
+
+
+def init_xattn_cache(B: int, S: int, kv: int, dh: int, dtype, device,
+                     layers: int | None = None) -> XAttnCache:
+    lead = () if layers is None else (layers,)
+    return XAttnCache(k=torch.zeros(lead + (B, S, kv, dh), dtype=dtype, device=device),
+                      v=torch.zeros(lead + (B, S, kv, dh), dtype=dtype, device=device),
+                      q_pos=torch.zeros((B,), dtype=torch.int32, device=device),
+                      slot_pos=torch.arange(S, dtype=torch.int32, device=device).repeat(B, 1))
 
 
 def init_kv_cache(B: int, S: int, kv: int, dh: int, dtype, ring: bool,
@@ -494,3 +549,45 @@ def attn_decode(params, x, positions, cache, cfg, *, window: int,
                                causal=True, window=window)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ params["wo"].to(x.dtype), cache
+
+
+def cross_attn(params, x, image_embeds, cfg, ctx: SiteCtx, key=None, *, chunk: int,
+               flash_sdp: bool = True):
+    """Gated cross-attention (no RoPE, non-causal) for training and
+    prefill: x (B, Lq, d) queries over ``image_embeds`` (B, Lk, d). The
+    attention is :func:`sdpa`, recomputed in backward when ``flash_sdp``
+    (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``): only q, k,
+    v are kept, not the (Lq, Lk) probabilities. Returns
+    (tanh(gate_attn) * out @ wo, (k, v)) -- the pair the prefill cache
+    stores."""
+    q, k, v = _project_qkv(params, x, ctx, cfg, key, kv_src=image_embeds)
+    B, Lq = x.shape[:2]
+    Lk = image_embeds.shape[1]
+    q_pos = torch.arange(Lq, dtype=torch.int32, device=x.device).expand(B, Lq)
+    k_pos = torch.arange(Lk, dtype=torch.int32, device=x.device).expand(B, Lk)
+    sdp = functools.partial(sdpa, q_pos=q_pos, k_pos=k_pos, causal=False, window=0,
+                            chunk=chunk)
+    if flash_sdp and torch.is_grad_enabled():
+        out = checkpoint(sdp, q, k, v, use_reentrant=False)
+    else:
+        out = sdp(q, k, v)
+    out = out.reshape(*x.shape[:-1], -1) @ params["wo"].to(x.dtype)
+    return torch.tanh(params["gate_attn"].to(x.dtype)) * out, (k, v)
+
+
+def cross_attn_decode(params, x, cache: XAttnCache, cfg):
+    """Decode-time cross-attention: x (B, 1, d) over the cached image K/V
+    through K6 non-causal (every slot live, ``q_pos`` 0). Reads the cache
+    and writes nothing to it."""
+    dh = cfg.head_dim
+    h = params["wq"].shape[1] // dh
+    q = x @ params["wq"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(*x.shape[:-1], h, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    out = ops.flash_decode(q, cache.k, cache.v, cache.q_pos, cache.slot_pos, causal=False,
+                           window=0)
+    out = out.reshape(*x.shape[:-1], -1) @ params["wo"].to(x.dtype)
+    return torch.tanh(params["gate_attn"].to(x.dtype)) * out

@@ -2,9 +2,11 @@
 self-attention kinds ``attn``, ``swa`` and ``latt`` (local attention over
 ``cfg.local_window``) with a SwiGLU FFN, ``moe`` (self-attention with a
 mixture-of-experts FFN, ``models/moe.py``), ``rec`` (an RG-LRU sublayer,
-``models/rglru.py``, then a SwiGLU FFN) and ``ssm`` (a single Mamba-2
-sublayer, ``models/ssm.py``), on the residual structure (with or without
-rematerialisation) or, all but ``ssm``, as reversible two-stream blocks.
+``models/rglru.py``, then a SwiGLU FFN), ``ssm`` (a single Mamba-2
+sublayer, ``models/ssm.py``) and ``xattn`` (gated cross-attention over
+the image embeddings, then a gated SwiGLU FFN), on the residual structure
+(with or without rematerialisation) or, all but ``ssm`` and ``xattn``, as
+reversible two-stream blocks.
 
 A block's parameters are stacked over the layers of its stage (leading
 axis ``rep``, as the JAX package stacks them for ``lax.scan``);
@@ -23,13 +25,12 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
 
-SERVED_KINDS = ("attn", "swa", "latt", "moe", "rec", "ssm")
-LATER_SLICE_KINDS = ("block kind xattn arrives with the port's later slices; "
-                     "the port runs attn/swa/latt/moe/rec/ssm")
+BLOCK_KINDS = ("attn", "swa", "latt", "moe", "rec", "ssm", "xattn")
 BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
 REMAT_MODES = ("none", "full", "pamm")
 # Kinds with the two-sublayer mixer/FFN split the F/G decomposition needs
-# (the JAX package's list; ssm is single-sublayer and never reversible)
+# (the JAX package's list; ssm is single-sublayer and xattn threads the
+# image embeddings and a gate through its FFN: neither is ever reversible)
 REVERSIBLE_KINDS = ("attn", "swa", "latt", "moe", "rec")
 
 
@@ -41,15 +42,15 @@ def _window_for(kind: str, cfg) -> int:
     return 0
 
 
-def _require_served(kind: str) -> None:
-    if kind not in SERVED_KINDS:
-        raise NotImplementedError(f"{kind!r}: {LATER_SLICE_KINDS}")
+def _check_kind(kind: str) -> None:
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}; the port runs {BLOCK_KINDS}")
 
 
 def resolve_block_structure(cfg, rcfg) -> str:
     """Validate ``rcfg.block_structure`` against the architecture and
     remat (the JAX package's checks and texts, ``cp`` aside: context
-    parallelism needs several cards), then that the port runs every kind.
+    parallelism needs several cards), then that every kind is known.
 
     ``reversible_ref`` is the same two-stream math under plain autograd
     (every stream saved): the parity and memory baseline of the
@@ -81,14 +82,14 @@ def resolve_block_structure(cfg, rcfg) -> str:
                 f"remat='none' with reversible blocks; remat='full'|'pamm' "
                 f"belongs to block_structure='residual'.")
     for kind in kinds:
-        _require_served(kind)
+        _check_kind(kind)
     return structure
 
 
 def init_block(kind: str, cfg, gen: torch.Generator, dtype, *, e_pad: int = 0) -> dict:
     """One layer's parameters (a plain dict with the JAX names); ``e_pad``
     pads a moe block's expert axis with dead experts."""
-    _require_served(kind)
+    _check_kind(kind)
     if kind == "ssm":
         return {"norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
                 "ssm": ssm_lib.init_ssm(gen, cfg, dtype)}
@@ -97,6 +98,13 @@ def init_block(kind: str, cfg, gen: torch.Generator, dtype, *, e_pad: int = 0) -
                 "rec": rglru_lib.init_rglru(gen, cfg, dtype),
                 "norm2": init_rms_norm(cfg.d_model, dtype, gen.device),
                 "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype)}
+    if kind == "xattn":
+        # both gates start at zero: the block is the identity at init
+        return {"norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
+                "attn": attn_lib.init_attention(gen, cfg, dtype, cross=True),
+                "norm2": init_rms_norm(cfg.d_model, dtype, gen.device),
+                "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, dtype),
+                "gate_ffn": torch.zeros((), dtype=dtype, device=gen.device)}
     return {
         "norm1": init_rms_norm(cfg.d_model, dtype, gen.device),
         "attn": attn_lib.init_attention(gen, cfg, dtype),
@@ -142,7 +150,7 @@ class Block(nn.Module):
 
     def __init__(self, kind: str, stacked: dict, trainable: bool = True):
         super().__init__()
-        _require_served(kind)
+        _check_kind(kind)
         self.kind = kind
         self.rep = stacked["norm1"].shape[0]
         mod = _params_module(stacked, trainable)
@@ -394,17 +402,29 @@ def reversible_stage(cfg, rcfg, unit, si, resolved, blocks, streams, tele, posit
 # train / prefill / decode
 # ---------------------------------------------------------------------------
 def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
-                cache=None, cache_positions=None):
+                extras=None, cache=None, cache_positions=None):
     """Returns (x, aux). ``ctx`` is this block's SiteCtx and ``key`` its
     key (None when no site draws, as in serving); ``aux`` is the auxiliary
-    loss carried through (the moe kind adds its balance loss). ``cache``:
-    this layer's cache to fill in place (prefill): a KVCache with the
-    prompt's (roped) K/V, an SSMCache or RGLRUCache with the state the
-    prompt leaves; ``cache_positions`` marks bucketing pad rows -1 so they
-    are dropped, not written (a pad row would evict a real tail token from
-    a ring cache)."""
-    _require_served(kind)
+    loss carried through (the moe kind adds its balance loss). ``extras``:
+    the model's cross-modal inputs (``image_embeds`` (B, vision_tokens, d)
+    for an xattn block). ``cache``: this layer's cache to fill in place
+    (prefill): a KVCache with the prompt's (roped) K/V, an XAttnCache with
+    the image K/V, an SSMCache or RGLRUCache with the state the prompt
+    leaves; ``cache_positions`` marks bucketing pad rows -1 so they are
+    dropped, not written (a pad row would evict a real tail token from a
+    ring cache). Pad rows are query rows of an xattn block: its image K/V
+    do not depend on them."""
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    if kind == "xattn":
+        out, (k_img, v_img) = attn_lib.cross_attn(
+            params["attn"], h, extras["image_embeds"], cfg, ctx, key,
+            chunk=rcfg.attn_chunk, flash_sdp=rcfg.flash_sdp)
+        if cache is not None:
+            cache.k.copy_(k_img)
+            cache.v.copy_(v_img)
+        x = x + out
+        out2 = ffn_sites(params["ffn"], rms_norm(x, params["norm2"], cfg.norm_eps), ctx, key)
+        return x + torch.tanh(params["gate_ffn"].to(x.dtype)) * out2, aux
     if kind in ("ssm", "rec"):
         train = ssm_lib.ssm_train if kind == "ssm" else rglru_lib.rglru_train
         if cache is None:
@@ -432,11 +452,14 @@ def block_decode(kind, cfg, rcfg, params, x, positions, cache, write=None):
     """One decode step (or verify block). x: (B, L, d). Returns (x, cache)
     -- the cache is updated in place; ``write`` is the step's
     ``attention.paged_write`` of a paged cache."""
-    _require_served(kind)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if kind == "ssm":
         out, cache = ssm_lib.ssm_decode(params["ssm"], h, cache, cfg)
         return x + out, cache
+    if kind == "xattn":
+        x = x + attn_lib.cross_attn_decode(params["attn"], h, cache, cfg)
+        out2 = ffn(params["ffn"], rms_norm(x, params["norm2"], cfg.norm_eps))
+        return x + torch.tanh(params["gate_ffn"].to(x.dtype)) * out2, cache
     if kind == "rec":
         out, cache = rglru_lib.rglru_decode(params["rec"], h, cache, cfg)
     else:
@@ -469,9 +492,11 @@ def init_block_cache(kind, cfg, B: int, max_len: int, dtype, device, *,
     budget expressed in dense pages, so a compressed pool gets
     proportionally more pages at the same budget, capped at the dense
     worst case (``repro/models/blocks.py:512-567``). An ssm or rec block's
-    recurrent state is a dense slot cache under either layout: it has no
-    pages."""
-    _require_served(kind)
+    recurrent state, and an xattn block's image K/V, are dense slot caches
+    under either layout: they have no pages."""
+    if kind == "xattn":
+        return attn_lib.init_xattn_cache(B, cfg.vision_tokens, cfg.n_kv_heads,
+                                         cfg.head_dim, dtype, device, layers=layers)
     if kind == "ssm":
         return ssm_lib.init_ssm_cache(cfg, B, dtype, device, layers=layers)
     if kind == "rec":

@@ -15,8 +15,11 @@ axis) and runs as a Python loop over them, where the JAX package runs
 ``lax.scan``; the keys follow the JAX chain (stage ``fold_in``, layer
 ``split``, block ``fold_in``). Caches mirror the JAX tree: one list per
 stage, one stacked cache node per block of the stage's unit (a
-:class:`KVCache` or page pool for attention, an :class:`SSMCache` or
-:class:`RGLRUCache` for an ssm or rec block).
+:class:`KVCache` or page pool for attention, an :class:`XAttnCache` for
+cross-attention, an :class:`SSMCache` or :class:`RGLRUCache` for an ssm
+or rec block). ``batch`` holds ``tokens`` (B, L), ``labels``, optional
+``mask`` and, for a vision arch, ``image_embeds`` (B, vision_tokens, d),
+which every xattn block reads (cast to the compute dtype).
 Serving (prefill, decode) runs under ``torch.no_grad``.
 """
 from __future__ import annotations
@@ -139,6 +142,14 @@ def _embed(model: Model, tokens, cdt):
     return model.embed[tokens].to(cdt)
 
 
+def _extras(cfg, batch: dict, cdt) -> dict:
+    """The cross-modal inputs of the blocks: ``image_embeds`` in the
+    compute dtype for a vision arch."""
+    if not cfg.vision_tokens:
+        return {}
+    return {"image_embeds": batch["image_embeds"].to(cdt)}
+
+
 def _positions(B: int, L: int, device) -> torch.Tensor:
     return torch.arange(L, dtype=torch.int32, device=device).expand(B, L)
 
@@ -156,12 +167,13 @@ def _require_residual_serving(cfg, rcfg, fn_name: str):
 # ---------------------------------------------------------------------------
 # staged forward (training / scoring)
 # ---------------------------------------------------------------------------
-def _layer(cfg, rcfg, resolved, unit, si, params, x, aux, positions, key, tele, mode):
+def _layer(cfg, rcfg, resolved, unit, si, params, extras, x, aux, positions, key, tele,
+           mode):
     """One step of a stage's layer loop: every block of the unit."""
     for bi, kind in enumerate(unit):
         ctx = resolved.ctx(si, kind, tele, mode)
         x, aux = blk.block_train(kind, cfg, rcfg, ctx, params[bi], x, positions,
-                                 key.fold_in(bi), aux)
+                                 key.fold_in(bi), aux, extras=extras)
     return x, aux
 
 
@@ -181,11 +193,12 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     (:func:`blocks.reversible_stage`)."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     structure = blk.resolve_block_structure(cfg, rcfg)
-    if cfg.embed_inputs or cfg.n_codebooks or cfg.vision_tokens:
-        raise NotImplementedError("embed-input, multi-codebook and vision archs "
-                                  "arrive with later slices of the port")
+    if cfg.embed_inputs or cfg.n_codebooks:
+        raise NotImplementedError("embed-input and multi-codebook archs arrive with "
+                                  "later slices of the port")
     cdt, _ = _dtype(rcfg)
     x = _embed(model, batch["tokens"], cdt)
+    extras = _extras(cfg, batch, cdt)
     B, L, _ = x.shape
     positions = _positions(B, L, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -207,7 +220,8 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
             layers = [block.layers() for block in stage]
             for r in range(rep):
                 params = [layer[r] for layer in layers]
-                step = functools.partial(_layer, cfg, rcfg, resolved, unit, si, params)
+                step = functools.partial(_layer, cfg, rcfg, resolved, unit, si, params,
+                                         extras)
                 if rcfg.remat == "none":
                     x, aux = step(x, aux, positions, keys[r], tele, None)
                     continue
@@ -266,6 +280,7 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
     cdt, _ = _dtype(rcfg)
     tokens = batch["tokens"]
     x = _embed(model, tokens, cdt)
+    extras = _extras(cfg, batch, cdt)
     B, L, _ = x.shape
     positions = _positions(B, L, x.device)
     cpos = None
@@ -284,8 +299,8 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
             for kind, block, cache in zip(unit, stage, stage_caches):
                 ctx = exact_ctx() if resolved is None else resolved.ctx(si, kind, None)
                 x, aux = blk.block_train(kind, cfg, rcfg, ctx, block.layer(r), x,
-                                         positions, key, aux, cache=cache.layer(r),
-                                         cache_positions=cpos)
+                                         positions, key, aux, extras=extras,
+                                         cache=cache.layer(r), cache_positions=cpos)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if prompt_len is not None:
         x = x[torch.arange(B, device=x.device), plen - 1][:, None]
@@ -301,7 +316,10 @@ def decode_step(cfg, rcfg, model: Model, tokens, pos, caches):
     absolute positions (-1 = parked slot). L = 1 is the decode step; L > 1
     a speculative-verify block, whose rows are scored in one call, each
     masked by its own position (paged caches). The caches are updated in
-    place. Returns (logits (B, L, V*) f32, caches)."""
+    place. Returns (logits (B, L, V*) f32, caches). An xattn block decodes
+    from the image K/V its cache holds since prefill, so the step takes no
+    image input (the JAX ``decode_step``'s ``extras`` goes unread there
+    too)."""
     _require_residual_serving(cfg, rcfg, "decode_step")
     cdt, _ = _dtype(rcfg)
     x = _embed(model, tokens, cdt)

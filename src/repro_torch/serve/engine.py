@@ -17,7 +17,7 @@ through K6). Where the JAX engine runs the block as one jitted
 token, position, activity, budget and sample-index vectors on the device
 and synchronises with the host once per block, not once per token.
 
-For attn / swa / latt / rec / ssm blocks per-sequence math is
+For attn / swa / latt / xattn / rec / ssm blocks per-sequence math is
 row-independent, so a request's tokens do not depend on which other
 requests share the batch. On the card this holds for a fixed slot count: the
 matrix products see the same shapes either way. A moe block couples the
@@ -57,12 +57,19 @@ the host and verifies them in one ``decode_step`` over (B, k+1) rows
 (K7/K8 with Lq = k+1), emitting the leading run that matches greedy
 decoding.
 
+A vision arch's request carries its ``image_embeds`` (vision_tokens,
+d): prefill computes each xattn block's image K/V from them into an
+:class:`~repro_torch.models.attention.XAttnCache`, a dense slot cache
+under either layout that decode reads (K6 non-causal) and never writes.
+Its prompts are bucketed like attn's (pad rows are query rows only);
+``prefix_share`` is refused, since the prefix index compares prompt
+tokens alone.
+
 Several engines on one card, each with its own slots and pools, sit
 behind ``serve.router.Router``; a Prefix crosses between them in host
 form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
-Still refused: mesh sharding (the port's multi-GPU slice), the xattn
-kind (a later slice), and ``speculative_k`` on any kind but attn (as in
-the JAX engine).
+Still refused: mesh sharding (the port's multi-GPU slice), and
+``speculative_k`` on any kind but attn (as in the JAX engine).
 """
 from __future__ import annotations
 
@@ -80,7 +87,6 @@ from repro_torch.core import stats as stats_lib
 from repro_torch.core.plan import cache_plan_from_spec
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.attention import PAGED_CACHE_TYPES, SVDPagedKVCache
-from repro_torch.models.blocks import LATER_SLICE_KINDS, SERVED_KINDS
 from repro_torch.serve import cache as cache_lib
 from repro_torch.serve import paging
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
@@ -108,13 +114,15 @@ def _sync(device: torch.device) -> None:
 
 @dataclasses.dataclass
 class Request:
-    """One generation request. ``eos_id`` < 0 disables the eos stop."""
+    """One generation request. ``eos_id`` < 0 disables the eos stop;
+    ``image_embeds`` (vision_tokens, d) is a vision arch's image input."""
 
     uid: int
     tokens: Sequence[int]
     max_new_tokens: int
     sampling: SamplingParams = SamplingParams()
     eos_id: int = -1
+    image_embeds: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -242,8 +250,6 @@ class ServeEngine:
                 "serving needs a token frontend; embed-input / multi-codebook "
                 "archs (musicgen) are train/score only")
         kinds = {k for unit, _ in cfg.stages for k in unit}
-        if not kinds <= set(SERVED_KINDS):
-            raise NotImplementedError(f"{cfg.name}: {LATER_SLICE_KINDS}")
         if mesh is not None:
             raise NotImplementedError(LATER_SLICE_MULTI.format(what="mesh sharding"))
         self.cache_layout = cache_layout or rcfg.cache_layout
@@ -346,6 +352,11 @@ class ServeEngine:
                 raise ValueError(
                     "prefix_share adopts page-pool pages between requests; the dense "
                     "layout has no pages -- pass cache_layout='paged'")
+            if cfg.vision_tokens:
+                raise ValueError(
+                    "prefix_share identifies a prefix by its prompt "
+                    "tokens alone; vision archs carry per-request image "
+                    "state the index cannot compare")
             if any(a.spec.ring for a in self.allocators):
                 raise ValueError(
                     "prefix_share needs append-only pools; ring (sliding-window) "
@@ -403,9 +414,12 @@ class ServeEngine:
         toks = np.zeros((1, lb), np.int64)
         toks[0, :lp] = np.asarray(request.tokens, np.int64)
         t0 = time.perf_counter()
-        logits, pcaches = prefill(self.cfg, self.rcfg, model,
-                                  {"tokens": torch.as_tensor(toks, device=self.device)},
-                                  self.max_len, plan=self.plan, prompt_len=[lp])
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if self.cfg.vision_tokens:
+            batch["image_embeds"] = torch.as_tensor(
+                np.asarray(request.image_embeds, np.float32), device=self.device)[None]
+        logits, pcaches = prefill(self.cfg, self.rcfg, model, batch, self.max_len,
+                                  plan=self.plan, prompt_len=[lp])
         self.bucket_lens.add(lb)
         logits1 = logits[:, -1, : self.cfg.vocab_size]
         sp = request.sampling
@@ -700,6 +714,8 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.uid}: prompt_len={lp} + max_new_tokens="
                 f"{req.max_new_tokens} exceeds max_len={self.max_len}")
+        if self.cfg.vision_tokens and req.image_embeds is None:
+            raise ValueError(f"request {req.uid}: arch needs image_embeds")
         for alloc, label, fmt in zip(self.allocators, self.pool_labels,
                                      self.pool_formats):
             total = lp + req.max_new_tokens

@@ -6,7 +6,8 @@ prefill, the single-token decode step and greedy generation.
 vectors on the device and synchronise with the host once per block.
 ``greedy_decode_per_token`` is the per-token Python loop over
 ``decode_step`` that the engine's block replaced: the baseline it is
-compared against.
+compared against. A vision arch's batch carries ``image_embeds`` (B,
+vision_tokens, d), handed to each request (or to the batched prefill).
 """
 from __future__ import annotations
 
@@ -17,13 +18,12 @@ from repro_torch.models import decode_step as _decode
 from repro_torch.models import prefill as _prefill
 from repro_torch.serve import Request, ServeEngine
 
-LATER_SLICE_FRONTEND = ("embed-input (musicgen) and vision (xattn) archs arrive "
-                        "with the port's later slices; greedy decoding here needs "
-                        "a token frontend")
+LATER_SLICE_FRONTEND = ("embed-input (musicgen) archs arrive with the port's later "
+                        "slices; greedy decoding here needs a token frontend")
 
 
 def _require_token_frontend(cfg) -> None:
-    if cfg.embed_inputs or cfg.vision_tokens:
+    if cfg.embed_inputs:
         raise NotImplementedError(f"{cfg.name}: {LATER_SLICE_FRONTEND}")
 
 
@@ -52,8 +52,10 @@ def greedy_decode(cfg, rcfg, model, batch, *, steps: int, max_len: int) -> torch
     # token 0 comes from the prefill logits, so the blocks decode steps - 1
     engine = ServeEngine(cfg, rcfg, model, max_slots=B, max_len=max_len,
                          decode_block=max(1, steps - 1))
-    results = engine.run([Request(uid=i, tokens=tokens[i].tolist(), max_new_tokens=steps)
-                          for i in range(B)])
+    images = (np.asarray(torch.as_tensor(batch["image_embeds"]).float().cpu())
+              if cfg.vision_tokens else [None] * B)
+    results = engine.run([Request(uid=i, tokens=tokens[i].tolist(), max_new_tokens=steps,
+                                  image_embeds=images[i]) for i in range(B)])
     return torch.tensor(np.stack([results[i].tokens for i in range(B)]),
                         dtype=torch.int64, device=model.device)
 
@@ -65,7 +67,10 @@ def greedy_decode_per_token(cfg, rcfg, model, batch, *, steps: int,
     argmax per token. Returns (B, steps) int64 on the model's device."""
     _require_token_frontend(cfg)
     tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
-    logits, caches = _prefill(cfg, rcfg, model, {"tokens": tokens}, max_len)
+    pbatch = {"tokens": tokens}
+    if cfg.vision_tokens:
+        pbatch["image_embeds"] = torch.as_tensor(batch["image_embeds"], device=model.device)
+    logits, caches = _prefill(cfg, rcfg, model, pbatch, max_len)
     B, prompt_len = tokens.shape
     step_fn = make_decode_step(cfg, rcfg)
     tok = logits[:, -1, : cfg.vocab_size].argmax(dim=-1)[:, None]

@@ -218,6 +218,33 @@ def test_k6_batch_of_one_rows_bitwise_equal_batched(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh", [
+    (8, 1601, 32, 8, 128),    # llama-vision's image slots: 7 splits, the last 65 wide
+    (3, 300, 32, 8, 128),     # two splits, the second 44 wide
+])
+def test_k6_non_causal_matches_plain_and_repeats_bitwise(cuda_device, B, S, H, KV, dh,
+                                                         dtype):
+    """K6 with causal=False, as the xattn decode calls it over the image
+    K/V: q_pos 0 (one row parked at -1, which a non-causal call ignores),
+    every slot live; against the plain version (each row to its own norm),
+    two launches bitwise equal, each row alone bitwise equal to it in the
+    batch."""
+    q, k, v, _, spos = _k6_inputs(B, S, H, KV, dh, 0, S, 0, dtype, cuda_device, S + B)
+    qpos = torch.zeros((B,), dtype=torch.int32, device=cuda_device)
+    qpos[1] = -1
+    o = flash_decode_cuda(q, k, v, qpos, spos, causal=False)
+    assert torch.equal(o, flash_decode_cuda(q, k, v, qpos, spos, causal=False))
+    o_r = flash_decode_ref(q, k, v, qpos, spos, causal=False)
+    torch.testing.assert_close(o.float(), o_r.float(), atol=TOL[dtype], rtol=0)
+    assert _row_err(o, o_r) <= (1e-5 if dtype == "float32" else 1e-2)
+    for b in range(B):
+        one = flash_decode_cuda(q[b:b + 1], k[b:b + 1], v[b:b + 1], qpos[b:b + 1],
+                                spos[b:b + 1], causal=False)
+        assert torch.equal(one, o[b:b + 1]), b
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_reach_the_kernels_or_raise(cuda_device):
     """ops routes CUDA tensors to the kernels (counted as such), and a
     kernel refuses what it does not take instead of falling back."""

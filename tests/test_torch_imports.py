@@ -43,6 +43,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "chip_smoke.bound(1.0, 1.0); chip_smoke.k3_work(1, 8, 2, 1, 16, causal=True, "
         "window=0, itemsize=2)\n"
         "chip_smoke.k1_work(64, 16, 4, 2); chip_smoke.k2_work(64, 16, 4, 2)\n"
+        "import torch\n"
+        "qp, sp = torch.zeros(2, dtype=torch.int32), torch.arange(5).repeat(2, 1)\n"
+        "assert chip_smoke.k6_work(qp, sp, 4, 2, 16, window=0, itemsize=2, "
+        "causal=False)[0] == 4.0 * 16 * 10 * 4\n"
         "chip_smoke.k45_work(1, 8, 2, 1, 16, causal=True, window=0, itemsize=2, which='K5')\n"
         "chip_smoke.NumpySampler().choice(0, (('fold_in', 1),), 10, 3, 'cpu')\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -59,6 +63,7 @@ def test_no_source_imports_jax_or_repro():
              + sorted((ROOT / "tools").glob("*.py")))
     assert ROOT / "tools" / "ssm_phases.py" in files
     assert ROOT / "tools" / "rec_phases.py" in files
+    assert ROOT / "tools" / "vision_phases.py" in files
     assert PORT / "models" / "rglru.py" in files
     offenders = {}
     for path in files:

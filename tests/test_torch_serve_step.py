@@ -8,7 +8,8 @@ in f32 with bridged parameters on internlm2-1.8b_smoke:
 * both equal JAX's ``greedy_decode`` up to a near tie (a row may diverge
   only where the JAX top-2 logit margin is below 1e-4), shape (B, steps);
 * ``make_prefill`` / ``make_decode_step`` are the model functions;
-* embed-input and vision archs are refused, naming the later slice.
+* embed-input archs are refused, naming the later slice; a vision arch
+  is served, each row's image carried through both loops.
 """
 import jax
 import jax.numpy as jnp
@@ -94,7 +95,25 @@ def test_make_prefill_and_decode_step_are_the_model_functions(models):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b_smoke", "musicgen-medium_smoke"])
 def test_greedy_decode_refuses_later_slice_frontends(arch):
+    """musicgen (an embed-input arch) is refused by both loops; vision
+    smoke, served since the xattn slice, gives the same tokens through
+    both, with its gates set nonzero so the images move the logits."""
     tcfg = torch_get_config(arch)
+    if tcfg.vision_tokens:
+        from repro_torch.models import init_model as t_init_model
+
+        model = t_init_model(tcfg, TRCFG, seed=0, device="cpu")
+        with torch.no_grad():
+            model.stages[0][4].gate_ffn.fill_(-0.75)
+            model.stages[0][4].attn.gate_attn.fill_(0.5)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, 256, (2, 6))),
+                 "image_embeds": torch.from_numpy(
+                     rng.standard_normal((2, 16, 64)).astype(np.float32))}
+        a = greedy_decode(tcfg, TRCFG, model, batch, steps=4, max_len=16)
+        b = greedy_decode_per_token(tcfg, TRCFG, model, batch, steps=4, max_len=16)
+        assert a.shape == (2, 4) and torch.equal(a, b)
+        return
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
     for fn in (greedy_decode, greedy_decode_per_token):
         with pytest.raises(NotImplementedError, match="later slices"):

@@ -177,17 +177,26 @@ def test_engine_eos_and_stage_api_errors():
 
 @pytest.mark.parametrize("arch,kwargs,match", [
     ("internlm2-1.8b_smoke", {"mesh": object()}, "multi-GPU slice"),
-    ("llama-3.2-vision-11b_smoke", {}, "later slices"),
+    ("llama-3.2-vision-11b_smoke", {}, "arch needs image_embeds"),
     ("recurrentgemma-9b_smoke", {"mesh": object()}, "multi-GPU slice"),
 ])
 def test_engine_refuses_later_slices(arch, kwargs, match):
     """What the port does not serve yet raises, naming the slice: a mesh
-    (multi-GPU), also on a hybrid arch, and the xattn block kind. (Paged,
+    (multi-GPU), also on a hybrid arch. The xattn block kind is served
+    since the xattn slice (tests/test_torch_xattn_serve.py): its engine
+    refuses a request without image_embeds, with the JAX text. (Paged,
     compressed, prefix-shared and speculative serving are served since the
     paged-serving slice: tests/test_torch_{paging,kvquant,cow_spec}.py; moe
     since the MoE slice: tests/test_torch_moe.py; ssm since the ssm slice:
     tests/test_torch_ssm.py; rec and latt since the rec slice:
     tests/test_torch_rglru_serve.py.)"""
+    if torch_get_config(arch).vision_tokens:
+        cfg = torch_get_config(arch)
+        eng = ServeEngine(cfg, TRCFG, t_init_model(cfg, TRCFG, seed=0, device="cpu"),
+                          max_slots=1, max_len=16)
+        with pytest.raises(ValueError, match=match):
+            eng.submit(Request(uid=0, tokens=[1, 2, 3], max_new_tokens=2))
+        return
     model = t_init_model(torch_get_config("internlm2-1.8b_smoke"), TRCFG, seed=0,
                          device="cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -177,12 +177,13 @@ def test_prefill_with_a_plan_is_exact_and_compresses_nothing():
 
 def test_later_slices_are_refused():
     """What the port still refuses, naming the slice: gradient compression
-    (multi-GPU) and block kinds it does not run yet. Remat and reversible
+    (multi-GPU). Remat and reversible
     blocks train now (tests/test_torch_remat.py, test_torch_revnet.py), moe
     blocks under both structures (tests/test_torch_moe.py), ssm blocks
     on the residual structure in every remat mode (tests/test_torch_ssm.py),
-    and rec / latt blocks under both structures (tests/test_torch_rglru.py);
-    the xattn kind is refused."""
+    rec / latt blocks under both structures (tests/test_torch_rglru.py),
+    and xattn blocks on the residual structure in every remat mode
+    (tests/test_torch_xattn.py), reversible refused with the JAX text."""
     cfg = get_config("internlm2-1.8b_smoke")
     for kw in ({"remat": "full"}, {"remat": "pamm"}, {"block_structure": "reversible"},
                {"block_structure": "reversible_ref"}):
@@ -195,8 +196,11 @@ def test_later_slices_are_refused():
         make_train_step(get_config("mamba2-370m_smoke"), RunConfig(**kw))
     for kw in ({}, {"remat": "pamm"}, {"block_structure": "reversible"}):
         make_train_step(get_config("recurrentgemma-9b_smoke"), RunConfig(**kw))
-    with pytest.raises(NotImplementedError, match="later slices"):
-        make_train_step(get_config("llama-3.2-vision-11b_smoke"), RunConfig())
+    for kw in ({}, {"remat": "full"}, {"remat": "pamm"}):
+        make_train_step(get_config("llama-3.2-vision-11b_smoke"), RunConfig(**kw))
+    with pytest.raises(ValueError, match="xattn consumes cross-modal extras"):
+        make_train_step(get_config("llama-3.2-vision-11b_smoke"),
+                        RunConfig(block_structure="reversible"))
 
 
 def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
