@@ -7,7 +7,10 @@ checkpoint/restart; then serving and PAMM training of the MoE model
 granite-moe-3b-a800m, of the state-space model mamba2-370m, of the
 hybrid recurrentgemma-9b (RG-LRU and local-attention blocks) and of the
 vision model llama-3.2-vision-11b (gated cross-attention over image
-embeddings, decoded through K6 non-causal).
+embeddings, decoded through K6 non-causal); then the audio model
+musicgen-medium (embeddings in, four codebook heads out), scored, decoded
+over embeddings and PAMM-trained at full size, and the port's four
+examples (``repro_torch.examples``) run on the card.
 
   python3 chip_smoke.py
 
@@ -293,6 +296,55 @@ is caught and ignored:
                         training shape (SDPA as library), K1 / K2 at the
                         attn.cross_kv site's shapes as kernel rows; K3,
                         K6 causal and K7 at its serving shapes, printed
+  30. audio kernels     at musicgen's 24 / 24 heads of 64 (MHA, G 1), bf16:
+                        K3 and K4/K5 at (4, 2048) and K3 at (8, 1024), two
+                        launches of each bitwise equal; K6 over 8 x 1089
+                        slots (row 3 parked at -1), two launches and each
+                        row alone bitwise equal; K1 at the attn.qkv site's
+                        (8192, 1536, k 16), K2 at b 8192, m 1536 and m 2048
+                        (a lm_head rule's codebook columns)
+  31. audio decode      musicgen-medium (48 layers, d 1536, 24 / 24 heads of
+                        64, no token table, a (1536, 4 x 2048) head), bf16,
+                        random weights from seed 0: a prefill over 8 x 1024
+                        stream embeddings, then 8 decode steps each fed the
+                        next embedding; every step's logits (8, 1, 8192)
+                        against the full forward's at the same position
+                        within 5e-2 of the row's largest |logit|; launches
+                        K3 = 48 x 1 prefill, K6 = 48 x 8 steps, nothing
+                        else; a profiler split of a prefill and a step
+  32. audio training    musicgen-medium_smoke in f32, card against CPU, under
+                        attn.qkv PAMM and with lm_head PAMM added (K1 / K2
+                        once a codebook); musicgen-medium at full width and
+                        depth, f32 params / bf16 compute,
+                        attn.qkv=pamm(r=1/512), remat='pamm', AdamW, 4 x
+                        2048 embeddings with four-codebook labels: one
+                        warm-up and 3 measured steps (finite losses;
+                        launches a step K1 48, K2 144, K3 96, K4 = K5 48,
+                        f32 routes and plain 0; telemetry; step and forward
+                        + backward peaks; a profiler split), forward +
+                        backward at 16 layers under remat='none' with and
+                        without the rule (the site's saving a layer), a
+                        second run from the seed
+  33. examples          the examples' kernels against their plain versions
+                        at the examples' shapes: llama-tiny (4 / 4 heads of
+                        32) over 8 x 64 tokens in f32, one train step card
+                        against CPU under quickstart's spec and
+                        finetune_compare's r = 1/128 and 1/256 (launches
+                        K1 4, K2 12, K3 = K4 = K5 4); at pretrain's bf16,
+                        K3 + K4/K5 at (8, 64), K1 at (512, 128, k 1), K2 at
+                        m 128; serve_batched's f32 K3 over a 32-token
+                        prompt and K6 over 4 slots of 49 at 4 / 2 heads of
+                        16. Then repro_torch.examples on the card through
+                        main(), no --device: quickstart (losses finite and falling,
+                        its activation report), serve_batched on
+                        internlm2-1.8b_smoke, pretrain for 20 steps with a
+                        checkpoint in a temporary directory and resumed to
+                        24, finetune_compare at 20 / 10 steps; K1-K5 (K3,
+                        K6 serving) launched, no plain version
+  34. audio numbers     K3 / K4 / K5 at (4, 2048, 24/24, 64) and K6 over 8 x
+                        1089 at those heads (SDPA as library), K1 / K2 at
+                        the attn.qkv site's shapes as kernel rows; K3 at
+                        (8, 1024) and K2 at m 2048, printed
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -469,6 +521,42 @@ VIS_GATE = 0.5
 # about 32 GiB of f32 parameters, gradients and AdamW moments)
 VIS_TRAIN_STAGES = ((("attn", "attn", "attn", "attn", "xattn"), 1),)
 VIS_REMAT = "none"
+# the audio slice: musicgen-medium (48 attn layers, d 1536, 24 / 24 heads of
+# 64 (MHA, G 1), d_ff 6144; embed-input: no token table, a (d, 4 x 2048)
+# head, four codebooks). Its attn.qkv site is every layer's input: K1 at n
+# 1536, K2 at m 1536 (wq, wk, wv); a lm_head rule's K2 at m 2048 (one
+# codebook's columns); k = 8192 / 512. Its 1.8 B parameters take 27 GiB of
+# f32 state with AdamW, so it trains at full depth; 'none' would peak near
+# 70-75 of the card's 79.2 GiB, so the cell trains under 'pamm' and the
+# site's saving is measured under 'none' at a cut depth
+AUDIO_ARCH, AUDIO_SMOKE = "musicgen-medium", "musicgen-medium_smoke"
+AUDIO_SPEC = "attn.qkv=pamm(r=1/512)"
+AUDIO_SMOKE_SPECS = ("attn.qkv=pamm(r=1/8)", "attn.qkv=pamm(r=1/8);lm_head=pamm(r=1/8)")
+AUDIO_HEADS = (24, 24, 64)           # H, KV, dh: G 1
+AUDIO_D, AUDIO_K, AUDIO_M = 1536, 16, (1536, 2048)
+AUDIO_REMAT = "pamm"
+AUDIO_CUT_LAYERS = 16
+AUDIO_DECODE_STEPS = 8
+# a decode step's bf16 logits against the full forward's at the same
+# position, of the row's largest |logit|: the two paths round differently in
+# each of 48 layers (K6 against K3, matrix products of other shapes). The
+# plain versions on the CPU drift by 4.3e-3, 1.0e-2 and 1.7e-2 at 2, 8 and 24
+# layers of musicgen's width (tools/audio_drift.py), about as the square
+# root of the depth: some 2.3e-2 at 48, held here at about twice that
+TOL_AUDIO_DECODE = 5e-2
+# the examples: llama-tiny trained over 8 x 64 tokens (quickstart,
+# pretrain, finetune_compare); serve_batched's arch, its 4 slots, its
+# prompts of 23-32 tokens (one prefill bucket of 32) and its cache of
+# 32 + 16 + 1 slots
+EXAMPLE_ARCH, EXAMPLE_BATCH, EXAMPLE_SEQ = "llama-tiny", 8, 64
+EXAMPLE_SERVE_ARCH = "internlm2-1.8b_smoke"
+EXAMPLE_SLOTS, EXAMPLE_PROMPT, EXAMPLE_CACHE = 4, 32, 49
+# the examples' launch names of each kernel, either route
+EXAMPLE_KERNELS = {"K1": ("csim_argmax",), "K2": ("segment_matmul",),
+                   "K3": ("flash_attention_fwd", "flash_attention_fwd_f32"),
+                   "K4": ("flash_attention_dq", "flash_attention_dq_f32"),
+                   "K5": ("flash_attention_dkv", "flash_attention_dkv_f32"),
+                   "K6": ("flash_decode",)}
 # the kernels of the other slices: none may launch on the ssm path
 ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attention_dq",
                 "flash_attention_dkv", "flash_attention_dq_f32", "flash_attention_dkv_f32",
@@ -753,21 +841,23 @@ def phase_k3(gen):
 
 
 def check_k6(gen, B, S, H, KV, dh, *, ring: bool, ring_slots: int = 256,
-             n_ring: int = 600) -> float:
+             n_ring: int = 600, step: int = 97, dtype=None) -> float:
     """K6 against its plain version at one decode shape (slot b filled to
-    S - 97 b, row 3 parked; or a ring of ``ring_slots`` after ``n_ring``
-    tokens, window ``ring_slots``): two launches and each row alone bitwise
-    equal to the batch. Returns max |o - o_ref|."""
+    S - ``step`` b, row 3 parked; or a ring of ``ring_slots`` after
+    ``n_ring`` tokens, window ``ring_slots``), bf16 unless ``dtype``: two
+    launches and each row alone bitwise equal to the batch. Returns
+    max |o - o_ref|."""
     import torch
 
     from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
 
-    fills = torch.tensor([S - 97 * b for b in range(B)], device="cuda")
+    fills = torch.tensor([S - step * b for b in range(B)], device="cuda")
+    check(ring or int(fills.min()) > 0, f"K6 case: S {S} is too short for step {step}")
     Sx = ring_slots if ring else S
     window = ring_slots if ring else 0
-    q = _randn((B, 1, H, dh), gen)
-    k = _randn((B, Sx, KV, dh), gen)
-    v = _randn((B, Sx, KV, dh), gen)
+    q = _randn((B, 1, H, dh), gen, dtype)
+    k = _randn((B, Sx, KV, dh), gen, dtype)
+    v = _randn((B, Sx, KV, dh), gen, dtype)
     if ring:
         n = n_ring
         spos = ring_slot_pos(B, Sx, n, "cuda")
@@ -788,7 +878,7 @@ def check_k6(gen, B, S, H, KV, dh, *, ring: bool, ring_slots: int = 256,
     check(alone, f"K6: a row decoded alone differs from it at B={B} (dh={dh} ring={ring})")
     o_r = flash_decode_ref(q, k, v, qpos, spos, causal=True, window=window)
     e = (o.float() - o_r.float()).abs().max().item()
-    print(f"[K6] B={B} S={Sx} H={H} KV={KV} dh={dh} window={window} "
+    print(f"[K6] B={B} S={Sx} H={H} KV={KV} dh={dh} window={window} {str(q.dtype)[6:]} "
           f"(row 3 parked): max|o-o_ref|={e:.3e} (tol {TOL_O}); two launches bitwise "
           f"equal; each row alone bitwise equal to it at B={B}")
     check(bool(o.isfinite().all()), "K6 output of a parked row is not finite")
@@ -1008,6 +1098,46 @@ def timed_line(model, tag, label, fn, plain, lib, work, launch_note):
           f"{launch_note} {tag}")
 
 
+def site_k1_k2_rows(gen, b, n, k, k1_name, k2_names, launches, errs):
+    """Kernel rows of K1 at a site's (b, n, k) and of K2 at (b, m, k) for
+    each (m, name) of ``k2_names``, bf16, with the training path's
+    ``launches`` and the kernel phase's ``errs``. Returns (the rows, K2's
+    idx and scales, for lines at other widths)."""
+    import torch
+
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
+
+    x = _randn((b, n), gen)
+    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
+    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    alpha = torch.randn(b, generator=gen, device="cuda")
+    rows = [_kernel_row(k1_name, K1_SOURCE, K1_REPLACES, launches.get("csim_argmax", 0),
+                        errs["K1"], lambda: csim_argmax_cuda(x, c),
+                        lambda: csim_argmax_ref(x, c), None, k1_work(b, n, k, 2))]
+    del x, c
+    for m, name in k2_names:
+        gz = _randn((b, m), gen)
+        rows.append(_kernel_row(name, K2_SOURCE, K2_REPLACES, launches.get("segment_matmul", 0),
+                                errs["K2"], lambda: segment_matmul_cuda(f, alpha, gz, k),
+                                lambda: segment_matmul_ref(f, alpha, gz, k), None,
+                                k2_work(b, m, k, 2)))
+        del gz
+    return rows, (f, alpha)
+
+
+def print_rows(rows, notes, tag):
+    """Print kernel rows, each with its (launch note, shape note) of
+    ``notes``."""
+    for row, (note, at) in zip(rows, notes):
+        print(f"[numbers] {row['name']}{at}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"plain {row['plain_ms']:.4f} ms | library "
+              + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA)")
+              + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
+              f"{note} {tag}")
+
+
 def attention_inputs(gen, B, L, H, KV, dh, window=0):
     """Random bf16 inputs of K3, K4 and K5 at (B, L, H / KV, dh), causal
     with ``window`` (0, or at least L: SDPA's causal mask then computes the
@@ -1049,6 +1179,32 @@ def attention_inputs(gen, B, L, H, KV, dh, window=0):
                sdpa_bwd, work(which="K5"))}
 
 
+def k6_inputs(gen, H, KV, dh, q_at, window=0):
+    """Random bf16 inputs of K6 over SLOTS dense slots of MAX_LEN, every
+    row at q_pos ``q_at`` with slots 0..q_at filled, causal with ``window``
+    (0, or wider than the cache: SDPA's slot mask then computes the same
+    function). Returns (kernel, plain, library, work), as an entry of
+    attention_inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
+
+    B, S = SLOTS, MAX_LEN
+    q = _randn((B, 1, H, dh), gen)
+    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
+    qpos = torch.full((B,), q_at, dtype=torch.int32, device="cuda")
+    j = torch.arange(S, device="cuda", dtype=torch.int32)
+    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
+    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
+    qt = q.transpose(1, 2)
+    return (lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True, window=window),
+            lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True, window=window),
+            lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
+            k6_work(qpos, spos, H, KV, dh, window=window, itemsize=2))
+
+
 def decode_lines(gen, line, H, KV, dh, window, serve):
     """Print K6 over SLOTS dense slots of MAX_LEN and K7 over 17 pages of
     PAGE a slot, mid-generation, at (H / KV, dh) and ``window`` (0, or
@@ -1058,28 +1214,16 @@ def decode_lines(gen, line, H, KV, dh, window, serve):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_decode import (flash_decode_cuda, flash_decode_ref,
-                                                  flash_paged_decode_cuda,
-                                                  flash_paged_decode_ref)
+    from repro_torch.kernels.flash_decode import flash_paged_decode_cuda, flash_paged_decode_ref
 
     B, S = SLOTS, MAX_LEN
-    q = _randn((B, 1, H, dh), gen)
-    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
-    qpos = torch.full((B,), PROMPT_LEN + GEN // 2, dtype=torch.int32, device="cuda")
-    j = torch.arange(S, device="cuda", dtype=torch.int32)
-    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
-    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
-    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
-    qt = q.transpose(1, 2)
     dense = serve["dense"]
     line(f"K6 ({B} slots x {S}, {H}/{KV}, {dh})",
-         lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True, window=window),
-         lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True, window=window),
-         lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
-         k6_work(qpos, spos, H, KV, dh, window=window, itemsize=2),
+         *k6_inputs(gen, H, KV, dh, PROMPT_LEN + GEN // 2, window),
          f"{dense['counts'].get('flash_decode', 0)} launches serving "
          f"({dense['stats']['decode_steps']} steps)")
-    del kc, vc
+    q = _randn((B, 1, H, dh), gen)
+    qt = q.transpose(1, 2)
     fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
     kp, vp, bt, ppos = paged_inputs(gen, B, 18, PAGE, KV, dh, fill, n_mapped=17)
     qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
@@ -1109,12 +1253,10 @@ def _flush_buffer():
 
 
 def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
-    import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_fwd_cuda,
                                                      flash_attention_fwd_ref)
-    from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
 
     # K3 at the slice's prefill shape
     B, L, H, KV, dh = 1, PROMPT_LEN, 16, 8, 128
@@ -1130,22 +1272,9 @@ def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
         k3_work(B, L, H, KV, dh, causal=True, window=0, itemsize=2))
 
     # K6 at the slice's decode shape: 8 slots of 1089, mid-generation
-    B, S = SLOTS, MAX_LEN
-    q = _randn((B, 1, H, dh), gen)
-    kc, vc = _randn((B, S, KV, dh), gen), _randn((B, S, KV, dh), gen)
-    qpos = torch.full((B,), PROMPT_LEN + GEN // 2, dtype=torch.int32, device="cuda")
-    j = torch.arange(S, device="cuda", dtype=torch.int32)
-    spos = torch.where(j[None, :] <= qpos[:, None], j[None, :], -1).to(torch.int32)
-    mask = ((spos >= 0) & (spos <= qpos[:, None]))[:, None, None, :]
-    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (kc, vc))
-    qt = q.transpose(1, 2)
-    k6 = _kernel_row(
-        "flash_decode (K6, split over the keys)", K6_SOURCE, K6_REPLACES,
-        counts.get("flash_decode", 0), err6,
-        lambda: flash_decode_cuda(q, kc, vc, qpos, spos, causal=True),
-        lambda: flash_decode_ref(q, kc, vc, qpos, spos, causal=True),
-        lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask),
-        k6_work(qpos, spos, H, KV, dh, window=0, itemsize=2))
+    k6 = _kernel_row("flash_decode (K6, split over the keys)", K6_SOURCE, K6_REPLACES,
+                     counts.get("flash_decode", 0), err6,
+                     *k6_inputs(gen, H, KV, dh, PROMPT_LEN + GEN // 2))
 
     tag = f"[{smi}]"
     for row, key in ((k3, "K3 serving"), (k6, "K6")):
@@ -2101,7 +2230,8 @@ def check_k3_k45(gen, B, L, H, KV, dh, window, offs, dtype, errs, *, repeat: boo
     import torch
 
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_ref)
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda)
 
     bf16 = torch.bfloat16
     q = _randn((B, L, H, dh), gen, dtype)
@@ -2110,6 +2240,7 @@ def check_k3_k45(gen, B, L, H, KV, dh, window, offs, dtype, errs, *, repeat: boo
     e_o, o, lse = check_k3(q, k, v, window=window, offs=offs, label=", training shape")
     if dtype == bf16:
         errs["K3"] = max(errs["K3"], e_o)
+    fwd = (o, lse)
     if offs is not None:
         lse = torch.logaddexp(lse, torch.rand(lse.shape, generator=gen, device="cuda"))
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window,
@@ -2134,7 +2265,10 @@ def check_k3_k45(gen, B, L, H, KV, dh, window, offs, dtype, errs, *, repeat: boo
         again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=window)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               "two launches of the bf16 K4/K5 give other bits")
-        same = "; two launches bitwise equal"
+        again = flash_attention_fwd_cuda(q, k, v, causal=True, window=window, offs=offs)
+        check(all(torch.equal(a, b) for a, b in zip(fwd, again)),
+              "two launches of the bf16 K3 give other bits")
+        same = "; two launches of K3 and of K4/K5 bitwise equal"
         del again
     route = "tensor cores" if dtype == bf16 else "f32 route"
     print(f"[K4/K5] B={B} L={L} H={H} KV={KV} dh={dh} window={window} offs={offs} "
@@ -2166,10 +2300,13 @@ class NumpySampler:
             shape, dtype=np.float32)).to(device)
 
 
-def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
-    """One train step of ``arch`` (a smoke arch) in f32 under ``spec``: the
-    card (kernels) against the CPU (plain versions), same parameters and
-    draws."""
+def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)",
+                      want_launches: dict | None = None, batch: int = 4):
+    """One train step of ``arch`` (a smoke arch) in f32 under ``spec`` over
+    ``batch`` rows of 64 tokens: the card (kernels) against the CPU (plain
+    versions), same parameters and draws; ``want_launches``: the card's
+    launch counts of one loss and backward, where the caller derives
+    them."""
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core.keys import Key
     from repro_torch.core.plan import resolve_for_run
@@ -2188,7 +2325,7 @@ def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
         print(f"[card vs cpu] {arch}: gate_attn and gate_ffn of {set_gates(cpu)} xattn "
               f"layers filled with {VIS_GATE} (zero at init: the block is the identity)")
     card = copy.deepcopy(cpu).to("cuda")
-    batch = SyntheticStream.for_arch(cfg, 64, 4).get_batch(0)
+    rows, batch = batch, SyntheticStream.for_arch(cfg, 64, batch).get_batch(0)
     resolved = resolve_for_run(cfg, rcfg)
     key = Key(rcfg.seed, sampler=NumpySampler()).fold_in(3)
     out = {}
@@ -2201,13 +2338,16 @@ def phase_card_vs_cpu(arch="internlm2-1.8b_smoke", spec="attn.qkv=pamm(r=1/8)"):
     rel_l = abs(l_card - l_cpu) / abs(l_cpu)
     rel_g = max(((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm().clamp_min(1e-30)).item()
                 for n in g_cpu)
-    print(f"[card vs cpu] {arch} f32 {spec}: loss {l_card:.7f} vs "
+    print(f"[card vs cpu] {arch} f32 {spec}, {rows} x 64: loss {l_card:.7f} vs "
           f"{l_cpu:.7f} (rel {rel_l:.2e}, tol {TOL_CPU_LOSS}); worst gradient rel "
           f"{rel_g:.2e} (tol {TOL_CPU_GRAD}) | card launches {c_card} | cpu {c_cpu}")
     check(rel_l <= TOL_CPU_LOSS and rel_g <= TOL_CPU_GRAD,
           "the card's train step disagrees with the CPU's")
     check(not any(k.endswith("_ref") for k in c_card) and
           all(k.endswith("_ref") for k in c_cpu), "a path took the wrong kernels")
+    check(want_launches is None
+          or {k: c_card.get(k, 0) for k in want_launches} == want_launches,
+          f"card launches {c_card} != {want_launches}")
     step_fn = make_train_step(cfg, rcfg, total_steps=10, sampler=NumpySampler())
     zero_init = {n for n, p in cpu.named_parameters() if not p.detach().any()}
     res = {}
@@ -3184,12 +3324,9 @@ def phase_moe_numbers(gen, moe_serve, moe_train, smi, errs):
                      errs["K2b"], lambda: segment_matmul_batched_cuda(f, alpha, gz, k),
                      lambda: segment_matmul_batched_ref(f, alpha, gz, k), None,
                      (E * w2[0], E * w2[1]))
-    for row, at in ((k1, f"({E} x {b}, {n}, k {k})"), (k2, f"({E} x {b}, m {m}, k {k})")):
-        print(f"[numbers] {row['name']} at {at}: {row['ms']:.4f} ms/call | device only "
-              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
-              f"plain {row['plain_ms']:.4f} ms | library n/a | bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) | {row['launches']} launches on the moe training path "
-              f"({TRAIN_STEPS} steps) {tag}")
+    note = f"launches on the moe training path ({TRAIN_STEPS} steps)"
+    print_rows((k1, k2), ((note, f" at ({E} x {b}, {n}, k {k})"),
+                          (note, f" at ({E} x {b}, m {m}, k {k})")), tag)
     del x, c, gz
     # the site's generator rows, drawn once a layer before K1: the experts
     # in one draw, against the draw per expert it replaced
@@ -3249,8 +3386,11 @@ def check_site_k1(gen, b, n, k, tag):
     e_cs = (cs.abs() - cs_r.abs()).abs().max().item()
     e_n = ((na - na_r).abs() / na_r).max().item()
     csim = (x.float() @ c.float().T) / (na_r[:, None] * c.float().norm(dim=1)[None])
-    top2 = csim.abs().topk(2, dim=1).values
-    clear = top2[:, 0] - top2[:, 1] > TOL_K1_MARGIN
+    if k == 1:                                     # one generator: idx 0 everywhere
+        clear = torch.ones(b, dtype=torch.bool, device="cuda")
+    else:
+        top2 = csim.abs().topk(2, dim=1).values
+        clear = top2[:, 0] - top2[:, 1] > TOL_K1_MARGIN
     n_bad = int((f[clear] != f_r[clear]).sum())
     print(f"[K1 {tag}] b={b} n={n} k={k} bf16: max||cs|-|cs_ref||={e_cs:.3e} max rel |norm "
           f"err|={e_n:.3e} (tol {TOL_K1}); idx equal on {int(clear.sum())}/{b} rows with a "
@@ -3514,34 +3654,16 @@ def phase_ssm_training(smi):
 def phase_ssm_numbers(gen, per_step, rec, smi, errs):
     """Kernel rows of K1 and K2 at the ssm.in site's shapes (plain version,
     bound, launches on the mamba2 training path)."""
-    import torch
-
-    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
-    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
-
     tag = f"[{smi}]"
     launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
     b, n, m, k = TRAIN_BATCH * TRAIN_SEQ, SSM_D, SSM_M, SSM_K
-    x = _randn((b, n), gen)
-    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
-    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
-    alpha = torch.randn(b, generator=gen, device="cuda")
-    gz = _randn((b, m), gen)
-    rows = [
-        _kernel_row("csim_argmax (K1, mamba2's ssm.in site)", K1_SOURCE, K1_REPLACES,
-                    launches.get("csim_argmax", 0), errs["K1"],
-                    lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
-                    k1_work(b, n, k, 2)),
-        _kernel_row("segment_matmul (K2, mamba2's ssm.in site, a ragged last column tile)",
-                    K2_SOURCE, K2_REPLACES, launches.get("segment_matmul", 0), errs["K2"],
-                    lambda: segment_matmul_cuda(f, alpha, gz, k),
-                    lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2))]
-    for row, at in zip(rows, (f"({b}, {n}, k {k})", f"(b {b}, m {m}, k {k})")):
-        print(f"[numbers] {row['name']} at {at}: {row['ms']:.4f} ms/call | device only "
-              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
-              f"plain {row['plain_ms']:.4f} ms | library n/a | bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}) | {row['launches']} launches on the mamba2 training path "
-              f"({TRAIN_STEPS} steps) {tag}")
+    rows, _ = site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, mamba2's ssm.in site)",
+        [(m, "segment_matmul (K2, mamba2's ssm.in site, a ragged last column tile)")],
+        launches, errs)
+    note = f"launches on the mamba2 training path ({TRAIN_STEPS} steps)"
+    print_rows(rows, ((note, f" at ({b}, {n}, k {k})"), (note, f" at (b {b}, m {m}, k {k})")),
+               tag)
     step_ms = statistics.median(rec["ms"][1:])
     L = int(per_step.get("csim_argmax", 0))
     print(f"[numbers] mamba2 train step {step_ms:.1f} ms: K1 x{L} "
@@ -3806,9 +3928,6 @@ def phase_rec_numbers(gen, serve, per_step, rec, smi, errs):
     prefill shape and K6 / K7 at the cell's decode shapes, printed."""
     import torch
 
-    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
-    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
-
     tag = f"[{smi}]"
     launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
     H, KV, dh = REC_HEADS
@@ -3826,35 +3945,18 @@ def phase_rec_numbers(gen, serve, per_step, rec, smi, errs):
     del att
     torch.cuda.empty_cache()
     b, n, k = TRAIN_BATCH * TRAIN_SEQ, REC_D, REC_K
-    x = _randn((b, n), gen)
-    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
-    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
-    alpha = torch.randn(b, generator=gen, device="cuda")
-    rows.append(_kernel_row("csim_argmax (K1, recurrentgemma's rglru.in and attn.qkv sites)",
-                            K1_SOURCE, K1_REPLACES, launches.get("csim_argmax", 0), errs["K1"],
-                            lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
-                            k1_work(b, n, k, 2)))
-    for m in REC_M:
-        gz = _randn((b, m), gen)
-        what = "w_x and wq" if m == REC_D else "wk and wv"
-        rows.append(_kernel_row(
-            f"segment_matmul (K2, recurrentgemma's {what}, m {m})", K2_SOURCE, K2_REPLACES,
-            launches.get("segment_matmul", 0), errs["K2"],
-            lambda: segment_matmul_cuda(f, alpha, gz, k),
-            lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2)))
-    for row in rows:
-        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | device only "
-              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
-              f"plain {row['plain_ms']:.4f} ms | library "
-              + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms")
-              + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
-              f"launches on the rec training path ({TRAIN_STEPS} steps) {tag}")
+    rows += site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, recurrentgemma's rglru.in and attn.qkv sites)",
+        [(m, f"segment_matmul (K2, recurrentgemma's "
+             f"{'w_x and wq' if m == REC_D else 'wk and wv'}, m {m})") for m in REC_M],
+        launches, errs)[0]
+    print_rows(rows, [(f"launches on the rec training path ({TRAIN_STEPS} steps)", "")]
+               * len(rows), tag)
     step_ms = statistics.median(rec["ms"][1:])
     print(f"[numbers] rec train step {step_ms:.1f} ms: "
           + ", ".join(f"{r['name'].split(' (')[0]} x{r['launches'] // TRAIN_STEPS} "
                       f"{r['launches'] // TRAIN_STEPS * r['ms']:.2f} ms" for r in rows[:4])
           + f" (isolated, L2 flushed) {tag}")
-    del x, c, gz
     line = functools.partial(timed_line, "recurrentgemma", tag)
     att = attention_inputs(gen, 1, PROMPT_LEN, H, KV, dh, W)
     line(f"K3 (1, {PROMPT_LEN}, {H}/{KV}, {dh}), window {W}", *att["K3"],
@@ -4169,8 +4271,6 @@ def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import flash_decode_cuda, flash_decode_ref
-    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
-    from repro_torch.kernels.pamm_compress import csim_argmax_cuda, csim_argmax_ref
 
     tag = f"[{smi}]"
     launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
@@ -4201,34 +4301,17 @@ def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
     del att
     torch.cuda.empty_cache()
     b, n, k, m = VIS_CROSS_B, VIS_D, VIS_CROSS_K, VIS_CROSS_M
-    x = _randn((b, n), gen)
-    c = x[torch.randperm(b, generator=gen, device="cuda")[:k]].contiguous()
-    f = torch.randint(0, k, (b,), generator=gen, device="cuda", dtype=torch.int32)
-    alpha = torch.randn(b, generator=gen, device="cuda")
-    gz = _randn((b, m), gen)
-    rows += [
-        _kernel_row("csim_argmax (K1, llama-vision's attn.cross_kv site)", K1_SOURCE,
-                    K1_REPLACES, launches.get("csim_argmax", 0), errs["K1"],
-                    lambda: csim_argmax_cuda(x, c), lambda: csim_argmax_ref(x, c), None,
-                    k1_work(b, n, k, 2)),
-        _kernel_row("segment_matmul (K2, llama-vision's attn.cross_kv site: wk, wv)",
-                    K2_SOURCE, K2_REPLACES, launches.get("segment_matmul", 0), errs["K2"],
-                    lambda: segment_matmul_cuda(f, alpha, gz, k),
-                    lambda: segment_matmul_ref(f, alpha, gz, k), None, k2_work(b, m, k, 2))]
+    rows += site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, llama-vision's attn.cross_kv site)",
+        [(m, "segment_matmul (K2, llama-vision's attn.cross_kv site: wk, wv)")],
+        launches, errs)[0]
     train_note = f"launches on the vision training path ({TRAIN_STEPS} steps)"
     notes = ((f"launches in the paged vision serving run ({paged['stats']['decode_steps']} "
               f"steps, every one non-causal)", "q_pos 0"),
              (train_note, ""), (train_note, ""), (train_note, ""),
              (f"{train_note}, every site", f" at ({b}, {n}, k {k})"),
              (f"{train_note}, every site", f" at (b {b}, m {m}, k {k})"))
-    for row, (note, at) in zip(rows, notes):
-        print(f"[numbers] {row['name']}{at}: {row['ms']:.4f} ms/call | device only "
-              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
-              f"plain {row['plain_ms']:.4f} ms | library "
-              + ("n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms (SDPA)")
-              + f" | bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} "
-              f"{note} {tag}")
-    del x, c, gz
+    print_rows(rows, notes, tag)
     dense = serve["dense"]["stats"]
     step_ms = 1e3 * dense["decode_s"] / max(1, dense["decode_steps"])
     print(f"[numbers] vision dense decode step {step_ms:.2f} ms: K6 non-causal x8 "
@@ -4258,6 +4341,427 @@ def run_vision_phases(gen, smi):
     phase_card_vs_cpu(VIS_SMOKE, VIS_SMOKE_SPEC)
     per_step, rec = phase_vision_training(smi)
     return phase_vision_numbers(gen, serve, per_step, rec, smi, errs)
+
+
+# ---------------------------------------------------------------------------
+# the audio slice: musicgen-medium, and the examples
+# ---------------------------------------------------------------------------
+def phase_audio_kernels(gen):
+    """musicgen's kernels at its 24 / 24 heads of 64 (MHA, G 1), each
+    against its plain version: K3 and K4/K5 (fed K3's o and lse) at the
+    training shape (4, 2048) and K3 at the prefill shape (8, 1024), bf16,
+    two launches of each bitwise equal; K6 over 8 slots x 1089 (row 3
+    parked at -1), two launches and each row alone bitwise equal; K1 at the
+    attn.qkv site's (8192, 1536, k 16) and K2 at b 8192, m 1536 (wq, wk,
+    wv) and m 2048 (a codebook's head columns under a lm_head rule).
+    Returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd_cuda
+
+    H, KV, dh = AUDIO_HEADS
+    bf16 = torch.bfloat16
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    check_k3_k45(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh, 0, None, bf16, errs, repeat=True)
+    q = _randn((SLOTS, PROMPT_LEN, H, dh), gen)
+    kk, v = _randn((SLOTS, PROMPT_LEN, KV, dh), gen), _randn((SLOTS, PROMPT_LEN, KV, dh), gen)
+    e, o, lse = check_k3(q, kk, v, window=0, label=", musicgen's prefill shape")
+    again = flash_attention_fwd_cuda(q, kk, v, causal=True, window=0)
+    check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+          "two launches of K3 give other bits at musicgen's prefill shape")
+    print("[K3] musicgen's prefill shape: two launches bitwise equal")
+    errs["K3"] = max(errs["K3"], e)
+    del q, kk, v, o, lse, again
+    errs["K6"] = check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False)
+    errs["K1"], f = check_site_k1(gen, TRAIN_BATCH * TRAIN_SEQ, AUDIO_D, AUDIO_K, "attn.qkv")
+    errs["K2"] = max(check_site_k2(gen, f, m, AUDIO_K, "attn.qkv" if m == AUDIO_D else "lm_head")
+                     for m in AUDIO_M)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_audio_decode(smi):
+    """musicgen-medium at full size, bf16, random weights from seed 0,
+    scored over embeddings: 8 rows of PROMPT_LEN + 8 embeddings from the
+    stream; one batched prefill over the first PROMPT_LEN (cache MAX_LEN),
+    then AUDIO_DECODE_STEPS decode_steps each fed the next embedding (B, 1,
+    d); each step's logits (B, 1, 4 x 2048) against the full forward's at
+    the same position within TOL_AUDIO_DECODE of the row's largest |logit|.
+    Launches of the prefill and the steps: K3 = 48 x prefills, K6 = 48 x
+    steps, nothing else. A profiler split of one prefill and one decode
+    step. Returns the record."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.keys import Key
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import launches
+    from repro_torch.models import decode_step, forward, init_model, prefill
+
+    tag = f"[{smi}]"
+    cfg = get_config(AUDIO_ARCH)
+    rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
+    t0 = time.perf_counter()
+    model = init_model(cfg, rcfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n = AUDIO_DECODE_STEPS
+    embeds = torch.from_numpy(SyntheticStream.for_arch(cfg, PROMPT_LEN + n, SLOTS)
+                              .get_batch(0)["embeds"]).to("cuda")
+    print(f"[audio decode] {AUDIO_ARCH}: {n_params / 1e9:.3f} B params (bf16; no embed "
+          f"table, head {tuple(model.head.shape)}), {cfg.n_layers} layers, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_codebooks} codebooks of "
+          f"{cfg.vocab_size}; initialised on the card in {time.perf_counter() - t0:.1f} s; "
+          f"embeddings {tuple(embeds.shape)} from the stream")
+    steps = [(embeds[:, PROMPT_LEN + i:PROMPT_LEN + i + 1],
+              torch.full((SLOTS, 1), PROMPT_LEN + i, dtype=torch.int32, device="cuda"))
+             for i in range(n)]
+    torch.cuda.synchronize()
+    launches.reset()
+    t0 = time.perf_counter()
+    logits, caches = prefill(cfg, rcfg, model, {"embeds": embeds[:, :PROMPT_LEN]}, MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    got, step_ms = [logits], []
+    for x, pos in steps:
+        t0 = time.perf_counter()
+        lg, caches = decode_step(cfg, rcfg, model, x, pos, caches)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got.append(lg)
+    counts = launches.counts()
+    want = {"flash_attention_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * n}
+    print(f"[audio decode] launches {counts} (K3 = {cfg.n_layers} x 1 prefill, K6 = "
+          f"{cfg.n_layers} x {n} decode steps)")
+    check(counts == want, f"audio decode launches {counts} != {want}")
+    with torch.no_grad():
+        h, _ = forward(cfg, rcfg, "", model, {"embeds": embeds}, Key(0))
+        full = (h[:, PROMPT_LEN - 1:] @ model.head.to(h.dtype)).float()
+    del h
+    errs = []
+    for i, lg in enumerate(got):
+        check(lg.shape == (SLOTS, 1, cfg.n_codebooks * cfg.vocab_size)
+              and bool(lg.isfinite().all()), f"audio decode: logits {i} bad shape or not finite")
+        ref = full[:, i]
+        errs.append(((lg[:, 0] - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item())
+    print(f"[audio decode] logits (B, 1, {cfg.n_codebooks * cfg.vocab_size}) against the full "
+          f"forward over {PROMPT_LEN + n} embeddings at the same position, worst |diff| of "
+          f"the row's max |logit| (mean {full.abs().amax(-1).mean().item():.3f}): prefill "
+          f"{errs[0]:.3e}, decode steps {[f'{e:.3e}' for e in errs[1:]]} (tol "
+          f"{TOL_AUDIO_DECODE})")
+    check(max(errs) <= TOL_AUDIO_DECODE, "audio decode logits disagree with the full forward")
+    step = statistics.median(step_ms)
+    print(f"[audio decode] prefill {SLOTS} x {PROMPT_LEN}: {prefill_ms:.1f} ms "
+          f"({1e3 * SLOTS * PROMPT_LEN / prefill_ms:.0f} tok/s, the first call) | decode step "
+          f"median {step:.2f} ms ({1e3 * SLOTS / step:.1f} tok/s), steps "
+          f"{[round(t, 2) for t in step_ms]} | memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB {tag}")
+    x, pos = steps[0]
+    base = {}
+    for label, work in (("prefill", lambda: prefill(cfg, rcfg, model,
+                                                    {"embeds": embeds[:, :PROMPT_LEN]},
+                                                    MAX_LEN)),
+                        ("decode step", lambda: decode_step(cfg, rcfg, model, x, pos, caches))):
+        work()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize()
+        base[label] = 1e3 * (time.perf_counter() - t0)
+        profile_split(label, work, base[label], tag="audio ")
+    del model, caches, embeds, full, got
+    torch.cuda.empty_cache()
+    return {"counts": counts, "steps": n, "prefill_ms": prefill_ms, "step_ms": step,
+            "errs": errs}
+
+
+def phase_audio_training(smi):
+    """musicgen-medium_smoke in f32, card against CPU, under attn.qkv PAMM
+    and with a lm_head rule added (K1 / K2 once a codebook and loss
+    chunk); then musicgen-medium at full width and depth, f32 params /
+    bf16 compute, attn.qkv=pamm(r=1/512), remat AUDIO_REMAT, AdamW, batch 4
+    x 2048 embeddings with four-codebook labels: one warm-up and 3
+    measured steps (finite losses; launches a step K1 48, K2 144, K3 96,
+    K4 = K5 48, f32 routes and plain versions 0; telemetry; step and
+    forward + backward peaks; a profiler split), forward + backward under
+    remat='none' at AUDIO_CUT_LAYERS layers with and without the rule (the
+    site's saving a layer), and a second run from the seed. Returns the
+    per-step launch counts and the record."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.train import init_train_state
+
+    smoke = get_config(AUDIO_SMOKE)
+    for spec in AUDIO_SMOKE_SPECS:
+        # one loss chunk of 64 tokens (loss_chunk 1024): a lm_head rule adds
+        # one K1 and one K2 a codebook
+        head = smoke.n_codebooks if "lm_head" in spec else 0
+        phase_card_vs_cpu(AUDIO_SMOKE, spec, {
+            "csim_argmax": smoke.n_layers + head,
+            "segment_matmul": 3 * smoke.n_layers + head,
+            "flash_attention_fwd_f32": smoke.n_layers, "flash_attention_dq_f32": smoke.n_layers,
+            "flash_attention_dkv_f32": smoke.n_layers})
+    cfg = get_config(AUDIO_ARCH)
+    rcfg = RunConfig(compression=AUDIO_SPEC, policy_name="none", remat=AUDIO_REMAT)
+    tag = f"[{smi}]"
+    n = TRAIN_STEPS
+    state, step_fn, rec = _train_run(cfg, rcfg, n, measure=True)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    per_step = {k: v / n for k, v in rec["counts"].items()}
+    print(f"[audio train] {AUDIO_ARCH}: {n_params / 1e9:.3f} B params f32 (no embed table), "
+          f"compute {rcfg.compute_dtype}, {AUDIO_SPEC}, remat={AUDIO_REMAT!r}, AdamW, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} embeddings, labels of {cfg.n_codebooks} codebooks; "
+          f"losses {rec['loss']} | grad norms {[round(g, 4) for g in rec['gnorm']]}")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          "audio: a training loss or grad norm is not finite")
+    L = cfg.n_layers
+    # K1 once a layer (remat='pamm' keeps the states across the recompute),
+    # K2 for wq, wk, wv, K3 in the forward and the recompute
+    want = {"csim_argmax": L, "segment_matmul": 3 * L, "flash_attention_fwd": 2 * L,
+            "flash_attention_dq": L, "flash_attention_dkv": L,
+            **{k: 0 for k in ATTN_KERNELS if k.endswith("_f32") or "decode" in k}}
+    print(f"[audio train] launches per step {per_step}")
+    check({k: per_step.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in rec["counts"]),
+          f"audio training launches per step {per_step} != {want}, or a plain version ran")
+    step_ms = statistics.median(rec["ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[audio train] {1e3 * tokens / step_ms:.1f} tokens/s | {step_ms:.1f} ms per step "
+          f"(median of {n}: {[round(t, 1) for t in rec['ms'][1:]]}; warm-up step "
+          f"{rec['ms'][0]:.1f} ms) | step peak torch.cuda.max_memory_allocated "
+          f"{rec['peak'] / 2**30:.3f} GiB {tag}")
+    sites = {k: round(v, 6) for k, v in rec["metrics"].items() if k.startswith("site/")}
+    print(f"[audio train] site telemetry (summed over {L} layers) {sites}")
+    trace_training_step(state, step_fn, cfg, step_ms, n + 1, tag="audio ")
+    rec["fb_peak"] = _fwd_bwd_peak(cfg, rcfg, state, TRAIN_SEQ)
+    print(f"[audio train] forward + backward peak (one loss_and_grad, AdamW moments "
+          f"resident) {rec['fb_peak'] / 2**30:.3f} GiB {tag}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, stages=((("attn",), AUDIO_CUT_LAYERS),),
+                              n_layers=AUDIO_CUT_LAYERS)
+    state = init_train_state(cut, rcfg, device="cuda")
+    peaks = {label: _fwd_bwd_peak(cut, dataclasses.replace(rcfg, compression=spec,
+                                                           remat="none"), state, TRAIN_SEQ)
+             for label, spec in (("attn.qkv exact", "attn.qkv=none"), (AUDIO_SPEC, AUDIO_SPEC))}
+    saved = peaks["attn.qkv exact"] - peaks[AUDIO_SPEC]
+    rec["cut_peaks"], rec["saved_per_layer"] = peaks, saved / AUDIO_CUT_LAYERS
+    x_mib = tokens * AUDIO_D * 2 / 2**20
+    w_mib = 3 * AUDIO_D * AUDIO_D * 2 / 2**20
+    print(f"[audio train] cut to {AUDIO_CUT_LAYERS} of {L} layers, remat='none', batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: forward + backward peak "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peaks.items())
+          + f"; the attn.qkv site saves {saved / 2**20:.1f} MiB ({saved / 2**20 / AUDIO_CUT_LAYERS:.2f}"
+          f" MiB a layer; its bf16 input is {x_mib:.1f} MiB a layer, wq + wk + wv's bf16 "
+          f"copies {w_mib:.1f} MiB) {tag}")
+    del state
+    torch.cuda.empty_cache()
+    _, _, rec2 = _train_run(cfg, rcfg, n, measure=False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(rec2["loss"], rec["loss"])]
+    print(f"[audio train] second run from seed {rcfg.seed}: losses {rec2['loss']} (step 0 "
+          f"equal: {rec2['loss'][0] == rec['loss'][0]}; later steps worst rel "
+          f"{max(rel[1:]):.2e}, tol 1e-3)")
+    check(rec2["loss"][0] == rec["loss"][0] and max(rel[1:]) <= 1e-3,
+          "audio: a second run from the seed gives other losses")
+    torch.cuda.empty_cache()
+    return per_step, rec
+
+
+def _launched(counts: dict, kernels) -> dict:
+    """Launches of each kernel id in ``kernels``, its routes summed."""
+    return {k: sum(counts.get(name, 0) for name in EXAMPLE_KERNELS[k]) for k in kernels}
+
+
+def phase_example_kernels(gen):
+    """The examples' kernels at the shapes and types their paths give them,
+    each against its plain version. llama-tiny (4 layers, d 128, 4 / 4
+    heads of 32) over 8 x 64 tokens: one f32 train step, card against CPU,
+    under quickstart's spec and under finetune_compare's PAMM at each of its
+    ratios (K1-K5 on the f32 routes, launches a loss and backward K1 4, K2
+    12, K3 = K4 = K5 4); at pretrain's bf16 compute, K3 with K4/K5 at (8,
+    64, 4 / 4, 32), K1 at (512, 128, k) and K2 at m 128 (wq, wk, wv), two
+    launches bitwise equal. serve_batched's internlm2-1.8b_smoke in f32 (its
+    CLI's default): K3 over its 32-token prompt bucket and K6 over its 4
+    slots of 49, at 4 / 2 heads of 16."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.pamm import num_generators
+    from repro_torch.core.plan import plan_spec_from_legacy
+    from repro_torch.examples import finetune_compare, pretrain, quickstart
+
+    cfg = get_config(EXAMPLE_ARCH)
+    L, H, KV, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    f32 = {"csim_argmax": L, "segment_matmul": 3 * L, "flash_attention_fwd_f32": L,
+           "flash_attention_dq_f32": L, "flash_attention_dkv_f32": L}
+    for div in finetune_compare.DIVISORS:
+        phase_card_vs_cpu(EXAMPLE_ARCH, plan_spec_from_legacy(RunConfig(pamm_ratio=1 / div)),
+                          f32, batch=EXAMPLE_BATCH)
+    phase_card_vs_cpu(EXAMPLE_ARCH, quickstart.COMPRESSION, f32, batch=EXAMPLE_BATCH)
+    b, bf16 = EXAMPLE_BATCH * EXAMPLE_SEQ, torch.bfloat16
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    check_k3_k45(gen, EXAMPLE_BATCH, EXAMPLE_SEQ, H, KV, dh, 0, None, bf16, errs, repeat=True)
+    k = num_generators(b, 1 / pretrain.RATIO)
+    _, f = check_site_k1(gen, b, cfg.d_model, k, "pretrain's attn.qkv")
+    check_site_k2(gen, f, H * dh, k, "pretrain's attn.qkv")
+    serve = get_config(EXAMPLE_SERVE_ARCH)
+    H, KV, dh = serve.n_heads, serve.n_kv_heads, serve.head_dim
+    q = _randn((1, EXAMPLE_PROMPT, H, dh), gen, torch.float32)
+    kk, v = (_randn((1, EXAMPLE_PROMPT, KV, dh), gen, torch.float32) for _ in range(2))
+    check_k3(q, kk, v, window=0, label=", serve_batched's prompt bucket")
+    check_k6(gen, EXAMPLE_SLOTS, EXAMPLE_CACHE, H, KV, dh, ring=False, step=11,
+             dtype=torch.float32)
+
+
+def phase_examples(gen, smi):
+    """The examples' kernels against their plain versions at the examples'
+    shapes (phase_example_kernels); then the port's examples on the card
+    through their main(), with no --device (the default is the card):
+    quickstart (its first loss finite and its last below it), serve_batched
+    on internlm2-1.8b_smoke, pretrain for 20 steps with a checkpoint in a
+    temporary directory and again for 24 (it resumes at step 20),
+    finetune_compare at 20 / 10 steps. Each must return, print finite
+    losses or perplexities and launch the card's kernels (K1-K5 in
+    training, K3 and K6 in serving), no plain version."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import finetune_compare, pretrain, quickstart, serve_batched
+    from repro_torch.kernels import launches
+
+    phase_example_kernels(gen)
+    tag = f"[{smi}]"
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    train_k = ("K1", "K2", "K3", "K4", "K5")
+    with tempfile.TemporaryDirectory(dir=build) as ckpt:
+        runs = (("quickstart", quickstart.main, [], train_k),
+                ("serve_batched", serve_batched.main, ["--arch", EXAMPLE_SERVE_ARCH],
+                 ("K3", "K6")),
+                ("pretrain", pretrain.main, ["--steps", "20", "--ckpt", ckpt], train_k),
+                ("pretrain resumed", pretrain.main, ["--steps", "24", "--ckpt", ckpt],
+                 train_k),
+                ("finetune_compare", finetune_compare.main,
+                 ["--pretrain-steps", "20", "--finetune-steps", "10"], train_k))
+        for name, main_fn, argv, kernels in runs:
+            launches.reset()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main_fn(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = buf.getvalue().splitlines()
+            counts = launches.counts()
+            ran = _launched(counts, kernels)
+            print(f"[examples] {name} {' '.join(argv)}: returned in {wall:.1f} s; kernels "
+                  f"launched {ran}; output: " + " // ".join(out[-4:]) + f" {tag}")
+            check(all(ran.values()) and not any(k.endswith("_ref") for k in counts),
+                  f"{name}: the card's kernels did not all run ({counts})")
+            if name == "quickstart":
+                losses = [float(line.split()[-1]) for line in out if line.startswith("step ")]
+                check(len(losses) == 5 and all(math.isfinite(x) for x in losses)
+                      and losses[-1] < losses[0],
+                      f"quickstart: losses {losses} not finite or not falling")
+                check(out[-1].startswith("[pamm] QKV activations over 4 layers"),
+                      "quickstart: no activation report")
+            elif name == "serve_batched":
+                check(sum("finish=length" in line for line in out) == 8,
+                      "serve_batched: a request did not finish")
+            elif name.startswith("pretrain"):
+                done = [line for line in out if line.startswith("done:")]
+                steps = "completed_steps=20" if name == "pretrain" else "completed_steps=4"
+                check(len(done) == 1 and steps in " ".join(out)
+                      and math.isfinite(float(done[0].split("final loss ")[1].split(",")[0])),
+                      f"{name}: no finite final loss or not {steps}")
+            else:
+                ppl = [float(line.split()[-2]) for line in out[-3:]]
+                check(all(math.isfinite(p) for p in ppl), f"finetune_compare: ppl {ppl}")
+
+
+def phase_audio_numbers(gen, decode, per_step, rec, smi, errs):
+    """Kernel rows at musicgen's shapes: K3, K4 and K5 at the training
+    shape (4, 2048, 24 / 24, 64) with SDPA as the library (launches: the
+    musicgen training path's); K6 over 8 slots x 1089 at 24 / 24 heads of
+    64, mid-decode (SDPA with the slot mask as the library; launches: the
+    decode phase's); K1 at the attn.qkv site's (8192, 1536, k 16) and K2 at
+    b 8192, m 1536 (launches: the training path's); then K3 at the
+    prefill shape (8, 1024) and K2 at m 2048 (a lm_head rule's codebook
+    columns), printed."""
+    import torch
+
+    from repro_torch.kernels.pamm_apply import segment_matmul_cuda, segment_matmul_ref
+
+    tag = f"[{smi}]"
+    launches = {k: int(round(v * TRAIN_STEPS)) for k, v in per_step.items()}
+    H, KV, dh = AUDIO_HEADS
+    at = f"({TRAIN_BATCH}, {TRAIN_SEQ}, {H}/{KV}, {dh})"
+    att = attention_inputs(gen, TRAIN_BATCH, TRAIN_SEQ, H, KV, dh)
+    rows = [_kernel_row(f"{name} ({kern}, musicgen's heads, {at})", source, replaces,
+                        launches.get(name, 0), errs[kern], *att[kern])
+            for kern, name, source, replaces in (
+                ("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+                ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+                ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES))]
+    del att
+    B, S = SLOTS, MAX_LEN
+    rows.append(_kernel_row(
+        f"flash_decode (K6, musicgen's heads, {B} x {S}, {H}/{KV}, {dh})", K6_SOURCE,
+        K6_REPLACES, decode["counts"].get("flash_decode", 0), errs["K6"],
+        *k6_inputs(gen, H, KV, dh, PROMPT_LEN + AUDIO_DECODE_STEPS // 2)))
+    b, n, k, m = TRAIN_BATCH * TRAIN_SEQ, AUDIO_D, AUDIO_K, AUDIO_M[0]
+    site_rows, (f, alpha) = site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, musicgen's attn.qkv site)",
+        [(m, "segment_matmul (K2, musicgen's attn.qkv site: wq, wk, wv)")], launches, errs)
+    rows += site_rows
+    train_note = f"launches on the musicgen training path ({TRAIN_STEPS} steps)"
+    notes = ((train_note, ""), (train_note, ""), (train_note, ""),
+             (f"launches in the audio decode phase ({decode['steps']} steps)",
+              f" q_pos {PROMPT_LEN + AUDIO_DECODE_STEPS // 2}"),
+             (train_note, f" at ({b}, {n}, k {k})"), (train_note, f" at (b {b}, m {m}, k {k})"))
+    print_rows(rows, notes, tag)
+    line = functools.partial(timed_line, "musicgen", tag)
+    gz2 = _randn((b, AUDIO_M[1]), gen)
+    line(f"K2 (b {b}, m {AUDIO_M[1]}, k {k}: a lm_head rule's codebook columns)",
+         lambda: segment_matmul_cuda(f, alpha, gz2, k),
+         lambda: segment_matmul_ref(f, alpha, gz2, k), None, k2_work(b, AUDIO_M[1], k, 2),
+         "0 launches on the musicgen training path (no lm_head rule there)")
+    del gz2
+    att = attention_inputs(gen, SLOTS, PROMPT_LEN, H, KV, dh)
+    line(f"K3 ({SLOTS}, {PROMPT_LEN}, {H}/{KV}, {dh})", *att["K3"],
+         f"{decode['counts'].get('flash_attention_fwd', 0)} launches in the audio prefill")
+    del att
+    step_ms = statistics.median(rec["ms"][1:])
+    L = int(per_step.get("csim_argmax", 0))
+    k3, k4, k5, k6, k1, k2 = rows
+    print(f"[numbers] musicgen train step {step_ms:.1f} ms: K3 x{2 * L} "
+          f"{2 * L * k3['ms']:.1f} ms, K4 x{L} {L * k4['ms']:.1f} ms, K5 x{L} "
+          f"{L * k5['ms']:.1f} ms, K1 x{L} {L * k1['ms']:.2f} ms, K2 x{3 * L} "
+          f"{3 * L * k2['ms']:.2f} ms (isolated, L2 flushed); decode step "
+          f"{decode['step_ms']:.2f} ms: K6 x{L} {L * k6['ms']:.2f} ms {tag}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_audio_phases(gen, smi):
+    """Phases 30-34: musicgen's kernels against their plain versions,
+    musicgen-medium scored and decoded over embeddings at full size,
+    musicgen smoke card against CPU and musicgen-medium trained at full
+    size, the examples on the card, the audio kernel rows. Returns the
+    rows."""
+    errs = phase_audio_kernels(gen)
+    decode = phase_audio_decode(smi)
+    per_step, rec = phase_audio_training(smi)
+    phase_examples(gen, smi)
+    return phase_audio_numbers(gen, decode, per_step, rec, smi, errs)
 
 
 def start():
@@ -4325,6 +4829,8 @@ def main() -> int:
     rec_rows = run_rec_phases(gen, smi)
     print(f"[time] rec phases 22-25 done at {time.perf_counter() - t0:.1f} s")
     vision_rows = run_vision_phases(gen, smi)
+    print(f"[time] vision phases 26-29 done at {time.perf_counter() - t0:.1f} s")
+    audio_rows = run_audio_phases(gen, smi)
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -4333,6 +4839,7 @@ def main() -> int:
     kernels += ssm_rows
     kernels += rec_rows
     kernels += vision_rows
+    kernels += audio_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

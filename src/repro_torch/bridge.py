@@ -6,7 +6,9 @@ The JAX ``models.init_model`` returns a nested dict::
      "norm2": ..., "ffn": {...}} per unit kind] per stage],
      "final_norm": (d,), "head": (d, V)}
 
-with every block leaf stacked over its stage's layers. Given that tree
+with every block leaf stacked over its stage's layers; an embed-input
+arch's tree (musicgen) has no ``embed`` leaf, and its head is (d, V x
+n_codebooks). Given that tree
 with each leaf converted to numpy (``np.asarray``; the caller does that,
 so nothing here imports JAX), :func:`from_jax_params` builds the port's
 :class:`~repro_torch.models.Model` name for name and layer for layer, in
@@ -58,13 +60,11 @@ def from_jax_params(params: dict, cfg, device="cuda", trainable: bool = False) -
     with ``trainable`` its parameters require grad."""
     device = resolve_device(device)
     conv = lambda a: _to_torch(a, device)
-    if "embed" not in params:
-        raise NotImplementedError("embed-input archs arrive with a later slice of the port")
     stages = [[blk.Block(kind, _tree(node, conv), trainable)
                for kind, node in zip(unit, stage)]
               for (unit, _), stage in zip(cfg.stages, params["stages"])]
-    return Model(conv(params["embed"]), stages, conv(params["final_norm"]),
-                 conv(params["head"]), trainable)
+    embed = conv(params["embed"]) if "embed" in params else None
+    return Model(embed, stages, conv(params["final_norm"]), conv(params["head"]), trainable)
 
 
 def _module_tree(mod: torch.nn.Module) -> dict:
@@ -75,13 +75,12 @@ def _module_tree(mod: torch.nn.Module) -> dict:
 
 
 def to_jax_params(model: Model) -> dict:
-    """Inverse of :func:`from_jax_params`: the JAX tree with numpy leaves."""
-    return {
-        "embed": _to_numpy(model.embed),
-        "stages": [[_module_tree(block) for block in stage] for stage in model.stages],
-        "final_norm": _to_numpy(model.final_norm),
-        "head": _to_numpy(model.head),
-    }
+    """Inverse of :func:`from_jax_params`: the JAX tree with numpy leaves
+    (``embed`` only where the model has one)."""
+    tree = {} if model.embed is None else {"embed": _to_numpy(model.embed)}
+    tree.update(stages=[[_module_tree(block) for block in stage] for stage in model.stages],
+                final_norm=_to_numpy(model.final_norm), head=_to_numpy(model.head))
+    return tree
 
 
 def _nest(flat: dict, model: Model) -> dict:

@@ -25,7 +25,12 @@ the stream's ``image_embeds``; its xattn blocks' image K/V projection is
 the ``attn.cross_kv`` site (``--compression
 'attn.qkv=pamm(r=1/512);attn.cross_kv=pamm(r=1/512)'``), and their
 cross-attention is the chunked einsum ``sdpa`` (no kernel takes Lq != Lk).
-``--block-structure reversible`` trains
+The audio arch (``--arch musicgen-medium``, or ``musicgen-medium_smoke
+--device cpu``) has no token table: it trains from the stream's
+``embeds`` and four-codebook labels, its head four vocab blocks side by
+side and its NLL the mean over the codebooks; a ``lm_head`` rule
+(``--compression 'attn.qkv=pamm(r=1/512);lm_head=pamm(r=1/512)'``) runs K1 /
+K2 once a codebook and loss chunk. ``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).

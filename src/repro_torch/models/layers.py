@@ -128,7 +128,8 @@ def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,
                           valid_vocab: int | None = None, site=None, key=None):
     """Mean token NLL without materializing (B, L, V) at once.
 
-    h: (B, L, d) final hidden states; w_head: (d, V); labels: (B, L) int;
+    h: (B, L, d) final hidden states; w_head: (d, V), or a view of one
+    codebook's columns of a multi-codebook head; labels: (B, L) int;
     mask: (B, L) {0,1} float. Loops over sequence chunks (padded to a
     whole chunk, as the JAX scan does); inside a chunk the logits are
     (B, chunk, V) f32, and vocab columns past ``valid_vocab`` get -1e30.

@@ -19,7 +19,12 @@ stage, one stacked cache node per block of the stage's unit (a
 cross-attention, an :class:`SSMCache` or :class:`RGLRUCache` for an ssm
 or rec block). ``batch`` holds ``tokens`` (B, L), ``labels``, optional
 ``mask`` and, for a vision arch, ``image_embeds`` (B, vision_tokens, d),
-which every xattn block reads (cast to the compute dtype).
+which every xattn block reads (cast to the compute dtype). An embed-input
+arch (``cfg.embed_inputs``, musicgen) has no ``embed`` table: its batch
+holds ``embeds`` (B, L, d) in place of ``tokens``, and ``decode_step``
+takes (B, L, d) embeddings. With ``cfg.n_codebooks`` the head is (d,
+vocab x n_codebooks), the labels (B, L, n_codebooks), and the logits hold
+every codebook's vocab side by side.
 Serving (prefill, decode) runs under ``torch.no_grad``.
 """
 from __future__ import annotations
@@ -69,14 +74,15 @@ class Model(nn.Module):
     """Parameters of a decoder with the JAX tree's names and layouts:
     ``embed`` (V, d), ``stages[si][bi]`` (:class:`blocks.Block`, stacked
     over the stage's layers), ``final_norm`` (d,), ``head`` (d, V).
-    ``trainable``: whether embed / final_norm / head require grad (the
-    blocks carry their own flag)."""
+    ``embed`` None (an embed-input arch) registers no embedding, as the
+    JAX tree has no ``embed`` leaf then. ``trainable``: whether embed /
+    final_norm / head require grad (the blocks carry their own flag)."""
 
     def __init__(self, embed, stages: list[list[blk.Block]], final_norm, head,
                  trainable: bool = True):
         super().__init__()
         p = lambda t: nn.Parameter(t, requires_grad=trainable)
-        self.embed = p(embed)
+        self.register_parameter("embed", None if embed is None else p(embed))
         self.stages = nn.ModuleList(nn.ModuleList(unit) for unit in stages)
         self.final_norm = p(final_norm)
         self.head = p(head)
@@ -90,16 +96,12 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
     """Random-initialised parameters, requiring grad, drawn on ``device``
     from ``torch.Generator(device).manual_seed(seed)``."""
     device = resolve_device(device)
-    if cfg.embed_inputs or cfg.n_codebooks:
-        raise NotImplementedError(
-            "embed-input / multi-codebook archs (musicgen) arrive with a "
-            "later slice of the port")
     _, pdt = _dtype(rcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     v_pad = _padded_vocab(cfg, rcfg)
     em = getattr(rcfg, "pad_experts_multiple", 0)
     e_pad = -(-cfg.n_experts // em) * em if (em and cfg.n_experts) else 0
-    embed = embed_init(gen, v_pad, cfg.d_model, pdt)
+    embed = None if cfg.embed_inputs else embed_init(gen, v_pad, cfg.d_model, pdt)
     stages = []
     for unit, rep in cfg.stages:
         stages.append([
@@ -107,7 +109,8 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
                                          for _ in range(rep)])
             for kind in unit])
     final_norm = init_rms_norm(cfg.d_model, pdt, device)
-    head = (torch.randn((cfg.d_model, v_pad), generator=gen, device=device)
+    head = (torch.randn((cfg.d_model, v_pad * max(1, cfg.n_codebooks)), generator=gen,
+                        device=device)
             * cfg.d_model ** -0.5).to(pdt)
     return Model(embed, stages, final_norm, head)
 
@@ -138,8 +141,16 @@ def init_caches(cfg, rcfg, B: int, max_len: int, device, *,
             for si, (unit, rep) in enumerate(cfg.stages)]
 
 
-def _embed(model: Model, tokens, cdt):
-    return model.embed[tokens].to(cdt)
+def _embed(cfg, model: Model, inputs, cdt):
+    """The block stack's input: an embed-input arch's embeddings (B, L, d)
+    cast to the compute dtype, else the table rows of tokens (B, L)."""
+    if cfg.embed_inputs:
+        return inputs.to(cdt)
+    return model.embed[inputs].to(cdt)
+
+
+def _inputs(cfg, batch: dict):
+    return batch["embeds" if cfg.embed_inputs else "tokens"]
 
 
 def _extras(cfg, batch: dict, cdt) -> dict:
@@ -193,11 +204,8 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     (:func:`blocks.reversible_stage`)."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     structure = blk.resolve_block_structure(cfg, rcfg)
-    if cfg.embed_inputs or cfg.n_codebooks:
-        raise NotImplementedError("embed-input and multi-codebook archs arrive with "
-                                  "later slices of the port")
     cdt, _ = _dtype(rcfg)
-    x = _embed(model, batch["tokens"], cdt)
+    x = _embed(cfg, model, _inputs(cfg, batch), cdt)
     extras = _extras(cfg, batch, cdt)
     B, L, _ = x.shape
     positions = _positions(B, L, x.device)
@@ -237,7 +245,13 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
 
 def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
     """Mean token NLL (+ the MoE aux term) and its metrics
-    ``{"nll", "aux", "sites"}`` -- the port of the JAX ``loss_fn``."""
+    ``{"nll", "aux", "sites"}`` -- the port of the JAX ``loss_fn``.
+
+    With ``cfg.n_codebooks`` the NLL is the mean over codebooks of one
+    chunked cross-entropy each, over the head's column slice of that
+    codebook (a view: the gradient lands in the one ``head``) and its
+    labels; a ``lm_head`` site compresses each from the key
+    ``fold_in(0x1EAD).fold_in(c)`` and its stats are summed."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     tele: dict = {}
     h, aux = forward(cfg, rcfg, resolved, model, batch, key, telemetry=tele)
@@ -248,14 +262,21 @@ def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
     head_site = resolved.head_site()
     if head_site is not None and head_site.is_exact:
         head_site = None
-    res = chunked_cross_entropy(h, model.head, labels, mask, rcfg.loss_chunk,
-                                valid_vocab=cfg.vocab_size, site=head_site,
-                                key=key.fold_in(0x1EAD))
-    if head_site is not None:
-        nll, head_stats = res
-        tele[head_site.path] = tele.get(head_site.path, 0) + head_stats
+    head_key = key.fold_in(0x1EAD)
+    if cfg.n_codebooks:
+        v = cfg.vocab_size
+        losses = [chunked_cross_entropy(h, model.head[:, c * v:(c + 1) * v], labels[..., c],
+                                        mask, rcfg.loss_chunk, site=head_site,
+                                        key=head_key.fold_in(c))
+                  for c in range(cfg.n_codebooks)]
     else:
-        nll = res
+        losses = [chunked_cross_entropy(h, model.head, labels, mask, rcfg.loss_chunk,
+                                        valid_vocab=cfg.vocab_size, site=head_site,
+                                        key=head_key)]
+    if head_site is not None:
+        losses, stats = zip(*losses)
+        tele[head_site.path] = tele.get(head_site.path, 0) + sum(stats)
+    nll = sum(losses) / len(losses)
     moe_coef = 0.01 if cfg.n_experts else 0.0
     loss = nll + moe_coef * aux / max(1, cfg.n_layers)
     return loss, {"nll": nll, "aux": aux, "sites": tele}
@@ -278,8 +299,7 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
     _require_residual_serving(cfg, rcfg, "prefill")
     resolved = None if plan is None else plan_lib.as_resolved(plan, cfg, rcfg)
     cdt, _ = _dtype(rcfg)
-    tokens = batch["tokens"]
-    x = _embed(model, tokens, cdt)
+    x = _embed(cfg, model, _inputs(cfg, batch), cdt)
     extras = _extras(cfg, batch, cdt)
     B, L, _ = x.shape
     positions = _positions(B, L, x.device)
@@ -312,17 +332,18 @@ def prefill(cfg, rcfg, model: Model, batch: dict, max_len: int, plan=None,
 
 @torch.no_grad()
 def decode_step(cfg, rcfg, model: Model, tokens, pos, caches):
-    """One decode step for the whole batch: tokens (B, L), pos (B, L)
-    absolute positions (-1 = parked slot). L = 1 is the decode step; L > 1
-    a speculative-verify block, whose rows are scored in one call, each
-    masked by its own position (paged caches). The caches are updated in
+    """One decode step for the whole batch: tokens (B, L) (an embed-input
+    arch's embeddings (B, L, d)), pos (B, L) absolute positions (-1 =
+    parked slot). L = 1 is the decode step; L > 1 a speculative-verify
+    block, whose rows are scored in one call, each masked by its own
+    position (paged caches). The caches are updated in
     place. Returns (logits (B, L, V*) f32, caches). An xattn block decodes
     from the image K/V its cache holds since prefill, so the step takes no
     image input (the JAX ``decode_step``'s ``extras`` goes unread there
     too)."""
     _require_residual_serving(cfg, rcfg, "decode_step")
     cdt, _ = _dtype(rcfg)
-    x = _embed(model, tokens, cdt)
+    x = _embed(cfg, model, tokens, cdt)
     for (unit, rep), stage, stage_caches in zip(cfg.stages, model.stages, caches):
         # a paged node's write addresses, for all its layers at once
         writes = [attn_lib.paged_write(c, pos) if isinstance(c, attn_lib.PAGED_CACHE_TYPES)

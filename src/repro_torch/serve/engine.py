@@ -245,10 +245,12 @@ class ServeEngine:
                  pool_tokens: int | None = None, cache_compress: str | None = None,
                  prefill_buckets: bool | None = None, prefix_share: bool = False,
                  speculative_k: int = 0, prefix_cache: int = 8):
-        if cfg.embed_inputs or cfg.n_codebooks:
+        if cfg.embed_inputs:
             raise NotImplementedError(
-                "serving needs a token frontend; embed-input / multi-codebook "
-                "archs (musicgen) are train/score only")
+                "serving needs a token frontend; embed-input archs "
+                "(musicgen) are train/score only")
+        if cfg.n_codebooks:
+            raise NotImplementedError("multi-codebook decode is not served")
         kinds = {k for unit, _ in cfg.stages for k in unit}
         if mesh is not None:
             raise NotImplementedError(LATER_SLICE_MULTI.format(what="mesh sharding"))

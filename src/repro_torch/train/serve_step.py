@@ -8,6 +8,10 @@ vectors on the device and synchronise with the host once per block.
 ``decode_step`` that the engine's block replaced: the baseline it is
 compared against. A vision arch's batch carries ``image_embeds`` (B,
 vision_tokens, d), handed to each request (or to the batched prefill).
+``make_prefill`` / ``make_decode_step`` take an embed-input arch's
+embeddings (musicgen: ``embeds`` in the batch, (B, L, d) for a step);
+both greedy loops refuse it, as the JAX package's do: an argmax over its
+logits is no next input.
 """
 from __future__ import annotations
 
@@ -18,13 +22,9 @@ from repro_torch.models import decode_step as _decode
 from repro_torch.models import prefill as _prefill
 from repro_torch.serve import Request, ServeEngine
 
-LATER_SLICE_FRONTEND = ("embed-input (musicgen) archs arrive with the port's later "
-                        "slices; greedy decoding here needs a token frontend")
-
-
 def _require_token_frontend(cfg) -> None:
     if cfg.embed_inputs:
-        raise NotImplementedError(f"{cfg.name}: {LATER_SLICE_FRONTEND}")
+        raise NotImplementedError("greedy loop needs a token frontend")
 
 
 def make_prefill(cfg, rcfg, *, max_len: int):

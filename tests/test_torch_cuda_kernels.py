@@ -64,6 +64,7 @@ K3_CASES = [
     (1, 333, 16, 8, 32, False, 0),    # non-causal past five tiles
     (2, 1030, 16, 8, 128, True, 256), # internlm2's heads, a ring window of 256
     (1, 1030, 24, 8, 64, True, 0),    # granite's heads: G 3 at dh 64
+    (2, 1030, 24, 24, 64, True, 0),   # musicgen's heads: MHA (G 1) at dh 64, L past 1024
 ]
 K6_CASES = [
     # B, S, H, KV, dh, window, n_valid
@@ -74,6 +75,7 @@ K6_CASES = [
     (3, 300, 16, 1, 256, 0, 260),     # G = 16 rows of dh 256
     (2, 129, 8, 8, 112, 0, 100),      # MHA, S past two tiles
     (8, 1089, 24, 8, 64, 0, 1000),    # granite's serving shape: G 3 at dh 64
+    (8, 1089, 24, 24, 64, 0, 1032),   # musicgen's decode shape: MHA (G 1) at dh 64
 ]
 
 
@@ -289,6 +291,7 @@ K45_CASES = [
     (1, 1100, 16, 1, 128, True, 0),   # MQA: G = 16 folded in K5; L not a multiple of a tile
     (2, 33, 16, 1, 16, True, 0),      # MQA at dh 16, L 33
     (2, 1030, 24, 8, 64, True, 0),    # granite's heads: G 3 folded in K5 at dh 64
+    (2, 1030, 24, 24, 64, True, 0),   # musicgen's heads: MHA (G 1) at dh 64
     (1, 300, 16, 1, 256, True, 0),    # recurrentgemma's heads: G 16 at dh 256, two halves
     (1, 1030, 16, 1, 256, True, 256), # dh 256, a window, L not a multiple of a tile
     (2, 130, 4, 2, 256, False, 0),    # dh 256 non-causal, a batch stride
@@ -548,6 +551,7 @@ def test_k4_k5_unaligned_rows_take_elementwise_loads(cuda_device, dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,KV,dh,window", [(2, 1100, 16, 8, 128, 0),
+                                                (2, 1030, 24, 24, 64, 0),
                                                 (1, 300, 16, 1, 80, 64),
                                                 (1, 1030, 16, 1, 256, 256)])
 def test_k4_k5_bf16_repeat_bitwise(cuda_device, B, L, H, KV, dh, window):

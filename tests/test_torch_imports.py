@@ -33,7 +33,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.kernels.pamm_compress", "repro_torch.kernels.pamm_apply",
               "repro_torch.serve.router", "repro_torch.train.serve_step",
               "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.fault",
-              "repro_torch.models.rglru", "repro_torch.models.ssm"):
+              "repro_torch.models.rglru", "repro_torch.models.ssm",
+              "repro_torch.examples.quickstart", "repro_torch.examples.pretrain",
+              "repro_torch.examples.finetune_compare", "repro_torch.examples.serve_batched"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -64,6 +66,8 @@ def test_no_source_imports_jax_or_repro():
     assert ROOT / "tools" / "ssm_phases.py" in files
     assert ROOT / "tools" / "rec_phases.py" in files
     assert ROOT / "tools" / "vision_phases.py" in files
+    assert ROOT / "tools" / "audio_phases.py" in files
+    assert PORT / "examples" / "quickstart.py" in files
     assert PORT / "models" / "rglru.py" in files
     offenders = {}
     for path in files:

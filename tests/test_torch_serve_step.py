@@ -8,7 +8,7 @@ in f32 with bridged parameters on internlm2-1.8b_smoke:
 * both equal JAX's ``greedy_decode`` up to a near tie (a row may diverge
   only where the JAX top-2 logit margin is below 1e-4), shape (B, steps);
 * ``make_prefill`` / ``make_decode_step`` are the model functions;
-* embed-input archs are refused, naming the later slice; a vision arch
+* embed-input archs are refused with the JAX package's text; a vision arch
   is served, each row's image carried through both loops.
 """
 import jax
@@ -95,7 +95,8 @@ def test_make_prefill_and_decode_step_are_the_model_functions(models):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b_smoke", "musicgen-medium_smoke"])
 def test_greedy_decode_refuses_later_slice_frontends(arch):
-    """musicgen (an embed-input arch) is refused by both loops; vision
+    """musicgen (an embed-input arch) is refused by both loops with the
+    JAX package's text; vision
     smoke, served since the xattn slice, gives the same tokens through
     both, with its gates set nonzero so the images move the logits."""
     tcfg = torch_get_config(arch)
@@ -116,5 +117,5 @@ def test_greedy_decode_refuses_later_slice_frontends(arch):
         return
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
     for fn in (greedy_decode, greedy_decode_per_token):
-        with pytest.raises(NotImplementedError, match="later slices"):
+        with pytest.raises(NotImplementedError, match="greedy loop needs a token frontend"):
             fn(tcfg, TRCFG, None, batch, steps=2, max_len=8)
