@@ -10,7 +10,9 @@ vision model llama-3.2-vision-11b (gated cross-attention over image
 embeddings, decoded through K6 non-causal); then the audio model
 musicgen-medium (embeddings in, four codebook heads out), scored, decoded
 over embeddings and PAMM-trained at full size, and the port's four
-examples (``repro_torch.examples``) run on the card.
+examples (``repro_torch.examples``) run on the card; then data x context
+training of internlm2-1.8b on gloo ranks sharing the card (ZeRO-1, the
+int8 error-feedback all-reduce, ring attention over K3-K5's offsets).
 
   python3 chip_smoke.py
 
@@ -155,11 +157,12 @@ is caught and ignored:
                         K4/K5, K6, K7 and K8 (int8, int4) at granite's 24 /
                         8 heads of 64 (G 3) at the serving and training
                         shapes
-  15. MoE serving       granite-moe-3b-a800m (32 layers, d 1536, 40 experts
-                        top-8, 3.374 B params), bf16, random weights from
-                        seed 0, the serving phase's 16 requests: dense (K3,
-                        K6) and paged fp (K7) layouts, launch counts K3 =
-                        32 x prefills and K6 / K7 = 32 x decode steps,
+  15. MoE serving       granite-moe-3b-a800m at full width cut to 8 of its
+                        32 layers (d 1536, 40 experts top-8), bf16, random
+                        weights from seed 0, the serving phase's 16
+                        requests: dense (K3, K6) and paged fp (K7) layouts,
+                        launch counts K3 = 8 x prefills and K6 / K7 = 8 x
+                        decode steps,
                         prefill bucketing off, finite logits, a second run
                         identical, paged against dense equal up to near
                         ties of the batched decode step's own logits (expert
@@ -167,7 +170,7 @@ is caught and ignored:
                         a reference); at capacity factor 16 (nothing
                         dropped) every greedy token against a
                         teacher-forced forward; then int8 and int4 page
-                        pools at capacity factor 16 (K8 = 32 x decode
+                        pools at capacity factor 16 (K8 = 8 x decode
                         steps, no other decode kernel; greedy streams
                         against the fp run parting only at a near tie
                         widened by the format's JAX logit bound, 0.25 + 2
@@ -197,8 +200,9 @@ is caught and ignored:
                         column tiles of 256 and a ragged one of 32, at the
                         rule's split count and at 3), bf16, against their
                         plain versions, two launches bitwise equal
-  19. ssm serving       mamba2-370m (48 layers, d 1024, d_inner 2048, 32
-                        heads of 64, state 128), bf16, random weights from
+  19. ssm serving       mamba2-370m at full width cut to 12 of 48 layers
+                        (d 1024, d_inner 2048, 32 heads of 64, state 128),
+                        bf16, random weights from
                         seed 0, the serving phase's 16 requests, dense then
                         paged (no page pool: the state stays a dense slot
                         cache): no attention kernel and no plain version
@@ -229,10 +233,11 @@ is caught and ignored:
                         and a wrapped 2048-slot ring; K7 / K8 int8 at the
                         paged shape and a 2048 ring pool; K1 (8192, 4096,
                         k 16), K2 m 4096 and 256
-  23. rec serving       recurrentgemma-9b (38 layers, d 4096, lru_width
-                        4096, window 2048, vocab 256000), bf16, seed 0: the
-                        serving phase's 16 requests, dense then paged (one
-                        ring pool): K3 = 12 x prefills, K6 / K7 = 12 x
+  23. rec serving       recurrentgemma-9b at full width cut to 11 of 38
+                        layers (3 latt; d 4096, lru_width 4096, window
+                        2048, vocab 256000), bf16, seed 0: the serving
+                        phase's 16 requests, dense then paged (one ring
+                        pool): K3 = 3 x prefills, K6 / K7 = 3 x
                         decode steps, no plain version, a second run, solo
                         = batched, paged = dense up to near ties, every
                         greedy token against a teacher-forced forward; one
@@ -263,15 +268,16 @@ is caught and ignored:
                         K7 (a parked row; a hole at 1 split) and K8 int8
                         at 8 x 17 pages; K1 at the attn.cross_kv site's
                         (6404, 4096, k 13) and K2 at b 6404, m 1024
-  27. vision serving    llama-3.2-vision-11b (40 layers, (attn x4, xattn)
-                        x 8, d 4096, 32 / 8 heads of 128, vocab 128256,
+  27. vision serving    llama-3.2-vision-11b at full width cut to 2 of its
+                        8 units ((attn x4, xattn) x 2, 10 layers; d 4096,
+                        32 / 8 heads of 128, vocab 128256,
                         1601 image tokens), bf16, seed 0, every gate_attn
                         and gate_ffn filled with 0.5 (zero at init: the
                         block would be the identity); the serving phase's
                         16 requests, each with its own image embeddings
-                        from the stream, dense then paged fp: K3 = 32 x
-                        prefills, dense K6 = 40 x decode steps, paged K7 =
-                        32 x and K6 = 8 x decode steps (every one
+                        from the stream, dense then paged fp: K3 = 8 x
+                        prefills, dense K6 = 10 x decode steps, paged K7 =
+                        8 x and K6 = 2 x decode steps (every one
                         non-causal), no plain version; bucketing on, a
                         second run, solo = batched, paged = dense up to
                         near ties, every greedy token of both layouts
@@ -345,6 +351,51 @@ is caught and ignored:
                         1089 at those heads (SDPA as library), K1 / K2 at
                         the attn.qkv site's shapes as kernel rows; K3 at
                         (8, 1024) and K2 at m 2048, printed
+  35. ring kernels      K3 and K4/K5 against their plain versions at the
+                        ring's chunk shape (2, 1024, 16/8, 128), with the
+                        zigzag offsets of four chunk pairs of cp 2 (a
+                        diagonal, an adjacent pair across a seam, two past
+                        pairs), no window and a window of 1536 that crosses
+                        a seam (rows that see no key held to lse <=
+                        NEG_INF/2), bf16 and f32
+  36. mesh data         internlm2-1.8b at full width and depth,
+                        attn.qkv=pamm(r=1/512), remat='pamm', bf16 compute,
+                        two gloo ranks sharing cuda:0 (launch.ranks spawns
+                        them; rank 0 first runs the single-process step
+                        with blocks=2 while rank 1 warms up): data 2, global
+                        4 x 2048, steps 1 and 2: losses within 2e-3 and the
+                        parameters' change over the two steps within 0.05 of
+                        its norm of the single-process step's, launches a
+                        rank and step K1 24, K2 72, K3 48, K4 = K5 24, each
+                        rank's moments exactly half the single process's
+                        (ZeRO-1); then int8_ef for the two steps: losses
+                        within half the uncompressed run's decrease,
+                        residues finite and non-zero, and before step 2 the
+                        rank's own gradient of one leaf recomputed: the
+                        residue the step leaves is ef_quantize(g + e)'s
+                        (error feedback), and the ranks' mean of what they
+                        sent is the compressed all-reduce; per rank ms a
+                        step ("ranks sharing one H100 over gloo"), peak,
+                        bytes between card and host a step
+  37. mesh context      the same ranks, context 2: global 2 x 4096, each
+                        rank a zigzag slice of 2048, one step: the loss
+                        within 2e-3 of the single-process step's, the
+                        step-1 gradients (after the all-reduce) of the
+                        leaves attn.qkv does not compress within 0.05 of
+                        their norm of the single-process ones (the ring's
+                        backward), launches a rank K3 240, K4 = K5 120 (5
+                        live chunk pairs a layer, the forward twice under
+                        'pamm') on both ranks, each rank's peak beside the
+                        single process's, the ring's send / recv staged
+                        through pinned host buffers
+  38. mesh data x       four ranks, data 2 x context 2, full width cut to 4
+      context           layers (the state bytes reckoned and printed
+                        first), global 4 x 4096, one step: the loss and the
+                        gradients against the single-process step as in
+                        37, launches K3 40, K4 = K5 20
+  39. ring numbers      K3 / K4 / K5 at a fully visible ring chunk pair
+                        (offs (3072, 1024)) as kernel rows (SDPA without a
+                        mask as library; launches: rank 0's in phase 37)
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -563,6 +614,28 @@ ATTN_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_f32", "flash_attenti
                 "flash_decode", "flash_paged_decode", "flash_paged_decode_quant")
 # substrings of cuBLAS / CUTLASS matrix-product kernel names on Hopper
 GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
+
+
+# The later models' serving phases run at full width cut to these stage
+# repeats (granite-moe 8 of 32 layers, mamba2 12 of 48, recurrentgemma 11
+# of 38 with 3 latt, llama-vision 2 units of 8), which keeps the script
+# inside its time limit with the mesh phases (with mamba2 and llama-vision
+# served at full depth it took 1202 s on an H100 whose host was slow);
+# their training phases keep their depths
+SERVE_REPS = {MOE_ARCH: (8,), SSM_ARCH: (12,), REC_ARCH: (3, 1), VIS_ARCH: (2,)}
+
+
+def serve_cfg(arch):
+    """``arch`` at full width, each stage repeated ``SERVE_REPS[arch]``
+    times."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    stages = tuple((unit, rep) for (unit, _), rep in zip(cfg.stages, SERVE_REPS[arch]))
+    return dataclasses.replace(cfg, stages=stages,
+                               n_layers=sum(len(unit) * rep for unit, rep in stages))
 
 
 def fail(msg: str) -> None:
@@ -3051,7 +3124,8 @@ class _DecodeMargins:
 
 
 def phase_moe_serving(smi):
-    """granite-moe-3b-a800m served at full width and depth (see the module
+    """granite-moe-3b-a800m served at full width, cut to 8 of its 32 layers
+    (``SERVE_REPS``; see the module
     docstring). Returns what the numbers phase prints."""
     import dataclasses
 
@@ -3062,7 +3136,7 @@ def phase_moe_serving(smi):
     from repro_torch.serve import ServeEngine
     from repro_torch.serve import engine as engine_mod
 
-    cfg = get_config(MOE_ARCH)
+    cfg = serve_cfg(MOE_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
     t0 = time.perf_counter()
     model = init_model(cfg, rcfg, seed=0, device="cuda")
@@ -3547,7 +3621,8 @@ def serve_phase(cfg, rcfg, model, name, smi, want, pools, *, buckets: bool,
 
 
 def phase_ssm_serving(smi):
-    """mamba2-370m served at full width and depth, bf16, random weights
+    """mamba2-370m served at full width cut to 12 of 48 layers
+    (``SERVE_REPS``), bf16, random weights
     from seed 0, through :func:`serve_phase`: dense, then paged (no page
     pool: the state stays a dense slot cache; tokens equal the dense
     run's); bucketing off; no attention kernel launches (mamba2 has none:
@@ -3558,7 +3633,7 @@ def phase_ssm_serving(smi):
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.models import init_model
 
-    cfg = get_config(SSM_ARCH)
+    cfg = serve_cfg(SSM_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
     t0 = time.perf_counter()
     model = init_model(cfg, rcfg, seed=0, device="cuda")
@@ -3735,10 +3810,11 @@ def _n_kind(cfg, kind: str) -> int:
 
 
 def phase_rec_serving(smi):
-    """recurrentgemma-9b served at full width and depth, bf16, random
+    """recurrentgemma-9b served at full width cut to 11 of 38 layers (3
+    latt; ``SERVE_REPS``), bf16, random
     weights from seed 0, through :func:`serve_phase`: dense then paged fp
-    (the latt blocks' ring pools), launches K3 = 12 x prefills and K6 / K7
-    = 12 x decode steps, bucketing off; then one request of a 2100-token
+    (the latt blocks' ring pools), launches K3 = 3 x prefills and K6 / K7
+    = 3 x decode steps, bucketing off; then one request of a 2100-token
     prompt in an engine of max_len 2176, dense and paged, whose 2048-slot
     ring wraps in prefill (the ring holds positions 52 to 2099 after it)
     and in decode. Returns the dense and paged records."""
@@ -3748,7 +3824,7 @@ def phase_rec_serving(smi):
     from repro_torch.models import init_model, prefill
     from repro_torch.models.attention import KVCache
 
-    cfg = get_config(REC_ARCH)
+    cfg = serve_cfg(REC_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
     t0 = time.perf_counter()
     model = init_model(cfg, rcfg, seed=0, device="cuda")
@@ -3968,7 +4044,7 @@ def phase_rec_numbers(gen, serve, per_step, rec, smi, errs):
 
 def run_rec_phases(gen, smi):
     """Phases 22-25: recurrentgemma's kernels against their plain
-    versions, recurrentgemma-9b served at full size and trained at a cut
+    versions, recurrentgemma-9b served at full width (11 layers) and trained at a cut
     depth, recurrentgemma smoke card against CPU (residual and
     reversible), the rec kernel rows. Returns the rows."""
     errs = phase_rec_kernels(gen)
@@ -4089,12 +4165,13 @@ def phase_vision_kernels(gen):
 
 
 def phase_vision_serving(smi):
-    """llama-3.2-vision-11b served at full width and depth, bf16, random
+    """llama-3.2-vision-11b served at full width cut to 2 of its 8 units
+    (10 layers; ``SERVE_REPS``), bf16, random
     weights from seed 0, every gate filled with VIS_GATE, through
     :func:`serve_phase`: each request with its own image embeddings from
-    the stream, dense then paged fp. Launches K3 = 32 x prefills; dense K6
-    = 40 x decode steps (32 causal, 8 non-causal); paged K7 = 32 x decode
-    steps and K6 = 8 x decode steps, every one of them non-causal.
+    the stream, dense then paged fp. Launches K3 = 8 x prefills; dense K6
+    = 10 x decode steps (8 causal, 2 non-causal); paged K7 = 8 x decode
+    steps and K6 = 2 x decode steps, every one of them non-causal.
     Bucketing on; the xattn cache stays a dense slot cache; both layouts
     teacher-forced. Returns the dense and paged records."""
     import torch
@@ -4103,7 +4180,7 @@ def phase_vision_serving(smi):
     from repro_torch.models import init_model
     from repro_torch.models.attention import XAttnCache
 
-    cfg = get_config(VIS_ARCH)
+    cfg = serve_cfg(VIS_ARCH)
     rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
     t0 = time.perf_counter()
     model = init_model(cfg, rcfg, seed=0, device="cuda")
@@ -4314,16 +4391,15 @@ def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
     print_rows(rows, notes, tag)
     dense = serve["dense"]["stats"]
     step_ms = 1e3 * dense["decode_s"] / max(1, dense["decode_steps"])
-    print(f"[numbers] vision dense decode step {step_ms:.2f} ms: K6 non-causal x8 "
-          f"{8 * rows[0]['ms']:.3f} ms (isolated, L2 flushed) {tag}")
+    n_x = _n_kind(serve_cfg(VIS_ARCH), "xattn")
+    print(f"[numbers] vision dense decode step {step_ms:.2f} ms: K6 non-causal x{n_x} "
+          f"{n_x * rows[0]['ms']:.3f} ms (isolated, L2 flushed) {tag}")
     line = functools.partial(timed_line, "llama-vision", tag)
     att = attention_inputs(gen, 1, PROMPT_LEN, H, KV, dh)
     line(f"K3 (1, {PROMPT_LEN}, {H}/{KV}, {dh})", *att["K3"],
          f"{serve['dense']['counts'].get('flash_attention_fwd', 0)} launches serving")
     del att
-    from repro_torch.configs import get_config
-
-    cfg = get_config(VIS_ARCH)                 # the dense run's K6 launches, causal ones only
+    cfg = serve_cfg(VIS_ARCH)                  # the dense run's K6 launches, causal ones only
     causal = {"counts": {"flash_decode": _n_kind(cfg, "attn") * dense["decode_steps"]},
               "stats": dense}
     decode_lines(gen, line, H, KV, dh, 0, {"dense": causal, "paged": paged})
@@ -4332,7 +4408,7 @@ def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
 
 def run_vision_phases(gen, smi):
     """Phases 26-29: K6 non-causal and the attn.cross_kv site's K1 / K2
-    against their plain versions, llama-3.2-vision-11b served at full size
+    against their plain versions, llama-3.2-vision-11b served at full width (10 layers)
     (gates filled), vision smoke card against CPU, the model trained at
     full width and a cut depth, the vision kernel rows. Returns the
     rows."""
@@ -4764,6 +4840,608 @@ def run_audio_phases(gen, smi):
     return phase_audio_numbers(gen, decode, per_step, rec, smi, errs)
 
 
+# ---------------------------------------------------------------------------
+# the mesh slice: data x context training over gloo ranks on one card
+# ---------------------------------------------------------------------------
+MESH_SPEC = TRAIN_SPEC
+MESH_REMAT = "pamm"
+# step indices 1 and 2: the warmup-cosine rate is 0 at index 0, so both
+# mesh steps update the parameters
+MESH_STEPS, MESH_TOTAL = (1, 2), 10
+RING_CP, RING_B, RING_C = 2, 2, 1024          # the context phase's chunk: 4096 / (2 cp)
+RING_WINDOW = 1536                           # more than a chunk: crosses a zigzag seam
+DATA_SHAPE, DATA_BATCH, DATA_SEQ = (2, 1), 4, 2048
+CTX_SHAPE, CTX_BATCH, CTX_SEQ = (1, 2), 2, 4096
+DC_SHAPE, DC_BATCH, DC_SEQ, DC_LAYERS = (2, 2), 4, 4096, 4
+MESH_TIMEOUT = 600.0
+SHARED = "ranks sharing one H100 over gloo"
+# bf16 compute: the ranks' products run at other batch shapes (and the
+# ring merges per chunk pair in f32), so activations differ in the last
+# bf16 bits; a mean over >= 8192 tokens moves by far less than one bf16
+# rounding (3.9e-3 relative)
+TOL_MESH_LOSS = 2e-3
+# data 2: the parameters' change over the two steps, ||mesh - single|| /
+# ||single|| over every element (an H100 reads 1.05e-2). Adam moves nearly
+# every element by about lr a step whatever the gradient's size, so the
+# change is held, not the parameters (two runs from one start differ by at
+# most ~4 lr anyway). A rank whose other half of a ZeRO-1 leaf stayed
+# stale reads ~0.7, no update 1, reversed updates 2 (tools/mesh_phases.py
+# --plant-fault shows the first)
+TOL_MESH_UPDATE = 0.05
+# context 2 and data 2 x context 2: the gradients of step 1 (at the
+# initial parameters, after the all-reduce) of every leaf the attn.qkv
+# site does not compress, ||mesh - single|| / ||single|| over their
+# elements: the ring's backward (K4 / K5 on the merged lse, dk / dv home,
+# dO zeroed on dead rows) and the context all-reduce, held to the
+# single-process backward (an H100 reads 2.0e-2 at context 2, 1.3e-2 at
+# data 2 x context 2). The compressed leaves draw other generator rows on
+# the shards and are printed only
+TOL_MESH_GRAD = 0.05
+PAMM_LEAVES = ("attn.wq", "attn.wk", "attn.wv")     # the attn.qkv site's weights
+# int8_ef: a leaf's residue after step 2 against ef_quantize(g + e) of the
+# rank's own step-2 gradient g and its step-1 residue e, relative to
+# ||e||: error feedback adds e back (without it the residue parts by about
+# ||e||, which must be at least EF_NO_FEEDBACK away); and the ranks' mean
+# of g + e - new residue (what each sent) against the one-leaf compressed
+# all-reduce
+EF_LEAF = "stages.0.0.attn.wo"
+TOL_EF_RESIDUE, EF_NO_FEEDBACK, TOL_EF_MEAN = 1e-2, 0.5, 1e-5
+# int8_ef against uncompressed: its first step starts from a zero residue,
+# and int8 with one scale a tensor rounds every element under max / 254 to
+# zero -- most of the sparse embedding gradient, which Adam then leaves
+# unmoved -- until error feedback returns them in later steps; over two
+# steps it must keep at least half the uncompressed run's loss decrease
+# (tests/test_multidevice.py's 0.08 is a bound after 16 steps of
+# llama-tiny, which this run at 2 steps of internlm2-1.8b did not meet)
+TOL_EF_SHARE = 0.5
+# the offset variants of the TPU kernels that the ring runs
+K3_OFFS_REPLACES = "src/repro/kernels/flash_attention.py:313"
+K4_OFFS_REPLACES = "src/repro/kernels/flash_attention.py:371"
+K5_OFFS_REPLACES = "src/repro/kernels/flash_attention.py:421"
+RING_PAIRS = ((0, 0), (2 * RING_C, RING_C), (3 * RING_C, 2 * RING_C), (3 * RING_C, RING_C))
+
+
+def mesh_cfg(layers=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ARCH)
+    if layers:
+        cfg = dataclasses.replace(cfg, stages=((("attn",), layers),), n_layers=layers)
+    return cfg
+
+
+def mesh_want_launches(cfg, cp: int) -> dict:
+    """Launches a mesh step makes on each rank under remat='pamm': K1 once
+    and K2 three times a layer; K3 in the forward and again in the
+    recompute, K4 and K5 once, each over every live chunk pair (2cp + 1
+    per rank with no window; 1 without a ring)."""
+    pairs = 2 * cp + 1 if cp > 1 else 1
+    n = cfg.n_layers
+    return {"csim_argmax": n, "segment_matmul": 3 * n, "flash_attention_fwd": 2 * pairs * n,
+            "flash_attention_dq": pairs * n, "flash_attention_dkv": pairs * n}
+
+
+def phase_ring_kernels(gen):
+    """Phase 35: K3 and K4/K5 against their plain versions at the ring's
+    chunk shape (B 2, C 1024, 16 / 8 heads of 128), with the zigzag
+    offsets of four chunk pairs of cp 2 (a diagonal, an adjacent pair
+    across a seam, two past pairs), with no window and with a window of
+    1536 that crosses a seam (rows of the (3C, C) pair then see no key),
+    in bf16 and f32, check_k3's tolerances."""
+    import torch
+
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (0, RING_WINDOW):
+            for offs in RING_PAIRS:
+                check_k3_k45(gen, RING_B, RING_C, 16, 8, 128, window, offs, dtype, errs)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _state_bytes(state) -> dict:
+    return {"params": sum(p.numel() * p.element_size() for p in state.params.parameters()),
+            "moments": sum(t.numel() * t.element_size()
+                           for t in list(state.opt.m.values()) + list(state.opt.v.values())),
+            "ef": sum(t.numel() * t.element_size() for t in (state.ef or {}).values())}
+
+
+def _mesh_steps(step_fn, state, batches, comm=None, rec=None) -> tuple:
+    """Run the steps, each timed on the host's clock around a synchronised
+    step, its launches counted from 0 and its peak and card <-> host bytes
+    read (appended to ``rec`` when given)."""
+    import torch
+
+    from repro_torch.kernels import launches
+
+    if rec is None:
+        rec = {"loss": [], "gnorm": [], "ms": [], "peak": [], "counts": [], "host": []}
+    for s, batch in batches.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        if comm is not None:
+            comm.reset()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, s)
+        rec["loss"].append(float(m["loss"]))
+        rec["gnorm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        rec["ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["peak"].append(torch.cuda.max_memory_allocated())
+        rec["counts"].append(launches.counts())
+        rec["host"].append({} if comm is None else dict(comm.host_bytes))
+    return state, rec
+
+
+def _warm_up() -> float:
+    """One train step of internlm2-1.8b_smoke on the card: loads the
+    kernels a step touches, so a rank that waits while rank 0 runs the
+    single-process step starts the mesh warm. Returns its seconds."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data import SyntheticStream
+    from repro_torch.train import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_config("internlm2-1.8b_smoke")
+    rcfg = RunConfig(compression="attn.qkv=pamm(r=1/8)", policy_name="none",
+                     remat=MESH_REMAT)
+    state = init_train_state(cfg, rcfg, device="cuda")
+    step = make_train_step(cfg, rcfg, total_steps=2)
+    float(step(state, SyntheticStream.for_arch(cfg, 64, 4).get_batch(0), 1)[1]["loss"])
+    del state
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def _host_params(model) -> dict:
+    import torch
+
+    return {n: p.detach().to("cpu", torch.float32, copy=True)
+            for n, p in model.named_parameters()}
+
+
+def _single_grads(cfg, rcfg, model, batch, step: int) -> dict:
+    """The single-process step's gradients at ``model``'s parameters on
+    the GLOBAL ``batch``, on the host: its plan, its key
+    (``Key(seed).fold_in(step)``) and ``loss_and_grad``, as
+    ``make_train_step`` runs them."""
+    from repro_torch.core.keys import Key
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.train import loss_and_grad
+    from repro_torch.train.train_step import batch_to_device
+
+    _, _, grads = loss_and_grad(cfg, rcfg, resolve_for_run(cfg, rcfg), model,
+                                batch_to_device(batch, model.device),
+                                Key(rcfg.seed).fold_in(step))
+    return {n: g.float().cpu() for n, g in grads.items()}
+
+
+def _rel_by_leaf(pairs) -> dict:
+    """``(name, a, ref)`` on the card -> {name: (||a - ref||^2, ||ref||^2)}."""
+    import torch
+
+    norm2 = lambda t: float(torch.linalg.vector_norm(t)) ** 2
+    return {n: (norm2(a - ref), norm2(ref)) for n, a, ref in pairs}
+
+
+def _rel_summary(parts: dict, keep=lambda n: True) -> dict:
+    """The relative norm over the kept leaves' elements, and the worst
+    kept leaf's."""
+    kept = {n: v for n, v in parts.items() if keep(n)}
+    num, den = (sum(v[i] for v in kept.values()) for i in (0, 1))
+    worst = max(kept, key=lambda n: kept[n][0] / max(kept[n][1], 1e-300))
+    return {"rel": (num / den) ** 0.5, "worst": worst,
+            "worst_rel": (kept[worst][0] / max(kept[worst][1], 1e-300)) ** 0.5,
+            "leaves": len(kept)}
+
+
+def _grad_hook(ref: dict, out: dict):
+    """A ``grads_hook`` for rank 0's mesh step: the gradients after the
+    all-reduce against the single-process ones (``ref``, on the host), the
+    leaves attn.qkv compresses and the others apart, into
+    ``out["grad_cmp"]`` with the hook's own ms (inside the step's)."""
+    import torch
+
+    def hook(grads):
+        t0 = time.perf_counter()
+        parts = _rel_by_leaf((n, g.float(), ref[n].to(g.device)) for n, g in grads.items())
+        pamm = lambda n: n.endswith(PAMM_LEAVES)
+        torch.cuda.synchronize()
+        out["grad_cmp"] = {"other": _rel_summary(parts, lambda n: not pamm(n)),
+                           "pamm": _rel_summary(parts, pamm),
+                           "ms": 1e3 * (time.perf_counter() - t0)}
+
+    return hook
+
+
+def _ef_probe(grads_fn, state, batch, step: int):
+    """Before int8_ef's step ``step``: this rank's own (unreduced) gradient
+    of EF_LEAF at the step's parameters and batch, and the leaf's residue
+    so far, both cloned."""
+    import torch
+
+    _, _, grads = grads_fn.rank_grads(state.params, batch, step)
+    g = grads[EF_LEAF].detach().float().clone()
+    del grads
+    torch.cuda.empty_cache()
+    return g, state.ef[EF_LEAF].clone()
+
+
+def _ef_check(grads_fn, mesh, g, e_old, e_new) -> dict:
+    """The residue the step left against error feedback's rule, and the
+    ranks' mean of what they sent against the compressed all-reduce."""
+    from repro_torch.runtime.collectives import all_reduce_
+    from repro_torch.runtime.grad_compress import ef_quantize
+
+    norm = float(e_old.double().norm())
+    rel = lambda a, b: float((a - b).double().norm()) / norm
+    fb = rel(e_new, ef_quantize(g, e_old)[2])
+    no_fb = rel(e_new, ef_quantize(g, e_old * 0)[2])
+    sent = g + e_old - e_new
+    n = mesh.size
+    all_reduce_([sent], mesh.sync_group, n, mesh.comm, mean=True)
+    mean, _ = grads_fn.sync_grads({EF_LEAF: g.clone()}, {EF_LEAF: e_old.clone()})
+    mean = mean[EF_LEAF]
+    return {"residue_rel": fb, "no_feedback_rel": no_fb, "residue_norm": norm,
+            "mean_rel": float((sent - mean).double().norm() / mean.double().norm())}
+
+
+def mesh_rank(rank: int, world: int, jobs: list) -> list:
+    """One gloo rank of phases 36-38 (``launch.ranks`` starts it), every
+    rank on cuda:0, running ``jobs`` in turn, each on its own mesh. For
+    each job rank 0 first runs the single-process step on the whole global
+    batch with blocks = the shard count (the others wait at a barrier,
+    warming up before the first job) and keeps its losses and peak, and on
+    the host what the job compares: the parameters' change over the steps
+    (``compare="updates"``) or the first step's gradients (``"grads"``,
+    which rank 0's mesh step then holds its own to through a
+    ``grads_hook``); then every rank runs the mesh executor from the same
+    seed and, with ``ef``, again under int8_ef, its own gradient of one
+    leaf recomputed before the second step (``make_shard_map_grads``) to
+    check the residue that step leaves."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import (init_distributed_state, init_train_state,
+                                   make_shard_map_train_step, make_train_step)
+    from repro_torch.train.distributed import make_shard_map_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build()                       # the parent's builds, found by their hashes
+    outs = []
+    for i, job in enumerate(jobs):
+        cfg = mesh_cfg(job["layers"])
+        data, ctx = job["shape"]
+        rcfg = RunConfig(compression=MESH_SPEC, policy_name="none", remat=MESH_REMAT)
+        stream = SyntheticStream.for_arch(cfg, job["seq"], job["batch"], seed=rcfg.seed)
+        steps = MESH_STEPS[:job["steps"]]
+        batches = {s: stream.get_batch(s) for s in steps}
+        mesh = make_debug_mesh(data, 1, ctx, timeout=MESH_TIMEOUT)
+        out = {"rank": rank}
+        ref = {}
+        if rank == 0:
+            blocked = dataclasses.replace(rcfg,
+                                          compression=f"{MESH_SPEC[:-1]},blocks={world})")
+            state = init_train_state(cfg, blocked, device="cuda")
+            if job["compare"] == "updates":
+                ref["p0"] = _host_params(state.params)
+            else:
+                ref["grads"] = _single_grads(cfg, blocked, state.params, batches[steps[0]],
+                                             steps[0])
+            state, out["single"] = _mesh_steps(make_train_step(cfg, blocked,
+                                                               total_steps=MESH_TOTAL),
+                                               state, batches)
+            out["single_bytes"] = _state_bytes(state)
+            if job["compare"] == "updates":
+                ref["delta"] = {n: p - ref["p0"][n]
+                                for n, p in _host_params(state.params).items()}
+            del state
+            torch.cuda.empty_cache()
+        elif i == 0:
+            out["warm_up_s"] = _warm_up()
+        dist.barrier()
+        state = init_distributed_state(cfg, rcfg, mesh, device="cuda")
+        hook = _grad_hook(ref.pop("grads"), out) if "grads" in ref else None
+        step_fn = make_shard_map_train_step(cfg, rcfg, total_steps=MESH_TOTAL, mesh=mesh,
+                                            grads_hook=hook)
+        state, out["mesh"] = _mesh_steps(step_fn, state, batches, mesh.comm)
+        out["bytes"] = _state_bytes(state)
+        out["n_params"] = sum(p.numel() for p in state.params.parameters())
+        if "delta" in ref:
+            dev = next(state.params.parameters()).device
+            parts = _rel_by_leaf((n, p.detach().float() - ref["p0"][n].to(dev),
+                                  ref["delta"][n].to(dev))
+                                 for n, p in state.params.named_parameters())
+            out["update_cmp"] = _rel_summary(parts)
+            out["lr"] = rcfg.lr                 # the schedule's largest rate
+        del state, step_fn, ref, hook
+        torch.cuda.empty_cache()
+        if job["ef"]:
+            dist.barrier()
+            ef_cfg = dataclasses.replace(rcfg, grad_compress="int8_ef")
+            state = init_distributed_state(cfg, ef_cfg, mesh, device="cuda")
+            step_fn = make_shard_map_train_step(cfg, ef_cfg, total_steps=MESH_TOTAL,
+                                                mesh=mesh)
+            grads_fn = make_shard_map_grads(cfg, ef_cfg, mesh=mesh)
+            first, last = steps[0], steps[-1]
+            state, rec = _mesh_steps(step_fn, state, {first: batches[first]}, mesh.comm)
+            g, e_old = _ef_probe(grads_fn, state, batches[last], last)
+            state, out["ef"] = _mesh_steps(step_fn, state, {last: batches[last]},
+                                           mesh.comm, rec)
+            out["ef_check"] = _ef_check(grads_fn, mesh, g, e_old, state.ef[EF_LEAF])
+            out["ef_finite"] = all(bool(e.isfinite().all()) for e in state.ef.values())
+            out["ef_norm"] = float(torch.sqrt(sum((e.double() ** 2).sum()
+                                                  for e in state.ef.values())))
+            out["ef_bytes"] = _state_bytes(state)["ef"]
+            del state, step_fn, g, e_old
+            torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:   # progress while the group runs (its report comes at the end)
+            print(f"[mesh] rank 0 done with job {i} ({job['shape']}): losses "
+                  f"{out['mesh']['loss']}, ms {[round(x) for x in out['mesh']['ms']]}",
+                  flush=True)
+        outs.append(out)
+    return outs
+
+
+def _gib(nbytes) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def _per_step_host(rec, steps) -> str:
+    return " | ".join(f"step {s}: " + (", ".join(f"{op} {b / 2**30:.3f} GiB"
+                                                  for op, b in sorted(st.items())) or "none")
+                      for s, st in zip(steps, rec["host"]))
+
+
+HOST_NOTE = ("card <-> host (gloo's own copies for all_reduce / all_gather, the "
+             "transport's for send_recv)")
+
+
+def report_mesh(label: str, job: dict, res: list, smi: str) -> None:
+    """Print what each rank of one job measured, and hold the mesh to the
+    single-process step and its launch counts."""
+    import math
+
+    tag = f"[{smi}]"
+    data, ctx = job["shape"]
+    world = data * ctx
+    cfg = mesh_cfg(job["layers"])
+    steps = MESH_STEPS[:job["steps"]]
+    single = res[0]["single"]
+    print(f"[{label}] {ARCH} {cfg.n_layers} layers, {MESH_SPEC}, remat {MESH_REMAT!r}, bf16 "
+          f"compute, global batch {job['batch']} x {job['seq']}, mesh data {data} x context "
+          f"{ctx} ({world} ranks on cuda:0, gloo); steps {list(steps)} {tag}")
+    print(f"[{label}] single-process step (blocks={world}, rank 0 while the others wait): "
+          f"losses {single['loss']} | ms {[round(x, 1) for x in single['ms']]} (the first "
+          f"with rank 0's warm-up) | peak {_gib(max(single['peak']))} | moments "
+          f"{_gib(res[0]['single_bytes']['moments'])} {tag}")
+    want = mesh_want_launches(cfg, ctx)
+    for r in res:
+        rec = r["mesh"]
+        warm = f" (warm-up {r['warm_up_s']:.1f} s before)" if "warm_up_s" in r else ""
+        print(f"[{label}] rank {r['rank']}: losses {rec['loss']} | grad norms "
+              f"{[round(g, 4) for g in rec['gnorm']]} | ms per step "
+              f"{[round(x, 1) for x in rec['ms']]} ({SHARED}){warm} | peak "
+              f"{[_gib(p) for p in rec['peak']]} | moments {_gib(r['bytes']['moments'])} | "
+              f"{HOST_NOTE} {_per_step_host(rec, steps)} {tag}")
+        for s, counts in zip(steps, rec["counts"]):
+            print(f"[{label}] rank {r['rank']} step {s} launches {counts}")
+            check({k: counts.get(k, 0) for k in want} == want,
+                  f"{label}: rank {r['rank']} step {s} launches {counts} != {want}")
+            check(not any(k.endswith(("_ref", "_f32")) for k in counts),
+                  f"{label}: a plain version or an f32 route ran on rank {r['rank']}")
+        check(rec["loss"] == res[0]["mesh"]["loss"],
+              f"{label}: rank {r['rank']} reports other losses than rank 0")
+        check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+              f"{label}: a loss or grad norm is not finite on rank {r['rank']}")
+    mesh_loss = res[0]["mesh"]["loss"]
+    n_cmp = len(steps) if job["compare"] == "updates" else 1
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_loss[:n_cmp], single["loss"][:n_cmp])]
+    print(f"[{label}] mesh against the single-process step: losses {mesh_loss[:n_cmp]} vs "
+          f"{single['loss'][:n_cmp]}, worst rel {max(rel):.3e} (tol {TOL_MESH_LOSS}"
+          + ("" if n_cmp > 1 else "; the first step: the shards draw other generator "
+             "rows than the single-process blocks, so later steps part") + ")")
+    check(max(rel) <= TOL_MESH_LOSS, f"{label}: the mesh's losses part from the single-"
+          f"process step's")
+    if job["compare"] == "grads":
+        report_mesh_grads(label, steps[0], res[0]["grad_cmp"])
+    print(f"[{label}] peak a step: single process {_gib(max(single['peak']))}, each rank "
+          + ", ".join(_gib(max(r["mesh"]["peak"])) for r in res) + f" {tag}")
+
+
+def report_mesh_grads(label: str, step: int, cmp: dict) -> None:
+    """The first step's gradients, mesh (after the all-reduce) against the
+    single process, at the initial parameters."""
+    o, p = cmp["other"], cmp["pamm"]
+    print(f"[{label}] gradients of step {step} against the single-process step: the "
+          f"{o['leaves']} leaves attn.qkv does not compress, ||mesh - single|| / ||single|| "
+          f"{o['rel']:.3e} (tol {TOL_MESH_GRAD}; worst leaf {o['worst']} {o['worst_rel']:.3e}) "
+          f"| the {p['leaves']} compressed leaves {p['rel']:.3e} (other generator rows; "
+          f"not held) | the comparison took {cmp['ms']:.1f} ms of rank 0's step")
+    check(o["rel"] <= TOL_MESH_GRAD, f"{label}: the mesh's gradients part from the "
+          f"single-process step's")
+
+
+def report_mesh_data(res: list, smi: str) -> None:
+    """The data phase's own checks: the parameters' change over the two
+    steps, half the moments a rank, int8_ef."""
+    tag = f"[{smi}]"
+    u = res[0]["update_cmp"]
+    print(f"[mesh data] parameter change over steps {list(MESH_STEPS)}: ||mesh - single|| "
+          f"/ ||single|| {u['rel']:.3e} over every element (tol {TOL_MESH_UPDATE}; worst "
+          f"leaf {u['worst']} {u['worst_rel']:.3e}; lr {res[0]['lr']})")
+    check(u["rel"] <= TOL_MESH_UPDATE,
+          "mesh data: the parameters' change parts from the single-process step's")
+    single_m = res[0]["single_bytes"]["moments"]
+    for r in res:
+        ratio = r["bytes"]["moments"] / single_m
+        print(f"[mesh data] rank {r['rank']}: moments {_gib(r['bytes']['moments'])} of the "
+              f"single process's {_gib(single_m)} ({ratio:.4f}; ZeRO-1 over data 2)")
+        check(ratio == 0.5, "mesh data: a rank keeps more than half the moments")
+    for r in res:
+        ef, un, c = r["ef"], r["mesh"], r["ef_check"]
+        tol = TOL_EF_SHARE * (un["loss"][0] - un["loss"][-1])
+        d = max(abs(a - b) for a, b in zip(ef["loss"], un["loss"]))
+        print(f"[mesh data] int8_ef rank {r['rank']}: losses {ef['loss']} vs uncompressed "
+              f"{un['loss']} (worst |diff| {d:.3e}, tol {TOL_EF_SHARE} x the uncompressed "
+              f"run's decrease = {tol:.3e}) | residues {_gib(r['ef_bytes'])}, norm "
+              f"{r['ef_norm']:.4e}, finite {r['ef_finite']} | ms per step "
+              f"{[round(x, 1) for x in ef['ms']]} ({SHARED}) | {HOST_NOTE} "
+              f"{_per_step_host(ef, MESH_STEPS)} {tag}")
+        print(f"[mesh data] int8_ef rank {r['rank']} error feedback on {EF_LEAF} at step "
+              f"{MESH_STEPS[-1]}: residue vs ef_quantize(g + e) {c['residue_rel']:.3e} of "
+              f"||e|| = {c['residue_norm']:.4e} (tol {TOL_EF_RESIDUE}); vs the residue "
+              f"without feedback {c['no_feedback_rel']:.3e} (must be >= {EF_NO_FEEDBACK}); "
+              f"ranks' mean of g + e - new residue vs the compressed all-reduce "
+              f"{c['mean_rel']:.3e} (tol {TOL_EF_MEAN})")
+        check(d <= tol and ef["loss"][-1] < ef["loss"][0] and r["ef_finite"]
+              and r["ef_norm"] > 0,
+              f"mesh data: int8_ef on rank {r['rank']} parts from the uncompressed run, "
+              f"does not learn, or its residues are not finite and non-zero")
+        check(c["residue_rel"] <= TOL_EF_RESIDUE and c["no_feedback_rel"] >= EF_NO_FEEDBACK
+              and c["mean_rel"] <= TOL_EF_MEAN,
+              f"mesh data: int8_ef on rank {r['rank']}: the residue does not follow error "
+              f"feedback, or the ranks' mean is not what they sent")
+
+
+def phase_mesh_pair(smi, layers=None, rank_fn=None):
+    """Phases 36 and 37 in one group of two ranks. 36: data 2, full depth
+    (``layers`` cuts it), global 4 x 2048, two steps against the
+    single-process step with blocks=2 (the same generator rows): losses,
+    the parameters' change, half the moments a rank; then int8_ef with its
+    residue check. 37: context 2, global 2 x 4096 (each rank a 2048 zigzag
+    slice), one step: the loss and the gradients against the
+    single-process step, the ring's K3 / K4 / K5 launches (5 chunk pairs a
+    layer), the peaks. ``rank_fn`` replaces :func:`mesh_rank` (a planted
+    fault). Returns (data, context) results."""
+    from repro_torch.launch.ranks import run_ranks
+
+    jobs = [{"shape": DATA_SHAPE, "layers": layers, "batch": DATA_BATCH, "seq": DATA_SEQ,
+             "steps": 2, "compare": "updates", "ef": True},
+            {"shape": CTX_SHAPE, "layers": layers, "batch": CTX_BATCH, "seq": CTX_SEQ,
+             "steps": 1, "compare": "grads", "ef": False}]
+    t0 = time.perf_counter()
+    res = run_ranks(2, rank_fn or mesh_rank, jobs, timeout=MESH_TIMEOUT)
+    print(f"[mesh] phases 36-37: two ranks, wall {time.perf_counter() - t0:.1f} s "
+          f"(spawn, warm-up and both phases)")
+    data, ctx = ([r[i] for r in res] for i in range(2))
+    report_mesh("mesh data", jobs[0], data, smi)
+    report_mesh_data(data, smi)
+    report_mesh("mesh context", jobs[1], ctx, smi)
+    return data, ctx
+
+
+def phase_mesh_data_context(smi):
+    """Phase 38: four ranks, data 2 x context 2, full width cut to 4
+    layers (the state bytes reckoned and printed first), global 4 x 4096,
+    one step: the loss and the gradients against the single-process step,
+    the launches."""
+    from repro_torch.launch.ranks import run_ranks
+
+    cfg = mesh_cfg(DC_LAYERS)
+    d, H, KV, dh, ff, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+                           cfg.vocab_size)
+    per_layer = 2 * d + d * (H + 2 * KV) * dh + H * dh * d + 3 * d * ff
+    n = 2 * V * d + d + DC_LAYERS * per_layer
+    data, ctx = DC_SHAPE
+    per_rank = {"params": 4 * n, "grads": 4 * n, "moments": 2 * 4 * n // data}
+    print(f"[mesh data x context] reckoned before the run: {n / 1e9:.3f} B params; per rank "
+          + ", ".join(f"{k} {_gib(v)}" for k, v in per_rank.items())
+          + f" = {_gib(sum(per_rank.values()))}, x {data * ctx} ranks = "
+          f"{_gib(data * ctx * sum(per_rank.values()))} of state on one 80 GB card, beside "
+          f"each rank's activations (2 x 2048 tokens under remat 'pamm')")
+    job = {"shape": DC_SHAPE, "layers": DC_LAYERS, "batch": DC_BATCH, "seq": DC_SEQ,
+           "steps": 1, "compare": "grads", "ef": False}
+    t0 = time.perf_counter()
+    res = [r[0] for r in run_ranks(data * ctx, mesh_rank, [job], timeout=MESH_TIMEOUT)]
+    print(f"[mesh] phase 38: four ranks, wall {time.perf_counter() - t0:.1f} s")
+    report_mesh("mesh data x context", job, res, smi)
+    check(res[0]["n_params"] == n, f"the reckoned {n} params != the model's "
+          f"{res[0]['n_params']}")
+    return res
+
+
+def ring_pair_rows(gen, ctx_res, errs, smi):
+    """Kernel rows of K3, K4 and K5 at the ring's chunk shape (2, 1024, 16
+    / 8, 128) bf16, on the fully visible pair (q_off 3C, k_off C): SDPA
+    without a mask computes the same function, so it is the library; the
+    launches are rank 0's in the context phase's two steps."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (_delta, _launch_dkv, _launch_dq,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_cuda,
+                                                     flash_attention_fwd_ref)
+
+    tag = f"[{smi}]"
+    B, C, H, KV, dh = RING_B, RING_C, 16, 8, 128
+    offs = (3 * C, C)
+    q = _randn((B, C, H, dh), gen)
+    kk, v = _randn((B, C, KV, dh), gen), _randn((B, C, KV, dh), gen)
+    do = _randn((B, C, H, dh), gen)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kx, vx = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach().requires_grad_()
+              for t in (kk, v))
+    o, lse = flash_attention_fwd_cuda(q, kk, v, causal=True, offs=offs)
+    delta = _delta(o, do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(kk), torch.empty_like(v)
+    out = F.scaled_dot_product_attention(qt, kx, vx)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kx, vx), do.transpose(1, 2),
+                                           retain_graph=True)
+    plain_bwd = lambda: flash_attention_bwd_ref(q, kk, v, o, lse, do, causal=True, offs=offs)
+    pairs = C * C
+    io = B * C * (2 * H + 2 * KV) * dh * 2
+    launches = ctx_res[0]["mesh"]["counts"][0]
+    at = f"ring chunk pair ({B}, {C}, {H}/{KV}, {dh}) offs {offs}"
+    rows = [
+        _kernel_row(f"flash_attention_fwd (K3, {at})", K3_SOURCE, K3_OFFS_REPLACES,
+                    launches.get("flash_attention_fwd", 0), errs["K3"],
+                    lambda: flash_attention_fwd_cuda(q, kk, v, causal=True, offs=offs),
+                    lambda: flash_attention_fwd_ref(q, kk, v, causal=True, offs=offs),
+                    lambda: F.scaled_dot_product_attention(qt, kx, vx),
+                    (4.0 * dh * pairs * H * B, io + B * H * C * 4)),
+        _kernel_row(f"flash_attention_dq (K4, {at})", K45_SOURCE, K4_OFFS_REPLACES,
+                    launches.get("flash_attention_dq", 0), errs["K4"],
+                    lambda: _launch_dq(q, kk, v, lse, delta, do, dq, True, 0, offs),
+                    plain_bwd, sdpa_bwd,
+                    (6.0 * dh * pairs * H * B, io + 2 * B * H * C * 4 + B * C * H * dh * 2)),
+        _kernel_row(f"flash_attention_dkv (K5, {at})", K45_SOURCE, K5_OFFS_REPLACES,
+                    launches.get("flash_attention_dkv", 0), errs["K5"],
+                    lambda: _launch_dkv(q, kk, v, lse, delta, do, dk, dv, True, 0, offs),
+                    plain_bwd, sdpa_bwd,
+                    (8.0 * dh * pairs * H * B,
+                     io + 2 * B * H * C * 4 + 2 * B * C * KV * dh * 2))]
+    note = "launches on rank 0 in the context phase's step"
+    print_rows(rows, [(note, "")] * 3, tag)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_mesh_phases(gen, smi, layers=None):
+    """Phases 35-39: the ring's kernels at its chunk shape, the mesh
+    executor on data 2 and context 2 ranks (one group) and on data 2 x
+    context 2 ranks sharing the card, the ring's kernel rows. ``layers``
+    cuts the data and context phases' depth (tools/mesh_phases.py's
+    rehearsal)."""
+    errs = phase_ring_kernels(gen)
+    _, ctx = phase_mesh_pair(smi, layers)
+    phase_mesh_data_context(smi)
+    return ring_pair_rows(gen, ctx, errs, smi)
+
+
 def start():
     """What every run does first: a card and the package next to this
     script, f32 products out of TF32, every kernel built (phase 1).
@@ -4831,6 +5509,8 @@ def main() -> int:
     vision_rows = run_vision_phases(gen, smi)
     print(f"[time] vision phases 26-29 done at {time.perf_counter() - t0:.1f} s")
     audio_rows = run_audio_phases(gen, smi)
+    print(f"[time] audio phases 30-34 done at {time.perf_counter() - t0:.1f} s")
+    mesh_rows = run_mesh_phases(gen, smi)
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -4840,6 +5520,7 @@ def main() -> int:
     kernels += rec_rows
     kernels += vision_rows
     kernels += audio_rows
+    kernels += mesh_rows
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

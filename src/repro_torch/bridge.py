@@ -23,6 +23,9 @@ and ``v`` trees of numpy leaves shaped like the parameter tree.
 ``TrainState``'s tree with the port's own tensors as leaves (what the
 checkpointer writes, under the JAX paths), and
 :func:`install_train_state_tree` puts such a tree back.
+:func:`gathered_train_state_tree` does it for a rank of the mesh executor:
+the ZeRO-1 moments gathered whole and the error-feedback residues of every
+rank stacked, as the JAX ``TrainState`` holds them.
 """
 from __future__ import annotations
 
@@ -159,3 +162,23 @@ def install_train_state_tree(state, tree):
             p.copy_(flat[name])
     opt = OptState(step=int(tree.opt.step), m=_flatten(tree.opt.m), v=_flatten(tree.opt.v))
     return TrainState(params=model, opt=opt)
+
+
+def gathered_train_state_tree(state, mesh, rcfg):
+    """A mesh rank's ``TrainState`` as the JAX ``TrainState``'s tree, whole:
+    the parameters, the AdamW moments gathered from the data ranks' ZeRO-1
+    slices and, under int8_ef, every rank's error-feedback residues stacked
+    (n_shards, *param.shape) in shard order (``ef``; None otherwise). A
+    collective: every rank of the mesh calls it."""
+    from repro_torch.optim import OptState
+    from repro_torch.train.distributed import gathered_error_buffers, gathered_moments
+    from repro_torch.train.train_step import TrainState
+
+    model = state.params
+    m, v = gathered_moments(state, mesh, rcfg)
+    ef = gathered_error_buffers(state, mesh)
+    params = _nest({n: p.detach() for n, p in model.named_parameters()}, model)
+    return TrainState(params=params,
+                      opt=OptState(step=np.int32(state.opt.step), m=_nest(m, model),
+                                   v=_nest(v, model)),
+                      ef=None if ef is None else _nest(ef, model))

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -174,13 +175,22 @@ class CompressedSite:
     n_in: int = 0
     multiplicity: int = 1
     shared_with: str | None = None
+    # ``key_fn(key, site_id)`` in place of ``key.fold_in(site_id)``: the
+    # mesh executor (train/distributed.py) gives each (data, context) shard
+    # the key of its block of the blocked single-process compress. Not part
+    # of the site's identity.
+    key_fn: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def is_exact(self) -> bool:
         return isinstance(self.policy, ExactPolicy)
 
     def derive_key(self, key):
-        return None if key is None else key.fold_in(self.site_id)
+        if key is None:
+            return None
+        if self.key_fn is not None:
+            return self.key_fn(key, self.site_id)
+        return key.fold_in(self.site_id)
 
     def apply(self, x, w, bias, key, mode: SiteMode | None = None):
         """``x @ w (+ bias)`` under this site's policy: (z, stats), stats

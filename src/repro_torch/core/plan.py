@@ -44,7 +44,8 @@ its ``/``-qualified kind and stage forms (``moe/attn.qkv``,
 In the port ``backend=`` is accepted and validated for spec compatibility,
 and every value means the same thing: the kernels (K1, K2) on a CUDA
 tensor, their plain versions on a CPU tensor. ``blocks=auto`` resolves to
-1: the port has no mesh yet (its multi-GPU slice will bring one). Cache
+the data x context degree of the mesh given to :func:`resolve_for_run`
+(``launch.mesh.Mesh``), 1 without one. Cache
 rules (``cache.kv=int8|int4|svd``) are parsed and validated here; the
 paged-serving slice uses them.
 """
@@ -399,7 +400,19 @@ def _pattern_plausible(pattern: str) -> bool:
     return False
 
 
-def _build_policy(rule: Rule) -> CompressionPolicy:
+def _mesh_data_degree(mesh) -> int:
+    if mesh is None:
+        return 1
+    # one source of truth with the mesh executor: blocks=auto resolves to
+    # the degree it shards keys over -- data x context, since each (data,
+    # context) coordinate compresses its own (batch slice, sequence slice)
+    # block with its own key stream
+    from repro_torch.runtime.sharding import cp_degree, dp_degree
+
+    return dp_degree(mesh) * cp_degree(mesh)
+
+
+def _build_policy(rule: Rule, mesh=None) -> CompressionPolicy:
     args = dict(rule.args)
     if rule.policy_name == "none":
         return _EXACT
@@ -410,7 +423,7 @@ def _build_policy(rule: Rule) -> CompressionPolicy:
     # pamm
     blocks = args.get("blocks", "auto")
     if blocks == "auto":
-        blocks = 1          # the data-parallel degree; the port has no mesh yet
+        blocks = _mesh_data_degree(mesh)
     backend = args.get("backend", "auto")
     if backend not in ("auto", "jnp", "pallas"):
         raise ValueError(f"pamm backend must be auto|jnp|pallas, got {backend!r}")
@@ -450,15 +463,15 @@ class CompressionPlan:
         )
         return cls(rules=rules, spec=spec)
 
-    def resolve(self, cfg) -> "ResolvedPlan":
-        """Bind the plan to an architecture (``blocks=auto`` is 1: the
-        port has no mesh yet)."""
+    def resolve(self, cfg, mesh=None) -> "ResolvedPlan":
+        """Bind the plan to an architecture; ``blocks=auto`` resolves to
+        the mesh's data x context degree (1 without a mesh)."""
         # build (and thereby validate) each rule's policy exactly once, so a
         # bad arg fails uniformly on every arch, not only where it matches.
         # Cache-only rules (int8/int4/svd) never apply to training sites;
         # they validate through _build_cache_format instead.
         rule_policies = [None if rule.policy_name in _CACHE_ONLY
-                         else _build_policy(rule) for rule in self.rules]
+                         else _build_policy(rule, mesh) for rule in self.rules]
         rule_formats = [_build_cache_format(rule)
                         if rule.policy_name in _CACHE_ONLY | {"none"} else None
                         for rule in self.rules]
@@ -562,6 +575,29 @@ class ResolvedPlan:
     @property
     def compressed_sites(self) -> tuple[CompressedSite, ...]:
         return tuple(s for s in self.sites if not s.is_exact)
+
+    def with_site_key_fn(self, key_fn) -> "ResolvedPlan":
+        """A copy whose sites derive their keys with ``key_fn(key,
+        site_id)`` instead of ``key.fold_in(site_id)``: the mesh executor
+        hands each shard the stream of its block of the blocked
+        single-process compress."""
+        return ResolvedPlan(
+            sites=tuple(dataclasses.replace(s, key_fn=key_fn) for s in self.sites),
+            plan=self.plan,
+            cache_sites=self.cache_sites,
+        )
+
+    def map_policies(self, fn) -> "ResolvedPlan":
+        """A copy with ``fn(policy)`` applied to every non-exact site's
+        policy (e.g. localizing blocked PAMM to per-shard blocks)."""
+        return ResolvedPlan(
+            sites=tuple(
+                s if s.is_exact else dataclasses.replace(s, policy=fn(s.policy))
+                for s in self.sites
+            ),
+            plan=self.plan,
+            cache_sites=self.cache_sites,
+        )
 
     def zero_telemetry(self, device="cpu") -> dict[str, torch.Tensor]:
         """Fresh telemetry accumulator: one STATS_LEN f32 vector per
@@ -753,8 +789,10 @@ def as_resolved(plan, cfg, rcfg) -> ResolvedPlan:
     raise TypeError(f"cannot interpret {type(plan).__name__} as a compression plan")
 
 
-def resolve_for_run(cfg, rcfg) -> ResolvedPlan:
-    resolved = make_run_plan(rcfg).resolve(cfg)
+def resolve_for_run(cfg, rcfg, mesh=None) -> ResolvedPlan:
+    """The run's plan bound to ``cfg`` -- and to ``mesh`` when given, so
+    ``blocks=auto`` is the mesh's data x context degree."""
+    resolved = make_run_plan(rcfg).resolve(cfg, mesh)
     if getattr(rcfg, "moe_token_blocks", 1) > 1:
         # the blocked (2D DP x EP) MoE dispatch path runs without
         # compression; surface the downgrade here, visibly. Only the sites

@@ -34,9 +34,23 @@ K2 once a codebook and loss chunk. ``--block-structure reversible`` trains
 the two-stream reversible stack; ``--ckpt-dir`` runs the step loop under
 the checkpoint/restart supervisor (``runtime.fault.run_supervised``, a
 checkpoint every ``--ckpt-every`` steps, resuming from the latest one).
-Flags of the JAX launcher that need the multi-GPU slice of the port
-(meshes, the shard_map executor, gradient compression) are refused with
-the slice named.
+
+``--executor shard_map --data-model D 1 --mesh-context C`` trains on a
+data x context mesh: the launcher starts ``D * C`` local ranks itself
+(``launch.ranks``; gloo, every rank on the same card when there is one
+card), each running the mesh executor (``train.distributed``: its batch
+and zigzag sequence slice, the ring over K3-K5, gradients averaged or,
+with ``--grad-compress int8_ef``, through the int8 error-feedback
+all-reduce, AdamW under ZeRO-1)::
+
+  python -m repro_torch.launch.train --arch llama-tiny --device cpu --steps 4 \
+      --seq-len 128 --global-batch 8 --compression 'attn.qkv=pamm(r=1/8)' \
+      --executor shard_map --data-model 2 1 --mesh-context 2 --grad-compress int8_ef
+
+Without ``--data-model`` the data degree is the number of cards over the
+context degree (1 on the CPU), as the JAX launcher puts every device on
+the data axis. Still refused, with the later slice named: a model
+(tensor-parallel) degree above 1 and ``--ckpt-dir`` under a mesh.
 """
 from __future__ import annotations
 
@@ -47,27 +61,101 @@ import time
 from repro_torch import bridge
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
+from repro_torch.launch.mesh import LATER_SLICE_TP, Mesh, make_debug_mesh
+from repro_torch.launch.ranks import run_ranks
+from repro_torch.models.blocks import resolve_block_structure
+from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.fault import StragglerWatchdog, run_supervised
-from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train import (init_distributed_state, init_train_state,
+                               make_shard_map_train_step, make_train_step)
 
-_LATER = {
-    "executor": "the shard_map executor arrives with the port's multi-GPU slice",
-    "mesh_context": "ring context parallelism arrives with the port's multi-GPU slice",
-    "grad_compress": "gradient compression arrives with the port's multi-GPU slice",
-    "data_model": "meshes arrive with the port's multi-GPU slice",
-}
+LATER_SLICE_CKPT = ("--ckpt-dir under a mesh: checkpoints of sharded state (the "
+                    "ZeRO-1 moments, shardings=) arrive with the port's "
+                    "checkpoint-shardings slice")
+RANK_TIMEOUT = 1800.0       # seconds a collective may wait for the other ranks
 
 
-def _refuse_later_slices(ap, args) -> None:
-    asked = {
-        "executor": args.executor != "jit",
-        "mesh_context": args.mesh_context > 1,
-        "grad_compress": args.grad_compress != "none",
-        "data_model": args.data_model is not None,
-    }
-    for flag, on in asked.items():
-        if on:
-            ap.error(f"--{flag.replace('_', '-')}: {_LATER[flag]}")
+def _check_flags(ap, args) -> None:
+    """The JAX launcher's flag rules, plus what the port still refuses."""
+    if args.mesh_context > 1 and args.executor != "shard_map":
+        ap.error("--mesh-context > 1 needs --executor shard_map (the ring's "
+                 "ppermute collectives require the manual context axis)")
+    if args.executor == "shard_map":
+        if args.data_model is not None and args.data_model[1] != 1:
+            ap.error(f"--data-model: {LATER_SLICE_TP}")
+        if args.ckpt_dir:
+            ap.error(LATER_SLICE_CKPT)
+        return
+    if args.data_model is not None:
+        ap.error("--data-model needs --executor shard_map: the port's jit executor "
+                 "is one process on one device")
+    if args.grad_compress != "none":
+        ap.error("--grad-compress is only honored by the shard_map executor "
+                 "(--executor shard_map); the jit executor would silently train "
+                 "uncompressed")
+
+
+def _run_config(args) -> RunConfig:
+    return RunConfig(compression=args.compression, policy_name=args.policy,
+                     pamm_ratio=1.0 / args.ratio, lr=args.lr,
+                     block_structure=args.block_structure,
+                     grad_compress=args.grad_compress)
+
+
+def _log(step: int, m: dict) -> None:
+    f = {k: float(v) for k, v in m.items()}
+    print(f"step {step:6d} loss {f['loss']:.4f} ppl {math.exp(min(f['nll'], 20)):.2f} "
+          f"gnorm {f['grad_norm']:.3f} lr {f['lr']:.2e}", flush=True)
+
+
+def _train_rank(rank: int, world: int, args, shape) -> dict:
+    """One rank of the mesh run: trains, logs from rank 0, returns its last
+    metrics, its device and its transport's counts."""
+    import torch
+
+    cfg = get_config(args.arch)
+    rcfg = _run_config(args)
+    mesh = make_debug_mesh(shape[0], 1, shape[1], timeout=RANK_TIMEOUT)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    state = init_distributed_state(cfg, rcfg, mesh, device=device)
+    step_fn = make_shard_map_train_step(cfg, rcfg, total_steps=args.steps, mesh=mesh)
+    stream = SyntheticStream.for_arch(cfg, args.seq_len, args.global_batch)
+    m = None
+    for step in range(args.steps):
+        state, m = step_fn(state, stream.get_batch(step), step)
+        if rank == 0 and (step % args.log_every == 0 or step == args.steps - 1):
+            _log(step, m)
+    return {"metrics": {k: float(v) for k, v in m.items()}, "device": str(device),
+            "comm": mesh.comm.stats()}
+
+
+def _main_mesh(ap, args) -> None:
+    import torch
+
+    cp = max(1, args.mesh_context)
+    n_dev = torch.cuda.device_count() if args.device.startswith("cuda") else 1
+    data = args.data_model[0] if args.data_model else max(1, n_dev // cp)
+    shape = (data, cp)
+    cfg, rcfg = get_config(args.arch), _run_config(args)
+    abstract = Mesh(("data", "model", "context"), (data, 1, cp))
+    try:
+        sh.validate_batch_divisible(args.global_batch, abstract,
+                                    grad_accum=rcfg.grad_accum, where="launch")
+        sh.validate_seq_divisible(args.seq_len, abstract, where="launch")
+        resolve_block_structure(cfg, rcfg, cp=cp)
+    except ValueError as e:
+        ap.error(str(e))
+    t0 = time.monotonic()
+    out = run_ranks(data * cp, _train_rank, args, shape, timeout=RANK_TIMEOUT,
+                    deadline=math.inf)
+    dt = time.monotonic() - t0
+    tokens = args.steps * args.global_batch * args.seq_len
+    print(f"done: {args.steps} steps on {data * cp} ranks (data {data} x context {cp}), "
+          f"{tokens / dt:.0f} tok/s, final loss {out[0]['metrics']['loss']:.4f}, "
+          f"device {out[0]['device']}, bytes between card and host (rank 0) "
+          f"{out[0]['comm']['host_bytes']}")
 
 
 def main(argv=None):
@@ -90,22 +178,32 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--data-model", type=int, nargs=2, default=None,
-                    metavar=("DATA", "MODEL"))
-    ap.add_argument("--mesh-context", type=int, default=1)
-    ap.add_argument("--executor", default="jit", choices=["jit", "shard_map"])
-    ap.add_argument("--grad-compress", default="none", choices=["none", "int8_ef"])
+                    metavar=("DATA", "MODEL"),
+                    help="mesh shape (shard_map executor; MODEL must be 1 in this slice)")
+    ap.add_argument("--mesh-context", type=int, default=1,
+                    help="context-parallel (ring attention) degree: the sequence "
+                         "zigzag-shards over this many ranks (shard_map executor; "
+                         "seq-len must divide by 2x this)")
+    ap.add_argument("--executor", default="jit", choices=["jit", "shard_map"],
+                    help="jit = one process on one device; shard_map = one local "
+                         "rank per (data, context) coordinate (train/distributed.py): "
+                         "per-rank fwd/bwd, gradient all-reduce (optionally int8-EF "
+                         "compressed), ZeRO-1 AdamW")
+    ap.add_argument("--grad-compress", default="none", choices=["none", "int8_ef"],
+                    help="gradient all-reduce compression (shard_map executor only)")
     ap.add_argument("--block-structure", default="residual",
                     choices=["residual", "reversible"],
                     help="reversible = two-stream blocks whose backward rebuilds "
                          "the residual stream instead of saving it (attn/swa/latt/"
                          "moe/rec kinds, not ssm; excludes remat, see models/blocks.py)")
     args = ap.parse_args(argv)
-    _refuse_later_slices(ap, args)
+    _check_flags(ap, args)
+    if args.executor == "shard_map":
+        _main_mesh(ap, args)
+        return
 
     cfg = get_config(args.arch)
-    rcfg = RunConfig(compression=args.compression, policy_name=args.policy,
-                     pamm_ratio=1.0 / args.ratio, lr=args.lr,
-                     block_structure=args.block_structure)
+    rcfg = _run_config(args)
     stream = SyntheticStream.for_arch(cfg, args.seq_len, args.global_batch)
     step_fn = make_train_step(cfg, rcfg, total_steps=args.steps)
     holder = {"state": init_train_state(cfg, rcfg, device=args.device), "metrics": None}
@@ -114,9 +212,7 @@ def main(argv=None):
         holder["state"], m = step_fn(holder["state"], stream.get_batch(step), step)
         holder["metrics"] = m
         if step % args.log_every == 0 or step == args.steps - 1:
-            f = {k: float(v) for k, v in m.items()}
-            print(f"step {step:6d} loss {f['loss']:.4f} ppl {math.exp(min(f['nll'], 20)):.2f} "
-                  f"gnorm {f['grad_norm']:.3f} lr {f['lr']:.2e}", flush=True)
+            _log(step, m)
         return {}
 
     t0 = time.monotonic()

@@ -44,7 +44,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.plan import SiteCtx, exact_ctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import quant_bits, quantize_kv
+from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.runtime.sharding import ring_context
 
 NEG_INF = -1e30
 LATER_SLICE_SHARDED = ("per-replica sharded page pools arrive with the port's "
@@ -486,14 +488,22 @@ def attn_train(params, x, positions, cfg, ctx: SiteCtx, key=None, *, window: int
     mask by iota, i.e. they assume contiguous ``arange`` positions (true
     for the training batch and prefill; ``positions`` feeds RoPE). Rows
     marked with a position < 0 are zeroed, as the JAX kernel branch does.
+    Inside a context-parallel block of the mesh executor
+    (``runtime.sharding.ring_context``) x is this rank's zigzag shard of
+    the sequence, ``positions`` its global positions, and the ring
+    (``kernels/ring_attention.py``) runs K3-K5 over every live chunk pair.
     ``key``: the block's key, from which the ``attn.qkv`` site draws.
     Returns (out @ wo, (k_roped, v)) -- the pair the prefill cache stores.
     """
     q, k, v = _project_qkv(params, x, ctx, cfg, key)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
-    out = torch.where(positions[..., None, None] >= 0, out, 0.0)
+    ring = ring_context()
+    if ring is not None:
+        out = ring_attention(q, k, v, ring=ring, causal=True, window=window)
+    else:
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = torch.where(positions[..., None, None] >= 0, out, 0.0)
     out = out.reshape(*x.shape[:-1], -1)
     return out @ params["wo"].to(x.dtype), (k, v)
 

@@ -32,6 +32,11 @@ REMAT_MODES = ("none", "full", "pamm")
 # (the JAX package's list; ssm is single-sublayer and xattn threads the
 # image embeddings and a gate through its FFN: neither is ever reversible)
 REVERSIBLE_KINDS = ("attn", "swa", "latt", "moe", "rec")
+# Kinds a context-parallel (ring attention) mesh can shard over the
+# sequence (the JAX package's list): attention kinds run the ring, moe's
+# mixer is attention too; rec / ssm scan over L and xattn reads
+# full-sequence cross-modal extras
+CONTEXT_PARALLEL_KINDS = ("attn", "swa", "latt", "moe")
 
 
 def _window_for(kind: str, cfg) -> int:
@@ -47,10 +52,10 @@ def _check_kind(kind: str) -> None:
         raise ValueError(f"unknown block kind {kind!r}; the port runs {BLOCK_KINDS}")
 
 
-def resolve_block_structure(cfg, rcfg) -> str:
-    """Validate ``rcfg.block_structure`` against the architecture and
-    remat (the JAX package's checks and texts, ``cp`` aside: context
-    parallelism needs several cards), then that every kind is known.
+def resolve_block_structure(cfg, rcfg, *, cp: int = 1) -> str:
+    """Validate ``rcfg.block_structure`` against the architecture, remat
+    and the mesh executor's context-parallel degree ``cp`` (the JAX
+    package's checks and texts), then that every kind is known.
 
     ``reversible_ref`` is the same two-stream math under plain autograd
     (every stream saved): the parity and memory baseline of the
@@ -60,6 +65,26 @@ def resolve_block_structure(cfg, rcfg) -> str:
         raise ValueError(
             f"RunConfig.block_structure={structure!r}: must be one of "
             f"{BLOCK_STRUCTURES}")
+    if cp > 1:
+        bad = sorted({k for unit, _ in cfg.stages for k in unit
+                      if k not in CONTEXT_PARALLEL_KINDS})
+        if bad:
+            raise ValueError(
+                f"context parallelism (cp={cp}) supports block kinds "
+                f"{CONTEXT_PARALLEL_KINDS}; stage kind(s) {bad} are "
+                f"sequence-recurrent or consume full-sequence extras and "
+                f"cannot shard over the sequence axis. Drop --mesh-context "
+                f"for this architecture.")
+        if structure != "residual":
+            raise ValueError(
+                f"block_structure={structure!r} x context parallelism "
+                f"(cp={cp}) is invalid: the reversible stage's custom_vjp "
+                f"re-runs F (which now contains the ring's ppermute "
+                f"collectives) during stream reconstruction, and the ring's "
+                f"own custom_vjp cannot nest inside that replay without "
+                f"re-synchronizing every shard per stage. Use "
+                f"block_structure='residual' with --mesh-context, or "
+                f"cp=1 with reversible blocks.")
     remat = getattr(rcfg, "remat", "none")
     if remat not in REMAT_MODES:
         raise ValueError(f"RunConfig.remat={remat!r}: must be one of {REMAT_MODES}")

@@ -18,7 +18,9 @@ stage, one stacked cache node per block of the stage's unit (a
 :class:`KVCache` or page pool for attention, an :class:`XAttnCache` for
 cross-attention, an :class:`SSMCache` or :class:`RGLRUCache` for an ssm
 or rec block). ``batch`` holds ``tokens`` (B, L), ``labels``, optional
-``mask`` and, for a vision arch, ``image_embeds`` (B, vision_tokens, d),
+``mask``, optional ``positions`` (B, L) (a context shard's global
+positions under the mesh executor; ``arange`` otherwise) and, for a
+vision arch, ``image_embeds`` (B, vision_tokens, d),
 which every xattn block reads (cast to the compute dtype). An embed-input
 arch (``cfg.embed_inputs``, musicgen) has no ``embed`` table: its batch
 holds ``embeds`` (B, L, d) in place of ``tokens``, and ``decode_step``
@@ -208,7 +210,14 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     x = _embed(cfg, model, _inputs(cfg, batch), cdt)
     extras = _extras(cfg, batch, cdt)
     B, L, _ = x.shape
-    positions = _positions(B, L, x.device)
+    # a context shard of the mesh executor sees a zigzag slice of the
+    # sequence: its global positions arrive in the batch and drive RoPE and
+    # the ring's masks across the shard seams
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _positions(B, L, x.device)
+    else:
+        positions = positions.to(device=x.device, dtype=torch.int32)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     tele = resolved.zero_telemetry(x.device)
     if structure != "residual":

@@ -12,6 +12,15 @@ Parameters, gradients and moments are dicts keyed by the model's parameter
 names (``model.named_parameters()``). Unlike the pure JAX functions, the
 updates work in place -- the parameters, and the moments of the returned
 state -- which keeps one copy of each 1.8B-element tree on the card.
+
+ZeRO-1 (``zero1=(layout, index, dp)``, the mesh executor's): the AdamW
+moments of a parameter whose ``layout`` names a dimension hold only data
+shard ``index``'s 1/dp slice of it along that dimension
+(``runtime.sharding.zero1_dim``, the JAX ``zero1_specs`` rule), and the
+update writes only that slice of the parameter; the executor then gathers
+the slices (``runtime.collectives.gather_shards_``). A ``None`` entry keeps
+the whole moment on every shard. The arithmetic is the unsharded one,
+element for element.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.sharding import shard_slice
 
 PAMM_WEIGHT_KEYS = ("wq", "wk", "wv")
 
@@ -48,24 +59,35 @@ def _path_lr_scale(name: str, pamm_scale: float) -> float:
     return pamm_scale if set(name.split(".")) & set(PAMM_WEIGHT_KEYS) else 1.0
 
 
+def _local(name: str, t: torch.Tensor, zero1) -> torch.Tensor:
+    if zero1 is None:
+        return t
+    layout, index, dp = zero1
+    return shard_slice(t, layout[name], index, dp)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
-def adamw_init(params: dict, *, moment_dtype=torch.float32) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
-    return OptState(step=0, m={n: zeros(p) for n, p in params.items()},
-                    v={n: zeros(p) for n, p in params.items()})
+def adamw_init(params: dict, *, moment_dtype=torch.float32, zero1=None) -> OptState:
+    """Zeroed moments; under ``zero1`` only this data shard's slices."""
+    zeros = lambda n, p: torch.zeros(_local(n, p, zero1).shape, dtype=moment_dtype,
+                                     device=p.device)
+    return OptState(step=0, m={n: zeros(n, p) for n, p in params.items()},
+                    v={n: zeros(n, p) for n, p in params.items()})
 
 
 @torch.no_grad()
 def adamw_update(grads: dict, state: OptState, params: dict, lr: float, *,
-                 b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, pamm_lr_scale=1.0):
+                 b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, pamm_lr_scale=1.0,
+                 zero1=None):
     step = state.step + 1
     # bias corrections in f32, as the JAX code computes them
     bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
     bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
     for name, p in params.items():
-        g32 = grads[name].float()
+        p = _local(name, p, zero1)
+        g32 = _local(name, grads[name], zero1).float()
         m, v = state.m[name], state.v[name]
         s = _path_lr_scale(name, pamm_lr_scale)
         m.mul_(b1).add_((1 - b1) * g32)

@@ -16,8 +16,10 @@ backward. ``rcfg.remat`` (``full`` / ``pamm``) and ``rcfg.block_structure``
 recompute runs K3 again, and K1 too except under ``pamm``; each
 microbatch of ``grad_accum`` is its own forward and backward, so they
 compose. Checkpoints go through :mod:`repro_torch.checkpoint` (with
-``bridge.train_state_tree``). The mesh executor and gradient compression
-are the port's multi-GPU slice.
+``bridge.train_state_tree``). This is the single-process executor; the mesh
+executor (data x context ranks, ZeRO-1, the int8 error-feedback
+all-reduce) is :mod:`repro_torch.train.distributed`, which shares
+:func:`loss_and_grad` with it.
 """
 from __future__ import annotations
 
@@ -34,13 +36,15 @@ from repro_torch.models.blocks import resolve_block_structure
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import clip_by_global_norm
 
-LATER_SLICE_GRAD_COMPRESS = ("gradient compression (int8_ef) arrives with the "
-                             "port's multi-GPU slice")
+GRAD_COMPRESS_SCHEMES = ("none", "int8_ef")
 
 
 class TrainState(NamedTuple):
     params: Any   # the Model (its parameters are updated in place)
-    opt: Any      # OptState
+    opt: Any      # OptState (under the mesh executor: this data shard's ZeRO-1 slices)
+    # this rank's error-feedback residues (name -> f32 tensor shaped like
+    # the parameter) under the mesh executor's int8_ef all-reduce, else None
+    ef: Any = None
 
 
 def init_train_state(cfg, rcfg, *, device="cuda", seed: int | None = None) -> TrainState:
@@ -111,13 +115,31 @@ def finish_metrics(loss, metrics: dict, gnorm, lr: float) -> dict:
     return out
 
 
-def make_train_step(cfg, rcfg, *, total_steps: int = 10000, sampler=None):
+def make_train_step(cfg, rcfg, *, total_steps: int = 10000, sampler=None, mesh=None):
     """``train_step(state, batch, step) -> (state, metrics)``; the model's
-    parameters and the optimizer moments are updated in place."""
-    if getattr(rcfg, "grad_compress", "none") != "none":
-        raise NotImplementedError(LATER_SLICE_GRAD_COMPRESS)
+    parameters and the optimizer moments are updated in place. ``mesh``
+    only steers plan resolution (``blocks=auto`` = its data x context
+    degree), as in the JAX package."""
+    gc = getattr(rcfg, "grad_compress", "none")
+    if gc != "none":
+        # one process computes one gradient: there is no per-shard gradient
+        # to quantise, and proceeding would train uncompressed
+        raise ValueError(
+            f"RunConfig.grad_compress={gc!r} is only honored by the "
+            f"shard_map executor (train.distributed.make_shard_map_train_step, "
+            f"--executor shard_map); the jit executor would silently train "
+            f"uncompressed. Set grad_compress='none' or switch executor.")
+    if mesh is not None:
+        from repro_torch.runtime.sharding import cp_degree
+
+        if cp_degree(mesh) > 1:
+            raise ValueError(
+                f"mesh has a context axis of degree {cp_degree(mesh)}, "
+                f"but the jit executor cannot run ring context-parallel "
+                f"attention; use the shard_map executor "
+                f"(--executor shard_map / make_shard_map_train_step).")
     resolve_block_structure(cfg, rcfg)
-    resolved = resolve_for_run(cfg, rcfg)
+    resolved = resolve_for_run(cfg, rcfg, mesh)
     _, opt_update = make_optimizer(rcfg.optimizer)
 
     def train_step(state: TrainState, batch: dict, step: int):
@@ -130,6 +152,7 @@ def make_train_step(cfg, rcfg, *, total_steps: int = 10000, sampler=None):
         _, opt = opt_update(grads, state.opt, dict(model.named_parameters()), lr,
                             weight_decay=rcfg.weight_decay,
                             pamm_lr_scale=rcfg.pamm_lr_scale)
-        return TrainState(params=model, opt=opt), finish_metrics(loss, metrics, gnorm, lr)
+        return (TrainState(params=model, opt=opt, ef=state.ef),
+                finish_metrics(loss, metrics, gnorm, lr))
 
     return train_step

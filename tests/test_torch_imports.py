@@ -35,7 +35,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
               "repro_torch.checkpoint.checkpointer", "repro_torch.runtime.fault",
               "repro_torch.models.rglru", "repro_torch.models.ssm",
               "repro_torch.examples.quickstart", "repro_torch.examples.pretrain",
-              "repro_torch.examples.finetune_compare", "repro_torch.examples.serve_batched"):
+              "repro_torch.examples.finetune_compare", "repro_torch.examples.serve_batched",
+              "repro_torch.launch.mesh", "repro_torch.launch.ranks",
+              "repro_torch.runtime.sharding", "repro_torch.runtime.collectives",
+              "repro_torch.runtime.grad_compress", "repro_torch.train.distributed",
+              "repro_torch.kernels.ring_attention"):
         assert m in mods, m
     code = (
         "import importlib, json, sys\n"
@@ -67,6 +71,8 @@ def test_no_source_imports_jax_or_repro():
     assert ROOT / "tools" / "rec_phases.py" in files
     assert ROOT / "tools" / "vision_phases.py" in files
     assert ROOT / "tools" / "audio_phases.py" in files
+    assert ROOT / "tools" / "mesh_phases.py" in files
+    assert ROOT / "tools" / "gloo_probe.py" in files
     assert PORT / "examples" / "quickstart.py" in files
     assert PORT / "models" / "rglru.py" in files
     offenders = {}

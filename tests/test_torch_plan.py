@@ -2,7 +2,7 @@
 JAX package's: the cases of ``tests/test_plan.py`` run on both grammars
 and must give the same rules, the same sites with the same ids, the same
 policies and the same sharing; plus the port's own rules (``backend=``
-accepted with one meaning, ``blocks=auto`` = 1, no mesh). Exact
+accepted with one meaning, ``blocks=auto`` = 1 without a mesh). Exact
 comparisons: resolution is pure bookkeeping.
 """
 import dataclasses
@@ -118,8 +118,9 @@ def test_legacy_flags_and_run_plan_match_jax(flags):
 
 def test_port_backend_blocks_and_mesh_rules():
     """backend= is accepted with one meaning (kernel on CUDA, plain on the
-    CPU), blocks=auto is 1 (the port has no mesh), and an explicit
-    blocks= count is kept."""
+    CPU), blocks=auto is 1 without a mesh (its mesh degree:
+    tests/test_torch_distributed.py), and an explicit blocks= count is
+    kept."""
     cfg = get_config("internlm2-1.8b_smoke")
     pols = {b: tplan.CompressionPlan.parse(f"attn.qkv=pamm(backend={b},blocks=auto)")
             .resolve(cfg).site(0, "attn", "attn.qkv").policy

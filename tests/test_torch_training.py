@@ -176,8 +176,9 @@ def test_prefill_with_a_plan_is_exact_and_compresses_nothing():
 
 
 def test_later_slices_are_refused():
-    """What the port still refuses, naming the slice: gradient compression
-    (multi-GPU). Remat and reversible
+    """What the single-process step refuses: gradient compression, with the
+    JAX text (only the mesh executor, ``train.distributed``, has per-rank
+    gradients to compress). Remat and reversible
     blocks train now (tests/test_torch_remat.py, test_torch_revnet.py), moe
     blocks under both structures (tests/test_torch_moe.py), ssm blocks
     on the residual structure in every remat mode (tests/test_torch_ssm.py),
@@ -188,7 +189,7 @@ def test_later_slices_are_refused():
     for kw in ({"remat": "full"}, {"remat": "pamm"}, {"block_structure": "reversible"},
                {"block_structure": "reversible_ref"}):
         make_train_step(cfg, RunConfig(**kw))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="only honored by the shard_map executor"):
         make_train_step(cfg, RunConfig(grad_compress="int8_ef"))
     for kw in ({}, {"block_structure": "reversible"}):
         make_train_step(get_config("granite-moe-3b-a800m_smoke"), RunConfig(**kw))
@@ -206,7 +207,10 @@ def test_later_slices_are_refused():
 def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     """The CLI on the CPU: residual, reversible, and under the
     checkpoint/restart supervisor (a second run resumes from the last
-    checkpoint); the multi-GPU flags are refused with their slice."""
+    checkpoint); the mesh flags without the shard_map executor are
+    refused, as by the JAX launcher, and so are a model degree above 1
+    and a checkpoint directory under a mesh, each naming its later slice
+    (the mesh runs themselves: tests/test_torch_distributed.py)."""
     from repro_torch.launch import train
 
     common = ["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--seq-len", "16",
@@ -226,8 +230,13 @@ def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     train.main([*common, "--steps", "5", "--ckpt-dir", ck, "--ckpt-every", "2"])
     out = capsys.readouterr().out
     assert out.count("step ") == 2 and "completed_steps=2" in out
-    for flag in (["--executor", "shard_map"], ["--mesh-context", "2"],
-                 ["--grad-compress", "int8_ef"], ["--data-model", "1", "1"]):
+    for flag, msg in ((["--mesh-context", "2"], "needs --executor shard_map"),
+                      (["--grad-compress", "int8_ef"], "only honored by the shard_map"),
+                      (["--data-model", "1", "1"], "needs --executor shard_map"),
+                      (["--executor", "shard_map", "--data-model", "2", "2"],
+                       "tensor-parallel slice"),
+                      (["--executor", "shard_map", "--ckpt-dir", ck],
+                       "checkpoint-shardings slice")):
         with pytest.raises(SystemExit):
             train.main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *flag])
-        assert "multi-GPU slice" in capsys.readouterr().err
+        assert msg in capsys.readouterr().err

@@ -1,0 +1,122 @@
+"""What the gloo ranks of ``tests/test_torch_ring.py`` and
+``tests/test_torch_distributed.py`` run (``repro_torch.launch.ranks``
+starts them). This module imports neither JAX nor the JAX package, so a
+spawned rank starts in the time torch takes to import; draws of the JAX
+key chain reach a rank as a table (:class:`TableSampler`) recorded in the
+test process.
+"""
+import numpy as np
+import torch
+
+from repro_torch import bridge
+from repro_torch.configs import RunConfig, get_config
+from repro_torch.kernels import ring_attention as tring
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.runtime import sharding as tsh
+from repro_torch.train import init_distributed_state, make_shard_map_train_step
+from repro_torch.train.distributed import zero1_of
+
+TIMEOUT = 240
+
+
+class TableSampler:
+    """Generator rows looked up by (seed, path, b, k) in a table recorded
+    from another sampler; a draw the table lacks raises KeyError."""
+
+    def __init__(self, table: dict):
+        self.table = table
+
+    def choice(self, seed, path, b, k, device):
+        return torch.from_numpy(self.table[(seed, path, b, k)]).to(device)
+
+
+def _ring_cases(mesh, cases):
+    """This rank's shard of o and of the gradients of sum(sin(o)) for each
+    (q, k, v, window) over the whole sequence."""
+    cp, c = tsh.cp_degree(mesh), mesh.coord("context")
+    out = []
+    with tsh.context_parallel(mesh) as ring:
+        for q, k, v, window in cases:
+            L = q.shape[1]
+            keep = tring.zigzag_permutation(L, cp)[c * L // cp:(c + 1) * L // cp]
+            qs, ks, vs = (torch.from_numpy(np.ascontiguousarray(x[:, keep])).requires_grad_()
+                          for x in (q, k, v))
+            o = tring.ring_attention(qs, ks, vs, ring=ring, causal=True, window=window)
+            grads = torch.autograd.grad(torch.sin(o).sum(), (qs, ks, vs))
+            out.append([t.detach().numpy() for t in (o, *grads)])
+    return out
+
+
+def _numpy(tree: dict) -> dict:
+    return {n: t.detach().cpu().numpy().copy() for n, t in tree.items()}
+
+
+def _train(mesh, rank, run: dict) -> dict:
+    """One run of the mesh executor: per-step metrics (floats), and what
+    ``run["collect"]`` asks for."""
+    cfg = get_config(run["arch"])
+    rcfg = RunConfig(**run["rcfg"])
+    model = None
+    if run.get("params") is not None:
+        model = bridge.from_jax_params(run["params"], cfg, device="cpu", trainable=True)
+    state = init_distributed_state(cfg, rcfg, mesh, device="cpu", model=model)
+    step = make_shard_map_train_step(cfg, rcfg, total_steps=run.get("total_steps",
+                                                                    len(run["batches"])),
+                                     mesh=mesh, sampler=run.get("sampler"))
+    collect = run.get("collect", ())
+    out = {"metrics": [], "ef_norms": []}
+    for i, batch in enumerate(run["batches"]):
+        state, m = step(state, batch, i)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if state.ef is not None:
+            out["ef_norms"].append(float(torch.sqrt(sum((e * e).sum()
+                                                        for e in state.ef.values()))))
+    params = dict(state.params.named_parameters())
+    if "params" in collect and rank == 0:
+        out["params"] = _numpy(params)
+    if "state" in collect:
+        tree = bridge.gathered_train_state_tree(state, mesh, rcfg)
+        if rank == 0:
+            out["m"] = _numpy(bridge._flatten(tree.opt.m))
+            out["v"] = _numpy(bridge._flatten(tree.opt.v))
+            out["ef"] = None if tree.ef is None else _numpy(bridge._flatten(tree.ef))
+    if "local" in collect:
+        zero1 = zero1_of(rcfg, mesh, params)
+        out["layout"] = None if zero1 is None else zero1[0]
+        out["m_local"] = _numpy(state.opt.m)
+        out["ef_local"] = None if state.ef is None else _numpy(state.ef)
+    return out
+
+
+def _psum(mesh, rank, g):
+    """``compressed_psum`` of this rank's row of ``g`` from a zero residue,
+    over the sync group: (the mean, this rank's new residue)."""
+    from repro_torch.runtime.grad_compress import compressed_psum
+
+    x = torch.from_numpy(g[rank])
+    out, err = compressed_psum(x, torch.zeros_like(x), mesh.sync_group, mesh.size, mesh.comm)
+    return out.numpy(), err.numpy()
+
+
+def job(rank, world, shape, ring_cases, runs, psum=None):
+    """One mesh shape's work on one rank: the ring cases, the runs, and a
+    ``compressed_psum`` of ``psum``'s rows when given."""
+    mesh = make_debug_mesh(*shape, timeout=TIMEOUT)
+    return {"ring": _ring_cases(mesh, ring_cases),
+            "runs": [_train(mesh, rank, run) for run in runs],
+            "psum": None if psum is None else _psum(mesh, rank, psum)}
+
+
+def fail_on(rank, world, bad):
+    """Rank ``bad`` raises; the others wait for it at a barrier."""
+    import torch.distributed as dist
+
+    if rank == bad:
+        raise ValueError(f"rank {rank} was told to fail")
+    dist.barrier()
+
+
+def sleep(rank, world, seconds):
+    import time
+
+    time.sleep(seconds)
