@@ -12,7 +12,9 @@ musicgen-medium (embeddings in, four codebook heads out), scored, decoded
 over embeddings and PAMM-trained at full size, and the port's four
 examples (``repro_torch.examples``) run on the card; then data x context
 training of internlm2-1.8b on gloo ranks sharing the card (ZeRO-1, the
-int8 error-feedback all-reduce, ring attention over K3-K5's offsets).
+int8 error-feedback all-reduce, ring attention over K3-K5's offsets); and
+the data axis inside one process: one engine's page pools split per
+replica (K7 / K8 through the sharded wrappers), MoE's blocked dispatch.
 
   python3 chip_smoke.py
 
@@ -77,7 +79,7 @@ is caught and ignored:
                         to a near tie, every token of each stream against
                         a teacher-forced forward, every decode step a
                         verify call through K7 at Lq 5)
-  8. serving front      the serving phase's requests at 32 new tokens
+  8. serving front      the serving phase's requests at 16 new tokens
                         through Routers over 1, 2 and 4 paged fp replicas
                         (8 slots and a fixed pool of 2176 tokens each):
                         aggregate concurrency 2 / 4 / 8, greedy tokens at 2
@@ -94,7 +96,7 @@ is caught and ignored:
                         greedy_decode against greedy_decode_per_token (8 x
                         1024 prompts, 64 steps, dense: tokens up to near
                         ties, launches, wall ms per decode step: median
-                        and quartiles over 4 rounds, the order alternating)
+                        and quartiles over 2 rounds, the order alternating)
   9. K1, K2, K4/K5      the training kernels against their plain versions
      vs plain           at the training shapes: K1 (8192 x 2048, k 16) in
                         bf16 (tensor cores) and f32 and at k = b/8; K2 at m
@@ -200,7 +202,7 @@ is caught and ignored:
                         column tiles of 256 and a ragged one of 32, at the
                         rule's split count and at 3), bf16, against their
                         plain versions, two launches bitwise equal
-  19. ssm serving       mamba2-370m at full width cut to 12 of 48 layers
+  19. ssm serving       mamba2-370m at full width cut to 8 of 48 layers
                         (d 1024, d_inner 2048, 32 heads of 64, state 128),
                         bf16, random weights from
                         seed 0, the serving phase's 16 requests, dense then
@@ -268,16 +270,16 @@ is caught and ignored:
                         K7 (a parked row; a hole at 1 split) and K8 int8
                         at 8 x 17 pages; K1 at the attn.cross_kv site's
                         (6404, 4096, k 13) and K2 at b 6404, m 1024
-  27. vision serving    llama-3.2-vision-11b at full width cut to 2 of its
-                        8 units ((attn x4, xattn) x 2, 10 layers; d 4096,
+  27. vision serving    llama-3.2-vision-11b at full width cut to 1 of its
+                        8 units ((attn x4, xattn), 5 layers; d 4096,
                         32 / 8 heads of 128, vocab 128256,
                         1601 image tokens), bf16, seed 0, every gate_attn
                         and gate_ffn filled with 0.5 (zero at init: the
                         block would be the identity); the serving phase's
                         16 requests, each with its own image embeddings
-                        from the stream, dense then paged fp: K3 = 8 x
-                        prefills, dense K6 = 10 x decode steps, paged K7 =
-                        8 x and K6 = 2 x decode steps (every one
+                        from the stream, dense then paged fp: K3 = 4 x
+                        prefills, dense K6 = 5 x decode steps, paged K7 =
+                        4 x and K6 = 1 x decode steps (every one
                         non-causal), no plain version; bucketing on, a
                         second run, solo = batched, paged = dense up to
                         near ties, every greedy token of both layouts
@@ -397,6 +399,37 @@ is caught and ignored:
                         (offs (3072, 1024)) as kernel rows (SDPA without a
                         mask as library; launches: rank 0's in phase 37)
 
+Run after phase 8 (on internlm2-1.8b) and after phase 17 (on granite):
+
+  40. sharded kernels   the sharded wrappers of K7 / K8 (the pools split
+                        into dp per-replica shards, shard-local ids) against
+                        their plain versions at the sharded serving shape
+                        (8 slots, 5 pages of 64 a slot, 16/8 heads of 128,
+                        bf16): dp 2 and 4, Lq 5, int8 and int4 pages; two
+                        launches bitwise equal, and equal to K7 / K8 on the
+                        folded pool through the offset table
+  41. sharded serving   one engine on an in-process data mesh: 8 requests of
+                        ~256 prompt and 32 new tokens, greedy, through a
+                        pool of 28 pages of 64 split per replica (dp 2 fp,
+                        dp 2 int8, dp 4 fp), each against one engine over
+                        the same pool: tokens equal up to near ties, K7 /
+                        K8 = 24 x decode steps (one launch a layer whatever
+                        dp, and the wrapper's count equal), every replica
+                        serving at dp 4, every allocator drained, decode
+                        tok/s and p50 / p95, peak concurrency, pages free a
+                        replica, the id offset's host time a step; then the
+                        two wrappers as kernel rows beside K7 / K8 on the
+                        unsharded pool at the same live pages
+  42. MoE blocked       granite-moe-3b-a800m at the serving cut (8 layers,
+                        full width) with moe_token_blocks 2: one training
+                        step at 4 x 2048 under remat='pamm' and the MoE
+                        rules (the downgrade warnings; K1 8, K2 24, batched
+                        K1 / K2 0; a finite loss a second run repeats); a
+                        paged engine decoding with blocks 2 at capacity
+                        factor 16 against a teacher-forced blocked forward;
+                        moe_ffn blocked on granite smoke, card against the
+                        CPU in f32 (output and every gradient, 1e-5)
+
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result. It imports nothing of JAX or of the JAX
@@ -466,9 +499,11 @@ SPEC_K = 4
 # capacity scaled by adding replicas behind the Router
 FRONT_POOL = 2 * 17 * PAGE
 FRONT_REPLICAS = (1, 2, 4)
-FRONT_GEN = 32                     # new tokens: 64 would add more than ~90 s
+# new tokens: 64 would add more than ~90 s; 32 took ~28 s more than 16,
+# cut to keep the whole script in its limit with phases 40-42
+FRONT_GEN = 16
 SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 64
-SERVE_STEP_ROUNDS = 4              # engine / loop turns, each order half the time
+SERVE_STEP_ROUNDS = 2              # engine / loop turns, each order half the time
 # first spliced decode step, compressed pool against fp paged: the JAX
 # package's per-format bounds (tests/test_kvquant.py:364-367)
 FORMAT_TOL = {"int8": 0.15, "int4": 1.5, "svd(r=1/2)": 8.0}
@@ -617,12 +652,13 @@ GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 
 
 # The later models' serving phases run at full width cut to these stage
-# repeats (granite-moe 8 of 32 layers, mamba2 12 of 48, recurrentgemma 11
-# of 38 with 3 latt, llama-vision 2 units of 8), which keeps the script
-# inside its time limit with the mesh phases (with mamba2 and llama-vision
-# served at full depth it took 1202 s on an H100 whose host was slow);
-# their training phases keep their depths
-SERVE_REPS = {MOE_ARCH: (8,), SSM_ARCH: (12,), REC_ARCH: (3, 1), VIS_ARCH: (2,)}
+# repeats (granite-moe 8 of 32 layers, mamba2 8 of 48, recurrentgemma 11
+# of 38 with 3 latt, llama-vision 1 unit of 8), which keeps the script
+# inside its time limit with the mesh phases and phases 40-42 (with mamba2
+# and llama-vision served at full depth it took 1202 s on an H100 whose
+# host was slow; mamba2 at 12 and llama-vision at 2 units until phases
+# 40-42 came); their training phases keep their depths
+SERVE_REPS = {MOE_ARCH: (8,), SSM_ARCH: (8,), REC_ARCH: (3, 1), VIS_ARCH: (1,)}
 
 
 def serve_cfg(arch):
@@ -3621,7 +3657,7 @@ def serve_phase(cfg, rcfg, model, name, smi, want, pools, *, buckets: bool,
 
 
 def phase_ssm_serving(smi):
-    """mamba2-370m served at full width cut to 12 of 48 layers
+    """mamba2-370m served at full width cut to 8 of 48 layers
     (``SERVE_REPS``), bf16, random weights
     from seed 0, through :func:`serve_phase`: dense, then paged (no page
     pool: the state stays a dense slot cache; tokens equal the dense
@@ -4165,8 +4201,8 @@ def phase_vision_kernels(gen):
 
 
 def phase_vision_serving(smi):
-    """llama-3.2-vision-11b served at full width cut to 2 of its 8 units
-    (10 layers; ``SERVE_REPS``), bf16, random
+    """llama-3.2-vision-11b served at full width cut to 1 of its 8 units
+    (5 layers; ``SERVE_REPS``), bf16, random
     weights from seed 0, every gate filled with VIS_GATE, through
     :func:`serve_phase`: each request with its own image embeddings from
     the stream, dense then paged fp. Launches K3 = 8 x prefills; dense K6
@@ -4408,7 +4444,7 @@ def phase_vision_numbers(gen, serve, per_step, rec, smi, errs):
 
 def run_vision_phases(gen, smi):
     """Phases 26-29: K6 non-causal and the attn.cross_kv site's K1 / K2
-    against their plain versions, llama-3.2-vision-11b served at full width (10 layers)
+    against their plain versions, llama-3.2-vision-11b served at full width (5 layers)
     (gates filled), vision smoke card against CPU, the model trained at
     full width and a cut depth, the vision kernel rows. Returns the
     rows."""
@@ -5442,6 +5478,381 @@ def run_mesh_phases(gen, smi, layers=None):
     return ring_pair_rows(gen, ctx, errs, smi)
 
 
+# ---------------------------------------------------------------------------
+# the data axis in one process: sharded page pools, MoE's blocked dispatch
+# ---------------------------------------------------------------------------
+# sharded serving: 8 requests of 256 - 3 (i % 4) prompt tokens and 32 new,
+# greedy, at max_len 289 (5 blocks of 64 a slot, 5 pages a request); the
+# pool of every run is 28 pages of 64 in bf16 (five requests' reservations,
+# divisible by 4), so one engine holds 5 requests, a shard of 14 or 7 pages
+# 2 or 1 (int8 pools get the byte budget's 1.94x pages, capped at the 40 of
+# the dense worst case)
+SHARD_PROMPT, SHARD_GEN, SHARD_REQUESTS = 256, 32, 8
+SHARD_POOL = 28 * PAGE
+SHARD_RUNS = ((2, ""), (2, "int8"), (4, ""))
+SHARD_SOURCE = K78_SOURCE
+SHARD_REPLACES = {"": "src/repro/kernels/flash_decode.py:621",
+                  "int8": "src/repro/kernels/flash_decode.py:666"}
+MOE_BLOCKS = 2
+TOL_MOE_CPU = 1e-5   # moe_ffn blocked, card vs CPU in f32: relative norm
+
+
+def sharded_inputs(gen, dp, Lq=1, quant=None):
+    """The sharded wrappers' inputs at the sharded serving shape: SLOTS
+    slots over ``dp`` shards, each slot 5 mapped blocks of PAGE at shuffled
+    shard-local pages (``paged_inputs`` per shard), SHARD_PROMPT + 17
+    tokens written, row 3 parked; internlm2's heads. Returns (q, q_pos,
+    pools, block_table, page_pos, folded) with ``pools`` (k, v) or (k, v,
+    k_scale, v_scale) and ``folded`` the same pools as one unsharded pool
+    (views) and the offset table."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import quantize_kv, shard_offset_table
+
+    H, KV, dh, nb = 16, 8, 128, 5
+    bs = SLOTS // dp
+    fill = [SHARD_PROMPT + 17] * bs
+    parts = [paged_inputs(gen, bs, nb, PAGE, KV, dh, fill) for _ in range(dp)]
+    k, v, bt, ppos = (torch.stack(t) for t in zip(*parts))
+    pools = (k, v)
+    if quant is not None:
+        (kq, ks), (vq, vs) = (quantize_kv(t, quant, 1) for t in (k, v))
+        pools = (kq, vq, ks, vs)
+    q = _randn((SLOTS, Lq, H, dh), gen)
+    qpos = (torch.full((SLOTS, 1), fill[0] - Lq, device="cuda")
+            + torch.arange(Lq, device="cuda")).to(torch.int32)
+    qpos = qpos[:, 0].contiguous() if Lq == 1 else qpos
+    qpos[3] = -1
+    folded = ([t.view(-1, *t.shape[2:]) for t in pools + (ppos,)],
+              shard_offset_table(bt, k.shape[1]))
+    return q, qpos, pools, bt, ppos, folded
+
+
+def check_sharded(gen, dp, Lq=1, quant=None):
+    """A sharded wrapper against its plain version (the per-shard plain
+    K7 / K8), two launches bitwise equal, and equal bitwise to K7 / K8 on
+    the folded pool through the offset table (the same launch). Returns
+    (name, max |o - o_ref| over the rows that see a key)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    q, qpos, pools, bt, ppos, (flat, table) = sharded_inputs(gen, dp, Lq, quant)
+    if quant is None:
+        name = "flash_sharded_paged_decode"
+        run = lambda: fd.flash_sharded_paged_decode_cuda(q, *pools, qpos, bt, ppos)
+        ref = fd.flash_sharded_paged_decode_ref(q, *pools, qpos, bt, ppos)
+        one = fd.flash_paged_decode_cuda(q, flat[0], flat[1], qpos, table, flat[2])
+    else:
+        name = "flash_sharded_paged_decode_quant"
+        run = lambda: fd.flash_sharded_paged_decode_quant_cuda(q, *pools, qpos, bt, ppos)
+        ref = fd.flash_sharded_paged_decode_quant_ref(q, *pools, qpos, bt, ppos)
+        one = fd.flash_paged_decode_quant_cuda(q, *flat[:4], qpos, table, flat[4])
+    o, again = run(), run()
+    label = f"dp {dp}, Lq {Lq}, {'bf16' if quant is None else f'int{quant}'} pages"
+    check(torch.equal(o, again) and torch.equal(o, one),
+          f"{name} ({label}): two launches, or the launch on the folded pool, differ")
+    seen = paged_visible(table, flat[-1], qpos, 0).any(-1)
+    err = (o[seen].float() - ref[seen].float()).abs().max().item()
+    e_row = row_err(o[seen], ref[seen])
+    print(f"[sharded] {name} {SLOTS} slots over {label}, 5 pages of {PAGE} a slot, 16/8, "
+          f"128: max|o-o_ref|={err:.3e} (tol {TOL_O}) worst row rel {e_row:.3e} (tol "
+          f"{TOL_ROW}); two launches bitwise equal and equal to one launch on the folded "
+          f"pool")
+    check(bool(o.isfinite().all()) and err <= TOL_O and e_row <= TOL_ROW,
+          f"{name} disagrees with its plain version ({label})")
+    return name, err
+
+
+def phase_sharded_kernels(gen):
+    """Phase 40: the sharded wrappers against their plain versions."""
+    errs = {"flash_sharded_paged_decode": 0.0, "flash_sharded_paged_decode_quant": 0.0}
+    for dp, Lq, quant in ((2, 1, None), (4, 1, None), (2, 5, None), (2, 1, 8), (4, 1, 4)):
+        name, e = check_sharded(gen, dp, Lq, quant)
+        errs[name] = max(errs[name], e)
+    return errs
+
+
+def _sharded_requests(cfg):
+    from repro_torch.launch.serve import _build_requests
+
+    args = argparse.Namespace(prompt_len=SHARD_PROMPT, requests=SHARD_REQUESTS,
+                              gen=SHARD_GEN, temperature=0.0, top_k=0, seed=0)
+    return _build_requests(cfg, args)
+
+
+def _sharded_run(eng, cfg):
+    """Serve the sharded phase's requests step by step with the launch
+    counts set to 0 just before and read just after; the fewest free pages
+    each replica had after a step."""
+    import torch
+
+    from repro_torch.kernels import launches
+
+    low = [min(a.spec.n_pages for a in pools) for pools in eng.replica_allocators]
+    torch.cuda.synchronize()
+    launches.reset()
+    for r in _sharded_requests(cfg):
+        eng.submit(r)
+    out = {}
+    while eng.has_work:
+        for o in eng.step():
+            out[o.uid] = o
+        low = [min(lo, *(a.free_pages for a in pools))
+               for lo, pools in zip(low, eng.replica_allocators)]
+    torch.cuda.synchronize()
+    return out, launches.counts(), low
+
+
+def phase_sharded_serving(dense, smi):
+    """Phase 41: one engine's page pools split into per-replica shards of
+    an in-process data mesh (dp 2 over fp and int8 pools, dp 4 over fp),
+    internlm2-1.8b at full width and depth, against one engine over the
+    same pool: tokens, launches, throughput, concurrency, the offset's
+    host time. Two rounds, the second in the reverse order (walls move
+    between runs of one call). Returns the first round's launch counts of
+    each sharded run."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import shard_offset_table
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.attention import paged_write
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.cache import kv_cache_nodes
+
+    cfg, rcfg, model = dense["cfg"], dense["rcfg"], dense["model"]
+    t0 = time.perf_counter()
+    engine = lambda dp, fmt: ServeEngine(
+        cfg, rcfg, model, max_slots=SLOTS, max_len=SHARD_PROMPT + SHARD_GEN + 1,
+        decode_block=DECODE_BLOCK, cache_layout="paged", page_size=PAGE,
+        pool_tokens=SHARD_POOL, cache_compress=fmt or None,
+        mesh=make_local_mesh(dp) if dp > 1 else None)
+    reqs = {r.uid: r for r in _sharded_requests(cfg)}
+    engine(2, "").run(list(reqs.values()))                 # warm-up
+    n = cfg.n_layers
+    pos = torch.full((SLOTS, 1), SHARD_PROMPT, dtype=torch.int32, device="cuda")
+    configs = [(1, ""), (2, ""), (4, ""), (1, "int8"), (2, "int8")]
+    runs = {c: [] for c in configs}
+    for dp, fmt in configs + configs[::-1]:
+        label = f"dp {dp} {fmt or 'bf16'}" if dp > 1 else f"one engine {fmt or 'bf16'}"
+        eng = engine(dp, fmt)
+        out, counts, low = _sharded_run(eng, cfg)
+        st = eng.stats()
+        check(sorted(out) == sorted(reqs) and all(len(o.tokens) == SHARD_GEN
+                                                   for o in out.values())
+              and st["nonfinite_logits"] == 0,
+              f"sharded {label}: a request did not finish, or logits were not finite")
+        check(eng.n_replicas == dp and st["replica_shards"] == dp
+              and len(eng.allocators) == dp, f"sharded {label}: not {dp} replicas")
+        for a in eng.allocators:
+            a.check_invariant()
+            check(a.free_pages == a.spec.n_pages, f"sharded {label}: pages stayed reserved")
+        served = [sum(a.total_page_allocations for a in pools) > 0
+                  for pools in eng.replica_allocators]
+        check(dp != 4 or all(served), f"sharded {label}: a replica served no request")
+        kname = "flash_paged_decode" + ("_quant" if fmt else "")
+        wname = "flash_sharded_paged_decode" + ("_quant" if fmt else "")
+        want = {kname: n * st["decode_steps"], wname: n * st["decode_steps"] if dp > 1 else 0,
+                "flash_attention_fwd": n * SHARD_REQUESTS, "flash_decode": 0,
+                "flash_attention_fwd_f32": 0}
+        check({k: counts.get(k, 0) for k in want} == want
+              and not any(k.endswith("_ref") for k in counts),
+              f"sharded {label}: launches {counts}, want {want} (K7 / K8 = {n} x decode "
+              f"steps, one launch a layer whatever dp) and no plain version")
+        node = next(kv_cache_nodes(eng.caches))
+        off_ms = (host_ms(lambda: shard_offset_table(node.block_table, node.k_pages.shape[2]))
+                  if dp > 1 else 0.0)
+        runs[(dp, fmt)].append({"out": out, "counts": counts, "low": low, "stats": st,
+                                "served": served, "off_ms": off_ms,
+                                "plan_ms": host_ms(lambda: paged_write(node, pos)),
+                                "pages": eng.allocators[0].spec.n_pages})
+    res = {}
+    for dp, fmt in SHARD_RUNS:
+        label = f"dp {dp} {fmt or 'bf16'}"
+        got, base = runs[(dp, fmt)], runs[(1, fmt)]
+        r = got[0]
+        print(f"[sharded] {label} launches {r['counts']} | prefills 8 | decode steps "
+              f"{r['stats']['decode_steps']} (one engine: {base[0]['stats']['decode_steps']})")
+        one = {u: o.tokens for u, o in base[0]["out"].items()}
+        for g in got:
+            for u in sorted(u for u in g["out"] if g["out"][u].tokens != one[u]):
+                first_divergence_near_tie(cfg, rcfg, model, reqs[u], one[u],
+                                          g["out"][u].tokens, f"{label} vs one engine",
+                                          tag="sharded")
+        same = sum(r["out"][u].tokens == one[u] for u in one)
+        stat = lambda runs_, k, f=".1f": " / ".join(f"{x['stats'][k]:{f}}" for x in runs_)
+        print(f"[sharded] {label}: tokens equal to one engine's for {same}/{SHARD_REQUESTS} "
+              f"requests | decode tok/s rounds 1 / 2: {stat(got, 'decode_tok_s')} (one engine "
+              f"{stat(base, 'decode_tok_s')}) | p50 ms a step {stat(got, 'p50_token_latency_ms', '.3f')} "
+              f"(one engine {stat(base, 'p50_token_latency_ms', '.3f')}), p95 "
+              f"{stat(got, 'p95_token_latency_ms', '.3f')} (one engine "
+              f"{stat(base, 'p95_token_latency_ms', '.3f')}) | peak concurrency "
+              f"{r['stats']['peak_active']} (one engine {base[0]['stats']['peak_active']}) | "
+              f"pages a replica {r['pages']} (one engine {base[0]['pages']}), fewest free "
+              f"after a step {r['low']}, free at the end {r['pages']} each | replicas that "
+              f"served {sum(r['served'])}/{dp} | host us a step: the id offset "
+              f"{1e3 * r['off_ms']:.1f}, the write plan with it {1e3 * r['plan_ms']:.1f} "
+              f"(one engine's plan {1e3 * base[0]['plan_ms']:.1f}) [{smi}]")
+        res[(dp, fmt)] = r["counts"]
+    print(f"[sharded] phase 41 wall {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def sharded_rows(gen, counts, errs, smi):
+    """Kernel rows of the two sharded wrappers at dp 2 (the fp and int8
+    serving shapes), timed as every row, beside K7 / K8 on the folded
+    pool (the unsharded pool at the same live pages); the fp wrapper at
+    dp 4 printed the same way."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    H, KV, dh = 16, 8, 128
+    rows = []
+    for dp, quant, fmt in ((2, None, ""), (2, 8, "int8"), (4, None, "")):
+        q, qpos, pools, bt, ppos, (flat, table) = sharded_inputs(gen, dp, 1, quant)
+        work = paged_work(table, flat[-1], qpos, H, KV, dh,
+                          2 * dh if quant is None else dh + 4, dh)
+        if quant is None:
+            name, fn = "flash_sharded_paged_decode", fd.flash_sharded_paged_decode_cuda
+            plain, kernel = fd.flash_sharded_paged_decode_ref, fd.flash_paged_decode_cuda
+            b = table.clamp_min(0).long()
+            kx, vx = (t[b].reshape(SLOTS, -1, KV, dh).repeat_interleave(H // KV, dim=2)
+                      .transpose(1, 2) for t in flat[:2])
+            mask = paged_visible(table, flat[-1], qpos, 0)[:, None]
+            qt = q.transpose(1, 2)
+            lib = lambda: F.scaled_dot_product_attention(qt, kx, vx, attn_mask=mask)
+        else:
+            name = "flash_sharded_paged_decode_quant"
+            fn, plain = fd.flash_sharded_paged_decode_quant_cuda, \
+                fd.flash_sharded_paged_decode_quant_ref
+            kernel, lib = fd.flash_paged_decode_quant_cuda, None
+        row = _kernel_row(
+            f"{name} (K7 / K8 over dp {dp} shards, folded and offset)", SHARD_SOURCE,
+            SHARD_REPLACES[fmt], counts[(dp, fmt)].get(name, 0), errs[name],
+            lambda: fn(q, *pools, qpos, bt, ppos),
+            lambda: plain(q, *pools, qpos, bt, ppos), lib, work)
+        flush = _flush_buffer()
+        with_table = time_ms(lambda: fn(q, *pools, qpos, bt, ppos, table=table), flush=flush)
+        folded = time_ms(lambda: kernel(q, *flat[:-1], qpos, table, flat[-1]), flush=flush)
+        folded_dev = time_ms(lambda: kernel(q, *flat[:-1], qpos, table, flat[-1]),
+                             flush=flush, pad=True)
+        lib_s = ("none" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms (SDPA over the keys laid out densely)")
+        print(f"[numbers] {row['name']}: {row['ms']:.4f} ms/call | device only "
+              f"{row['device_ms']:.4f} ms | wrapper host {1e3 * row['host_ms']:.1f} us/call | "
+              f"with the step's offset table {with_table:.4f} ms | K7 / K8 on the unsharded "
+              f"pool at the same live pages {folded:.4f} ms (device only {folded_dev:.4f}) | "
+              f"plain {row['plain_ms']:.4f} ms | library {lib_s} | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | {row['launches']} launches on "
+              f"its dp-{dp} serving run [{smi}]")
+        if dp == 2:
+            rows.append(row)
+    return rows
+
+
+def phase_moe_blocked(smi):
+    """Phase 42: granite-moe-3b-a800m's blocked MoE dispatch
+    (moe_token_blocks = 2) at the serving cut (8 layers, full width): one
+    training step under remat='pamm' and the MoE rules, twice from the
+    seed; a paged engine decoding with blocks 2 held to a teacher-forced
+    blocked forward; moe_ffn blocked, card against the CPU in f32."""
+    import dataclasses
+    import math
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models import init_model, moe
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    cfg = serve_cfg(MOE_ARCH)
+    L = cfg.n_layers
+    rcfg = RunConfig(compression=MOE_SPEC, policy_name="none", remat="pamm",
+                     moe_token_blocks=MOE_BLOCKS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        state, _, rec = _train_run(cfg, rcfg, 1, measure=True)
+        del state
+        torch.cuda.empty_cache()
+        _, _, rec2 = _train_run(cfg, rcfg, 0, measure=False)
+    torch.cuda.empty_cache()
+    notes = sorted({str(w.message) for w in caught if "blocked" in str(w.message)})
+    for msg in notes:
+        print(f"[moe blocked] warning: {msg}")
+    check(any("will train exact" in m for m in notes)
+          and any("not applied on the blocked" in m for m in notes),
+          "moe blocked: the downgrade warnings were not given")
+    counts = rec["counts"]
+    print(f"[moe blocked] {MOE_ARCH} cut to {L} layers, {MOE_SPEC}, remat='pamm', "
+          f"moe_token_blocks {MOE_BLOCKS}, batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+          f"{rec['loss']} (a second run from the seed: {rec2['loss']}) | step "
+          f"{rec['ms'][1]:.1f} ms | peak {rec['peak'] / 2**30:.3f} GiB | launches {counts} "
+          f"[{smi}]")
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"])
+          and rec2["loss"][0] == rec["loss"][0],
+          "moe blocked: a loss is not finite, or a second run gives another")
+    want = {"csim_argmax": L, "segment_matmul": 3 * L, "csim_argmax_batched": 0,
+            "segment_matmul_batched": 0, "flash_attention_fwd": 2 * L,
+            "flash_attention_dq": L, "flash_attention_dkv": L}
+    check({k: counts.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in counts),
+          f"moe blocked: launches {counts}, want {want} (attn.qkv's K1 / K2 as unblocked, "
+          f"no batched K1 / K2) and no plain version")
+
+    # decode with blocks 2 at capacity factor 16 (nothing dropped, so a
+    # teacher-forced blocked forward is the reference)
+    cfg16 = dataclasses.replace(cfg, capacity_factor=16.0)
+    srcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none",
+                      moe_token_blocks=MOE_BLOCKS)
+    model = init_model(cfg16, srcfg, seed=0, device="cuda")
+    eng = ServeEngine(cfg16, srcfg, model, max_slots=SLOTS,
+                      max_len=SHARD_PROMPT + SHARD_GEN + 1, decode_block=DECODE_BLOCK,
+                      cache_layout="paged", page_size=PAGE)
+    out, counts = _counted(lambda: eng.run(_sharded_requests(cfg16)))
+    st = eng.stats()
+    check(sorted(out) == list(range(SHARD_REQUESTS)) and st["nonfinite_logits"] == 0,
+          "moe blocked decode: a request did not finish or logits were not finite")
+    want = {"flash_attention_fwd": L * SHARD_REQUESTS,
+            "flash_paged_decode": L * st["decode_steps"]}
+    check({k: counts.get(k, 0) for k in want} == want
+          and not any(k.endswith("_ref") for k in counts),
+          f"moe blocked decode: launches {counts}, want {want} and no plain version")
+    tf = [teacher_forced(cfg16, srcfg, model, r, out[r.uid].tokens, "moe blocked")
+          for r in _sharded_requests(cfg16)]
+    print(f"[moe blocked] paged decode with blocks {MOE_BLOCKS}, capacity factor 16: "
+          f"launches {counts}; every token of the {SHARD_REQUESTS} greedy streams vs a "
+          f"teacher-forced blocked forward: {sum(d for d, _ in tf)} of "
+          f"{SHARD_REQUESTS * SHARD_GEN} differ, their largest gap to the top logit "
+          f"{max(w for _, w in tf):.4f} (near tie < {TOL_NEAR}) | decode "
+          f"{st['decode_tok_s']:.1f} tok/s [{smi}]")
+    del model, eng
+    torch.cuda.empty_cache()
+
+    # moe_ffn blocked, card against CPU in f32 at smoke size
+    scfg = get_config(MOE_SMOKE)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(gen, scfg, torch.float32)
+    x = torch.randn((2, 16, scfg.d_model), generator=gen)
+    w = torch.randn(x.shape, generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().to(dev).requires_grad_() for k, v in params.items()}
+        xd = x.detach().to(dev).requires_grad_()
+        out_b, aux = moe.moe_ffn(p, xd, scfg, token_blocks=MOE_BLOCKS)
+        (out_b * w.to(dev)).sum().add(aux).backward()
+        res[dev] = {"out": out_b.detach().cpu(), "x": xd.grad.cpu(),
+                    **{k: v.grad.cpu() for k, v in p.items()}}
+    worst = max(float((res["cuda"][k] - v).norm() / v.norm().clamp_min(1e-30))
+                for k, v in res["cpu"].items())
+    print(f"[moe blocked] moe_ffn {MOE_SMOKE} blocks {MOE_BLOCKS}, f32: card vs CPU, output "
+          f"and every gradient, worst relative norm {worst:.2e} (tol {TOL_MOE_CPU})")
+    check(worst <= TOL_MOE_CPU, "moe blocked: moe_ffn on the card disagrees with the CPU")
+    print(f"[moe blocked] phase 42 wall {time.perf_counter() - t0:.1f} s")
+
+
 def start():
     """What every run does first: a card and the package next to this
     script, f32 products out of TF32, every kernel built (phase 1).
@@ -5490,9 +5901,12 @@ def main() -> int:
     paged_rows = phase_paged_numbers(gen, paged_counts, pool_res, smi, errs78)
     phase_serving_front(dense, smi)
     phase_serve_step(dense, smi)
+    errs_shard = phase_sharded_kernels(gen)
+    shard_counts = phase_sharded_serving(dense, smi)
+    shard_rows = sharded_rows(gen, shard_counts, errs_shard, smi)
     del dense
     torch.cuda.empty_cache()
-    print(f"[time] serving phases 2-8 done at {time.perf_counter() - t0:.1f} s")
+    print(f"[time] serving phases 2-8 and 40-41 done at {time.perf_counter() - t0:.1f} s")
     errs = phase_training_kernels(gen)
     phase_card_vs_cpu()
     per_step, rec = phase_training(smi)
@@ -5501,7 +5915,8 @@ def main() -> int:
     phase_supervised_restart(smi)
     print(f"[time] training phases 9-12 done at {time.perf_counter() - t0:.1f} s")
     errs_moe, moe_rows = run_moe_phases(gen, smi)
-    print(f"[time] MoE phases 14-17 done at {time.perf_counter() - t0:.1f} s")
+    phase_moe_blocked(smi)
+    print(f"[time] MoE phases 14-17 and 42 done at {time.perf_counter() - t0:.1f} s")
     ssm_rows = run_ssm_phases(gen, smi)
     print(f"[time] ssm phases 18-21 done at {time.perf_counter() - t0:.1f} s")
     rec_rows = run_rec_phases(gen, smi)
@@ -5515,6 +5930,7 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
     kernels += paged_rows
+    kernels += shard_rows
     kernels += moe_rows
     kernels += ssm_rows
     kernels += rec_rows

@@ -26,6 +26,15 @@ key; its output is finite and discarded by the engine.
   group), split as K7 and dequantised in f32 from the staged raw bytes
   (both in ``csrc/flash_paged_decode.cu``; the three kernels share the
   split body and merge of ``csrc/flash_decode_split.cuh``).
+* ``flash_sharded_paged_decode`` / ``_quant``: K7 / K8 over per-replica
+  shards of one pool -- pools (dp, n_pages/dp, page_size, KV, w), block
+  table (dp, B/dp, nb) with page ids local to their shard, q and q_pos
+  slot-major over the whole batch. No kernel of their own: the JAX Pallas
+  path of these wrappers is itself only a fold and an offset around K7 /
+  K8, and so is theirs. The shard axis folds into the page axis (a view),
+  each shard's ids move by ``shard * n_pages/dp`` (-1 stays -1) and K7 /
+  K8 launch once for the whole batch; the plain versions run the plain
+  K7 / K8 math over each shard's slots and pool.
 
 The host-side quantisation helpers (``quantize_kv`` / ``dequantize_kv`` /
 ``pack_int4`` / ``unpack_int4``) live here too, with the JAX package's
@@ -219,6 +228,17 @@ def flash_decode_cuda(q, k, v, q_pos, slot_pos, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 # K7 / K8: paged decode
 # ---------------------------------------------------------------------------
+def shard_offset_table(block_table, n_pages_shard: int):
+    """A sharded block table (..., dp, B/dp, nb) of shard-local page ids as
+    (..., B, nb) ids into the shard-folded pool (shard s's page j is page
+    s n_pages_shard + j); -1 stays -1."""
+    dp = block_table.shape[-3]
+    off = torch.arange(dp, dtype=block_table.dtype, device=block_table.device)
+    glob = torch.where(block_table >= 0,
+                       block_table + (off * n_pages_shard)[:, None, None], -1)
+    return glob.flatten(-3, -2)
+
+
 def _gather_pages(k_pages, v_pages, block_table, page_pos):
     """The pool gathered through the block table as a dense (B, nb*ps, KV,
     w) cache. Unmapped blocks gather page 0 (which may belong to another
@@ -257,6 +277,40 @@ def flash_paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale, q_pos,
     k, v, spos = _gather_pages(k, v, block_table, page_pos)
     return _decode_math(q, k, v, q_pos, spos, causal=causal, window=window,
                         scale=None)
+
+
+def _gather_shards(k_pages, v_pages, block_table, page_pos):
+    """:func:`_gather_pages` of each shard's slots through its own table
+    and pool, the shards' rows in slot order."""
+    parts = [_gather_pages(k_pages[s], v_pages[s], block_table[s], page_pos[s])
+             for s in range(block_table.shape[0])]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def flash_sharded_paged_decode_ref(q, k_pages, v_pages, q_pos, block_table, page_pos,
+                                   *, causal: bool = True, window: int = 0,
+                                   scale: float | None = None):
+    """Plain sharded K7: every shard's slots gathered through its own
+    table from its own pool, then the plain K7 math (row-independent, so
+    per shard as the JAX ``vmap``). Pools (dp, n_pages/dp, ps, KV, w),
+    block_table (dp, B/dp, nb), page_pos (dp, n_pages/dp, ps); q (B, Lq,
+    H, dh) and q_pos (B,) or (B, Lq) slot-major."""
+    LAUNCHES["flash_sharded_paged_decode_ref"] += 1
+    k, v, spos = _gather_shards(k_pages, v_pages, block_table, page_pos)
+    return _decode_math(q, k, v, q_pos, spos, causal=causal, window=window, scale=scale)
+
+
+def flash_sharded_paged_decode_quant_ref(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                                         block_table, page_pos, *, causal: bool = True,
+                                         window: int = 0):
+    """Plain sharded K8: the pools dequantised, then the plain sharded K7
+    math."""
+    LAUNCHES["flash_sharded_paged_decode_quant_ref"] += 1
+    dh = q.shape[-1]
+    k = dequantize_kv(k_pages, k_scale, dh)
+    v = dequantize_kv(v_pages, v_scale, dh)
+    k, v, spos = _gather_shards(k, v, block_table, page_pos)
+    return _decode_math(q, k, v, q_pos, spos, causal=causal, window=window, scale=None)
 
 
 def _check_paged(name, q, k_pages, v_pages, q_pos, block_table, page_pos,
@@ -400,4 +454,50 @@ def flash_paged_decode_quant_cuda(q, k_pages, v_pages, k_scale, v_scale, q_pos,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch("flash_paged_decode_quant", err)
     LAUNCHES["flash_paged_decode_quant"] += 1
+    return o
+
+
+def _fold_shards(name, block_table, table, *pools):
+    """The sharded wrappers' fold: each pool tensor (dp, n_pages/dp, ...)
+    as a (n_pages, ...) view, and the block table with the shard offsets
+    applied (``table``, when the caller made it once a step, must be
+    that: (B, nb) int32)."""
+    if block_table.dim() != 3 or any(p.shape[0] != block_table.shape[0] for p in pools):
+        raise ValueError(f"{name}: a sharded block_table (dp,B/dp,nb) and pools with the "
+                         f"same leading shard axis; got {tuple(block_table.shape)} and "
+                         f"{[tuple(p.shape) for p in pools]}")
+    dp, bs, nb = block_table.shape
+    if table is None:
+        table = shard_offset_table(block_table, pools[0].shape[1])
+    elif table.shape != (dp * bs, nb) or table.dtype != block_table.dtype:
+        raise ValueError(f"{name}: the offset table must be {(dp * bs, nb)} "
+                         f"{block_table.dtype}, got {tuple(table.shape)} {table.dtype}")
+    return [p.view(-1, *p.shape[2:]) for p in pools], table
+
+
+def flash_sharded_paged_decode_cuda(q, k_pages, v_pages, q_pos, block_table, page_pos,
+                                    *, causal: bool = True, window: int = 0,
+                                    scale: float | None = None, table=None):
+    """K7 over per-replica shards: the pools folded (views), the ids
+    offset (or ``table``, the offset ids made once a step for every layer:
+    ``models.attention.paged_write``), one K7 launch for the whole batch;
+    returns (B, Lq, H, dh)."""
+    (kg, vg, pg), table = _fold_shards("sharded K7", block_table, table,
+                                       k_pages, v_pages, page_pos)
+    o = flash_paged_decode_cuda(q, kg, vg, q_pos, table, pg, causal=causal,
+                                window=window, scale=scale)
+    LAUNCHES["flash_sharded_paged_decode"] += 1
+    return o
+
+
+def flash_sharded_paged_decode_quant_cuda(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                                          block_table, page_pos, *, causal: bool = True,
+                                          window: int = 0, table=None):
+    """K8 over per-replica shards, folded and offset as
+    :func:`flash_sharded_paged_decode_cuda`; one K8 launch."""
+    (kg, vg, ksg, vsg, pg), table = _fold_shards(
+        "sharded K8", block_table, table, k_pages, v_pages, k_scale, v_scale, page_pos)
+    o = flash_paged_decode_quant_cuda(q, kg, vg, ksg, vsg, q_pos, table, pg,
+                                      causal=causal, window=window)
+    LAUNCHES["flash_sharded_paged_decode_quant"] += 1
     return o

@@ -22,6 +22,7 @@ from repro_torch.kernels import pamm_compress as _pc
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention",
            "flash_decode", "flash_paged_decode", "flash_paged_decode_quant",
+           "flash_sharded_paged_decode", "flash_sharded_paged_decode_quant",
            "csim_argmax", "segment_matmul", "pamm_compress",
            "pamm_apply", "csim_argmax_batched", "segment_matmul_batched",
            "pamm_compress_batched", "pamm_apply_batched", "FlashAttention"]
@@ -122,6 +123,37 @@ def flash_paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, q_pos,
             q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
             causal=causal, window=window)
     return _fd.flash_paged_decode_quant_ref(
+        q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
+        causal=causal, window=window)
+
+
+def flash_sharded_paged_decode(q, k_pages, v_pages, q_pos, block_table, page_pos, *,
+                               causal: bool = True, window: int = 0,
+                               scale: float | None = None, table=None):
+    """K7 over per-replica shards of one pool (pools (dp, n_pages/dp, ps,
+    KV, w), block_table (dp, B/dp, nb) of shard-local ids; q, q_pos
+    slot-major): (B, Lq, H, dh). ``table``: the offset ids of the kernel
+    route, when the caller made them once a step (the plain version reads
+    the shard-local table)."""
+    if _route(q, "flash_sharded_paged_decode"):
+        return _fd.flash_sharded_paged_decode_cuda(
+            q, k_pages, v_pages, q_pos, block_table, page_pos, causal=causal,
+            window=window, scale=scale, table=table)
+    return _fd.flash_sharded_paged_decode_ref(q, k_pages, v_pages, q_pos, block_table,
+                                              page_pos, causal=causal, window=window,
+                                              scale=scale)
+
+
+def flash_sharded_paged_decode_quant(q, k_pages, v_pages, k_scale, v_scale, q_pos,
+                                     block_table, page_pos, *, causal: bool = True,
+                                     window: int = 0, table=None):
+    """K8 over per-replica shards of one int8 / int4 pool and its scales,
+    as :func:`flash_sharded_paged_decode`: (B, Lq, H, dh)."""
+    if _route(q, "flash_sharded_paged_decode_quant"):
+        return _fd.flash_sharded_paged_decode_quant_cuda(
+            q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
+            causal=causal, window=window, table=table)
+    return _fd.flash_sharded_paged_decode_quant_ref(
         q, k_pages, v_pages, k_scale, v_scale, q_pos, block_table, page_pos,
         causal=causal, window=window)
 

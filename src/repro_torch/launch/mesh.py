@@ -14,6 +14,11 @@ tensors between the ranks.
 The ``model`` (tensor-parallel) axis must have degree 1 in this slice: the
 JAX package shards it through GSPMD, and the port needs column- and
 row-parallel products of its own for it.
+
+:func:`make_local_mesh` is the other kind: a data axis inside one process,
+with no ranks and no process groups, for what the JAX package runs as one
+program over in-process devices (the serving engine's per-replica
+shards). Its shards all live on the process's one device.
 """
 from __future__ import annotations
 
@@ -118,3 +123,19 @@ def make_debug_mesh(data: int = 1, model: int = 1, context: int = 1, *,
     # model is 1, so the data x context ranks are the whole group
     return Mesh(axes, shape, rank, groups, dist.group.WORLD,
                 Transport())
+
+
+def make_local_mesh(data: int = 1) -> Mesh:
+    """A ``(data, 1)`` mesh inside this process: no ranks, no process
+    groups, every shard on the caller's one device (the JAX
+    ``make_debug_mesh(data, 1)`` over in-process devices)."""
+    if data < 1:
+        raise ValueError(f"the data degree must be positive, got {data}")
+    return Mesh(("data", "model"), (data, 1))
+
+
+def is_local_mesh(mesh: Mesh) -> bool:
+    """True for a mesh of one process (no process groups): the data axis
+    of :func:`make_local_mesh`, or the one-rank mesh of
+    :func:`make_debug_mesh`."""
+    return not mesh.groups and mesh.sync_group is None

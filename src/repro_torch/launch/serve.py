@@ -43,8 +43,18 @@ recurrentgemma's latt blocks get ring page pools (their window is the
 ring), so ``--prefix-share`` is refused there, as the JAX engine refuses
 it, and ``--speculative-k`` on every kind but attn.
 
-``--mesh-data`` (one engine's pools sharded over cards) is refused, naming
-the multi-GPU slice that brings it.
+``--mesh-data D`` serves one engine on a data mesh inside this process
+(``launch.mesh.make_local_mesh``): under ``--cache-layout paged`` every
+pool splits into D per-replica shards, each owning ``--batch``/D slots and
+1/D of the pages, placed and decoded as the JAX engine does on D devices;
+here all shards share the one device. The ``[paged]`` line says
+``replica shards D``:
+
+  python -m repro_torch.launch.serve --arch internlm2-1.8b_smoke --device cpu \
+      --cache-layout paged --mesh-data 2 --smoke
+
+``--mesh-data`` with ``--replicas`` is refused (the reference ignores the
+mesh there).
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ import numpy as np
 
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import init_model
 from repro_torch.serve import Request, Router, SamplingParams, ServeEngine
 
@@ -79,8 +90,8 @@ def _build_requests(cfg, args) -> list[Request]:
     return requests
 
 
-def _make_engine(cfg, rcfg, model, args, *, slots=None) -> ServeEngine:
-    return ServeEngine(cfg, rcfg, model, max_slots=slots or args.batch,
+def _make_engine(cfg, rcfg, model, args, *, slots=None, mesh=None) -> ServeEngine:
+    return ServeEngine(cfg, rcfg, model, max_slots=slots or args.batch, mesh=mesh,
                        max_len=args.prompt_len + args.gen + 1,
                        decode_block=args.decode_block,
                        cache_layout=args.cache_layout, page_size=args.page_size,
@@ -102,14 +113,16 @@ def _serve_once(cfg, rcfg, model, args):
         # users get is decode tokens over the run's wall, not stats()'s
         # decode_tok_s (which takes the largest replica wall alone)
         return results, {**router.stats(), "run_s": time.perf_counter() - t0}
-    engine = _make_engine(cfg, rcfg, model, args)
+    mesh = make_local_mesh(args.mesh_data) if args.mesh_data > 1 else None
+    engine = _make_engine(cfg, rcfg, model, args, mesh=mesh)
     results = engine.run(_build_requests(cfg, args))
     return results, engine.stats()
 
 
-def _refuse_later_slices(ap, args) -> None:
-    if args.mesh_data > 1:
-        ap.error("--mesh-data: mesh data arrives with the port's multi-GPU slice")
+def _refuse_flag_combinations(ap, args) -> None:
+    if args.mesh_data > 1 and args.replicas > 1:
+        ap.error("--mesh-data shards one engine's pools; --replicas serves several "
+                 "engines behind a router: pick one")
     if args.dedicated_prefill and args.replicas <= 1:
         ap.error("--dedicated-prefill needs --replicas > 1")
 
@@ -141,13 +154,15 @@ def main(argv=None):
     ap.add_argument("--dedicated-prefill", action="store_true",
                     help="with --replicas: prefill on a separate engine and hand "
                          "Prefixes to decode replicas in host form")
-    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data degree of one engine's in-process mesh (per-replica "
+                         "page-pool shards under --cache-layout paged)")
     ap.add_argument("--prefix-share", action="store_true")
     ap.add_argument("--speculative-k", type=int, default=0)
     ap.add_argument("--smoke", action="store_true",
                     help="run twice, assert determinism and tok/s > 0")
     args = ap.parse_args(argv)
-    _refuse_later_slices(ap, args)
+    _refuse_flag_combinations(ap, args)
     if not args.requests:
         args.requests = 2 * args.batch
 

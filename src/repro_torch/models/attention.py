@@ -31,6 +31,14 @@ host: rows that must not land (a parked slot, an unmapped page) are
 redirected onto another row's write of the same value (:class:`RowWrite`),
 and a paged write's addresses are computed once per step for all layers
 together, each layer's through its own block table.
+
+A paged node may be split into per-replica shards (``sharded``; made by
+``serve/cache.shard_slots`` for an engine on a data mesh): its pool
+tensors carry a shard axis ahead of the page axis, its block table holds
+slot-contiguous chunks of the batch with page ids local to their shard,
+and a decode step writes and reads each chunk through its own shard's
+table (K7 / K8 by way of the sharded wrappers in
+:mod:`repro_torch.kernels.ops`).
 """
 from __future__ import annotations
 
@@ -43,14 +51,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.plan import SiteCtx, exact_ctx
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import quant_bits, quantize_kv
+from repro_torch.kernels.flash_decode import quant_bits, quantize_kv, shard_offset_table
 from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.runtime.sharding import ring_context
 
 NEG_INF = -1e30
-LATER_SLICE_SHARDED = ("per-replica sharded page pools arrive with the port's "
-                       "multi-GPU slice")
 
 
 # ---------------------------------------------------------------------------
@@ -250,34 +256,43 @@ class RowWrite:
     sync: ``dst[target[m]] = rows[source[m]]``. A row that must not land
     is redirected onto the first valid row's address with that row's
     value (a duplicate write of equal bytes); with no valid row at all,
-    onto ``dst[0]`` with its own value (``any_valid`` False). The valid
+    onto ``dst[base]`` with its own value (``any_valid`` False). The valid
     rows' addresses are distinct (pages are owned by one slot, or shared
     only below the slot's write front). One plan serves every tensor of a
     node; a stacked node's plan has a leading layer axis, and
-    :meth:`layer` gives one layer's plan."""
+    :meth:`layer` gives one layer's plan. A sharded node's plan is made per
+    shard (each redirect stays in its shard) and carries ``table``, the
+    node's block table with the shard offsets applied (ids into the
+    shard-folded pool, (..., B, nb)), which the kernel route of the
+    sharded decode wrappers reads: made here once a step for every
+    layer."""
 
     target: torch.Tensor     # (..., M) long
     source: torch.Tensor     # (..., M) long
-    any_valid: torch.Tensor  # (...) bool
+    any_valid: torch.Tensor  # (..., M) bool, one value per plan
+    table: torch.Tensor | None = None
 
     @classmethod
-    def of(cls, idx, valid) -> "RowWrite":
-        """``idx``, ``valid`` (..., M): one plan per leading index."""
+    def of(cls, idx, valid, base=0) -> "RowWrite":
+        """``idx``, ``valid`` (..., M): one plan per leading index;
+        ``base`` (broadcast against (..., 1)): where a plan with no valid
+        row writes its own value back."""
         idx = idx.long()
         # gather, not idx[first]: a 0-dim CUDA index is read to the host
         first = valid.to(torch.int32).argmax(-1, keepdim=True)
-        any_valid = valid.any(-1)
-        fallback = torch.where(any_valid[..., None], idx.gather(-1, first), 0)
+        any_valid = valid.any(-1, keepdim=True)
+        fallback = torch.where(any_valid, idx.gather(-1, first), base)
         source = torch.where(valid, torch.arange(idx.shape[-1], device=idx.device), first)
-        return cls(torch.where(valid, idx, fallback), source, any_valid)
+        return cls(torch.where(valid, idx, fallback), source, any_valid.expand_as(valid))
 
     def layer(self, r: int) -> "RowWrite":
-        return RowWrite(self.target[r], self.source[r], self.any_valid[r])
+        return RowWrite(self.target[r], self.source[r], self.any_valid[r],
+                        None if self.table is None else self.table[r])
 
     def apply(self, dst, rows) -> None:
         """Write ``rows`` (M, ...) into ``dst`` (N, ...), in place."""
         rows = rows.reshape(-1, *dst.shape[1:]).to(dst.dtype).index_select(0, self.source)
-        keep = self.any_valid.reshape([1] * rows.dim())
+        keep = self.any_valid.reshape(-1, *[1] * (rows.dim() - 1))
         dst.index_put_((self.target,), torch.where(keep, rows,
                                                    dst.index_select(0, self.target)))
 
@@ -291,7 +306,13 @@ class PagedKVCache(_CacheNode):
     absolute position per page row (-1 = empty); block_table (B, nb) int32
     physical page of logical block j (-1 = unmapped). Logical layout per
     sequence is :class:`KVCache`'s: absolute positions, a ring of logical
-    size nb * page_size for sliding-window layers."""
+    size nb * page_size for sliding-window layers.
+
+    ``sharded`` (host metadata, like ``ring``; every paged layout has it):
+    the pool is split into dp per-replica shards -- per layer k_pages /
+    v_pages (dp, n_pages/dp, page_size, KV, w), page_pos (dp, n_pages/dp,
+    page_size), block_table (dp, B/dp, nb) with page ids local to their
+    shard; shard s owns slots [s B/dp, (s+1) B/dp)."""
 
     LEAVES: ClassVar[tuple[str, ...]] = ("k_pages", "v_pages", "page_pos", "block_table")
     k_pages: torch.Tensor
@@ -299,6 +320,7 @@ class PagedKVCache(_CacheNode):
     page_pos: torch.Tensor
     block_table: torch.Tensor
     ring: bool
+    sharded: bool = False
 
 
 @dataclasses.dataclass
@@ -318,6 +340,7 @@ class QuantPagedKVCache(_CacheNode):
     page_pos: torch.Tensor
     block_table: torch.Tensor
     ring: bool
+    sharded: bool = False
 
 
 @dataclasses.dataclass
@@ -337,6 +360,7 @@ class SVDPagedKVCache(_CacheNode):
     page_pos: torch.Tensor
     block_table: torch.Tensor
     ring: bool
+    sharded: bool = False
 
 
 # every paged cache layout the serving engine pools and allocates
@@ -419,24 +443,55 @@ def paged_addresses(positions, block_table, ring: bool, page_size: int, nb: int)
     return page, idx % page_size
 
 
+def paged_cache_sharded(cache) -> bool:
+    """True for a paged node split into per-replica shards (``sharded``),
+    stacked or one layer's view."""
+    return isinstance(cache, PAGED_CACHE_TYPES) and cache.sharded
+
+
+def _shard_fold(a, dp: int):
+    """(B, ...) -> (dp, B/dp, ...): slot-major contiguous chunks, so shard
+    ``s`` owns slots [s B/dp, (s+1) B/dp) -- the engine's slot -> shard
+    map."""
+    return a.reshape(dp, a.shape[0] // dp, *a.shape[1:])
+
+
 def paged_write(cache, positions) -> RowWrite:
     """Where the rows at ``positions`` (B, L) land in the cache's flat
     (n_pages * page_size, ...) pool view: through the block table, with
     invalid positions and unmapped blocks dropped. A stacked node (tables
     (layers, B, nb)) gets one plan per layer, each through its own
     layer's table, computed together: ``decode_step`` builds it once per
-    step and hands layer ``r`` its :meth:`RowWrite.layer`."""
+    step and hands layer ``r`` its :meth:`RowWrite.layer`. A sharded
+    node's rows split into their shards' slot chunks, each planned through
+    its own shard's table into that shard's page range of the
+    shard-folded view (no write crosses a shard), and the plan carries
+    the offset table the sharded decode wrappers read."""
     ps = cache.k_pages.shape[-3]
     bt = cache.block_table
-    lead, (B, nb) = bt.shape[:-2], bt.shape[-2:]
-    pos = positions.expand(*lead, *positions.shape).reshape(-1, positions.shape[-1])
+    L = positions.shape[-1]
+    if not cache.sharded:
+        lead, nb = bt.shape[:-2], bt.shape[-1]
+        pos = positions.expand(*lead, *positions.shape).reshape(-1, L)
+        page, off = paged_addresses(pos, bt.reshape(-1, nb), cache.ring, ps, nb)
+        page, off = page.reshape(*lead, -1), off.reshape(*lead, -1)
+        return RowWrite.of(page.clamp_min(0).long() * ps + off.long(), page >= 0)
+    lead, (dp, bs, nb) = bt.shape[:-3], bt.shape[-3:]
+    npl = cache.k_pages.shape[-4]
+    pos = _shard_fold(positions, dp).expand(*lead, dp, bs, L).reshape(-1, L)
     page, off = paged_addresses(pos, bt.reshape(-1, nb), cache.ring, ps, nb)
-    page, off = page.reshape(*lead, -1), off.reshape(*lead, -1)
-    return RowWrite.of(page.clamp_min(0).long() * ps + off.long(), page >= 0)
+    page, off = page.reshape(*lead, dp, bs * L), off.reshape(*lead, dp, bs * L)
+    base = (torch.arange(dp, device=bt.device) * (npl * ps))[:, None]
+    plan = RowWrite.of(page.clamp_min(0).long() * ps + off.long() + base, page >= 0, base)
+    source = plan.source + torch.arange(dp, device=bt.device)[:, None] * (bs * L)
+    return RowWrite(plan.target.flatten(-2), source.flatten(-2),
+                    plan.any_valid.flatten(-2), shard_offset_table(bt, npl))
 
 
-def _flat(t):
-    return t.view(-1, *t.shape[2:])
+def _rows(t, trailing: int):
+    """A pool tensor as a flat (rows, *trailing dims) view: every page row
+    of every shard, in page order."""
+    return t.view(-1, *t.shape[t.dim() - trailing:])
 
 
 def paged_insert(cache, k_new, v_new, positions, write: RowWrite | None = None):
@@ -444,12 +499,13 @@ def paged_insert(cache, k_new, v_new, positions, write: RowWrite | None = None):
     the block table, in place -- L = 1 is the decode step, L > 1 the
     speculative-verify block. Invalid positions and unmapped blocks are
     dropped. Works on any pool whose pages match ``k_new``'s trailing dims
-    (fp pools, and the svd pool's rank-r pools). ``write``: the step's
-    :func:`paged_write`, when the caller has it."""
+    (fp pools, and the svd pool's rank-r pools), sharded or not: a
+    sharded node's rows land through their own shard's table.
+    ``write``: the step's :func:`paged_write`, when the caller has it."""
     write = paged_write(cache, positions) if write is None else write
-    write.apply(_flat(cache.k_pages), k_new)
-    write.apply(_flat(cache.v_pages), v_new)
-    write.apply(cache.page_pos.view(-1), positions)
+    write.apply(_rows(cache.k_pages, 2), k_new)
+    write.apply(_rows(cache.v_pages, 2), v_new)
+    write.apply(_rows(cache.page_pos, 0), positions)
     return cache
 
 
@@ -460,16 +516,24 @@ def quant_cache_bits(cache: QuantPagedKVCache, dh: int) -> int:
 def paged_insert_quant(cache: QuantPagedKVCache, k_new, v_new, positions,
                        dh: int, write: RowWrite | None = None) -> QuantPagedKVCache:
     """Quantise-on-write: L decode rows (B, L, KV, dh) become int pages and
-    scales at their block-table addresses, in place."""
+    scales at their block-table addresses, in place (sharded or not, as
+    :func:`paged_insert`)."""
     bits, ngr = quant_cache_bits(cache, dh), cache.k_scale.shape[-1]
     kq, ks = quantize_kv(k_new, bits, ngr)
     vq, vs = quantize_kv(v_new, bits, ngr)
     write = paged_write(cache, positions) if write is None else write
     for dst, src in ((cache.k_pages, kq), (cache.v_pages, vq),
                      (cache.k_scale, ks), (cache.v_scale, vs)):
-        write.apply(_flat(dst), src)
-    write.apply(cache.page_pos.view(-1), positions)
+        write.apply(_rows(dst, 2), src)
+    write.apply(_rows(cache.page_pos, 0), positions)
     return cache
+
+
+# The JAX package's names for the sharded route (``jax.vmap`` of the single
+# pool's insert over the shard axis); here one in-place insert serves both
+# layouts, each shard's rows through its own table.
+sharded_paged_insert = paged_insert
+sharded_paged_insert_quant = paged_insert_quant
 
 
 def svd_project_kv(x, basis):
@@ -518,18 +582,24 @@ def attn_decode(params, x, positions, cache, cfg, *, window: int,
     its own position). Inserts this step's K/V into the cache in place,
     then attends: K6 over a dense :class:`KVCache`, K7 over a
     :class:`PagedKVCache` or the coefficients of an
-    :class:`SVDPagedKVCache`, K8 over a :class:`QuantPagedKVCache`.
-    ``write``: the step's :func:`paged_write` for a paged cache."""
+    :class:`SVDPagedKVCache`, K8 over a :class:`QuantPagedKVCache` -- a
+    sharded pool's through the sharded wrappers, one launch for the whole
+    batch. ``write``: the step's :func:`paged_write` for a paged cache."""
     q, k, v = _project_qkv(params, x, exact_ctx(), cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if isinstance(cache, PAGED_CACHE_TYPES) and cache.block_table.dim() != 2:
-        raise NotImplementedError(LATER_SLICE_SHARDED)
+    if paged_cache_sharded(cache):
+        # the step's offset table, when the caller planned the step
+        table = None if write is None else write.table
+        paged_fn = functools.partial(ops.flash_sharded_paged_decode, table=table)
+        quant_fn = functools.partial(ops.flash_sharded_paged_decode_quant, table=table)
+    else:
+        paged_fn, quant_fn = ops.flash_paged_decode, ops.flash_paged_decode_quant
     if isinstance(cache, QuantPagedKVCache):
         paged_insert_quant(cache, k, v, positions, cfg.head_dim, write)
-        out = ops.flash_paged_decode_quant(
-            q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
-            positions, cache.block_table, cache.page_pos, causal=True, window=window)
+        out = quant_fn(q, cache.k_pages, cache.v_pages, cache.k_scale, cache.v_scale,
+                       positions, cache.block_table, cache.page_pos, causal=True,
+                       window=window)
     elif isinstance(cache, SVDPagedKVCache):
         # scores in the rank-r space equal scores in head space with K
         # reconstructed through the same orthonormal basis, so K7 runs on
@@ -540,18 +610,16 @@ def attn_decode(params, x, positions, cache, cfg, *, window: int,
                      svd_project_kv(v, cache.v_basis).to(x.dtype), positions, write)
         qc = torch.einsum("blkgd,kdr->blkgr", q.reshape(B, L, kv, H // kv, dh).float(),
                           cache.k_basis.float())
-        out = ops.flash_paged_decode(
-            qc.reshape(B, L, H, r).to(q.dtype), cache.k_pages, cache.v_pages,
-            positions, cache.block_table, cache.page_pos, causal=True,
-            window=window, scale=dh ** -0.5)
+        out = paged_fn(qc.reshape(B, L, H, r).to(q.dtype), cache.k_pages, cache.v_pages,
+                       positions, cache.block_table, cache.page_pos, causal=True,
+                       window=window, scale=dh ** -0.5)
         out = torch.einsum("blkgr,kdr->blkgd", out.reshape(B, L, kv, H // kv, r).float(),
                            cache.v_basis.float())
         out = out.reshape(B, L, H, dh).to(q.dtype)
     elif isinstance(cache, PagedKVCache):
         paged_insert(cache, k, v, positions, write)
-        out = ops.flash_paged_decode(q, cache.k_pages, cache.v_pages, positions,
-                                     cache.block_table, cache.page_pos, causal=True,
-                                     window=window)
+        out = paged_fn(q, cache.k_pages, cache.v_pages, positions, cache.block_table,
+                       cache.page_pos, causal=True, window=window)
     else:
         cache_insert(cache, k, v, positions)
         q_pos = positions.reshape(-1) if positions.shape[1] == 1 else positions

@@ -31,25 +31,28 @@ does the same (:class:`_Dispatch`), and the combine's backward gathers
 through the slot -> pair map (:class:`_Combine`), so no float is ever
 added by an atomic and two runs give the same bits.
 
-``token_blocks > 1`` (the per-data-shard dispatch of a mesh) is refused:
-it belongs to the port's multi-GPU slice.
+``token_blocks > 1`` is the JAX package's per-data-shard dispatch: the
+(T, d) tokens split into that many contiguous blocks (when T divides by
+it; otherwise one block, silently, as in JAX), each routed and dropped on
+its own at its own capacity, the aux loss the blocks' mean. The JAX
+package ``vmap``s the blocks onto the data axis; the port runs them in
+order on its one device, each through the same gather-combine. The blocked
+path trains exact: no ``moe.expert`` state (and so no batched K1 / K2),
+the shared experts exact too, with the JAX warning naming the hot sites.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, ffn, ffn_sites, init_ffn
+from repro_torch.runtime.sharding import data_shards
 
 __all__ = ["moe_capacity", "init_moe", "moe_ffn", "route", "dispatch_plan"]
-
-MULTI_GPU_BLOCKS = ("moe_token_blocks > 1 (the per-data-shard MoE dispatch) arrives "
-                    "with the port's multi-GPU slice; one card dispatches its tokens as "
-                    "one block (moe_token_blocks=1)")
-
 
 def moe_capacity(n_tokens: int, cfg) -> int:
     tk = n_tokens * cfg.n_experts_per_tok
@@ -202,12 +205,30 @@ def moe_ffn(params, x, cfg, *, gather_dispatch: bool = True, token_blocks: int =
     ``moe.expert`` site: per-expert compressed states back the gate / up
     weight gradients. ``gather_dispatch`` builds the buffer by gathering
     rows through a slot -> token map instead of scattering the rows; both
-    give the same buffer."""
-    if token_blocks > 1:
-        raise NotImplementedError(MULTI_GPU_BLOCKS)
+    give the same buffer. ``token_blocks`` > 1 dispatches each of that
+    many contiguous token blocks on its own, exact (module docstring); on
+    a rank of the mesh executor, whose tokens are its data shard's, its
+    share of them (``runtime.sharding.data_shards``)."""
     lead, d = x.shape[:-1], x.shape[-1]
-    out, aux = _moe_tokens(params, x.reshape(-1, d), cfg, gather_dispatch, ctx=ctx,
-                           key=key, with_aux=with_aux)
+    x2d = x.reshape(-1, d)
+    t = x2d.shape[0]
+    n_blocks = token_blocks // data_shards()
+    if token_blocks > 1 and t % n_blocks == 0:
+        if ctx is not None:
+            hot = [r for r in ("moe.expert", "ffn.gate", "ffn.up", "ffn.down")
+                   if (site := ctx.site(r)) is not None and not site.is_exact]
+            if hot:
+                warnings.warn(
+                    f"compression sites {hot} are not applied on the blocked "
+                    f"(moe_token_blocks={token_blocks}) MoE dispatch path; "
+                    "they train exact for this run", stacklevel=2)
+        blocks = [_moe_tokens(params, xb, cfg, gather_dispatch, with_aux=with_aux)
+                  for xb in x2d.split(t // n_blocks)]
+        out = torch.cat([o for o, _ in blocks])
+        aux = torch.stack([a for _, a in blocks]).mean() if with_aux else None
+        return out.reshape(*lead, d), aux
+    out, aux = _moe_tokens(params, x2d, cfg, gather_dispatch, ctx=ctx, key=key,
+                           with_aux=with_aux)
     return out.reshape(*lead, d), aux
 
 

@@ -160,6 +160,29 @@ def context_parallel(mesh):
         _RING.pop()
 
 
+_DATA_SHARDS: list[int] = []
+
+
+def data_shards() -> int:
+    """The data degree of the enclosing :func:`data_parallel` block (1
+    outside one): a rank there holds 1/data_shards() of the global batch's
+    tokens, so MoE's blocked dispatch cuts them into ``moe_token_blocks /
+    data_shards()`` blocks, and the ranks' blocks together are the global
+    batch's ``moe_token_blocks`` (``models/moe.moe_ffn``)."""
+    return _DATA_SHARDS[-1] if _DATA_SHARDS else 1
+
+
+@contextlib.contextmanager
+def data_parallel(mesh):
+    """Run the enclosed forward / backward as this rank's data shard of
+    ``mesh`` (process-wide, as :func:`context_parallel`)."""
+    _DATA_SHARDS.append(dp_degree(mesh))
+    try:
+        yield
+    finally:
+        _DATA_SHARDS.pop()
+
+
 # ---------------------------------------------------------------------------
 # ZeRO-1
 # ---------------------------------------------------------------------------

@@ -26,6 +26,12 @@ quantised by the decode path's own quantiser for int8 / int4 pools,
 projected into the layer's bases for svd pools. Eviction needs no reset:
 a freed slot's decode position is parked at -1, which masks every key and
 drops the write, and no live block table maps a freed page.
+
+On a data mesh (an engine with ``mesh=``), :func:`shard_slots` splits
+every paged node into per-replica shards: the pool and table tensors take
+a shard axis after the layer axis, as views of the same storage. A
+splice into a sharded node routes the global slot to (shard, local slot)
+and splices that shard's sub-pool with the single-pool path.
 """
 from __future__ import annotations
 
@@ -37,7 +43,9 @@ import torch
 from repro_torch.kernels.flash_decode import quantize_kv
 from repro_torch.models.attention import (PAGED_CACHE_TYPES, KVCache, PagedKVCache,
                                           QuantPagedKVCache, SVDPagedKVCache,
-                                          paged_addresses, quant_cache_bits)
+                                          paged_addresses, paged_cache_sharded,
+                                          quant_cache_bits)
+from repro_torch.runtime.sharding import dp_degree
 
 
 def kv_cache_nodes(caches):
@@ -105,8 +113,8 @@ def _splice_targets(fc, oc: KVCache, row: np.ndarray, slot: int, prompt_len: int
                     start: int):
     """Install ``row`` as ``slot``'s block table in every layer, reset
     ``page_pos`` of the row's fresh pages, and return the scatter targets
-    of the prompt rows: (positions (layers, S), flat row index into the
-    (layers * n_pages * ps, ...) pool view, validity).
+    of the prompt rows that land: (layer, page, offset) index tensors and
+    the (layer, row) index of each in the prefill cache.
 
     ``start`` is the copy-on-write boundary in tokens (0 unshared): the
     row's first ``start // ps`` pages were adopted from a live prefix owner,
@@ -114,7 +122,7 @@ def _splice_targets(fc, oc: KVCache, row: np.ndarray, slot: int, prompt_len: int
     not scattered (they would land on the owner's pages). The partly
     shared page, if ``start`` is not page-aligned, is a fresh page whose
     leading rows arrive through :func:`cow_split_pages`."""
-    nlayers, n_pages, ps = fc.k_pages.shape[:3]
+    nlayers, _, ps = fc.k_pages.shape[:3]
     nb = fc.block_table.shape[2]
     dev = fc.k_pages.device
     row_t = torch.as_tensor(np.asarray(row, np.int32), device=dev)
@@ -125,20 +133,18 @@ def _splice_targets(fc, oc: KVCache, row: np.ndarray, slot: int, prompt_len: int
     spos = oc.slot_pos[:, 0].to(dev)
     spos = torch.where((spos >= start) & (spos < prompt_len), spos, -1)
     page, off = paged_addresses(spos, row_t.expand(nlayers, nb), fc.ring, ps, nb)
-    lidx = torch.arange(nlayers, device=dev)[:, None]
-    flat = (lidx * n_pages + page.clamp_min(0).long()) * ps + off.long()
-    return spos, flat, page >= 0
+    # admission may read back to the host: keep only the rows that land
+    li, si = (page >= 0).nonzero(as_tuple=True)
+    return (li, page[li, si].long(), off[li, si].long()), (li, si), spos
 
 
 def _splice_paged(fc, oc: KVCache, row, slot: int, prompt_len: int, start: int):
     """Scatter the batch-1 prefill cache ``oc`` into the pages of ``row``:
     fp pools as they are, int8 / int4 pools through :func:`quantize_kv`
     (the decode path's quantiser), svd pools projected into each layer's
-    bases."""
-    spos, flat, valid = _splice_targets(fc, oc, row, slot, prompt_len, start)
-    # admission may read back to the host: keep only the rows that land
-    keep = valid.reshape(-1).nonzero().squeeze(1)
-    target = flat.reshape(-1)[keep]
+    bases. ``fc`` may be a view (one shard of a sharded node): the rows
+    are written through it."""
+    target, src_at, spos = _splice_targets(fc, oc, row, slot, prompt_len, start)
     k, v = oc.k[:, 0].to(fc.k_pages.device), oc.v[:, 0].to(fc.k_pages.device)
     if isinstance(fc, QuantPagedKVCache):
         bits, ngr = quant_cache_bits(fc, k.shape[-1]), fc.k_scale.shape[-1]
@@ -152,8 +158,52 @@ def _splice_paged(fc, oc: KVCache, row, slot: int, prompt_len: int, start: int):
     else:
         pairs = ((fc.k_pages, k), (fc.v_pages, v))
     for dst, src in pairs + ((fc.page_pos, spos),):
-        view = dst.view(-1, *dst.shape[3:])
-        view.index_put_((target,), src.reshape(-1, *view.shape[1:])[keep].to(dst.dtype))
+        dst.index_put_(target, src[src_at].to(dst.dtype))
+
+
+def _pool_fields(node) -> tuple[str, ...]:
+    """The node's tensors that carry the page-pool / block-table layout,
+    and so the shard axis of a sharded node; svd bases are per layer and
+    shared by every shard."""
+    if isinstance(node, QuantPagedKVCache):
+        return ("k_pages", "v_pages", "k_scale", "v_scale", "page_pos", "block_table")
+    return ("k_pages", "v_pages", "page_pos", "block_table")
+
+
+# a stacked node or one layer's view alike (``sharded`` is host metadata)
+paged_node_sharded = paged_cache_sharded
+
+
+def _take_shard(node, shard: int):
+    """Shard ``shard``'s sub-pool of a sharded stacked node as an unsharded
+    stacked node ((layers, n_pages/dp, ...) pools, (layers, B/dp, nb)
+    table): views, so a splice into it writes the shard in place."""
+    return dataclasses.replace(node, sharded=False, **{
+        f: getattr(node, f)[:, shard] for f in _pool_fields(node)})
+
+
+def _put_shard(node, sub, shard: int) -> None:
+    """Write a spliced sub-pool back into shard ``shard``: a copy only for
+    a leaf that is not already that shard's view (a :func:`_take_shard`
+    sub-pool was written in place)."""
+    for f in _pool_fields(node):
+        dst, src = getattr(node, f)[:, shard], getattr(sub, f)
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+
+def _splice_node(fn, on, row, slot: int, prompt_len: int, start: int) -> None:
+    """One paged node's splice. A sharded node routes the global slot to
+    (shard, local slot) by the contiguous-chunk map, slot // (B/dp), and
+    splices the shard's sub-pool; ``row`` then holds shard-local page ids
+    (the engine keeps one allocator per pool and shard)."""
+    if paged_node_sharded(fn):
+        shard, local = divmod(slot, fn.block_table.shape[2])
+        sub = _take_shard(fn, shard)
+        _splice_paged(sub, on, row, local, prompt_len, start)
+        _put_shard(fn, sub, shard)
+    else:
+        _splice_paged(fn, on, row, slot, prompt_len, start)
 
 
 def write_slot_paged(full, one, rows, slot: int, prompt_len: int, starts=None):
@@ -168,17 +218,10 @@ def write_slot_paged(full, one, rows, slot: int, prompt_len: int, starts=None):
         for bi, (fn, on) in enumerate(zip(fstage, ostage)):
             if isinstance(fn, PAGED_CACHE_TYPES):
                 start = 0 if starts is None else (starts[si][bi] or 0)
-                _splice_paged(fn, on, rows[si][bi], slot, prompt_len, start)
+                _splice_node(fn, on, rows[si][bi], slot, prompt_len, start)
             else:
                 write_slot([[fn]], mask_pad_rows([[on]], prompt_len), slot)
     return full
-
-
-def _copy_fields(node) -> tuple[str, ...]:
-    """The pool leaves a copy-on-write split copies besides page_pos."""
-    if isinstance(node, QuantPagedKVCache):
-        return ("k_pages", "v_pages", "k_scale", "v_scale")
-    return ("k_pages", "v_pages")
 
 
 def cow_split_pages(full, srcs, dsts, lo: int, hi: int):
@@ -188,17 +231,23 @@ def cow_split_pages(full, srcs, dsts, lo: int, hi: int):
     ``dsts[si][bi]``, keeping their ``page_pos``, in place; -1 (or None)
     in either disables the copy for a node. The engine runs it once per
     admission, after :func:`write_slot_paged` and before any decode
-    write, so the adopter's stream equals an unshared run's."""
+    write, so the adopter's stream equals an unshared run's. Prefix
+    sharing is single-replica (the engine refuses it on sharded pools),
+    so a sharded node cannot reach here."""
     for si, stage in enumerate(full):
         for bi, node in enumerate(stage):
             if not isinstance(node, PAGED_CACHE_TYPES):
                 continue
+            if paged_node_sharded(node):
+                raise NotImplementedError(
+                    "copy-on-write prefix sharing is single-replica only; "
+                    "sharded paged pools cannot reach cow_split_pages")
             src, dst = srcs[si][bi], dsts[si][bi]
             if src is None or dst is None or src < 0 or dst < 0:
                 continue
             pp = node.page_pos[:, src]
             live = (pp >= lo) & (pp < hi)
-            for f in _copy_fields(node):
+            for f in _pool_fields(node)[:-2]:      # the rows, not page_pos / table
                 t = getattr(node, f)
                 t[:, dst] = torch.where(live[..., None, None], t[:, src], t[:, dst])
             node.page_pos[:, dst] = torch.where(live, pp, node.page_pos[:, dst])
@@ -212,7 +261,8 @@ def kv_token_bytes(node) -> int:
     """K+V bytes per cached token across the node's layer stack; for a
     compressed pool the true stored footprint (int pages plus their f32
     scales, or rank-r coefficient rows), which is what makes admission
-    capacity grow with the compression ratio at a fixed byte budget."""
+    capacity grow with the compression ratio at a fixed byte budget.
+    Indexed from the ends, so sharded pools count the same."""
     if isinstance(node, QuantPagedKVCache):
         layers, kv, dhq = node.k_pages.shape[0], node.k_pages.shape[-2], node.k_pages.shape[-1]
         ngr = node.k_scale.shape[-1]
@@ -226,7 +276,10 @@ def kv_token_bytes(node) -> int:
 
 
 def pool_geometry(node) -> tuple[int, int]:
-    """(physical pages, page_size) of a stacked paged node."""
+    """(physical pages, page_size) of a stacked paged node, sharded or
+    not (every shard's pages counted)."""
+    if paged_node_sharded(node):
+        return node.k_pages.shape[1] * node.k_pages.shape[2], node.k_pages.shape[3]
     return node.k_pages.shape[1], node.k_pages.shape[2]
 
 
@@ -273,4 +326,57 @@ def install_svd_bases(caches, model, cfg):
             kv = attn.wk.shape[-1] // dh
             node.k_basis = _top_eig_basis(attn.wk.reshape(rep, d, kv, dh), r)
             node.v_basis = _top_eig_basis(attn.wv.reshape(rep, d, kv, dh), r)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# per-replica shards on a data mesh
+# ---------------------------------------------------------------------------
+def _shard_paged(node, dp: int):
+    """``node`` with every pool / table tensor as a view of shape (layers,
+    dp, n/dp, ...): shard s owns slots [s B/dp, (s+1) B/dp) and pages [s
+    n/dp, (s+1) n/dp). The table's ids are shard-local from here on; the
+    engine's fresh table maps nothing (-1), so no id has to move."""
+    n_pages = node.k_pages.shape[1]
+    B = node.block_table.shape[1]
+    if B % dp:
+        raise ValueError(
+            f"serving a paged cache on a data-parallel mesh needs "
+            f"max_slots divisible by the DP degree {dp} (each replica "
+            f"shard owns max_slots/{dp} contiguous slots); got "
+            f"max_slots={B}")
+    if n_pages % dp:
+        raise ValueError(
+            f"paged pools shard per replica: the pool's {n_pages} "
+            f"pages must divide by the DP degree {dp} so every "
+            f"replica gets an equal page budget — raise pool_tokens "
+            f"(or pick page_size/max_slots) so pages % {dp} == 0")
+    split = {f: getattr(node, f).view(getattr(node, f).shape[0], dp, -1,
+                                      *getattr(node, f).shape[2:])
+             for f in _pool_fields(node)}
+    return dataclasses.replace(node, sharded=True, **split)
+
+
+def shard_slots(caches, mesh):
+    """Lay the engine cache out for ``mesh``'s data axes, in place (the
+    JAX ``shard_slots``, one process and one device here).
+
+    Paged nodes are split into per-replica shards (:func:`_shard_paged`:
+    the pools (layers, dp, n_pages/dp, ps, KV, w), the table (layers, dp,
+    B/dp, nb) with shard-local ids), so each replica's slots read and
+    write only its own pages. Dense nodes keep their layout; their slot
+    axis must divide by the degree, as the JAX placement requires. SVD
+    bases are per layer and shared by every shard. Returns ``caches``."""
+    dp = dp_degree(mesh)
+    for stage in caches:
+        for i, node in enumerate(stage):
+            if isinstance(node, PAGED_CACHE_TYPES):
+                stage[i] = _shard_paged(node, dp)
+                continue
+            for t in node.tensors():
+                if t.dim() > 1 and t.shape[1] % dp:
+                    raise ValueError(
+                        f"serving on a data-parallel mesh needs max_slots divisible "
+                        f"by the DP degree {dp}; got a cache slot axis of "
+                        f"{t.shape[1]} (shape {tuple(t.shape)})")
     return caches

@@ -68,8 +68,22 @@ tokens alone.
 Several engines on one card, each with its own slots and pools, sit
 behind ``serve.router.Router``; a Prefix crosses between them in host
 form (:meth:`Prefix.to_host`, then :meth:`ServeEngine.admit_prefix`).
-Still refused: mesh sharding (the port's multi-GPU slice), and
-``speculative_k`` on any kind but attn (as in the JAX engine).
+
+``mesh`` (a data mesh inside this process, ``launch.mesh.make_local_mesh``)
+runs the JAX engine's data-parallel layout in one process on the
+engine's device: the paged layout splits every pool into ``n_replicas``
+= dp per-replica shards with shard-local page ids (``serve/cache.
+shard_slots``). Replica r owns the slot chunk [r B/dp, (r+1) B/dp) and
+a 1/dp share of every pool's pages, with one allocator per pool and
+replica; a request is placed on the replica with the most headroom left
+after it in its tightest pool (ties to the lowest replica), in that
+replica's lowest free slot; decode reads each slot's pages through its
+own shard's table (K7 / K8 through the sharded wrappers, one launch a
+layer for the whole batch). A dense engine under a mesh serves as without
+one (``n_replicas`` 1), its slot count still divisible by the degree.
+``prefix_share`` is single-replica, as in the JAX engine. Still refused:
+a mesh of ranks (a later multi-GPU serving slice), and ``speculative_k``
+on any kind but attn (as in the JAX engine).
 """
 from __future__ import annotations
 
@@ -85,16 +99,20 @@ import torch
 
 from repro_torch.core import stats as stats_lib
 from repro_torch.core.plan import cache_plan_from_spec
+from repro_torch.launch.mesh import is_local_mesh
 from repro_torch.models import decode_step, init_caches, prefill
 from repro_torch.models.attention import PAGED_CACHE_TYPES, SVDPagedKVCache
+from repro_torch.runtime.sharding import dp_degree
 from repro_torch.serve import cache as cache_lib
 from repro_torch.serve import paging
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 
 PAD_TOKEN = -1
 _BUCKET_WARNED: set[str] = set()
-LATER_SLICE_MULTI = ("{what} arrives with the port's multi-GPU slice; this "
-                     "slice serves engines on one device")
+LATER_SLICE_RANKS = ("serving on a mesh of ranks (process groups, one card a "
+                     "replica) arrives with a later multi-GPU serving slice; this "
+                     "engine runs a data mesh inside one process "
+                     "(launch.mesh.make_local_mesh)")
 
 
 def _percentile(sorted_samples, p: float) -> float:
@@ -252,8 +270,8 @@ class ServeEngine:
         if cfg.n_codebooks:
             raise NotImplementedError("multi-codebook decode is not served")
         kinds = {k for unit, _ in cfg.stages for k in unit}
-        if mesh is not None:
-            raise NotImplementedError(LATER_SLICE_MULTI.format(what="mesh sharding"))
+        if mesh is not None and (not is_local_mesh(mesh) or mesh.size != dp_degree(mesh)):
+            raise NotImplementedError(LATER_SLICE_RANKS)
         self.cache_layout = cache_layout or rcfg.cache_layout
         if self.cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be dense|paged, got {self.cache_layout!r}")
@@ -285,14 +303,21 @@ class ServeEngine:
         if any(isinstance(n, SVDPagedKVCache) for n in cache_lib.kv_cache_nodes(caches)):
             # calibration-free bases from the K/V projection spectra
             cache_lib.install_svd_bases(caches, model, cfg)
+        self.n_replicas = 1
+        if mesh is not None:
+            # data-parallel decode in this process: paged pools split into
+            # per-replica shards with shard-local page ids, dense slot caches
+            # as they are (their slot count divisible by the degree)
+            cache_lib.shard_slots(caches, mesh)
+            if self.cache_layout == "paged":
+                self.n_replicas = dp_degree(mesh)
         self.decode_state = DecodeState.init(caches, max_slots)
 
-        # one host-side allocator per page pool, in cache-tree order (the
-        # order _alloc_rows walks); the dense layout has none and admission
-        # is the free-slot check
-        self.allocators: list[paging.PageAllocator] = []
-        self.pool_labels: list[str] = []
-        self.pool_formats: list[str] = []
+        # one host-side allocator per page pool and replica shard, in
+        # cache-tree order (the order _alloc_rows walks), flattened replica
+        # by replica into ``allocators``; the dense layout has none and
+        # admission is the free-slot check
+        pool_specs: list[tuple] = []        # (spec, label, format) per pool
         dense_itemsize = torch.empty((), dtype=getattr(torch, rcfg.compute_dtype)).element_size()
         comp_bytes = dense_bytes = 0
         for si, ((unit, _), stage) in enumerate(zip(cfg.stages, caches)):
@@ -304,9 +329,19 @@ class ServeEngine:
                 dense_bytes += (2 * node.k_pages.shape[0] * node.k_pages.shape[-2]
                                 * cfg.head_dim * dense_itemsize)
                 fmt = self.cache_plan.cache_format(si, kind)
-                self.allocators.append(paging.PageAllocator(paging.spec_from_cache(node, tb)))
-                self.pool_labels.append(f"stage{si}.{kind}")
-                self.pool_formats.append(str(fmt) if fmt else rcfg.compute_dtype)
+                pool_specs.append((paging.spec_from_cache(node, tb), f"stage{si}.{kind}",
+                                   str(fmt) if fmt else rcfg.compute_dtype))
+        self.replica_allocators: list[list[paging.PageAllocator]] = [
+            [paging.PageAllocator(spec) for spec, _, _ in pool_specs]
+            for _ in range(self.n_replicas if pool_specs else 1)]
+        self.allocators = [a for pools in self.replica_allocators for a in pools]
+        self.pool_labels: list[str] = []
+        self.pool_formats: list[str] = []
+        for rep in range(len(self.replica_allocators)):
+            for _, label, fmt in pool_specs:
+                self.pool_labels.append(f"replica{rep}/{label}" if self.n_replicas > 1
+                                        else label)
+                self.pool_formats.append(fmt)
         # bytes per token against uncompressed pools (1.0 dense or fp paged):
         # the admission multiplier at a fixed byte budget
         self.kv_compression_x = dense_bytes / comp_bytes if comp_bytes else 1.0
@@ -354,6 +389,12 @@ class ServeEngine:
                 raise ValueError(
                     "prefix_share adopts page-pool pages between requests; the dense "
                     "layout has no pages -- pass cache_layout='paged'")
+            if self.n_replicas != 1:
+                raise ValueError(
+                    "prefix_share is single-replica: sharded pools keep "
+                    "shard-local page ids, so adopting another slot's "
+                    "pages could alias across shards — run one engine "
+                    "per replica behind serve/router.py instead")
             if cfg.vision_tokens:
                 raise ValueError(
                     "prefix_share identifies a prefix by its prompt "
@@ -830,7 +871,7 @@ class ServeEngine:
             self._unindex_prefix(entry)
             return
         n_prompt_pages = -(-len(entry.tokens) // self.page_size)
-        for alloc, row in zip(self.allocators, entry.rows):
+        for alloc, row in zip(self.replica_allocators[0], entry.rows):
             alloc.retain(("prefix", uid), row[:n_prompt_pages])
         entry.stream = list(entry.tokens) + [int(x) for x in generated]
         entry.retired = True
@@ -841,32 +882,44 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # page-aware admission
     # ------------------------------------------------------------------
-    def _can_admit(self, req: Request) -> bool:
-        """Paged admission predicate: every pool has the free pages of the
-        request's full reservation (prompt + max_new_tokens; a prefix
-        match charges only the pages it does not adopt), so an admitted
-        request always runs to its stop condition with no preemption
-        mid-stream. Dense: always."""
-        if not self.allocators:
-            return True
-        total = len(req.tokens) + req.max_new_tokens
-        match = self._match_prefix(req.tokens)
-        s = 0 if match is None else match[1] // self.page_size
-        return all(a.can_allocate(a.blocks_for(total) - s) for a in self.allocators)
+    def _slot_replica(self, slot: int) -> int:
+        """The replica shard owning ``slot`` (the contiguous-chunk map; 0
+        with one replica)."""
+        return slot // (self.max_slots // self.n_replicas)
 
     def try_place(self, req: Request) -> int | None:
         """The slot the request should be admitted to, or None if nothing
-        fits now: the lowest free slot, if every pool has room. Under page
-        pressure, retired prefixes (a cache, not a reservation) give their
-        pages back one LRU entry at a time until the request fits or none
-        is left."""
+        fits now. Among the replicas with a free slot and room in every
+        pool, the one with the most free pages left after the request in
+        its tightest pool (ties to the lowest replica), then its lowest
+        free slot; with one replica, the lowest free slot if every pool
+        has room. Under page pressure, retired prefixes (a cache, not a
+        reservation) give their pages back one LRU entry at a time until
+        the request fits or none is left."""
         free = self._free_slots()
         if not free:
             return None
-        while not self._can_admit(req):
+        if not self.allocators:
+            return free[0]
+        total = len(req.tokens) + req.max_new_tokens
+        while True:
+            # rematch every round: an eviction below may drop the entry
+            # just matched
+            match = self._match_prefix(req.tokens)
+            s = 0 if match is None else match[1] // self.page_size
+            best: tuple[int, int] | None = None
+            for rep, pools in enumerate(self.replica_allocators):
+                rep_free = [x for x in free if self._slot_replica(x) == rep]
+                need = [a.blocks_for(total) - s for a in pools]
+                if not rep_free or not all(a.can_allocate(n) for a, n in zip(pools, need)):
+                    continue
+                headroom = min(a.free_pages - n for a, n in zip(pools, need))
+                if best is None or headroom > best[0]:
+                    best = (headroom, rep_free[0])
+            if best is not None:
+                return best[1]
             if not self._evict_one_retired():
                 return None
-        return free[0]
 
     def pool_load(self) -> float:
         """Load factor in [0, 1]: the tightest pool's reserved fraction
@@ -876,7 +929,8 @@ class ServeEngine:
         return max(a.reserved_pages / max(1, a.spec.n_pages) for a in self.allocators)
 
     def _alloc_rows(self, req: Request, slot: int, share=None):
-        """Reserve the request's pages in every pool; returns ``(rows,
+        """Reserve the request's pages in every pool of the slot's replica
+        (shard-local page ids on sharded pools); returns ``(rows,
         starts, srcs, dsts, flat_rows)``, the first four mirroring the
         cache tree (None at non-paged nodes): the (nb,) block-table row,
         the copy-on-write share boundary ``m`` in tokens (0 unshared), and
@@ -886,6 +940,7 @@ class ServeEngine:
         ``(entry, m)`` match: the entry's first ``m // page_size`` full
         pages are adopted (refcount, no free-list charge)."""
         total = len(req.tokens) + req.max_new_tokens
+        pools = self.replica_allocators[self._slot_replica(slot)]
         ps = self.page_size
         entry, m = share if share is not None else (None, 0)
         s = m // ps
@@ -900,7 +955,7 @@ class ServeEngine:
                     for lst in (rst, sst, srst, dst):
                         lst.append(None)
                     continue
-                alloc = self.allocators[ai]
+                alloc = pools[ai]
                 shared = None if entry is None else entry.rows[ai][:s]
                 row = alloc.allocate(slot, alloc.blocks_for(total), shared=shared).copy()
                 flat_rows.append(row)
@@ -1100,7 +1155,7 @@ class ServeEngine:
             "cache_slot_bytes": cache_lib.slot_bytes(self.caches, self.max_slots),
             "prefill_buckets": len(self.bucket_lens),
             "buckets_enabled": self.prefill_buckets,
-            "replica_shards": 1,
+            "replica_shards": self.n_replicas,
             "prefix_share": self.prefix_share,
             "prefix_hits": self.prefix_hits,
             "prefix_pages_adopted": self.prefix_pages_adopted,

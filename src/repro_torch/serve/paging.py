@@ -61,16 +61,16 @@ def spec_from_cache(node, token_bytes: int) -> PoolSpec:
     page_size, KV, w), block_table (layers, B, nb). ``token_bytes`` comes
     from the caller (serve/cache.kv_token_bytes -- one formula for the
     allocator and the engine's accounting, and this module stays
-    numpy-only). Per-replica sharded pools (a block table of four axes)
-    wait for the port's multi-GPU slice."""
-    if node.block_table.ndim != 3:
-        raise NotImplementedError(
-            "sharded page pools arrive with the port's multi-GPU slice; "
-            f"got a block table of shape {tuple(node.block_table.shape)}")
+    numpy-only). A per-replica sharded node (pools (layers, dp, n_pages/dp,
+    ...), block_table (layers, dp, B/dp, nb)) yields the spec of one
+    shard: ``n_pages`` is one replica's page budget, matching the
+    allocator per pool and shard the engine keeps, whose page ids are
+    shard-local."""
+    lead = 2 if node.sharded else 1
     return PoolSpec(
-        page_size=node.k_pages.shape[2],
-        n_pages=node.k_pages.shape[1],
-        blocks_per_slot=node.block_table.shape[2],
+        page_size=node.k_pages.shape[lead + 1],
+        n_pages=node.k_pages.shape[lead],
+        blocks_per_slot=node.block_table.shape[lead + 1],
         ring=bool(node.ring),
         token_bytes=token_bytes,
     )

@@ -149,6 +149,16 @@ def make_shard_map_grads(cfg, rcfg, *, mesh, sampler=None) -> ShardMapGrads:
         raise ValueError(f"unknown grad_compress {gc!r}; have {GRAD_COMPRESS_SCHEMES}")
     dp, cp = sh.dp_degree(mesh), sh.cp_degree(mesh)
     n_shards = dp * cp
+    bk = getattr(rcfg, "moe_token_blocks", 1)
+    if bk > 1 and (bk % dp or cp > 1):
+        # a rank dispatches its data shard's tokens in bk / dp blocks: the
+        # global batch's bk contiguous blocks, split by rank
+        raise ValueError(
+            f"moe_token_blocks={bk} on a mesh of data {dp} x context {cp}: each "
+            f"data rank dispatches its share of the {bk} token blocks, so the "
+            f"blocks must divide by the data degree and the context degree "
+            f"must be 1 (a context rank's tokens are a zigzag slice of each "
+            f"sequence, not whole blocks)")
     # the JAX executor's config-time gate, with the cp decision table
     resolve_block_structure(cfg, rcfg, cp=cp)
     resolved_global = resolve_for_run(cfg, rcfg, mesh)
@@ -175,7 +185,7 @@ def make_shard_map_grads(cfg, rcfg, *, mesh, sampler=None) -> ShardMapGrads:
     def rank_grads(model, batch: dict, step_idx: int):
         b = local_batch(batch, mesh, model.device, grad_accum=rcfg.grad_accum)
         key = Key(rcfg.seed, sampler=sampler).fold_in(int(step_idx))
-        with sh.context_parallel(mesh):
+        with sh.context_parallel(mesh), sh.data_parallel(mesh):
             return loss_and_grad(cfg, rcfg, resolved, model, b, key)
 
     def sync_grads(grads: dict, ef):

@@ -135,12 +135,6 @@ def test_padded_expert_tree_computes_the_same(gather):
     assert float(aux_t) == pytest.approx(float(aux_j), rel=1e-6)
 
 
-def test_moe_token_blocks_is_refused():
-    jcfg, tcfg, params, x = moe_setup("granite-moe-3b-a800m_smoke")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        moe.moe_ffn(to_torch(params), torch.from_numpy(x), tcfg, token_blocks=2)
-
-
 def setup(arch, seq=32, batch=4, spec=SPEC, **kw):
     """JAX and port run configs (f32, ``spec``), JAX parameters, one batch
     and the port model holding the same parameters."""

@@ -23,6 +23,7 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch import bridge
 from repro_torch.configs import RunConfig as TorchRunConfig
 from repro_torch.configs import get_config as torch_get_config
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import decode_step as t_decode_step
 from repro_torch.models import init_model as t_init_model
 from repro_torch.models import prefill as t_prefill
@@ -175,14 +176,19 @@ def test_engine_eos_and_stage_api_errors():
         eng.submit(Request(uid=2, tokens=prompt, max_new_tokens=40))
 
 
+RANKS = Mesh(("data", "model"), (2, 1), groups={"data": object()}, sync_group=object())
+
+
 @pytest.mark.parametrize("arch,kwargs,match", [
-    ("internlm2-1.8b_smoke", {"mesh": object()}, "multi-GPU slice"),
+    ("internlm2-1.8b_smoke", {"mesh": RANKS}, "later multi-GPU serving slice"),
     ("llama-3.2-vision-11b_smoke", {}, "arch needs image_embeds"),
-    ("recurrentgemma-9b_smoke", {"mesh": object()}, "multi-GPU slice"),
+    ("recurrentgemma-9b_smoke", {"mesh": RANKS}, "later multi-GPU serving slice"),
 ])
 def test_engine_refuses_later_slices(arch, kwargs, match):
-    """What the port does not serve yet raises, naming the slice: a mesh
-    (multi-GPU), also on a hybrid arch. The xattn block kind is served
+    """What the port does not serve yet raises, naming the slice: a mesh of
+    ranks (multi-GPU serving), also on a hybrid arch; a data mesh inside
+    one process is served since the sharded-serving slice
+    (tests/test_torch_sharded_serving.py). The xattn block kind is served
     since the xattn slice (tests/test_torch_xattn_serve.py): its engine
     refuses a request without image_embeds, with the JAX text. (Paged,
     compressed, prefix-shared and speculative serving are served since the
@@ -247,9 +253,15 @@ def test_serve_cli_smoke_and_refusals(capsys):
         out = capsys.readouterr().out
         assert "SMOKE OK" in out and front in out
         assert "peak aggregate concurrency 4" in out and "tok/s wall aggregate" in out
-    # a mesh needs cards: refused, naming the slice that brings it; a
+    # one engine's pools sharded over an in-process data mesh
+    main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--batch", "2",
+          "--requests", "4", "--prompt-len", "10", "--gen", "4",
+          "--cache-layout", "paged", "--page-size", "8", "--mesh-data", "2", "--smoke"])
+    out = capsys.readouterr().out
+    assert "SMOKE OK" in out and "replica shards 2" in out
+    # a mesh shards one engine, a router fronts several: not both; a
     # dedicated prefill engine needs a router, so it is refused alone
-    for argv, msg in ((["--mesh-data", "2"], "multi-GPU slice"),
+    for argv, msg in ((["--mesh-data", "2", "--replicas", "2"], "pick one"),
                       (["--dedicated-prefill"], "--dedicated-prefill needs --replicas > 1")):
         with pytest.raises(SystemExit) as exc:
             main(["--arch", "internlm2-1.8b_smoke", "--device", "cpu", *argv])
