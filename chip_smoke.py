@@ -12,9 +12,12 @@ musicgen-medium (embeddings in, four codebook heads out), scored, decoded
 over embeddings and PAMM-trained at full size, and the port's four
 examples (``repro_torch.examples``) run on the card; then data x context
 training of internlm2-1.8b on gloo ranks sharing the card (ZeRO-1, the
-int8 error-feedback all-reduce, ring attention over K3-K5's offsets); and
-the data axis inside one process: one engine's page pools split per
-replica (K7 / K8 through the sharded wrappers), MoE's blocked dispatch.
+int8 error-feedback all-reduce, ring attention over K3-K5's offsets); the
+data axis inside one process: one engine's page pools split per replica
+(K7 / K8 through the sharded wrappers), MoE's blocked dispatch; and
+tensor parallelism: internlm2-1.8b trained over the model axis (column-
+and row-parallel products, K1-K5 at the per-rank head counts) on gloo
+ranks sharing the card.
 
   python3 chip_smoke.py
 
@@ -40,7 +43,7 @@ is caught and ignored:
                         row alone bitwise equal to the same row at B = 8
   4. serving            internlm2-1.8b (24 layers, d 2048, 16/8 heads,
                         vocab 92544), bf16, random weights from seed 0,
-                        8 slots, 16 requests of ~1024 prompt tokens and 64
+                        8 slots, 16 requests of ~1024 prompt tokens and 32
                         new tokens (12 greedy, 4 at temperature 0.8 /
                         top-k 40): every request finishes, logits stay
                         finite, a second run gives the same tokens, greedy
@@ -67,25 +70,28 @@ is caught and ignored:
                         ties, every token of each greedy stream against a
                         teacher-forced forward, a second run,
                         launch counts K7 = 24 x decode steps, peak memory,
-                        a profiler split of one decode block); fp, int8,
-                        int4 and svd(r=1/2) at one byte budget of four bf16
-                        reservations (pages, admitted concurrency, released
+                        a profiler split of one decode block); then, at
+                        full width cut to 8 of 24 layers (SERVE_REPS), fp,
+                        int8, int4 and svd(r=1/2) at one byte budget of
+                        four bf16 reservations (pages, admitted
+                        concurrency, released
                         pages, throughput, first-step logits against fp
                         within the JAX bounds, K8 on int8/int4, a profiler
-                        split of one int8 decode block); prefix
-                        sharing of a 768-token head (tokens equal unshared,
+                        split of one int8 decode block); at full depth,
+                        prefix sharing of a 768-token head (tokens equal unshared,
                         the sharing counters, K7 launches); speculative
                         verify at k = 4 (tokens equal sequential greedy up
                         to a near tie, every token of each stream against
                         a teacher-forced forward, every decode step a
                         verify call through K7 at Lq 5)
-  8. serving front      the serving phase's requests at 16 new tokens
+  8. serving front      at full width cut to 8 of 24 layers: the serving
+                        phase's requests at 16 new tokens
                         through Routers over 1, 2 and 4 paged fp replicas
                         (8 slots and a fixed pool of 2176 tokens each):
                         aggregate concurrency 2 / 4 / 8, greedy tokens at 2
                         and 4 replicas equal to 1 replica's (or near ties
                         held to a teacher-forced forward), sampled ones
-                        bitwise equal, K3 = 24 x 16 prefills and K7 = 24 x
+                        bitwise equal, K3 = 8 x 16 prefills and K7 = 8 x
                         the replicas' decode steps, plain 0; 2 replicas
                         behind a 1-slot prefill engine (tokens equal, no
                         replica prefills, the host hand-off timed); one
@@ -94,7 +100,7 @@ is caught and ignored:
                         wall aggregate; a profiler split of one router step
                         at 4 replicas; then train.serve_step's
                         greedy_decode against greedy_decode_per_token (8 x
-                        1024 prompts, 64 steps, dense: tokens up to near
+                        1024 prompts, 32 steps, dense: tokens up to near
                         ties, launches, wall ms per decode step: median
                         and quartiles over 2 rounds, the order alternating)
   9. K1, K2, K4/K5      the training kernels against their plain versions
@@ -360,15 +366,16 @@ is caught and ignored:
                         pairs), no window and a window of 1536 that crosses
                         a seam (rows that see no key held to lse <=
                         NEG_INF/2), bf16 and f32
-  36. mesh data         internlm2-1.8b at full width and depth,
-                        attn.qkv=pamm(r=1/512), remat='pamm', bf16 compute,
+  36. mesh data         internlm2-1.8b at full width cut to 4 of 24 layers
+                        (MESH_LAYERS), attn.qkv=pamm(r=1/512),
+                        remat='pamm', bf16 compute,
                         two gloo ranks sharing cuda:0 (launch.ranks spawns
                         them; rank 0 first runs the single-process step
                         with blocks=2 while rank 1 warms up): data 2, global
                         4 x 2048, steps 1 and 2: losses within 2e-3 and the
                         parameters' change over the two steps within 0.05 of
                         its norm of the single-process step's, launches a
-                        rank and step K1 24, K2 72, K3 48, K4 = K5 24, each
+                        rank and step K1 4, K2 12, K3 8, K4 = K5 4, each
                         rank's moments exactly half the single process's
                         (ZeRO-1); then int8_ef for the two steps: losses
                         within half the uncompressed run's decrease,
@@ -385,7 +392,7 @@ is caught and ignored:
                         step-1 gradients (after the all-reduce) of the
                         leaves attn.qkv does not compress within 0.05 of
                         their norm of the single-process ones (the ring's
-                        backward), launches a rank K3 240, K4 = K5 120 (5
+                        backward), launches a rank K3 40, K4 = K5 20 (5
                         live chunk pairs a layer, the forward twice under
                         'pamm') on both ranks, each rank's peak beside the
                         single process's, the ring's send / recv staged
@@ -408,12 +415,13 @@ Run after phase 8 (on internlm2-1.8b) and after phase 17 (on granite):
                         bf16): dp 2 and 4, Lq 5, int8 and int4 pages; two
                         launches bitwise equal, and equal to K7 / K8 on the
                         folded pool through the offset table
-  41. sharded serving   one engine on an in-process data mesh: 8 requests of
+  41. sharded serving   one engine on an in-process data mesh, internlm2
+                        at full width cut to 8 of 24 layers: 8 requests of
                         ~256 prompt and 32 new tokens, greedy, through a
                         pool of 28 pages of 64 split per replica (dp 2 fp,
                         dp 2 int8, dp 4 fp), each against one engine over
                         the same pool: tokens equal up to near ties, K7 /
-                        K8 = 24 x decode steps (one launch a layer whatever
+                        K8 = 8 x decode steps (one launch a layer whatever
                         dp, and the wrapper's count equal), every replica
                         serving at dp 4, every allocator drained, decode
                         tok/s and p50 / p95, peak concurrency, pages free a
@@ -429,6 +437,35 @@ Run after phase 8 (on internlm2-1.8b) and after phase 17 (on granite):
                         factor 16 against a teacher-forced blocked forward;
                         moe_ffn blocked on granite smoke, card against the
                         CPU in f32 (output and every gradient, 1e-5)
+
+Run after phase 39 (the mesh phases), on internlm2-1.8b:
+
+  43. tensor parallel   full width and depth, attn.qkv=pamm(r=1/512),
+                        remat='pamm', bf16 compute, two gloo ranks sharing
+                        cuda:0, model 2 (each rank 8/4 heads, 4096 of the
+                        FFN width, half the vocabulary; rank 0 first runs
+                        the single-process step while rank 1 warms up),
+                        global 4 x 2048, a warm-up step (index 0, rate 0)
+                        and steps 1 and 2: losses within 2e-3 of the
+                        single-process step's, step 1's gradients of every
+                        leaf (gathered over the model ranks; the model ranks
+                        draw the single process's generator rows) and the
+                        parameters' change over the steps within 0.05 of
+                        their norms, launches a rank and step K1 24, K2 72,
+                        K3 48, K4 = K5 24 on both ranks; per rank ms a step
+                        ("ranks sharing one H100 over gloo"), peak beside
+                        the single process's, parameter and moment bytes,
+                        bytes between card and host a step
+  44. data x model      four ranks, data 2 x model 2, full width cut to 4
+                        layers, ZeRO-1, the same batch and checks (blocks=2
+                        single-process step), and each rank's moments equal
+                        to its model then data slices of the gathered whole
+  45. tp numbers        K3 / K4 / K5 at the per-rank shape (4, 2048, 8/4,
+                        128) and K1 at (8192, 2048, k 16), K2 at m 1024
+                        (wq's columns) and 512 (wk / wv's) against their
+                        plain versions, then as kernel rows (SDPA as
+                        library; launches: rank 0's in phase 43's two
+                        measured steps)
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -466,7 +503,11 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 ARCH = "internlm2-1.8b"
 SLOTS, MAX_LEN, DECODE_BLOCK = 8, 1089, 8
-PROMPT_LEN, N_REQUESTS, GEN = 1024, 16, 64
+# 32 new tokens a request: at 64 the whole script passed 1200 s on a slow
+# host; the decode kernels' checks and rows stay MID_DECODE tokens into a
+# generation, where they were timed at 64 new tokens
+PROMPT_LEN, N_REQUESTS, GEN = 1024, 16, 32
+MID_DECODE = 32
 SAMPLED = {3, 7, 11, 15}          # uids served at temperature 0.8 / top-k 40
 TOL_O = 2e-2                       # bf16 outputs: a few bf16 ulps at |o| <= 1
 # times of the first versions of the kernels redesigned since (scalar K3,
@@ -502,7 +543,7 @@ FRONT_REPLICAS = (1, 2, 4)
 # new tokens: 64 would add more than ~90 s; 32 took ~28 s more than 16,
 # cut to keep the whole script in its limit with phases 40-42
 FRONT_GEN = 16
-SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 64
+SERVE_STEP_ROWS, SERVE_STEP_STEPS = 8, 32
 SERVE_STEP_ROUNDS = 2              # engine / loop turns, each order half the time
 # first spliced decode step, compressed pool against fp paged: the JAX
 # package's per-format bounds (tests/test_kvquant.py:364-367)
@@ -657,8 +698,13 @@ GEMM_NAMES = ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")
 # inside its time limit with the mesh phases and phases 40-42 (with mamba2
 # and llama-vision served at full depth it took 1202 s on an H100 whose
 # host was slow; mamba2 at 12 and llama-vision at 2 units until phases
-# 40-42 came); their training phases keep their depths
-SERVE_REPS = {MOE_ARCH: (8,), SSM_ARCH: (8,), REC_ARCH: (3, 1), VIS_ARCH: (1,)}
+# 40-42 came); their training phases keep their depths. internlm2-1.8b
+# serves at full depth in phases 4-7's dense and paged fp runs, prefix
+# sharing and speculative verify, and at 8 of 24 layers (its own seed-0
+# weights) in the compressed pools, the serving front, serve_step and the
+# sharded pools: with the tensor-parallel phases the script took 880 s
+# on one host and passed 1200 s on a slower one
+SERVE_REPS = {ARCH: (8,), MOE_ARCH: (8,), SSM_ARCH: (8,), REC_ARCH: (3, 1), VIS_ARCH: (1,)}
 
 
 def serve_cfg(arch):
@@ -1043,7 +1089,7 @@ def phase_serving():
     peak = torch.cuda.max_memory_allocated()
 
     check(sorted(out) == list(range(N_REQUESTS)), "not every request finished")
-    check(all(len(out[u].tokens) == GEN for u in out), "a request did not get 64 tokens")
+    check(all(len(out[u].tokens) == GEN for u in out), f"a request did not get {GEN} tokens")
     check(stats["nonfinite_logits"] == 0,
           f"{stats['nonfinite_logits']} non-finite logits rows")
     check(all(out[u].tokens == warm[u].tokens for u in out),
@@ -1064,8 +1110,8 @@ def phase_serving():
         solo = engine().run(req)[uid]
         check(solo.tokens == out[uid].tokens,
               f"greedy request {uid} alone differs from its batched run")
-    print(f"[serve] 16/16 requests x {GEN} tokens; second run identical; greedy "
-          f"requests 0 and 1 identical alone and batched; logits finite")
+    print(f"[serve] {N_REQUESTS}/{N_REQUESTS} requests x {GEN} tokens; second run identical; "
+          f"greedy requests 0 and 1 identical alone and batched; logits finite")
     check_against_prefill(cfg, rcfg, model, _requests(cfg)[0], out[0].tokens)
     trace_breakdown(cfg, engine, model, {
         "prefill": 1e3 * stats["prefill_s"] / max(1, stats["prefill_count"]),
@@ -1073,6 +1119,20 @@ def phase_serving():
     dense = {"cfg": cfg, "rcfg": rcfg, "model": model,
              "tokens": {u: out[u].tokens for u in out}}
     return counts, stats, peak, dense
+
+
+def cut_serving(dense) -> dict:
+    """The serving phase's ``dense`` with internlm2-1.8b at full width cut
+    to ``SERVE_REPS[ARCH]`` layers, initialised from seed 0 on the card,
+    for the phases that serve it cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+
+    cfg = serve_cfg(ARCH)
+    model = init_model(cfg, dense["rcfg"], seed=0, device="cuda")
+    print(f"[serve] {ARCH} cut to {cfg.n_layers} of {get_config(ARCH).n_layers} layers for the "
+          f"compressed pools, the serving front, serve_step and the sharded pools")
+    return {**dense, "cfg": cfg, "model": model}
 
 
 def check_against_prefill(cfg, rcfg, model, req, tokens, every: int = 8):
@@ -1328,12 +1388,12 @@ def decode_lines(gen, line, H, KV, dh, window, serve):
     B, S = SLOTS, MAX_LEN
     dense = serve["dense"]
     line(f"K6 ({B} slots x {S}, {H}/{KV}, {dh})",
-         *k6_inputs(gen, H, KV, dh, PROMPT_LEN + GEN // 2, window),
+         *k6_inputs(gen, H, KV, dh, PROMPT_LEN + MID_DECODE, window),
          f"{dense['counts'].get('flash_decode', 0)} launches serving "
          f"({dense['stats']['decode_steps']} steps)")
     q = _randn((B, 1, H, dh), gen)
     qt = q.transpose(1, 2)
-    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
+    fill = [PROMPT_LEN + MID_DECODE + 1] * B           # mid-generation, 17 pages each
     kp, vp, bt, ppos = paged_inputs(gen, B, 18, PAGE, KV, dh, fill, n_mapped=17)
     qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
     mask = paged_visible(bt, ppos, qpos, window)[:, None]
@@ -1383,7 +1443,7 @@ def phase_numbers(gen, counts, stats, smi, err3, err6, peak):
     # K6 at the slice's decode shape: 8 slots of 1089, mid-generation
     k6 = _kernel_row("flash_decode (K6, split over the keys)", K6_SOURCE, K6_REPLACES,
                      counts.get("flash_decode", 0), err6,
-                     *k6_inputs(gen, H, KV, dh, PROMPT_LEN + GEN // 2))
+                     *k6_inputs(gen, H, KV, dh, PROMPT_LEN + MID_DECODE))
 
     tag = f"[{smi}]"
     for row, key in ((k3, "K3 serving"), (k6, "K6")):
@@ -1808,7 +1868,7 @@ def phase_compressed_pools(dense, smi):
               and sum(counts.get(k, 0) for k in ("flash_decode", "flash_paged_decode",
                                                  "flash_paged_decode_quant")) ==
               cfg.n_layers * st["decode_steps"],
-              f"{label} pool launches {counts}: want {want} = 24 x decode steps only")
+              f"{label} pool launches {counts}: want {want} = {cfg.n_layers} x decode steps only")
         err = 0.0 if not spec else float((_spliced_logits(cfg, rcfg, model, spec, prefix)
                                           - ref).abs().max())
         tol = FORMAT_TOL.get(spec, 0.0)
@@ -1933,7 +1993,7 @@ def phase_paged_numbers(gen, paged_counts, pool_res, smi, errs):
                                                   flash_paged_decode_ref, quantize_kv)
 
     B, nb, H, KV, dh = SLOTS, 18, 16, 8, 128
-    fill = [PROMPT_LEN + GEN // 2 + 1] * B                 # mid-generation, 17 pages each
+    fill = [PROMPT_LEN + MID_DECODE + 1] * B           # mid-generation, 17 pages each
     k, v, bt, ppos = paged_inputs(gen, B, nb, PAGE, KV, dh, fill, n_mapped=17)
     q = _randn((B, 1, H, dh), gen)
     qpos = torch.full((B,), fill[0] - 1, dtype=torch.int32, device="cuda")
@@ -1999,8 +2059,8 @@ def _front_serve(cfg, front, replicas, prefill_engines, label):
     """Serve the phase-4 requests at FRONT_GEN new tokens through ``front``
     (a Router or one engine) with the launch counts set to 0 just before
     and read just after; check that every request finished with finite
-    logits and no page stayed reserved, and the launches: K3 = 24 x 16
-    prefills, K7 = 24 x the replicas' summed decode steps, K6, the f32
+    logits and no page stayed reserved, and the launches: K3 = layers x 16
+    prefills, K7 = layers x the replicas' summed decode steps, K6, the f32
     route and every plain version 0. Returns what the phase prints."""
     import torch
 
@@ -2180,9 +2240,10 @@ def phase_serving_front(dense, smi):
 def phase_serve_step(dense, smi):
     """``train.serve_step``: greedy_decode (the engine's decode blocks)
     against greedy_decode_per_token (one batched prefill, then a Python
-    loop of decode_step) on the first 8 prompts at 1024 tokens, 64 steps,
-    dense: tokens up to near ties, the launches, and the wall ms per
-    decode step of each, (wall at 64 steps - wall at 1 step) / 63, over
+    loop of decode_step) on the first 8 prompts at 1024 tokens,
+    SERVE_STEP_STEPS steps, dense: tokens up to near ties, the launches,
+    and the wall ms per decode step of each, (wall at n steps - wall at 1
+    step) / (n - 1), over
     rounds whose order alternates: median and quartiles, and of the
     loop / engine ratio within a round."""
     import numpy as np
@@ -3825,7 +3886,7 @@ def phase_rec_kernels(gen):
     del q, k, v
     errs["K6"] = max(check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=False),
                      check_k6(gen, SLOTS, MAX_LEN, H, KV, dh, ring=True,
-                              ring_slots=REC_WINDOW, n_ring=REC_LONG_PROMPT + GEN // 2))
+                              ring_slots=REC_WINDOW, n_ring=REC_LONG_PROMPT + MID_DECODE))
     for case in (("recurrentgemma heads, row 3 parked", dh, 1, False, 0, None, None, None),
                  ("recurrentgemma heads, a ring pool of 2048", dh, 1, False, REC_WINDOW, None,
                   None, None),
@@ -4889,6 +4950,10 @@ RING_WINDOW = 1536                           # more than a chunk: crosses a zigz
 DATA_SHAPE, DATA_BATCH, DATA_SEQ = (2, 1), 4, 2048
 CTX_SHAPE, CTX_BATCH, CTX_SEQ = (1, 2), 2, 4096
 DC_SHAPE, DC_BATCH, DC_SEQ, DC_LAYERS = (2, 2), 4, 4096, 4
+# phases 36-37 at full width cut to 4 of 24 layers: at full depth they took
+# 136 s of an 880 s script, and the whole script passed 1200 s on a slower
+# host; the tensor-parallel phases keep full depth
+MESH_LAYERS = 4
 MESH_TIMEOUT = 600.0
 SHARED = "ranks sharing one H100 over gloo"
 # bf16 compute: the ranks' products run at other batch shapes (and the
@@ -5353,8 +5418,8 @@ def report_mesh_data(res: list, smi: str) -> None:
 
 
 def phase_mesh_pair(smi, layers=None, rank_fn=None):
-    """Phases 36 and 37 in one group of two ranks. 36: data 2, full depth
-    (``layers`` cuts it), global 4 x 2048, two steps against the
+    """Phases 36 and 37 in one group of two ranks. 36: data 2, full width
+    at ``layers`` layers (None: full depth), global 4 x 2048, two steps against the
     single-process step with blocks=2 (the same generator rows): losses,
     the parameters' change, half the moments a rank; then int8_ef with its
     residue check. 37: context 2, global 2 x 4096 (each rank a 2048 zigzag
@@ -5466,12 +5531,11 @@ def ring_pair_rows(gen, ctx_res, errs, smi):
     return rows
 
 
-def run_mesh_phases(gen, smi, layers=None):
+def run_mesh_phases(gen, smi, layers=MESH_LAYERS):
     """Phases 35-39: the ring's kernels at its chunk shape, the mesh
     executor on data 2 and context 2 ranks (one group) and on data 2 x
     context 2 ranks sharing the card, the ring's kernel rows. ``layers``
-    cuts the data and context phases' depth (tools/mesh_phases.py's
-    rehearsal)."""
+    sets the data and context phases' depth (None: full depth)."""
     errs = phase_ring_kernels(gen)
     _, ctx = phase_mesh_pair(smi, layers)
     phase_mesh_data_context(smi)
@@ -5607,7 +5671,7 @@ def _sharded_run(eng, cfg):
 def phase_sharded_serving(dense, smi):
     """Phase 41: one engine's page pools split into per-replica shards of
     an in-process data mesh (dp 2 over fp and int8 pools, dp 4 over fp),
-    internlm2-1.8b at full width and depth, against one engine over the
+    internlm2-1.8b at full width cut to SERVE_REPS, against one engine over the
     same pool: tokens, launches, throughput, concurrency, the offset's
     host time. Two rounds, the second in the reverse order (walls move
     between runs of one call). Returns the first round's launch counts of
@@ -5853,6 +5917,421 @@ def phase_moe_blocked(smi):
     print(f"[moe blocked] phase 42 wall {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the model axis over gloo ranks on one card
+# ---------------------------------------------------------------------------
+TP_SHAPE, TP_LAYERS = (1, 2), None               # phase 43: model 2, full depth
+DTP_SHAPE, DTP_LAYERS = (2, 2), 4                # phase 44: data 2 x model 2, 4 layers
+TP_BATCH, TP_SEQ = DATA_BATCH, DATA_SEQ          # the data phase's batch: 4 x 2048
+# a warm-up step (the warmup-cosine rate is 0 at index 0: the parameters
+# stay, the moments move) and two measured steps
+TP_STEPS = (0, 1, 2)
+TP_GRAD_STEP = 1          # the step whose gradients are held, at the initial parameters
+TP_HEADS = (8, 4, 128)    # internlm2's 16 / 8 heads of 128 on each of 2 model ranks
+TP_SITE = (TRAIN_BATCH * TRAIN_SEQ, 2048, 16)   # attn.qkv's (b, n, k) at r=1/512
+TP_K2_M = ((1024, "wq"), (512, "wk / wv"))      # K2's dZ columns a rank at tp 2
+
+
+def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg) -> dict | None:
+    """This rank's model-axis slice of each of rank 0's leaves ``full``
+    (the single process's, f32 on the card), on the model ranks of data
+    coordinate 0: rank 0 sends the others theirs over gloo through host
+    memory, leaf by leaf (gloo takes no CUDA tensor in send / recv; its own
+    slices are views); None on the other ranks. ``local``: this rank's
+    tensors, for the names, shapes and layout."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.model import _padded_vocab
+    from repro_torch.runtime import sharding as sh
+
+    if mesh.coord("data") != 0:
+        return None
+    v_pad = _padded_vocab(cfg, rcfg)
+    tp, me = sh.tp_degree(mesh), mesh.coord("model")
+    out = {}
+    for n, t in local.items():
+        dim = sh.local_model_dim(n, tuple(t.shape), cfg, v_pad)
+        if me == 0:
+            for m in range(1, tp):      # data 0's model ranks are global ranks 0..tp-1
+                dist.send(sh.shard_slice(full[n], dim, m, tp).contiguous().cpu(), dst=m)
+            out[n] = sh.shard_slice(full[n], dim, 0, tp)
+        else:
+            host = torch.empty(t.shape, dtype=torch.float32)
+            dist.recv(host, src=0)
+            out[n] = host.to(t.device)
+    return out
+
+
+def _held_bytes(*trees) -> int:
+    """Bytes of the card storage behind the tensors of ``trees`` (dicts;
+    None skipped), each storage once: what a rank holds for the comparison
+    and takes out of its measured peak."""
+    seen = {}
+    for tree in trees:
+        for t in (tree or {}).values():
+            if t.device.type == "cuda":
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _tp_parts(tensors: dict, ref: dict | None) -> dict:
+    """(||a - ref||^2, ||ref||^2) of each leaf ``a`` of ``tensors`` (this
+    rank's slices) against ``ref`` (this rank's slices of the single
+    process's); {} without ``ref``."""
+    if ref is None:
+        return {}
+    return _rel_by_leaf((n, t.detach().float(), ref[n]) for n, t in tensors.items())
+
+
+def _tp_whole_parts(res: list, key: str, label: str) -> dict:
+    """The whole leaves' parts from the model ranks' slices (data
+    coordinate 0): a split leaf's summed over the ranks; a whole leaf's
+    rank 0's, which every rank's copy must equal."""
+    ranks = [r for r in res if r["coord"][0] == 0]
+    out = {}
+    for n, whole in ranks[0][key].items():
+        if n in ranks[0]["split"]:
+            out[n] = tuple(sum(r[key][n][i] for r in ranks) for i in (0, 1))
+        else:
+            check(all(r[key][n] == whole for r in ranks),
+                  f"{label}: the model ranks' copies of the whole leaf {n} differ")
+            out[n] = whole
+    return out
+
+
+def _free_pinned() -> None:
+    """Release the pinned host blocks that gloo's copies of large CUDA
+    tensors left in the caching host allocator, so later collectives do
+    not run beside them."""
+    import torch
+
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+
+
+def _tp_grad_hook(ref, out: dict):
+    """A ``grads_hook`` for every rank: at step TP_GRAD_STEP the parts of
+    the gradients after the data all-reduce (this rank's slices) against
+    the single process's (``ref``: this rank's slices of them, None on
+    the ranks that do not compare) into ``out["grad_parts"]``, with the
+    comparison's own ms (inside the step's)."""
+    import torch
+
+    calls = [0]
+
+    def hook(grads):
+        at = TP_STEPS[calls[0]]
+        calls[0] += 1
+        if at != TP_GRAD_STEP:
+            return
+        t0 = time.perf_counter()
+        out["grad_parts"] = _tp_parts(grads, ref)
+        torch.cuda.synchronize()
+        out["grad_cmp_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    return hook
+
+
+def tp_rank(rank: int, world: int, jobs: list) -> list:
+    """One gloo rank of phases 43-44 (``launch.ranks`` starts it), every
+    rank on cuda:0, running ``jobs`` in turn, each on its own (data, model)
+    mesh. Rank 0 first runs the single-process step on the whole global
+    batch with blocks = the data degree (the others wait at a barrier,
+    warming up before the first job) and keeps on the card the gradients
+    of step TP_GRAD_STEP at the initial parameters (the rate is 0 at index
+    0, so step 0 leaves them) and the parameters after the steps, and
+    hands each model rank of data coordinate 0 its model-axis slices of
+    them; then every rank runs the mesh executor from the same seed (its
+    slices of the same draws), and those ranks hold their gradients at
+    step TP_GRAD_STEP and their parameters after the steps to their
+    slices; with ``moments``, the moments gathered whole and each rank's
+    held to its slices of them."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.core.keys import Key
+    from repro_torch.core.plan import resolve_for_run
+    from repro_torch.data import SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import _padded_vocab
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.collectives import gather_model_
+    from repro_torch.train import (init_distributed_state, init_train_state, loss_and_grad,
+                                   make_shard_map_train_step, make_train_step)
+    from repro_torch.train.distributed import gathered_moments, zero1_of
+    from repro_torch.train.train_step import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build()                       # the parent's builds, found by their hashes
+    outs = []
+    for i, job in enumerate(jobs):
+        cfg = mesh_cfg(job["layers"])
+        data, model = job["shape"]
+        v_pad = _padded_vocab(cfg, RunConfig())
+        rcfg = RunConfig(compression=MESH_SPEC, policy_name="none", remat=MESH_REMAT)
+        stream = SyntheticStream.for_arch(cfg, TP_SEQ, TP_BATCH, seed=rcfg.seed)
+        batches = {s: stream.get_batch(s) for s in TP_STEPS}
+        mesh = make_debug_mesh(data, model, timeout=MESH_TIMEOUT)
+        out = {"rank": rank, "coord": (mesh.coord("data"), mesh.coord("model"))}
+        times = out["times"] = {}
+        ref = {}
+        t0 = time.perf_counter()
+        if rank == 0:
+            # on the card: the gradients at the initial parameters, the
+            # parameters after the steps, and the change's squared norm a leaf
+            blocked = dataclasses.replace(rcfg,
+                                          compression=f"{MESH_SPEC[:-1]},blocks={data})")
+            state = init_train_state(cfg, blocked, device="cuda")
+            p0 = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+            _, _, grads = loss_and_grad(cfg, blocked, resolve_for_run(cfg, blocked),
+                                        state.params,
+                                        batch_to_device(batches[TP_GRAD_STEP], "cuda"),
+                                        Key(blocked.seed).fold_in(TP_GRAD_STEP))
+            ref["grads"] = {n: g.float() for n, g in grads.items()}
+            del grads
+            out["single_held"] = _held_bytes(p0, ref["grads"])
+            state, out["single"] = _mesh_steps(make_train_step(cfg, blocked,
+                                                               total_steps=MESH_TOTAL),
+                                               state, batches)
+            out["single_bytes"] = _state_bytes(state)
+            ref["final"] = {n: p.detach() for n, p in state.params.named_parameters()}
+            out["update_den"] = {n: float(torch.linalg.vector_norm(p - p0[n])) ** 2
+                                 for n, p in ref["final"].items()}
+            del state, p0
+            torch.cuda.empty_cache()
+        elif i == 0:
+            out["warm_up_s"] = _warm_up()
+        dist.barrier()
+        times["single-process reference"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = init_distributed_state(cfg, rcfg, mesh, device="cuda")
+        torch.cuda.synchronize()
+        times["init"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = dict(state.params.named_parameters())
+        mine = {k: _ref_slices(ref.get(k), params, mesh, cfg, rcfg) for k in ("grads", "final")}
+        del ref
+        out["split"] = {n for n, p in params.items()
+                        if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) is not None}
+        times["reference slices"] = time.perf_counter() - t0
+        out["held"] = _held_bytes(*mine.values())
+        hook = _tp_grad_hook(mine.pop("grads"), out)
+        step_fn = make_shard_map_train_step(cfg, rcfg, total_steps=MESH_TOTAL, mesh=mesh,
+                                            grads_hook=hook)
+        t0 = time.perf_counter()
+        state, out["mesh"] = _mesh_steps(step_fn, state, batches, mesh.comm)
+        times["steps"] = time.perf_counter() - t0
+        out["bytes"] = _state_bytes(state)
+        out["n_params"] = sum(p.numel() for p in state.params.parameters())
+        # the parameters after the steps against the single process's: the
+        # squared norm of their difference (this rank's slices) over that of
+        # the single process's change (rank 0's, whole leaves)
+        out["update_parts"] = _tp_parts(params, mine.pop("final"))
+        out["lr"] = rcfg.lr
+        del mine
+        torch.cuda.empty_cache()
+        if job["moments"]:
+            t0 = time.perf_counter()
+            m, _ = gathered_moments(state, mesh, rcfg)
+            whole_m = gather_model_(m, {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad)
+                                        for n, p in params.items()},
+                                    sh.make_model_group(mesh, cfg, rcfg, v_pad))
+            zero1 = zero1_of(rcfg, mesh, params)
+            bad = []
+            for n, local in state.opt.m.items():
+                want = sh.shard_params({n: whole_m[n]}, mesh, cfg.head_dim)[n]
+                if zero1 is not None:
+                    want = sh.shard_slice(want, zero1[0][n], zero1[1], zero1[2])
+                if not torch.equal(local, want):
+                    bad.append(n)
+            out["moment_slices"] = {"leaves": len(state.opt.m), "differ": bad,
+                                    "whole_bytes": sum(t.numel() * t.element_size()
+                                                       for t in whole_m.values())}
+            del m, whole_m
+            _free_pinned()
+            times["moment gather"] = time.perf_counter() - t0
+        del state, step_fn, hook, params
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:   # progress while the group runs (its report comes at the end)
+            print(f"[tp] rank 0 done with job {i} ({job['shape']}): losses "
+                  f"{out['mesh']['loss']}, ms {[round(x) for x in out['mesh']['ms']]}",
+                  flush=True)
+        outs.append(out)
+    return outs
+
+
+def report_tp(label: str, job: dict, res: list, smi: str) -> None:
+    """Print what each rank of one job measured, and hold the mesh to the
+    single-process step: losses, step TP_GRAD_STEP's gradients, the
+    parameters' change, the launch counts."""
+    import math
+
+    tag = f"[{smi}]"
+    data, model = job["shape"]
+    cfg = mesh_cfg(job["layers"])
+    single = res[0]["single"]
+    print(f"[{label}] {ARCH} {cfg.n_layers} layers, {MESH_SPEC}, remat {MESH_REMAT!r}, bf16 "
+          f"compute, global batch {TP_BATCH} x {TP_SEQ}, mesh data {data} x model {model} "
+          f"({data * model} ranks on cuda:0, gloo); steps {list(TP_STEPS)} (index 0 the "
+          f"warm-up, rate 0) {tag}")
+    # the peaks less the reference tensors a rank holds on the card through
+    # its steps for the comparison (a constant the allocator counts)
+    single_peak = max(single["peak"]) - res[0]["single_held"]
+    peaks = {r["rank"]: [p - r["held"] for p in r["mesh"]["peak"]] for r in res}
+    print(f"[{label}] single-process step (blocks={data}, rank 0 while the others wait): "
+          f"losses {single['loss']} | ms {[round(x, 1) for x in single['ms']]} | peak "
+          f"{_gib(single_peak)} (less the {_gib(res[0]['single_held'])} of reference tensors "
+          f"it holds) | params {_gib(res[0]['single_bytes']['params'])} | moments "
+          f"{_gib(res[0]['single_bytes']['moments'])} {tag}")
+    want = mesh_want_launches(cfg, 1)
+    for r in res:
+        rec = r["mesh"]
+        warm = f" (warm-up {r['warm_up_s']:.1f} s before)" if "warm_up_s" in r else ""
+        print(f"[{label}] rank {r['rank']} (data {r['coord'][0]}, model {r['coord'][1]}): "
+              f"losses {rec['loss']} | grad norms {[round(g, 4) for g in rec['gnorm']]} | ms "
+              f"per step {[round(x, 1) for x in rec['ms']]} ({SHARED}; step "
+              f"{TP_GRAD_STEP} holds the gradient comparison){warm} | init "
+              f"{r['times']['init']:.1f} s | peak {[_gib(p) for p in peaks[r['rank']]]} (less "
+              f"the {_gib(r['held'])} of reference slices it holds) | params "
+              f"{_gib(r['bytes']['params'])} | moments {_gib(r['bytes']['moments'])} | "
+              f"{HOST_NOTE} {_per_step_host(rec, TP_STEPS)} {tag}")
+        for s, counts in zip(TP_STEPS, rec["counts"]):
+            print(f"[{label}] rank {r['rank']} step {s} launches {counts}")
+            check({k: counts.get(k, 0) for k in want} == want,
+                  f"{label}: rank {r['rank']} step {s} launches {counts} != {want}")
+            check(not any(k.endswith(("_ref", "_f32")) for k in counts),
+                  f"{label}: a plain version or an f32 route ran on rank {r['rank']}")
+        check(rec["loss"] == res[0]["mesh"]["loss"],
+              f"{label}: rank {r['rank']} reports other losses than rank 0")
+        check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+              f"{label}: a loss or grad norm is not finite on rank {r['rank']}")
+    mesh_loss = res[0]["mesh"]["loss"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_loss, single["loss"])]
+    print(f"[{label}] mesh against the single-process step: losses {mesh_loss} vs "
+          f"{single['loss']}, worst rel {max(rel):.3e} (tol {TOL_MESH_LOSS}; the model ranks "
+          f"draw the single process's generator rows, so every step is held)")
+    check(max(rel) <= TOL_MESH_LOSS, f"{label}: the mesh's losses part from the single-"
+          f"process step's")
+    pamm = lambda n: n.endswith(PAMM_LEAVES)
+    g = _rel_summary(_tp_whole_parts(res, "grad_parts", label))
+    print(f"[{label}] gradients of step {TP_GRAD_STEP} (after the data all-reduce) against "
+          f"the single-process step, whole leaves from the model ranks' slices, the "
+          f"{g['leaves']} leaves: ||mesh - single|| / ||single|| {g['rel']:.3e} (tol "
+          f"{TOL_MESH_GRAD}; worst leaf {g['worst']} {g['worst_rel']:.3e}) | the comparison "
+          f"took {res[0]['grad_cmp_ms']:.1f} ms of rank 0's step")
+    check(g["rel"] <= TOL_MESH_GRAD, f"{label}: the mesh's gradients part from the "
+          f"single-process step's")
+    parts = {n: (num, res[0]["update_den"][n])
+             for n, (num, _) in _tp_whole_parts(res, "update_parts", label).items()}
+    u = _rel_summary(parts)
+    by_rel = sorted(parts, key=lambda n: -parts[n][0] / max(parts[n][1], 1e-300))
+    print(f"[{label}] parameter change over steps {list(TP_STEPS)}: ||mesh - single|| / "
+          f"||single|| {u['rel']:.3e} over every element (tol {TOL_MESH_UPDATE}; the attn.qkv "
+          f"site's leaves {_rel_summary(parts, pamm)['rel']:.3e}, the others "
+          f"{_rel_summary(parts, lambda n: not pamm(n))['rel']:.3e}; worst leaves "
+          + ", ".join(f"{n} {(parts[n][0] / parts[n][1]) ** 0.5:.3e}" for n in by_rel[:4])
+          + f"; lr {res[0]['lr']})")
+    for r in res:
+        print(f"[{label}] rank {r['rank']} seconds: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["times"].items()))
+    check(u["rel"] <= TOL_MESH_UPDATE,
+          f"{label}: the parameters' change parts from the single-process step's")
+    sb = res[0]["single_bytes"]
+    print(f"[{label}] a rank against the single process: params "
+          + ", ".join(f"{r['bytes']['params'] / sb['params']:.4f}" for r in res)
+          + " | moments " + ", ".join(f"{r['bytes']['moments'] / sb['moments']:.4f}"
+                                      for r in res)
+          + f" | peak a step: single {_gib(single_peak)}, each rank "
+          + ", ".join(_gib(max(peaks[r["rank"]])) for r in res) + f" {tag}")
+    check(all(r["bytes"]["params"] / sb["params"] < 1 / model + 0.01 for r in res),
+          f"{label}: a rank holds more than its share of the parameters")
+    for r in res:
+        if "moment_slices" in r:
+            ms_ = r["moment_slices"]
+            print(f"[{label}] rank {r['rank']}: its {ms_['leaves']} moment leaves against its "
+                  f"model then data slices of the gathered whole ({_gib(ms_['whole_bytes'])}): "
+                  f"{len(ms_['differ'])} differ")
+            check(not ms_["differ"], f"{label}: rank {r['rank']}'s moments are not its slices "
+                  f"of the gathered whole: {ms_['differ'][:4]}")
+
+
+def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS):
+    """Phases 43 and 44, each in its own group: model 2 on two ranks at
+    full depth (``layers`` cuts it), then data 2 x model 2 on four ranks
+    at ``dtp_layers`` layers with the moments' slices checked. Returns the
+    model-2 results."""
+    from repro_torch.launch.ranks import run_ranks
+
+    out = {}
+    for label, shape, n, moments in (("tensor parallel", TP_SHAPE, layers, False),
+                                     ("data x model", DTP_SHAPE, dtp_layers, True)):
+        job = {"shape": shape, "layers": n, "moments": moments}
+        t0 = time.perf_counter()
+        res = [r[0] for r in run_ranks(shape[0] * shape[1], tp_rank, [job],
+                                       timeout=MESH_TIMEOUT)]
+        print(f"[tp] {label}: {shape[0] * shape[1]} ranks, wall "
+              f"{time.perf_counter() - t0:.1f} s (spawn, warm-up, single-process step, mesh "
+              f"steps and gathers)")
+        report_tp(label, job, res, smi)
+        out[label] = res
+    return out["tensor parallel"]
+
+
+def tp_kernel_rows(gen, tp_res, smi):
+    """Phase 45: K3 / K4 / K5 at a model rank's attention shape (4, 2048,
+    8/4, 128), K1 at attn.qkv's whole input and K2 at a rank's dZ columns
+    (m 1024 for wq, 512 for wk / wv), each against its plain version, then
+    as kernel rows; the launches are rank 0's in phase 43's measured
+    steps."""
+    import torch
+
+    tag = f"[{smi}]"
+    B, L, (H, KV, dh) = TP_BATCH, TP_SEQ, TP_HEADS
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    check_k3_k45(gen, B, L, H, KV, dh, 0, None, torch.bfloat16, errs, repeat=True)
+    b, n, k = TP_SITE
+    errs["K1"], f = check_site_k1(gen, b, n, k, "attn.qkv tp 2")
+    errs["K2"] = max(check_site_k2(gen, f, m, k, f"{w} tp 2") for m, w in TP_K2_M)
+    del f
+    launches = {}
+    for s, counts in zip(TP_STEPS, tp_res[0]["mesh"]["counts"]):
+        if s in MESH_STEPS:
+            for name, c in counts.items():
+                launches[name] = launches.get(name, 0) + c
+    rows, _ = site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, attn.qkv's whole input on a model rank)",
+        [(m, f"segment_matmul (K2, {w}'s columns on a model rank of 2)") for m, w in TP_K2_M],
+        launches, errs)
+    att = attention_inputs(gen, B, L, H, KV, dh)
+    at = f"a model rank's heads ({B}, {L}, {H}/{KV}, {dh})"
+    for kk, name, src, rep in (("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+                               ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+                               ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES)):
+        rows.append(_kernel_row(f"{name} ({kk}, {at})", src, rep, launches.get(name, 0),
+                                errs[kk], *att[kk]))
+    del att
+    note = f"launches on rank 0 in phase 43's steps {list(MESH_STEPS)}"
+    print_rows(rows, [(note, "")] * len(rows), tag)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS):
+    """Phases 43-45 (``layers`` / ``dtp_layers`` cut phases 43 / 44:
+    tools/tp_phases.py's rehearsal). Returns the kernel rows."""
+    t0 = time.perf_counter()
+    res = phase_tensor_parallel(smi, layers, dtp_layers)
+    rows = tp_kernel_rows(gen, res, smi)
+    print(f"[tp] phases 43-45 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def start():
     """What every run does first: a card and the package next to this
     script, f32 products out of TF32, every kernel built (phase 1).
@@ -5887,45 +6366,65 @@ def main() -> int:
     import torch
 
     t0 = time.perf_counter()
+    last = [t0]
+
+    def lap(what: str) -> None:
+        """A ``[time]`` line: the phase's own seconds and the elapsed wall."""
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - last[0]:.1f} s, done at {now - t0:.1f} s")
+        last[0] = now
+
     smi, gen = start()
+    lap("phase 1 (card, build)")
     err3 = phase_k3(gen)
     err6 = phase_k6(gen)
     counts, stats, peak, dense = phase_serving()
     kernels = phase_numbers(gen, counts, stats, smi, err3, err6, peak)
     dense.update(peak=peak, kv_mb=stats["cache/kv_capacity_mb"])
     torch.cuda.empty_cache()
+    lap("K3, K6, serving and its numbers (phases 2-5)")
     errs78 = phase_k7_k8(gen)
     paged_counts, _, paged_tokens = phase_paged_serving(dense, smi)
-    pool_res = phase_compressed_pools(dense, smi)
+    lap("K7 / K8 and paged fp serving (phases 6-7)")
+    cut = cut_serving(dense)
+    pool_res = phase_compressed_pools(cut, smi)
+    lap("compressed pools (phase 7)")
     phase_prefix_and_spec(dense, paged_tokens, smi)
     paged_rows = phase_paged_numbers(gen, paged_counts, pool_res, smi, errs78)
-    phase_serving_front(dense, smi)
-    phase_serve_step(dense, smi)
-    errs_shard = phase_sharded_kernels(gen)
-    shard_counts = phase_sharded_serving(dense, smi)
-    shard_rows = sharded_rows(gen, shard_counts, errs_shard, smi)
     del dense
     torch.cuda.empty_cache()
-    print(f"[time] serving phases 2-8 and 40-41 done at {time.perf_counter() - t0:.1f} s")
+    lap("prefix sharing, speculative verify and the paged numbers (phase 7)")
+    phase_serving_front(cut, smi)
+    phase_serve_step(cut, smi)
+    lap("serving front and serve_step (phase 8)")
+    errs_shard = phase_sharded_kernels(gen)
+    shard_counts = phase_sharded_serving(cut, smi)
+    shard_rows = sharded_rows(gen, shard_counts, errs_shard, smi)
+    del cut
+    torch.cuda.empty_cache()
+    lap("sharded serving phases 40-41")
     errs = phase_training_kernels(gen)
     phase_card_vs_cpu()
     per_step, rec = phase_training(smi)
     phase_memory_modes(smi, rec)
     phase_reversible_card_vs_cpu()
     phase_supervised_restart(smi)
-    print(f"[time] training phases 9-12 done at {time.perf_counter() - t0:.1f} s")
+    lap("training phases 9-12")
     errs_moe, moe_rows = run_moe_phases(gen, smi)
     phase_moe_blocked(smi)
-    print(f"[time] MoE phases 14-17 and 42 done at {time.perf_counter() - t0:.1f} s")
+    lap("MoE phases 14-17 and 42")
     ssm_rows = run_ssm_phases(gen, smi)
-    print(f"[time] ssm phases 18-21 done at {time.perf_counter() - t0:.1f} s")
+    lap("ssm phases 18-21")
     rec_rows = run_rec_phases(gen, smi)
-    print(f"[time] rec phases 22-25 done at {time.perf_counter() - t0:.1f} s")
+    lap("rec phases 22-25")
     vision_rows = run_vision_phases(gen, smi)
-    print(f"[time] vision phases 26-29 done at {time.perf_counter() - t0:.1f} s")
+    lap("vision phases 26-29")
     audio_rows = run_audio_phases(gen, smi)
-    print(f"[time] audio phases 30-34 done at {time.perf_counter() - t0:.1f} s")
+    lap("audio phases 30-34")
     mesh_rows = run_mesh_phases(gen, smi)
+    lap("mesh phases 35-39")
+    tp_rows = run_tp_phases(gen, smi)
+    lap("tensor-parallel phases 43-45")
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -5937,6 +6436,8 @@ def main() -> int:
     kernels += vision_rows
     kernels += audio_rows
     kernels += mesh_rows
+    kernels += tp_rows
+    lap("training numbers")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

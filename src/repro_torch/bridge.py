@@ -24,8 +24,11 @@ and ``v`` trees of numpy leaves shaped like the parameter tree.
 checkpointer writes, under the JAX paths), and
 :func:`install_train_state_tree` puts such a tree back.
 :func:`gathered_train_state_tree` does it for a rank of the mesh executor:
-the ZeRO-1 moments gathered whole and the error-feedback residues of every
-rank stacked, as the JAX ``TrainState`` holds them.
+the parameters and moments gathered whole over the model axis, the ZeRO-1
+moments over the data axis, and the error-feedback residues of every rank
+stacked, as the JAX ``TrainState`` holds them. :func:`shard_jax_params`
+gives one rank of a mesh with a model degree above 1 its slices of a JAX
+tree.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.models import blocks as blk
-from repro_torch.models.model import Model, resolve_device
+from repro_torch.models.model import Model, _padded_vocab, resolve_device, shard_module_
+from repro_torch.runtime import sharding as sh
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -68,6 +72,15 @@ def from_jax_params(params: dict, cfg, device="cuda", trainable: bool = False) -
               for (unit, _), stage in zip(cfg.stages, params["stages"])]
     embed = conv(params["embed"]) if "embed" in params else None
     return Model(embed, stages, conv(params["final_norm"]), conv(params["head"]), trainable)
+
+
+def shard_jax_params(params: dict, cfg, mesh, device="cuda", trainable: bool = True) -> Model:
+    """One rank's port model of the JAX tree ``params`` (numpy leaves, the
+    whole model): of every leaf the model axis of ``mesh`` splits
+    (``runtime.sharding.model_dim``), this rank's slice; the other leaves
+    whole."""
+    return shard_module_(from_jax_params(params, cfg, device=device, trainable=trainable),
+                         mesh, cfg.head_dim)
 
 
 def _module_tree(mod: torch.nn.Module) -> dict:
@@ -164,20 +177,31 @@ def install_train_state_tree(state, tree):
     return TrainState(params=model, opt=opt)
 
 
-def gathered_train_state_tree(state, mesh, rcfg):
+def gathered_train_state_tree(state, mesh, rcfg, cfg=None):
     """A mesh rank's ``TrainState`` as the JAX ``TrainState``'s tree, whole:
-    the parameters, the AdamW moments gathered from the data ranks' ZeRO-1
-    slices and, under int8_ef, every rank's error-feedback residues stacked
+    the parameters and AdamW moments gathered over the model axis (its
+    slices of them; ``cfg`` says which leaves are split, needed for a model
+    degree above 1), the moments from the data ranks' ZeRO-1 slices first,
+    and, under int8_ef, every rank's error-feedback residues stacked
     (n_shards, *param.shape) in shard order (``ef``; None otherwise). A
     collective: every rank of the mesh calls it."""
     from repro_torch.optim import OptState
+    from repro_torch.runtime.collectives import gather_model_
     from repro_torch.train.distributed import gathered_error_buffers, gathered_moments
     from repro_torch.train.train_step import TrainState
 
     model = state.params
     m, v = gathered_moments(state, mesh, rcfg)
     ef = gathered_error_buffers(state, mesh)
-    params = _nest({n: p.detach() for n, p in model.named_parameters()}, model)
+    flat = {n: p.detach() for n, p in model.named_parameters()}
+    if sh.tp_degree(mesh) > 1:
+        if cfg is None:
+            raise ValueError("gathering over the model axis needs the model config (cfg=)")
+        v_pad = _padded_vocab(cfg, rcfg)
+        layout = {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) for n, p in flat.items()}
+        mg = sh.make_model_group(mesh, cfg, rcfg, v_pad)
+        flat, m, v = (gather_model_(t, layout, mg) for t in (flat, m, v))
+    params = _nest(flat, model)
     return TrainState(params=params,
                       opt=OptState(step=np.int32(state.opt.step), m=_nest(m, model),
                                    v=_nest(v, model)),

@@ -18,6 +18,15 @@ the first run compressed (``remat='pamm'``, the JAX package's
 ``save_only_these_names('pamm_state')``) or compresses again from the same
 key (``remat='full'``, reversible), and it keeps telemetry to the first run.
 
+Under tensor parallelism a column-parallel site (``attn.qkv``,
+``ffn.gate`` / ``ffn.up``, ``lm_head``) is handed the whole input and this
+rank's columns of ``w``: every model rank derives the same site key
+(``train/distributed.py`` keeps the model coordinate out of it), so K1
+yields the same state on each, K2 takes the rank's columns of dZ, and the
+input's gradient is summed over the model group by the caller's
+``runtime.collectives.copy_to_model``. A compressed row-parallel site
+(``ffn.down``) is refused there (``runtime.sharding``).
+
 Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``.
 ``apply_batched`` (the MoE experts) takes ``xs (E, T, n)`` and ``w (E, n,
 m)`` and keeps one state per expert, all compressed in one K1 launch.

@@ -7,13 +7,15 @@ row-major on the axes ``("data", "model")`` or ``("data", "model",
 "context")`` as ``jax.make_mesh`` lays out ``jax.devices()`` (rank ``r``
 sits at ``numpy.unravel_index(r, shape)``). A :class:`Mesh` holds the
 shape, this rank's coordinates, one subgroup per axis of degree above 1
-(``dist.new_group``), the group gradients reduce over (data x context)
-and the :class:`~repro_torch.runtime.collectives.Transport` that moves
-tensors between the ranks.
+(``dist.new_group``), the group gradients reduce over (data x context:
+the ranks that share this rank's model coordinate) and the
+:class:`~repro_torch.runtime.collectives.Transport` that moves tensors
+between the ranks.
 
-The ``model`` (tensor-parallel) axis must have degree 1 in this slice: the
-JAX package shards it through GSPMD, and the port needs column- and
-row-parallel products of its own for it.
+The ``model`` (tensor-parallel) axis runs the column- and row-parallel
+products of ``runtime/collectives.py`` over its subgroup, where the JAX
+package lets GSPMD place them. A model degree above 1 together with a
+context degree above 1 is refused (a later slice).
 
 :func:`make_local_mesh` is the other kind: a data axis inside one process,
 with no ranks and no process groups, for what the JAX package runs as one
@@ -31,17 +33,16 @@ from typing import Any
 import numpy as np
 import torch.distributed as dist
 
-LATER_SLICE_TP = ("a model (tensor-parallel) degree above 1 arrives with the port's "
-                  "tensor-parallel slice (column / row-parallel products over the "
-                  "model axis); use --data-model D 1")
+from repro_torch.runtime.sharding import LATER_SLICE_TP_CONTEXT
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Named axes over local ranks. ``groups`` maps each axis of degree
     above 1 to the subgroup of the ranks that differ from this one only
-    along it; ``sync_group`` spans data x context; a mesh of one rank has
-    no groups (and needs no process group)."""
+    along it; ``sync_group`` spans data x context (the ranks of this
+    rank's model coordinate); a mesh of one rank has no groups (and needs
+    no process group)."""
 
     axis_names: tuple[str, ...]
     shape: tuple[int, ...]
@@ -88,6 +89,24 @@ def _axis_groups(shape, axis_names, rank, timeout):
     return mine
 
 
+def _sync_group(shape, axis_names, rank, timeout):
+    """The data x context group of this rank: the ranks that share its
+    model coordinate. The whole process group when the model degree is 1;
+    else one ``new_group`` per model coordinate, which every rank creates
+    in the same order."""
+    mi = axis_names.index("model")
+    if shape[mi] == 1:
+        return dist.group.WORLD
+    mine = None
+    for m in range(shape[mi]):
+        ranks = [r for r in range(math.prod(shape))
+                 if np.unravel_index(r, shape)[mi] == m]
+        g = dist.new_group(ranks, timeout=timeout)
+        if rank in ranks:
+            mine = g
+    return mine
+
+
 def make_debug_mesh(data: int = 1, model: int = 1, context: int = 1, *,
                     timeout: float | None = None) -> Mesh:
     """The mesh of this process group: ``(data, model)``, with a third
@@ -98,8 +117,8 @@ def make_debug_mesh(data: int = 1, model: int = 1, context: int = 1, *,
     subgroup's collectives (the group's default otherwise)."""
     from repro_torch.runtime.collectives import Transport
 
-    if model != 1:
-        raise NotImplementedError(LATER_SLICE_TP)
+    if model > 1 and context > 1:
+        raise NotImplementedError(LATER_SLICE_TP_CONTEXT)
     if context > 1:
         axes, shape = ("data", "model", "context"), (data, model, context)
     else:
@@ -120,9 +139,7 @@ def make_debug_mesh(data: int = 1, model: int = 1, context: int = 1, *,
     rank = dist.get_rank()
     td = None if timeout is None else timedelta(seconds=timeout)
     groups = _axis_groups(shape, axes, rank, td)
-    # model is 1, so the data x context ranks are the whole group
-    return Mesh(axes, shape, rank, groups, dist.group.WORLD,
-                Transport())
+    return Mesh(axes, shape, rank, groups, _sync_group(shape, axes, rank, td), Transport())
 
 
 def make_local_mesh(data: int = 1) -> Mesh:

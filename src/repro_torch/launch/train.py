@@ -47,10 +47,24 @@ all-reduce, AdamW under ZeRO-1)::
       --seq-len 128 --global-batch 8 --compression 'attn.qkv=pamm(r=1/8)' \
       --executor shard_map --data-model 2 1 --mesh-context 2 --grad-compress int8_ef
 
+``--data-model D M`` with ``M > 1`` adds the model (tensor-parallel)
+axis: ``D * M`` ranks, each holding its slice of the heads, the FFN width
+and the vocabulary, the Q/K/V, gate / up and head products
+column-parallel and the out and down products row-parallel over the
+model group, K3-K5 at the rank's head counts (the dense kinds, attn and
+swa)::
+
+  python -m repro_torch.launch.train --arch internlm2-1.8b_smoke --device cpu \
+      --steps 4 --seq-len 64 --global-batch 4 --compression 'attn.qkv=pamm(r=1/8)' \
+      --executor shard_map --data-model 1 2
+
 Without ``--data-model`` the data degree is the number of cards over the
 context degree (1 on the CPU), as the JAX launcher puts every device on
-the data axis. Still refused, with the later slice named: a model
-(tensor-parallel) degree above 1 and ``--ckpt-dir`` under a mesh.
+the data axis. Still refused, with the later slice named: a model degree
+above 1 together with ``--mesh-context`` above 1, the other refusals of a
+model degree above 1 (``runtime.sharding``: the non-dense kinds,
+reversible blocks, a compressed ``ffn.down``, ...), and ``--ckpt-dir``
+under a mesh.
 """
 from __future__ import annotations
 
@@ -61,8 +75,9 @@ import time
 from repro_torch import bridge
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
-from repro_torch.launch.mesh import LATER_SLICE_TP, Mesh, make_debug_mesh
+from repro_torch.launch.mesh import Mesh, make_debug_mesh
 from repro_torch.launch.ranks import run_ranks
+from repro_torch.core.plan import resolve_for_run
 from repro_torch.models.blocks import resolve_block_structure
 from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.fault import StragglerWatchdog, run_supervised
@@ -81,8 +96,8 @@ def _check_flags(ap, args) -> None:
         ap.error("--mesh-context > 1 needs --executor shard_map (the ring's "
                  "ppermute collectives require the manual context axis)")
     if args.executor == "shard_map":
-        if args.data_model is not None and args.data_model[1] != 1:
-            ap.error(f"--data-model: {LATER_SLICE_TP}")
+        if args.data_model is not None and args.data_model[1] > 1 and args.mesh_context > 1:
+            ap.error(f"--data-model with --mesh-context: {sh.LATER_SLICE_TP_CONTEXT}")
         if args.ckpt_dir:
             ap.error(LATER_SLICE_CKPT)
         return
@@ -115,7 +130,7 @@ def _train_rank(rank: int, world: int, args, shape) -> dict:
 
     cfg = get_config(args.arch)
     rcfg = _run_config(args)
-    mesh = make_debug_mesh(shape[0], 1, shape[1], timeout=RANK_TIMEOUT)
+    mesh = make_debug_mesh(*shape, timeout=RANK_TIMEOUT)
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -135,24 +150,27 @@ def _main_mesh(ap, args) -> None:
     import torch
 
     cp = max(1, args.mesh_context)
+    model = args.data_model[1] if args.data_model else 1
     n_dev = torch.cuda.device_count() if args.device.startswith("cuda") else 1
     data = args.data_model[0] if args.data_model else max(1, n_dev // cp)
-    shape = (data, cp)
+    shape = (data, model, cp)
     cfg, rcfg = get_config(args.arch), _run_config(args)
-    abstract = Mesh(("data", "model", "context"), (data, 1, cp))
+    abstract = Mesh(("data", "model", "context"), shape)
     try:
         sh.validate_batch_divisible(args.global_batch, abstract,
                                     grad_accum=rcfg.grad_accum, where="launch")
         sh.validate_seq_divisible(args.seq_len, abstract, where="launch")
         resolve_block_structure(cfg, rcfg, cp=cp)
-    except ValueError as e:
+        sh.validate_tensor_parallel(cfg, rcfg, model, resolve_for_run(cfg, rcfg, abstract))
+    except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     t0 = time.monotonic()
-    out = run_ranks(data * cp, _train_rank, args, shape, timeout=RANK_TIMEOUT,
+    out = run_ranks(data * model * cp, _train_rank, args, shape, timeout=RANK_TIMEOUT,
                     deadline=math.inf)
     dt = time.monotonic() - t0
     tokens = args.steps * args.global_batch * args.seq_len
-    print(f"done: {args.steps} steps on {data * cp} ranks (data {data} x context {cp}), "
+    axes = f"data {data} x model {model}" if model > 1 else f"data {data} x context {cp}"
+    print(f"done: {args.steps} steps on {data * model * cp} ranks ({axes}), "
           f"{tokens / dt:.0f} tok/s, final loss {out[0]['metrics']['loss']:.4f}, "
           f"device {out[0]['device']}, bytes between card and host (rank 0) "
           f"{out[0]['comm']['host_bytes']}")
@@ -179,7 +197,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--data-model", type=int, nargs=2, default=None,
                     metavar=("DATA", "MODEL"),
-                    help="mesh shape (shard_map executor; MODEL must be 1 in this slice)")
+                    help="mesh shape (shard_map executor): DATA x MODEL ranks; MODEL > 1 "
+                         "is tensor parallelism over the model axis")
     ap.add_argument("--mesh-context", type=int, default=1,
                     help="context-parallel (ring attention) degree: the sequence "
                          "zigzag-shards over this many ranks (shard_map executor; "

@@ -54,7 +54,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import quant_bits, quantize_kv, shard_offset_table
 from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
-from repro_torch.runtime.sharding import ring_context
+from repro_torch.runtime.collectives import copy_to_model, tp_enter, tp_exit
+from repro_torch.runtime.sharding import model_group, ring_context
 
 NEG_INF = -1e30
 
@@ -83,12 +84,41 @@ def init_attention(gen: torch.Generator, cfg, dtype, *, cross: bool = False) -> 
     return params
 
 
+def _tp_heads(params, cfg, mg) -> dict:
+    """This rank's attention parameters under tensor parallelism: wq / bq
+    and wo hold its H/tp q heads already; the K/V leaves its KV/tp heads,
+    or, when the model axis cannot split them, all KV heads, of which it
+    takes the one its q heads read (``runtime.sharding``'s check: they
+    fall in one group). Leaves whole on every rank whose gradient is a
+    part on each (the K/V leaves then, q_norm / k_norm always) pass
+    through :func:`copy_to_model`, which sums it over the model group."""
+    out = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in out:
+            out[name] = copy_to_model(out[name], mg)
+    if mg.kv:
+        return out
+    dh = cfg.head_dim
+    hl = cfg.n_heads // mg.tp
+    g = cfg.n_heads // cfg.n_kv_heads
+    kvh = mg.index * hl // g
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in out:
+            out[name] = copy_to_model(out[name], mg)[..., kvh * dh:(kvh + 1) * dh]
+    return out
+
+
 def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None, kv_src=None):
     """Q from x; K, V from ``kv_src`` (None: x, self-attention). Self-
     attention shares one site, ``attn.qkv``; cross-attention takes Q
     through ``attn.qkv`` (``wq`` alone) and K, V through ``attn.cross_kv``,
-    two sites whose draws differ by their site ids (the JAX order)."""
+    two sites whose draws differ by their site ids (the JAX order). The
+    head counts come from the weights, so under tensor parallelism they
+    are this rank's: column-parallel products over a whole x."""
     dh = cfg.head_dim
+    mg = model_group()
+    if mg is not None and mg.heads and kv_src is None:
+        params = _tp_heads(params, cfg, mg)
     h = params["wq"].shape[1] // dh
     kv = params["wk"].shape[1] // dh
     biases = [params.get("bq"), params.get("bk"), params.get("bv")]
@@ -557,8 +587,16 @@ def attn_train(params, x, positions, cfg, ctx: SiteCtx, key=None, *, window: int
     the sequence, ``positions`` its global positions, and the ring
     (``kernels/ring_attention.py``) runs K3-K5 over every live chunk pair.
     ``key``: the block's key, from which the ``attn.qkv`` site draws.
+    Under tensor parallelism (``runtime.sharding.model_group``) with the
+    heads split, x enters whole on every model rank (gathered over the
+    sequence under ``seq_shard``), Q/K/V are column-parallel, K3-K5 run
+    at this rank's head counts, and ``out @ wo`` is row-parallel, summed
+    over the model group (or reduce-scattered over the sequence).
     Returns (out @ wo, (k_roped, v)) -- the pair the prefill cache stores.
     """
+    mg = model_group()
+    split = mg is not None and mg.heads
+    x = tp_enter(x, mg, split)
     q, k, v = _project_qkv(params, x, ctx, cfg, key)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -569,7 +607,7 @@ def attn_train(params, x, positions, cfg, ctx: SiteCtx, key=None, *, window: int
         out = ops.flash_attention(q, k, v, causal=True, window=window)
         out = torch.where(positions[..., None, None] >= 0, out, 0.0)
     out = out.reshape(*x.shape[:-1], -1)
-    return out @ params["wo"].to(x.dtype), (k, v)
+    return tp_exit(out @ params["wo"].to(x.dtype), mg, split), (k, v)
 
 
 

@@ -24,6 +24,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
+from repro_torch.runtime.collectives import seq_param
+from repro_torch.runtime.sharding import LATER_SLICE_TP_KINDS, TP_KINDS, model_group
 
 BLOCK_KINDS = ("attn", "swa", "latt", "moe", "rec", "ssm", "xattn")
 BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
@@ -438,7 +440,16 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     leaves; ``cache_positions`` marks bucketing pad rows -1 so they are
     dropped, not written (a pad row would evict a real tail token from a
     ring cache). Pad rows are query rows of an xattn block: its image K/V
-    do not depend on them."""
+    do not depend on them. Under tensor parallelism
+    (``runtime.sharding.model_group``) only the ``attn`` and ``swa``
+    kinds run; the others are refused with the slice that brings them."""
+    mg = model_group()
+    if mg is not None:
+        if kind not in TP_KINDS:
+            raise NotImplementedError(LATER_SLICE_TP_KINDS.format(tp=mg.tp, ok=TP_KINDS,
+                                                                   bad=[kind]))
+        params = {**params, "norm1": seq_param(params["norm1"], mg),
+                  "norm2": seq_param(params["norm2"], mg)}
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if kind == "xattn":
         out, (k_img, v_img) = attn_lib.cross_attn(

@@ -12,6 +12,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import sharding as sh
+from repro_torch.runtime.collectives import (model_max_, reduce_from_model, tp_enter,
+                                              tp_exit)
+
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -81,7 +85,17 @@ def ffn_sites(params, x, ctx, key=None):
     """SwiGLU FFN with gate/up/down as compression sites; with every role
     exact it equals :func:`ffn`. Gate and up read the same x, so when both
     resolve to the same policy ONE compressed state backs both weight
-    gradients (telemetry lands on ffn.gate)."""
+    gradients (telemetry lands on ffn.gate).
+
+    Under tensor parallelism with the FFN width split, gate and up are
+    column-parallel (x whole on every model rank, this rank's columns;
+    a compressed site draws the same state on every rank from the same
+    key, and K2 takes the local columns of dZ) and down is row-parallel
+    (its partial sums summed over the model group); a compressed
+    ``ffn.down`` is refused there (``runtime.sharding``)."""
+    mg = sh.model_group()
+    split = mg is not None and mg.ffn
+    x = tp_enter(x, mg, split)
     gate_site = ctx.site("ffn.gate")
     up_site = ctx.site("ffn.up")
     if (gate_site is not None and up_site is not None
@@ -91,7 +105,8 @@ def ffn_sites(params, x, ctx, key=None):
     else:
         g = ctx.apply("ffn.gate", x, params["w_gate"], None, key)
         u = ctx.apply("ffn.up", x, params["w_up"], None, key)
-    return ctx.apply("ffn.down", F.silu(g) * u, params["w_down"], None, key)
+    return tp_exit(ctx.apply("ffn.down", F.silu(g) * u, params["w_down"], None, key), mg,
+                   split)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +153,19 @@ def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,
     exact, each chunk's hidden states are compressed for the head's weight
     gradient with key ``key.fold_in(chunk)``, and the call returns
     ``(loss, stats)`` with the site telemetry summed over chunks.
+
+    Under tensor parallelism with the vocabulary split (``w_head`` this
+    rank's columns [index * V/tp, (index + 1) * V/tp)), the cross-entropy
+    is vocabulary-parallel: h is whole on every model rank (gathered over
+    the sequence under ``seq_shard``), each chunk's row max is the max
+    over the ranks, and the sum of exp and the target's logit are summed
+    over them, so every rank gets the one loss and its gradient reaches
+    the local columns only. A compressed head compresses the same h with
+    the same key on every rank.
     """
+    mg = sh.model_group()
+    vp = mg is not None and mg.vocab
+    h = tp_enter(h, mg, vp)
     B, L, d = h.shape
     chunk = min(chunk, L)
     n_chunks = (L + chunk - 1) // chunk
@@ -148,6 +175,7 @@ def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     v_total = w_head.shape[1]
+    v0 = mg.index * v_total if vp else 0
     compressed = site is not None and not site.is_exact
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -163,14 +191,34 @@ def chunked_cross_entropy(h, w_head, labels, mask, chunk: int,
                 stats = stats + st
         else:
             logits = (hb @ w_head.to(hb.dtype)).float()
-        if valid_vocab is not None and valid_vocab < v_total:
-            col = torch.arange(v_total, device=h.device)
+        if valid_vocab is not None and valid_vocab < v0 + v_total:
+            col = torch.arange(v0, v0 + v_total, device=h.device)
             logits = logits.masked_fill(col >= valid_vocab, -1e30)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+        if vp:
+            logz, gold = _vocab_parallel_terms(logits, lb.long() - v0, mg)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
         tot = tot + ((logz - gold) * mb).sum()
         cnt = cnt + mb.sum()
     loss = tot / cnt.clamp_min(1.0)
     if site is not None:
         return loss, stats
     return loss
+
+
+def _vocab_parallel_terms(logits, local_labels, mg):
+    """(logsumexp over the whole vocabulary, the target's logit) of
+    ``logits`` (B, c, V/tp) f32, this rank's columns: the row max is the
+    max over the model ranks (a constant of the gradient), the sum of exp
+    and the target logit (0 on the ranks whose columns do not hold it)
+    are summed over them with an identity backward, so each rank's
+    gradient lands on its own columns."""
+    with torch.no_grad():
+        m = model_max_(logits.max(dim=-1).values.contiguous(), mg)
+    sumexp = torch.exp(logits - m[..., None]).sum(dim=-1)
+    inside = (local_labels >= 0) & (local_labels < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(inside, local_labels, 0)[..., None])[..., 0]
+    gold = torch.where(inside, gold, 0.0)
+    both = reduce_from_model(torch.stack([sumexp, gold]), mg)
+    return m + torch.log(both[0]), both[1]

@@ -28,6 +28,16 @@ takes (B, L, d) embeddings. With ``cfg.n_codebooks`` the head is (d,
 vocab x n_codebooks), the labels (B, L, n_codebooks), and the logits hold
 every codebook's vocab side by side.
 Serving (prefill, decode) runs under ``torch.no_grad``.
+
+Tensor parallelism (``runtime.sharding.tensor_parallel``, entered by the
+mesh executor around its forward and backward): ``init_model(...,
+mesh=)`` keeps this rank's slice of every leaf the model axis splits
+(``runtime.sharding.model_dim``); the embedding is vocabulary-parallel
+(rows outside this rank's range give zeros, summed over the model group);
+the blocks run their column- and row-parallel products; the loss is the
+vocabulary-parallel chunked cross-entropy over the local head columns.
+Under ``rcfg.seq_shard`` the residual stream between blocks holds this
+rank's chunk of the sequence (Megatron sequence parallelism).
 """
 from __future__ import annotations
 
@@ -45,6 +55,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (chunked_cross_entropy, embed_init,
                                        init_rms_norm, rms_norm)
+from repro_torch.runtime import sharding as sh
+from repro_torch.runtime.collectives import seq_param, tp_exit
 
 __all__ = ["Model", "init_model", "forward", "loss_fn", "init_caches",
            "prefill", "decode_step", "resolve_device"]
@@ -94,26 +106,49 @@ class Model(nn.Module):
         return self.head.device
 
 
-def init_model(cfg, rcfg, seed: int = 0, device="cuda") -> Model:
+def shard_module_(mod: nn.Module, mesh, head_dim: int) -> nn.Module:
+    """Replace each parameter of ``mod`` (full leaves, named as in the JAX
+    tree) by this rank's slice of it along the model axis, copied, so the
+    whole leaf is freed (:func:`runtime.sharding.shard_params`)."""
+    for name, p in list(mod.named_parameters()):
+        owner = mod.get_submodule(name.rpartition(".")[0])
+        leaf = name.rpartition(".")[2]
+        part = sh.shard_params({name: p.detach()}, mesh, head_dim)[name]
+        if part.shape != p.shape:
+            owner.register_parameter(leaf, nn.Parameter(part.clone(),
+                                                        requires_grad=p.requires_grad))
+    return mod
+
+
+def init_model(cfg, rcfg, seed: int = 0, device="cuda", mesh=None) -> Model:
     """Random-initialised parameters, requiring grad, drawn on ``device``
-    from ``torch.Generator(device).manual_seed(seed)``."""
+    from ``torch.Generator(device).manual_seed(seed)``. With a ``mesh``
+    whose model degree is above 1, each leaf is drawn whole (the same
+    draws as one process) and only this rank's slice of it is kept,
+    block by block, so the whole tree is never on the device at once."""
     device = resolve_device(device)
     _, pdt = _dtype(rcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     v_pad = _padded_vocab(cfg, rcfg)
     em = getattr(rcfg, "pad_experts_multiple", 0)
     e_pad = -(-cfg.n_experts // em) * em if (em and cfg.n_experts) else 0
-    embed = None if cfg.embed_inputs else embed_init(gen, v_pad, cfg.d_model, pdt)
+    tp = 1 if mesh is None else sh.tp_degree(mesh)
+    local = ((lambda name, t: sh.shard_params({name: t}, mesh, cfg.head_dim)[name].clone())
+             if tp > 1 else (lambda name, t: t))
+    embed = (None if cfg.embed_inputs
+             else local("embed", embed_init(gen, v_pad, cfg.d_model, pdt)))
     stages = []
     for unit, rep in cfg.stages:
-        stages.append([
-            blk.Block.from_layers(kind, [blk.init_block(kind, cfg, gen, pdt, e_pad=e_pad)
-                                         for _ in range(rep)])
-            for kind in unit])
+        stage = []
+        for kind in unit:
+            block = blk.Block.from_layers(
+                kind, [blk.init_block(kind, cfg, gen, pdt, e_pad=e_pad) for _ in range(rep)])
+            stage.append(shard_module_(block, mesh, cfg.head_dim) if tp > 1 else block)
+        stages.append(stage)
     final_norm = init_rms_norm(cfg.d_model, pdt, device)
-    head = (torch.randn((cfg.d_model, v_pad * max(1, cfg.n_codebooks)), generator=gen,
-                        device=device)
-            * cfg.d_model ** -0.5).to(pdt)
+    head = local("head", (torch.randn((cfg.d_model, v_pad * max(1, cfg.n_codebooks)),
+                                      generator=gen, device=device)
+                          * cfg.d_model ** -0.5).to(pdt))
     return Model(embed, stages, final_norm, head)
 
 
@@ -145,10 +180,21 @@ def init_caches(cfg, rcfg, B: int, max_len: int, device, *,
 
 def _embed(cfg, model: Model, inputs, cdt):
     """The block stack's input: an embed-input arch's embeddings (B, L, d)
-    cast to the compute dtype, else the table rows of tokens (B, L)."""
+    cast to the compute dtype, else the table rows of tokens (B, L).
+    Under tensor parallelism with the vocabulary split, a rank's table
+    holds rows [index * V/tp, (index + 1) * V/tp): tokens outside it give
+    zeros and the ranks' rows are summed (under ``seq_shard``, this rank's
+    chunk of the sequence of the sum)."""
     if cfg.embed_inputs:
         return inputs.to(cdt)
-    return model.embed[inputs].to(cdt)
+    mg = sh.model_group()
+    if mg is None or not mg.vocab:
+        return tp_exit(model.embed[inputs].to(cdt), mg, False)
+    rows = model.embed.shape[0]
+    local = inputs - mg.index * rows
+    inside = (local >= 0) & (local < rows)
+    x = model.embed[torch.where(inside, local, 0)] * inside[..., None].to(model.embed.dtype)
+    return tp_exit(x.to(cdt), mg, True)
 
 
 def _inputs(cfg, batch: dict):
@@ -192,7 +238,8 @@ def _layer(cfg, rcfg, resolved, unit, si, params, extras, x, aux, positions, key
 
 def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
             telemetry: dict | None = None):
-    """Returns (hidden (B, L, d), aux_loss).
+    """Returns (hidden (B, L, d), aux_loss); under tensor parallelism with
+    ``seq_shard``, this rank's (B, L/tp, d) chunk of the hidden states.
 
     ``telemetry``: pass a dict to receive the per-site stats vectors (site
     path -> STATS_LEN tensor) summed over all layers.
@@ -206,10 +253,16 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     (:func:`blocks.reversible_stage`)."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     structure = blk.resolve_block_structure(cfg, rcfg)
+    mg = sh.model_group()
+    if mg is not None:
+        sh.validate_tensor_parallel(cfg, rcfg, mg.tp, resolved)
     cdt, _ = _dtype(rcfg)
-    x = _embed(cfg, model, _inputs(cfg, batch), cdt)
+    inputs = _inputs(cfg, batch)
+    x = _embed(cfg, model, inputs, cdt)
     extras = _extras(cfg, batch, cdt)
-    B, L, _ = x.shape
+    # under seq_shard x holds this rank's chunk of the sequence; RoPE and
+    # the attention masks read the whole sequence's positions
+    B, L = inputs.shape[:2]
     # a context shard of the mesh executor sees a zigzag slice of the
     # sequence: its global positions arrive in the batch and drive RoPE and
     # the ring's masks across the shard seams
@@ -249,7 +302,7 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
                                     context_fn=mode.checkpoint_contexts)
     if telemetry is not None:
         telemetry.update(tele)
-    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
+    return rms_norm(x, seq_param(model.final_norm, mg), cfg.norm_eps), aux
 
 
 def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):

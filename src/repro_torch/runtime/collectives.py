@@ -1,6 +1,9 @@
 """Collectives of the mesh executor over a ``torch.distributed`` group:
-the mean all-reduce over the sync group, the all-gather of ZeRO-1 slices
-and the ring's send-to-next / receive-from-previous.
+the mean all-reduce over the sync group, the all-gather of ZeRO-1 slices,
+the ring's send-to-next / receive-from-previous, and the four autograd
+mappings of tensor parallelism over the model group (Megatron's ``f`` /
+``g`` and their sequence-parallel forms): :func:`copy_to_model`,
+:func:`reduce_from_model`, :func:`gather_seq` and :func:`scatter_seq`.
 
 The ranks of one card talk over gloo (NCCL refuses two ranks on one
 device). gloo takes CUDA tensors for all_reduce and all_gather and stages
@@ -59,20 +62,35 @@ class Transport:
             self.host_bytes[op] += copies * t.numel() * t.element_size()
 
     # ------------------------------------------------------------------
-    def all_reduce_(self, flat: torch.Tensor, group) -> None:
-        """Sum ``flat`` (1-D, contiguous) over ``group`` in place (gloo
-        copies a CUDA tensor out to host and the sum back)."""
-        self.calls["all_reduce"] += 1
-        self._count("all_reduce", flat, 2)
-        dist.all_reduce(flat, group=group)
+    def all_reduce_(self, flat: torch.Tensor, group, op: str = "all_reduce",
+                    reduce=dist.ReduceOp.SUM) -> None:
+        """Sum (or ``reduce``) ``flat`` (1-D, contiguous) over ``group`` in
+        place (gloo copies a CUDA tensor out to host and the result back);
+        ``op`` names the counters it lands in."""
+        self.calls[op] += 1
+        self._count(op, flat, 2)
+        dist.all_reduce(flat, op=reduce, group=group)
 
-    def all_gather(self, flat: torch.Tensor, group, n: int) -> torch.Tensor:
+    def all_gather(self, flat: torch.Tensor, group, n: int,
+                   op: str = "all_gather") -> torch.Tensor:
         """The ``n`` ranks' ``flat`` (1-D, equal sizes), stacked (n, numel)
         (gloo copies a CUDA tensor out and the ``n`` parts back)."""
-        self.calls["all_gather"] += 1
-        self._count("all_gather", flat, 1 + n)
+        self.calls[op] += 1
+        self._count(op, flat, 1 + n)
         out = torch.empty((n, flat.numel()), dtype=flat.dtype, device=flat.device)
         dist.all_gather(list(out.unbind(0)), flat, group=group)
+        return out
+
+    def reduce_scatter(self, parts: torch.Tensor, group,
+                       op: str = "reduce_scatter") -> torch.Tensor:
+        """``parts`` (n, numel), contiguous: the sum over the ``n`` ranks of
+        ``group`` of row ``i``, on group rank ``i`` (gloo copies the n rows
+        of a CUDA tensor out and this rank's sum back)."""
+        self.calls[op] += 1
+        self._count(op, parts, 1)
+        self._count(op, parts[0], 1)
+        out = torch.empty(parts.shape[1:], dtype=parts.dtype, device=parts.device)
+        _reduce_scatter(out, parts.reshape(-1), group=group)
         return out
 
     def shift(self, flat: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
@@ -99,6 +117,190 @@ class Transport:
             return recv
         # a blocking copy: the buffer is free again when it returns
         return torch.empty_like(flat).copy_(recv)
+
+
+# torch 2.13 renames reduce_scatter_tensor (same arguments)
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the autograd mappings over the model group
+# ---------------------------------------------------------------------------
+def _model_all_reduce(t: torch.Tensor, mg) -> torch.Tensor:
+    """The sum of ``t`` over the model group, in a new tensor."""
+    flat = t.contiguous().reshape(-1).clone()
+    mg.comm.all_reduce_(flat, mg.group, op="model_all_reduce")
+    return flat.view(t.shape)
+
+
+def model_max_(t: torch.Tensor, mg) -> torch.Tensor:
+    """``t`` (contiguous) replaced in place by its elementwise max over the
+    model group."""
+    mg.comm.all_reduce_(t.view(-1), mg.group, op="model_all_reduce",
+                        reduce=dist.ReduceOp.MAX)
+    return t
+
+
+def _seq_gather(t: torch.Tensor, mg) -> torch.Tensor:
+    """(B, L/tp, ...) on each rank -> (B, L, ...), the ranks' parts in
+    model-axis order along dim 1."""
+    got = mg.comm.all_gather(t.contiguous().reshape(-1), mg.group, mg.tp,
+                             op="model_all_gather")
+    parts = got.view(mg.tp, *t.shape)
+    return torch.cat(parts.unbind(0), dim=1)
+
+
+def _seq_chunks(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """(B, L, ...) -> (tp, B, L/tp, ...) contiguous: chunk i of dim 1 first."""
+    B, L = t.shape[:2]
+    if L % tp:
+        raise ValueError(f"sequence length {L} does not split over the model "
+                         f"axis of degree {tp} (seq_shard)")
+    return t.reshape(B, tp, L // tp, *t.shape[2:]).transpose(0, 1).contiguous()
+
+
+def _seq_reduce_scatter(t: torch.Tensor, mg) -> torch.Tensor:
+    """(B, L, ...) partial sums -> this rank's (B, L/tp, ...) chunk of the
+    sum over the model group."""
+    parts = _seq_chunks(t, mg.tp)
+    return mg.comm.reduce_scatter(parts.reshape(mg.tp, -1), mg.group,
+                                  op="model_reduce_scatter").view(parts.shape[1:])
+
+
+def _seq_own(t: torch.Tensor, mg) -> torch.Tensor:
+    """(B, L, ...) -> this rank's (B, L/tp, ...) chunk (a copy)."""
+    return _seq_chunks(t, mg.tp)[mg.index]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the model group
+    (the input of a column-parallel product, whose ranks each see part of
+    its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(g, ctx.mg), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group forward (a row-parallel product's partial
+    outputs); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mg):
+        return _model_all_reduce(x, mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather over the sequence forward. Backward: reduce-scatter when
+    the ranks' gradients are partial (a sharded sublayer follows),
+    else this rank's chunk of the (identical) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mg, partial):
+        ctx.mg, ctx.partial = mg, partial
+        return _seq_gather(x, mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _seq_reduce_scatter(g, ctx.mg), None, None
+        return _seq_own(g, ctx.mg), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Forward: reduce-scatter over the sequence when the ranks hold
+    partial sums (a row-parallel product), else this rank's chunk of the
+    (identical) tensor. Backward: all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, mg, partial):
+        ctx.mg = mg
+        return _seq_reduce_scatter(x, mg) if partial else _seq_own(x, mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_gather(g, ctx.mg), None, None
+
+
+def copy_to_model(x: torch.Tensor, mg) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, all-reduce backward."""
+    return _CopyToModel.apply(x, mg)
+
+
+def reduce_from_model(x: torch.Tensor, mg) -> torch.Tensor:
+    """Megatron's ``g``: all-reduce forward, identity backward."""
+    return _ReduceFromModel.apply(x, mg)
+
+
+def gather_seq(x: torch.Tensor, mg, partial: bool = True) -> torch.Tensor:
+    """Sequence parallelism's ``f``: all-gather forward, reduce-scatter
+    backward (``partial=False``: the chunk of the gradient backward)."""
+    return _GatherSeq.apply(x, mg, partial)
+
+
+def scatter_seq(x: torch.Tensor, mg, partial: bool = True) -> torch.Tensor:
+    """Sequence parallelism's ``g``: reduce-scatter forward (``partial=False``:
+    this rank's chunk), all-gather backward."""
+    return _ScatterSeq.apply(x, mg, partial)
+
+
+def tp_enter(x: torch.Tensor, mg, sharded: bool) -> torch.Tensor:
+    """The input of a sublayer under tensor parallelism (``mg`` None: x
+    itself): whole and replicated on every model rank. A sublayer the
+    model axis splits (``sharded``) sees part of its gradient on each
+    rank, which backward sums; under ``seq_shard`` the residual stream's
+    chunks are gathered first."""
+    if mg is None:
+        return x
+    if mg.seq_shard:
+        return gather_seq(x, mg, partial=sharded)
+    return copy_to_model(x, mg) if sharded else x
+
+
+def tp_exit(y: torch.Tensor, mg, sharded: bool) -> torch.Tensor:
+    """A sublayer's output back onto the residual stream: a split
+    sublayer's partial sums summed over the model group (``sharded``), and
+    under ``seq_shard`` this rank's chunk of the sequence."""
+    if mg is None:
+        return y
+    if mg.seq_shard:
+        return scatter_seq(y, mg, partial=sharded)
+    return reduce_from_model(y, mg) if sharded else y
+
+
+def seq_param(p: torch.Tensor, mg) -> torch.Tensor:
+    """A whole parameter applied to the residual stream's chunk of the
+    sequence under ``seq_shard`` (the norms): each model rank sees part
+    of its gradient, which backward sums (:func:`copy_to_model`)."""
+    return copy_to_model(p, mg) if mg is not None and mg.seq_shard else p
+
+
+def gather_model_(tensors: dict, layout: dict, mg) -> dict:
+    """The whole leaves from the model ranks' slices: each tensor whose
+    ``layout`` names a dimension is all-gathered over the model group and
+    concatenated along it (a collective: every model rank calls it with
+    the same names, in the same order); the others are returned as they
+    are."""
+    out = {}
+    for n, t in tensors.items():
+        dim = layout.get(n)
+        if dim is None or mg is None:
+            out[n] = t
+            continue
+        got = mg.comm.all_gather(t.contiguous().reshape(-1), mg.group, mg.tp,
+                                 op="model_all_gather")
+        out[n] = torch.cat(got.view(mg.tp, *t.shape).unbind(0), dim=dim)
+    return out
 
 
 # ---------------------------------------------------------------------------

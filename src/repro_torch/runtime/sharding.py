@@ -1,15 +1,16 @@
 """The mesh's axes and their degrees, the config-time divisibility checks,
-the ring dispatch context and the ZeRO-1 rule
-(``repro/runtime/sharding.py:100, 194-345``), for a
-:class:`repro_torch.launch.mesh.Mesh`.
+the ring dispatch context, the tensor-parallel layout and dispatch context
+and the ZeRO-1 rule (``repro/runtime/sharding.py:26-60, 100, 194-345``),
+for a :class:`repro_torch.launch.mesh.Mesh`.
 
 The error texts are the JAX package's. Its GSPMD-only parts
 (``logical_to_pspec``, ``maybe_constrain``, ``shard_map_ctx``,
 ``scan_compat``) have no counterpart: each rank runs eagerly on its own
-slice. What the JAX ``zero1_specs`` reads from the parameters' logical
-specs -- which dimensions the tensor-parallel ``model`` axis already takes
--- the port keeps as :data:`MODEL_AXIS_DIMS`, so its ZeRO-1 layout is the
-JAX one and a later checkpoint slice reads the same moment slices.
+slice. What ``logical_to_pspec`` makes of the parameters' logical specs --
+which dimension of each leaf the tensor-parallel ``model`` axis takes --
+the port keeps as :data:`MODEL_AXIS_DIMS`: :func:`model_dim` reads it for
+a rank's slice of a leaf (:func:`shard_params`), and ZeRO-1 keeps off
+those dimensions, so the port's layouts are the JAX ones.
 """
 from __future__ import annotations
 
@@ -34,6 +35,14 @@ MODEL_AXIS_DIMS = {
     ("in_proj", 3): (-1,), ("out_proj", 3): (-2,), ("out_norm", 2): (-1,),
     ("embed", 2): (-2,), ("head", 2): (-1,),
 }
+
+
+MODEL_AXIS = "model"
+# Leaves the model axis splits by whole heads: their dimension must divide
+# into tp x head_dim (the q heads for wq / bq / wo, the K/V heads for the
+# others), or the leaf stays whole on every rank.
+Q_HEAD_LEAVES = ("wq", "bq", "wo")
+KV_HEAD_LEAVES = ("wk", "wv", "bk", "bv")
 
 
 def data_axis_names(mesh) -> tuple[str, ...]:
@@ -184,11 +193,231 @@ def data_parallel(mesh):
 
 
 # ---------------------------------------------------------------------------
-# ZeRO-1
+# tensor parallelism: the layout of the model axis
 # ---------------------------------------------------------------------------
 def _leaf_key(name: str, ndim: int):
     return (name.rsplit(".", 1)[-1], ndim)
 
+
+def tp_degree(mesh) -> int:
+    """Number of tensor-parallel (model axis) shards."""
+    return mesh.axis_size(MODEL_AXIS)
+
+
+def model_dim(name: str, shape, tp: int, head_dim: int = 1) -> int | None:
+    """The dimension of parameter ``name`` (full shape ``shape``) that the
+    model axis of degree ``tp`` splits, or None (whole on every rank): the
+    dimension :data:`MODEL_AXIS_DIMS` names when ``tp`` divides it -- in
+    whole heads of ``head_dim`` for the head leaves -- as the JAX
+    ``state_shardings`` drops an uneven dimension to replication
+    (``repro/runtime/sharding.py:sanitize_shardings``)."""
+    if tp <= 1:
+        return None
+    ndim = len(shape)
+    dims = MODEL_AXIS_DIMS.get(_leaf_key(name, ndim), ())
+    if not dims:
+        return None
+    dim = dims[0] % ndim
+    leaf = name.rsplit(".", 1)[-1]
+    unit = head_dim if leaf in Q_HEAD_LEAVES + KV_HEAD_LEAVES else 1
+    return dim if shape[dim] % (tp * unit) == 0 else None
+
+
+def shard_params(flat: dict, mesh, head_dim: int = 1) -> dict:
+    """This rank's slice of each full leaf of ``flat`` along its
+    :func:`model_dim` (views; a whole leaf is itself)."""
+    tp, index = tp_degree(mesh), mesh.coord(MODEL_AXIS)
+    return {n: shard_slice(t, model_dim(n, tuple(t.shape), tp, head_dim), index, tp)
+            for n, t in flat.items()}
+
+
+def _full_size(leaf: str, cfg, v_pad: int) -> int | None:
+    """The whole size of the dimension the model axis would split of a
+    leaf of the dense kinds (None for other leaves)."""
+    if leaf in Q_HEAD_LEAVES:
+        return cfg.n_heads * cfg.head_dim
+    if leaf in KV_HEAD_LEAVES:
+        return cfg.n_kv_heads * cfg.head_dim
+    if leaf in ("w_gate", "w_up", "w_down"):
+        return cfg.d_ff
+    if leaf in ("embed", "head"):
+        return v_pad * (max(1, cfg.n_codebooks) if leaf == "head" else 1)
+    return None
+
+
+def local_model_dim(name: str, local_shape, cfg, v_pad: int) -> int | None:
+    """:func:`model_dim` of a leaf of the dense kinds read from one rank's
+    slice of it: the dimension :data:`MODEL_AXIS_DIMS` names when it is
+    shorter than the whole (``cfg``; ``v_pad`` the padded vocabulary)."""
+    ndim = len(local_shape)
+    dims = MODEL_AXIS_DIMS.get(_leaf_key(name, ndim), ())
+    full = _full_size(name.rsplit(".", 1)[-1], cfg, v_pad)
+    if not dims or full is None:
+        return None
+    dim = dims[0] % ndim
+    return dim if local_shape[dim] != full else None
+
+
+def unshard_params(shards: list, cfg, v_pad: int) -> dict:
+    """Inverse of :func:`shard_params`: the model ranks' slices (one dict
+    each, in model-axis order; tensors or numpy arrays) -> the whole
+    leaves."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for n, t in shards[0].items():
+        dim = local_model_dim(n, tuple(t.shape), cfg, v_pad)
+        if dim is None:
+            out[n] = t
+        elif isinstance(t, torch.Tensor):
+            out[n] = torch.cat([s[n] for s in shards], dim=dim)
+        else:
+            out[n] = np.concatenate([s[n] for s in shards], axis=dim)
+    return out
+
+
+# The refusals of tensor parallelism, each naming the slice that lifts it.
+TP_KINDS = ("attn", "swa")
+LATER_SLICE_TP_KINDS = (
+    "tensor parallelism (model degree {tp}) runs the dense block kinds {ok}; {bad} "
+    "arrive with later slices: moe with expert parallelism over the model axis, ssm "
+    "and rec / latt with their inner widths over it, xattn with cross-attention "
+    "heads over it. Use --data-model D 1 for this architecture")
+LATER_SLICE_TP_REVERSIBLE = (
+    "block_structure={structure!r} under tensor parallelism (model degree {tp}) "
+    "arrives with a later slice: the reversible stage's backward replays its "
+    "sublayers, and the replay does not carry the model axis's collectives yet. "
+    "Use block_structure='residual' with a model degree above 1")
+LATER_SLICE_TP_EMBED_INPUTS = (
+    "an embed-input architecture (musicgen's four-codebook frontend) under tensor "
+    "parallelism (model degree {tp}) arrives with a later slice: its head holds "
+    "every codebook's vocabulary side by side. Use --data-model D 1")
+LATER_SLICE_TP_ROW_SITE = (
+    "site {path!r} ({policy}) is row-parallel under tensor parallelism (model degree "
+    "{tp}): its input is split over the model axis, so K1's csim and alpha would "
+    "need dot products over the whole row. A compressed row-parallel site arrives "
+    "with a later slice; keep it exact (e.g. 'ffn.*=pamm(r=1/8);ffn.down=none')")
+LATER_SLICE_TP_CONTEXT = (
+    "a model (tensor-parallel) degree above 1 together with a context degree above 1 "
+    "arrives with a later slice (the ring inside tensor-parallel attention); use "
+    "--data-model D M with --mesh-context 1, or --data-model D 1 with --mesh-context C")
+LATER_SLICE_TP_OPTIMIZER = (
+    "optimizer={opt!r} under tensor parallelism (model degree {tp}) arrives with a "
+    "later slice: its factored moments average over dimensions the model axis "
+    "splits. Use optimizer='adamw'")
+LATER_SLICE_TP_GRAD_COMPRESS = (
+    "grad_compress={gc!r} under tensor parallelism (model degree {tp}) arrives with "
+    "a later slice: its one int8 scale a tensor is the max over the whole leaf, "
+    "which the model ranks each hold a slice of. Use grad_compress='none'")
+# row-parallel sites: their input is the model-sharded hidden of the sublayer
+ROW_PARALLEL_ROLES = ("ffn.down",)
+
+
+def validate_tensor_parallel(cfg, rcfg, tp: int, resolved=None) -> None:
+    """Config-time refusals of a model degree ``tp`` above 1 (the texts
+    above); ``resolved``: the run's plan, whose compressed row-parallel
+    sites are refused."""
+    if tp <= 1:
+        return
+    kinds = sorted({k for unit, _ in cfg.stages for k in unit})
+    bad = [k for k in kinds if k not in TP_KINDS]
+    if bad:
+        raise NotImplementedError(LATER_SLICE_TP_KINDS.format(tp=tp, ok=TP_KINDS, bad=bad))
+    structure = getattr(rcfg, "block_structure", "residual") or "residual"
+    if structure != "residual":
+        raise NotImplementedError(LATER_SLICE_TP_REVERSIBLE.format(structure=structure,
+                                                                   tp=tp))
+    if cfg.embed_inputs or cfg.n_codebooks:
+        raise NotImplementedError(LATER_SLICE_TP_EMBED_INPUTS.format(tp=tp))
+    if rcfg.optimizer != "adamw":
+        raise NotImplementedError(LATER_SLICE_TP_OPTIMIZER.format(opt=rcfg.optimizer, tp=tp))
+    gc = getattr(rcfg, "grad_compress", "none")
+    if gc != "none":
+        raise NotImplementedError(LATER_SLICE_TP_GRAD_COMPRESS.format(gc=gc, tp=tp))
+    if resolved is not None:
+        for s in resolved.compressed_sites:
+            if s.path.endswith(ROW_PARALLEL_ROLES) and not s.is_exact:
+                raise NotImplementedError(LATER_SLICE_TP_ROW_SITE.format(
+                    path=s.path, policy=s.policy.name, tp=tp))
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if H % tp == 0 and KV % tp and (H // KV) % (H // tp):
+        raise NotImplementedError(
+            f"tensor parallelism (model degree {tp}) with {H} q heads over {KV} K/V "
+            f"heads: the K/V heads stay whole on every rank, and a rank's {H // tp} "
+            f"q heads must then fall in one K/V head's group of {H // KV}")
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel dispatch context
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """This rank's place on the model axis: the subgroup, its degree
+    ``tp``, this rank's index along it and the transport; ``seq_shard``:
+    the residual stream is split over the sequence between blocks
+    (Megatron sequence parallelism); and which sublayers the model axis
+    splits (a dimension it cannot divide stays whole: :func:`model_dim`):
+    the q heads (``heads``; wq / bq columns, wo rows), the K/V heads
+    (``kv``; else every rank holds them all and takes its q heads' group),
+    the FFN width (``ffn``) and the (padded) vocabulary (``vocab``)."""
+
+    group: Any
+    tp: int
+    index: int
+    comm: Any
+    seq_shard: bool = False
+    heads: bool = False
+    kv: bool = False
+    ffn: bool = False
+    vocab: bool = False
+
+
+_MODEL: list[ModelGroup] = []
+
+
+def model_group() -> ModelGroup | None:
+    """The model axis of the enclosing :func:`tensor_parallel` block when its
+    degree is above 1, else None: the dispatch point of the column- and
+    row-parallel products (``models/layers.py``, ``models/attention.py``,
+    ``models/model.py``). Process-wide, as :func:`ring_context`: a
+    rematerialised layer recomputes inside it in backward."""
+    return _MODEL[-1] if _MODEL else None
+
+
+def make_model_group(mesh, cfg, rcfg, v_pad: int) -> ModelGroup | None:
+    """The :class:`ModelGroup` of ``mesh`` for ``cfg`` (``v_pad``: the padded
+    vocabulary), or None for a model degree of 1."""
+    tp = tp_degree(mesh)
+    if tp <= 1:
+        return None
+    d, dh = cfg.d_model, cfg.head_dim
+    # a stacked block leaf (layers, d, width), the head (d, V)
+    split = lambda leaf, *shape: model_dim(leaf, shape, tp, dh) is not None
+    heads = split("wq", 1, d, cfg.n_heads * dh)
+    return ModelGroup(mesh.group(MODEL_AXIS), tp, mesh.coord(MODEL_AXIS), mesh.comm,
+                      seq_shard=bool(getattr(rcfg, "seq_shard", False)), heads=heads,
+                      kv=heads and split("wk", 1, d, cfg.n_kv_heads * dh),
+                      ffn=split("w_gate", 1, d, cfg.d_ff), vocab=split("head", d, v_pad))
+
+
+@contextlib.contextmanager
+def tensor_parallel(group: ModelGroup | None):
+    """Run the enclosed forward / backward as this rank's shard of the
+    model axis (a no-op for None)."""
+    if group is None:
+        yield None
+        return
+    _MODEL.append(group)
+    try:
+        yield group
+    finally:
+        _MODEL.pop()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1
+# ---------------------------------------------------------------------------
 
 def zero1_dim(name: str, shape, dp: int) -> int | None:
     """The dimension of parameter ``name`` (shape ``shape``) that its
@@ -207,12 +436,12 @@ def zero1_dim(name: str, shape, dp: int) -> int | None:
 
 
 def shard_slice(t, dim: int | None, index: int, dp: int):
-    """The view of data shard ``index``'s 1/dp slice of ``t`` along ``dim``
-    (``t`` itself for ``dim`` None)."""
+    """The view of shard ``index``'s 1/dp slice of ``t`` (a tensor or a
+    numpy array) along ``dim`` (``t`` itself for ``dim`` None)."""
     if dim is None:
         return t
     n = t.shape[dim] // dp
-    return t.narrow(dim, index * n, n)
+    return t[(slice(None),) * dim + (slice(index * n, (index + 1) * n),)]
 
 
 def zero1_layout(params: dict, dp: int) -> dict:

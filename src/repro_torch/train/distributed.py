@@ -1,8 +1,10 @@
-"""Mesh executor (``repro/train/distributed.py``): data x context training
-over the ranks of a :class:`~repro_torch.launch.mesh.Mesh`.
+"""Mesh executor (``repro/train/distributed.py``): data x context, or
+data x model, training over the ranks of a
+:class:`~repro_torch.launch.mesh.Mesh`.
 
-The JAX package runs one ``shard_map`` program per device; the port runs
-one process per (data, context) coordinate, and each rank
+The JAX package runs one ``shard_map`` program per device, its data axis
+manual and its model axis left to GSPMD; the port runs one process per
+(data, model, context) coordinate, and each rank
 
   * takes its slice of the global batch (data axis) and, under context
     parallelism, its zigzag slice of the sequence (chunks ``(c,
@@ -10,21 +12,29 @@ one process per (data, context) coordinate, and each rank
     read (``kernels/ring_attention.py``);
   * runs ``loss_and_grad`` on it -- the same K1-K5 paths as the
     single-process step, attention through the ring when the context
-    degree is above 1;
+    degree is above 1; under a model degree above 1 it holds its slice of
+    the parameters (``runtime.sharding.model_dim``) and runs the column-
+    and row-parallel products over the model group
+    (``runtime.sharding.tensor_parallel``), K3-K5 at its head counts;
   * averages loss, NLL and the MoE aux term over the data x context ranks
     and sums the per-site telemetry;
   * all-reduces the gradients (mean), or runs the int8 error-feedback
     all-reduce (``runtime/grad_compress.py``) with its own residues;
-  * clips by the global norm, takes the warmup-cosine rate and runs AdamW
+  * clips by the global norm (the squares of model-split leaves summed
+    over the model group), takes the warmup-cosine rate and runs AdamW
     under ZeRO-1: it updates only its data shard's slice of each moment
-    and parameter (``runtime.sharding.zero1_dim``), then the data ranks
-    gather the parameter slices (``collectives.gather_shards_``).
+    and of its (model-axis) parameter slice (``runtime.sharding.zero1_dim``),
+    then the data ranks gather the parameter slices
+    (``collectives.gather_shards_``).
 
 PAMM sampling: ``blocks=auto`` resolves to dp x cp; each rank compresses
 its rows as one block of ``block_share = dp x cp`` (``_localize_policy``)
 from :func:`shard_site_key`, the key of its block in the blocked
 single-process compress, so the executor draws what ``blocks=dp*cp``
-draws in one process, and every shard draws its own stream.
+draws in one process, and every shard draws its own stream. The model
+coordinate never enters the key or the block count: the model ranks of
+one data shard compress the same (whole) input from the same key, so K1
+yields the same state on each, and K2 takes each rank's columns of dZ.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from repro_torch.core.policies import PammPolicy
 from repro_torch.kernels.ring_attention import zigzag_permutation, zigzag_shard_positions
 from repro_torch.models import init_model
 from repro_torch.models.blocks import resolve_block_structure
+from repro_torch.models.model import _padded_vocab
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.optim.optimizers import clip_by_global_norm
 from repro_torch.runtime import sharding as sh
@@ -85,11 +96,14 @@ def zero1_of(rcfg, mesh, params: dict):
 
 
 def init_distributed_state(cfg, rcfg, mesh, *, device="cuda", model=None) -> TrainState:
-    """This rank's TrainState: the parameters (``model``, or initialised
-    from ``rcfg.seed`` -- the same on every rank), its ZeRO-1 slices of the
+    """This rank's TrainState: the parameters (``model``, already this
+    rank's slices under a model degree above 1 -- ``bridge.shard_jax_params``
+    -- or initialised from ``rcfg.seed``: the same draws on every rank, of
+    which each keeps its model-axis slices), its ZeRO-1 slices of the
     optimizer moments and, under ``grad_compress="int8_ef"``, its zeroed
     error-feedback residues."""
-    model = init_model(cfg, rcfg, seed=rcfg.seed, device=device) if model is None else model
+    if model is None:
+        model = init_model(cfg, rcfg, seed=rcfg.seed, device=device, mesh=mesh)
     params = dict(model.named_parameters())
     opt_init, _ = make_optimizer(rcfg.optimizer)
     zero1 = zero1_of(rcfg, mesh, params)
@@ -177,15 +191,21 @@ def make_shard_map_grads(cfg, rcfg, *, mesh, sampler=None) -> ShardMapGrads:
             )
     resolved = resolved_global.map_policies(lambda p: _localize_policy(p, n_shards))
     if n_shards > 1:
+        # the model coordinate stays out: model ranks draw the same rows
         shard = mesh.coord("data") * cp + mesh.coord("context")
         resolved = resolved.with_site_key_fn(
             functools.partial(shard_site_key, dp=n_shards, shard=shard))
+    sh.validate_tensor_parallel(cfg, rcfg, sh.tp_degree(mesh), resolved_global)
+    mg = sh.make_model_group(mesh, cfg, rcfg, _padded_vocab(cfg, rcfg))
     sync, comm = mesh.sync_group, mesh.comm
 
     def rank_grads(model, batch: dict, step_idx: int):
         b = local_batch(batch, mesh, model.device, grad_accum=rcfg.grad_accum)
+        if mg is not None and mg.seq_shard and b["tokens"].shape[1] % mg.tp:
+            raise ValueError(f"seq_shard: sequence length {b['tokens'].shape[1]} is not "
+                             f"divisible by the model degree {mg.tp}")
         key = Key(rcfg.seed, sampler=sampler).fold_in(int(step_idx))
-        with sh.context_parallel(mesh), sh.data_parallel(mesh):
+        with sh.context_parallel(mesh), sh.data_parallel(mesh), sh.tensor_parallel(mg):
             return loss_and_grad(cfg, rcfg, resolved, model, b, key)
 
     def sync_grads(grads: dict, ef):
@@ -209,6 +229,8 @@ def make_shard_map_train_step(cfg, rcfg, *, total_steps: int = 10000, mesh,
     dp, n_shards = sh.dp_degree(mesh), sh.dp_degree(mesh) * sh.cp_degree(mesh)
     _, opt_update = make_optimizer(rcfg.optimizer)
     sync, comm = mesh.sync_group, mesh.comm
+    v_pad = _padded_vocab(cfg, rcfg)
+    mg = sh.make_model_group(mesh, cfg, rcfg, v_pad)
 
     def step(state: TrainState, batch: dict, step_idx: int):
         model = state.params
@@ -224,7 +246,11 @@ def make_shard_map_train_step(cfg, rcfg, *, total_steps: int = 10000, mesh,
         all_reduce_([scalars], sync, n_shards, comm, mean=True)
         all_reduce_(list(metrics["sites"].values()), sync, n_shards, comm, mean=False)
         loss, metrics["nll"], metrics["aux"] = scalars.unbind(0)
-        grads, gnorm = clip_by_global_norm(grads, rcfg.grad_clip)
+        split = None
+        if mg is not None:
+            split = ({n for n, p in params.items()
+                      if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) is not None}, mg)
+        grads, gnorm = clip_by_global_norm(grads, rcfg.grad_clip, model_split=split)
         lr = warmup_cosine(int(step_idx), total_steps, rcfg.lr, rcfg.warmup_frac)
         zero1 = zero1_of(rcfg, mesh, params)
         kw = {"zero1": zero1} if zero1 else {}

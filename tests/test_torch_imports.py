@@ -72,6 +72,7 @@ def test_no_source_imports_jax_or_repro():
     assert ROOT / "tools" / "vision_phases.py" in files
     assert ROOT / "tools" / "audio_phases.py" in files
     assert ROOT / "tools" / "mesh_phases.py" in files
+    assert ROOT / "tools" / "tp_phases.py" in files
     assert ROOT / "tools" / "gloo_probe.py" in files
     assert PORT / "examples" / "quickstart.py" in files
     assert PORT / "models" / "rglru.py" in files

@@ -209,8 +209,9 @@ def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     checkpoint/restart supervisor (a second run resumes from the last
     checkpoint); the mesh flags without the shard_map executor are
     refused, as by the JAX launcher, and so are a model degree above 1
-    and a checkpoint directory under a mesh, each naming its later slice
-    (the mesh runs themselves: tests/test_torch_distributed.py)."""
+    together with a context degree above 1 and a checkpoint directory
+    under a mesh, each naming its later slice (the mesh runs themselves:
+    tests/test_torch_distributed.py, tests/test_torch_tensor_parallel.py)."""
     from repro_torch.launch import train
 
     common = ["--arch", "internlm2-1.8b_smoke", "--device", "cpu", "--seq-len", "16",
@@ -233,8 +234,8 @@ def test_train_cli_runs_on_the_cpu(capsys, tmp_path):
     for flag, msg in ((["--mesh-context", "2"], "needs --executor shard_map"),
                       (["--grad-compress", "int8_ef"], "only honored by the shard_map"),
                       (["--data-model", "1", "1"], "needs --executor shard_map"),
-                      (["--executor", "shard_map", "--data-model", "2", "2"],
-                       "tensor-parallel slice"),
+                      (["--executor", "shard_map", "--data-model", "1", "2",
+                        "--mesh-context", "2"], "ring inside tensor-parallel attention"),
                       (["--executor", "shard_map", "--ckpt-dir", ck],
                        "checkpoint-shardings slice")):
         with pytest.raises(SystemExit):

@@ -1,10 +1,12 @@
-"""What the gloo ranks of ``tests/test_torch_ring.py`` and
-``tests/test_torch_distributed.py`` run (``repro_torch.launch.ranks``
+"""What the gloo ranks of ``tests/test_torch_ring.py``,
+``tests/test_torch_distributed.py`` and ``tests/test_torch_tensor_parallel.py`` run (``repro_torch.launch.ranks``
 starts them). This module imports neither JAX nor the JAX package, so a
 spawned rank starts in the time torch takes to import; draws of the JAX
 key chain reach a rank as a table (:class:`TableSampler`) recorded in the
 test process.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -53,29 +55,37 @@ def _numpy(tree: dict) -> dict:
 
 def _train(mesh, rank, run: dict) -> dict:
     """One run of the mesh executor: per-step metrics (floats), and what
-    ``run["collect"]`` asks for."""
-    cfg = get_config(run["arch"])
+    ``run["collect"]`` asks for. ``run["cfg"]``: fields of the arch's
+    config to replace; ``run["start"]``: the first step's index; the
+    parameters ``run["params"]`` (the whole JAX tree) reach each rank as
+    its model-axis slices, and ``params`` / ``state`` come back whole."""
+    cfg = dataclasses.replace(get_config(run["arch"]), **run.get("cfg", {}))
     rcfg = RunConfig(**run["rcfg"])
     model = None
     if run.get("params") is not None:
-        model = bridge.from_jax_params(run["params"], cfg, device="cpu", trainable=True)
+        model = bridge.shard_jax_params(run["params"], cfg, mesh, device="cpu")
     state = init_distributed_state(cfg, rcfg, mesh, device="cpu", model=model)
-    step = make_shard_map_train_step(cfg, rcfg, total_steps=run.get("total_steps",
-                                                                    len(run["batches"])),
-                                     mesh=mesh, sampler=run.get("sampler"))
+    start = run.get("start", 0)
+    step = make_shard_map_train_step(cfg, rcfg, total_steps=run.get(
+        "total_steps", start + len(run["batches"])), mesh=mesh, sampler=run.get("sampler"))
     collect = run.get("collect", ())
     out = {"metrics": [], "ef_norms": []}
-    for i, batch in enumerate(run["batches"]):
+    for i, batch in enumerate(run["batches"], start=start):
         state, m = step(state, batch, i)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if state.ef is not None:
             out["ef_norms"].append(float(torch.sqrt(sum((e * e).sum()
                                                         for e in state.ef.values()))))
     params = dict(state.params.named_parameters())
-    if "params" in collect and rank == 0:
-        out["params"] = _numpy(params)
+    if "params" in collect:
+        whole = params
+        if tsh.tp_degree(mesh) > 1:
+            tree = bridge.gathered_train_state_tree(state, mesh, rcfg, cfg)
+            whole = bridge._flatten(tree.params)
+        if rank == 0:
+            out["params"] = _numpy(whole)
     if "state" in collect:
-        tree = bridge.gathered_train_state_tree(state, mesh, rcfg)
+        tree = bridge.gathered_train_state_tree(state, mesh, rcfg, cfg)
         if rank == 0:
             out["m"] = _numpy(bridge._flatten(tree.opt.m))
             out["v"] = _numpy(bridge._flatten(tree.opt.v))

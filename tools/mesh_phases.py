@@ -10,9 +10,9 @@ show that they can fail. Run from the repository root:
   python3 tools/mesh_phases.py [--kernels-only | --layers N]
                                [--keep-going] [--plant-fault NAME ...]
 
-``--kernels-only`` stops after phase 35; ``--layers N`` cuts the data and
-context phases to N layers (a quick rehearsal of the path; their checks
-then use N). Prints what those phases print, then the kernel rows as
+``--kernels-only`` stops after phase 35; ``--layers N`` sets the data and
+context phases' depth (default ``chip_smoke.MESH_LAYERS``, 4 of 24; 0 for
+full depth; their checks then use N). Prints what those phases print, then the kernel rows as
 JSON; the first failure exits non-zero, as in chip_smoke.py, unless
 ``--keep-going``: then every failing check is printed, the phases go on,
 and the exit is non-zero at the end.
@@ -110,7 +110,7 @@ def run_planted(smi, faults, layers) -> bool:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
-    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--layers", type=int, default=chip_smoke.MESH_LAYERS)
     ap.add_argument("--plant-fault", action="append", default=[],
                     choices=sorted(FAULTS) + ["all"])
     ap.add_argument("--keep-going", action="store_true",
@@ -120,7 +120,7 @@ def main():
     smi, gen = chip_smoke.start()
     if args.plant_fault:
         faults = sorted(FAULTS) if "all" in args.plant_fault else args.plant_fault
-        ok = run_planted(smi, faults, args.layers)
+        ok = run_planted(smi, faults, args.layers or None)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         sys.exit(0 if ok else 1)
     if args.kernels_only:
@@ -128,7 +128,7 @@ def main():
         return
     if args.keep_going:
         chip_smoke.fail = Failures()
-    rows = chip_smoke.run_mesh_phases(gen, smi, layers=args.layers)
+    rows = chip_smoke.run_mesh_phases(gen, smi, layers=args.layers or None)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(rows))
     if args.keep_going and chip_smoke.fail:

@@ -2,7 +2,8 @@
 """chip_smoke.py's data-axis phases alone, after its phase 1: the sharded
 wrappers against their plain versions (40), internlm2-1.8b served by one
 engine whose page pools are split into per-replica shards of an
-in-process data mesh (41), the wrappers' kernel rows, and granite-moe's
+in-process data mesh (41; at full width cut to chip_smoke.SERVE_REPS,
+as there), the wrappers' kernel rows, and granite-moe's
 blocked MoE dispatch trained and decoded (42). For iterating on the data
 axis without the earlier phases. Run from the repository root:
 
@@ -19,14 +20,12 @@ import time
 sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
 import chip_smoke  # noqa: E402  (it puts src/ on the path)
 
-from repro_torch.configs import RunConfig, get_config  # noqa: E402
-from repro_torch.models import init_model  # noqa: E402
+from repro_torch.configs import RunConfig  # noqa: E402
 
 t0 = time.perf_counter()
 smi, gen = chip_smoke.start()
-cfg = get_config(chip_smoke.ARCH)
 rcfg = RunConfig(compute_dtype="bfloat16", param_dtype="bfloat16", policy_name="none")
-dense = {"cfg": cfg, "rcfg": rcfg, "model": init_model(cfg, rcfg, seed=0, device="cuda")}
+dense = chip_smoke.cut_serving({"rcfg": rcfg})
 errs = chip_smoke.phase_sharded_kernels(gen)
 counts = chip_smoke.phase_sharded_serving(dense, smi)
 rows = chip_smoke.sharded_rows(gen, counts, errs, smi)

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's tensor-parallel phases alone (its ``run_tp_phases``:
+43-45, internlm2-1.8b trained over the model axis on two gloo ranks
+sharing the card and on data 2 x model 2, against the single-process
+step; K1-K5 at a model rank's shapes as kernel rows), after its phase 1,
+for iterating on tensor parallelism without the earlier phases; and the
+same checks run against planted faults, to show that they can fail. Run
+from the repository root:
+
+  python3 tools/tp_phases.py [--layers N] [--dtp-layers N] [--keep-going]
+                             [--plant-fault NAME ...]
+
+``--layers N`` cuts phase 43 to N layers and ``--dtp-layers N`` phase 44
+(a quick rehearsal of the path; their checks then use N). Prints what
+those phases print, then the kernel rows as JSON; the first failure exits
+non-zero, as in chip_smoke.py, unless ``--keep-going``: then every failing
+check is printed, the phases go on, and the exit is non-zero at the end.
+
+``--plant-fault NAME`` (repeatable; ``all`` for every one) runs phases 43
+and 44 (at ``--layers`` / ``--dtp-layers``) once for each fault, planted
+in every rank, with every check run, and expects the check that ``FAULTS``
+names to be among those that fail: it prints ``[planted] NAME caught by:
+...``, or exits non-zero when that check passed.
+"""
+import argparse
+import functools
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+import chip_smoke  # noqa: E402  (it puts src/ on the path)
+
+# name: (the fault, words of the failure message that must catch it)
+FAULTS = {
+    "no_column_sum": ("the column-parallel input's backward keeps this rank's part of "
+                      "the gradient (no all-reduce over the model group)",
+                      "the mesh's gradients part"),
+    "no_row_sum": ("the row-parallel output is not summed over the model group",
+                   "the mesh's losses part"),
+}
+
+
+def plant(fault: str) -> None:
+    """Plant ``fault`` in this process's repro_torch modules."""
+    from repro_torch.runtime import collectives
+
+    if fault == "no_column_sum":
+        collectives._CopyToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    elif fault == "no_row_sum":
+        collectives._ReduceFromModel.forward = staticmethod(lambda ctx, x, mg: x.clone())
+    else:
+        raise ValueError(f"unknown fault {fault!r}; have {sorted(FAULTS)}")
+
+
+def planted_rank(rank: int, world: int, jobs: list, fault: str) -> list:
+    plant(fault)
+    return chip_smoke.tp_rank(rank, world, jobs)
+
+
+class Failures(list):
+    """Stands in for chip_smoke.fail: a failing check is printed and kept,
+    and the phases go on."""
+
+    def __call__(self, msg: str) -> None:
+        print(f"[check failed] {msg}", flush=True)
+        self.append(msg)
+
+
+def run_planted(smi, faults, layers, dtp_layers) -> bool:
+    """Phases 43-44 once per fault, every check run; True when each fault
+    failed the check that FAULTS names (others may fail too)."""
+    ok = True
+    real = chip_smoke.tp_rank
+    for fault in faults:
+        what, want = FAULTS[fault]
+        print(f"[planted] {fault}: {what}; expected to fail: '{want}'", flush=True)
+        chip_smoke.fail = failures = Failures()
+        chip_smoke.tp_rank = functools.partial(planted_rank, fault=fault)
+        try:
+            chip_smoke.phase_tensor_parallel(smi, layers, dtp_layers)
+        finally:
+            chip_smoke.tp_rank = real
+        hit = [m for m in failures if want in m]
+        ok &= bool(hit)
+        print(f"[planted] {fault} " + (f"caught by: {hit[0]}" if hit else
+                                       "NOT CAUGHT by its check") +
+              f" ({len(failures)} checks failed in all)", flush=True)
+    return ok
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=chip_smoke.TP_LAYERS)
+    ap.add_argument("--dtp-layers", type=int, default=chip_smoke.DTP_LAYERS)
+    ap.add_argument("--plant-fault", action="append", default=[],
+                    choices=sorted(FAULTS) + ["all"])
+    ap.add_argument("--keep-going", action="store_true",
+                    help="print every failing check and go on; exit 1 at the end")
+    args = ap.parse_args()
+    t0 = time.perf_counter()
+    smi, gen = chip_smoke.start()
+    if args.plant_fault:
+        faults = sorted(FAULTS) if "all" in args.plant_fault else args.plant_fault
+        ok = run_planted(smi, faults, args.layers, args.dtp_layers)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        sys.exit(0 if ok else 1)
+    if args.keep_going:
+        chip_smoke.fail = Failures()
+    rows = chip_smoke.run_tp_phases(gen, smi, args.layers, args.dtp_layers)
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(rows))
+    if args.keep_going and chip_smoke.fail:
+        sys.exit(1)
+
+
+if __name__ == "__main__":   # the ranks re-import this file: run nothing then
+    main()
