@@ -5244,6 +5244,7 @@ def mesh_rank(rank: int, world: int, jobs: list) -> list:
                                                                total_steps=MESH_TOTAL),
                                                state, batches)
             out["single_bytes"] = _state_bytes(state)
+            out["single_experts"] = _expert_bytes(state)
             if job["compare"] == "updates":
                 ref["delta"] = {n: p - ref["p0"][n]
                                 for n, p in _host_params(state.params).items()}
@@ -5932,6 +5933,69 @@ TP_SITE = (TRAIN_BATCH * TRAIN_SEQ, 2048, 16)   # attn.qkv's (b, n, k) at r=1/51
 TP_K2_M = ((1024, "wq"), (512, "wk / wv"))      # K2's dZ columns a rank at tp 2
 
 
+def tp_job_cfg(job: dict):
+    """(cfg, rcfg) of a tensor-parallel job: ``arch`` (default ARCH) cut to
+    ``layers`` (None: full depth) of its one stage's unit, ``spec``
+    (default MESH_SPEC) under remat MESH_REMAT, ``run``: other RunConfig
+    fields."""
+    import dataclasses
+
+    from repro_torch.configs import RunConfig, get_config
+
+    cfg = get_config(job.get("arch", ARCH))
+    if job.get("layers"):
+        (unit, _), = cfg.stages
+        cfg = dataclasses.replace(cfg, stages=((unit, job["layers"]),), n_layers=job["layers"])
+    rcfg = RunConfig(compression=job.get("spec", MESH_SPEC), policy_name="none",
+                     remat=MESH_REMAT, **job.get("run", {}))
+    return cfg, rcfg
+
+
+def tp_want_launches(job: dict, cfg) -> dict:
+    """Launches a tensor-parallel step makes on each rank under
+    remat='pamm': :func:`mesh_want_launches`'s, plus under an ``ffn.*``
+    rule K1 once (gate / up share a state) and K2 three times a layer and
+    ffn.down's split route (pass A and pass B once a layer), plus under
+    ``moe.expert`` the batched K1 once and the batched K2 twice (gate, up)
+    a layer, over the rank's experts."""
+    want = mesh_want_launches(cfg, 1)
+    n, spec = cfg.n_layers, job.get("spec", MESH_SPEC)
+    if "ffn.*" in spec:
+        want["csim_argmax"] += n
+        want["segment_matmul"] += 3 * n
+        want.update(csim_partial=n, csim_finish=n)
+    if "moe.expert" in spec:
+        want.update(csim_argmax_batched=n, segment_matmul_batched=2 * n)
+    return want
+
+
+# the leaves whose gradient each compression rule's site estimates (a moe
+# block's experts sit under its "ffn" node)
+SITE_LEAVES = {"attn.qkv": ("attn.wq", "attn.wk", "attn.wv"),
+               "ffn.*": ("ffn.w_gate", "ffn.w_up", "ffn.w_down"),
+               "moe.expert": ("ffn.w_gate", "ffn.w_up")}
+
+
+def _site_leaves(spec: str) -> tuple:
+    """Suffixes of the leaves the compressed sites of ``spec`` estimate."""
+    rules = [r.split("=")[0] for r in spec.split(";") if r and not r.endswith("=none")]
+    return tuple(x for r in rules for x in SITE_LEAVES.get(r, ()))
+
+
+def _with_blocks(spec: str, n: int) -> str:
+    """Every rule of ``spec`` with ``blocks=n``."""
+    return ";".join(r[:-1] + f",blocks={n})" for r in spec.split(";"))
+
+
+def _expert_bytes(state) -> dict:
+    """Bytes of the MoE expert leaves ((layers, E, ., .)) and their moments."""
+    names = {n for n, p in state.params.named_parameters() if p.dim() == 4}
+    size = lambda t: t.numel() * t.element_size()
+    return {"params": sum(size(p) for n, p in state.params.named_parameters() if n in names),
+            "moments": sum(size(t) for tree in (state.opt.m, state.opt.v)
+                           for n, t in tree.items() if n in names)}
+
+
 def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg) -> dict | None:
     """This rank's model-axis slice of each of rank 0's leaves ``full``
     (the single process's, f32 on the card), on the model ranks of data
@@ -5947,11 +6011,11 @@ def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg) -> dict | None:
 
     if mesh.coord("data") != 0:
         return None
-    v_pad = _padded_vocab(cfg, rcfg)
+    v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
     tp, me = sh.tp_degree(mesh), mesh.coord("model")
     out = {}
     for n, t in local.items():
-        dim = sh.local_model_dim(n, tuple(t.shape), cfg, v_pad)
+        dim = sh.local_model_dim(n, tuple(t.shape), cfg, v_pad, e_pad)
         if me == 0:
             for m in range(1, tp):      # data 0's model ranks are global ranks 0..tp-1
                 dist.send(sh.shard_slice(full[n], dim, m, tp).contiguous().cpu(), dst=m)
@@ -6052,7 +6116,6 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import RunConfig
     from repro_torch.core.keys import Key
     from repro_torch.core.plan import resolve_for_run
     from repro_torch.data import SyntheticStream
@@ -6070,10 +6133,9 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
     build.build()                       # the parent's builds, found by their hashes
     outs = []
     for i, job in enumerate(jobs):
-        cfg = mesh_cfg(job["layers"])
+        cfg, rcfg = tp_job_cfg(job)
         data, model = job["shape"]
-        v_pad = _padded_vocab(cfg, RunConfig())
-        rcfg = RunConfig(compression=MESH_SPEC, policy_name="none", remat=MESH_REMAT)
+        v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
         stream = SyntheticStream.for_arch(cfg, TP_SEQ, TP_BATCH, seed=rcfg.seed)
         batches = {s: stream.get_batch(s) for s in TP_STEPS}
         mesh = make_debug_mesh(data, model, timeout=MESH_TIMEOUT)
@@ -6084,8 +6146,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         if rank == 0:
             # on the card: the gradients at the initial parameters, the
             # parameters after the steps, and the change's squared norm a leaf
-            blocked = dataclasses.replace(rcfg,
-                                          compression=f"{MESH_SPEC[:-1]},blocks={data})")
+            blocked = dataclasses.replace(rcfg, compression=_with_blocks(rcfg.compression, data))
             state = init_train_state(cfg, blocked, device="cuda")
             p0 = {n: p.detach().clone() for n, p in state.params.named_parameters()}
             _, _, grads = loss_and_grad(cfg, blocked, resolve_for_run(cfg, blocked),
@@ -6099,6 +6160,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
                                                                total_steps=MESH_TOTAL),
                                                state, batches)
             out["single_bytes"] = _state_bytes(state)
+            out["single_experts"] = _expert_bytes(state)
             ref["final"] = {n: p.detach() for n, p in state.params.named_parameters()}
             out["update_den"] = {n: float(torch.linalg.vector_norm(p - p0[n])) ** 2
                                  for n, p in ref["final"].items()}
@@ -6117,7 +6179,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         mine = {k: _ref_slices(ref.get(k), params, mesh, cfg, rcfg) for k in ("grads", "final")}
         del ref
         out["split"] = {n for n, p in params.items()
-                        if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) is not None}
+                        if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad) is not None}
         times["reference slices"] = time.perf_counter() - t0
         out["held"] = _held_bytes(*mine.values())
         hook = _tp_grad_hook(mine.pop("grads"), out)
@@ -6127,6 +6189,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         state, out["mesh"] = _mesh_steps(step_fn, state, batches, mesh.comm)
         times["steps"] = time.perf_counter() - t0
         out["bytes"] = _state_bytes(state)
+        out["experts"] = _expert_bytes(state)
         out["n_params"] = sum(p.numel() for p in state.params.parameters())
         # the parameters after the steps against the single process's: the
         # squared norm of their difference (this rank's slices) over that of
@@ -6138,7 +6201,8 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         if job["moments"]:
             t0 = time.perf_counter()
             m, _ = gathered_moments(state, mesh, rcfg)
-            whole_m = gather_model_(m, {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad)
+            whole_m = gather_model_(m, {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad,
+                                                              e_pad)
                                         for n, p in params.items()},
                                     sh.make_model_group(mesh, cfg, rcfg, v_pad))
             zero1 = zero1_of(rcfg, mesh, params)
@@ -6174,9 +6238,10 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
 
     tag = f"[{smi}]"
     data, model = job["shape"]
-    cfg = mesh_cfg(job["layers"])
+    cfg, rcfg = tp_job_cfg(job)
     single = res[0]["single"]
-    print(f"[{label}] {ARCH} {cfg.n_layers} layers, {MESH_SPEC}, remat {MESH_REMAT!r}, bf16 "
+    print(f"[{label}] {cfg.name} {cfg.n_layers} layers, {rcfg.compression}, remat "
+          f"{MESH_REMAT!r}, bf16 "
           f"compute, global batch {TP_BATCH} x {TP_SEQ}, mesh data {data} x model {model} "
           f"({data * model} ranks on cuda:0, gloo); steps {list(TP_STEPS)} (index 0 the "
           f"warm-up, rate 0) {tag}")
@@ -6189,7 +6254,7 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
           f"{_gib(single_peak)} (less the {_gib(res[0]['single_held'])} of reference tensors "
           f"it holds) | params {_gib(res[0]['single_bytes']['params'])} | moments "
           f"{_gib(res[0]['single_bytes']['moments'])} {tag}")
-    want = mesh_want_launches(cfg, 1)
+    want = tp_want_launches(job, cfg)
     for r in res:
         rec = r["mesh"]
         warm = f" (warm-up {r['warm_up_s']:.1f} s before)" if "warm_up_s" in r else ""
@@ -6211,36 +6276,50 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
               f"{label}: rank {r['rank']} reports other losses than rank 0")
         check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
               f"{label}: a loss or grad norm is not finite on rank {r['rank']}")
+    # hold (module text at EP_LAYERS): None (phases 43-44) every step and
+    # leaf; "exact change" (47) likewise but the change only over the
+    # leaves no compressed site estimates; "routing" (48) the losses at the
+    # initial parameters, the rest printed (its layer check holds the path)
+    hold = job.get("hold")
+    est = lambda n: n.endswith(_site_leaves(rcfg.compression))
+    exact = lambda n: not est(n)
     mesh_loss = res[0]["mesh"]["loss"]
     rel = [abs(a - b) / abs(b) for a, b in zip(mesh_loss, single["loss"])]
+    held = rel[:TP_GRAD_STEP + 1] if hold == "routing" else rel
     print(f"[{label}] mesh against the single-process step: losses {mesh_loss} vs "
-          f"{single['loss']}, worst rel {max(rel):.3e} (tol {TOL_MESH_LOSS}; the model ranks "
-          f"draw the single process's generator rows, so every step is held)")
-    check(max(rel) <= TOL_MESH_LOSS, f"{label}: the mesh's losses part from the single-"
+          f"{single['loss']}, rel {[f'{x:.3e}' for x in rel]} (tol {TOL_MESH_LOSS} on "
+          f"{'every step' if held is rel else 'the steps at the initial parameters'}; the "
+          f"model ranks draw the single process's generator rows)")
+    check(max(held) <= TOL_MESH_LOSS, f"{label}: the mesh's losses part from the single-"
           f"process step's")
-    pamm = lambda n: n.endswith(PAMM_LEAVES)
-    g = _rel_summary(_tp_whole_parts(res, "grad_parts", label))
+    gparts = _tp_whole_parts(res, "grad_parts", label)
+    g, g_exact, g_est = (_rel_summary(gparts, keep) for keep in (lambda n: True, exact, est))
     print(f"[{label}] gradients of step {TP_GRAD_STEP} (after the data all-reduce) against "
           f"the single-process step, whole leaves from the model ranks' slices, the "
-          f"{g['leaves']} leaves: ||mesh - single|| / ||single|| {g['rel']:.3e} (tol "
-          f"{TOL_MESH_GRAD}; worst leaf {g['worst']} {g['worst_rel']:.3e}) | the comparison "
-          f"took {res[0]['grad_cmp_ms']:.1f} ms of rank 0's step")
-    check(g["rel"] <= TOL_MESH_GRAD, f"{label}: the mesh's gradients part from the "
-          f"single-process step's")
+          f"{g['leaves']} leaves: ||mesh - single|| / ||single|| {g['rel']:.3e} ("
+          + ("printed" if hold == "routing" else f"tol {TOL_MESH_GRAD}")
+          + f"; worst leaf {g['worst']} {g['worst_rel']:.3e}; the {g_exact['leaves']} leaves "
+          f"no compressed site estimates {g_exact['rel']:.3e}, the sites' {g_est['rel']:.3e}) "
+          f"| the comparison took {res[0]['grad_cmp_ms']:.1f} ms of rank 0's step")
+    check(hold == "routing" or g["rel"] <= TOL_MESH_GRAD,
+          f"{label}: the mesh's gradients part from the single-process step's")
     parts = {n: (num, res[0]["update_den"][n])
              for n, (num, _) in _tp_whole_parts(res, "update_parts", label).items()}
-    u = _rel_summary(parts)
+    u, u_exact = _rel_summary(parts), _rel_summary(parts, exact)
     by_rel = sorted(parts, key=lambda n: -parts[n][0] / max(parts[n][1], 1e-300))
     print(f"[{label}] parameter change over steps {list(TP_STEPS)}: ||mesh - single|| / "
-          f"||single|| {u['rel']:.3e} over every element (tol {TOL_MESH_UPDATE}; the attn.qkv "
-          f"site's leaves {_rel_summary(parts, pamm)['rel']:.3e}, the others "
-          f"{_rel_summary(parts, lambda n: not pamm(n))['rel']:.3e}; worst leaves "
+          f"||single|| {u['rel']:.3e} over every element ("
+          + {None: f"tol {TOL_MESH_UPDATE}", "exact change": f"tol {TOL_MESH_UPDATE} on the "
+             f"others", "routing": "printed"}[hold]
+          + f"; the compressed sites' leaves {_rel_summary(parts, est)['rel']:.3e}, the others "
+          f"{u_exact['rel']:.3e}; worst leaves "
           + ", ".join(f"{n} {(parts[n][0] / parts[n][1]) ** 0.5:.3e}" for n in by_rel[:4])
           + f"; lr {res[0]['lr']})")
     for r in res:
         print(f"[{label}] rank {r['rank']} seconds: "
               + ", ".join(f"{k} {v:.1f}" for k, v in r["times"].items()))
-    check(u["rel"] <= TOL_MESH_UPDATE,
+    held_change = {None: u, "exact change": u_exact}.get(hold)
+    check(held_change is None or held_change["rel"] <= TOL_MESH_UPDATE,
           f"{label}: the parameters' change parts from the single-process step's")
     sb = res[0]["single_bytes"]
     print(f"[{label}] a rank against the single process: params "
@@ -6329,6 +6408,359 @@ def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS):
     res = phase_tensor_parallel(smi, layers, dtp_layers)
     rows = tp_kernel_rows(gen, res, smi)
     print(f"[tp] phases 43-45 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the model axis for a compressed row-parallel site and for MoE's experts
+# ---------------------------------------------------------------------------
+SPLIT_SITE = (TRAIN_BATCH * TRAIN_SEQ, 4096, 16)  # ffn.down's (b, n / tp, k) on a model rank
+SPLIT_SPEC = "attn.qkv=pamm(r=1/512);ffn.*=pamm(r=1/512)"
+SPLIT_LAYERS = 4                 # phase 47: internlm2 at 4 of 24 layers
+# phase 48: granite at 8 of 32 layers. At 32 a rank would hold 6.8 GiB of
+# parameters, 13.5 of moments and its slices of the reference's gradients
+# and parameters (13.5) besides the step's own: two ranks past 72 GiB
+EP_LAYERS = 8
+EP_RUN = {"pad_vocab_multiple": 128}   # 49155 -> 49280 rows: the vocabulary splits too
+EP_HEADS = (12, 4, 64)           # granite's 24 / 8 heads of 64 on each of 2 model ranks
+EP_EXPERTS = MOE_E // 2          # a rank's experts
+# pass A against its plain version, of the buffer's max |.|: f32 sums of
+# bf16 products in another order
+TOL_K1_PARTIAL = 2e-5
+TOL_SPLIT = 1e-6   # cs: two column halves summed against the whole rows, f32
+# phase 47 holds its losses, step-1 gradients and, over the leaves no
+# compressed site estimates, its parameters' change at phase 43's bounds;
+# the sites' leaves (ffn.* here, attn.qkv there) part by ~0.1 in bf16 (PAMM's
+# arg-max flips on partial sums in another order; phase 43's attn.qkv leaves
+# read 9.2e-2) and are printed. Phase 48 holds its losses at the initial
+# parameters: past them a MoE step amplifies the ranks' rounding -- at 8192
+# tokens a router input that differs by 1e-6 (f32 row-parallel sums) sends
+# 4 tokens of layer 0 to another expert (tools/ep_flips.py) and the step's
+# gradients part by 1e-2 even in f32 with exact experts -- so its
+# gradients and change are printed, and the layer check below holds the
+# expert-parallel path on identical inputs
+SPLIT_JOBS = ({"shape": (1, 2), "layers": SPLIT_LAYERS, "moments": False, "spec": SPLIT_SPEC,
+               "hold": "exact change"},
+              {"shape": (1, 2), "arch": MOE_ARCH, "layers": EP_LAYERS, "moments": False,
+               "spec": MOE_SPEC, "run": EP_RUN, "hold": "routing"})
+# phase 48's layer check: one granite MoE layer at full width on 4 x 2048
+# tokens, the experts over two ranks against the whole layer from the same
+# inputs and weights (the balance loss in, weight 0.01), relative norms of
+# the difference: f32 sums in another order; in bf16 the combine's partial
+# sums round apart (bf16 eps 7.8e-3); an expert's weight gradients come
+# from the same buffer rows and must agree as f32 does
+TOL_EP_LAYER = {"float32": {"out": 1e-5, "dx": 1e-5, "router": 1e-5, "experts": 1e-6},
+                "bfloat16": {"out": 1e-2, "dx": 1e-2, "router": 1e-3, "experts": 1e-6}}
+
+
+def k1_partial_work(b, n, k, itemsize):
+    """(flops, bytes) of pass A: the b k dots and the norms; x and c read
+    once, the (b, k + 1) f32 buffer written once."""
+    return 2.0 * b * n * (k + 1), (b + k) * n * itemsize + 4 * b * (k + 1)
+
+
+def k1_finish_work(b, k):
+    """(flops, bytes) of pass B: a multiply pair and a compare a dot; the
+    buffer and the rows read once, cs / idx / norm written once."""
+    return 3.0 * b * k, 4 * b * (k + 1) + 4 * k + 12 * b
+
+
+def _csim_margin_clear(part, idx, margin):
+    """Rows whose top-2 |csim| (from a (b, k + 1) buffer) part by more than
+    ``margin``: where the arg-max is not a near tie."""
+    k = part.shape[1] - 1
+    na = part[:, k].sqrt()
+    csim = part[:, :k] / (na.clamp_min(1e-20)[:, None] * na[idx].clamp_min(1e-20)[None])
+    top2 = csim.abs().topk(2, dim=1).values
+    return top2[:, 0] - top2[:, 1] > margin
+
+
+def phase_split_kernels(gen):
+    """Phase 46: K1's split route at ffn.down's shape on a model rank of 2
+    (b 8192, n 4096 of 8192, k 16), bf16 and f32: pass A against its plain
+    version (two launches bitwise equal), pass B on the plain buffer
+    against its plain version (idx equal where the top-2 margin is clear);
+    then K1 of the whole rows (f32) against two column halves through pass
+    A, summed, and pass B -- the plain versions and the kernels: the same
+    idx, cs within 1e-6. Returns the passes' largest errors."""
+    import torch
+
+    from repro_torch.kernels.pamm_compress import (csim_argmax_cuda, csim_argmax_ref,
+                                                   csim_finish_cuda, csim_finish_ref,
+                                                   csim_partial_cuda, csim_partial_ref)
+
+    b, n, k = SPLIT_SITE
+    errs = {"pass A": 0.0, "pass B": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn((b, n), gen, dtype)
+        idx = torch.randperm(b, generator=gen, device="cuda")[:k]
+        c = x[idx].contiguous()
+        part, again = csim_partial_cuda(x, c), csim_partial_cuda(x, c)
+        ref = csim_partial_ref(x, c)
+        e_a = (part - ref).abs().max().item()
+        rel_a = e_a / ref.abs().max().item()
+        fin, fin2 = csim_finish_cuda(ref, idx), csim_finish_cuda(ref, idx)
+        cs_r, f_r, na_r = csim_finish_ref(ref, idx)
+        e_cs = (fin[0] - cs_r).abs().max().item()
+        e_n = ((fin[2] - na_r).abs() / na_r).max().item()
+        clear = _csim_margin_clear(ref, idx, TOL_K1_MARGIN)
+        n_bad = int((fin[1][clear] != f_r[clear]).sum())
+        same_a = bool(torch.equal(part, again))
+        same_b = all(torch.equal(u, v) for u, v in zip(fin, fin2))
+        name = str(dtype).split(".")[-1]
+        print(f"[K1 split] pass A b={b} n={n} k={k} {name}: max|part-ref|={e_a:.3e} "
+              f"({rel_a:.3e} of max|ref|, tol {TOL_K1_PARTIAL}); two launches bitwise "
+              f"equal: {same_a} | pass B: max|cs-cs_ref|={e_cs:.3e} max rel |norm err|="
+              f"{e_n:.3e} (tol {TOL_K1}); idx equal on {int(clear.sum())}/{b} clear rows "
+              f"({n_bad} differ); two launches bitwise equal: {same_b}")
+        check(rel_a <= TOL_K1_PARTIAL and same_a,
+              f"K1 pass A disagrees with its plain version ({name}) or is not deterministic")
+        check(e_cs <= TOL_K1 and e_n <= TOL_K1 and n_bad == 0 and same_b,
+              f"K1 pass B disagrees with its plain version ({name}) or is not deterministic")
+        errs["pass A"] = max(errs["pass A"], e_a)
+        errs["pass B"] = max(errs["pass B"], e_cs)
+        del part, again, ref, fin, fin2
+    # split equals whole (f32): the plain passes and the kernels
+    h = n // 2
+    halves = [(x[:, :h].contiguous(), c[:, :h].contiguous()),
+              (x[:, h:].contiguous(), c[:, h:].contiguous())]
+    for route, partial, finish, whole in (
+            ("plain", csim_partial_ref, csim_finish_ref, csim_argmax_ref),
+            ("kernels", csim_partial_cuda, csim_finish_cuda, csim_argmax_cuda)):
+        summed = sum(partial(xh, ch) for xh, ch in halves)
+        cs, f, na = finish(summed, idx)
+        cs_w, f_w, na_w = whole(x, c)
+        # the plain passes against the plain K1: the same f32 sums split in
+        # two; the kernels against K1's kernel: each is held to TOL_K1
+        tol = TOL_SPLIT if route == "plain" else TOL_K1
+        clear = _csim_margin_clear(summed, idx, tol)
+        e_cs = (cs - cs_w).abs().max().item()
+        n_bad = int((f[clear] != f_w[clear]).sum())
+        print(f"[K1 split] {route}: two column halves of {h} through pass A, summed, then "
+              f"pass B, against K1 on the whole rows (f32): max|cs-cs_whole|={e_cs:.3e} (tol "
+              f"{tol}); idx equal on {int(clear.sum())}/{b} rows with a top-2 margin > "
+              f"{tol} ({n_bad} differ); max rel |norm err|="
+              f"{((na - na_w).abs() / na_w).max().item():.3e}")
+        check(e_cs <= tol and n_bad == 0,
+              f"K1's split route ({route}) on column halves parts from K1 on the whole rows")
+    del x, c, halves
+    torch.cuda.empty_cache()
+    return errs
+
+
+def report_split_bytes(label: str, res: list, smi: str) -> None:
+    """Phase 47's row-site traffic: per rank and step, the card <-> host
+    bytes of the split route's (b, k + 1) buffers against the model
+    all-reduces' (gloo's own copies)."""
+    tag = f"[{smi}]"
+    for r in res:
+        row = [h.get("row_site_all_reduce", 0) for h in r["mesh"]["host"]]
+        tp = [h.get("model_all_reduce", 0) for h in r["mesh"]["host"]]
+        print(f"[{label}] rank {r['rank']} row-site all-reduce (K1 split buffers) "
+              f"{[b / 2**20 for b in row]} MiB a step vs the model all-reduces "
+              f"{[round(b / 2**30, 4) for b in tp]} GiB: "
+              + ", ".join(f"{a / max(b, 1):.3%}" for a, b in zip(row, tp)) + f" {tag}")
+        check(all(b > 0 for b in row),
+              f"{label}: rank {r['rank']} sent no K1 split buffer over the model group")
+
+
+def report_experts(label: str, res: list, smi: str) -> None:
+    """Phase 48's expert leaves: a rank's parameter and moment bytes of
+    them against the single process's (half each)."""
+    tag = f"[{smi}]"
+    single = res[0]["single_experts"]
+    for r in res:
+        e = r["experts"]
+        print(f"[{label}] rank {r['rank']} expert leaves: params {_gib(e['params'])} "
+              f"({e['params'] / single['params']:.4f} of one process's), moments "
+              f"{_gib(e['moments'])} ({e['moments'] / single['moments']:.4f}) {tag}")
+        check(abs(e["params"] / single["params"] - 0.5) < 1e-6
+              and abs(e["moments"] / single["moments"] - 0.5) < 1e-6,
+              f"{label}: rank {r['rank']} does not hold half of the experts")
+
+
+def ep_layer_check(rank: int) -> dict:
+    """Phase 48's layer check on model rank ``rank`` of two (module text at
+    TOL_EP_LAYER): {dtype: {what: ||ep - whole|| / ||whole||}} of the
+    layer's output, the input's, the router's and this rank's experts'
+    gradients."""
+    import torch
+
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
+    from repro_torch.runtime import sharding as sh
+
+    cfg = get_config(MOE_ARCH)
+    mg = sh.make_model_group(make_debug_mesh(1, 2, timeout=MESH_TIMEOUT), cfg, RunConfig(),
+                             cfg.vocab_size)
+    e = MOE_E // 2
+    mine = slice(rank * e, (rank + 1) * e)
+    out = {}
+    for name in TOL_EP_LAYER:
+        dt = getattr(torch, name)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        whole = moe.init_moe(gen, cfg, dt)
+        x = _randn((TP_BATCH * TP_SEQ, cfg.d_model), gen, dt)
+        w = _randn(x.shape, gen, dt)
+        got = {}
+        for split in (False, True):
+            p = {k: v.clone().requires_grad_() for k, v in whole.items()}
+            xx = x.clone().requires_grad_()
+            local = {k: (v[mine] if k.startswith("w_") else v) for k, v in p.items()} \
+                if split else p
+            with sh.tensor_parallel(mg if split else None):
+                o, aux = moe.moe_ffn(local, xx, cfg)
+                ((o.float() * w.float()).sum() + 0.01 * aux).backward()
+            got[split] = {"out": o.detach().float(), "dx": xx.grad.float(),
+                          "router": p["router"].grad.float(),
+                          "experts": torch.cat([p[k].grad[mine].float().reshape(-1)
+                                                for k in ("w_gate", "w_up", "w_down")])}
+            del p, xx, local, o
+        out[name] = {k: float((got[True][k] - v).norm() / v.norm()) for k, v in got[False].items()}
+        del whole, x, w, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_rank(rank: int, world: int, jobs: list) -> list:
+    """A rank of phases 47-48: :func:`tp_rank`'s jobs, then the layer check."""
+    return tp_rank(rank, world, jobs) + [ep_layer_check(rank)]
+
+
+def report_ep_layer(res: list, smi: str) -> None:
+    for rank, r in enumerate(res):
+        for name, rels in r.items():
+            tol = TOL_EP_LAYER[name]
+            print(f"[expert parallel layer] granite's MoE layer at full width, {TP_BATCH} x "
+                  f"{TP_SEQ} tokens, {name}, rank {rank}'s 20 of 40 experts against the "
+                  f"whole layer: " + ", ".join(f"{k} {v:.2e} (tol {tol[k]})"
+                                               for k, v in rels.items()) + f" [{smi}]")
+            check(all(v <= tol[k] for k, v in rels.items()),
+                  f"expert parallel layer ({name}): rank {rank} parts from the whole layer")
+
+
+def phase_split_and_experts(smi, jobs=SPLIT_JOBS):
+    """Phases 47 and 48 in one group of two ranks: internlm2 under
+    SPLIT_SPEC (ffn.down through K1's split route), then granite under
+    MOE_SPEC with its experts over the model axis, each against the
+    single-process step; then the layer check. Returns each job's
+    results."""
+    from repro_torch.launch.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    res = run_ranks(2, split_rank, list(jobs), timeout=MESH_TIMEOUT)
+    print(f"[tp] phases 47-48: 2 ranks, wall {time.perf_counter() - t0:.1f} s (spawn, "
+          f"warm-up, the single-process steps, mesh steps, the layer check)")
+    out = []
+    for i, (label, extra) in enumerate((("row-parallel ffn.down", report_split_bytes),
+                                        ("expert parallel", report_experts))):
+        job_res = [r[i] for r in res]
+        report_tp(label, jobs[i], job_res, smi)
+        extra(label, job_res, smi)
+        out.append(job_res)
+    report_ep_layer([r[-1] for r in res], smi)
+    return out
+
+
+def split_and_expert_rows(gen, errs, res47, res48, smi):
+    """Kernel rows of phases 46-48: K1's passes at ffn.down's rank shape
+    (launches: rank 0's in phase 47's measured steps); the batched K1 / K2
+    at a rank's 20 experts (each checked against its plain version here)
+    and K3 / K4 / K5 at a rank's granite heads (4, 2048, 12/4, 64),
+    launches rank 0's in phase 48's measured steps."""
+    import torch
+
+    from repro_torch.kernels.pamm_apply import (segment_matmul_batched_cuda,
+                                                segment_matmul_batched_ref)
+    from repro_torch.kernels.pamm_compress import (csim_argmax_batched_cuda,
+                                                   csim_argmax_batched_ref, csim_finish_cuda,
+                                                   csim_finish_ref, csim_partial_cuda,
+                                                   csim_partial_ref)
+
+    tag = f"[{smi}]"
+
+    def measured(res):
+        out = {}
+        for s, counts in zip(TP_STEPS, res[0]["mesh"]["counts"]):
+            if s in MESH_STEPS:
+                for name, c in counts.items():
+                    out[name] = out.get(name, 0) + c
+        return out
+
+    l47, l48 = measured(res47), measured(res48)
+    b, n, k = SPLIT_SITE
+    x = _randn((b, n), gen)
+    idx = torch.randperm(b, generator=gen, device="cuda")[:k]
+    c = x[idx].contiguous()
+    part = csim_partial_ref(x, c)
+    rows = [_kernel_row("csim_partial (K1 split route, pass A: ffn.down's column slice on a "
+                        "model rank of 2)", K1_SOURCE, K1_REPLACES, l47.get("csim_partial", 0),
+                        errs["pass A"], lambda: csim_partial_cuda(x, c),
+                        lambda: csim_partial_ref(x, c), None, k1_partial_work(b, n, k, 2)),
+            _kernel_row("csim_finish (K1 split route, pass B: the arg-max from the summed "
+                        "dots)", K1_SOURCE, K1_REPLACES, l47.get("csim_finish", 0),
+                        errs["pass B"], lambda: csim_finish_cuda(part, idx),
+                        lambda: csim_finish_ref(part, idx), None, k1_finish_work(b, k))]
+    at47 = "launches on rank 0 in phase 47's steps " + str(list(MESH_STEPS))
+    notes = [(at47, f" at ({b}, {n}, k {k})"), (at47, f" at ({b}, k {k})")]
+    del x, c, part
+    E, cap, d, f_w, kk = EP_EXPERTS, MOE_CAP, MOE_D, MOE_F, MOE_K
+    xs, cs = moe_site_inputs(gen, E, cap, d, kk)
+    out = csim_argmax_batched_cuda(xs, cs)
+    ref = csim_argmax_batched_ref(xs, cs)
+    e_k1 = (out[0].abs() - ref[0].abs()).abs().max().item()
+    check(e_k1 <= TOL_K1, f"the batched K1 at a rank's {E} experts: |cs| error {e_k1:.3e}")
+    f = out[1]
+    alpha = torch.randn((E, cap), generator=gen, device="cuda")
+    gz = _randn((E, cap, f_w), gen)
+    b2, b2r = segment_matmul_batched_cuda(f, alpha, gz, kk), segment_matmul_batched_ref(
+        f, alpha, gz, kk)
+    e_k2 = (b2 - b2r).abs().max().item()
+    check(e_k2 <= TOL_K2 * b2r.abs().max().item(),
+          f"the batched K2 at a rank's {E} experts: error {e_k2:.3e}")
+    print(f"[K1/K2 batched] a rank's {E} experts: K1 max||cs|-|cs_ref||={e_k1:.3e} (tol "
+          f"{TOL_K1}), K2 max|B-B_ref|={e_k2:.3e} (tol {TOL_K2} x {b2r.abs().max().item():.1f})")
+    w1, w2 = k1_work(cap, d, kk, 2), k2_work(cap, f_w, kk, 2)
+    at48 = "launches on rank 0 in phase 48's steps " + str(list(MESH_STEPS))
+    rows += [_kernel_row(f"csim_argmax_batched (K1, a model rank's {E} of {MOE_E} experts)",
+                         K1_SOURCE, K1_REPLACES, l48.get("csim_argmax_batched", 0), e_k1,
+                         lambda: csim_argmax_batched_cuda(xs, cs),
+                         lambda: csim_argmax_batched_ref(xs, cs), None,
+                         (E * w1[0], E * w1[1])),
+             _kernel_row(f"segment_matmul_batched (K2, a model rank's {E} of {MOE_E} experts)",
+                         K2_SOURCE, K2_REPLACES, l48.get("segment_matmul_batched", 0), e_k2,
+                         lambda: segment_matmul_batched_cuda(f, alpha, gz, kk),
+                         lambda: segment_matmul_batched_ref(f, alpha, gz, kk), None,
+                         (E * w2[0], E * w2[1]))]
+    notes += [(at48, f" at ({E} x {cap}, {d}, k {kk})"), (at48, f" at ({E} x {cap}, m {f_w}, "
+                                                                 f"k {kk})")]
+    del xs, cs, gz, out, ref, b2, b2r
+    B, L, (H, KV, dh) = TP_BATCH, TP_SEQ, EP_HEADS
+    errs3 = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    check_k3_k45(gen, B, L, H, KV, dh, 0, None, torch.bfloat16, errs3)
+    att = attention_inputs(gen, B, L, H, KV, dh)
+    at = f"a model rank's granite heads ({B}, {L}, {H}/{KV}, {dh})"
+    for kern, name, src, rep in (("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+                                 ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+                                 ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES)):
+        rows.append(_kernel_row(f"{name} ({kern}, {at})", src, rep, l48.get(name, 0),
+                                errs3[kern], *att[kern]))
+        notes.append((at48, ""))
+    del att
+    print_rows(rows, notes, tag)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_split_and_expert_phases(gen, smi, jobs=SPLIT_JOBS):
+    """Phases 46-48 (``jobs``: tools/tp_phases.py cuts their depth).
+    Returns the kernel rows."""
+    t0 = time.perf_counter()
+    errs = phase_split_kernels(gen)
+    res47, res48 = phase_split_and_experts(smi, jobs)
+    rows = split_and_expert_rows(gen, errs, res47, res48, smi)
+    print(f"[tp] phases 46-48 wall {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -6425,6 +6857,8 @@ def main() -> int:
     lap("mesh phases 35-39")
     tp_rows = run_tp_phases(gen, smi)
     lap("tensor-parallel phases 43-45")
+    split_rows = run_split_and_expert_phases(gen, smi)
+    lap("row-parallel and expert-parallel phases 46-48")
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -6437,6 +6871,7 @@ def main() -> int:
     kernels += audio_rows
     kernels += mesh_rows
     kernels += tp_rows
+    kernels += split_rows
     lap("training numbers")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -197,8 +197,9 @@ def gathered_train_state_tree(state, mesh, rcfg, cfg=None):
     if sh.tp_degree(mesh) > 1:
         if cfg is None:
             raise ValueError("gathering over the model axis needs the model config (cfg=)")
-        v_pad = _padded_vocab(cfg, rcfg)
-        layout = {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) for n, p in flat.items()}
+        v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
+        layout = {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad)
+                  for n, p in flat.items()}
         mg = sh.make_model_group(mesh, cfg, rcfg, v_pad)
         flat, m, v = (gather_model_(t, layout, mg) for t in (flat, m, v))
     params = _nest(flat, model)

@@ -47,10 +47,22 @@ class TorchSampler:
                        device) -> torch.Tensor:
         """``k`` distinct rows of ``range(b)`` for each path, (len(paths), k)
         int64, from one generator and one sort: the rows of a uniform
-        random permutation per path (f64 keys, so ties are negligible)."""
-        gen = self._generator(seed, paths, device)
-        keys = torch.rand((len(paths), b), generator=gen, device=device,
-                          dtype=torch.float64)
+        random permutation per path (f64 keys, so ties are negligible).
+        Paths that are children of one ``split(num)`` draw what the whole
+        split draws and keep their own rows of it, so a subset of the
+        experts (a rank's share under expert parallelism) draws what those
+        experts draw together with the others."""
+        parent, last = paths[0][:-1], paths[0][-1] if paths[0] else ("",)
+        if last[0] == "split" and all(p[:-1] == parent and p[-1][:2] == last[:2]
+                                      for p in paths):
+            gen = self._generator(seed, parent + (last[:2],), device)
+            rows = torch.tensor([p[-1][2] for p in paths], device=device)
+            keys = torch.rand((last[1], b), generator=gen, device=device,
+                              dtype=torch.float64)[rows]
+        else:
+            gen = self._generator(seed, paths, device)
+            keys = torch.rand((len(paths), b), generator=gen, device=device,
+                              dtype=torch.float64)
         return keys.argsort(dim=1)[:, :k]
 
 

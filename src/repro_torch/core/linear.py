@@ -25,7 +25,15 @@ rank's columns of ``w``: every model rank derives the same site key
 yields the same state on each, K2 takes the rank's columns of dZ, and the
 input's gradient is summed over the model group by the caller's
 ``runtime.collectives.copy_to_model``. A compressed row-parallel site
-(``ffn.down``) is refused there (``runtime.sharding``).
+(``ffn.down``) is handed this rank's column slice of its input and its
+rows of ``w`` (``split``: the model group): the policy's
+``compress_split`` draws the same rows on every rank and completes what
+needs the whole row over the group (PAMM: K1's split route, whose one
+all-reduce sums the slices' dot products), so alpha, assign and beta are
+the single process's on every rank, and ``grad_w`` gives this rank's rows.
+Its telemetry counts the generators' slices summed over the group.
+``apply_batched`` under expert parallelism (``experts``) compresses a
+rank's share of the experts, each from the key one process gives it.
 
 Weights keep the JAX layout ``w (n_in, n_out)`` applied as ``x @ w``.
 ``apply_batched`` (the MoE experts) takes ``xs (E, T, n)`` and ``w (E, n,
@@ -59,6 +67,9 @@ def _leaves(state) -> tuple:
     return tuple(state) if isinstance(state, tuple) else (state,)
 
 
+_TENSOR = object()   # a state leaf saved through save_for_backward
+
+
 class _CompressedMatmul(torch.autograd.Function):
     """``x2d @ w (+ bias)`` whose backward reads only ``(w, state)``;
     ``batched``: the experts' ``xs (E, T, n) @ w (E, n, m)``, no bias."""
@@ -69,7 +80,7 @@ class _CompressedMatmul(torch.autograd.Function):
         ctx.save_for_backward(w, *(t for t in leaves if isinstance(t, torch.Tensor)))
         # the state's structure and its non-tensor leaves (a CompAct key)
         ctx.rebuild = (type(state) if isinstance(state, tuple) else None,
-                       [None if isinstance(t, torch.Tensor) else t for t in leaves])
+                       [_TENSOR if isinstance(t, torch.Tensor) else t for t in leaves])
         ctx.policy, ctx.has_bias, ctx.batched = policy, bias is not None, batched
         if batched:
             return torch.bmm(x2d, w.to(x2d.dtype))
@@ -80,7 +91,7 @@ class _CompressedMatmul(torch.autograd.Function):
         w, *tensors = ctx.saved_tensors
         kind, slots = ctx.rebuild
         it = iter(tensors)
-        leaves = [next(it) if s is None else s for s in slots]
+        leaves = [next(it) if s is _TENSOR else s for s in slots]
         state = kind(*leaves) if kind is not None else leaves[0]
         dx = (g @ w.transpose(-2, -1).to(g.dtype)) if ctx.needs_input_grad[0] else None
         if ctx.batched:
@@ -104,11 +115,13 @@ def _stats_vector(stored, kept, rows, beta, n, device) -> torch.Tensor:
     return out
 
 
-def _state_stats(policy: CompressionPolicy, state, b: int, device) -> torch.Tensor:
+def _state_stats(policy: CompressionPolicy, state, b: int, device, tp: int = 1) -> torch.Tensor:
     """Telemetry vector of one compressed state: [stored_bytes,
-    kept_rows, b, beta, 1]."""
+    kept_rows, b, beta, 1]; ``tp``: the model degree a split state's
+    column slices are summed over."""
     kept, beta = policy.state_stats(state, b)
-    return _stats_vector(policy.stored_bytes(state), kept, b, beta, 1, device)
+    stored = policy.stored_bytes(state) + (tp - 1) * policy.split_bytes(state)
+    return _stats_vector(stored, kept, b, beta, 1, device)
 
 
 def _batched_stats(policy: CompressionPolicy, state, b: int, n_experts: int,
@@ -151,16 +164,23 @@ class SiteMode:
         """``context_fn`` of ``torch.utils.checkpoint``: (forward, recompute)."""
         return contextlib.nullcontext(), self
 
-    def compress(self, policy: CompressionPolicy, x2d, key, batched: bool = False):
-        """``batched``: x2d is the experts' (E, b, n) and key their keys."""
+    def compress(self, policy: CompressionPolicy, x2d, key, batched: bool = False,
+                 split=None):
+        """``batched``: x2d is the experts' (E, b, n) and key their keys;
+        ``split``: the model group of a row-parallel site's slice."""
         if self.recomputing and self.keep_states:
             state = self._states[self._pos]
             self._pos += 1
             return state
-        state = policy.compress_batched(x2d, key) if batched else policy.compress(x2d, key)
+        state = _compress(policy, x2d, key, split) if not batched else \
+            policy.compress_batched(x2d, key)
         if self.keep_states:
             self._states.append(state)
         return state
+
+
+def _compress(policy: CompressionPolicy, x2d, key, split):
+    return policy.compress(x2d, key) if split is None else policy.compress_split(x2d, key, split)
 
 
 def _wants_grad(x, ws, biases) -> bool:
@@ -201,16 +221,18 @@ class CompressedSite:
             return self.key_fn(key, self.site_id)
         return key.fold_in(self.site_id)
 
-    def apply(self, x, w, bias, key, mode: SiteMode | None = None):
+    def apply(self, x, w, bias, key, mode: SiteMode | None = None, split=None):
         """``x @ w (+ bias)`` under this site's policy: (z, stats), stats
         None when nothing was compressed."""
-        (z,), stats = self.apply_shared(x, [w], [bias], key, mode)
+        (z,), stats = self.apply_shared(x, [w], [bias], key, mode, split)
         return z, stats
 
-    def apply_shared(self, x, ws, biases, key, mode: SiteMode | None = None):
+    def apply_shared(self, x, ws, biases, key, mode: SiteMode | None = None, split=None):
         """Several projections of one input sharing ONE compressed state
         (paper Fig. 2: Q, K, V all read the same X). ``mode``: the
-        :class:`SiteMode` of a region that runs twice."""
+        :class:`SiteMode` of a region that runs twice; ``split``: the
+        model group whose ranks each hold a column slice of x, this rank's
+        rows of the ws (a row-parallel site, module docstring)."""
         n = ws[0].shape[0]
         lead = x.shape[:-1]
         x2d = x.reshape(-1, n)
@@ -225,8 +247,8 @@ class CompressedSite:
             raise ValueError(f"site {self.path!r} ({self.policy.name}) needs a key")
         with torch.no_grad():
             x_in = x2d.detach()
-            state = (self.policy.compress(x_in, site_key) if mode is None
-                     else mode.compress(self.policy, x_in, site_key))
+            state = (_compress(self.policy, x_in, site_key, split) if mode is None
+                     else mode.compress(self.policy, x_in, site_key, split=split))
         if grad:
             outs = [_CompressedMatmul.apply(x2d, w, b, self.policy, state).reshape(
                         *lead, w.shape[1]) for w, b in zip(ws, biases)]
@@ -235,15 +257,19 @@ class CompressedSite:
                     for w, b in zip(ws, biases)]
         if mode is not None and mode.recomputing:
             return outs, None
-        return outs, _state_stats(self.policy, state, x2d.shape[0], x.device)
+        return outs, _state_stats(self.policy, state, x2d.shape[0], x.device,
+                                  1 if split is None else split.tp)
 
-    def apply_batched(self, xs, ws, key, mode: SiteMode | None = None):
+    def apply_batched(self, xs, ws, key, mode: SiteMode | None = None, experts=None):
         """The MoE experts: ``xs (E, T, n)``, each w in ws ``(E, n, m)``,
         returns ``([z (E, T, m)...], stats)``. One compressed state per
         expert, shared by the ws (gate and up), expert e's drawn from
         ``key.fold_in(site_id).split(E)[e]`` (``jax.random.split(site_key,
         e)``); all experts compress in one K1 launch and each weight's
-        gradient runs one K2 launch. Stats are summed over the experts."""
+        gradient runs one K2 launch. Stats are summed over the experts.
+        ``experts``: (first, E') when xs holds experts [first, first + E)
+        of E' (a rank's share under expert parallelism); their keys are
+        those experts' of ``split(E')``."""
         grad = _wants_grad(xs, ws, ())
         for_stats = mode is not None and mode.stats_without_grad and not mode.recomputing
         if self.is_exact or not (grad or for_stats):
@@ -251,7 +277,8 @@ class CompressedSite:
         site_key = self.derive_key(key)
         if site_key is None:
             raise ValueError(f"site {self.path!r} ({self.policy.name}) needs a key")
-        keys = site_key.split(xs.shape[0])
+        first, total = experts if experts is not None else (0, xs.shape[0])
+        keys = site_key.split(total)[first:first + xs.shape[0]]
         with torch.no_grad():
             x_in = xs.detach()
             state = (self.policy.compress_batched(x_in, keys) if mode is None

@@ -19,7 +19,11 @@ bfloat16 the stored state is bfloat16, where ``repro/core/pamm.py`` keeps
 f32 rows.
 
 The draw of generator rows is injectable: ``idx`` given, or drawn from
-``key`` (:class:`repro_torch.core.keys.Key`). The blocked (shard-local)
+``key`` (:class:`repro_torch.core.keys.Key`). ``reduce_`` compresses rows
+split by columns over the ranks of a model group (a row-parallel site):
+each rank passes its slice, the same rows are drawn on every rank, and
+K1's split route sums the slices' dot products and row norms with
+``reduce_`` between its two passes (``kernels/ops.pamm_compress_split``). The blocked (shard-local)
 variants loop over the blocks where JAX uses ``vmap``. The batched
 variants (the MoE site's experts, ``vmap`` over experts in the JAX
 package) take a leading expert axis and run one K1 / K2 launch for all
@@ -62,12 +66,13 @@ def num_generators(b: int, ratio: float) -> int:
     return max(1, min(b, math.ceil(ratio * b)))
 
 
-def pamm_compress(a, k: int, eps: float, key=None, *, idx=None) -> PammState:
+def pamm_compress(a, k: int, eps: float, key=None, *, idx=None, reduce_=None) -> PammState:
     """Compress ``a: (b, n)`` into ``k`` generators (Alg. 1 COMPRESS).
 
     ``idx``: the generator rows, (min(k, b),); drawn from ``key`` when not
     given. eps = inf (paper's best setting) keeps every row; eps = 0
-    reduces PAMM to Uniform-CRS."""
+    reduces PAMM to Uniform-CRS. ``reduce_``: ``a`` is a column slice of
+    the rows (module docstring)."""
     from repro_torch.kernels import ops
 
     b = a.shape[0]
@@ -76,6 +81,8 @@ def pamm_compress(a, k: int, eps: float, key=None, *, idx=None) -> PammState:
         if key is None:
             raise ValueError("pamm_compress needs the generator rows idx or a key")
         idx = key.choice(b, k, a.device)
+    if reduce_ is not None:
+        return ops.pamm_compress_split(a, k, eps, idx, reduce_)
     return ops.pamm_compress(a, k, eps, idx)
 
 
@@ -86,20 +93,22 @@ def pamm_apply(state: PammState, bmat) -> torch.Tensor:
     return ops.pamm_apply(state, bmat)
 
 
-def pamm_compress_blocked(a, k: int, eps: float, key, n_blocks: int) -> PammState:
+def pamm_compress_blocked(a, k: int, eps: float, key, n_blocks: int, *,
+                          reduce_=None) -> PammState:
     """Shard-local PAMM: split the token axis into ``n_blocks`` contiguous
     blocks and compress each with ``max(1, k // n_blocks)`` generators
     drawn from ``key.split(n_blocks)[s]``. Returns a state whose leaves
     carry a leading block axis: generators (S, k_loc, n), alpha (S, b_loc),
     assign (S, b_loc), beta (S,). A token axis the blocks cannot divide
-    degrades to one block, as in the JAX package."""
+    degrades to one block, as in the JAX package. ``reduce_`` as in
+    :func:`pamm_compress`, block by block."""
     b, n = a.shape
     if n_blocks <= 1 or b % n_blocks:
-        states = [pamm_compress(a, k, eps, key)]
+        states = [pamm_compress(a, k, eps, key, reduce_=reduce_)]
     else:
         b_loc = b // n_blocks
         k_loc = max(1, k // n_blocks)
-        states = [pamm_compress(a[s * b_loc:(s + 1) * b_loc], k_loc, eps, ks)
+        states = [pamm_compress(a[s * b_loc:(s + 1) * b_loc], k_loc, eps, ks, reduce_=reduce_)
                   for s, ks in enumerate(key.split(n_blocks))]
     return PammState(*(torch.stack(leaves) for leaves in zip(*states)))
 

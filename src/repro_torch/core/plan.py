@@ -651,14 +651,16 @@ class SiteCtx:
         if self.tele is not None and stats is not None and site.path in self.tele:
             self.tele[site.path] = self.tele[site.path] + stats
 
-    def apply(self, role: str, x, w, bias, key=None):
+    def apply(self, role: str, x, w, bias, key=None, split=None):
+        """``split``: the model group of a row-parallel site's input slice
+        (``CompressedSite.apply_shared``)."""
         site = self.site(role)
         if site is None:
             lead = x.shape[:-1]
             return _exact_linear(x.reshape(-1, w.shape[0]), w, bias).reshape(
                 *lead, w.shape[1]
             )
-        z, stats = site.apply(x, w, bias, key, self.mode)
+        z, stats = site.apply(x, w, bias, key, self.mode, split)
         self.record(site, stats)
         return z
 

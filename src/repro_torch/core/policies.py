@@ -19,6 +19,14 @@ Policies (all from the paper):
 CRS and CompAct have no Pallas kernel in the JAX package and stay torch
 ops here. ``key`` is a :class:`repro_torch.core.keys.Key`.
 
+``compress_split(x_local, key, mg)`` serves a compressed row-parallel
+site under tensor parallelism: each rank of the model group ``mg`` holds
+a column slice of the rows, draws what one process draws from the same
+key, and keeps the state whose :meth:`CompressionPolicy.grad_w` is its
+rows of the weight gradient (PAMM: K1's split route, one all-reduce of
+the dot products; CRS: its slice of the sampled rows; CompAct: its rows
+of the projection, the sketch summed over the group).
+
 The ``*_batched`` methods serve the MoE site (one state per expert, the
 JAX package's ``vmap`` over experts): inputs carry a leading expert axis
 and so do the state's leaves. The base class loops over the experts; PAMM
@@ -33,6 +41,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core import pamm as pamm_lib
+from repro_torch.runtime.collectives import model_sum_
 
 __all__ = [
     "CompressionPolicy",
@@ -93,6 +102,17 @@ class CompressionPolicy:
     def stored_bytes(self, state: Any) -> int:
         """Bytes the state holds for backward (its tensors)."""
         return _tensor_bytes(state)
+
+    def compress_split(self, x2d: torch.Tensor, key, mg) -> Any:
+        """The state of rows split by columns over the model group ``mg``
+        (module docstring), ``x2d`` this rank's (b, n / tp) slice."""
+        raise NotImplementedError(f"policy {self.name!r} has no row-parallel route")
+
+    def split_bytes(self, state: Any) -> int:
+        """Bytes of a :meth:`compress_split` state that hold this rank's
+        column slice; the model ranks' slices together are tp times these."""
+        del state
+        return 0
 
     def compress_batched(self, xs: torch.Tensor, keys) -> Any:
         """One state per expert of ``xs (E, b, n)``, expert e's from
@@ -159,6 +179,17 @@ class PammPolicy(CompressionPolicy):
         if self.n_blocks > 1:
             return pamm_lib.pamm_compress_blocked(x2d, k, self.eps, key, self.n_blocks)
         return pamm_lib.pamm_compress(x2d, k, self.eps, key)
+
+    def compress_split(self, x2d, key, mg):
+        k = self.k_for(x2d.shape[0])
+        sum_ = lambda t: model_sum_(t, mg)
+        if self.n_blocks > 1:
+            return pamm_lib.pamm_compress_blocked(x2d, k, self.eps, key, self.n_blocks,
+                                                  reduce_=sum_)
+        return pamm_lib.pamm_compress(x2d, k, self.eps, key, reduce_=sum_)
+
+    def split_bytes(self, state):
+        return _tensor_bytes(state.generators)
 
     def grad_w(self, state, gz2d, n):
         del n
@@ -228,6 +259,13 @@ class UniformCRSPolicy(CompressionPolicy):
         idx = key.choice(b, self.k_for(b), x2d.device)
         return _CRSState(x2d.index_select(0, idx), idx.to(torch.int32))
 
+    def compress_split(self, x2d, key, mg):
+        del mg      # the same rows on every rank: its slice of them
+        return self.compress(x2d, key)
+
+    def split_bytes(self, state):
+        return _tensor_bytes(state.rows)
+
     def grad_w(self, state, gz2d, n):
         del n
         b = gz2d.shape[0]
@@ -246,6 +284,8 @@ class UniformCRSPolicy(CompressionPolicy):
 class _CompActState(NamedTuple):
     sketch: torch.Tensor  # (b, kp) = X P
     key: Any              # the site key; P is drawn again in backward
+    # a split state's (first row, whole n) of P: this rank's rows of it
+    rows: Any = None
 
 
 # bytes of the key JAX keeps in a CompAct state (threefry key data, two
@@ -273,9 +313,21 @@ class CompActPolicy(CompressionPolicy):
         p = self._proj(key, n, self.kp_for(n), x2d.device)
         return _CompActState(x2d.float() @ p, key)
 
+    def compress_split(self, x2d, key, mg):
+        """P drawn whole (n, kp), kp of the whole n; this rank's rows of it,
+        the sketch ``x_local P_local`` summed over the group."""
+        n_loc = x2d.shape[1]
+        n, start = n_loc * mg.tp, mg.index * n_loc
+        p = self._proj(key, n, self.kp_for(n), x2d.device)[start:start + n_loc]
+        return _CompActState(model_sum_(x2d.float() @ p, mg), key, (start, n))
+
     def grad_w(self, state, gz2d, n):
         kp = state.sketch.shape[1]
-        p = self._proj(state.key, n, kp, gz2d.device)
+        if state.rows is None:
+            p = self._proj(state.key, n, kp, gz2d.device)
+        else:
+            start, whole = state.rows
+            p = self._proj(state.key, whole, kp, gz2d.device)[start:start + n]
         return p @ (state.sketch.T @ gz2d.float())
 
     def stored_elements(self, b, n):

@@ -52,6 +52,23 @@
 // k 4, bf16) x is 252 MB read once: 0.075 ms at 3.35 TB/s; rows of an
 // expert's capacity padding are zero and still read.
 //
+// The split route (a row-parallel site under tensor parallelism: each
+// model rank holds a slice of every row's columns). Pass A, csim_partial,
+// runs the same two bodies, templated on PARTIAL, over the rank's slice x
+// (b, n/tp) and generator slice c (k, n/tp) and writes the raw dot products
+// and this slice's ||x_i||^2 into one f32 buffer (b, k + 1), row i holding
+// its k dots then its squared norm; it skips the running best. The caller
+// sums that buffer over the model group (one all-reduce of b (k + 1) f32,
+// 0.56 MB at internlm2's ffn.down, where gathering x would move 64 MiB).
+// Pass B, csim_finish (one thread a row, 256 a block), reads the summed
+// buffer and the generator rows idx (k,) and writes cs, idx and norm as
+// the epilogue above does: ||x_i|| = sqrt(sq_i), a generator's norm
+// sqrt(sq[idx_j]) (the generators are rows of x), inverse norms clamped at
+// 1e-20 and 0 for a generator of norm 0, the arg-max of |csim| the lowest j
+// on a tie. At internlm2's ffn.down on a model rank of 2 (b 8192, n 4096,
+// k 16, bf16) pass A reads 67 MB, 0.020 ms at 3.35 TB/s; pass B moves
+// 0.66 MB, 0.0002 ms.
+//
 // Bound on the H100: bytes. At the slice's shape (b 8192, n 2048, k 16,
 // bf16) x is 33.5 MB, read once: 0.0101 ms at 3.35 TB/s; the dots are
 // 2*b*n*k = 0.54 GFLOP, 0.0005 ms on the tensor cores. Each block also
@@ -128,10 +145,13 @@ __device__ __forceinline__ float sumsq2(uint32_t v, float s) {
   return fmaf(hi, hi, fmaf(lo, lo, s));
 }
 
+// PARTIAL: pass A of the split route -- the dots and ||x||^2 of this slice
+// into part (b, k + 1), no running best (cs_out, idx_out, norm_out unused).
+template <bool PARTIAL>
 __global__ void __launch_bounds__(TNT)
 csim_argmax_mma(const bf16* __restrict__ x, const bf16* __restrict__ c, float* __restrict__ cs_out,
-                int* __restrict__ idx_out, float* __restrict__ norm_out, int b, int n, int k,
-                bool vec) {
+                int* __restrict__ idx_out, float* __restrict__ norm_out,
+                float* __restrict__ part, int b, int n, int k, bool vec) {
   extern __shared__ uint4 smem_u4[];
   bf16* sm = reinterpret_cast<bf16*>(smem_u4);
   {  // this block's expert
@@ -141,6 +161,7 @@ csim_argmax_mma(const bf16* __restrict__ x, const bf16* __restrict__ c, float* _
     cs_out += e * b;
     idx_out += e * b;
     norm_out += e * b;
+    part += e * b * (k + 1);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;  // rows g and g + 8 of the warp's 16
@@ -182,12 +203,37 @@ csim_argmax_mma(const bf16* __restrict__ x, const bf16* __restrict__ c, float* _
           sq[0] = sumsq2(a[2], sumsq2(a[0], sq[0]));
           sq[1] = sumsq2(a[3], sumsq2(a[1], sq[1]));
         }
-        csq[0] = sumsq2(bb[1], sumsq2(bb[0], csq[0]));
-        csq[1] = sumsq2(bb[3], sumsq2(bb[2], csq[1]));
+        if (!PARTIAL) {
+          csq[0] = sumsq2(bb[1], sumsq2(bb[0], csq[0]));
+          csq[1] = sumsq2(bb[3], sumsq2(bb[2], csq[1]));
+        }
       }
     }
     flash::cp_async_wait<0>();
     __syncthreads();  // the stages are free for the next chunk
+
+    if (PARTIAL) {  // this chunk's dots, and ||x||^2 after the first
+      if (j0 == 0) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) sq[h] += __shfl_xor_sync(0xffffffffu, sq[h], off);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + warp * 16 + g + 8 * h;
+        if (row >= b) continue;
+        float* out = part + (long long)row * (k + 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int nt = i >> 1, e = 2 * h + (i & 1);
+          const int j = j0 + 8 * nt + 2 * tg + (i & 1);
+          if (j < k) out[j] = acc[0][nt][e] + acc[1][nt][e];
+        }
+        if (j0 == 0 && tg == 0) out[k] = sq[h];
+      }
+      continue;
+    }
 
     // the four lanes of a row (and of a generator) sum their shares
 #pragma unroll
@@ -245,7 +291,7 @@ csim_argmax_mma(const bf16* __restrict__ x, const bf16* __restrict__ c, float* _
     }
   }
 
-  if (tg == 0) {
+  if (!PARTIAL && tg == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + warp * 16 + g + 8 * h;
@@ -258,15 +304,17 @@ csim_argmax_mma(const bf16* __restrict__ x, const bf16* __restrict__ c, float* _
   }
 }
 
-int launch_mma(const void* x, const void* c, void* cs, void* idx, void* norm, int E, int b, int n,
-               int k, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(csim_argmax_mma,
+template <bool PARTIAL>
+int launch_mma(const void* x, const void* c, void* cs, void* idx, void* norm, void* part, int E,
+               int b, int n, int k, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(csim_argmax_mma<PARTIAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MMA_SMEM);
   if (err != cudaSuccess) return (int)err;
   const bool vec = flash::aligned16(x, 2, {n}) && flash::aligned16(c, 2, {n});
-  csim_argmax_mma<<<dim3((b + TBM - 1) / TBM, E), TNT, MMA_SMEM, stream>>>(
-      (const bf16*)x, (const bf16*)c, (float*)cs, (int*)idx, (float*)norm, b, n, k, vec);
+  csim_argmax_mma<PARTIAL><<<dim3((b + TBM - 1) / TBM, E), TNT, MMA_SMEM, stream>>>(
+      (const bf16*)x, (const bf16*)c, (float*)cs, (int*)idx, (float*)norm, (float*)part, b, n,
+      k, vec);
   return (int)cudaGetLastError();
 }
 
@@ -278,10 +326,11 @@ constexpr int KC = 32;  // generators per chunk
 constexpr int BN = 64;  // hidden columns per tile
 constexpr int NT = 256;
 
+template <bool PARTIAL>
 __global__ void __launch_bounds__(NT)
 csim_argmax_kernel(const float* __restrict__ x, const float* __restrict__ c,
                    float* __restrict__ cs_out, int* __restrict__ idx_out,
-                   float* __restrict__ norm_out, int b, int n, int k) {
+                   float* __restrict__ norm_out, float* __restrict__ part, int b, int n, int k) {
   __shared__ float sX[BM][BN + 1];
   __shared__ float sC[KC][BN + 1];
   __shared__ float sInvC[KC];
@@ -293,6 +342,7 @@ csim_argmax_kernel(const float* __restrict__ x, const float* __restrict__ c,
     cs_out += e * b;
     idx_out += e * b;
     norm_out += e * b;
+    part += e * b * (k + 1);
   }
   const int t = threadIdx.x;
   const int r = t >> 3;  // row of the tile; also the generator row it norms
@@ -340,6 +390,19 @@ csim_argmax_kernel(const float* __restrict__ x, const float* __restrict__ c,
       csq += __shfl_xor_sync(0xffffffffu, csq, off);
       if (j0 == 0) sq += __shfl_xor_sync(0xffffffffu, sq, off);
     }
+    if (PARTIAL) {  // this chunk's dots, and ||x||^2 after the first
+      const int row = row0 + r;
+      if (row < b) {
+        float* out = part + (long long)row * (k + 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int j = j0 + p + 8 * i;
+          if (j < k) out[j] = dot[i];
+        }
+        if (j0 == 0 && p == 0) out[k] = sq;
+      }
+      continue;
+    }
     if (j0 == 0) {
       norm = sqrtf(sq);
       inv_na = 1.f / fmaxf(norm, NORM_EPS);
@@ -375,18 +438,68 @@ csim_argmax_kernel(const float* __restrict__ x, const float* __restrict__ c,
   }
 
   const int row = row0 + r;
-  if (p == 0 && row < b) {
+  if (!PARTIAL && p == 0 && row < b) {
     cs_out[row] = best_cs;
     idx_out[row] = best_j;
     norm_out[row] = norm;
   }
 }
 
-int launch_f32(const void* x, const void* c, void* cs, void* idx, void* norm, int E, int b, int n,
-               int k, cudaStream_t stream) {
-  csim_argmax_kernel<<<dim3((b + BM - 1) / BM, E), NT, 0, stream>>>(
-      (const float*)x, (const float*)c, (float*)cs, (int*)idx, (float*)norm, b, n, k);
+template <bool PARTIAL>
+int launch_f32(const void* x, const void* c, void* cs, void* idx, void* norm, void* part, int E,
+               int b, int n, int k, cudaStream_t stream) {
+  csim_argmax_kernel<PARTIAL><<<dim3((b + BM - 1) / BM, E), NT, 0, stream>>>(
+      (const float*)x, (const float*)c, (float*)cs, (int*)idx, (float*)norm, (float*)part, b, n,
+      k);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// pass B of the split route: the arg-max from the summed dots
+// ---------------------------------------------------------------------------
+constexpr int FT = 256;  // rows a block; also generators staged a round
+
+__global__ void __launch_bounds__(FT)
+csim_finish_kernel(const float* __restrict__ part, const int* __restrict__ gen_rows,
+                   float* __restrict__ cs_out, int* __restrict__ idx_out,
+                   float* __restrict__ norm_out, int b, int k) {
+  __shared__ float sInvC[FT];
+  const int row = blockIdx.x * FT + threadIdx.x;
+  const long long w = k + 1;
+  float norm = 0.f, inv_na = 0.f;
+  if (row < b) {
+    norm = sqrtf(part[row * w + k]);
+    inv_na = 1.f / fmaxf(norm, NORM_EPS);
+  }
+  float best_abs = -1.f, best_cs = 0.f;
+  int best_j = 0;
+  for (int j0 = 0; j0 < k; j0 += FT) {
+    __syncthreads();  // the previous round's reads are done
+    const int j = j0 + threadIdx.x;
+    if (j < k) {  // a generator is row gen_rows[j] of x: its ||c||^2 is that row's
+      const int gr = min(max(gen_rows[j], 0), b - 1);
+      const float nc = sqrtf(part[gr * w + k]);
+      sInvC[threadIdx.x] = nc > 0.f ? 1.f / fmaxf(nc, NORM_EPS) : 0.f;
+    }
+    __syncthreads();
+    if (row < b) {
+      const float* dots = part + row * w + j0;
+      const int jn = min(FT, k - j0);
+      for (int jj = 0; jj < jn; ++jj) {  // increasing j, strict '>': the lowest j on a tie
+        const float cs = dots[jj] * inv_na * sInvC[jj];
+        if (fabsf(cs) > best_abs) {
+          best_abs = fabsf(cs);
+          best_j = j0 + jj;
+          best_cs = cs;
+        }
+      }
+    }
+  }
+  if (row < b) {
+    cs_out[row] = best_cs;
+    idx_out[row] = best_j;
+    norm_out[row] = norm;
+  }
 }
 
 }  // namespace
@@ -398,7 +511,30 @@ extern "C" int csim_argmax_batched(const void* x, const void* c, void* cs, void*
                                    int E, int b, int n, int k, int dtype, void* stream) {
   if (E < 1 || E > 65535 || b < 1 || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_f32(x, c, cs, idx, norm, E, b, n, k, s);
-  if (dtype == 1) return launch_mma(x, c, cs, idx, norm, E, b, n, k, s);
+  if (dtype == 0) return launch_f32<false>(x, c, cs, idx, norm, nullptr, E, b, n, k, s);
+  if (dtype == 1) return launch_mma<false>(x, c, cs, idx, norm, nullptr, E, b, n, k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Pass A of the split route. x (b, n) and c (k, n), this rank's column
+// slices, row-major and contiguous, of one dtype (0 float32, 1 bfloat16);
+// part (b, k + 1) f32 written: row i's k dot products, then its ||x_i||^2.
+extern "C" int csim_partial(const void* x, const void* c, void* part, int b, int n, int k,
+                            int dtype, void* stream) {
+  if (b < 1 || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return launch_f32<true>(x, c, nullptr, nullptr, nullptr, part, 1, b, n, k, s);
+  if (dtype == 1) return launch_mma<true>(x, c, nullptr, nullptr, nullptr, part, 1, b, n, k, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass B of the split route. part (b, k + 1) f32, summed over the model
+// group; gen_rows (k,) int32, the generators' rows of x; cs, norm (b,) f32
+// and idx (b,) int32 written, as csim_argmax_batched writes them.
+extern "C" int csim_finish(const void* part, const void* gen_rows, void* cs, void* idx,
+                           void* norm, int b, int k, void* stream) {
+  if (b < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  csim_finish_kernel<<<(b + FT - 1) / FT, FT, 0, (cudaStream_t)stream>>>(
+      (const float*)part, (const int*)gen_rows, (float*)cs, (int*)idx, (float*)norm, b, k);
+  return (int)cudaGetLastError();
 }

@@ -45,6 +45,10 @@ SIGNATURES = {
     # x c cs idx norm, E b n k, dtype stream; f alpha gz out part, E b m k
     # nsplit per, dtype stream
     "csim_argmax_batched": [P] * 5 + [I] * 5 + [P],
+    # K1's split route: pass A x c part, b n k dtype stream; pass B part
+    # gen_rows cs idx norm, b k stream
+    "csim_partial": [P] * 3 + [I] * 4 + [P],
+    "csim_finish": [P] * 5 + [I] * 2 + [P],
     "segment_matmul_batched": [P] * 5 + [I] * 7 + [P],
     # K4, two routes of one signature: flash_attention_dq (bf16, tensor
     # cores) and flash_attention_dq_f32 (f32, scalar). q k v do lse delta
@@ -70,6 +74,8 @@ SIGNATURES = {
 SOURCE_OF = {
     "flash_attention_fwd_f32": "flash_attention_fwd",
     "csim_argmax_batched": "pamm_compress",
+    "csim_partial": "pamm_compress",
+    "csim_finish": "pamm_compress",
     "segment_matmul_batched": "pamm_apply",
     "flash_attention_dq": "flash_attention_bwd",
     "flash_attention_dkv": "flash_attention_bwd",

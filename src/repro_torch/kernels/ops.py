@@ -25,7 +25,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_bwd", "flash_attention",
            "flash_sharded_paged_decode", "flash_sharded_paged_decode_quant",
            "csim_argmax", "segment_matmul", "pamm_compress",
            "pamm_apply", "csim_argmax_batched", "segment_matmul_batched",
-           "pamm_compress_batched", "pamm_apply_batched", "FlashAttention"]
+           "pamm_compress_batched", "pamm_apply_batched", "csim_partial",
+           "csim_finish", "pamm_compress_split", "FlashAttention"]
 
 
 def _route(x, name: str):
@@ -165,6 +166,22 @@ def csim_argmax(x, c):
     return _pc.csim_argmax_ref(x, c)
 
 
+def csim_partial(x, c):
+    """K1's split route, pass A: a column slice's dots and squared row
+    norms, (b, k + 1) f32."""
+    if _route(x, "csim_partial"):
+        return _pc.csim_partial_cuda(x, c)
+    return _pc.csim_partial_ref(x, c)
+
+
+def csim_finish(part, idx):
+    """K1's split route, pass B: (cs, idx, ||x_i||) (b,) from pass A's
+    buffer summed over the slices and the generators' rows ``idx``."""
+    if _route(part, "csim_finish"):
+        return _pc.csim_finish_cuda(part, idx)
+    return _pc.csim_finish_ref(part, idx)
+
+
 def segment_matmul(f, alpha, gz, k: int):
     """K2: Btilde = onehot(f)^T (alpha * dZ), (k, m) f32."""
     if _route(gz, "segment_matmul"):
@@ -214,6 +231,28 @@ def pamm_compress(x, k: int, eps: float, idx):
     c = x.index_select(0, idx.to(x.device))
     cs, assign, norm_a = csim_argmax(x, c)
     norm_c = norm_a.index_select(0, idx.to(x.device))
+    alpha, beta = _epilogue(cs, norm_a, norm_c.index_select(0, assign.long()), eps, 0)
+    return PammState(c, alpha, assign, beta)
+
+
+def pamm_compress_split(x, k: int, eps: float, idx, reduce_):
+    """:func:`pamm_compress` of rows split by columns over the ranks of a
+    model group, x (b, n/tp) this rank's slice: pass A on the slice,
+    ``reduce_`` (sums a tensor over the group, in place) on its (b, k + 1)
+    buffer, pass B on the sums. alpha, assign and beta are the whole rows'
+    on every rank; the generators are this rank's slice of them, so
+    :func:`pamm_apply` gives this rank's rows of the weight gradient."""
+    from repro_torch.core.pamm import PammState
+
+    if idx.shape != (min(k, x.shape[0]),):
+        raise ValueError(f"pamm_compress_split: idx must hold min(k, b) = "
+                         f"{min(k, x.shape[0])} rows, got {tuple(idx.shape)}")
+    idx = idx.to(x.device)
+    c = x.index_select(0, idx)
+    part = csim_partial(x, c)
+    reduce_(part)
+    cs, assign, norm_a = csim_finish(part, idx)
+    norm_c = norm_a.index_select(0, idx)
     alpha, beta = _epilogue(cs, norm_a, norm_c.index_select(0, assign.long()), eps, 0)
     return PammState(c, alpha, assign, beta)
 

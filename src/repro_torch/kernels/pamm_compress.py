@@ -20,6 +20,14 @@ and c (E, k, n), and returns (E, b) each: the MoE site's experts in one
 launch, the counterpart of the JAX package's ``vmap`` over
 ``pamm_compress`` (``repro/core/linear.py:250``). The 2-D pair is the
 batched one at E 1, each with its own launch count.
+
+The split route serves a row-parallel site under tensor parallelism,
+whose model ranks each hold a column slice of every row: pass A
+(:func:`csim_partial_ref`, :func:`csim_partial_cuda`) writes a slice's
+dot products and squared row norms into one (b, k + 1) f32 buffer, the
+caller sums it over the model group, and pass B (:func:`csim_finish_ref`,
+:func:`csim_finish_cuda`) takes the arg-max from the sums: together, K1
+of the whole rows.
 """
 from __future__ import annotations
 
@@ -107,3 +115,60 @@ def csim_argmax_batched_cuda(x, c):
     out = _launch(x, c)
     LAUNCHES["csim_argmax_batched"] += 1
     return out
+
+
+def csim_partial_ref(x, c):
+    """Plain version of pass A: x (b, n), c (k, n), a column slice of each
+    -> (b, k + 1) f32, row i's dots with the k generators then ||x_i||^2."""
+    LAUNCHES["csim_partial_ref"] += 1
+    x32 = x.float()
+    return torch.cat([x32 @ c.float().T, (x32 * x32).sum(1, keepdim=True)], dim=1)
+
+
+def csim_finish_ref(part, idx):
+    """Plain version of pass B: ``part`` (b, k + 1), pass A's buffer summed
+    over the column slices, and the generators' rows ``idx`` (k,) of x ->
+    (cs, idx, norm_a) (b,), as :func:`csim_argmax_ref` of the whole rows."""
+    LAUNCHES["csim_finish_ref"] += 1
+    k = part.shape[1] - 1
+    norm_a = part[:, k].sqrt()
+    norm_c = norm_a[idx.long()]
+    inv_c = torch.where(norm_c > 0, 1.0 / norm_c.clamp_min(NORM_EPS), 0.0)
+    csim = part[:, :k] * (1.0 / norm_a.clamp_min(NORM_EPS))[:, None] * inv_c[None, :]
+    best = torch.argmax(csim.abs(), dim=1)
+    cs = torch.gather(csim, 1, best[:, None])[:, 0]
+    return cs, best.to(torch.int32), norm_a
+
+
+def csim_partial_cuda(x, c):
+    """Launch pass A on x (b, n), c (k, n); returns the (b, k + 1) buffer."""
+    _check(x[None], c[None])
+    b, n = x.shape
+    k = c.shape[0]
+    part = torch.empty((b, k + 1), dtype=torch.float32, device=x.device)
+    err = build.entry("csim_partial")(x.data_ptr(), c.data_ptr(), part.data_ptr(), b, n, k,
+                                      _DTYPES[x.dtype], build.raw_stream(x))
+    build.check_launch("csim_partial", err)
+    LAUNCHES["csim_partial"] += 1
+    return part
+
+
+def csim_finish_cuda(part, idx):
+    """Launch pass B on the summed (b, k + 1) buffer and the generators'
+    rows ``idx`` (k,); returns (cs, idx, norm_a), each (b,)."""
+    if part.device.type != "cuda" or part.dtype != torch.float32 or part.dim() != 2:
+        raise ValueError(f"K1 pass B needs a (b, k + 1) f32 CUDA buffer, got "
+                         f"{part.dtype} {tuple(part.shape)} on {part.device}")
+    b, k = part.shape[0], part.shape[1] - 1
+    if k < 1 or b < 1 or idx.shape != (k,) or part.numel() >= 2**31:
+        raise ValueError(f"K1 pass B: buffer {tuple(part.shape)}, idx {tuple(idx.shape)}")
+    part = part.contiguous()
+    rows = idx.to(device=part.device, dtype=torch.int32).contiguous()
+    out = torch.empty((3, b), dtype=torch.float32, device=part.device)  # cs, idx, norm
+    cs, best, norm = out[0], out[1].view(torch.int32), out[2]
+    err = build.entry("csim_finish")(part.data_ptr(), rows.data_ptr(), cs.data_ptr(),
+                                     best.data_ptr(), norm.data_ptr(), b, k,
+                                     build.raw_stream(part))
+    build.check_launch("csim_finish", err)
+    LAUNCHES["csim_finish"] += 1
+    return cs, best, norm

@@ -51,20 +51,25 @@ all-reduce, AdamW under ZeRO-1)::
 axis: ``D * M`` ranks, each holding its slice of the heads, the FFN width
 and the vocabulary, the Q/K/V, gate / up and head products
 column-parallel and the out and down products row-parallel over the
-model group, K3-K5 at the rank's head counts (the dense kinds, attn and
-swa)::
+model group, K3-K5 at the rank's head counts (the kinds attn, swa and
+moe). A compressed ``ffn.down`` (row-parallel) runs K1's split route;
+a MoE block holds its share of the experts (expert parallelism), the
+batched K1 / K2 over them::
 
   python -m repro_torch.launch.train --arch internlm2-1.8b_smoke --device cpu \
-      --steps 4 --seq-len 64 --global-batch 4 --compression 'attn.qkv=pamm(r=1/8)' \
+      --steps 4 --seq-len 64 --global-batch 4 --compression 'ffn.*=pamm(r=1/8)' \
+      --executor shard_map --data-model 1 2
+  python -m repro_torch.launch.train --arch granite-moe-3b-a800m_smoke --device cpu \
+      --steps 4 --seq-len 64 --global-batch 4 \
+      --compression 'attn.qkv=pamm(r=1/8);moe.expert=pamm(r=1/8)' \
       --executor shard_map --data-model 1 2
 
 Without ``--data-model`` the data degree is the number of cards over the
 context degree (1 on the CPU), as the JAX launcher puts every device on
 the data axis. Still refused, with the later slice named: a model degree
 above 1 together with ``--mesh-context`` above 1, the other refusals of a
-model degree above 1 (``runtime.sharding``: the non-dense kinds,
-reversible blocks, a compressed ``ffn.down``, ...), and ``--ckpt-dir``
-under a mesh.
+model degree above 1 (``runtime.sharding``: the ssm, rec, latt and
+xattn kinds, reversible blocks, ...), and ``--ckpt-dir`` under a mesh.
 """
 from __future__ import annotations
 
@@ -77,7 +82,6 @@ from repro_torch.configs import RunConfig, get_config
 from repro_torch.data import SyntheticStream
 from repro_torch.launch.mesh import Mesh, make_debug_mesh
 from repro_torch.launch.ranks import run_ranks
-from repro_torch.core.plan import resolve_for_run
 from repro_torch.models.blocks import resolve_block_structure
 from repro_torch.runtime import sharding as sh
 from repro_torch.runtime.fault import StragglerWatchdog, run_supervised
@@ -161,7 +165,7 @@ def _main_mesh(ap, args) -> None:
                                     grad_accum=rcfg.grad_accum, where="launch")
         sh.validate_seq_divisible(args.seq_len, abstract, where="launch")
         resolve_block_structure(cfg, rcfg, cp=cp)
-        sh.validate_tensor_parallel(cfg, rcfg, model, resolve_for_run(cfg, rcfg, abstract))
+        sh.validate_tensor_parallel(cfg, rcfg, model)
     except (ValueError, NotImplementedError) as e:
         ap.error(str(e))
     t0 = time.monotonic()

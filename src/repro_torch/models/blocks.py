@@ -441,7 +441,7 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     dropped, not written (a pad row would evict a real tail token from a
     ring cache). Pad rows are query rows of an xattn block: its image K/V
     do not depend on them. Under tensor parallelism
-    (``runtime.sharding.model_group``) only the ``attn`` and ``swa``
+    (``runtime.sharding.model_group``) the ``attn``, ``swa`` and ``moe``
     kinds run; the others are refused with the slice that brings them."""
     mg = model_group()
     if mg is not None:

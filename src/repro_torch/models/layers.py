@@ -81,20 +81,22 @@ def ffn(params, x):
     return h @ params["w_down"].to(x.dtype)
 
 
-def ffn_sites(params, x, ctx, key=None):
+def ffn_sites(params, x, ctx, key=None, *, shared: bool = False):
     """SwiGLU FFN with gate/up/down as compression sites; with every role
     exact it equals :func:`ffn`. Gate and up read the same x, so when both
     resolve to the same policy ONE compressed state backs both weight
     gradients (telemetry lands on ffn.gate).
 
-    Under tensor parallelism with the FFN width split, gate and up are
-    column-parallel (x whole on every model rank, this rank's columns;
-    a compressed site draws the same state on every rank from the same
-    key, and K2 takes the local columns of dZ) and down is row-parallel
-    (its partial sums summed over the model group); a compressed
-    ``ffn.down`` is refused there (``runtime.sharding``)."""
+    Under tensor parallelism with the FFN width split (``ModelGroup.ffn``;
+    a MoE block's shared experts, ``shared``, by ``ModelGroup.shared``),
+    gate and up are column-parallel (x whole on every model rank, this
+    rank's columns; a compressed site draws the same state on every rank
+    from the same key, and K2 takes the local columns of dZ) and down is
+    row-parallel (its partial sums summed over the model group; a
+    compressed ``ffn.down`` runs its policy's split route over the group,
+    ``core/linear.py``)."""
     mg = sh.model_group()
-    split = mg is not None and mg.ffn
+    split = mg is not None and (mg.shared if shared else mg.ffn)
     x = tp_enter(x, mg, split)
     gate_site = ctx.site("ffn.gate")
     up_site = ctx.site("ffn.up")
@@ -105,8 +107,9 @@ def ffn_sites(params, x, ctx, key=None):
     else:
         g = ctx.apply("ffn.gate", x, params["w_gate"], None, key)
         u = ctx.apply("ffn.up", x, params["w_up"], None, key)
-    return tp_exit(ctx.apply("ffn.down", F.silu(g) * u, params["w_down"], None, key), mg,
-                   split)
+    down = ctx.apply("ffn.down", F.silu(g) * u, params["w_down"], None, key,
+                     split=mg if split else None)
+    return tp_exit(down, mg, split)
 
 
 # ---------------------------------------------------------------------------

@@ -130,8 +130,7 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda", mesh=None) -> Model:
     _, pdt = _dtype(rcfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     v_pad = _padded_vocab(cfg, rcfg)
-    em = getattr(rcfg, "pad_experts_multiple", 0)
-    e_pad = -(-cfg.n_experts // em) * em if (em and cfg.n_experts) else 0
+    e_pad = sh.padded_experts(cfg, rcfg)
     tp = 1 if mesh is None else sh.tp_degree(mesh)
     local = ((lambda name, t: sh.shard_params({name: t}, mesh, cfg.head_dim)[name].clone())
              if tp > 1 else (lambda name, t: t))
@@ -255,7 +254,7 @@ def forward(cfg, rcfg, plan, model: Model, batch: dict, key: Key, *,
     structure = blk.resolve_block_structure(cfg, rcfg)
     mg = sh.model_group()
     if mg is not None:
-        sh.validate_tensor_parallel(cfg, rcfg, mg.tp, resolved)
+        sh.validate_tensor_parallel(cfg, rcfg, mg.tp)
     cdt, _ = _dtype(rcfg)
     inputs = _inputs(cfg, batch)
     x = _embed(cfg, model, inputs, cdt)

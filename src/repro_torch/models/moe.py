@@ -39,6 +39,23 @@ package ``vmap``s the blocks onto the data axis; the port runs them in
 order on its one device, each through the same gather-combine. The blocked
 path trains exact: no ``moe.expert`` state (and so no batched K1 / K2),
 the shared experts exact too, with the JAX warning naming the hot sites.
+
+Under tensor parallelism whose model axis splits the E' experts
+(``ModelGroup.experts``; the JAX ``experts -> model`` rule), a rank holds
+experts [index E'/tp, (index + 1) E'/tp): every model rank holds the whole
+tokens (``tp_enter``: the input's gradient is summed over the group) and
+the whole f32 router, routes them and builds the one dispatch plan over
+the global E', but its buffer holds only its experts' slots. It runs
+their SwiGLU (the ``moe.expert`` site's batched K1 / K2 over them, each
+expert drawing what one process draws), combines only the pairs routed
+to them (the others add zero rows), and the output is summed over the
+group (``tp_exit``), blocked dispatch alike. The router's gradient is
+then the sum of the ranks' shares of the combine's gate-weight gradient
+(``copy_to_model`` on the router), while the balance loss's is whole on
+every rank: its backward is scaled by 1 / tp (:func:`aux_grad_share`) so
+the sum counts it once. The shared experts are the column- and
+row-parallel FFN of their own width (``ModelGroup.shared``). Where tp
+does not divide E', every rank holds every expert and nothing is summed.
 """
 from __future__ import annotations
 
@@ -49,8 +66,10 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, ffn, ffn_sites, init_ffn
-from repro_torch.runtime.sharding import data_shards
+from repro_torch.core.plan import exact_ctx
+from repro_torch.models.layers import dense_init, ffn_sites, init_ffn
+from repro_torch.runtime.collectives import copy_to_model, tp_enter, tp_exit
+from repro_torch.runtime.sharding import data_shards, model_group
 
 __all__ = ["moe_capacity", "init_moe", "moe_ffn", "route", "dispatch_plan"]
 
@@ -196,6 +215,25 @@ class _Combine(torch.autograd.Function):
         return dh, dgate, None, None
 
 
+def aux_grad_share(tp: int) -> float:
+    """The share of the balance loss's gradient each of ``tp`` expert-parallel
+    ranks keeps (module docstring)."""
+    return 1.0 / tp
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; backward scales the gradient by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 def moe_ffn(params, x, cfg, *, gather_dispatch: bool = True, token_blocks: int = 1,
             ctx=None, key=None, with_aux: bool = True):
     """x: (B, L, d) or (T, d). Returns (out, aux_loss); aux is None when
@@ -208,12 +246,24 @@ def moe_ffn(params, x, cfg, *, gather_dispatch: bool = True, token_blocks: int =
     give the same buffer. ``token_blocks`` > 1 dispatches each of that
     many contiguous token blocks on its own, exact (module docstring); on
     a rank of the mesh executor, whose tokens are its data shard's, its
-    share of them (``runtime.sharding.data_shards``)."""
-    lead, d = x.shape[:-1], x.shape[-1]
+    share of them (``runtime.sharding.data_shards``). Under a model group
+    that splits the experts, this rank's share of them (module docstring)."""
+    mg = model_group()
+    split = mg is not None and mg.experts
+    experts = None
+    x_in, d = x, x.shape[-1]
+    if mg is not None:
+        x = tp_enter(x, mg, split)      # the whole tokens on every model rank
+    if split:
+        e_loc = params["w_gate"].shape[0]
+        experts = (mg.index * e_loc, mg.tp * e_loc)
+        params = {**params, "router": copy_to_model(params["router"], mg)}
+    lead = x.shape[:-1]
     x2d = x.reshape(-1, d)
     t = x2d.shape[0]
     n_blocks = token_blocks // data_shards()
-    if token_blocks > 1 and t % n_blocks == 0:
+    blocked = token_blocks > 1 and t % n_blocks == 0
+    if blocked:
         if ctx is not None:
             hot = [r for r in ("moe.expert", "ffn.gate", "ffn.up", "ffn.down")
                    if (site := ctx.site(r)) is not None and not site.is_exact]
@@ -222,23 +272,39 @@ def moe_ffn(params, x, cfg, *, gather_dispatch: bool = True, token_blocks: int =
                     f"compression sites {hot} are not applied on the blocked "
                     f"(moe_token_blocks={token_blocks}) MoE dispatch path; "
                     "they train exact for this run", stacklevel=2)
-        blocks = [_moe_tokens(params, xb, cfg, gather_dispatch, with_aux=with_aux)
+        blocks = [_moe_tokens(params, xb, cfg, gather_dispatch, with_aux=with_aux,
+                              experts=experts)
                   for xb in x2d.split(t // n_blocks)]
         out = torch.cat([o for o, _ in blocks])
         aux = torch.stack([a for _, a in blocks]).mean() if with_aux else None
-        return out.reshape(*lead, d), aux
-    out, aux = _moe_tokens(params, x2d, cfg, gather_dispatch, ctx=ctx, key=key,
-                           with_aux=with_aux)
-    return out.reshape(*lead, d), aux
+    else:
+        out, aux = _moe_tokens(params, x2d, cfg, gather_dispatch, ctx=ctx, key=key,
+                               with_aux=with_aux, experts=experts)
+    out = out.reshape(*lead, d)
+    if mg is not None:
+        out = tp_exit(out, mg, split)
+    if split and aux is not None:
+        aux = _ScaleGrad.apply(aux, aux_grad_share(mg.tp))
+    if cfg.n_shared_experts:
+        # the shared experts' FFN through its sites (exact on the blocked
+        # path and without a plan), as its own column / row-parallel pair
+        sites = ctx is not None and key is not None and not blocked
+        out = out + ffn_sites(params["shared"], x_in, ctx if sites else exact_ctx(),
+                              key, shared=True)
+    return out, aux
 
 
 def _moe_tokens(params, x2d, cfg, gather_dispatch: bool, *, ctx=None, key=None,
-                with_aux: bool = True):
-    """Dispatch, compute and combine for one flat block of tokens (T, d)."""
+                with_aux: bool = True, experts=None):
+    """Dispatch, compute and combine for one flat block of tokens (T, d):
+    the routed experts' output (the shared experts are the caller's).
+    ``experts``: (first, E') when ``params`` holds experts [first, first +
+    E) of E' (a rank's share), else None."""
     t, d = x2d.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
     cap = moe_capacity(t, cfg)
-    ep = params["w_gate"].shape[0]  # padded expert count (>= e)
+    e_loc = params["w_gate"].shape[0]
+    first, ep = experts if experts is not None else (0, e_loc)   # ep: padded count (>= e)
     probs, gate_w, gate_i = route(params["router"], x2d, k)
 
     aux = None
@@ -248,10 +314,17 @@ def _moe_tokens(params, x2d, cfg, gather_dispatch: bool, *, ctx=None, key=None,
         aux = e * (me * ce).sum()
 
     perm, dest, pair_slot, slot_pair = dispatch_plan(gate_i, cap, ep)
+    if e_loc != ep:
+        # this rank's slots [first cap, (first + E) cap); a pair routed
+        # elsewhere goes where a dropped one goes
+        lo, n = first * cap, e_loc * cap
+        pair_slot, dest = (torch.where((s >= lo) & (s < lo + n), s - lo, n)
+                           for s in (pair_slot, dest))
+        slot_pair = slot_pair[lo:lo + n]
     slot_src = torch.where(slot_pair >= 0, slot_pair // k, -1)   # each slot's token
     buf = _Dispatch.apply(x2d, slot_src, pair_slot,
                           None if gather_dispatch else (dest, perm // k))
-    buf = buf.reshape(ep, cap, d)
+    buf = buf.reshape(e_loc, cap, d)
 
     dt = buf.dtype
     site = ctx.site("moe.expert") if (ctx is not None and key is not None) else None
@@ -259,20 +332,13 @@ def _moe_tokens(params, x2d, cfg, gather_dispatch: bool, *, ctx=None, key=None,
         # one compressed state per expert buffer, shared by gate and up; the
         # down projection's input (the post-SwiGLU hidden) stays exact
         (zg, zu), stats = site.apply_batched(buf, [params["w_gate"], params["w_up"]], key,
-                                             ctx.mode)
+                                             ctx.mode, experts=experts)
         ctx.record(site, stats)
         h = F.silu(zg) * zu
     else:
         h = F.silu(torch.bmm(buf, params["w_gate"].to(dt))) * torch.bmm(
             buf, params["w_up"].to(dt))
-    h = torch.bmm(h, params["w_down"].to(dt)).reshape(ep * cap, d)
+    h = torch.bmm(h, params["w_down"].to(dt)).reshape(e_loc * cap, d)
 
     # each token's k outputs (a zero row for a dropped pair), weighted, summed
-    out = _Combine.apply(h, gate_w, pair_slot, slot_pair)
-
-    if cfg.n_shared_experts:
-        if ctx is not None and key is not None:
-            out = out + ffn_sites(params["shared"], x2d, ctx, key)
-        else:
-            out = out + ffn(params["shared"], x2d)
-    return out, aux
+    return _Combine.apply(h, gate_w, pair_slot, slot_pair), aux

@@ -133,6 +133,18 @@ def _model_all_reduce(t: torch.Tensor, mg) -> torch.Tensor:
     return flat.view(t.shape)
 
 
+# the counter a compressed row-parallel site's sums land in: K1's split
+# route's (b, k + 1) buffers and CompAct's sketches
+ROW_SITE_OP = "row_site_all_reduce"
+
+
+def model_sum_(t: torch.Tensor, mg, op: str = ROW_SITE_OP) -> torch.Tensor:
+    """``t`` (contiguous) replaced in place by its sum over the model
+    group; ``op`` names the transport's counters."""
+    mg.comm.all_reduce_(t.view(-1), mg.group, op=op)
+    return t
+
+
 def model_max_(t: torch.Tensor, mg) -> torch.Tensor:
     """``t`` (contiguous) replaced in place by its elementwise max over the
     model group."""

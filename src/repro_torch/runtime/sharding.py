@@ -231,43 +231,62 @@ def shard_params(flat: dict, mesh, head_dim: int = 1) -> dict:
             for n, t in flat.items()}
 
 
-def _full_size(leaf: str, cfg, v_pad: int) -> int | None:
-    """The whole size of the dimension the model axis would split of a
-    leaf of the dense kinds (None for other leaves)."""
+def padded_experts(cfg, rcfg) -> int:
+    """E': the expert count padded up to ``rcfg.pad_experts_multiple``
+    with dead experts (``repro/models/model.py:89-90``); 0 without experts."""
+    em = getattr(rcfg, "pad_experts_multiple", 0)
+    e = cfg.n_experts
+    return (-(-e // em) * em if em else e) if e else 0
+
+
+def _full_size(name: str, ndim: int, cfg, v_pad: int, n_experts: int) -> int | None:
+    """The whole size of the dimension the model axis would split of leaf
+    ``name`` (``ndim`` dimensions), None for other leaves: a MoE expert
+    leaf's (layers, E', ., .) splits its E' experts, the shared experts'
+    FFN its ``moe_d_ff * n_shared_experts`` columns (``core/plan.py``'s
+    ``_role_n_in``), a dense FFN its ``d_ff``."""
+    leaf = name.rsplit(".", 1)[-1]
     if leaf in Q_HEAD_LEAVES:
         return cfg.n_heads * cfg.head_dim
     if leaf in KV_HEAD_LEAVES:
         return cfg.n_kv_heads * cfg.head_dim
     if leaf in ("w_gate", "w_up", "w_down"):
+        if ndim == 4:
+            return n_experts or cfg.n_experts
+        if ".shared." in f".{name}":
+            return cfg.moe_d_ff * cfg.n_shared_experts
         return cfg.d_ff
     if leaf in ("embed", "head"):
         return v_pad * (max(1, cfg.n_codebooks) if leaf == "head" else 1)
     return None
 
 
-def local_model_dim(name: str, local_shape, cfg, v_pad: int) -> int | None:
-    """:func:`model_dim` of a leaf of the dense kinds read from one rank's
-    slice of it: the dimension :data:`MODEL_AXIS_DIMS` names when it is
-    shorter than the whole (``cfg``; ``v_pad`` the padded vocabulary)."""
+def local_model_dim(name: str, local_shape, cfg, v_pad: int,
+                    n_experts: int = 0) -> int | None:
+    """:func:`model_dim` of a leaf read from one rank's slice of it: the
+    dimension :data:`MODEL_AXIS_DIMS` names when it is shorter than the
+    whole (``cfg``; ``v_pad`` the padded vocabulary, ``n_experts`` the
+    padded expert count E' of :func:`padded_experts`, 0 for
+    ``cfg.n_experts``)."""
     ndim = len(local_shape)
     dims = MODEL_AXIS_DIMS.get(_leaf_key(name, ndim), ())
-    full = _full_size(name.rsplit(".", 1)[-1], cfg, v_pad)
+    full = _full_size(name, ndim, cfg, v_pad, n_experts)
     if not dims or full is None:
         return None
     dim = dims[0] % ndim
     return dim if local_shape[dim] != full else None
 
 
-def unshard_params(shards: list, cfg, v_pad: int) -> dict:
+def unshard_params(shards: list, cfg, v_pad: int, n_experts: int = 0) -> dict:
     """Inverse of :func:`shard_params`: the model ranks' slices (one dict
     each, in model-axis order; tensors or numpy arrays) -> the whole
-    leaves."""
+    leaves (``n_experts`` as in :func:`local_model_dim`)."""
     import numpy as np
     import torch
 
     out = {}
     for n, t in shards[0].items():
-        dim = local_model_dim(n, tuple(t.shape), cfg, v_pad)
+        dim = local_model_dim(n, tuple(t.shape), cfg, v_pad, n_experts)
         if dim is None:
             out[n] = t
         elif isinstance(t, torch.Tensor):
@@ -278,12 +297,12 @@ def unshard_params(shards: list, cfg, v_pad: int) -> dict:
 
 
 # The refusals of tensor parallelism, each naming the slice that lifts it.
-TP_KINDS = ("attn", "swa")
+TP_KINDS = ("attn", "swa", "moe")
 LATER_SLICE_TP_KINDS = (
-    "tensor parallelism (model degree {tp}) runs the dense block kinds {ok}; {bad} "
-    "arrive with later slices: moe with expert parallelism over the model axis, ssm "
-    "and rec / latt with their inner widths over it, xattn with cross-attention "
-    "heads over it. Use --data-model D 1 for this architecture")
+    "tensor parallelism (model degree {tp}) runs the block kinds {ok}; {bad} "
+    "arrive with later slices: ssm and rec / latt with their inner widths over the "
+    "model axis, xattn with cross-attention heads over it. Use --data-model D 1 for "
+    "this architecture")
 LATER_SLICE_TP_REVERSIBLE = (
     "block_structure={structure!r} under tensor parallelism (model degree {tp}) "
     "arrives with a later slice: the reversible stage's backward replays its "
@@ -293,11 +312,6 @@ LATER_SLICE_TP_EMBED_INPUTS = (
     "an embed-input architecture (musicgen's four-codebook frontend) under tensor "
     "parallelism (model degree {tp}) arrives with a later slice: its head holds "
     "every codebook's vocabulary side by side. Use --data-model D 1")
-LATER_SLICE_TP_ROW_SITE = (
-    "site {path!r} ({policy}) is row-parallel under tensor parallelism (model degree "
-    "{tp}): its input is split over the model axis, so K1's csim and alpha would "
-    "need dot products over the whole row. A compressed row-parallel site arrives "
-    "with a later slice; keep it exact (e.g. 'ffn.*=pamm(r=1/8);ffn.down=none')")
 LATER_SLICE_TP_CONTEXT = (
     "a model (tensor-parallel) degree above 1 together with a context degree above 1 "
     "arrives with a later slice (the ring inside tensor-parallel attention); use "
@@ -310,14 +324,13 @@ LATER_SLICE_TP_GRAD_COMPRESS = (
     "grad_compress={gc!r} under tensor parallelism (model degree {tp}) arrives with "
     "a later slice: its one int8 scale a tensor is the max over the whole leaf, "
     "which the model ranks each hold a slice of. Use grad_compress='none'")
-# row-parallel sites: their input is the model-sharded hidden of the sublayer
-ROW_PARALLEL_ROLES = ("ffn.down",)
 
 
-def validate_tensor_parallel(cfg, rcfg, tp: int, resolved=None) -> None:
+def validate_tensor_parallel(cfg, rcfg, tp: int) -> None:
     """Config-time refusals of a model degree ``tp`` above 1 (the texts
-    above); ``resolved``: the run's plan, whose compressed row-parallel
-    sites are refused."""
+    above). The dense kinds and ``moe`` (experts over the model axis) run;
+    a compressed row-parallel site (``ffn.down``) compresses its split
+    input through K1's split route (``core/pamm.py``)."""
     if tp <= 1:
         return
     kinds = sorted({k for unit, _ in cfg.stages for k in unit})
@@ -335,11 +348,6 @@ def validate_tensor_parallel(cfg, rcfg, tp: int, resolved=None) -> None:
     gc = getattr(rcfg, "grad_compress", "none")
     if gc != "none":
         raise NotImplementedError(LATER_SLICE_TP_GRAD_COMPRESS.format(gc=gc, tp=tp))
-    if resolved is not None:
-        for s in resolved.compressed_sites:
-            if s.path.endswith(ROW_PARALLEL_ROLES) and not s.is_exact:
-                raise NotImplementedError(LATER_SLICE_TP_ROW_SITE.format(
-                    path=s.path, policy=s.policy.name, tp=tp))
     H, KV = cfg.n_heads, cfg.n_kv_heads
     if H % tp == 0 and KV % tp and (H // KV) % (H // tp):
         raise NotImplementedError(
@@ -360,7 +368,10 @@ class ModelGroup:
     splits (a dimension it cannot divide stays whole: :func:`model_dim`):
     the q heads (``heads``; wq / bq columns, wo rows), the K/V heads
     (``kv``; else every rank holds them all and takes its q heads' group),
-    the FFN width (``ffn``) and the (padded) vocabulary (``vocab``)."""
+    the FFN width (``ffn``), the (padded) vocabulary (``vocab``), a MoE
+    block's E' experts (``experts``: rank ``index`` holds experts
+    [index E'/tp, (index + 1) E'/tp)) and its shared experts' FFN width
+    (``shared``, ``moe_d_ff * n_shared_experts``)."""
 
     group: Any
     tp: int
@@ -371,6 +382,8 @@ class ModelGroup:
     kv: bool = False
     ffn: bool = False
     vocab: bool = False
+    experts: bool = False
+    shared: bool = False
 
 
 _MODEL: list[ModelGroup] = []
@@ -392,13 +405,18 @@ def make_model_group(mesh, cfg, rcfg, v_pad: int) -> ModelGroup | None:
     if tp <= 1:
         return None
     d, dh = cfg.d_model, cfg.head_dim
-    # a stacked block leaf (layers, d, width), the head (d, V)
+    # a stacked block leaf (layers, d, width), an expert leaf (layers, E',
+    # d, f), the head (d, V)
     split = lambda leaf, *shape: model_dim(leaf, shape, tp, dh) is not None
     heads = split("wq", 1, d, cfg.n_heads * dh)
+    ep = padded_experts(cfg, rcfg)
     return ModelGroup(mesh.group(MODEL_AXIS), tp, mesh.coord(MODEL_AXIS), mesh.comm,
                       seq_shard=bool(getattr(rcfg, "seq_shard", False)), heads=heads,
                       kv=heads and split("wk", 1, d, cfg.n_kv_heads * dh),
-                      ffn=split("w_gate", 1, d, cfg.d_ff), vocab=split("head", d, v_pad))
+                      ffn=split("w_gate", 1, d, cfg.d_ff), vocab=split("head", d, v_pad),
+                      experts=bool(ep) and split("w_gate", 1, ep, d, cfg.moe_d_ff),
+                      shared=bool(cfg.n_shared_experts) and split(
+                          "w_gate", 1, d, cfg.moe_d_ff * cfg.n_shared_experts))
 
 
 @contextlib.contextmanager

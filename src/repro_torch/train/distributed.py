@@ -17,7 +17,8 @@ manual and its model axis left to GSPMD; the port runs one process per
     and row-parallel products over the model group
     (``runtime.sharding.tensor_parallel``), K3-K5 at its head counts;
   * averages loss, NLL and the MoE aux term over the data x context ranks
-    and sums the per-site telemetry;
+    and sums the per-site telemetry (``moe.expert``'s over the model
+    ranks too when they split the experts: each compressed its share);
   * all-reduces the gradients (mean), or runs the int8 error-feedback
     all-reduce (``runtime/grad_compress.py``) with its own residues;
   * clips by the global norm (the squares of model-split leaves summed
@@ -195,7 +196,7 @@ def make_shard_map_grads(cfg, rcfg, *, mesh, sampler=None) -> ShardMapGrads:
         shard = mesh.coord("data") * cp + mesh.coord("context")
         resolved = resolved.with_site_key_fn(
             functools.partial(shard_site_key, dp=n_shards, shard=shard))
-    sh.validate_tensor_parallel(cfg, rcfg, sh.tp_degree(mesh), resolved_global)
+    sh.validate_tensor_parallel(cfg, rcfg, sh.tp_degree(mesh))
     mg = sh.make_model_group(mesh, cfg, rcfg, _padded_vocab(cfg, rcfg))
     sync, comm = mesh.sync_group, mesh.comm
 
@@ -229,7 +230,7 @@ def make_shard_map_train_step(cfg, rcfg, *, total_steps: int = 10000, mesh,
     dp, n_shards = sh.dp_degree(mesh), sh.dp_degree(mesh) * sh.cp_degree(mesh)
     _, opt_update = make_optimizer(rcfg.optimizer)
     sync, comm = mesh.sync_group, mesh.comm
-    v_pad = _padded_vocab(cfg, rcfg)
+    v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
     mg = sh.make_model_group(mesh, cfg, rcfg, v_pad)
 
     def step(state: TrainState, batch: dict, step_idx: int):
@@ -245,11 +246,16 @@ def make_shard_map_train_step(cfg, rcfg, *, total_steps: int = 10000, mesh,
                                metrics["aux"].float()])
         all_reduce_([scalars], sync, n_shards, comm, mean=True)
         all_reduce_(list(metrics["sites"].values()), sync, n_shards, comm, mean=False)
+        if mg is not None and mg.experts:
+            # each model rank compressed its share of the experts
+            all_reduce_([v for p, v in metrics["sites"].items() if p.endswith(".moe.expert")],
+                        mg.group, mg.tp, comm, mean=False)
         loss, metrics["nll"], metrics["aux"] = scalars.unbind(0)
         split = None
         if mg is not None:
             split = ({n for n, p in params.items()
-                      if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad) is not None}, mg)
+                      if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad) is not None},
+                     mg)
         grads, gnorm = clip_by_global_norm(grads, rcfg.grad_clip, model_split=split)
         lr = warmup_cosine(int(step_idx), total_steps, rcfg.lr, rcfg.warmup_frac)
         zero1 = zero1_of(rcfg, mesh, params)

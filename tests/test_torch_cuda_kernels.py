@@ -8,7 +8,10 @@ Tolerances: K3/K6/K7/K8 f32 atol 2e-5 on o (the same f32 math summed in another
 order); bf16 atol 5e-2 on o (both round o to bf16); lse atol 1e-3.
 K1: |cs| and norms to 1e-5 relative (f32 dots of up to a few thousand
 terms in another order); idx equal wherever the plain top-2 |csim| margin
-exceeds 1e-4. K2: 1e-5 of the output's scale (f32 sums in another order)
+exceeds 1e-4. K1's split route: pass A to 1e-5 of its buffer's scale and
+bitwise across launches, pass B to 1e-6 relative of its plain version on
+the same buffer (the same f32 operations), and the two halves' route to
+K1 on the whole rows as K1 is held. K2: 1e-5 of the output's scale (f32 sums in another order)
 and bitwise equal across two launches. The batched K1 / K2 (the MoE
 site's experts in one launch) are held the same way, and each expert's
 output bitwise to a 2-D launch on that expert's inputs. K4/K5: f32 1e-4 and bf16 2e-2 of
@@ -313,6 +316,50 @@ def test_k1_cuda_matches_plain(cuda_device, b, n, k, dtype):
     assert f.dtype == torch.int32 and int(f.max()) < k and int(f[3]) == 0
     torch.testing.assert_close(cs.abs(), cs_r.abs(), rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(na, na_r, rtol=1e-5, atol=1e-6)
+    csim = (x.float() @ c.float().T) / (na_r.clamp_min(1e-20)[:, None]
+                                        * c.float().norm(dim=1).clamp_min(1e-20))
+    top2 = csim.abs().topk(min(2, k), dim=1).values
+    clear = (top2[:, 0] - top2[:, -1] > 1e-4) if k > 1 else torch.ones_like(f, dtype=torch.bool)
+    assert torch.equal(f[clear], f_r[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,k", K1_CASES)
+def test_k1_split_route_matches_plain_and_k1(cuda_device, b, n, k, dtype):
+    """K1's split route: pass A on two column halves against its plain
+    version (1e-5 of the buffer's scale, bitwise across launches); pass B
+    on their sum against its plain version and, in f32, against K1 on the
+    whole rows (idx equal where the top-2 margin exceeds 1e-4)."""
+    from repro_torch.kernels.pamm_compress import (csim_finish_cuda, csim_finish_ref,
+                                                   csim_partial_cuda, csim_partial_ref)
+
+    g = torch.Generator(device=cuda_device).manual_seed(b + n + k + 1)
+    x = _randn((b, n), g, dtype)
+    x[3] = 0
+    idx = torch.randperm(b, generator=g, device=cuda_device)[:k]
+    c = x[idx].contiguous()
+    h = max(1, n // 2)
+    parts = []
+    for cols in (slice(0, h), slice(h, n)):
+        xs, cs_ = x[:, cols].contiguous(), c[:, cols].contiguous()
+        if xs.shape[1] == 0:
+            continue
+        got, again, ref = csim_partial_cuda(xs, cs_), csim_partial_cuda(xs, cs_), \
+            csim_partial_ref(xs, cs_)
+        assert got.shape == (b, k + 1) and torch.equal(got, again)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()) + 1e-30
+        parts.append(got)
+    part = sum(parts)
+    cs, f, na = csim_finish_cuda(part, idx)
+    cs_r, f_r, na_r = csim_finish_ref(part, idx)
+    assert f.dtype == torch.int32 and int(f[3]) == 0 and float(cs[3]) == 0
+    torch.testing.assert_close(cs, cs_r, rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(na, na_r, rtol=1e-6, atol=0)
+    if dtype == "float32":
+        cs_w, f_w, _ = csim_argmax_ref(x, c)
+        torch.testing.assert_close(cs, cs_w, rtol=0, atol=1e-5)
+        f_r = f_w
     csim = (x.float() @ c.float().T) / (na_r.clamp_min(1e-20)[:, None]
                                         * c.float().norm(dim=1).clamp_min(1e-20))
     top2 = csim.abs().topk(min(2, k), dim=1).values

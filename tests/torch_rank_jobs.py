@@ -1,5 +1,6 @@
 """What the gloo ranks of ``tests/test_torch_ring.py``,
-``tests/test_torch_distributed.py`` and ``tests/test_torch_tensor_parallel.py`` run (``repro_torch.launch.ranks``
+``tests/test_torch_distributed.py``, ``tests/test_torch_tensor_parallel.py``
+and ``tests/test_torch_expert_parallel.py`` run (``repro_torch.launch.ranks``
 starts them). This module imports neither JAX nor the JAX package, so a
 spawned rank starts in the time torch takes to import; draws of the JAX
 key chain reach a rank as a table (:class:`TableSampler`) recorded in the
@@ -22,14 +23,59 @@ TIMEOUT = 240
 
 
 class TableSampler:
-    """Generator rows looked up by (seed, path, b, k) in a table recorded
-    from another sampler; a draw the table lacks raises KeyError."""
+    """Generator rows looked up by (seed, path, b, k), and normal draws by
+    (seed, path, shape), in a table recorded from another sampler; a draw
+    the table lacks raises KeyError."""
 
     def __init__(self, table: dict):
         self.table = table
 
     def choice(self, seed, path, b, k, device):
         return torch.from_numpy(self.table[(seed, path, b, k)]).to(device)
+
+    def normal(self, seed, path, shape, device):
+        return torch.from_numpy(self.table[(seed, path, tuple(shape))]).to(device)
+
+
+def _plant(fault: str | None):
+    """Plant ``fault`` in this rank's MoE (a wrong share of the balance
+    loss's gradient: 'aux_doubled' counts it on every rank, 'aux_missing'
+    on none); returns what undoes it."""
+    from repro_torch.models import moe
+
+    if fault is None:
+        return lambda: None
+    real = moe.aux_grad_share
+    moe.aux_grad_share = {"aux_doubled": lambda tp: 1.0, "aux_missing": lambda tp: 0.0}[fault]
+
+    def undo():
+        moe.aux_grad_share = real
+    return undo
+
+
+def _recording_split_states(out: list):
+    """Record the (alpha, assign, beta) of every PAMM state K1's split route
+    makes, and the sketch of every split CompAct state; returns what
+    undoes it."""
+    from repro_torch.core import policies
+
+    reals = {c: c.compress_split for c in (policies.PammPolicy, policies.CompActPolicy)}
+
+    def wrap(real):
+        def compress_split(self, x2d, key, mg):
+            st = real(self, x2d, key, mg)
+            leaves = (st.alpha, st.assign, st.beta) if hasattr(st, "alpha") else (st.sketch,)
+            out.append([t.detach().cpu().numpy().copy() for t in leaves])
+            return st
+        return compress_split
+
+    for c, real in reals.items():
+        c.compress_split = wrap(real)
+
+    def undo():
+        for c, real in reals.items():
+            c.compress_split = real
+    return undo
 
 
 def _ring_cases(mesh, cases):
@@ -69,13 +115,26 @@ def _train(mesh, rank, run: dict) -> dict:
     step = make_shard_map_train_step(cfg, rcfg, total_steps=run.get(
         "total_steps", start + len(run["batches"])), mesh=mesh, sampler=run.get("sampler"))
     collect = run.get("collect", ())
-    out = {"metrics": [], "ef_norms": []}
+    out = {"metrics": [], "ef_norms": [], "split_states": []}
+    undo = [_plant(run.get("plant"))]
+    if "split_states" in collect:
+        undo.append(_recording_split_states(out["split_states"]))
+    if "router_grads" in collect:
+        # the first batch's gradients after the sync, the router leaves'
+        from repro_torch.train.distributed import make_shard_map_grads
+
+        grads_fn = make_shard_map_grads(cfg, rcfg, mesh=mesh, sampler=run.get("sampler"))
+        _, _, g = grads_fn.rank_grads(state.params, run["batches"][0], start)
+        g, _ = grads_fn.sync_grads(g, state.ef)
+        out["router_grads"] = _numpy({n: t for n, t in g.items() if n.endswith("router")})
     for i, batch in enumerate(run["batches"], start=start):
         state, m = step(state, batch, i)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if state.ef is not None:
             out["ef_norms"].append(float(torch.sqrt(sum((e * e).sum()
                                                         for e in state.ef.values()))))
+    for u in undo:
+        u()
     params = dict(state.params.named_parameters())
     if "params" in collect:
         whole = params

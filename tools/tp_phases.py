@@ -2,19 +2,27 @@
 """chip_smoke.py's tensor-parallel phases alone (its ``run_tp_phases``:
 43-45, internlm2-1.8b trained over the model axis on two gloo ranks
 sharing the card and on data 2 x model 2, against the single-process
-step; K1-K5 at a model rank's shapes as kernel rows), after its phase 1,
-for iterating on tensor parallelism without the earlier phases; and the
-same checks run against planted faults, to show that they can fail. Run
-from the repository root:
+step; K1-K5 at a model rank's shapes as kernel rows; and its
+``run_split_and_expert_phases``: 46-48, K1's split route against its
+plain versions, internlm2 with a compressed ffn.down and granite-moe with
+its experts over the model axis, each on two ranks against the
+single-process step, and their kernel rows), after its phase 1, for
+iterating on tensor parallelism without the earlier phases; and the same
+checks run against planted faults, to show that they can fail. Run from
+the repository root:
 
-  python3 tools/tp_phases.py [--layers N] [--dtp-layers N] [--keep-going]
+  python3 tools/tp_phases.py [--phases 43-45|46-48|43-48] [--layers N]
+                             [--dtp-layers N] [--split-layers N]
+                             [--ep-layers N] [--keep-going]
                              [--plant-fault NAME ...]
 
-``--layers N`` cuts phase 43 to N layers and ``--dtp-layers N`` phase 44
-(a quick rehearsal of the path; their checks then use N). Prints what
-those phases print, then the kernel rows as JSON; the first failure exits
-non-zero, as in chip_smoke.py, unless ``--keep-going``: then every failing
-check is printed, the phases go on, and the exit is non-zero at the end.
+``--phases`` picks the phases (43-45 by default). ``--layers N`` cuts
+phase 43 to N layers, ``--dtp-layers N`` phase 44, ``--split-layers N``
+phase 47 and ``--ep-layers N`` phase 48 (a quick rehearsal of the path;
+their checks then use N). Prints what those phases print, then the kernel
+rows as JSON; the first failure exits non-zero, as in chip_smoke.py,
+unless ``--keep-going``: then every failing check is printed, the phases
+go on, and the exit is non-zero at the end.
 
 ``--plant-fault NAME`` (repeatable; ``all`` for every one) runs phases 43
 and 44 (at ``--layers`` / ``--dtp-layers``) once for each fault, planted
@@ -98,6 +106,9 @@ def main():
                     choices=sorted(FAULTS) + ["all"])
     ap.add_argument("--keep-going", action="store_true",
                     help="print every failing check and go on; exit 1 at the end")
+    ap.add_argument("--phases", choices=("43-45", "46-48", "43-48"), default="43-45")
+    ap.add_argument("--split-layers", type=int, default=chip_smoke.SPLIT_LAYERS)
+    ap.add_argument("--ep-layers", type=int, default=chip_smoke.EP_LAYERS)
     args = ap.parse_args()
     t0 = time.perf_counter()
     smi, gen = chip_smoke.start()
@@ -108,7 +119,13 @@ def main():
         sys.exit(0 if ok else 1)
     if args.keep_going:
         chip_smoke.fail = Failures()
-    rows = chip_smoke.run_tp_phases(gen, smi, args.layers, args.dtp_layers)
+    rows = []
+    if args.phases != "46-48":
+        rows += chip_smoke.run_tp_phases(gen, smi, args.layers, args.dtp_layers)
+    if args.phases != "43-45":
+        split, ep = (dict(job) for job in chip_smoke.SPLIT_JOBS)
+        split["layers"], ep["layers"] = args.split_layers, args.ep_layers
+        rows += chip_smoke.run_split_and_expert_phases(gen, smi, (split, ep))
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps(rows))
     if args.keep_going and chip_smoke.fail:
