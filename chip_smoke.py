@@ -16,8 +16,10 @@ int8 error-feedback all-reduce, ring attention over K3-K5's offsets); the
 data axis inside one process: one engine's page pools split per replica
 (K7 / K8 through the sharded wrappers), MoE's blocked dispatch; and
 tensor parallelism: internlm2-1.8b trained over the model axis (column-
-and row-parallel products, K1-K5 at the per-rank head counts) on gloo
-ranks sharing the card.
+and row-parallel products, K1-K5 at the per-rank head counts), with a
+compressed row-parallel ffn.down, granite-moe's experts, mamba2-370m's
+heads and recurrentgemma-9b's RG-LRU width over it, on gloo ranks sharing
+the card.
 
   python3 chip_smoke.py
 
@@ -466,6 +468,30 @@ Run after phase 39 (the mesh phases), on internlm2-1.8b:
                         plain versions, then as kernel rows (SDPA as
                         library; launches: rank 0's in phase 43's two
                         measured steps)
+  46-48. row-parallel   K1's split route against its plain versions;
+         and experts    internlm2 with ffn.down compressed (4 layers) and
+                        granite-moe with its experts over 2 ranks (8 of
+                        32 layers) against the single-process step; their
+                        kernel rows
+  49. ssm tensor        mamba2-370m at full width, 12 of 48 layers, under
+      parallel          ssm.in=pamm(r=1/512), remat='pamm', model 2 (a
+                        rank's 16 of 32 heads, B / C whole), the checks of
+                        phase 43 (the parameters' change over the leaves
+                        no site estimates; ssm.in's printed), every leaf a
+                        rank holds equal to its cut of the whole (in_proj
+                        2320 / 4384 of it); the same at full depth in f32
+                        compute (in bf16 the ranks' roundings part the
+                        48-layer gradients past 0.05); then data 2 x
+                        model 2 at 4 layers with the moments' slices
+                        checked
+  50. rec tensor        one (rec, rec, latt) unit of recurrentgemma-9b at
+      parallel          full width under attn.qkv / rglru.in pamm,
+                        remat='none', model 2, the same checks; the width
+                        all-gather's and the model all-reduces' bytes
+  51. ssm / rec         K1 on ssm.in's and rglru.in's whole rows, K2 at a
+      numbers           rank's m 2320 and 2048, K3 / K4 / K5 at a rank's
+                        latt heads (4, 2048, 8/1, 256), window 2048,
+                        against their plain versions, then as kernel rows
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -5935,19 +5961,23 @@ TP_K2_M = ((1024, "wq"), (512, "wk / wv"))      # K2's dZ columns a rank at tp 2
 
 def tp_job_cfg(job: dict):
     """(cfg, rcfg) of a tensor-parallel job: ``arch`` (default ARCH) cut to
-    ``layers`` (None: full depth) of its one stage's unit, ``spec``
-    (default MESH_SPEC) under remat MESH_REMAT, ``run``: other RunConfig
-    fields."""
+    ``layers`` (None: full depth) of its one stage's unit, or to the
+    ``stages`` given, ``spec`` (default MESH_SPEC) under remat MESH_REMAT,
+    ``run``: other RunConfig fields (a ``remat`` among them replaces
+    MESH_REMAT)."""
     import dataclasses
 
     from repro_torch.configs import RunConfig, get_config
 
     cfg = get_config(job.get("arch", ARCH))
-    if job.get("layers"):
+    if job.get("stages"):
+        cfg = dataclasses.replace(cfg, stages=job["stages"], n_layers=sum(
+            len(unit) * rep for unit, rep in job["stages"]))
+    elif job.get("layers"):
         (unit, _), = cfg.stages
         cfg = dataclasses.replace(cfg, stages=((unit, job["layers"]),), n_layers=job["layers"])
     rcfg = RunConfig(compression=job.get("spec", MESH_SPEC), policy_name="none",
-                     remat=MESH_REMAT, **job.get("run", {}))
+                     **{"remat": MESH_REMAT, **job.get("run", {})})
     return cfg, rcfg
 
 
@@ -5958,6 +5988,8 @@ def tp_want_launches(job: dict, cfg) -> dict:
     ffn.down's split route (pass A and pass B once a layer), plus under
     ``moe.expert`` the batched K1 once and the batched K2 twice (gate, up)
     a layer, over the rank's experts."""
+    if job.get("arch") in (SSM_ARCH, REC_ARCH):
+        return tp_kind_launches(job, cfg)
     want = mesh_want_launches(cfg, 1)
     n, spec = cfg.n_layers, job.get("spec", MESH_SPEC)
     if "ffn.*" in spec:
@@ -5973,7 +6005,8 @@ def tp_want_launches(job: dict, cfg) -> dict:
 # block's experts sit under its "ffn" node)
 SITE_LEAVES = {"attn.qkv": ("attn.wq", "attn.wk", "attn.wv"),
                "ffn.*": ("ffn.w_gate", "ffn.w_up", "ffn.w_down"),
-               "moe.expert": ("ffn.w_gate", "ffn.w_up")}
+               "moe.expert": ("ffn.w_gate", "ffn.w_up"),
+               "ssm.in": ("ssm.in_proj",), "rglru.in": ("rec.w_x",)}
 
 
 def _site_leaves(spec: str) -> tuple:
@@ -5996,13 +6029,15 @@ def _expert_bytes(state) -> dict:
                            for n, t in tree.items() if n in names)}
 
 
-def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg) -> dict | None:
+def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg,
+                on_host: bool = False) -> dict | None:
     """This rank's model-axis slice of each of rank 0's leaves ``full``
     (the single process's, f32 on the card), on the model ranks of data
     coordinate 0: rank 0 sends the others theirs over gloo through host
     memory, leaf by leaf (gloo takes no CUDA tensor in send / recv; its own
     slices are views); None on the other ranks. ``local``: this rank's
-    tensors, for the names, shapes and layout."""
+    tensors, for the names, shapes and layout. ``on_host``: the slices stay
+    in host memory (``full`` is there too)."""
     import torch
     import torch.distributed as dist
 
@@ -6015,15 +6050,16 @@ def _ref_slices(full: dict | None, local: dict, mesh, cfg, rcfg) -> dict | None:
     tp, me = sh.tp_degree(mesh), mesh.coord("model")
     out = {}
     for n, t in local.items():
-        dim = sh.local_model_dim(n, tuple(t.shape), cfg, v_pad, e_pad)
+        cut = sh.local_model_cut(n, tuple(t.shape), cfg, v_pad, e_pad)
+        take = (lambda r: full[n]) if cut is None else (lambda r: cut.take(full[n], r, tp))
         if me == 0:
             for m in range(1, tp):      # data 0's model ranks are global ranks 0..tp-1
-                dist.send(sh.shard_slice(full[n], dim, m, tp).contiguous().cpu(), dst=m)
-            out[n] = sh.shard_slice(full[n], dim, 0, tp)
+                dist.send(take(m).contiguous().cpu(), dst=m)
+            out[n] = take(0)
         else:
             host = torch.empty(t.shape, dtype=torch.float32)
             dist.recv(host, src=0)
-            out[n] = host.to(t.device)
+            out[n] = host if on_host else host.to(t.device)
     return out
 
 
@@ -6040,13 +6076,24 @@ def _held_bytes(*trees) -> int:
     return sum(seen.values())
 
 
-def _tp_parts(tensors: dict, ref: dict | None) -> dict:
+def _tp_parts(tensors: dict, ref: dict | None, layout=None, tp: int = 1) -> dict:
     """(||a - ref||^2, ||ref||^2) of each leaf ``a`` of ``tensors`` (this
     rank's slices) against ``ref`` (this rank's slices of the single
-    process's); {} without ``ref``."""
+    process's); {} without ``ref``. A leaf whose ``layout`` cut has whole
+    parts (every rank holds them) counts them 1/tp on each rank, so that
+    the ranks' sums are the whole leaf's."""
     if ref is None:
         return {}
-    return _rel_by_leaf((n, t.detach().float(), ref[n]) for n, t in tensors.items())
+    out = _rel_by_leaf((n, t.detach().float(), ref[n].to(t.device))
+                       for n, t in tensors.items())
+    for n, cut in (layout or {}).items():
+        idx = [] if cut is None else cut.whole_index(tp)
+        if idx:
+            a = tensors[n].detach().float()
+            whole = _rel_by_leaf((i, a[ix], ref[n][ix].to(a.device))
+                                 for i, ix in enumerate(idx)).values()
+            out[n] = tuple(out[n][j] - (1 - 1 / tp) * sum(w[j] for w in whole) for j in (0, 1))
+    return out
 
 
 def _tp_whole_parts(res: list, key: str, label: str) -> dict:
@@ -6074,7 +6121,7 @@ def _free_pinned() -> None:
     getattr(torch._C, "_host_emptyCache", lambda: None)()
 
 
-def _tp_grad_hook(ref, out: dict):
+def _tp_grad_hook(ref, out: dict, layout=None, tp: int = 1):
     """A ``grads_hook`` for every rank: at step TP_GRAD_STEP the parts of
     the gradients after the data all-reduce (this rank's slices) against
     the single process's (``ref``: this rank's slices of them, None on
@@ -6090,7 +6137,7 @@ def _tp_grad_hook(ref, out: dict):
         if at != TP_GRAD_STEP:
             return
         t0 = time.perf_counter()
-        out["grad_parts"] = _tp_parts(grads, ref)
+        out["grad_parts"] = _tp_parts(grads, ref, layout, tp)
         torch.cuda.synchronize()
         out["grad_cmp_ms"] = 1e3 * (time.perf_counter() - t0)
 
@@ -6121,6 +6168,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
     from repro_torch.data import SyntheticStream
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_model
     from repro_torch.models.model import _padded_vocab
     from repro_torch.runtime import sharding as sh
     from repro_torch.runtime.collectives import gather_model_
@@ -6133,6 +6181,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
     build.build()                       # the parent's builds, found by their hashes
     outs = []
     for i, job in enumerate(jobs):
+        job_t0 = time.perf_counter()
         cfg, rcfg = tp_job_cfg(job)
         data, model = job["shape"]
         v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
@@ -6148,12 +6197,18 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
             # parameters after the steps, and the change's squared norm a leaf
             blocked = dataclasses.replace(rcfg, compression=_with_blocks(rcfg.compression, data))
             state = init_train_state(cfg, blocked, device="cuda")
-            p0 = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+            # ``ref_host``: the reference tensors wait in host memory (a
+            # recurrentgemma unit's f32 state fills the card without them),
+            # and the initial parameters are drawn again after the steps
+            keep = lambda t: t.detach().float().cpu()
+            p0 = None if job.get("ref_host") else {
+                n: p.detach().clone() for n, p in state.params.named_parameters()}
             _, _, grads = loss_and_grad(cfg, blocked, resolve_for_run(cfg, blocked),
                                         state.params,
                                         batch_to_device(batches[TP_GRAD_STEP], "cuda"),
                                         Key(blocked.seed).fold_in(TP_GRAD_STEP))
-            ref["grads"] = {n: g.float() for n, g in grads.items()}
+            ref["grads"] = {n: (keep(g) if job.get("ref_host") else g.float())
+                            for n, g in grads.items()}
             del grads
             out["single_held"] = _held_bytes(p0, ref["grads"])
             state, out["single"] = _mesh_steps(make_train_step(cfg, blocked,
@@ -6161,9 +6216,14 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
                                                state, batches)
             out["single_bytes"] = _state_bytes(state)
             out["single_experts"] = _expert_bytes(state)
-            ref["final"] = {n: p.detach() for n, p in state.params.named_parameters()}
+            out["single_shapes"] = {n: tuple(p.shape) for n, p in state.params.named_parameters()}
+            if job.get("ref_host"):
+                p0 = dict(init_model(cfg, blocked, seed=blocked.seed,
+                                     device="cuda").named_parameters())
             out["update_den"] = {n: float(torch.linalg.vector_norm(p - p0[n])) ** 2
-                                 for n, p in ref["final"].items()}
+                                 for n, p in state.params.named_parameters()}
+            ref["final"] = {n: (keep(p) if job.get("ref_host") else p.detach())
+                            for n, p in state.params.named_parameters()}
             del state, p0
             torch.cuda.empty_cache()
         elif i == 0:
@@ -6176,13 +6236,15 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         times["init"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         params = dict(state.params.named_parameters())
-        mine = {k: _ref_slices(ref.get(k), params, mesh, cfg, rcfg) for k in ("grads", "final")}
+        mine = {k: _ref_slices(ref.get(k), params, mesh, cfg, rcfg, bool(job.get("ref_host")))
+                for k in ("grads", "final")}
         del ref
-        out["split"] = {n for n, p in params.items()
-                        if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad) is not None}
+        layout = sh.model_layout(params, cfg, v_pad, e_pad)
+        out["split"] = {n for n, cut in layout.items() if cut is not None}
+        out["shapes"] = {n: tuple(p.shape) for n, p in params.items()}
         times["reference slices"] = time.perf_counter() - t0
         out["held"] = _held_bytes(*mine.values())
-        hook = _tp_grad_hook(mine.pop("grads"), out)
+        hook = _tp_grad_hook(mine.pop("grads"), out, layout, model)
         step_fn = make_shard_map_train_step(cfg, rcfg, total_steps=MESH_TOTAL, mesh=mesh,
                                             grads_hook=hook)
         t0 = time.perf_counter()
@@ -6194,21 +6256,18 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         # the parameters after the steps against the single process's: the
         # squared norm of their difference (this rank's slices) over that of
         # the single process's change (rank 0's, whole leaves)
-        out["update_parts"] = _tp_parts(params, mine.pop("final"))
+        out["update_parts"] = _tp_parts(params, mine.pop("final"), layout, model)
         out["lr"] = rcfg.lr
         del mine
         torch.cuda.empty_cache()
         if job["moments"]:
             t0 = time.perf_counter()
             m, _ = gathered_moments(state, mesh, rcfg)
-            whole_m = gather_model_(m, {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad,
-                                                              e_pad)
-                                        for n, p in params.items()},
-                                    sh.make_model_group(mesh, cfg, rcfg, v_pad))
+            whole_m = gather_model_(m, layout, sh.make_model_group(mesh, cfg, rcfg, v_pad))
             zero1 = zero1_of(rcfg, mesh, params)
             bad = []
             for n, local in state.opt.m.items():
-                want = sh.shard_params({n: whole_m[n]}, mesh, cfg.head_dim)[n]
+                want = sh.shard_params({n: whole_m[n]}, mesh, cfg.head_dim, cfg)[n]
                 if zero1 is not None:
                     want = sh.shard_slice(want, zero1[0][n], zero1[1], zero1[2])
                 if not torch.equal(local, want):
@@ -6223,9 +6282,10 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         torch.cuda.empty_cache()
         dist.barrier()
         if rank == 0:   # progress while the group runs (its report comes at the end)
-            print(f"[tp] rank 0 done with job {i} ({job['shape']}): losses "
-                  f"{out['mesh']['loss']}, ms {[round(x) for x in out['mesh']['ms']]}",
-                  flush=True)
+            print(f"[tp] rank 0 done with job {i} ({job['shape']}, {cfg.name} "
+                  f"{cfg.n_layers} layers): losses {out['mesh']['loss']}, ms "
+                  f"{[round(x) for x in out['mesh']['ms']]}, job wall "
+                  f"{time.perf_counter() - job_t0:.1f} s", flush=True)
         outs.append(out)
     return outs
 
@@ -6241,7 +6301,7 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
     cfg, rcfg = tp_job_cfg(job)
     single = res[0]["single"]
     print(f"[{label}] {cfg.name} {cfg.n_layers} layers, {rcfg.compression}, remat "
-          f"{MESH_REMAT!r}, bf16 "
+          f"{rcfg.remat!r}, {rcfg.compute_dtype} "
           f"compute, global batch {TP_BATCH} x {TP_SEQ}, mesh data {data} x model {model} "
           f"({data * model} ranks on cuda:0, gloo); steps {list(TP_STEPS)} (index 0 the "
           f"warm-up, rate 0) {tag}")
@@ -6328,8 +6388,9 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
                                       for r in res)
           + f" | peak a step: single {_gib(single_peak)}, each rank "
           + ", ".join(_gib(max(peaks[r["rank"]])) for r in res) + f" {tag}")
-    check(all(r["bytes"]["params"] / sb["params"] < 1 / model + 0.01 for r in res),
-          f"{label}: a rank holds more than its share of the parameters")
+    if not job.get("leaf_shares"):    # phases 49-50: report_leaf_shares holds every leaf
+        check(all(r["bytes"]["params"] / sb["params"] < 1 / model + 0.01 for r in res),
+              f"{label}: a rank holds more than its share of the parameters")
     for r in res:
         if "moment_slices" in r:
             ms_ = r["moment_slices"]
@@ -6340,26 +6401,30 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
                   f"of the gathered whole: {ms_['differ'][:4]}")
 
 
-def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS):
+def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=()):
     """Phases 43 and 44, each in its own group: model 2 on two ranks at
-    full depth (``layers`` cuts it), then data 2 x model 2 on four ranks
-    at ``dtp_layers`` layers with the moments' slices checked. Returns the
-    model-2 results."""
+    ``layers`` layers (None: full depth), then data 2 x model 2 on four ranks
+    at ``dtp_layers`` layers with the moments' slices checked; the four
+    ranks then run the jobs ``dtp_extra`` too (a later phase's, reported
+    there: one spawn of four ranks fewer). Returns the model-2 results
+    and each extra job's."""
     from repro_torch.launch.ranks import run_ranks
 
-    out = {}
+    out, extra_res = {}, []
     for label, shape, n, moments in (("tensor parallel", TP_SHAPE, layers, False),
                                      ("data x model", DTP_SHAPE, dtp_layers, True)):
         job = {"shape": shape, "layers": n, "moments": moments}
+        extra = list(dtp_extra) if shape == DTP_SHAPE else []
         t0 = time.perf_counter()
-        res = [r[0] for r in run_ranks(shape[0] * shape[1], tp_rank, [job],
-                                       timeout=MESH_TIMEOUT)]
+        got = run_ranks(shape[0] * shape[1], tp_rank, [job] + extra, timeout=MESH_TIMEOUT)
         print(f"[tp] {label}: {shape[0] * shape[1]} ranks, wall "
               f"{time.perf_counter() - t0:.1f} s (spawn, warm-up, single-process step, mesh "
-              f"steps and gathers)")
-        report_tp(label, job, res, smi)
-        out[label] = res
-    return out["tensor parallel"]
+              f"steps and gathers" + (f"; then {len(extra)} later job(s))" if extra else ")"))
+        report_tp(label, job, [r[0] for r in got], smi)
+        out[label] = [r[0] for r in got]
+        if extra:
+            extra_res = [[r[i] for r in got] for i in range(1, 1 + len(extra))]
+    return out["tensor parallel"], extra_res
 
 
 def tp_kernel_rows(gen, tp_res, smi):
@@ -6401,14 +6466,15 @@ def tp_kernel_rows(gen, tp_res, smi):
     return rows
 
 
-def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS):
+def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=()):
     """Phases 43-45 (``layers`` / ``dtp_layers`` cut phases 43 / 44:
-    tools/tp_phases.py's rehearsal). Returns the kernel rows."""
+    tools/tp_phases.py's rehearsal; ``dtp_extra``: later jobs for phase
+    44's four ranks). Returns the kernel rows and the extra jobs' results."""
     t0 = time.perf_counter()
-    res = phase_tensor_parallel(smi, layers, dtp_layers)
+    res, extra = phase_tensor_parallel(smi, layers, dtp_layers, dtp_extra)
     rows = tp_kernel_rows(gen, res, smi)
     print(f"[tp] phases 43-45 wall {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, extra
 
 
 # ---------------------------------------------------------------------------
@@ -6640,18 +6706,20 @@ def report_ep_layer(res: list, smi: str) -> None:
                   f"expert parallel layer ({name}): rank {rank} parts from the whole layer")
 
 
-def phase_split_and_experts(smi, jobs=SPLIT_JOBS):
+def phase_split_and_experts(smi, jobs=SPLIT_JOBS, later=()):
     """Phases 47 and 48 in one group of two ranks: internlm2 under
     SPLIT_SPEC (ffn.down through K1's split route), then granite under
     MOE_SPEC with its experts over the model axis, each against the
-    single-process step; then the layer check. Returns each job's
-    results."""
+    single-process step; then the jobs ``later`` (a later phase's,
+    reported there: one spawn of two ranks fewer); then the layer check.
+    Returns each of ``jobs``' results and each extra job's."""
     from repro_torch.launch.ranks import run_ranks
 
     t0 = time.perf_counter()
-    res = run_ranks(2, split_rank, list(jobs), timeout=MESH_TIMEOUT)
+    res = run_ranks(2, split_rank, list(jobs) + list(later), timeout=MESH_TIMEOUT)
     print(f"[tp] phases 47-48: 2 ranks, wall {time.perf_counter() - t0:.1f} s (spawn, "
-          f"warm-up, the single-process steps, mesh steps, the layer check)")
+          f"warm-up, the single-process steps, mesh steps, the layer check"
+          + (f"; and {len(later)} later job(s))" if later else ")"))
     out = []
     for i, (label, extra) in enumerate((("row-parallel ffn.down", report_split_bytes),
                                         ("expert parallel", report_experts))):
@@ -6660,7 +6728,7 @@ def phase_split_and_experts(smi, jobs=SPLIT_JOBS):
         extra(label, job_res, smi)
         out.append(job_res)
     report_ep_layer([r[-1] for r in res], smi)
-    return out
+    return out, [[r[len(jobs) + i] for r in res] for i in range(len(later))]
 
 
 def split_and_expert_rows(gen, errs, res47, res48, smi):
@@ -6753,14 +6821,209 @@ def split_and_expert_rows(gen, errs, res47, res48, smi):
     return rows
 
 
-def run_split_and_expert_phases(gen, smi, jobs=SPLIT_JOBS):
-    """Phases 46-48 (``jobs``: tools/tp_phases.py cuts their depth).
-    Returns the kernel rows."""
+def run_split_and_expert_phases(gen, smi, jobs=SPLIT_JOBS, extra=()):
+    """Phases 46-48 (``jobs``: tools/tp_phases.py cuts their depth;
+    ``extra``: later jobs for their two ranks). Returns the kernel rows and
+    the extra jobs' results."""
     t0 = time.perf_counter()
     errs = phase_split_kernels(gen)
-    res47, res48 = phase_split_and_experts(smi, jobs)
+    (res47, res48), extra_res = phase_split_and_experts(smi, jobs, extra)
     rows = split_and_expert_rows(gen, errs, res47, res48, smi)
     print(f"[tp] phases 46-48 wall {time.perf_counter() - t0:.1f} s")
+    return rows, extra_res
+
+
+# ---------------------------------------------------------------------------
+# the model axis for the ssm and rec / latt kinds
+# ---------------------------------------------------------------------------
+# phase 49: mamba2-370m over model 2 (a rank's 16 of 32 heads, B / C whole),
+# phase 50: one (rec, rec, latt) unit of recurrentgemma-9b at full width over
+# model 2 (its RG-LRU width, 8 of latt's 16 q heads, its one K/V head whole,
+# its FFN and vocabulary), each against the single-process step at phase
+# 43's bounds (the parameters' change over the leaves no compressed site
+# estimates, the sites' printed, as phase 47)
+# phase 49 runs two model-2 jobs: bf16 compute at 12 of 48 layers, and f32
+# compute at full depth. In bf16 the model ranks round what one process
+# does not (a row-parallel product's partial sums, a column-parallel
+# input's partial gradients), and the gap grows with depth: on an H100
+# the step-1 gradients parted by 3.428e-2 at 12 layers and by 8.585e-2 at
+# 48 (tol 0.05; losses 1.213e-5 to 4.803e-5). The f32 job holds the same
+# checks at full depth, where only the order of the sums differs.
+SSM_TP_LAYERS = 12
+SSM_DTP_LAYERS = 4               # phase 49's data 2 x model 2 job (ZeRO-1's moments)
+SSM_TP_JOB = {"shape": (1, 2), "arch": SSM_ARCH, "layers": SSM_TP_LAYERS, "moments": False,
+              "spec": SSM_SPEC, "run": {"remat": SSM_REMAT}, "hold": "exact change",
+              "leaf_shares": ("ssm.in_proj", "ssm.conv_w", "ssm.out_norm", "ssm.out_proj")}
+REC_TP_JOB = {"shape": (1, 2), "arch": REC_ARCH, "stages": REC_CUT_STAGES, "moments": False,
+              "spec": REC_SPEC, "run": {"remat": REC_REMAT}, "hold": "exact change",
+              "ref_host": True,
+              "leaf_shares": ("rec.w_x", "rec.w_y", "rec.w_a", "rec.out", "attn.wq", "attn.wk",
+                              "ffn.w_gate", "embed", "head")}
+SSM_TP_F32_JOB = {**SSM_TP_JOB, "layers": None, "label": "ssm tensor parallel f32",
+                  "run": {"remat": SSM_REMAT, "compute_dtype": "float32"}}
+KIND_TP_JOBS = (SSM_TP_JOB, SSM_TP_F32_JOB, REC_TP_JOB)
+
+
+def ssm_dtp_job(layers=SSM_DTP_LAYERS) -> dict:
+    """Phase 49's data 2 x model 2 job: mamba2 at ``layers`` layers, the
+    moments' slices checked. chip_smoke.py runs it on phase 44's four
+    ranks, tools/tp_phases.py on four of its own."""
+    return {**SSM_TP_JOB, "shape": DTP_SHAPE, "layers": layers, "moments": True}
+# phase 51: K1 on the whole rows of ssm.in (n 1024) and rglru.in (n 4096); K2
+# at a rank's columns: ssm.in's 1024 z + 1024 x + 128 B + 128 C + 16 dt,
+# rglru.in's 2048 (and latt's wq; wk / wv 256 whole); K3-K5 at a rank's latt
+# heads, window 2048
+SSM_TP_M = 2 * SSM_D + 2 * 128 + 16
+REC_TP_M = REC_D // 2
+REC_TP_HEADS = (8, 1, 256)
+
+
+def tp_kind_launches(job: dict, cfg) -> dict:
+    """Launches a model rank's step makes on the ssm / rec path: K1 once a
+    layer (under remat='pamm' the recompute takes the kept state) and K2
+    once (ssm.in, rglru.in) or three times (latt's wq / wk / wv); K3 once
+    a latt layer, twice under remat, K4 and K5 once."""
+    _, rcfg = tp_job_cfg(job)
+    kinds = [k for unit, rep in cfg.stages for _ in range(rep) for k in unit]
+    att = kinds.count("latt")
+    want = {"csim_argmax": len(kinds),
+            "segment_matmul": sum(3 if k == "latt" else 1 for k in kinds)}
+    if att:
+        want.update(flash_attention_fwd=att * (1 if rcfg.remat == "none" else 2),
+                    flash_attention_dq=att, flash_attention_dkv=att)
+    return want
+
+
+def report_leaf_shares(label: str, job: dict, res: list, smi: str) -> None:
+    """Every leaf a rank holds is the shape its model-axis cut gives the
+    single process's leaf (``runtime.sharding.model_cut``); the named
+    leaves' share of the whole printed (``in_proj`` keeps B / C whole)."""
+    import math
+
+    from repro_torch.runtime import sharding as sh
+
+    cfg, _ = tp_job_cfg(job)
+    tp = job["shape"][1]
+    whole = res[0]["single_shapes"]
+    bad = []
+    for r in res:
+        for n, shape in r["shapes"].items():
+            cut = sh.model_cut(n, whole[n], tp, cfg.head_dim, cfg)
+            want = list(whole[n])
+            if cut is not None:
+                want[cut.dim] = cut.local_size(tp)
+            if tuple(want) != shape:
+                bad.append((r["rank"], n, shape, tuple(want)))
+    shares = []
+    for suffix in job["leaf_shares"]:
+        names = [n for n in whole if n.endswith(suffix)]
+        num = sum(math.prod(res[0]["shapes"][n]) for n in names)
+        shares.append(f"{suffix} {num / sum(math.prod(whole[n]) for n in names):.4f}")
+    print(f"[{label}] rank 0's share of the whole leaf, by bytes: " + ", ".join(shares)
+          + f"; {len(bad)} of {len(whole)} leaves on {len(res)} ranks differ from their cut "
+          f"[{smi}]")
+    check(not bad, f"{label}: a rank's leaf is not its cut of the whole: {bad[:3]}")
+
+
+def phase_kind_tensor_parallel(smi, jobs=KIND_TP_JOBS, dtp_layers=SSM_DTP_LAYERS,
+                               dtp_res=None, res=None):
+    """Phases 49 and 50 (``jobs``: mamba2's, then recurrentgemma's unit):
+    their results ``res`` when phases 47-48's ranks ran them, else in a
+    group of two ranks; then phase 49's data 2 x model 2 job: its results
+    ``dtp_res`` when phase 44's ranks ran it, else (unless ``dtp_layers``
+    is 0) on four ranks at ``dtp_layers`` layers. Returns each model-2
+    job's results."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if res is None:
+        t0 = time.perf_counter()
+        got = run_ranks(2, tp_rank, list(jobs), timeout=MESH_TIMEOUT)
+        res = [[r[i] for r in got] for i in range(len(jobs))]
+        print(f"[tp] phases 49-50: 2 ranks, wall {time.perf_counter() - t0:.1f} s (spawn, "
+              f"warm-up, the single-process steps, mesh steps)")
+    out = []
+    for job, job_res in zip(jobs, res):
+        label = job.get("label") or ("ssm tensor parallel" if job["arch"] == SSM_ARCH
+                                     else "rec tensor parallel")
+        report_tp(label, job, job_res, smi)    # its rank lines: the collectives' bytes
+        report_leaf_shares(label, job, job_res, smi)
+        out.append(job_res)
+    if dtp_res is not None or dtp_layers:
+        job = ssm_dtp_job(dtp_layers or SSM_DTP_LAYERS)
+        if dtp_res is None:
+            t0 = time.perf_counter()
+            dtp_res = [r[0] for r in run_ranks(4, tp_rank, [job], timeout=MESH_TIMEOUT)]
+            print(f"[tp] phase 49, data x model: 4 ranks, wall "
+                  f"{time.perf_counter() - t0:.1f} s")
+        report_tp("ssm data x model", job, dtp_res, smi)
+        report_leaf_shares("ssm data x model", job, dtp_res, smi)
+    return out
+
+
+def kind_kernel_rows(gen, res49, res50, smi):
+    """Phase 51: K1 on the whole rows of ssm.in (8192, 1024, k 16) and of
+    rglru.in (8192, 4096, k 16), K2 at a model rank's columns of them (m
+    2320 and 2048), K3 / K4 / K5 at a rank's latt heads (4, 2048, 8/1,
+    256), window 2048, each against its plain version, then as kernel
+    rows (SDPA's forward and backward for K3-K5); the launches are rank
+    0's in phases 49 / 50's measured steps."""
+    import torch
+
+    tag = f"[{smi}]"
+
+    def measured(res):
+        out = {}
+        for s, counts in zip(TP_STEPS, res[0]["mesh"]["counts"]):
+            if s in MESH_STEPS:
+                for name, c in counts.items():
+                    out[name] = out.get(name, 0) + c
+        return out
+
+    l49, l50 = measured(res49), measured(res50)
+    b, k = TRAIN_BATCH * TRAIN_SEQ, SSM_K
+    rows, notes = [], []
+    for n, m, launches, phase, site in ((SSM_D, SSM_TP_M, l49, 49, "ssm.in"),
+                                        (REC_D, REC_TP_M, l50, 50, "rglru.in")):
+        errs = {}
+        errs["K1"], f = check_site_k1(gen, b, n, k, f"{site} tp 2")
+        errs["K2"] = check_site_k2(gen, f, m, k, f"{site} tp 2")
+        del f
+        what = "" if phase == 49 else " and latt's attn.qkv (wq at m 2048, wk / wv 256)"
+        got, _ = site_k1_k2_rows(
+            gen, b, n, k, f"csim_argmax (K1, {site}'s whole rows on a model rank{what})",
+            [(m, f"segment_matmul (K2, {site}'s columns on a model rank of 2{what})")],
+            launches, errs)
+        rows += got
+        note = f"launches on rank 0 in phase {phase}'s steps {list(MESH_STEPS)}"
+        notes += [(note, f" at ({b}, {n}, k {k})"), (note, f" at ({b}, m {m}, k {k})")]
+        torch.cuda.empty_cache()
+    B, L, (H, KV, dh), W = TP_BATCH, TP_SEQ, REC_TP_HEADS, REC_WINDOW
+    errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    check_k3_k45(gen, B, L, H, KV, dh, W, None, torch.bfloat16, errs)
+    att = attention_inputs(gen, B, L, H, KV, dh, W)
+    at = f"a model rank's latt heads ({B}, {L}, {H}/{KV}, {dh}), window {W}"
+    for kern, name, src, rep in (("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+                                 ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+                                 ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES)):
+        rows.append(_kernel_row(f"{name} ({kern}, {at})", src, rep, l50.get(name, 0),
+                                errs[kern], *att[kern]))
+        notes.append((f"launches on rank 0 in phase 50's steps {list(MESH_STEPS)}", ""))
+    del att
+    print_rows(rows, notes, tag)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_kind_tp_phases(gen, smi, jobs=KIND_TP_JOBS, dtp_layers=SSM_DTP_LAYERS, dtp_res=None,
+                       res=None):
+    """Phases 49-51 (``jobs`` / ``dtp_layers``: tools/tp_phases.py cuts
+    their depth; ``res`` / ``dtp_res``: phases 49-50's jobs as phases
+    47-48's ranks ran them, phase 49's data x model job as phase 44's).
+    Returns the kernel rows."""
+    t0 = time.perf_counter()
+    res = phase_kind_tensor_parallel(smi, jobs, dtp_layers, dtp_res, res)
+    rows = kind_kernel_rows(gen, res[0], res[-1], smi)
+    print(f"[tp] phases 49-51 wall {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -6855,10 +7118,14 @@ def main() -> int:
     lap("audio phases 30-34")
     mesh_rows = run_mesh_phases(gen, smi)
     lap("mesh phases 35-39")
-    tp_rows = run_tp_phases(gen, smi)
-    lap("tensor-parallel phases 43-45")
-    split_rows = run_split_and_expert_phases(gen, smi)
-    lap("row-parallel and expert-parallel phases 46-48")
+    # phase 44's four ranks also run phase 49's data x model job
+    tp_rows, (ssm_dtp,) = run_tp_phases(gen, smi, dtp_extra=(ssm_dtp_job(),))
+    lap("tensor-parallel phases 43-45 (and phase 49's data x model job)")
+    # phases 47-48's two ranks also run phases 49-50's jobs
+    split_rows, kind_res = run_split_and_expert_phases(gen, smi, extra=KIND_TP_JOBS)
+    lap("row-parallel and expert-parallel phases 46-48 (and phases 49-50's jobs)")
+    kind_rows = run_kind_tp_phases(gen, smi, dtp_res=ssm_dtp, res=kind_res)
+    lap("ssm and rec / latt tensor-parallel phases 49-51")
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -6872,6 +7139,7 @@ def main() -> int:
     kernels += mesh_rows
     kernels += tp_rows
     kernels += split_rows
+    kernels += kind_rows
     lap("training numbers")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -77,10 +77,10 @@ def from_jax_params(params: dict, cfg, device="cuda", trainable: bool = False) -
 def shard_jax_params(params: dict, cfg, mesh, device="cuda", trainable: bool = True) -> Model:
     """One rank's port model of the JAX tree ``params`` (numpy leaves, the
     whole model): of every leaf the model axis of ``mesh`` splits
-    (``runtime.sharding.model_dim``), this rank's slice; the other leaves
+    (``runtime.sharding.model_cut``), this rank's slice; the other leaves
     whole."""
     return shard_module_(from_jax_params(params, cfg, device=device, trainable=trainable),
-                         mesh, cfg.head_dim)
+                         mesh, cfg)
 
 
 def _module_tree(mod: torch.nn.Module) -> dict:
@@ -198,8 +198,7 @@ def gathered_train_state_tree(state, mesh, rcfg, cfg=None):
         if cfg is None:
             raise ValueError("gathering over the model axis needs the model config (cfg=)")
         v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
-        layout = {n: sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad)
-                  for n, p in flat.items()}
+        layout = sh.model_layout(flat, cfg, v_pad, e_pad)
         mg = sh.make_model_group(mesh, cfg, rcfg, v_pad)
         flat, m, v = (gather_model_(t, layout, mg) for t in (flat, m, v))
     params = _nest(flat, model)

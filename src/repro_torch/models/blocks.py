@@ -441,15 +441,16 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     dropped, not written (a pad row would evict a real tail token from a
     ring cache). Pad rows are query rows of an xattn block: its image K/V
     do not depend on them. Under tensor parallelism
-    (``runtime.sharding.model_group``) the ``attn``, ``swa`` and ``moe``
-    kinds run; the others are refused with the slice that brings them."""
+    (``runtime.sharding.model_group``) the kinds of
+    ``runtime.sharding.TP_KINDS`` run; ``xattn`` is refused with the
+    slice that brings it."""
     mg = model_group()
     if mg is not None:
         if kind not in TP_KINDS:
             raise NotImplementedError(LATER_SLICE_TP_KINDS.format(tp=mg.tp, ok=TP_KINDS,
                                                                    bad=[kind]))
-        params = {**params, "norm1": seq_param(params["norm1"], mg),
-                  "norm2": seq_param(params["norm2"], mg)}
+        params = {**params, **{n: seq_param(params[n], mg) for n in ("norm1", "norm2")
+                               if n in params}}
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if kind == "xattn":
         out, (k_img, v_img) = attn_lib.cross_attn(

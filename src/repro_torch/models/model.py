@@ -32,7 +32,7 @@ Serving (prefill, decode) runs under ``torch.no_grad``.
 Tensor parallelism (``runtime.sharding.tensor_parallel``, entered by the
 mesh executor around its forward and backward): ``init_model(...,
 mesh=)`` keeps this rank's slice of every leaf the model axis splits
-(``runtime.sharding.model_dim``); the embedding is vocabulary-parallel
+(``runtime.sharding.model_cut``); the embedding is vocabulary-parallel
 (rows outside this rank's range give zeros, summed over the model group);
 the blocks run their column- and row-parallel products; the loss is the
 vocabulary-parallel chunked cross-entropy over the local head columns.
@@ -106,14 +106,14 @@ class Model(nn.Module):
         return self.head.device
 
 
-def shard_module_(mod: nn.Module, mesh, head_dim: int) -> nn.Module:
+def shard_module_(mod: nn.Module, mesh, cfg) -> nn.Module:
     """Replace each parameter of ``mod`` (full leaves, named as in the JAX
     tree) by this rank's slice of it along the model axis, copied, so the
     whole leaf is freed (:func:`runtime.sharding.shard_params`)."""
     for name, p in list(mod.named_parameters()):
         owner = mod.get_submodule(name.rpartition(".")[0])
         leaf = name.rpartition(".")[2]
-        part = sh.shard_params({name: p.detach()}, mesh, head_dim)[name]
+        part = sh.shard_params({name: p.detach()}, mesh, cfg.head_dim, cfg)[name]
         if part.shape != p.shape:
             owner.register_parameter(leaf, nn.Parameter(part.clone(),
                                                         requires_grad=p.requires_grad))
@@ -132,7 +132,7 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda", mesh=None) -> Model:
     v_pad = _padded_vocab(cfg, rcfg)
     e_pad = sh.padded_experts(cfg, rcfg)
     tp = 1 if mesh is None else sh.tp_degree(mesh)
-    local = ((lambda name, t: sh.shard_params({name: t}, mesh, cfg.head_dim)[name].clone())
+    local = ((lambda name, t: sh.shard_params({name: t}, mesh, cfg.head_dim, cfg)[name].clone())
              if tp > 1 else (lambda name, t: t))
     embed = (None if cfg.embed_inputs
              else local("embed", embed_init(gen, v_pad, cfg.d_model, pdt)))
@@ -142,7 +142,7 @@ def init_model(cfg, rcfg, seed: int = 0, device="cuda", mesh=None) -> Model:
         for kind in unit:
             block = blk.Block.from_layers(
                 kind, [blk.init_block(kind, cfg, gen, pdt, e_pad=e_pad) for _ in range(rep)])
-            stage.append(shard_module_(block, mesh, cfg.head_dim) if tp > 1 else block)
+            stage.append(shard_module_(block, mesh, cfg) if tp > 1 else block)
         stages.append(stage)
     final_norm = init_rms_norm(cfg.d_model, pdt, device)
     head = local("head", (torch.randn((cfg.d_model, v_pad * max(1, cfg.n_codebooks)),

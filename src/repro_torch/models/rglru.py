@@ -21,6 +21,19 @@ The recurrent branch's input projection ``w_x`` is the ``rglru.in``
 compression site (``ctx.apply``: K1 and K2 under a PAMM rule, exact by
 default); decode uses a plain product. The gate products ``w_a`` and
 ``w_i`` run in f32, as in the JAX package.
+
+Under tensor parallelism (``runtime.sharding.model_group`` with ``lru``)
+a model rank runs its lru_width/tp columns of the recurrence. The input
+enters whole (``tp_enter``); ``w_y`` and the ``rglru.in`` site ``w_x``
+are column-parallel (K1 on the whole rows, K2 at the rank's columns),
+and so is the conv. The gates read the whole width: the rank's conv
+output is all-gathered once a layer in the compute dtype (its f32
+gradient reduce-scattered back, ``runtime.collectives.gather_width``),
+and ``w_a`` / ``w_i`` hold the rank's output columns, so each rank
+computes both gates of its columns exactly. ``lambda`` is whole on every
+rank: a rank reads its columns, and their gradient is summed over the
+model group. The scan is elementwise over the width and needs no
+collective; ``out`` is row-parallel (``tp_exit``).
 """
 from __future__ import annotations
 
@@ -32,6 +45,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.attention import _CacheNode
 from repro_torch.models.layers import causal_depthwise_conv, dense_init
+from repro_torch.runtime.collectives import copy_to_model, gather_width, tp_enter, tp_exit
+from repro_torch.runtime.sharding import model_group
 
 _C = 8.0
 _FLOOR = 1e-12
@@ -76,14 +91,23 @@ def _sqrt_floor(t):
     return torch.sqrt(torch.maximum(t, t.new_tensor(_FLOOR)))
 
 
-def _gates(params, xb):
+def _gates(params, xb, mg=None):
     """(a, b) of the recurrence, f32: the decay a and the gated input
-    b = sqrt(1 - a²) · i · x."""
-    x32 = xb.float()
+    b = sqrt(1 - a²) · i · x. Under tensor parallelism (``mg``) ``xb``
+    holds this rank's columns, the gates read them all (gathered) and
+    a, b are the rank's columns."""
+    if mg is None:
+        x32 = x_own = xb.float()
+        lam = params["lambda"]
+    else:
+        w = xb.shape[-1]
+        x32 = gather_width(xb, mg)
+        x_own = x32[..., mg.index * w:(mg.index + 1) * w]
+        lam = copy_to_model(params["lambda"], mg)[mg.index * w:(mg.index + 1) * w]
     r = torch.sigmoid(x32 @ params["w_a"].float())
     i = torch.sigmoid(x32 @ params["w_i"].float())
-    a = torch.exp(-_C * F.softplus(params["lambda"].float()) * r)      # log a <= 0
-    return a, _sqrt_floor(1.0 - a * a) * (i * x32)
+    a = torch.exp(-_C * F.softplus(lam.float()) * r)      # log a <= 0
+    return a, _sqrt_floor(1.0 - a * a) * (i * x_own)
 
 
 def _doubling_scan(a, b):
@@ -129,12 +153,15 @@ def rglru_train(params, x, cfg, ctx, key, *, return_cache: bool = False):
     """x: (B, L, d_model) -> (B, L, d_model): full-sequence training or
     prefill. ``return_cache``: also return the :class:`RGLRUCache` the
     sequence leaves (its last state and last conv_width-1 conv inputs)."""
+    mg = model_group()
+    split = mg is not None and mg.lru
+    x = tp_enter(x, mg, split)
     y_side = F.gelu(x @ params["w_y"].to(x.dtype), approximate="tanh")
     xb = ctx.apply("rglru.in", x, params["w_x"], None, key)
     xb, conv_state = causal_depthwise_conv(xb, params["conv_w"])
-    a, b = _gates(params, xb)
+    a, b = _gates(params, xb, mg if split else None)
     h = LinearScan.apply(a, b)
-    out = (h.to(x.dtype) * y_side) @ params["out"].to(x.dtype)
+    out = tp_exit((h.to(x.dtype) * y_side) @ params["out"].to(x.dtype), mg, split)
     if return_cache:
         return out, RGLRUCache(h=h[:, -1], conv_state=conv_state)
     return out

@@ -19,6 +19,19 @@ which can be ``0 · inf``.
 
 The in-projection is the ``ssm.in`` compression site (``ctx.apply``: K1
 and K2 under a PAMM rule, exact by default); decode uses a plain product.
+
+Under tensor parallelism (``runtime.sharding.model_group`` with ``ssm``)
+a model rank runs its nh/tp heads. The block's input enters whole
+(``tp_enter``); ``ssm.in`` is a column-parallel site: K1 compresses the
+whole rows, the same state on every rank, and K2 takes the rank's
+``in_proj`` columns -- its heads' z, x and dt and the group's B and C,
+whole on every rank (``runtime/sharding.py``'s head-aligned cut), so
+their gradient, and that of ``conv_w``'s B / C columns and of the whole
+``a_log`` / ``d_skip`` / ``dt_bias`` a rank reads its heads of, is
+summed over the model group. The conv and the chunked SSD run on the
+rank's heads. ``out_norm`` normalises over the whole inner width: the
+f32 sum of squares is summed over the group (forward and backward) and
+divided by din. ``out_proj`` is row-parallel (``tp_exit``).
 """
 from __future__ import annotations
 
@@ -30,6 +43,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.attention import _CacheNode
 from repro_torch.models.layers import causal_depthwise_conv, dense_init, rms_norm
+from repro_torch.runtime.collectives import (copy_cols_to_model, copy_to_model, model_sum,
+                                              tp_enter, tp_exit)
+from repro_torch.runtime.sharding import model_group
 
 
 @dataclasses.dataclass
@@ -75,6 +91,36 @@ def init_ssm(gen: torch.Generator, cfg, dtype) -> dict:
 def _split_in_proj(cfg, zxbcdt):
     din, nh, _, _, conv_dim, _ = _dims(cfg)
     return torch.split(zxbcdt, [din, conv_dim, nh], dim=-1)
+
+
+def _tp_ssm(params, cfg, mg):
+    """This rank's ssm parameters under tensor parallelism and its (din,
+    nh, ng): ``in_proj`` / ``conv_w`` / ``out_norm`` / ``out_proj`` hold
+    its slices already; one group's B / C columns, whole on every rank,
+    and the rank's heads of ``a_log`` / ``d_skip`` / ``dt_bias`` pass
+    through the mappings that sum their gradient over the model group."""
+    din, nh, ng, st, _, _ = _dims(cfg)
+    dl, hl = din // mg.tp, nh // mg.tp
+    gl = ng if ng == 1 else ng // mg.tp
+    out = dict(params)
+    if ng == 1:
+        out["in_proj"] = copy_cols_to_model(params["in_proj"], mg, 2 * dl, 2 * dl + 2 * st)
+        out["conv_w"] = copy_cols_to_model(params["conv_w"], mg, dl, dl + 2 * st)
+    h0 = mg.index * hl
+    for name in ("a_log", "d_skip", "dt_bias"):
+        out[name] = copy_to_model(params[name], mg)[h0:h0 + hl]
+    return out, (dl, hl, gl)
+
+
+def _out_norm(y, scale, cfg, mg):
+    """``rms_norm`` over the whole inner width din: under tensor
+    parallelism (``mg``) ``y`` holds this rank's din/tp columns, and the
+    f32 sum of squares is summed over the model group."""
+    if mg is None:
+        return rms_norm(y, scale, cfg.norm_eps)
+    y32 = y.float()
+    var = model_sum(torch.sum(y32 * y32, dim=-1, keepdim=True), mg) / cfg.ssm_d_inner
+    return ((y32 * torch.rsqrt(var + cfg.norm_eps)) * (1.0 + scale.float())).to(y.dtype)
 
 
 def _ssd_chunked(x, dt, a, b, c, d_skip, chunk: int, init_state=None):
@@ -133,9 +179,14 @@ def ssm_train(params, x, cfg, ctx, key, *, return_cache: bool = False):
     prefill. ``return_cache``: also return the :class:`SSMCache` the
     sequence leaves (its final SSM state and last W-1 conv inputs)."""
     din, nh, ng, st, _, _ = _dims(cfg)
+    mg = model_group()
+    split = mg is not None and mg.ssm
+    x = tp_enter(x, mg, split)
+    if split:
+        params, (din, nh, ng) = _tp_ssm(params, cfg, mg)
     B, L, _ = x.shape
     zxbcdt = ctx.apply("ssm.in", x, params["in_proj"], None, key)
-    z, xbc, dt = _split_in_proj(cfg, zxbcdt)
+    z, xbc, dt = torch.split(zxbcdt, [din, din + 2 * ng * st, nh], dim=-1)
     xbc, conv_state = causal_depthwise_conv(xbc, params["conv_w"])
     xbc = F.silu(xbc)
     xin, bmat, cmat = torch.split(xbc, [din, ng * st, ng * st], dim=-1)
@@ -145,8 +196,9 @@ def ssm_train(params, x, cfg, ctx, key, *, return_cache: bool = False):
     a = -torch.exp(params["a_log"].float())
     dt_full = F.softplus(dt.float() + params["dt_bias"].float())
     y, state = _ssd_chunked(xh, dt_full, a, bmat, cmat, params["d_skip"], cfg.ssm_chunk)
-    y = rms_norm(y.reshape(B, L, din) * F.silu(z), params["out_norm"], cfg.norm_eps)
-    out = y @ params["out_proj"].to(y.dtype)
+    y = _out_norm(y.reshape(B, L, din) * F.silu(z), params["out_norm"], cfg,
+                  mg if split else None)
+    out = tp_exit(y @ params["out_proj"].to(y.dtype), mg, split)
     if return_cache:
         return out, SSMCache(state=state, conv_state=conv_state)
     return out

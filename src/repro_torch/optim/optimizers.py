@@ -47,21 +47,30 @@ def global_norm(tree: dict) -> torch.Tensor:
 @torch.no_grad()
 def clip_by_global_norm(tree: dict, max_norm: float, *, model_split=None):
     """Scale the gradients in place to global norm <= max_norm; returns
-    (tree, norm before clipping). ``model_split``: ``(names, mg)`` under
-    tensor parallelism -- the squares of the leaves the model axis splits
-    (``names``; each rank holds a slice) are summed over the model group
-    ``mg``, the whole leaves (the same on every rank) counted once."""
+    (tree, norm before clipping). ``model_split``: ``(layout, mg)`` under
+    tensor parallelism, ``layout`` a leaf's ``runtime.sharding.Cut`` or
+    None (``model_layout``) -- the squares of what the model axis splits
+    (each rank holds a slice) are summed over the model group ``mg``, the
+    whole leaves and a cut's whole parts (the same on every rank) counted
+    once."""
     if model_split is None:
         gn = global_norm(tree)
     else:
         from repro_torch.runtime.collectives import reduce_from_model
 
-        names, mg = model_split
-        sq = lambda keep: sum((torch.sum(torch.square(x.float()))
-                               for n, x in tree.items() if keep(n)),
-                              torch.zeros((), device=next(iter(tree.values())).device))
-        gn = torch.sqrt(reduce_from_model(sq(lambda n: n in names), mg)
-                        + sq(lambda n: n not in names))
+        layout, mg = model_split
+        zero = torch.zeros((), device=next(iter(tree.values())).device)
+        split_sq, whole_sq = zero, zero
+        for n, x in tree.items():
+            sq = torch.sum(torch.square(x.float()))
+            cut = layout.get(n)
+            if cut is None:
+                whole_sq = whole_sq + sq
+                continue
+            parts = sum((torch.sum(torch.square(x[i].float())) for i in cut.whole_index(mg.tp)),
+                        zero)
+            split_sq, whole_sq = split_sq + sq - parts, whole_sq + parts
+        gn = torch.sqrt(reduce_from_model(split_sq, mg) + whole_sq)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in tree.values():
         g.copy_((g.float() * scale).to(g.dtype))

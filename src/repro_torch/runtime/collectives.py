@@ -3,7 +3,11 @@ the mean all-reduce over the sync group, the all-gather of ZeRO-1 slices,
 the ring's send-to-next / receive-from-previous, and the four autograd
 mappings of tensor parallelism over the model group (Megatron's ``f`` /
 ``g`` and their sequence-parallel forms): :func:`copy_to_model`,
-:func:`reduce_from_model`, :func:`gather_seq` and :func:`scatter_seq`.
+:func:`reduce_from_model`, :func:`gather_seq` and :func:`scatter_seq`;
+and three more the ssm and rec blocks need: :func:`model_sum` (a sum
+over the group both ways), :func:`copy_cols_to_model` (a leaf whose given
+columns are whole on every rank) and :func:`gather_width` (the RG-LRU's
+width all-gather, reduce-scattered back).
 
 The ranks of one card talk over gloo (NCCL refuses two ranks on one
 device). gloo takes CUDA tensors for all_reduce and all_gather and stages
@@ -153,30 +157,37 @@ def model_max_(t: torch.Tensor, mg) -> torch.Tensor:
     return t
 
 
-def _seq_gather(t: torch.Tensor, mg) -> torch.Tensor:
+def _model_parts(t: torch.Tensor, mg, op: str = "model_all_gather") -> list:
+    """Every model rank's ``t`` (same shape on each), in model-axis order;
+    ``op`` names the transport's counters."""
+    got = mg.comm.all_gather(t.contiguous().reshape(-1), mg.group, mg.tp, op=op)
+    return list(got.view(mg.tp, *t.shape).unbind(0))
+
+
+def _seq_gather(t: torch.Tensor, mg, dim: int = 1,
+                op: str = "model_all_gather") -> torch.Tensor:
     """(B, L/tp, ...) on each rank -> (B, L, ...), the ranks' parts in
-    model-axis order along dim 1."""
-    got = mg.comm.all_gather(t.contiguous().reshape(-1), mg.group, mg.tp,
-                             op="model_all_gather")
-    parts = got.view(mg.tp, *t.shape)
-    return torch.cat(parts.unbind(0), dim=1)
+    model-axis order along ``dim`` (the sequence; the last dimension for
+    :func:`gather_width`)."""
+    return torch.cat(_model_parts(t, mg, op), dim=dim)
 
 
-def _seq_chunks(t: torch.Tensor, tp: int) -> torch.Tensor:
-    """(B, L, ...) -> (tp, B, L/tp, ...) contiguous: chunk i of dim 1 first."""
-    B, L = t.shape[:2]
-    if L % tp:
-        raise ValueError(f"sequence length {L} does not split over the model "
-                         f"axis of degree {tp} (seq_shard)")
-    return t.reshape(B, tp, L // tp, *t.shape[2:]).transpose(0, 1).contiguous()
+def _seq_chunks(t: torch.Tensor, tp: int, dim: int = 1) -> torch.Tensor:
+    """(B, L, ...) -> (tp, B, L/tp, ...) contiguous: chunk i of ``dim``
+    first."""
+    if t.shape[dim] % tp:
+        raise ValueError(f"size {t.shape[dim]} of dimension {dim} (the sequence under "
+                         f"seq_shard) does not split over the model axis of degree {tp}")
+    return torch.stack(t.chunk(tp, dim=dim)).contiguous()
 
 
-def _seq_reduce_scatter(t: torch.Tensor, mg) -> torch.Tensor:
-    """(B, L, ...) partial sums -> this rank's (B, L/tp, ...) chunk of the
-    sum over the model group."""
-    parts = _seq_chunks(t, mg.tp)
+def _seq_reduce_scatter(t: torch.Tensor, mg, dim: int = 1,
+                        op: str = "model_reduce_scatter") -> torch.Tensor:
+    """(B, L, ...) partial sums -> this rank's (B, L/tp, ...) chunk of
+    ``dim`` of the sum over the model group."""
+    parts = _seq_chunks(t, mg.tp, dim)
     return mg.comm.reduce_scatter(parts.reshape(mg.tp, -1), mg.group,
-                                  op="model_reduce_scatter").view(parts.shape[1:])
+                                  op=op).view(parts.shape[1:])
 
 
 def _seq_own(t: torch.Tensor, mg) -> torch.Tensor:
@@ -244,9 +255,67 @@ class _ScatterSeq(torch.autograd.Function):
         return _seq_gather(g, ctx.mg), None, None
 
 
+class _CopyColsToModel(torch.autograd.Function):
+    """Identity forward; backward sums columns [start, stop) of the
+    gradient's last dimension over the model group (a leaf of which only
+    those columns are whole on every rank, each rank's part of their
+    gradient from its own heads)."""
+
+    @staticmethod
+    def forward(ctx, w, mg, start, stop):
+        ctx.mg, ctx.cols = mg, (start, stop)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, stop = ctx.cols
+        g = g.clone()
+        g[..., start:stop] = _model_all_reduce(g[..., start:stop], ctx.mg)
+        return g, None, None, None
+
+
+class _GatherWidth(torch.autograd.Function):
+    """All-gather over the last dimension forward, in the input's dtype,
+    the result cast to ``dtype``; backward reduce-scatters the gradient in
+    ``dtype`` (each rank's part of it is partial), this rank's columns
+    cast back."""
+
+    @staticmethod
+    def forward(ctx, x, mg, dtype):
+        ctx.mg, ctx.dtype = mg, x.dtype
+        return _seq_gather(x, mg, dim=-1, op="width_all_gather").to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mine = _seq_reduce_scatter(g, ctx.mg, dim=-1, op="width_reduce_scatter")
+        return mine.to(ctx.dtype), None, None
+
+
 def copy_to_model(x: torch.Tensor, mg) -> torch.Tensor:
     """Megatron's ``f``: identity forward, all-reduce backward."""
     return _CopyToModel.apply(x, mg)
+
+
+def copy_cols_to_model(w: torch.Tensor, mg, start: int, stop: int) -> torch.Tensor:
+    """:func:`copy_to_model` for columns [start, stop) of ``w``'s last
+    dimension only: identity forward; backward sums those columns'
+    gradient over the model group and keeps the others' as they are."""
+    return _CopyColsToModel.apply(w, mg, start, stop)
+
+
+def model_sum(x: torch.Tensor, mg) -> torch.Tensor:
+    """The sum of ``x`` over the model group, whose gradient is summed
+    over it too (every rank's output reads the sum): all-reduce forward
+    and backward, Megatron's ``g`` after its ``f``."""
+    return reduce_from_model(copy_to_model(x, mg), mg)
+
+
+def gather_width(x: torch.Tensor, mg, dtype=torch.float32) -> torch.Tensor:
+    """The ranks' (..., w/tp) column slices -> the whole (..., w) in
+    ``dtype``: all-gathered in ``x``'s dtype, the gradient reduce-scattered
+    in ``dtype`` (the transport's ``width_all_gather`` /
+    ``width_reduce_scatter`` counters)."""
+    return _GatherWidth.apply(x, mg, dtype)
 
 
 def reduce_from_model(x: torch.Tensor, mg) -> torch.Tensor:
@@ -299,19 +368,18 @@ def seq_param(p: torch.Tensor, mg) -> torch.Tensor:
 
 def gather_model_(tensors: dict, layout: dict, mg) -> dict:
     """The whole leaves from the model ranks' slices: each tensor whose
-    ``layout`` names a dimension is all-gathered over the model group and
-    concatenated along it (a collective: every model rank calls it with
+    ``layout`` holds a :class:`runtime.sharding.Cut`
+    (``runtime.sharding.model_layout``) is all-gathered over the model
+    group and joined by it (a collective: every model rank calls it with
     the same names, in the same order); the others are returned as they
     are."""
     out = {}
     for n, t in tensors.items():
-        dim = layout.get(n)
-        if dim is None or mg is None:
+        cut = layout.get(n)
+        if cut is None or mg is None:
             out[n] = t
             continue
-        got = mg.comm.all_gather(t.contiguous().reshape(-1), mg.group, mg.tp,
-                                 op="model_all_gather")
-        out[n] = torch.cat(got.view(mg.tp, *t.shape).unbind(0), dim=dim)
+        out[n] = cut.join(_model_parts(t, mg))
     return out
 
 

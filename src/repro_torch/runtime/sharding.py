@@ -8,9 +8,31 @@ The error texts are the JAX package's. Its GSPMD-only parts
 ``scan_compat``) have no counterpart: each rank runs eagerly on its own
 slice. What ``logical_to_pspec`` makes of the parameters' logical specs --
 which dimension of each leaf the tensor-parallel ``model`` axis takes --
-the port keeps as :data:`MODEL_AXIS_DIMS`: :func:`model_dim` reads it for
+the port keeps as :data:`MODEL_AXIS_DIMS`: :func:`model_cut` reads it for
 a rank's slice of a leaf (:func:`shard_params`), and ZeRO-1 keeps off
-those dimensions, so the port's layouts are the JAX ones.
+those dimensions, so the port's layouts are the JAX ones, with three
+departures by design:
+
+  * attention's K/V leaves are split in whole heads only (all K/V heads
+    whole on every rank when the degree exceeds them);
+  * Mamba-2's packed leaves are cut by heads, not in one contiguous
+    slice. ``in_proj``'s columns are ``[z | x | B | C | dt]`` and
+    ``conv_w``'s ``[x | B | C]``: model rank r holds the z, x and dt
+    columns of its nh/tp heads and the B and C columns whole (one group;
+    with ngroups > 1, its groups' columns), a :class:`Cut` of several
+    parts. JAX's contiguous ``("embed", "ffn")`` cut would hand rank 0
+    all of z and part of x, from which no rank can run its heads;
+  * the RG-LRU gates ``w_a`` / ``w_i`` (lru_width x lru_width) are cut
+    by columns (a rank's output width), not by JAX's rows
+    ``("ffn", None)``: a rank all-gathers its conv output once a layer
+    and computes both gates of its columns exactly, where the row cut
+    would reduce-scatter both gates' f32 partial products.
+
+Leaves whole on every rank whose gradient is partial on each (Mamba-2's
+B / C columns, ``a_log``, ``d_skip``, ``dt_bias``, RG-LRU's ``lambda``,
+attention's whole K/V heads and q_norm / k_norm) have that gradient
+summed over the model group in backward, where they are read; the
+global norm counts their squares once (:func:`model_layout`).
 """
 from __future__ import annotations
 
@@ -23,18 +45,25 @@ CONTEXT_AXIS = "context"
 # Per parameter leaf, the dimensions (counted from the end) whose logical
 # axis the JAX rules put on the ``model`` axis (heads, ffn, experts,
 # vocab: ``repro/runtime/sharding.py:DEFAULT_RULES``), keyed by the leaf's
-# name and its number of dimensions; stacked block leaves carry the
-# leading ``layers`` axis. A dimension listed here is not free for ZeRO-1.
+# name (an ssm or rec block's leaves by ``ssm.<leaf>`` / ``rec.<leaf>``:
+# both kinds have a ``conv_w``) and its number of dimensions; stacked
+# block leaves carry the leading ``layers`` axis. A dimension listed here
+# is not free for ZeRO-1. ``rec.w_a`` / ``rec.w_i`` take their columns
+# (module docstring), where JAX takes their rows.
 MODEL_AXIS_DIMS = {
     ("wq", 3): (-1,), ("wk", 3): (-1,), ("wv", 3): (-1,), ("wo", 3): (-2,),
     ("bq", 2): (-1,), ("bk", 2): (-1,), ("bv", 2): (-1,),
     ("w_gate", 3): (-1,), ("w_up", 3): (-1,), ("w_down", 3): (-2,),
     ("w_gate", 4): (-3,), ("w_up", 4): (-3,), ("w_down", 4): (-3,),   # moe: experts
-    ("w_x", 3): (-1,), ("w_y", 3): (-1,), ("conv_w", 3): (-1,), ("out", 3): (-2,),
-    ("w_a", 3): (-2,), ("w_i", 3): (-2,),
-    ("in_proj", 3): (-1,), ("out_proj", 3): (-2,), ("out_norm", 2): (-1,),
+    ("rec.w_x", 3): (-1,), ("rec.w_y", 3): (-1,), ("rec.conv_w", 3): (-1,),
+    ("rec.out", 3): (-2,), ("rec.w_a", 3): (-1,), ("rec.w_i", 3): (-1,),
+    ("ssm.in_proj", 3): (-1,), ("ssm.conv_w", 3): (-1,), ("ssm.out_norm", 2): (-1,),
+    ("ssm.out_proj", 3): (-2,),
     ("embed", 2): (-2,), ("head", 2): (-1,),
 }
+# Mamba-2's leaves packed by parts (module docstring): their cut needs the
+# config (:func:`ssm_parts`)
+SSM_PACKED = ("ssm.in_proj", "ssm.conv_w")
 
 
 MODEL_AXIS = "model"
@@ -196,7 +225,77 @@ def data_parallel(mesh):
 # tensor parallelism: the layout of the model axis
 # ---------------------------------------------------------------------------
 def _leaf_key(name: str, ndim: int):
-    return (name.rsplit(".", 1)[-1], ndim)
+    parts = name.split(".")
+    leaf = ".".join(parts[-2:]) if len(parts) > 1 and parts[-2] in ("ssm", "rec") \
+        else parts[-1]
+    return (leaf, ndim)
+
+
+def _narrow(t, dim: int, start: int, n: int):
+    return t[(slice(None),) * dim + (slice(start, start + n),)]
+
+
+def _cat(pieces: list, dim: int):
+    import torch
+
+    if isinstance(pieces[0], torch.Tensor):
+        return torch.cat(pieces, dim=dim)
+    import numpy as np
+
+    return np.concatenate(pieces, axis=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How the model axis cuts dimension ``dim`` of a leaf: the
+    dimension's ``parts`` in order, each ``(size, split)``. Of a split
+    part each rank holds its 1/tp slice (rank r the r-th), of a whole
+    part all of it; a rank's slice is its pieces of the parts, in order.
+    One split part is the plain contiguous cut."""
+
+    dim: int
+    parts: tuple
+
+    @property
+    def contiguous(self) -> bool:
+        return len(self.parts) == 1 and self.parts[0][1]
+
+    def local_size(self, tp: int) -> int:
+        return sum(size // tp if split else size for size, split in self.parts)
+
+    def take(self, t, index: int, tp: int):
+        """Rank ``index``'s slice of the whole leaf ``t`` (a tensor or a
+        numpy array): a view for the contiguous cut, a copy otherwise."""
+        if self.contiguous:
+            return shard_slice(t, self.dim, index, tp)
+        pieces, off = [], 0
+        for size, split in self.parts:
+            pieces.append(_narrow(t, self.dim, off + index * size // tp, size // tp)
+                          if split else _narrow(t, self.dim, off, size))
+            off += size
+        return _cat(pieces, self.dim)
+
+    def join(self, pieces: list):
+        """The whole leaf from the model ranks' slices, in model order (a
+        whole part from the first rank's: every rank holds the same)."""
+        tp = len(pieces)
+        out, off = [], 0
+        for size, split in self.parts:
+            n = size // tp if split else size
+            out += ([_narrow(p, self.dim, off, n) for p in pieces] if split
+                    else [_narrow(pieces[0], self.dim, off, n)])
+            off += n
+        return _cat(out, self.dim)
+
+    def whole_index(self, tp: int) -> list:
+        """Index tuples of the whole parts in a rank's slice."""
+        out, off = [], 0
+        for size, split in self.parts:
+            n = size // tp if split else size
+            if not split:
+                out.append((slice(None),) * self.dim + (slice(off, off + n),))
+            off += n
+        return out
 
 
 def tp_degree(mesh) -> int:
@@ -204,31 +303,63 @@ def tp_degree(mesh) -> int:
     return mesh.axis_size(MODEL_AXIS)
 
 
-def model_dim(name: str, shape, tp: int, head_dim: int = 1) -> int | None:
-    """The dimension of parameter ``name`` (full shape ``shape``) that the
-    model axis of degree ``tp`` splits, or None (whole on every rank): the
-    dimension :data:`MODEL_AXIS_DIMS` names when ``tp`` divides it -- in
-    whole heads of ``head_dim`` for the head leaves -- as the JAX
+def ssm_splits(cfg, tp: int) -> bool:
+    """Whether the model axis of degree ``tp`` splits the ssm blocks: by
+    whole heads, the B / C groups whole (one group) or split with them
+    (``tp`` dividing ngroups); otherwise every ssm leaf stays whole."""
+    ng = cfg.ssm_ngroups
+    return tp > 1 and cfg.ssm_nheads % tp == 0 and (ng == 1 or ng % tp == 0)
+
+
+def ssm_parts(leaf: str, cfg) -> tuple:
+    """The parts of a packed Mamba-2 leaf's last dimension (``ssm.in_proj``
+    ``[z | x | B | C | dt]``, ``ssm.conv_w`` ``[x | B | C]``): B and C are
+    whole for one group, split (by groups) for several."""
+    din, ng, st = cfg.ssm_d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    bc = ((ng * st, ng > 1),) * 2
+    if leaf == "ssm.in_proj":
+        return ((din, True), (din, True)) + bc + ((cfg.ssm_nheads, True),)
+    return ((din, True),) + bc
+
+
+def model_cut(name: str, shape, tp: int, head_dim: int = 1, cfg=None) -> Cut | None:
+    """How the model axis of degree ``tp`` cuts parameter ``name`` (full
+    shape ``shape``), or None (whole on every rank): the dimension
+    :data:`MODEL_AXIS_DIMS` names when ``tp`` divides it -- in whole
+    heads of ``head_dim`` for the head leaves -- as the JAX
     ``state_shardings`` drops an uneven dimension to replication
-    (``repro/runtime/sharding.py:sanitize_shardings``)."""
+    (``repro/runtime/sharding.py:sanitize_shardings``); an ssm leaf (which
+    needs ``cfg``) by :func:`ssm_splits` and, packed, in :func:`ssm_parts`."""
     if tp <= 1:
         return None
     ndim = len(shape)
-    dims = MODEL_AXIS_DIMS.get(_leaf_key(name, ndim), ())
+    key = _leaf_key(name, ndim)
+    dims = MODEL_AXIS_DIMS.get(key, ())
     if not dims:
         return None
     dim = dims[0] % ndim
-    leaf = name.rsplit(".", 1)[-1]
+    leaf = key[0]
+    if leaf.startswith("ssm."):
+        if cfg is None:
+            raise ValueError(f"the model axis's cut of the ssm leaf {leaf!r} depends on the "
+                             f"config (its heads, groups and state): pass cfg=")
+        if not ssm_splits(cfg, tp):
+            return None
+        return Cut(dim, ssm_parts(leaf, cfg) if leaf in SSM_PACKED else ((shape[dim], True),))
     unit = head_dim if leaf in Q_HEAD_LEAVES + KV_HEAD_LEAVES else 1
-    return dim if shape[dim] % (tp * unit) == 0 else None
+    return Cut(dim, ((shape[dim], True),)) if shape[dim] % (tp * unit) == 0 else None
 
 
-def shard_params(flat: dict, mesh, head_dim: int = 1) -> dict:
+def shard_params(flat: dict, mesh, head_dim: int = 1, cfg=None) -> dict:
     """This rank's slice of each full leaf of ``flat`` along its
-    :func:`model_dim` (views; a whole leaf is itself)."""
+    :func:`model_cut` (views for a contiguous cut; a whole leaf is
+    itself); ``cfg`` is needed for ssm leaves."""
     tp, index = tp_degree(mesh), mesh.coord(MODEL_AXIS)
-    return {n: shard_slice(t, model_dim(n, tuple(t.shape), tp, head_dim), index, tp)
-            for n, t in flat.items()}
+    out = {}
+    for n, t in flat.items():
+        cut = model_cut(n, tuple(t.shape), tp, head_dim, cfg)
+        out[n] = t if cut is None else cut.take(t, index, tp)
+    return out
 
 
 def padded_experts(cfg, rcfg) -> int:
@@ -244,8 +375,10 @@ def _full_size(name: str, ndim: int, cfg, v_pad: int, n_experts: int) -> int | N
     ``name`` (``ndim`` dimensions), None for other leaves: a MoE expert
     leaf's (layers, E', ., .) splits its E' experts, the shared experts'
     FFN its ``moe_d_ff * n_shared_experts`` columns (``core/plan.py``'s
-    ``_role_n_in``), a dense FFN its ``d_ff``."""
-    leaf = name.rsplit(".", 1)[-1]
+    ``_role_n_in``), a dense FFN its ``d_ff``, an ssm block its packed
+    ``in_proj`` / ``conv_w`` columns or its inner width, a rec block its
+    RG-LRU width."""
+    leaf = _leaf_key(name, ndim)[0]
     if leaf in Q_HEAD_LEAVES:
         return cfg.n_heads * cfg.head_dim
     if leaf in KV_HEAD_LEAVES:
@@ -256,53 +389,59 @@ def _full_size(name: str, ndim: int, cfg, v_pad: int, n_experts: int) -> int | N
         if ".shared." in f".{name}":
             return cfg.moe_d_ff * cfg.n_shared_experts
         return cfg.d_ff
+    if leaf in SSM_PACKED:
+        return sum(size for size, _ in ssm_parts(leaf, cfg))
+    if leaf in ("ssm.out_norm", "ssm.out_proj"):
+        return cfg.ssm_d_inner
+    if leaf.startswith("rec."):
+        return cfg.lru_width
     if leaf in ("embed", "head"):
         return v_pad * (max(1, cfg.n_codebooks) if leaf == "head" else 1)
     return None
 
 
-def local_model_dim(name: str, local_shape, cfg, v_pad: int,
-                    n_experts: int = 0) -> int | None:
-    """:func:`model_dim` of a leaf read from one rank's slice of it: the
-    dimension :data:`MODEL_AXIS_DIMS` names when it is shorter than the
-    whole (``cfg``; ``v_pad`` the padded vocabulary, ``n_experts`` the
-    padded expert count E' of :func:`padded_experts`, 0 for
-    ``cfg.n_experts``)."""
+def local_model_cut(name: str, local_shape, cfg, v_pad: int,
+                    n_experts: int = 0) -> Cut | None:
+    """:func:`model_cut` of a leaf read from one rank's slice of it: the
+    cut of the dimension :data:`MODEL_AXIS_DIMS` names when it is shorter
+    than the whole (``cfg``; ``v_pad`` the padded vocabulary,
+    ``n_experts`` the padded expert count E' of :func:`padded_experts`, 0
+    for ``cfg.n_experts``)."""
     ndim = len(local_shape)
-    dims = MODEL_AXIS_DIMS.get(_leaf_key(name, ndim), ())
+    key = _leaf_key(name, ndim)
+    dims = MODEL_AXIS_DIMS.get(key, ())
     full = _full_size(name, ndim, cfg, v_pad, n_experts)
     if not dims or full is None:
         return None
     dim = dims[0] % ndim
-    return dim if local_shape[dim] != full else None
+    if local_shape[dim] == full:
+        return None
+    return Cut(dim, ssm_parts(key[0], cfg) if key[0] in SSM_PACKED else ((full, True),))
+
+
+def model_layout(local: dict, cfg, v_pad: int, n_experts: int = 0) -> dict:
+    """``{name: Cut or None}`` of a rank's leaves (tensors or shapes)."""
+    return {n: local_model_cut(n, tuple(t.shape), cfg, v_pad, n_experts)
+            for n, t in local.items()}
 
 
 def unshard_params(shards: list, cfg, v_pad: int, n_experts: int = 0) -> dict:
     """Inverse of :func:`shard_params`: the model ranks' slices (one dict
     each, in model-axis order; tensors or numpy arrays) -> the whole
-    leaves (``n_experts`` as in :func:`local_model_dim`)."""
-    import numpy as np
-    import torch
-
+    leaves (``n_experts`` as in :func:`local_model_cut`)."""
     out = {}
     for n, t in shards[0].items():
-        dim = local_model_dim(n, tuple(t.shape), cfg, v_pad, n_experts)
-        if dim is None:
-            out[n] = t
-        elif isinstance(t, torch.Tensor):
-            out[n] = torch.cat([s[n] for s in shards], dim=dim)
-        else:
-            out[n] = np.concatenate([s[n] for s in shards], axis=dim)
+        cut = local_model_cut(n, tuple(t.shape), cfg, v_pad, n_experts)
+        out[n] = t if cut is None else cut.join([s[n] for s in shards])
     return out
 
 
 # The refusals of tensor parallelism, each naming the slice that lifts it.
-TP_KINDS = ("attn", "swa", "moe")
+TP_KINDS = ("attn", "swa", "latt", "moe", "ssm", "rec")
 LATER_SLICE_TP_KINDS = (
     "tensor parallelism (model degree {tp}) runs the block kinds {ok}; {bad} "
-    "arrive with later slices: ssm and rec / latt with their inner widths over the "
-    "model axis, xattn with cross-attention heads over it. Use --data-model D 1 for "
-    "this architecture")
+    "arrive with later slices: xattn with its cross-attention heads over the model "
+    "axis comes with the next one. Use --data-model D 1 for this architecture")
 LATER_SLICE_TP_REVERSIBLE = (
     "block_structure={structure!r} under tensor parallelism (model degree {tp}) "
     "arrives with a later slice: the reversible stage's backward replays its "
@@ -328,9 +467,11 @@ LATER_SLICE_TP_GRAD_COMPRESS = (
 
 def validate_tensor_parallel(cfg, rcfg, tp: int) -> None:
     """Config-time refusals of a model degree ``tp`` above 1 (the texts
-    above). The dense kinds and ``moe`` (experts over the model axis) run;
-    a compressed row-parallel site (``ffn.down``) compresses its split
-    input through K1's split route (``core/pamm.py``)."""
+    above). The dense kinds, ``moe`` (experts over the model axis),
+    ``ssm`` (Mamba-2 heads over it) and ``rec`` / ``latt`` (the RG-LRU
+    width; latt's K/V head whole) run; a compressed row-parallel site
+    (``ffn.down``) compresses its split input through K1's split route
+    (``core/pamm.py``)."""
     if tp <= 1:
         return
     kinds = sorted({k for unit, _ in cfg.stages for k in unit})
@@ -365,13 +506,15 @@ class ModelGroup:
     ``tp``, this rank's index along it and the transport; ``seq_shard``:
     the residual stream is split over the sequence between blocks
     (Megatron sequence parallelism); and which sublayers the model axis
-    splits (a dimension it cannot divide stays whole: :func:`model_dim`):
+    splits (a dimension it cannot divide stays whole: :func:`model_cut`):
     the q heads (``heads``; wq / bq columns, wo rows), the K/V heads
     (``kv``; else every rank holds them all and takes its q heads' group),
     the FFN width (``ffn``), the (padded) vocabulary (``vocab``), a MoE
     block's E' experts (``experts``: rank ``index`` holds experts
-    [index E'/tp, (index + 1) E'/tp)) and its shared experts' FFN width
-    (``shared``, ``moe_d_ff * n_shared_experts``)."""
+    [index E'/tp, (index + 1) E'/tp)), its shared experts' FFN width
+    (``shared``, ``moe_d_ff * n_shared_experts``), an ssm block's heads
+    (``ssm``: :func:`ssm_splits`) and a rec block's RG-LRU width
+    (``lru``)."""
 
     group: Any
     tp: int
@@ -384,6 +527,8 @@ class ModelGroup:
     vocab: bool = False
     experts: bool = False
     shared: bool = False
+    ssm: bool = False
+    lru: bool = False
 
 
 _MODEL: list[ModelGroup] = []
@@ -407,8 +552,8 @@ def make_model_group(mesh, cfg, rcfg, v_pad: int) -> ModelGroup | None:
     d, dh = cfg.d_model, cfg.head_dim
     # a stacked block leaf (layers, d, width), an expert leaf (layers, E',
     # d, f), the head (d, V)
-    split = lambda leaf, *shape: model_dim(leaf, shape, tp, dh) is not None
-    heads = split("wq", 1, d, cfg.n_heads * dh)
+    split = lambda leaf, *shape: model_cut(leaf, shape, tp, dh) is not None
+    heads = bool(cfg.n_heads) and split("wq", 1, d, cfg.n_heads * dh)
     ep = padded_experts(cfg, rcfg)
     return ModelGroup(mesh.group(MODEL_AXIS), tp, mesh.coord(MODEL_AXIS), mesh.comm,
                       seq_shard=bool(getattr(rcfg, "seq_shard", False)), heads=heads,
@@ -416,7 +561,9 @@ def make_model_group(mesh, cfg, rcfg, v_pad: int) -> ModelGroup | None:
                       ffn=split("w_gate", 1, d, cfg.d_ff), vocab=split("head", d, v_pad),
                       experts=bool(ep) and split("w_gate", 1, ep, d, cfg.moe_d_ff),
                       shared=bool(cfg.n_shared_experts) and split(
-                          "w_gate", 1, d, cfg.moe_d_ff * cfg.n_shared_experts))
+                          "w_gate", 1, d, cfg.moe_d_ff * cfg.n_shared_experts),
+                      ssm=bool(cfg.ssm_state) and ssm_splits(cfg, tp),
+                      lru=bool(cfg.lru_width) and split("rec.w_x", 1, d, cfg.lru_width))
 
 
 @contextlib.contextmanager

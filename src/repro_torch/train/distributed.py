@@ -13,7 +13,7 @@ manual and its model axis left to GSPMD; the port runs one process per
   * runs ``loss_and_grad`` on it -- the same K1-K5 paths as the
     single-process step, attention through the ring when the context
     degree is above 1; under a model degree above 1 it holds its slice of
-    the parameters (``runtime.sharding.model_dim``) and runs the column-
+    the parameters (``runtime.sharding.model_cut``) and runs the column-
     and row-parallel products over the model group
     (``runtime.sharding.tensor_parallel``), K3-K5 at its head counts;
   * averages loss, NLL and the MoE aux term over the data x context ranks
@@ -251,11 +251,7 @@ def make_shard_map_train_step(cfg, rcfg, *, total_steps: int = 10000, mesh,
             all_reduce_([v for p, v in metrics["sites"].items() if p.endswith(".moe.expert")],
                         mg.group, mg.tp, comm, mean=False)
         loss, metrics["nll"], metrics["aux"] = scalars.unbind(0)
-        split = None
-        if mg is not None:
-            split = ({n for n, p in params.items()
-                      if sh.local_model_dim(n, tuple(p.shape), cfg, v_pad, e_pad) is not None},
-                     mg)
+        split = None if mg is None else (sh.model_layout(params, cfg, v_pad, e_pad), mg)
         grads, gnorm = clip_by_global_norm(grads, rcfg.grad_clip, model_split=split)
         lr = warmup_cosine(int(step_idx), total_steps, rcfg.lr, rcfg.warmup_frac)
         zero1 = zero1_of(rcfg, mesh, params)

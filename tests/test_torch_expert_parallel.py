@@ -31,7 +31,7 @@ through the JAX sampler and looked up on the ranks (``TableSampler``).
 
 In-process: K1's split route (pass A on column halves, summed, then pass
 B) against ``csim_argmax_ref`` and the JAX ``csim_argmax`` (interpret
-mode) on the whole rows; ``model_dim`` / ``local_model_dim`` of the expert
+mode) on the whole rows; ``model_cut`` / ``local_model_cut`` of the expert
 and shared-expert leaves against JAX's ``logical_to_pspec``, split and
 whole; ``shard_jax_params`` then ``unshard_params`` returns granite's and
 kimi's trees bit for bit; the CLI on granite smoke.
@@ -248,10 +248,10 @@ def _moe_cfgs():
 @pytest.mark.parametrize("tp", [2, 4])
 def test_expert_leaves_model_dim_matches_jax_logical_to_pspec(tp):
     """Each leaf of the MoE smoke trees (padded and odd expert counts among
-    them): ``model_dim`` on the whole shape against ``logical_to_pspec`` of
-    the JAX ``param_specs`` with the uneven dimensions dropped
-    (``sanitize_shardings``), and ``local_model_dim`` on a rank's slice
-    (E' from ``padded_experts``) gives the same dimension back."""
+    them): ``model_cut``'s dimension on the whole shape against
+    ``logical_to_pspec`` of the JAX ``param_specs`` with the uneven
+    dimensions dropped (``sanitize_shardings``), and ``local_model_cut`` on
+    a rank's slice (E' from ``padded_experts``) gives the same cut back."""
     jmesh = types.SimpleNamespace(axis_names=("data", "model"))
     is_leaf = lambda s: isinstance(s, tuple) and all(isinstance(x, (str, type(None)))
                                                      for x in s)
@@ -268,7 +268,8 @@ def test_expert_leaves_model_dim_matches_jax_logical_to_pspec(tp):
             want = next((i for i, e in enumerate(ps) if e == "model"), None)
             if want is not None and shp.shape[want] % tp:
                 want = None
-            got = tsh.model_dim(name, shp.shape, tp, cfg.head_dim)
+            cut = tsh.model_cut(name, shp.shape, tp, cfg.head_dim)
+            got = None if cut is None else cut.dim
             leaf = name.rsplit(".", 1)[-1]
             if leaf in tsh.Q_HEAD_LEAVES + tsh.KV_HEAD_LEAVES:
                 continue               # heads: tests/test_torch_tensor_parallel.py
@@ -276,7 +277,7 @@ def test_expert_leaves_model_dim_matches_jax_logical_to_pspec(tp):
             local = list(shp.shape)
             if got is not None:
                 local[got] //= tp
-            assert tsh.local_model_dim(name, local, cfg, v_pad, e_pad) == got, (arch, name)
+            assert tsh.local_model_cut(name, local, cfg, v_pad, e_pad) == cut, (arch, name)
             if leaf.startswith("w_") and len(shp.shape) == 4:
                 seen["split" if got is not None else "whole"] += 1
     assert seen["split"] and seen["whole"], seen

@@ -24,12 +24,13 @@ takes its model-axis slices with ``bridge.shard_jax_params``):
     ``lm_head=pamm``, a padded odd vocabulary (250 padded to 256) and
     ``seq_shard=True``, each against the JAX step at the same bounds.
 
-In-process: ``model_dim`` against ``logical_to_pspec`` of the JAX
+In-process: ``model_cut``'s dimension against ``logical_to_pspec`` of the JAX
 ``param_specs`` for every leaf of every dense smoke arch at tp 2 and 4;
 ``shard_jax_params`` then ``unshard_params`` gives the tree back bit for
 bit; the CLI ``--data-model 1 2 --device cpu``; the refusal texts of what
 a model degree above 1 still refuses (``moe`` and a compressed
-``ffn.down``: ``tests/test_torch_expert_parallel.py``).
+``ffn.down``: ``tests/test_torch_expert_parallel.py``; ``ssm``, ``rec``
+and ``latt``: ``tests/test_torch_ssm_rec_parallel.py``).
 """
 import dataclasses
 import types
@@ -241,10 +242,14 @@ def test_moment_slices_are_the_ranks_model_and_data_slices(runs):
 # ---------------------------------------------------------------------------
 # in-process
 # ---------------------------------------------------------------------------
+def _cut_dim(cut):
+    return None if cut is None else cut.dim
+
+
 @pytest.mark.parametrize("tp", [2, 4])
 def test_model_dim_matches_jax_logical_to_pspec(tp):
-    """``model_dim`` against ``logical_to_pspec`` of the JAX ``param_specs``
-    with the uneven dimensions dropped (``sanitize_shardings``), leaf by
+    """The dimension of ``model_cut`` against ``logical_to_pspec`` of the
+    JAX ``param_specs`` with the uneven dimensions dropped (``sanitize_shardings``), leaf by
     leaf. The port splits the head leaves in whole heads: where tp divides
     the columns but not the head count (2 K/V heads at tp 4), GSPMD splits
     inside a head and the port keeps the leaf whole on every rank."""
@@ -262,7 +267,7 @@ def test_model_dim_matches_jax_logical_to_pspec(tp):
             want = next((i for i, e in enumerate(ps) if e == "model"), None)
             if want is not None and shp.shape[want] % tp:
                 want = None
-            got = tsh.model_dim(name, shp.shape, tp, cfg.head_dim)
+            got = _cut_dim(tsh.model_cut(name, shp.shape, tp, cfg.head_dim))
             leaf = name.rsplit(".", 1)[-1]
             if (want is not None and leaf in tsh.Q_HEAD_LEAVES + tsh.KV_HEAD_LEAVES
                     and shp.shape[want] % (tp * cfg.head_dim)):
@@ -325,9 +330,7 @@ def _refusal(arch, **rk):
 
 
 def test_refusals_name_their_later_slices(capsys):
-    for arch, kind in (("mamba2-370m_smoke", "ssm"),
-                       ("recurrentgemma-9b_smoke", "latt"),
-                       ("llama-3.2-vision-11b_smoke", "xattn")):
+    for arch, kind in (("llama-3.2-vision-11b_smoke", "xattn"),):
         text = _refusal(arch)
         assert f"'{kind}'" in text and "arrive with later slices" in text, text
     assert "arrives with a later slice" in _refusal("internlm2-1.8b_smoke",
@@ -342,7 +345,7 @@ def test_refusals_name_their_later_slices(capsys):
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):
-        train.main(["--arch", "mamba2-370m_smoke", "--device", "cpu", "--executor",
+        train.main(["--arch", "llama-3.2-vision-11b_smoke", "--device", "cpu", "--executor",
                     "shard_map", "--data-model", "1", "2", "--compression",
-                    "ssm.in=pamm(r=1/8)"])
+                    "attn.qkv=pamm(r=1/8)"])
     assert "arrive with later slices" in capsys.readouterr().err

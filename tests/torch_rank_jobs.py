@@ -1,6 +1,7 @@
 """What the gloo ranks of ``tests/test_torch_ring.py``,
-``tests/test_torch_distributed.py``, ``tests/test_torch_tensor_parallel.py``
-and ``tests/test_torch_expert_parallel.py`` run (``repro_torch.launch.ranks``
+``tests/test_torch_distributed.py``, ``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_expert_parallel.py`` and
+``tests/test_torch_ssm_rec_parallel.py`` run (``repro_torch.launch.ranks``
 starts them). This module imports neither JAX nor the JAX package, so a
 spawned rank starts in the time torch takes to import; draws of the JAX
 key chain reach a rank as a table (:class:`TableSampler`) recorded in the
@@ -37,19 +38,34 @@ class TableSampler:
         return torch.from_numpy(self.table[(seed, path, tuple(shape))]).to(device)
 
 
+# fault: (module, attribute, what replaces it)
+PLANTS = {
+    # a wrong share of MoE's balance loss's gradient: on every rank, on none
+    "aux_doubled": ("moe", "aux_grad_share", lambda tp: 1.0),
+    "aux_missing": ("moe", "aux_grad_share", lambda tp: 0.0),
+    # the ssm out_norm's sum of squares over the rank's columns only
+    "norm_local": ("ssm", "model_sum", lambda t, mg: t),
+    # Mamba-2's whole B / C columns' gradient left as each rank's part
+    "bc_unsummed": ("ssm", "copy_cols_to_model", lambda w, mg, start, stop: w),
+    # RG-LRU's whole lambda: each rank's part of its gradient left unsummed
+    "lambda_unsummed": ("rglru", "copy_to_model", lambda t, mg: t),
+}
+
+
 def _plant(fault: str | None):
-    """Plant ``fault`` in this rank's MoE (a wrong share of the balance
-    loss's gradient: 'aux_doubled' counts it on every rank, 'aux_missing'
-    on none); returns what undoes it."""
-    from repro_torch.models import moe
+    """Plant ``fault`` (:data:`PLANTS`) in this rank's modules; returns
+    what undoes it."""
+    import importlib
 
     if fault is None:
         return lambda: None
-    real = moe.aux_grad_share
-    moe.aux_grad_share = {"aux_doubled": lambda tp: 1.0, "aux_missing": lambda tp: 0.0}[fault]
+    name, attr, fake = PLANTS[fault]
+    mod = importlib.import_module(f"repro_torch.models.{name}")
+    real = getattr(mod, attr)
+    setattr(mod, attr, fake)
 
     def undo():
-        moe.aux_grad_share = real
+        setattr(mod, attr, real)
     return undo
 
 

@@ -88,7 +88,7 @@ def rank_main(rank, world, layers, dtype):
     loss, _, g = grads_fn.rank_grads(state.params, batch, 1)
     g, _ = grads_fn.sync_grads(g, None)
     v_pad, e_pad = _padded_vocab(cfg, rcfg), sh.padded_experts(cfg, rcfg)
-    layout = {n: sh.local_model_dim(n, tuple(t.shape), cfg, v_pad, e_pad) for n, t in g.items()}
+    layout = sh.model_layout(g, cfg, v_pad, e_pad)
     g = gather_model_(g, layout, sh.make_model_group(mesh, cfg, rcfg, v_pad))
     if rank != 0:
         return None
