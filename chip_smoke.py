@@ -18,8 +18,9 @@ data axis inside one process: one engine's page pools split per replica
 tensor parallelism: internlm2-1.8b trained over the model axis (column-
 and row-parallel products, K1-K5 at the per-rank head counts), with a
 compressed row-parallel ffn.down, granite-moe's experts, mamba2-370m's
-heads and recurrentgemma-9b's RG-LRU width over it, on gloo ranks sharing
-the card.
+heads, recurrentgemma-9b's RG-LRU width, llama-3.2-vision-11b's
+cross-attention heads, musicgen-medium's codebook columns and reversible
+blocks over it, on gloo ranks sharing the card.
 
   python3 chip_smoke.py
 
@@ -492,6 +493,27 @@ Run after phase 39 (the mesh phases), on internlm2-1.8b:
       numbers           rank's m 2320 and 2048, K3 / K4 / K5 at a rank's
                         latt heads (4, 2048, 8/1, 256), window 2048,
                         against their plain versions, then as kernel rows
+  52. vision tensor     llama-3.2-vision-11b at full width, one (attn x 4,
+      parallel          xattn) unit, gates filled, attn.qkv / attn.cross_kv
+                        pamm, remat='none', model 2 (a rank's 16 / 4 heads,
+                        7168 of d_ff, half the vocabulary; the image rows
+                        whole), phase 43's checks; the attn.cross_kv state
+                        equal on both ranks and to one process's; launches
+                        a rank and step K1 6, K2 15, K3 = K4 = K5 4
+  53. audio tensor      musicgen-medium at full width, 12 of 48 layers,
+      parallel          attn.qkv pamm, remat='pamm', model 2 (a rank's 12 /
+                        12 heads, 1024 of each codebook's 2048 head
+                        columns: four parts), phase 43's checks
+  54. reversible        internlm2-1.8b at full width, 4 layers, reversible
+      tensor parallel   blocks, f32 compute, model 2, against the
+                        single-process reversible step; launches K1 8, K2
+                        12, K3 8, K4 = K5 4 (the f32 routes); the peak a
+                        rank beside the residual model-2 step's
+  55. xattn / audio /   K3 / K4 / K5 at a vision rank's (4, 2048, 16/4,
+      rev numbers       128) and a musicgen rank's (4, 2048, 12/12, 64), K1
+                        on attn.cross_kv's whole image rows (6404, 4096, k
+                        13) and K2 at a rank's m 512, against their plain
+                        versions, then as kernel rows
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -5982,15 +6004,15 @@ def tp_job_cfg(job: dict):
 
 
 def tp_want_launches(job: dict, cfg) -> dict:
-    """Launches a tensor-parallel step makes on each rank under
-    remat='pamm': :func:`mesh_want_launches`'s, plus under an ``ffn.*``
-    rule K1 once (gate / up share a state) and K2 three times a layer and
+    """Launches a tensor-parallel step makes on each rank: the attention
+    layers' (:func:`tp_attn_launches`), plus under an ``ffn.*`` rule K1
+    once (gate / up share a state) and K2 three times a layer and
     ffn.down's split route (pass A and pass B once a layer), plus under
     ``moe.expert`` the batched K1 once and the batched K2 twice (gate, up)
     a layer, over the rank's experts."""
     if job.get("arch") in (SSM_ARCH, REC_ARCH):
         return tp_kind_launches(job, cfg)
-    want = mesh_want_launches(cfg, 1)
+    want = tp_attn_launches(job, cfg)
     n, spec = cfg.n_layers, job.get("spec", MESH_SPEC)
     if "ffn.*" in spec:
         want["csim_argmax"] += n
@@ -6144,6 +6166,44 @@ def _tp_grad_hook(ref, out: dict, layout=None, tp: int = 1):
     return hook
 
 
+def _fill_gates(model, job: dict) -> None:
+    """A job's xattn gates (``gates``: their value) filled in place."""
+    if job.get("gates") is not None:
+        set_gates(model, job["gates"])
+
+
+def _recording_cross_states(out: list, job: dict):
+    """For a job with ``cross_rows`` (the attn.cross_kv site's rows: B x
+    image tokens), record a digest of every compressed state of that many
+    rows (the attn.qkv sites compress B x L rows) into ``out``; returns
+    what undoes it."""
+    import torch
+
+    from repro_torch.core import linear
+
+    rows = job.get("cross_rows")
+    if not rows:
+        return lambda: None
+    real = linear._compress
+
+    def compress(policy, x2d, key, split):
+        state = real(policy, x2d, key, split)
+        if x2d.shape[0] == rows:
+            h = hashlib.sha1()
+            for t in linear._leaves(state):
+                if isinstance(t, torch.Tensor):
+                    h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                             .numpy().tobytes())
+            out.append(h.hexdigest())
+        return state
+
+    linear._compress = compress
+
+    def undo():
+        linear._compress = real
+    return undo
+
+
 def tp_rank(rank: int, world: int, jobs: list) -> list:
     """One gloo rank of phases 43-44 (``launch.ranks`` starts it), every
     rank on cuda:0, running ``jobs`` in turn, each on its own (data, model)
@@ -6157,7 +6217,10 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
     slices of the same draws), and those ranks hold their gradients at
     step TP_GRAD_STEP and their parameters after the steps to their
     slices; with ``moments``, the moments gathered whole and each rank's
-    held to its slices of them."""
+    held to its slices of them. ``gates`` fills the xattn gates of both
+    runs' parameters; ``cross_rows`` records a digest of each attn.cross_kv
+    state of both runs' steps; ``residual_peak`` runs the mesh steps again
+    on the residual structure, for their peaks."""
     import dataclasses
 
     import torch
@@ -6197,6 +6260,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
             # parameters after the steps, and the change's squared norm a leaf
             blocked = dataclasses.replace(rcfg, compression=_with_blocks(rcfg.compression, data))
             state = init_train_state(cfg, blocked, device="cuda")
+            _fill_gates(state.params, job)
             # ``ref_host``: the reference tensors wait in host memory (a
             # recurrentgemma unit's f32 state fills the card without them),
             # and the initial parameters are drawn again after the steps
@@ -6211,15 +6275,19 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
                             for n, g in grads.items()}
             del grads
             out["single_held"] = _held_bytes(p0, ref["grads"])
+            undo = _recording_cross_states(out.setdefault("single_cross", []), job)
             state, out["single"] = _mesh_steps(make_train_step(cfg, blocked,
                                                                total_steps=MESH_TOTAL),
                                                state, batches)
+            undo()
             out["single_bytes"] = _state_bytes(state)
             out["single_experts"] = _expert_bytes(state)
             out["single_shapes"] = {n: tuple(p.shape) for n, p in state.params.named_parameters()}
             if job.get("ref_host"):
-                p0 = dict(init_model(cfg, blocked, seed=blocked.seed,
-                                     device="cuda").named_parameters())
+                again = init_model(cfg, blocked, seed=blocked.seed, device="cuda")
+                _fill_gates(again, job)
+                p0 = dict(again.named_parameters())
+                del again
             out["update_den"] = {n: float(torch.linalg.vector_norm(p - p0[n])) ** 2
                                  for n, p in state.params.named_parameters()}
             ref["final"] = {n: (keep(p) if job.get("ref_host") else p.detach())
@@ -6232,6 +6300,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         times["single-process reference"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         state = init_distributed_state(cfg, rcfg, mesh, device="cuda")
+        _fill_gates(state.params, job)
         torch.cuda.synchronize()
         times["init"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -6241,6 +6310,7 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         del ref
         layout = sh.model_layout(params, cfg, v_pad, e_pad)
         out["split"] = {n for n, cut in layout.items() if cut is not None}
+        out["head_parts"] = None if layout.get("head") is None else layout["head"].parts
         out["shapes"] = {n: tuple(p.shape) for n, p in params.items()}
         times["reference slices"] = time.perf_counter() - t0
         out["held"] = _held_bytes(*mine.values())
@@ -6248,7 +6318,9 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
         step_fn = make_shard_map_train_step(cfg, rcfg, total_steps=MESH_TOTAL, mesh=mesh,
                                             grads_hook=hook)
         t0 = time.perf_counter()
+        undo = _recording_cross_states(out.setdefault("cross", []), job)
         state, out["mesh"] = _mesh_steps(step_fn, state, batches, mesh.comm)
+        undo()
         times["steps"] = time.perf_counter() - t0
         out["bytes"] = _state_bytes(state)
         out["experts"] = _expert_bytes(state)
@@ -6280,6 +6352,18 @@ def tp_rank(rank: int, world: int, jobs: list) -> list:
             times["moment gather"] = time.perf_counter() - t0
         del state, step_fn, hook, params
         torch.cuda.empty_cache()
+        if job.get("residual_peak"):
+            # the same mesh step on the residual structure: its peaks
+            t0 = time.perf_counter()
+            res_rcfg = dataclasses.replace(rcfg, block_structure="residual")
+            state = init_distributed_state(cfg, res_rcfg, mesh, device="cuda")
+            step_fn = make_shard_map_train_step(cfg, res_rcfg, total_steps=MESH_TOTAL,
+                                                mesh=mesh)
+            state, res = _mesh_steps(step_fn, state, {s: batches[s] for s in TP_STEPS[:2]})
+            out["residual_peak"], out["residual_loss"] = res["peak"], res["loss"]
+            del state, step_fn
+            torch.cuda.empty_cache()
+            times["residual steps"] = time.perf_counter() - t0
         dist.barrier()
         if rank == 0:   # progress while the group runs (its report comes at the end)
             print(f"[tp] rank 0 done with job {i} ({job['shape']}, {cfg.name} "
@@ -6330,8 +6414,10 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
             print(f"[{label}] rank {r['rank']} step {s} launches {counts}")
             check({k: counts.get(k, 0) for k in want} == want,
                   f"{label}: rank {r['rank']} step {s} launches {counts} != {want}")
-            check(not any(k.endswith(("_ref", "_f32")) for k in counts),
-                  f"{label}: a plain version or an f32 route ran on rank {r['rank']}")
+            wrong = ("_ref",) if rcfg.compute_dtype == "float32" else ("_ref", "_f32")
+            check(not any(k.endswith(wrong) for k in counts),
+                  f"{label}: a plain version or another dtype's route ran on rank "
+                  f"{r['rank']}")
         check(rec["loss"] == res[0]["mesh"]["loss"],
               f"{label}: rank {r['rank']} reports other losses than rank 0")
         check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
@@ -6401,20 +6487,22 @@ def report_tp(label: str, job: dict, res: list, smi: str) -> None:
                   f"of the gathered whole: {ms_['differ'][:4]}")
 
 
-def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=()):
+def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=(),
+                          tp_extra=()):
     """Phases 43 and 44, each in its own group: model 2 on two ranks at
     ``layers`` layers (None: full depth), then data 2 x model 2 on four ranks
-    at ``dtp_layers`` layers with the moments' slices checked; the four
-    ranks then run the jobs ``dtp_extra`` too (a later phase's, reported
-    there: one spawn of four ranks fewer). Returns the model-2 results
-    and each extra job's."""
+    at ``dtp_layers`` layers with the moments' slices checked; the two
+    ranks then run the jobs ``tp_extra`` too, the four ranks the jobs
+    ``dtp_extra`` (later phases', reported there: spawns fewer). Returns
+    the model-2 results and each extra job's (``dtp_extra``'s, then
+    ``tp_extra``'s)."""
     from repro_torch.launch.ranks import run_ranks
 
-    out, extra_res = {}, []
+    out, extra_res = {}, {}
     for label, shape, n, moments in (("tensor parallel", TP_SHAPE, layers, False),
                                      ("data x model", DTP_SHAPE, dtp_layers, True)):
         job = {"shape": shape, "layers": n, "moments": moments}
-        extra = list(dtp_extra) if shape == DTP_SHAPE else []
+        extra = list(dtp_extra if shape == DTP_SHAPE else tp_extra)
         t0 = time.perf_counter()
         got = run_ranks(shape[0] * shape[1], tp_rank, [job] + extra, timeout=MESH_TIMEOUT)
         print(f"[tp] {label}: {shape[0] * shape[1]} ranks, wall "
@@ -6422,9 +6510,8 @@ def phase_tensor_parallel(smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extr
               f"steps and gathers" + (f"; then {len(extra)} later job(s))" if extra else ")"))
         report_tp(label, job, [r[0] for r in got], smi)
         out[label] = [r[0] for r in got]
-        if extra:
-            extra_res = [[r[i] for r in got] for i in range(1, 1 + len(extra))]
-    return out["tensor parallel"], extra_res
+        extra_res[label] = [[r[i] for r in got] for i in range(1, 1 + len(extra))]
+    return out["tensor parallel"], extra_res["data x model"] + extra_res["tensor parallel"]
 
 
 def tp_kernel_rows(gen, tp_res, smi):
@@ -6443,11 +6530,7 @@ def tp_kernel_rows(gen, tp_res, smi):
     errs["K1"], f = check_site_k1(gen, b, n, k, "attn.qkv tp 2")
     errs["K2"] = max(check_site_k2(gen, f, m, k, f"{w} tp 2") for m, w in TP_K2_M)
     del f
-    launches = {}
-    for s, counts in zip(TP_STEPS, tp_res[0]["mesh"]["counts"]):
-        if s in MESH_STEPS:
-            for name, c in counts.items():
-                launches[name] = launches.get(name, 0) + c
+    launches = _measured_launches(tp_res)
     rows, _ = site_k1_k2_rows(
         gen, b, n, k, "csim_argmax (K1, attn.qkv's whole input on a model rank)",
         [(m, f"segment_matmul (K2, {w}'s columns on a model rank of 2)") for m, w in TP_K2_M],
@@ -6466,12 +6549,15 @@ def tp_kernel_rows(gen, tp_res, smi):
     return rows
 
 
-def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=()):
+def run_tp_phases(gen, smi, layers=TP_LAYERS, dtp_layers=DTP_LAYERS, dtp_extra=(),
+                  tp_extra=()):
     """Phases 43-45 (``layers`` / ``dtp_layers`` cut phases 43 / 44:
-    tools/tp_phases.py's rehearsal; ``dtp_extra``: later jobs for phase
-    44's four ranks). Returns the kernel rows and the extra jobs' results."""
+    tools/tp_phases.py's rehearsal; ``dtp_extra`` / ``tp_extra``: later
+    jobs for phase 44's four ranks and phase 43's two). Returns the kernel
+    rows and the extra jobs' results (``dtp_extra``'s, then
+    ``tp_extra``'s)."""
     t0 = time.perf_counter()
-    res, extra = phase_tensor_parallel(smi, layers, dtp_layers, dtp_extra)
+    res, extra = phase_tensor_parallel(smi, layers, dtp_layers, dtp_extra, tp_extra)
     rows = tp_kernel_rows(gen, res, smi)
     print(f"[tp] phases 43-45 wall {time.perf_counter() - t0:.1f} s")
     return rows, extra
@@ -6960,6 +7046,16 @@ def phase_kind_tensor_parallel(smi, jobs=KIND_TP_JOBS, dtp_layers=SSM_DTP_LAYERS
     return out
 
 
+def _measured_launches(res) -> dict:
+    """Rank 0's launches summed over a tensor-parallel job's measured steps."""
+    out = {}
+    for s, counts in zip(TP_STEPS, res[0]["mesh"]["counts"]):
+        if s in MESH_STEPS:
+            for name, c in counts.items():
+                out[name] = out.get(name, 0) + c
+    return out
+
+
 def kind_kernel_rows(gen, res49, res50, smi):
     """Phase 51: K1 on the whole rows of ssm.in (8192, 1024, k 16) and of
     rglru.in (8192, 4096, k 16), K2 at a model rank's columns of them (m
@@ -6970,16 +7066,7 @@ def kind_kernel_rows(gen, res49, res50, smi):
     import torch
 
     tag = f"[{smi}]"
-
-    def measured(res):
-        out = {}
-        for s, counts in zip(TP_STEPS, res[0]["mesh"]["counts"]):
-            if s in MESH_STEPS:
-                for name, c in counts.items():
-                    out[name] = out.get(name, 0) + c
-        return out
-
-    l49, l50 = measured(res49), measured(res50)
+    l49, l50 = _measured_launches(res49), _measured_launches(res50)
     b, k = TRAIN_BATCH * TRAIN_SEQ, SSM_K
     rows, notes = [], []
     for n, m, launches, phase, site in ((SSM_D, SSM_TP_M, l49, 49, "ssm.in"),
@@ -7024,6 +7111,190 @@ def run_kind_tp_phases(gen, smi, jobs=KIND_TP_JOBS, dtp_layers=SSM_DTP_LAYERS, d
     res = phase_kind_tensor_parallel(smi, jobs, dtp_layers, dtp_res, res)
     rows = kind_kernel_rows(gen, res[0], res[-1], smi)
     print(f"[tp] phases 49-51 wall {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the model axis for the xattn kind, musicgen's codebooks and reversible blocks
+# ---------------------------------------------------------------------------
+# phase 52: one (attn x 4, xattn) unit of llama-3.2-vision-11b at full width
+# (5 of 40 layers, as the vision training phase; 2.14 B parameters), gates
+# filled, over model 2: a rank's 16 / 4 heads in every block, 7168 of d_ff,
+# 64128 vocabulary rows, the image rows whole. One process's f32 state is
+# 8.6 GB of parameters, 8.6 of gradients and 17.1 of moments, with the
+# step's activations and AdamW's temporaries some 45-55 GB; its reference
+# gradients and initial parameters (17.1 GB more) would pass 70 GB, so
+# they wait in host memory (``ref_host``, as phase 50). Two ranks then
+# hold about 17 GB of state each.
+# phase 53: musicgen-medium at full width, 12 of 48 layers (a time cut: the
+# ranks' steps cost their gloo all-reduces, ~1.8 GB a step at 12 layers),
+# under remat='pamm'; a rank holds 12 / 12 heads and 1024 of each
+# codebook's 2048 head columns, four parts (runtime.sharding.head_parts).
+# phase 54: internlm2-1.8b at 4 layers, reversible blocks, f32 compute (the
+# streams rebuild exactly only in f32: K3-K5 and K1 take their f32 routes)
+# against the single-process reversible step; then the residual model-2
+# step of the same run, for its peak.
+# Each is held to the single process at phase 43's bounds over every leaf.
+VIS_TP_JOB = {"shape": (1, 2), "arch": VIS_ARCH, "stages": VIS_TRAIN_STAGES, "moments": False,
+              "spec": VIS_SPEC, "run": {"remat": VIS_REMAT}, "gates": VIS_GATE,
+              "cross_rows": TP_BATCH * VIS_TOKENS, "ref_host": True,
+              "label": "vision tensor parallel",
+              "leaf_shares": ("attn.wq", "attn.wk", "attn.gate_attn", "ffn.w_gate", "embed",
+                              "head")}
+AUDIO_TP_LAYERS = 12
+AUDIO_TP_JOB = {"shape": (1, 2), "arch": AUDIO_ARCH, "layers": AUDIO_TP_LAYERS,
+                "moments": False, "spec": AUDIO_SPEC, "run": {"remat": AUDIO_REMAT},
+                "label": "audio tensor parallel",
+                "leaf_shares": ("attn.wq", "ffn.w_gate", "head")}
+REV_TP_LAYERS = 4
+REV_TP_JOB = {"shape": (1, 2), "layers": REV_TP_LAYERS, "moments": False,
+              "run": {"remat": "none", "block_structure": "reversible",
+                      "compute_dtype": "float32"},
+              "residual_peak": True, "label": "reversible tensor parallel",
+              "leaf_shares": ("attn.wq", "ffn.w_gate", "head")}
+XAR_TP_JOBS = (VIS_TP_JOB, AUDIO_TP_JOB, REV_TP_JOB)
+# phase 55: K3-K5 at a vision rank's and a musicgen rank's heads; K1 on the
+# attn.cross_kv site's whole image rows, K2 at a rank's wk / wv columns
+VIS_TP_HEADS = (16, 4, 128)
+AUDIO_TP_HEADS = (12, 12, 64)
+VIS_TP_CROSS_M = VIS_CROSS_M // 2
+AUDIO_TP_M = AUDIO_TP_HEADS[0] * AUDIO_TP_HEADS[2]    # a rank's wq / wk / wv columns
+
+
+def tp_attn_launches(job: dict, cfg) -> dict:
+    """Launches of a model rank's attention layers in a step: K1 once a
+    site a layer (attn.qkv; an xattn layer's attn.cross_kv too), twice
+    under reversible blocks (the forward compresses for the telemetry,
+    the backward's recompute for the gradient); K2 once a compressed
+    weight (wq, wk, wv); K3 in each self-attention layer's forward and
+    again in a recompute (remat or reversible), K4 and K5 once; the
+    attention kernels' f32 routes under f32 compute."""
+    _, rcfg = tp_job_cfg(job)
+    kinds = [k for unit, rep in cfg.stages for _ in range(rep) for k in unit]
+    att = sum(k in ("attn", "swa", "moe") for k in kinds)
+    x = kinds.count("xattn")
+    rev = rcfg.block_structure != "residual"
+    sfx = "_f32" if rcfg.compute_dtype == "float32" else ""
+    return {"csim_argmax": (2 if rev else 1) * (att + 2 * x),
+            "segment_matmul": 3 * (att + x),
+            "flash_attention_fwd" + sfx: (2 if rev or rcfg.remat != "none" else 1) * att,
+            "flash_attention_dq" + sfx: att, "flash_attention_dkv" + sfx: att}
+
+
+def report_xar(job: dict, res: list, smi: str) -> None:
+    """What phases 52-54 hold besides phase 43's checks: the attn.cross_kv
+    states equal on both ranks and to one process's, a rank's head in its
+    codebook parts, the reversible peak beside the residual one."""
+    import math
+
+    from repro_torch.models.model import _padded_vocab
+
+    cfg, rcfg = tp_job_cfg(job)
+    label, tag = job["label"], f"[{smi}]"
+    if job.get("cross_rows"):
+        single = res[0]["single_cross"]
+        same = all(r["cross"] == single for r in res)
+        print(f"[{label}] attn.cross_kv states ({job['cross_rows']} image rows, one a step): "
+              f"{len(single)} a process; both ranks' equal to each other and to one "
+              f"process's bit for bit: {same}")
+        check(bool(single) and same, f"{label}: the model ranks' attn.cross_kv states differ")
+    want = ((cfg.vocab_size,) * cfg.n_codebooks if cfg.n_codebooks
+            else (_padded_vocab(cfg, rcfg),))
+    parts = [r["head_parts"] for r in res]
+    print(f"[{label}] a rank's head: parts {parts[0]} of the whole's {cfg.n_codebooks or 1} "
+          f"codebook(s) of {want[0]} columns")
+    check(all(p == tuple((v, True) for v in want) for p in parts),
+          f"{label}: a rank's head is not its share of each codebook: {parts}")
+    if job.get("residual_peak"):
+        for r in res:
+            rev, resid = max(r["mesh"]["peak"]) - r["held"], max(r["residual_peak"])
+            print(f"[{label}] rank {r['rank']}: peak a step, reversible {_gib(rev)} (less its "
+                  f"reference slices) vs the residual model-2 step's {_gib(resid)} "
+                  f"({cfg.n_layers} layers, f32; residual losses {r['residual_loss']}) {tag}")
+            check(all(math.isfinite(x) for x in r["residual_loss"]),
+                  f"{label}: the residual model-2 step's losses are not finite")
+
+
+def phase_xar_tensor_parallel(smi, jobs=XAR_TP_JOBS, res=None):
+    """Phases 52-54: their results ``res`` when phase 43's ranks ran them,
+    else in a group of two ranks. Returns each job's results."""
+    from repro_torch.launch.ranks import run_ranks
+
+    if res is None:
+        t0 = time.perf_counter()
+        got = run_ranks(2, tp_rank, list(jobs), timeout=MESH_TIMEOUT)
+        res = [[r[i] for r in got] for i in range(len(jobs))]
+        print(f"[tp] phases 52-54: 2 ranks, wall {time.perf_counter() - t0:.1f} s (spawn, "
+              f"warm-up, the single-process steps, mesh steps)")
+    for job, job_res in zip(jobs, res):
+        report_tp(job["label"], job, job_res, smi)
+        report_leaf_shares(job["label"], job, job_res, smi)
+        report_xar(job, job_res, smi)
+    return res
+
+
+def xar_kernel_rows(gen, res52, res53, smi):
+    """Phase 55: K1 on attn.cross_kv's whole image rows (6404, 4096, k 13)
+    and K2 at a rank's wk / wv columns (m 512), K3 / K4 / K5 at a vision
+    rank's heads (4, 2048, 16/4, 128) and a musicgen rank's (4, 2048,
+    12/12, 64), each against its plain version, then as kernel rows (SDPA
+    as the library for K3-K5); K1 at musicgen's attn.qkv with K2 at a
+    rank's m 768, and the f32 routes of K3-K5 at phase 54's (4, 2048, 8/4,
+    128), against their plain versions. The launches are rank 0's in
+    phases 52 / 53's measured steps."""
+    import torch
+
+    tag = f"[{smi}]"
+    l52, l53 = _measured_launches(res52), _measured_launches(res53)
+    b, n, k = VIS_CROSS_B, VIS_D, VIS_CROSS_K
+    errs = {}
+    errs["K1"], f = check_site_k1(gen, b, n, k, "attn.cross_kv tp 2")
+    errs["K2"] = check_site_k2(gen, f, VIS_TP_CROSS_M, k, "attn.cross_kv tp 2")
+    del f
+    note52 = f"launches on rank 0 in phase 52's steps {list(MESH_STEPS)}"
+    note53 = f"launches on rank 0 in phase 53's steps {list(MESH_STEPS)}"
+    rows, _ = site_k1_k2_rows(
+        gen, b, n, k, "csim_argmax (K1, attn.cross_kv's whole image rows on a model rank)",
+        [(VIS_TP_CROSS_M, "segment_matmul (K2, attn.cross_kv's wk / wv columns on a model "
+                          "rank of 2)")], l52, errs)
+    notes = [(note52 + ", every site", f" at ({b}, {n}, k {k})"),
+             (note52 + ", every site", f" at ({b}, m {VIS_TP_CROSS_M}, k {k})")]
+    torch.cuda.empty_cache()
+    _, f = check_site_k1(gen, TRAIN_BATCH * TRAIN_SEQ, AUDIO_D, AUDIO_K, "musicgen attn.qkv tp 2")
+    check_site_k2(gen, f, AUDIO_TP_M, AUDIO_K, "musicgen wq / wk / wv tp 2")
+    del f
+    B, L = TP_BATCH, TP_SEQ
+    for heads, launches, note, who in ((VIS_TP_HEADS, l52, note52, "a vision rank's"),
+                                       (AUDIO_TP_HEADS, l53, note53, "a musicgen rank's")):
+        H, KV, dh = heads
+        errs = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+        check_k3_k45(gen, B, L, H, KV, dh, 0, None, torch.bfloat16, errs, repeat=True)
+        att = attention_inputs(gen, B, L, H, KV, dh)
+        at = f"{who} heads ({B}, {L}, {H}/{KV}, {dh})"
+        for kern, name, src, rep in (("K3", "flash_attention_fwd", K3_SOURCE, K3_REPLACES),
+                                     ("K4", "flash_attention_dq", K45_SOURCE, K4_REPLACES),
+                                     ("K5", "flash_attention_dkv", K45_SOURCE, K5_REPLACES)):
+            rows.append(_kernel_row(f"{name} ({kern}, {at})", src, rep,
+                                    launches.get(name, 0), errs[kern], *att[kern]))
+            notes.append((note, ""))
+        del att
+        torch.cuda.empty_cache()
+    H, KV, dh = TP_HEADS
+    check_k3_k45(gen, B, L, H, KV, dh, 0, None, torch.float32, {"K3": 0.0, "K4": 0.0,
+                                                                "K5": 0.0})
+    print_rows(rows, notes, tag)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_xar_tp_phases(gen, smi, jobs=XAR_TP_JOBS, res=None):
+    """Phases 52-55 (``jobs``: tools/tp_phases.py cuts their depth;
+    ``res``: their jobs as phase 43's ranks ran them). Returns the kernel
+    rows."""
+    t0 = time.perf_counter()
+    res = phase_xar_tensor_parallel(smi, jobs, res)
+    rows = xar_kernel_rows(gen, res[0], res[1], smi)
+    print(f"[tp] phases 52-55 wall {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -7118,14 +7389,18 @@ def main() -> int:
     lap("audio phases 30-34")
     mesh_rows = run_mesh_phases(gen, smi)
     lap("mesh phases 35-39")
-    # phase 44's four ranks also run phase 49's data x model job
-    tp_rows, (ssm_dtp,) = run_tp_phases(gen, smi, dtp_extra=(ssm_dtp_job(),))
-    lap("tensor-parallel phases 43-45 (and phase 49's data x model job)")
+    # phase 44's four ranks also run phase 49's data x model job, phase
+    # 43's two ranks phases 52-54's jobs
+    tp_rows, (ssm_dtp, *xar_res) = run_tp_phases(gen, smi, dtp_extra=(ssm_dtp_job(),),
+                                                 tp_extra=XAR_TP_JOBS)
+    lap("tensor-parallel phases 43-45 (and phases 49's data x model and 52-54's jobs)")
     # phases 47-48's two ranks also run phases 49-50's jobs
     split_rows, kind_res = run_split_and_expert_phases(gen, smi, extra=KIND_TP_JOBS)
     lap("row-parallel and expert-parallel phases 46-48 (and phases 49-50's jobs)")
     kind_rows = run_kind_tp_phases(gen, smi, dtp_res=ssm_dtp, res=kind_res)
     lap("ssm and rec / latt tensor-parallel phases 49-51")
+    xar_rows = run_xar_tp_phases(gen, smi, res=xar_res)
+    lap("xattn, audio and reversible tensor-parallel phases 52-55")
     # K3: serving and training shapes, internlm2's and granite's
     kernels[0]["max_abs_err"] = max(err3, errs["K3"], errs_moe["K3"])
     kernels += phase_training_numbers(gen, per_step, rec, smi, errs)
@@ -7140,6 +7415,7 @@ def main() -> int:
     kernels += tp_rows
     kernels += split_rows
     kernels += kind_rows
+    kernels += xar_rows
     lap("training numbers")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -19,8 +19,9 @@ the first run compressed (``remat='pamm'``, the JAX package's
 key (``remat='full'``, reversible), and it keeps telemetry to the first run.
 
 Under tensor parallelism a column-parallel site (``attn.qkv``,
-``ffn.gate`` / ``ffn.up``, ``lm_head``) is handed the whole input and this
-rank's columns of ``w``: every model rank derives the same site key
+``ffn.gate`` / ``ffn.up``, ``lm_head``, and ``attn.cross_kv`` over the
+whole image rows) is handed the whole input and this rank's columns of
+``w``: every model rank derives the same site key
 (``train/distributed.py`` keeps the model coordinate out of it), so K1
 yields the same state on each, K2 takes the rank's columns of dZ, and the
 input's gradient is summed over the model group by the caller's

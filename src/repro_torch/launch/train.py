@@ -51,10 +51,14 @@ all-reduce, AdamW under ZeRO-1)::
 axis: ``D * M`` ranks, each holding its slice of the heads, the FFN width
 and the vocabulary, the Q/K/V, gate / up and head products
 column-parallel and the out and down products row-parallel over the
-model group, K3-K5 at the rank's head counts (the kinds attn, swa and
-moe). A compressed ``ffn.down`` (row-parallel) runs K1's split route;
-a MoE block holds its share of the experts (expert parallelism), the
-batched K1 / K2 over them::
+model group, K3-K5 at the rank's head counts. Every block kind runs
+there: a compressed ``ffn.down`` (row-parallel) through K1's split
+route; a MoE block with its share of the experts (expert parallelism),
+the batched K1 / K2 over them; an ssm block with its Mamba-2 heads, a rec
+block with its RG-LRU width; an xattn block with its cross-attention
+heads over the whole image rows (llama-3.2-vision); musicgen with its
+share of each codebook's head columns; and ``--block-structure
+reversible``::
 
   python -m repro_torch.launch.train --arch internlm2-1.8b_smoke --device cpu \
       --steps 4 --seq-len 64 --global-batch 4 --compression 'ffn.*=pamm(r=1/8)' \
@@ -63,13 +67,17 @@ batched K1 / K2 over them::
       --steps 4 --seq-len 64 --global-batch 4 \
       --compression 'attn.qkv=pamm(r=1/8);moe.expert=pamm(r=1/8)' \
       --executor shard_map --data-model 1 2
+  python -m repro_torch.launch.train --arch llama-3.2-vision-11b_smoke --device cpu \
+      --steps 4 --seq-len 32 --global-batch 4 \
+      --compression 'attn.qkv=pamm(r=1/8);attn.cross_kv=pamm(r=1/8)' \
+      --executor shard_map --data-model 1 2
 
 Without ``--data-model`` the data degree is the number of cards over the
 context degree (1 on the CPU), as the JAX launcher puts every device on
 the data axis. Still refused, with the later slice named: a model degree
-above 1 together with ``--mesh-context`` above 1, the other refusals of a
-model degree above 1 (``runtime.sharding``: the ssm, rec, latt and
-xattn kinds, reversible blocks, ...), and ``--ckpt-dir`` under a mesh.
+above 1 together with ``--mesh-context`` above 1, adafactor or
+``--grad-compress int8_ef`` (``runtime.sharding``), and ``--ckpt-dir``
+under a mesh.
 """
 from __future__ import annotations
 

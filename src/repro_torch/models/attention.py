@@ -54,7 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import quant_bits, quantize_kv, shard_offset_table
 from repro_torch.kernels.ring_attention import ring_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
-from repro_torch.runtime.collectives import copy_to_model, tp_enter, tp_exit
+from repro_torch.runtime.collectives import copy_to_model, seq_param, tp_enter, tp_exit
 from repro_torch.runtime.sharding import model_group, ring_context
 
 NEG_INF = -1e30
@@ -114,10 +114,11 @@ def _project_qkv(params, x, ctx: SiteCtx, cfg, key=None, kv_src=None):
     through ``attn.qkv`` (``wq`` alone) and K, V through ``attn.cross_kv``,
     two sites whose draws differ by their site ids (the JAX order). The
     head counts come from the weights, so under tensor parallelism they
-    are this rank's: column-parallel products over a whole x."""
+    are this rank's: column-parallel products over a whole x (and over
+    the whole ``kv_src`` rows, the same on every rank)."""
     dh = cfg.head_dim
     mg = model_group()
-    if mg is not None and mg.heads and kv_src is None:
+    if mg is not None and mg.heads:
         params = _tp_heads(params, cfg, mg)
     h = params["wq"].shape[1] // dh
     kv = params["wk"].shape[1] // dh
@@ -675,7 +676,21 @@ def cross_attn(params, x, image_embeds, cfg, ctx: SiteCtx, key=None, *, chunk: i
     (``torch.utils.checkpoint``, the JAX ``jax.checkpoint``): only q, k,
     v are kept, not the (Lq, Lk) probabilities. Returns
     (tanh(gate_attn) * out @ wo, (k, v)) -- the pair the prefill cache
-    stores."""
+    stores.
+
+    Under tensor parallelism with the heads split, x enters as
+    :func:`attn_train`'s does (gathered over the sequence under
+    ``seq_shard``); ``image_embeds`` are whole on every model rank, never
+    split over the sequence: ``attn.cross_kv`` compresses the same rows
+    from the same key on every rank and K2 takes this rank's K/V columns
+    (or, K/V heads the axis cannot split, its q heads' group of them).
+    ``sdpa`` runs at this rank's heads and ``out @ wo`` is row-parallel.
+    The gate multiplies the summed output (:func:`_gate`)."""
+    mg = model_group()
+    split = mg is not None and mg.heads
+    x = tp_enter(x, mg, split)
+    if split:
+        image_embeds = copy_to_model(image_embeds, mg)
     q, k, v = _project_qkv(params, x, ctx, cfg, key, kv_src=image_embeds)
     B, Lq = x.shape[:2]
     Lk = image_embeds.shape[1]
@@ -688,7 +703,18 @@ def cross_attn(params, x, image_embeds, cfg, ctx: SiteCtx, key=None, *, chunk: i
     else:
         out = sdp(q, k, v)
     out = out.reshape(*x.shape[:-1], -1) @ params["wo"].to(x.dtype)
-    return torch.tanh(params["gate_attn"].to(x.dtype)) * out, (k, v)
+    return _gate(params["gate_attn"], out, mg, split), (k, v)
+
+
+def _gate(gate, out, mg, split: bool):
+    """``tanh(gate) * out`` on the residual stream: the row-parallel
+    output leaves the model group first (:func:`tp_exit`), so the gate
+    multiplies the sum, and its gradient is whole on every rank; a gate
+    on the partial sums would get a part of it on each. Under
+    ``seq_shard`` the sum is this rank's chunk of the sequence, and the
+    gate's gradient is summed over the group (:func:`seq_param`)."""
+    out = tp_exit(out, mg, split)
+    return torch.tanh(seq_param(gate, mg).to(out.dtype)) * out
 
 
 def cross_attn_decode(params, x, cache: XAttnCache, cfg):

@@ -25,7 +25,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import ffn, ffn_sites, init_ffn, init_rms_norm, rms_norm
 from repro_torch.runtime.collectives import seq_param
-from repro_torch.runtime.sharding import LATER_SLICE_TP_KINDS, TP_KINDS, model_group
+from repro_torch.runtime.sharding import model_group
 
 BLOCK_KINDS = ("attn", "swa", "latt", "moe", "rec", "ssm", "xattn")
 BLOCK_STRUCTURES = ("residual", "reversible", "reversible_ref")
@@ -226,8 +226,11 @@ def _stack(layers: list[dict]) -> dict:
 def block_f(kind, cfg, rcfg, ctx, params, x, positions, key):
     """First reversible sublayer (token mixer): norm1 -> attention or the
     recurrence. Returns the pre-residual output; the caller forms
-    y1 = x1 + F(x2)."""
-    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    y1 = x1 + F(x2). Under tensor parallelism the sublayers run their
+    model-axis paths (a stage's backward replays them, collectives
+    included, in the same order on every rank), and under ``seq_shard``
+    the norm reads this rank's chunk of the stream (:func:`seq_param`)."""
+    h = rms_norm(x, seq_param(params["norm1"], model_group()), cfg.norm_eps)
     if kind == "rec":
         return rglru_lib.rglru_train(params["rec"], h, cfg, ctx, key)
     out, _ = attn_lib.attn_train(params["attn"], h, positions, cfg, ctx, key,
@@ -240,7 +243,8 @@ def block_g(kind, cfg, rcfg, ctx, params, y1, key):
     Returns ``(G(y1), aux)``, aux the MoE balance loss (None for the dense
     FFN); the caller forms y2 = x2 + G(y1) and sums aux."""
     return _ffn_train(kind, cfg, rcfg, ctx, params,
-                      rms_norm(y1, params["norm2"], cfg.norm_eps), key)
+                      rms_norm(y1, seq_param(params["norm2"], model_group()), cfg.norm_eps),
+                      key)
 
 
 def _two_sum(a, b):
@@ -441,16 +445,15 @@ def block_train(kind, cfg, rcfg, ctx, params, x, positions, key, aux, *,
     dropped, not written (a pad row would evict a real tail token from a
     ring cache). Pad rows are query rows of an xattn block: its image K/V
     do not depend on them. Under tensor parallelism
-    (``runtime.sharding.model_group``) the kinds of
-    ``runtime.sharding.TP_KINDS`` run; ``xattn`` is refused with the
-    slice that brings it."""
+    (``runtime.sharding.model_group``) every kind runs its model-axis
+    path; under ``seq_shard`` the norms and an xattn block's ``gate_ffn``
+    read this rank's chunk of the sequence, so their gradients are summed
+    over the model group (:func:`seq_param`; ``gate_attn``'s in
+    ``attention.cross_attn``)."""
     mg = model_group()
     if mg is not None:
-        if kind not in TP_KINDS:
-            raise NotImplementedError(LATER_SLICE_TP_KINDS.format(tp=mg.tp, ok=TP_KINDS,
-                                                                   bad=[kind]))
-        params = {**params, **{n: seq_param(params[n], mg) for n in ("norm1", "norm2")
-                               if n in params}}
+        params = {**params, **{n: seq_param(params[n], mg)
+                               for n in ("norm1", "norm2", "gate_ffn") if n in params}}
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if kind == "xattn":
         out, (k_img, v_img) = attn_lib.cross_attn(

@@ -36,8 +36,11 @@ mesh=)`` keeps this rank's slice of every leaf the model axis splits
 (rows outside this rank's range give zeros, summed over the model group);
 the blocks run their column- and row-parallel products; the loss is the
 vocabulary-parallel chunked cross-entropy over the local head columns.
+A multi-codebook head holds this rank's share of every codebook, each
+codebook's loss vocabulary-parallel over its block of the local columns.
 Under ``rcfg.seq_shard`` the residual stream between blocks holds this
-rank's chunk of the sequence (Megatron sequence parallelism).
+rank's chunk of the sequence (Megatron sequence parallelism), and so do
+the two reversible streams.
 """
 from __future__ import annotations
 
@@ -183,10 +186,11 @@ def _embed(cfg, model: Model, inputs, cdt):
     Under tensor parallelism with the vocabulary split, a rank's table
     holds rows [index * V/tp, (index + 1) * V/tp): tokens outside it give
     zeros and the ranks' rows are summed (under ``seq_shard``, this rank's
-    chunk of the sequence of the sum)."""
-    if cfg.embed_inputs:
-        return inputs.to(cdt)
+    chunk of the sequence of the sum; an embed-input arch's embeddings,
+    whole on every rank, give this rank's chunk)."""
     mg = sh.model_group()
+    if cfg.embed_inputs:
+        return tp_exit(inputs.to(cdt), mg, False)
     if mg is None or not mg.vocab:
         return tp_exit(model.embed[inputs].to(cdt), mg, False)
     rows = model.embed.shape[0]
@@ -312,7 +316,11 @@ def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
     chunked cross-entropy each, over the head's column slice of that
     codebook (a view: the gradient lands in the one ``head``) and its
     labels; a ``lm_head`` site compresses each from the key
-    ``fold_in(0x1EAD).fold_in(c)`` and its stats are summed."""
+    ``fold_in(0x1EAD).fold_in(c)`` and its stats are summed. Under tensor
+    parallelism a rank's head holds its 1/tp of each codebook's columns
+    (``runtime.sharding.head_parts``), so codebook c's view is the c-th
+    local block and each cross-entropy runs vocabulary-parallel (every
+    rank compresses the same h from the same key)."""
     resolved = plan_lib.as_resolved(plan, cfg, rcfg)
     tele: dict = {}
     h, aux = forward(cfg, rcfg, resolved, model, batch, key, telemetry=tele)
@@ -325,7 +333,7 @@ def loss_fn(cfg, rcfg, plan, model: Model, batch: dict, key: Key):
         head_site = None
     head_key = key.fold_in(0x1EAD)
     if cfg.n_codebooks:
-        v = cfg.vocab_size
+        v = model.head.shape[1] // cfg.n_codebooks      # a rank's share of each codebook
         losses = [chunked_cross_entropy(h, model.head[:, c * v:(c + 1) * v], labels[..., c],
                                         mask, rcfg.loss_chunk, site=head_site,
                                         key=head_key.fold_in(c))

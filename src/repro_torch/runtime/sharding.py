@@ -10,7 +10,7 @@ slice. What ``logical_to_pspec`` makes of the parameters' logical specs --
 which dimension of each leaf the tensor-parallel ``model`` axis takes --
 the port keeps as :data:`MODEL_AXIS_DIMS`: :func:`model_cut` reads it for
 a rank's slice of a leaf (:func:`shard_params`), and ZeRO-1 keeps off
-those dimensions, so the port's layouts are the JAX ones, with three
+those dimensions, so the port's layouts are the JAX ones, with four
 departures by design:
 
   * attention's K/V leaves are split in whole heads only (all K/V heads
@@ -26,13 +26,22 @@ departures by design:
     by columns (a rank's output width), not by JAX's rows
     ``("ffn", None)``: a rank all-gathers its conv output once a layer
     and computes both gates of its columns exactly, where the row cut
-    would reduce-scatter both gates' f32 partial products.
+    would reduce-scatter both gates' f32 partial products;
+  * a multi-codebook head (musicgen's (d, n_codebooks x V)) is cut by
+    codebooks: rank r holds columns [c V + r V/tp, c V + (r + 1) V/tp) of
+    each codebook c, n_codebooks split parts (:func:`head_parts`), not
+    JAX's contiguous ``("embed", "vocab")`` cut. Each codebook's loss
+    then runs through the one vocabulary-parallel cross-entropy
+    (``models/model.loss_fn``); the contiguous cut would hand a rank whole
+    codebooks at tp 2 and part of one at tp 8, two loss routes.
 
 Leaves whole on every rank whose gradient is partial on each (Mamba-2's
 B / C columns, ``a_log``, ``d_skip``, ``dt_bias``, RG-LRU's ``lambda``,
-attention's whole K/V heads and q_norm / k_norm) have that gradient
-summed over the model group in backward, where they are read; the
-global norm counts their squares once (:func:`model_layout`).
+attention's whole K/V heads and q_norm / k_norm; under ``seq_shard`` the
+norms and an xattn block's gates, which read this rank's chunk of the
+sequence) have that gradient summed over the model group in backward,
+where they are read; the global norm counts their squares once
+(:func:`model_layout`).
 """
 from __future__ import annotations
 
@@ -322,6 +331,13 @@ def ssm_parts(leaf: str, cfg) -> tuple:
     return ((din, True),) + bc
 
 
+def head_parts(cfg, v_pad: int) -> tuple:
+    """The parts of the head's columns: one split part of ``v_pad`` a
+    codebook (one for a single-codebook head), so that a rank holds its
+    1/tp of each codebook's vocabulary."""
+    return ((v_pad, True),) * max(1, cfg.n_codebooks)
+
+
 def model_cut(name: str, shape, tp: int, head_dim: int = 1, cfg=None) -> Cut | None:
     """How the model axis of degree ``tp`` cuts parameter ``name`` (full
     shape ``shape``), or None (whole on every rank): the dimension
@@ -329,7 +345,9 @@ def model_cut(name: str, shape, tp: int, head_dim: int = 1, cfg=None) -> Cut | N
     heads of ``head_dim`` for the head leaves -- as the JAX
     ``state_shardings`` drops an uneven dimension to replication
     (``repro/runtime/sharding.py:sanitize_shardings``); an ssm leaf (which
-    needs ``cfg``) by :func:`ssm_splits` and, packed, in :func:`ssm_parts`."""
+    needs ``cfg``) by :func:`ssm_splits` and, packed, in :func:`ssm_parts`;
+    the head by codebooks (:func:`head_parts`, when ``tp`` divides a
+    codebook's vocabulary; without ``cfg`` the head is one codebook)."""
     if tp <= 1:
         return None
     ndim = len(shape)
@@ -346,6 +364,9 @@ def model_cut(name: str, shape, tp: int, head_dim: int = 1, cfg=None) -> Cut | N
         if not ssm_splits(cfg, tp):
             return None
         return Cut(dim, ssm_parts(leaf, cfg) if leaf in SSM_PACKED else ((shape[dim], True),))
+    if leaf == "head" and cfg is not None and cfg.n_codebooks:
+        v = shape[dim] // cfg.n_codebooks
+        return Cut(dim, head_parts(cfg, v)) if v % tp == 0 else None
     unit = head_dim if leaf in Q_HEAD_LEAVES + KV_HEAD_LEAVES else 1
     return Cut(dim, ((shape[dim], True),)) if shape[dim] % (tp * unit) == 0 else None
 
@@ -416,7 +437,9 @@ def local_model_cut(name: str, local_shape, cfg, v_pad: int,
     dim = dims[0] % ndim
     if local_shape[dim] == full:
         return None
-    return Cut(dim, ssm_parts(key[0], cfg) if key[0] in SSM_PACKED else ((full, True),))
+    if key[0] in SSM_PACKED:
+        return Cut(dim, ssm_parts(key[0], cfg))
+    return Cut(dim, head_parts(cfg, v_pad) if key[0] == "head" else ((full, True),))
 
 
 def model_layout(local: dict, cfg, v_pad: int, n_experts: int = 0) -> dict:
@@ -437,53 +460,43 @@ def unshard_params(shards: list, cfg, v_pad: int, n_experts: int = 0) -> dict:
 
 
 # The refusals of tensor parallelism, each naming the slice that lifts it.
-TP_KINDS = ("attn", "swa", "latt", "moe", "ssm", "rec")
+TP_KINDS = ("attn", "swa", "latt", "moe", "ssm", "rec", "xattn")
 LATER_SLICE_TP_KINDS = (
-    "tensor parallelism (model degree {tp}) runs the block kinds {ok}; {bad} "
-    "arrive with later slices: xattn with its cross-attention heads over the model "
-    "axis comes with the next one. Use --data-model D 1 for this architecture")
-LATER_SLICE_TP_REVERSIBLE = (
-    "block_structure={structure!r} under tensor parallelism (model degree {tp}) "
-    "arrives with a later slice: the reversible stage's backward replays its "
-    "sublayers, and the replay does not carry the model axis's collectives yet. "
-    "Use block_structure='residual' with a model degree above 1")
-LATER_SLICE_TP_EMBED_INPUTS = (
-    "an embed-input architecture (musicgen's four-codebook frontend) under tensor "
-    "parallelism (model degree {tp}) arrives with a later slice: its head holds "
-    "every codebook's vocabulary side by side. Use --data-model D 1")
+    "tensor parallelism (model degree {tp}) has a model-axis layout for the block "
+    "kinds {ok}; {bad} has none: a new kind runs under the model axis from the slice "
+    "that gives it one. Use --data-model D 1 for this architecture")
+NEXT_SLICE = ("the next tensor-parallel slice, which brings adafactor, int8_ef and a "
+              "context degree under the model axis")
 LATER_SLICE_TP_CONTEXT = (
     "a model (tensor-parallel) degree above 1 together with a context degree above 1 "
-    "arrives with a later slice (the ring inside tensor-parallel attention); use "
+    f"arrives with {NEXT_SLICE} (the ring inside tensor-parallel attention); use "
     "--data-model D M with --mesh-context 1, or --data-model D 1 with --mesh-context C")
 LATER_SLICE_TP_OPTIMIZER = (
-    "optimizer={opt!r} under tensor parallelism (model degree {tp}) arrives with a "
-    "later slice: its factored moments average over dimensions the model axis "
+    "optimizer={opt!r} under tensor parallelism (model degree {tp}) arrives with "
+    f"{NEXT_SLICE}: its factored moments average over dimensions the model axis "
     "splits. Use optimizer='adamw'")
 LATER_SLICE_TP_GRAD_COMPRESS = (
     "grad_compress={gc!r} under tensor parallelism (model degree {tp}) arrives with "
-    "a later slice: its one int8 scale a tensor is the max over the whole leaf, "
+    f"{NEXT_SLICE}: its one int8 scale a tensor is the max over the whole leaf, "
     "which the model ranks each hold a slice of. Use grad_compress='none'")
 
 
 def validate_tensor_parallel(cfg, rcfg, tp: int) -> None:
     """Config-time refusals of a model degree ``tp`` above 1 (the texts
-    above). The dense kinds, ``moe`` (experts over the model axis),
-    ``ssm`` (Mamba-2 heads over it) and ``rec`` / ``latt`` (the RG-LRU
-    width; latt's K/V head whole) run; a compressed row-parallel site
+    above). Every block kind runs: the dense kinds, ``moe`` (experts over
+    the model axis), ``ssm`` (Mamba-2 heads over it), ``rec`` / ``latt``
+    (the RG-LRU width; latt's K/V head whole) and ``xattn`` (the
+    cross-attention heads; the image rows whole on every rank), on the
+    residual or the reversible structure; a compressed row-parallel site
     (``ffn.down``) compresses its split input through K1's split route
-    (``core/pamm.py``)."""
+    (``core/pamm.py``); an embed-input, multi-codebook arch (musicgen)
+    holds its share of every codebook (:func:`head_parts`)."""
     if tp <= 1:
         return
     kinds = sorted({k for unit, _ in cfg.stages for k in unit})
     bad = [k for k in kinds if k not in TP_KINDS]
     if bad:
         raise NotImplementedError(LATER_SLICE_TP_KINDS.format(tp=tp, ok=TP_KINDS, bad=bad))
-    structure = getattr(rcfg, "block_structure", "residual") or "residual"
-    if structure != "residual":
-        raise NotImplementedError(LATER_SLICE_TP_REVERSIBLE.format(structure=structure,
-                                                                   tp=tp))
-    if cfg.embed_inputs or cfg.n_codebooks:
-        raise NotImplementedError(LATER_SLICE_TP_EMBED_INPUTS.format(tp=tp))
     if rcfg.optimizer != "adamw":
         raise NotImplementedError(LATER_SLICE_TP_OPTIMIZER.format(opt=rcfg.optimizer, tp=tp))
     gc = getattr(rcfg, "grad_compress", "none")
@@ -509,7 +522,8 @@ class ModelGroup:
     splits (a dimension it cannot divide stays whole: :func:`model_cut`):
     the q heads (``heads``; wq / bq columns, wo rows), the K/V heads
     (``kv``; else every rank holds them all and takes its q heads' group),
-    the FFN width (``ffn``), the (padded) vocabulary (``vocab``), a MoE
+    the FFN width (``ffn``), the (padded) vocabulary (``vocab``; each
+    codebook's of a multi-codebook head, :func:`head_parts`), a MoE
     block's E' experts (``experts``: rank ``index`` holds experts
     [index E'/tp, (index + 1) E'/tp)), its shared experts' FFN width
     (``shared``, ``moe_d_ff * n_shared_experts``), an ssm block's heads

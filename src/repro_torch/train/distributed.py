@@ -118,8 +118,10 @@ def local_batch(batch: dict, mesh, device, *, grad_accum: int = 1) -> dict:
     the global batch): its data slice, and under context parallelism the
     zigzag-permuted sequence's slice (every leaf whose second axis is the
     sequence; token-wise losses are permutation invariant) plus
-    ``positions``. Raises the JAX texts on an indivisible batch or
-    sequence."""
+    ``positions``. The model axis takes nothing: a rank's ``embeds`` and
+    ``image_embeds`` are its data shard's, whole (``models/model._embed``
+    takes a ``seq_shard`` chunk of the first; xattn blocks read the second
+    whole). Raises the JAX texts on an indivisible batch or sequence."""
     leaf = next(iter(batch.values()))
     B, L = leaf.shape[0], leaf.shape[1]
     sh.validate_batch_divisible(B, mesh, grad_accum=grad_accum, where="shard_map train step")
@@ -202,9 +204,10 @@ def make_shard_map_grads(cfg, rcfg, *, mesh, sampler=None) -> ShardMapGrads:
 
     def rank_grads(model, batch: dict, step_idx: int):
         b = local_batch(batch, mesh, model.device, grad_accum=rcfg.grad_accum)
-        if mg is not None and mg.seq_shard and b["tokens"].shape[1] % mg.tp:
-            raise ValueError(f"seq_shard: sequence length {b['tokens'].shape[1]} is not "
-                             f"divisible by the model degree {mg.tp}")
+        L = b["labels"].shape[1]
+        if mg is not None and mg.seq_shard and L % mg.tp:
+            raise ValueError(f"seq_shard: sequence length {L} is not divisible by the "
+                             f"model degree {mg.tp}")
         key = Key(rcfg.seed, sampler=sampler).fold_in(int(step_idx))
         with sh.context_parallel(mesh), sh.data_parallel(mesh), sh.tensor_parallel(mg):
             return loss_and_grad(cfg, rcfg, resolved, model, b, key)

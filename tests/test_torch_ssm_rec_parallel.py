@@ -315,10 +315,14 @@ def test_zero1_keeps_off_the_model_cut():
 
 
 def test_validate_admits_ssm_rec_latt_and_names_xattns_slice():
-    for arch in (SSM, REC, "internlm2-1.8b_smoke"):
+    """ssm, rec and latt are admitted, and so is xattn, which came with
+    the slice after theirs; a kind without a model-axis layout is named
+    in the refusal."""
+    for arch in (SSM, REC, "internlm2-1.8b_smoke", "llama-3.2-vision-11b_smoke"):
         tsh.validate_tensor_parallel(get_config(arch), RunConfig(), 2)
-    with pytest.raises(NotImplementedError, match="xattn with its cross-attention heads"):
-        tsh.validate_tensor_parallel(get_config("llama-3.2-vision-11b_smoke"), RunConfig(), 2)
+    odd = _cfg(SSM, {"stages": ((("ssm", "odd"), 1),)})
+    with pytest.raises(NotImplementedError, match=r"\['odd'\] has none"):
+        tsh.validate_tensor_parallel(odd, RunConfig(), 2)
 
 
 def test_train_cli_ssm_tensor_parallel_on_the_cpu(capfd):

@@ -28,9 +28,12 @@ In-process: ``model_cut``'s dimension against ``logical_to_pspec`` of the JAX
 ``param_specs`` for every leaf of every dense smoke arch at tp 2 and 4;
 ``shard_jax_params`` then ``unshard_params`` gives the tree back bit for
 bit; the CLI ``--data-model 1 2 --device cpu``; the refusal texts of what
-a model degree above 1 still refuses (``moe`` and a compressed
-``ffn.down``: ``tests/test_torch_expert_parallel.py``; ``ssm``, ``rec``
-and ``latt``: ``tests/test_torch_ssm_rec_parallel.py``).
+a model degree above 1 still refuses (adafactor, int8_ef, a context
+degree, a block kind without a layout), and that what it once refused
+builds (``moe`` and a compressed ``ffn.down``:
+``tests/test_torch_expert_parallel.py``; ``ssm``, ``rec`` and ``latt``:
+``tests/test_torch_ssm_rec_parallel.py``; ``xattn``, reversible blocks and
+musicgen: ``tests/test_torch_xattn_audio_rev_parallel.py``).
 """
 import dataclasses
 import types
@@ -330,22 +333,29 @@ def _refusal(arch, **rk):
 
 
 def test_refusals_name_their_later_slices(capsys):
-    for arch, kind in (("llama-3.2-vision-11b_smoke", "xattn"),):
-        text = _refusal(arch)
-        assert f"'{kind}'" in text and "arrive with later slices" in text, text
-    assert "arrives with a later slice" in _refusal("internlm2-1.8b_smoke",
-                                                    block_structure="reversible")
-    assert "arrives with a later slice" in _refusal("granite-moe-3b-a800m_smoke",
-                                                    block_structure="reversible")
-    assert "musicgen" in _refusal("musicgen-medium_smoke")
-    assert "factored moments" in _refusal("internlm2-1.8b_smoke", optimizer="adafactor")
-    assert "int8 scale" in _refusal("internlm2-1.8b_smoke", grad_compress="int8_ef")
+    """What a model degree above 1 still refuses names the slice that
+    brings it; the kinds, structures and frontends it once refused build
+    (their parity: tests/test_torch_xattn_audio_rev_parallel.py)."""
+    mesh = Mesh(("data", "model"), (1, 2))
+    for arch, rk in (("llama-3.2-vision-11b_smoke", {}),
+                     ("internlm2-1.8b_smoke", {"block_structure": "reversible"}),
+                     ("granite-moe-3b-a800m_smoke", {"block_structure": "reversible"}),
+                     ("musicgen-medium_smoke", {})):
+        make_shard_map_train_step(get_config(arch), RunConfig(**rk), mesh=mesh)
+    odd = dataclasses.replace(get_config("internlm2-1.8b_smoke"), stages=((("odd",), 2),))
+    with pytest.raises(NotImplementedError) as ei:
+        tsh.validate_tensor_parallel(odd, RunConfig(), 2)
+    assert "['odd'] has none" in str(ei.value) and "'xattn'" in str(ei.value)
+    for text, what in ((_refusal("internlm2-1.8b_smoke", optimizer="adafactor"),
+                        "factored moments"),
+                       (_refusal("internlm2-1.8b_smoke", grad_compress="int8_ef"),
+                        "int8 scale")):
+        assert what in text and "the next tensor-parallel slice" in text, text
     with pytest.raises(NotImplementedError, match="ring inside tensor-parallel attention"):
         make_debug_mesh(1, 2, 2)
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit):
         train.main(["--arch", "llama-3.2-vision-11b_smoke", "--device", "cpu", "--executor",
-                    "shard_map", "--data-model", "1", "2", "--compression",
-                    "attn.qkv=pamm(r=1/8)"])
-    assert "arrive with later slices" in capsys.readouterr().err
+                    "shard_map", "--data-model", "1", "2", "--grad-compress", "int8_ef"])
+    assert "the next tensor-parallel slice" in capsys.readouterr().err

@@ -1,7 +1,8 @@
 """What the gloo ranks of ``tests/test_torch_ring.py``,
 ``tests/test_torch_distributed.py``, ``tests/test_torch_tensor_parallel.py``,
-``tests/test_torch_expert_parallel.py`` and
-``tests/test_torch_ssm_rec_parallel.py`` run (``repro_torch.launch.ranks``
+``tests/test_torch_expert_parallel.py``,
+``tests/test_torch_ssm_rec_parallel.py`` and
+``tests/test_torch_xattn_audio_rev_parallel.py`` run (``repro_torch.launch.ranks``
 starts them). This module imports neither JAX nor the JAX package, so a
 spawned rank starts in the time torch takes to import; draws of the JAX
 key chain reach a rank as a table (:class:`TableSampler`) recorded in the
@@ -38,7 +39,16 @@ class TableSampler:
         return torch.from_numpy(self.table[(seed, path, tuple(shape))]).to(device)
 
 
-# fault: (module, attribute, what replaces it)
+def _gate_before_exit(gate, out, mg, split):
+    """An xattn block's gate on the row-parallel partial sums, before they
+    leave the model group."""
+    from repro_torch.runtime.collectives import tp_exit
+
+    return tp_exit(torch.tanh(gate.to(out.dtype)) * out, mg, split)
+
+
+# fault: (module under repro_torch.models, or a dotted path under
+# repro_torch; attribute; what replaces it)
 PLANTS = {
     # a wrong share of MoE's balance loss's gradient: on every rank, on none
     "aux_doubled": ("moe", "aux_grad_share", lambda tp: 1.0),
@@ -49,6 +59,15 @@ PLANTS = {
     "bc_unsummed": ("ssm", "copy_cols_to_model", lambda w, mg, start, stop: w),
     # RG-LRU's whole lambda: each rank's part of its gradient left unsummed
     "lambda_unsummed": ("rglru", "copy_to_model", lambda t, mg: t),
+    # gate_attn applied to each rank's partial sums of the xattn output
+    "gate_before_exit": ("attention", "_gate", _gate_before_exit),
+    # under seq_shard, gate_attn's gradient left as this rank's chunk's
+    "gate_unsummed": ("attention", "seq_param", lambda p, mg: p),
+    # musicgen's head cut in one contiguous slice (whole codebooks a rank)
+    "head_contiguous": ("runtime.sharding", "head_parts",
+                        lambda cfg, v: ((v * max(1, cfg.n_codebooks), True),)),
+    # under seq_shard, the reversible sublayers' norms without seq_param
+    "rev_norm_unsummed": ("blocks", "seq_param", lambda p, mg: p),
 }
 
 
@@ -60,7 +79,8 @@ def _plant(fault: str | None):
     if fault is None:
         return lambda: None
     name, attr, fake = PLANTS[fault]
-    mod = importlib.import_module(f"repro_torch.models.{name}")
+    mod = importlib.import_module(f"repro_torch.{name}" if "." in name
+                                  else f"repro_torch.models.{name}")
     real = getattr(mod, attr)
     setattr(mod, attr, fake)
 
@@ -94,6 +114,43 @@ def _recording_split_states(out: list):
     return undo
 
 
+def _recording_streams(out: list):
+    """Record every reversible stream add (``blocks._dd_add``) of the next
+    loss and backward as (hi, lo, b, out_hi, out_lo); returns what undoes
+    it."""
+    from repro_torch.models import blocks
+
+    real = blocks._dd_add
+
+    def recording(hi, lo, b):
+        got = real(hi, lo, b)
+        out.append([t.detach().clone() for t in (hi, lo, b, *got)])
+        return got
+
+    blocks._dd_add = recording
+
+    def undo():
+        blocks._dd_add = real
+    return undo
+
+
+def _streams_rebuilt(calls: list) -> list:
+    """Per (layer, block) of a one-stage, one-kind reversible stack, from
+    its recorded adds: whether the backward rebuilt both input streams
+    (hi and lo) and recomputed F and G bit for bit. The forward's 2n adds
+    (y1 = x1 + F(x2), y2 = x2 + G(y1)) come first, then the backward's,
+    top down (x2 = y2 - G(y1), then x1 = y1 - F(x2))."""
+    n = len(calls) // 4
+    fwd, bwd = calls[:2 * n], calls[2 * n:]
+    out = []
+    for r in range(n):
+        a, b, c, d = fwd[2 * r], fwd[2 * r + 1], bwd[2 * (n - 1 - r)], bwd[2 * (n - 1 - r) + 1]
+        out.append(bool(torch.equal(c[2], -b[2]) and torch.equal(d[2], -a[2])
+                        and torch.equal(c[3], b[0]) and torch.equal(c[4], b[1])
+                        and torch.equal(d[3], a[0]) and torch.equal(d[4], a[1])))
+    return out
+
+
 def _ring_cases(mesh, cases):
     """This rank's shard of o and of the gradients of sum(sin(o)) for each
     (q, k, v, window) over the whole sequence."""
@@ -123,6 +180,10 @@ def _train(mesh, rank, run: dict) -> dict:
     its model-axis slices, and ``params`` / ``state`` come back whole."""
     cfg = dataclasses.replace(get_config(run["arch"]), **run.get("cfg", {}))
     rcfg = RunConfig(**run["rcfg"])
+    out = {"metrics": [], "ef_norms": [], "split_states": []}
+    # planted before the parameters are sliced: a fault of the layout
+    # slices them its way
+    undo = [_plant(run.get("plant"))]
     model = None
     if run.get("params") is not None:
         model = bridge.shard_jax_params(run["params"], cfg, mesh, device="cpu")
@@ -131,10 +192,11 @@ def _train(mesh, rank, run: dict) -> dict:
     step = make_shard_map_train_step(cfg, rcfg, total_steps=run.get(
         "total_steps", start + len(run["batches"])), mesh=mesh, sampler=run.get("sampler"))
     collect = run.get("collect", ())
-    out = {"metrics": [], "ef_norms": [], "split_states": []}
-    undo = [_plant(run.get("plant"))]
     if "split_states" in collect:
         undo.append(_recording_split_states(out["split_states"]))
+    calls = []
+    if "streams" in collect:        # the first step's
+        undo.append(_recording_streams(calls))
     if "router_grads" in collect:
         # the first batch's gradients after the sync, the router leaves'
         from repro_torch.train.distributed import make_shard_map_grads
@@ -146,6 +208,9 @@ def _train(mesh, rank, run: dict) -> dict:
     for i, batch in enumerate(run["batches"], start=start):
         state, m = step(state, batch, i)
         out["metrics"].append({k: float(v) for k, v in m.items()})
+        if calls and "streams" not in out:
+            out["streams"] = _streams_rebuilt(calls)
+            undo.pop()()
         if state.ef is not None:
             out["ef_norms"].append(float(torch.sqrt(sum((e * e).sum()
                                                         for e in state.ef.values()))))

@@ -10,14 +10,19 @@ single-process step, and their kernel rows; and its
 ``run_kind_tp_phases``: 49-51, mamba2-370m and a recurrentgemma-9b unit
 over the model axis on two ranks, mamba2 on data 2 x model 2, each
 against the single-process step, and K1 / K2 / K3-K5 at a model rank's
+shapes as kernel rows; and its ``run_xar_tp_phases``: 52-55, one
+llama-3.2-vision-11b unit, musicgen-medium at 12 layers and reversible
+internlm2-1.8b at 4 layers (f32) over the model axis on two ranks, each
+against the single-process step, and K1 / K2 / K3-K5 at a model rank's
 shapes as kernel rows), after its phase 1, for iterating on tensor
 parallelism without the earlier phases; and the same checks run against
 planted faults, to show that they can fail. Run from the repository root:
 
-  python3 tools/tp_phases.py [--phases 43-45|46-48|43-48|49-51] [--layers N]
-                             [--dtp-layers N] [--split-layers N]
+  python3 tools/tp_phases.py [--phases 43-45|46-48|43-48|49-51|52-55]
+                             [--layers N] [--dtp-layers N] [--split-layers N]
                              [--ep-layers N] [--ssm-layers N]
                              [--ssm-dtp-layers N] [--ssm-f32-layers N]
+                             [--audio-layers N] [--rev-layers N]
                              [--keep-going]
                              [--plant-fault NAME ...]
 
@@ -25,8 +30,9 @@ planted faults, to show that they can fail. Run from the repository root:
 phase 43 to N layers, ``--dtp-layers N`` phase 44, ``--split-layers N``
 phase 47, ``--ep-layers N`` phase 48, ``--ssm-layers N`` phase 49's model-2
 job, ``--ssm-f32-layers N`` its f32 job (full depth by default) and
-``--ssm-dtp-layers N`` its data x model job (a quick rehearsal of the path;
-their checks then use N). Prints what those phases print, then
+``--ssm-dtp-layers N`` its data x model job, ``--audio-layers N`` phase
+53 and ``--rev-layers N`` phase 54 (a quick rehearsal of the path; their
+checks then use N). Prints what those phases print, then
 the kernel rows as JSON; the first failure exits non-zero, as in
 chip_smoke.py, unless ``--keep-going``: then every failing check is
 printed, the phases go on, and the exit is non-zero at the end.
@@ -138,13 +144,15 @@ def main():
                     choices=sorted(FAULTS) + ["all"])
     ap.add_argument("--keep-going", action="store_true",
                     help="print every failing check and go on; exit 1 at the end")
-    ap.add_argument("--phases", choices=("43-45", "46-48", "43-48", "49-51"),
+    ap.add_argument("--phases", choices=("43-45", "46-48", "43-48", "49-51", "52-55"),
                     default="43-45")
     ap.add_argument("--split-layers", type=int, default=chip_smoke.SPLIT_LAYERS)
     ap.add_argument("--ep-layers", type=int, default=chip_smoke.EP_LAYERS)
     ap.add_argument("--ssm-layers", type=int, default=chip_smoke.SSM_TP_LAYERS)
     ap.add_argument("--ssm-dtp-layers", type=int, default=chip_smoke.SSM_DTP_LAYERS)
     ap.add_argument("--ssm-f32-layers", type=int, default=None)
+    ap.add_argument("--audio-layers", type=int, default=chip_smoke.AUDIO_TP_LAYERS)
+    ap.add_argument("--rev-layers", type=int, default=chip_smoke.REV_TP_LAYERS)
     args = ap.parse_args()
     t0 = time.perf_counter()
     smi, gen = chip_smoke.start()
@@ -161,6 +169,11 @@ def main():
                 {**chip_smoke.SSM_TP_F32_JOB, "layers": args.ssm_f32_layers},
                 chip_smoke.REC_TP_JOB)
         rows += chip_smoke.run_kind_tp_phases(gen, smi, jobs, args.ssm_dtp_layers)
+    if args.phases == "52-55":
+        vision, audio, rev = chip_smoke.XAR_TP_JOBS
+        jobs = (vision, {**audio, "layers": args.audio_layers},
+                {**rev, "layers": args.rev_layers})
+        rows += chip_smoke.run_xar_tp_phases(gen, smi, jobs)
     if args.phases in ("43-45", "43-48"):
         rows += chip_smoke.run_tp_phases(gen, smi, args.layers, args.dtp_layers)[0]
     if args.phases in ("46-48", "43-48"):
